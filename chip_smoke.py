@@ -1,22 +1,40 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
 
 Phases, each printing its own lines; any failure exits non-zero with no
-result line (``--profile`` adds a device-time breakdown of steady decode
-ticks after phase 4):
+result line (``--profile`` adds device-time breakdowns of steady decode
+ticks after phase 4 and of train steps after phase 7):
 
 1. device    — the card's name and power limit (nvidia-smi) and torch's name;
-2. build     — nvcc builds every kernel of the path from ``ops/csrc``;
-3. kernel    — each kernel against its plain PyTorch version at GPT-345M
-               decode shapes (bf16 and fp32), with kernel, plain, library
-               and bound times;
+2. build     — nvcc builds every kernel of both paths from ``ops/csrc``, one
+               process per source, all started together;
+3. kernel    — the paged decode kernel against its plain PyTorch version at
+               GPT-345M decode shapes (bf16 and fp32), with kernel, plain,
+               library and bound times;
 4. serving   — a ``ServingEngine`` at GPT-345M width (random weights from a
                seed) serves 8 requests; the kernel launch counts must equal
                decode ticks x layers, the shared prefix must be reused, and
                no page may leak; tokens/s, TTFT p50 and TPOT p50 printed;
 5. e2e       — the first decode tick's logits through the kernel and through
-               the plain version agree, and the greedy streams are compared.
+               the plain version agree, and the greedy streams are compared;
+6. flash     — the three flash-attention kernels (forward, dQ, dK/dV) each
+               against its plain version at GPT-345M training shapes (b 8,
+               h 16, s 1024, d 64, causal; bf16 and fp32; dropout 0 and
+               0.1), with kernel, plain, library and bound times;
+7. train     — ``Trainer.fit`` through ``build_module``/``build_dataloader``
+               on ``pretrain_gpt_345M_single_card.yaml`` (24 layers, batch 8,
+               seq 1024, bf16, dropout 0.1) over a seeded synthetic corpus:
+               each flash kernel launches steps x 24 times, every loss is
+               finite and the loss falls; step ms (CUDA events between the
+               ends of consecutive steps, nothing synchronised), tokens/s
+               and MFU printed;
+8. train-e2e — one train step through the kernels and one through their
+               plain versions (same weights, batch and dropout seeds, 6
+               layers at full width), on two batches: loss, grad norm and
+               every gradient leaf agree; then four planted faults (a
+               kernel given seed+1, dV without the keep mask) must each
+               break one of those limits.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs CUDA: without it the script exits
@@ -25,11 +43,13 @@ non-zero before any phase runs.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,21 +66,40 @@ from fleetx_tpu_torch.models.gpt.model import (  # noqa: E402
     GPTConfig,
     GPTForPretraining,
 )
+from fleetx_tpu_torch.core.engine import Trainer, peak_flops  # noqa: E402
+from fleetx_tpu_torch.data import build_dataloader  # noqa: E402
+from fleetx_tpu_torch.models import build_module  # noqa: E402
 from fleetx_tpu_torch.ops import _build  # noqa: E402
 from fleetx_tpu_torch.ops import decode_attention as da  # noqa: E402
+from fleetx_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from fleetx_tpu_torch.serving import ServingEngine, ServingMetrics  # noqa: E402
 from fleetx_tpu_torch.utils.config import get_config  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# kernel vs plain: both take p against the same per-page running max, so
-# they differ in fp32 summation order only — which can move a bf16
-# rounding of p or of the output by one ulp
-KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 LOGIT_TOL = 5e-2  # fp32 logits of bf16 activations after 24 layers
 MAX_NEW = 64
-CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(ROOT,
                       "configs/nlp/gpt/generation_gpt_345M_single_card.yaml")
+TRAIN_CONFIG = os.path.join(ROOT,
+                            "configs/nlp/gpt/pretrain_gpt_345M_single_card.yaml")
+TRAIN_STEPS = 30
+# device-time classes of a profile, by kernel-name marks (first match wins)
+PROFILE_CLASSES = (
+    ("port kernels", ("flash_", "paged_decode")),
+    ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
+    ("optimizer", ("multi_tensor", "fused_adam", "FusedAdam")),
+    ("int hash", ("<int, int", "Functor<int")),
+    ("copies and casts", ("copy", "bfloat16_copy")),
+)
+# phase 8 limits, kernels vs plain versions in one bf16 train step: loss
+# (absolute), grad norm (relative) and the largest relative L2 difference
+# of one gradient leaf. Each lies between the largest gap of sound runs and
+# the smallest gap of a planted fault that the metric sees; the readings
+# are in PERF.md (sound: 5.7e-6, 1.0e-4, 7.8e-3; faults: 1.1e-3, 6.9e-4,
+# 9.2e-2)
+TRAIN_E2E_TOL = {"loss": 1e-4, "grad_norm": 3e-4, "grad_leaf": 3e-2}
 
 
 def log(phase: str, **fields) -> None:
@@ -100,7 +139,7 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    seconds = _build.build(da.KERNEL)
+    seconds = _build.build(da.KERNEL, fa.KERNEL)
     log("build", kernels=",".join(seconds), seconds=round(
         time.perf_counter() - t0, 3))
     for name in seconds:
@@ -197,10 +236,10 @@ def phase_kernel() -> dict:
         want = da.paged_decode_attention_ref(q, k0, v0, tables=tables,
                                              end=ends, starts=starts)
         err = (got.float() - want.float()).abs().max().item()
-        if not (math.isfinite(err) and err <= KERNEL_TOL[dtype]):
+        if not (math.isfinite(err) and err <= da.KERNEL_TOL[dtype]):
             raise AssertionError(
                 f"paged_decode {dtype}: max abs err {err} > "
-                f"{KERNEL_TOL[dtype]}")
+                f"{da.KERNEL_TOL[dtype]}")
         it = iter(range(1 << 30))
         pools = case["pools"]
 
@@ -234,7 +273,7 @@ def phase_kernel() -> dict:
         ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         log("kernel", name=da.KERNEL, dtype=str(dtype).split(".")[-1],
-            max_abs_err=err, tol=KERNEL_TOL[dtype], kernel_ms=kernel_ms,
+            max_abs_err=err, tol=da.KERNEL_TOL[dtype], kernel_ms=kernel_ms,
             plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
             flops=flops, bound_ms=bound_ms,
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -355,22 +394,7 @@ def phase_profile(engine, cfg, ticks: int = 20) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     engine.drain()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0 and e.device_type.name == "CUDA":
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(us for us, _, _ in rows) * 1e-6
-    log("profile", ticks=ticks, tick_ms=wall / ticks * 1e3,
-        device_busy_ms_per_tick=busy / ticks * 1e3,
-        device_busy_share=busy / wall, kernels_per_tick=sum(
-            n for _, n, _ in rows) / ticks)
-    for us, n, key in rows[:15]:
-        log("profile", ms_per_tick=us / ticks * 1e-3, calls_per_tick=n / ticks,
-            share_of_busy=us * 1e-6 / busy, kernel=repr(key[:90]))
+    report_profile("profile", prof, wall, ticks, "tick")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -415,6 +439,434 @@ def phase_e2e(cfg) -> None:
         raise AssertionError(f"first-tick logits differ by {err}")
 
 
+# ------------------------------------------------------------------ phase 6
+
+def flash_inputs(dtype, *, b=8, s=1024, h=16, d=64, copies=3, seed=0):
+    """GPT-345M training shapes. Each of ``copies`` sets holds q, k, v as
+    strided views of one fused [b, s, h, 3d] buffer (as the qkv projection
+    hands them to the kernels) and dO; timed launches rotate over the sets
+    so their operands (4 x 16.8 MB in bf16) come cold from HBM."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sets = []
+    for _ in range(copies):
+        qkv = torch.randn(b, s, h, 3 * d, generator=g, device="cuda")
+        q, k, v = qkv.to(dtype).split(d, dim=-1)
+        do = torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+        sets.append((q, k, v, do))
+    return sets
+
+
+def flash_bound(name: str, q: torch.Tensor) -> tuple:
+    """(bytes, flops) of one causal call at q's shape: each input read
+    once and each output written once; 2 flops per multiply-add over the
+    s(s+1)/2 live (q, k) pairs, for the 2 (forward), 3 (dQ) or 4 (dK/dV)
+    products the function needs."""
+    b, s, h, d = q.shape
+    operand = b * s * h * d * q.element_size()
+    row = b * h * s * 4  # an fp32 [b*h, s] lse or delta
+    product = 2 * b * h * d * s * (s + 1) // 2
+    if name == "flash_fwd":   # q, k, v -> out, lse
+        return 4 * operand + row, 2 * product
+    if name == "flash_bwd_dq":  # q, k, v, dO, lse, delta -> dQ
+        return 5 * operand + 2 * row, 3 * product
+    return 6 * operand + 2 * row, 4 * product  # ... -> dK, dV
+
+
+def _delta(do, out):
+    b, s, h, _ = out.shape
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, s).contiguous()
+
+
+def phase_flash() -> dict:
+    """B1, B2 and B3 against their plain versions at GPT-345M training
+    shapes, bf16 and fp32, dropout 0 and 0.1, with kernel, plain, library
+    (SDPA, dropout 0, yardstick only) and bound times. Returns the records
+    of the training drive's case (bf16, dropout 0.1) by kernel name."""
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        sets = flash_inputs(dtype)
+        lib = library_flash_times(sets)
+        for rate in (0.0, 0.1):
+            kw = dict(causal=True, dropout_rate=rate, seed=-1234567)
+            before = dict(fa.launches)
+            state = []
+            for q, k, v, do in sets:
+                out, lse = fa.flash_fwd(q, k, v, **kw)
+                state.append((out, lse, _delta(do, out)))
+            q, k, v, do = sets[0]
+            out, lse, delta = state[0]
+            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            want_out, want_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+            want_dq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+            want_dk, want_dv = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                    **kw)
+            lse_err = (lse - want_lse).abs().max().item()
+            atol, rtol = fa.FLASH_TOL[dtype]
+            errs = {"flash_fwd": _max_err(out, want_out),
+                    "flash_bwd_dq": _max_err(dq, want_dq),
+                    "flash_bwd_dkv": max(_max_err(dk, want_dk),
+                                         _max_err(dv, want_dv))}
+            # worst |got - want| / (atol + rtol*|want|): <= 1 passes
+            worst = {"flash_fwd": _tol_ratio(out, want_out, atol, rtol),
+                     "flash_bwd_dq": _tol_ratio(dq, want_dq, atol, rtol),
+                     "flash_bwd_dkv": max(_tol_ratio(dk, want_dk, atol, rtol),
+                                          _tol_ratio(dv, want_dv, atol,
+                                                     rtol))}
+            # the backward plain versions sum in the kernels' FMA order, so
+            # their errors can be exactly 0: show the outputs are not
+            mean_abs = {"flash_fwd": out.float().abs().mean().item(),
+                        "flash_bwd_dq": dq.float().abs().mean().item(),
+                        "flash_bwd_dkv": dk.float().abs().mean().item()}
+            del want_out, want_lse, want_dq, want_dk, want_dv
+            it = iter(range(1 << 30))
+
+            def pick():
+                i = next(it) % len(sets)
+                return sets[i], state[i]
+
+            calls = {
+                "flash_fwd": (
+                    lambda: fa.flash_fwd(*pick()[0][:3], **kw),
+                    lambda: fa.flash_attention_fwd_ref(*pick()[0][:3], **kw)),
+                "flash_bwd_dq": (
+                    lambda: fa.flash_bwd_dq(*_bwd_args(pick()), **kw),
+                    lambda: fa.flash_bwd_dq_ref(*_bwd_args(pick()), **kw)),
+                "flash_bwd_dkv": (
+                    lambda: fa.flash_bwd_dkv(*_bwd_args(pick()), **kw),
+                    lambda: fa.flash_bwd_dkv_ref(*_bwd_args(pick()), **kw)),
+            }
+            for name, (kernel, plain) in calls.items():
+                kernel_ms = cuda_ms(kernel, iters=30, warmup=3)
+                plain_ms = cuda_ms(plain, iters=3, warmup=1)
+                nbytes, flops = flash_bound(name, q)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+                bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+                library_ms = lib["flash_fwd" if name == "flash_fwd"
+                                 else "backward"]
+                log("flash", name=name, dtype=str(dtype).split(".")[-1],
+                    dropout=rate, max_abs_err=errs[name], atol=atol,
+                    rtol=rtol, tol_ratio=worst[name],
+                    out_mean_abs=mean_abs[name],
+                    kernel_ms=kernel_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                    bound_by=bound_by, bytes=nbytes, flops=flops,
+                    tflops=flops / kernel_ms * 1e-9,
+                    **({"lse_max_abs_err": lse_err}
+                       if name == "flash_fwd" else {}))
+                if not worst[name] <= 1.0:
+                    raise AssertionError(
+                        f"{name} {dtype} dropout {rate}: max abs err "
+                        f"{errs[name]}, {worst[name]} x (atol {atol} + rtol "
+                        f"{rtol} x |plain|)")
+                if name == "flash_fwd" and not lse_err <= 1e-3:
+                    raise AssertionError(f"flash_fwd lse err {lse_err}")
+                if dtype == torch.bfloat16 and rate > 0.0:
+                    records[name] = {
+                        "max_abs_err": errs[name], "ms": kernel_ms,
+                        "plain_ms": plain_ms, "bound_ms": max(bytes_ms,
+                                                              ops_ms),
+                        "bound_by": bound_by, "library_ms": library_ms}
+            fa.launches.update(before)  # checks and timing are not the path
+        del sets
+        torch.cuda.empty_cache()
+    return records
+
+
+def _bwd_args(picked):
+    (q, k, v, do), (_, lse, delta) = picked
+    return q, k, v, do, lse, delta
+
+
+def _max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _tol_ratio(got, want, atol, rtol) -> float:
+    """max |got - want| / (atol + rtol*|want|); NaN anywhere gives inf."""
+    err = (got.float() - want.float()).abs()
+    ratio = (err / (atol + rtol * want.float().abs())).max().item()
+    return ratio if math.isfinite(ratio) else math.inf
+
+
+def library_flash_times(sets) -> dict:
+    """PyTorch's fused attention on the same inputs, as a yardstick only:
+    ``scaled_dot_product_attention(is_causal=True)`` forward, and its
+    backward (dQ, dK and dV in one call), at dropout 0, in PyTorch's
+    [b, h, s, d] layout."""
+    fwd, bwd = [], []
+    for q, k, v, do in sets:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        fwd.append((qt.detach(), kt.detach(), vt.detach()))
+        bwd.append((out, (qt, kt, vt), dot))
+    it = iter(range(1 << 30))
+
+    def forward():
+        with torch.no_grad():
+            torch.nn.functional.scaled_dot_product_attention(
+                *fwd[next(it) % len(fwd)], is_causal=True)
+
+    def backward():
+        out, inputs, dot = bwd[next(it) % len(bwd)]
+        torch.autograd.grad(out, inputs, dot, retain_graph=True)
+
+    return {"flash_fwd": cuda_ms(forward, iters=30, warmup=3),
+            "backward": cuda_ms(backward, iters=30, warmup=3)}
+
+
+# ------------------------------------------------------------------ phase 7
+
+def write_corpus(prefix: str, tokens: int = 400_000, seed: int = 0) -> None:
+    """A learnable synthetic corpus for ``GPTDataset``: documents of
+    200-2000 tokens from a 2048-token sub-vocabulary, where each token is
+    followed by one of 4 fixed successors, written as
+    ``{prefix}_ids.npy`` + ``{prefix}_idx.npz``."""
+    rng = np.random.RandomState(seed)
+    succ = rng.randint(0, 2048, size=(2048, 4)).astype(np.int32)
+    docs, total = [], 0
+    while total < tokens:
+        n = int(rng.randint(200, 2001))
+        pick = rng.randint(0, 4, size=n)
+        ids = np.empty(n, np.int32)
+        ids[0] = rng.randint(2048)
+        for i in range(1, n):
+            ids[i] = succ[ids[i - 1], pick[i]]
+        docs.append(ids)
+        total += n
+    np.save(prefix + "_ids.npy", np.concatenate(docs))
+    np.savez(prefix + "_idx.npz",
+             lens=np.array([len(d) for d in docs], np.int32))
+
+
+def train_config(prefix: str, *extra):
+    """The 345M pretraining config over the corpus at ``prefix``: a short
+    warmup and a max_lr at which the loss moves within the drive; no
+    width, depth, batch or sequence override."""
+    return get_config(TRAIN_CONFIG, overrides=[
+        f"Data.Train.dataset.input_dir={prefix}",
+        f"Engine.max_steps={TRAIN_STEPS}", "Engine.logging_freq=5",
+        "Optimizer.lr.warmup_steps=5", "Optimizer.lr.max_lr=5.0e-4",
+        "Optimizer.lr.min_lr=5.0e-5", "Optimizer.lr.decay_steps=1000",
+        *extra])
+
+
+def phase_train(prefix: str, profile: bool) -> dict:
+    """The port's training path: ``Trainer.fit`` on the 345M config. Every
+    layer's attention must launch B1 forward and B2, B3 backward once per
+    step."""
+    cfg = train_config(prefix)
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    gcfg = module.gpt_config
+    ends = []  # an event at the end of each step's work on the stream
+    inner = trainer.train_step
+
+    def timed(batch):
+        out = inner(batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    trainer.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    loader = build_dataloader(cfg, "Train")
+    for name in fa.NAMES:
+        fa.launches[name] = 0
+    t0 = time.perf_counter()
+    trainer.fit(loader)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    losses = [float(h["loss"]) for h in trainer.history]
+    steps = trainer.step
+    tokens = cfg.Global.global_batch_size * cfg.Data.Train.dataset.max_seq_len
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    steady = float(np.median(step_ms[2:])) * 1e-3
+    flops = trainer._flops_per_token(cfg.Data.Train.dataset.max_seq_len)
+    log("train", steps=steps, layers=gcfg.num_layers,
+        params_m=trainer.n_params / 1e6, dtype=str(gcfg.dtype).split(".")[-1],
+        batch=cfg.Global.global_batch_size,
+        seq=cfg.Data.Train.dataset.max_seq_len,
+        step_ms_median=steady * 1e3, step_ms_second=step_ms[0],
+        tokens_per_s=tokens / steady,
+        mfu=tokens / steady * flops / peak_flops(trainer.device),
+        fit_seconds=seconds, peak_mem_gb=torch.cuda.max_memory_allocated()
+        / 1e9, launches=launches)
+    log("train", losses=[round(x, 4) for x in losses],
+        grad_norms=[round(float(h["grad_norm"]), 4)
+                    for h in trainer.history])
+    if steps != TRAIN_STEPS:
+        raise AssertionError(f"trained {steps} of {TRAIN_STEPS} steps")
+    if launches != {n: steps * gcfg.num_layers for n in fa.NAMES}:
+        raise AssertionError(f"flash launches {launches} over {steps} steps "
+                             f"x {gcfg.num_layers} layers")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss in {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if profile:
+        phase_train_profile(trainer, loader)
+    return {name: {"launches": launches[name]} for name in fa.NAMES}
+
+
+def phase_train_profile(trainer, loader, steps: int = 3) -> None:
+    """``--profile``: device time by kernel over ``steps`` train steps of
+    the phase-7 trainer, and the device's busy share of their wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer._to_device(next(iter(loader)))
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile("train-profile", prof, wall, steps, "step")
+
+
+def report_profile(phase, prof, wall, n, unit) -> None:
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        # user annotations (Optimizer.step#...) span kernels listed anyway
+        if (us > 0 and e.device_type.name == "CUDA"
+                and not getattr(e, "is_user_annotation", False)):
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(us for us, _, _ in rows) * 1e-6
+    classes = {}
+    for us, _, key in rows:
+        cls = next((name for name, marks in PROFILE_CLASSES
+                    if any(m in key for m in marks)), "other")
+        classes[cls] = classes.get(cls, 0.0) + us / n * 1e-3
+    log(phase, **{f"{unit}s": n, f"{unit}_ms": wall / n * 1e3,
+                  f"device_busy_ms_per_{unit}": busy / n * 1e3,
+                  "device_busy_share": busy / wall,
+                  f"kernels_per_{unit}": sum(c for _, c, _ in rows) / n,
+                  f"ms_per_{unit}_by_class": {
+                      k: round(v, 3) for k, v in sorted(
+                          classes.items(), key=lambda kv: -kv[1])}})
+    for us, c, key in rows[:15]:
+        log(phase, **{f"ms_per_{unit}": us / n * 1e-3,
+                      f"calls_per_{unit}": c / n,
+                      "share_of_busy": us * 1e-6 / busy,
+                      "kernel": repr(key[:90])})
+
+
+# ------------------------------------------------------------------ phase 8
+
+def _e2e_step(cfg, batch, fns=None) -> tuple:
+    """One train step of a fresh trainer (seeded init) with the flash
+    wrappers named in ``fns`` swapped for the given functions: (loss, grad
+    norm, the unclipped gradients by parameter name)."""
+    saved = {name: getattr(fa, name) for name in fa.NAMES}
+    for name, fn in (fns or {}).items():
+        setattr(fa, name, fn)
+    try:
+        trainer = Trainer(cfg, build_module(cfg))
+        trainer.init_state()
+        names = [n for n, _ in trainer.module.nets.named_parameters()]
+        grads, clip = [], trainer.clip
+
+        def capture(gs):
+            grads.extend(g.detach().clone() for g in gs)
+            return clip(gs)
+
+        trainer.clip = capture
+        out = trainer.train_step(trainer._to_device(batch))
+    finally:
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
+    if len(grads) != len(names):
+        raise AssertionError(f"{len(grads)} gradients for {len(names)} "
+                             "parameters")
+    return float(out["loss"]), float(out["grad_norm"]), dict(zip(names,
+                                                                 grads))
+
+
+def _e2e_gaps(run, ref) -> dict:
+    """Gaps of ``run`` from ``ref`` in each metric of TRAIN_E2E_TOL, and
+    the gradient leaf with the largest gap."""
+    (loss, norm, grads), (loss0, norm0, grads0) = run, ref
+    leaf = {n: (torch.linalg.vector_norm((grads[n] - g0).float())
+                / torch.linalg.vector_norm(g0.float())).item()
+            for n, g0 in grads0.items() if g0.any()}
+    worst = max(leaf, key=leaf.get)
+    return {"loss": abs(loss - loss0), "grad_norm": abs(norm - norm0) / norm0,
+            "grad_leaf": leaf[worst], "worst_leaf": worst}
+
+
+def planted_faults() -> dict:
+    """Kernel-path faults phase 8 must catch, each a wrapper swapped in at
+    run time: one kernel given seed+1 (its dropout mask then differs from
+    the other kernels'), and B3 computing dV without the keep mask."""
+    fwd, dq, dkv = fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv
+
+    def reseed(fn):
+        return lambda *a, **kw: fn(*a, **{**kw, "seed": kw["seed"] + 1})
+
+    def dv_without_keep(*a, **kw):
+        dk, _ = dkv(*a, **kw)
+        _, dv = dkv(*a, **{**kw, "dropout_rate": 0.0})
+        return dk, dv
+
+    return {"B1 seed+1": {"flash_fwd": reseed(fwd)},
+            "B2 seed+1": {"flash_bwd_dq": reseed(dq)},
+            "B3 seed+1": {"flash_bwd_dkv": reseed(dkv)},
+            "B3 dV without keep": {"flash_bwd_dkv": dv_without_keep}}
+
+
+def phase_train_e2e(prefix: str, layers: int = 6) -> None:
+    """One train step of the 345M config cut to ``layers`` layers, through
+    the kernels and through their plain versions: same weights (seeded
+    init), batch and dropout seeds (dropout 0.1), on the first two batches.
+    Each gap must be within TRAIN_E2E_TOL; each planted fault on the first
+    batch must exceed it in at least one metric."""
+    cfg = train_config(prefix, f"Model.num_layers={layers}")
+    loader = iter(build_dataloader(cfg, "Train"))
+    batches = [next(loader), next(loader)]
+    plain = {"flash_fwd": fa.flash_attention_fwd_ref,
+             "flash_bwd_dq": fa.flash_bwd_dq_ref,
+             "flash_bwd_dkv": fa.flash_bwd_dkv_ref}
+    faults = planted_faults()
+    for i, batch in enumerate(batches):
+        ref = _e2e_step(cfg, batch, plain)
+        run = _e2e_step(cfg, batch)
+        gaps = _e2e_gaps(run, ref)
+        log("train-e2e", layers=layers, batch=i, loss_kernel=run[0],
+            loss_plain=ref[0], grad_norm_kernel=run[1],
+            grad_norm_plain=ref[1], tol=TRAIN_E2E_TOL, **gaps)
+        over = [m for m, tol in TRAIN_E2E_TOL.items() if not gaps[m] <= tol]
+        if over or not (math.isfinite(run[0]) and math.isfinite(run[1])):
+            raise AssertionError(f"train step through the kernels vs plain "
+                                 f"versions, batch {i}: {gaps}")
+        if i == 0:
+            for name, fns in faults.items():
+                gaps = _e2e_gaps(_e2e_step(cfg, batch, fns), ref)
+                caught = [m for m, tol in TRAIN_E2E_TOL.items()
+                          if gaps[m] > tol]
+                log("train-e2e", planted_fault=repr(name), caught=caught,
+                    **gaps)
+                if not caught:
+                    raise AssertionError(f"phase 8 misses the planted fault "
+                                         f"{name!r}: {gaps}")
+        del ref, run
+        torch.cuda.empty_cache()
+
+
 def common_prefix(a, b) -> int:
     n = 0
     for x, y in zip(a, b):
@@ -431,20 +883,38 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profile = "--profile" in sys.argv[1:]
     device = phase_device()
     phase_build()
     kernel = phase_kernel()
     engine, cfg = build_engine()
     kernel.update(phase_serving(engine, cfg))
-    if "--profile" in sys.argv[1:]:
+    if profile:
         phase_profile(engine, cfg)
     del engine
     phase_e2e(cfg)
-    record = {"name": da.KERNEL, "route": "cuda",
-              "source": "fleetx_tpu_torch/ops/csrc/paged_decode.cu",
-              "replaces": "fleetx_tpu/ops/pallas/decode_attention.py:465"}
-    record.update(kernel)
-    print(json.dumps({"kernels": [record]}))
+    torch.cuda.empty_cache()
+    flash = phase_flash()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        write_corpus(prefix)
+        for name, counts in phase_train(prefix, profile).items():
+            flash[name].update(counts)
+        gc.collect()  # the drive's trainer (and its optimizer state)
+        torch.cuda.empty_cache()
+        phase_train_e2e(prefix)
+    records = [dict(name=da.KERNEL, route="cuda",
+                    source="fleetx_tpu_torch/ops/csrc/paged_decode.cu",
+                    replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",
+                    **kernel)]
+    source = "fleetx_tpu_torch/ops/csrc/flash_attention.cu"
+    replaces = {"flash_fwd": 287, "flash_bwd_dq": 397, "flash_bwd_dkv": 502}
+    for name in fa.NAMES:
+        records.append(dict(
+            name=name, route="cuda", source=source,
+            replaces=f"fleetx_tpu/ops/pallas/flash_attention.py:"
+                     f"{replaces[name]}", **flash[name]))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -1,0 +1,192 @@
+"""Trainer: the training loop of the port.
+
+Port of the pieces of the JAX package's ``Trainer`` (core/engine.py) that
+single-card pretraining runs: construction (device, optimizer, schedule),
+the train step — micro-batch gradient accumulation (``make_grad_fn``,
+:77-117), the global-norm clip and the AdamW update (:507-546) — and
+``fit`` with its ``loss``/``lr``/``ips``/``mfu`` log line (:778-929).
+PyTorch runs eagerly, so there is no compiled step: the step is the loop
+body. Dropout seeds come from one ``torch.Generator`` seeded with
+``Global.seed``. Checkpoints, the step sentry, preemption, elastic
+resume, the profiler, evaluation and observability are not ported.
+
+MFU is the model-FLOPs count of ``bench.py`` (6 per parameter per token
+plus the causal attention products) over the step time and the card's
+bf16 dense peak.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterable, List, Optional, Union
+
+import numpy as np
+import torch
+
+from fleetx_tpu_torch.models.module import BasicModule
+from fleetx_tpu_torch.optims.lr_scheduler import build_lr_scheduler
+from fleetx_tpu_torch.optims.optimizer import (
+    build_grad_clip,
+    build_optimizer,
+)
+from fleetx_tpu_torch.utils.device import resolve_device
+from fleetx_tpu_torch.utils.log import logger
+
+__all__ = ["Trainer", "model_flops_per_token", "peak_flops"]
+
+# bf16 dense tensor-core peak by exact device name (NVIDIA data sheet; the
+# PCIe and NVL H100 parts have other peaks and are not listed)
+_PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
+
+
+def model_flops_per_token(n_params: int, num_layers: int, seq: int,
+                          hidden: int) -> float:
+    """Model FLOPs per trained token (copy of ``bench.py``): 6 per
+    parameter (forward 2, backward 4; the tied LM head included through
+    the shared weight) plus the causal attention score and value products
+    (forward 4·s·h per layer per token, halved for causality, ×3 for
+    forward and backward)."""
+    return 6.0 * n_params + num_layers * 6.0 * seq * hidden
+
+
+def peak_flops(device: torch.device) -> Optional[float]:
+    """The card's bf16 dense peak FLOP/s, or None off a known card."""
+    if device.type != "cuda":
+        return None
+    return _PEAK_BF16.get(torch.cuda.get_device_name(device))
+
+
+class Trainer:
+    """Trains ``module.nets`` on ``device`` (CUDA unless the caller names
+    another; raises without it)."""
+
+    def __init__(self, cfg, module: BasicModule,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.cfg = cfg
+        self.module = module
+        self.device = resolve_device(device)
+        eng = cfg.Engine
+        self.max_steps = eng.max_steps
+        self.num_train_epochs = eng.num_train_epochs
+        self.accumulate_steps = eng.accumulate_steps or 1
+        self.logging_freq = eng.logging_freq
+        self.seed = int(cfg.Global.seed)
+        opt_cfg = cfg.Optimizer or {}
+        self.lr_schedule = build_lr_scheduler(opt_cfg.get("lr", 1e-4))
+        self.clip = build_grad_clip(opt_cfg.get("grad_clip"))
+        self.generator = torch.Generator().manual_seed(self.seed)
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.step = 0
+        self.n_params = 0
+        self.history: List[Dict[str, float]] = []  # one entry per step
+
+    # ----------------------------------------------------------------- init
+    def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None):
+        """Load ``params`` (a state dict; fresh weights from
+        ``Global.seed`` when None) onto the device and build the
+        optimizer."""
+        if params is None:
+            params = self.module.init_params(self.seed, self.device)
+        params = {k: v.to(self.device, torch.float32)
+                  for k, v in params.items()}
+        nets = self.module.nets
+        nets.load_state_dict(params, assign=True)
+        self.n_params = sum(p.numel() for p in nets.parameters())
+        self.optimizer = build_optimizer(self.cfg.Optimizer or {},
+                                         nets.named_parameters())
+        logger.info("initialized model: %.1fM params on %s",
+                    self.n_params / 1e6, self.device)
+
+    # ----------------------------------------------------------------- step
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """The host batch on the device. On CUDA it is copied from pinned
+        memory: a copy from pageable memory waits for the stream to drain,
+        which would stop the host from queueing a step ahead."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
+        """One optimizer step on a device batch: the mean loss and mean
+        gradients over ``accumulate_steps`` micro-batches, the clip, then
+        AdamW at ``lr(step)``. Returns ``{"loss", "grad_norm", "lr"}``
+        (loss and grad_norm as device scalars)."""
+        nets = self.module.nets
+        accum = self.accumulate_steps
+        rows = next(iter(batch.values())).shape[0]
+        if rows % accum:
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{accum} micro-batches")
+        micro = rows // accum
+        loss_sum = torch.zeros((), device=self.device)
+        for i in range(accum):
+            part = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+            loss = self.module.loss_fn(part, self.generator, train=True)
+            (loss / accum).backward()
+            loss_sum += loss.detach()
+        params = [p for p in nets.parameters() if p.grad is not None]
+        grads = [p.grad for p in params]
+        if self.clip is not None:
+            grad_norm = self.clip(grads)
+        else:
+            grad_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads]))
+        lr = float(self.lr_schedule(self.step))
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.step += 1
+        return {"loss": loss_sum / accum, "grad_norm": grad_norm, "lr": lr}
+
+    # ------------------------------------------------------------------ fit
+    def _flops_per_token(self, seq: int) -> Optional[float]:
+        gcfg = getattr(self.module, "gpt_config", None)
+        if gcfg is None:
+            return None
+        return model_flops_per_token(self.n_params, gcfg.num_layers, seq,
+                                     gcfg.hidden_size)
+
+    def fit(self, train_data: Iterable):
+        """Train until ``Engine.max_steps`` or the end of
+        ``Engine.num_train_epochs`` epochs, logging every
+        ``Engine.logging_freq`` steps."""
+        if self.optimizer is None:
+            self.init_state()
+        peak = peak_flops(self.device)
+        tokens_per_batch = flops = None
+        for epoch in range(self.num_train_epochs):
+            sampler = getattr(train_data, "batch_sampler", None)
+            if sampler is not None and hasattr(sampler, "set_epoch"):
+                sampler.set_epoch(epoch)
+            t_last = time.time()
+            window = []
+            for batch in train_data:
+                if self.step >= self.max_steps:
+                    break
+                if tokens_per_batch is None:
+                    tokens_per_batch = int(np.prod(np.shape(batch["tokens"])))
+                    flops = self._flops_per_token(np.shape(batch["tokens"])[1])
+                out = self.train_step(self._to_device(batch))
+                window.append(out["loss"])
+                self.history.append(out)
+                if self.step % self.logging_freq == 0:
+                    loss = float(torch.stack(window).mean())
+                    window = []
+                    dt = (time.time() - t_last) / self.logging_freq
+                    t_last = time.time()
+                    ips = tokens_per_batch / dt
+                    mfu = (None if peak is None or flops is None
+                           else ips * flops / peak)
+                    self.module.training_step_end({
+                        "epoch": epoch, "batch": self.step, "loss": loss,
+                        "batch_cost": dt, "ips_total": ips, "ips": ips,
+                        "lr": float(self.lr_schedule(self.step)), "mfu": mfu,
+                    })
+            if self.step >= self.max_steps:
+                break
+        return self

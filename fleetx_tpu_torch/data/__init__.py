@@ -1,0 +1,48 @@
+"""Dataset and loader construction from config:
+``build_dataset(section, mode)`` and ``build_dataloader(cfg, mode)`` (the
+JAX package's data/__init__.py, GPT only)."""
+
+from __future__ import annotations
+
+__all__ = ["build_dataset", "build_dataloader"]
+
+
+def build_dataset(ds_cfg, mode: str = "Train", **extra):
+    """The dataset named by a ``Data.<mode>.dataset`` config node."""
+    from fleetx_tpu_torch.data.gpt_dataset import GPTDataset
+
+    registry = {"GPTDataset": GPTDataset}
+    kwargs = dict(ds_cfg)
+    name = kwargs.pop("name")
+    if name not in registry:
+        raise ValueError(f"unknown dataset {name!r}; the port has "
+                         f"{sorted(registry)}")
+    kwargs.update(extra)
+    return registry[name](mode=mode, **kwargs)
+
+
+def build_dataloader(cfg, mode: str = "Train", consumed_samples: int = 0):
+    """Loader of GLOBAL batches from the config's ``Data.<mode>`` section
+    (each process takes its slice when ``torch.distributed`` is up)."""
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.data.dataloader import DataLoader, gpt_collate_fn
+    from fleetx_tpu_torch.data.sampler import GPTBatchSampler
+
+    section = cfg.Data[mode]
+    dataset = build_dataset(section.dataset, mode=mode, seed=cfg.Global.seed)
+    sampler_cfg = dict(section.get("sampler") or {})
+    sampler_cfg.pop("name", None)
+    up = dist.is_available() and dist.is_initialized()
+    sampler = GPTBatchSampler(
+        dataset_len=len(dataset),
+        batch_size=cfg.Global.global_batch_size,
+        consumed_samples=consumed_samples,
+        seed=cfg.Global.seed,
+        process_index=dist.get_rank() if up else 0,
+        process_count=dist.get_world_size() if up else 1,
+        **sampler_cfg,
+    )
+    loader_cfg = dict(section.get("loader") or {})
+    return DataLoader(dataset, sampler, collate_fn=gpt_collate_fn,
+                      num_workers=loader_cfg.get("num_workers", 0))

@@ -1,1 +1,18 @@
-"""Model families of the port."""
+"""Model families of the port, and ``build_module`` by config name."""
+
+from __future__ import annotations
+
+__all__ = ["build_module"]
+
+
+def build_module(cfg):
+    """The module named by ``cfg.Model.module`` (reference
+    models/__init__.py). The port registers ``GPTModule``."""
+    from fleetx_tpu_torch.models.language_module import GPTModule
+
+    modules = {"GPTModule": GPTModule}
+    name = (cfg.get("Model") or {}).get("module") or "GPTModule"
+    if name not in modules:
+        raise ValueError(f"unknown module {name!r}; the port has "
+                         f"{sorted(modules)}")
+    return modules[name](cfg)

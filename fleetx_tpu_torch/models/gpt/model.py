@@ -1,10 +1,17 @@
-"""GPT in decode mode: the model the serving engine runs.
+"""GPT for the port: the training forward and the cached serving forward.
 
-Port of the JAX package's GPT (models/gpt/model.py) for the cached forward
-the serving path takes — a multi-token prefill call or a single-token
-decode step writing K/V into a shared page pool. The no-cache training
-forward, dropout, recompute, pipeline/context/expert parallelism and the
-fused LM-head loss are not here.
+Port of the JAX package's GPT (models/gpt/model.py). Two forwards share
+the modules:
+
+- the no-cache training forward (``cache=None``): causal self-attention
+  through ``causal_attention`` — the flash kernels — with hash dropout on
+  the embeddings, after attention and after the MLP, seeded from an
+  explicit ``torch.Generator``; :func:`pretraining_loss` on its logits;
+- the cached forward the serving path takes — a multi-token prefill call
+  or a single-token decode step writing K/V into a shared page pool.
+
+Recompute, pipeline/context/expert parallelism and the fused LM-head loss
+are not here.
 
 Numerics follow the flax modules at the compute dtype (bf16 by default,
 params fp32):
@@ -32,14 +39,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fleetx_tpu_torch.ops.attention import reference_attention
+from fleetx_tpu_torch.ops.attention import (
+    causal_attention,
+    reference_attention,
+)
 from fleetx_tpu_torch.ops.decode_attention import (
     paged_decode_attention,
     paged_gather_kv,
 )
+from fleetx_tpu_torch.ops.dropout import HashDropout, draw_seed
 
 __all__ = ["DTYPES", "GPTConfig", "GPTForPretraining", "GPTModel",
-           "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm"]
+           "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm",
+           "masked_loss_mean", "pretraining_loss"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -47,8 +59,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """GPT hyperparameters (the JAX ``GPTConfig`` fields the decode path
-    reads). ``decode_*`` size the paged cache: ``decode_num_pages`` pages
+    """GPT hyperparameters (the JAX ``GPTConfig`` fields the port reads).
+    ``decode_*`` size the paged cache: ``decode_num_pages`` pages
     of ``decode_page_size`` positions shared by all rows, each row
     addressing a logical window of ``decode_cache_len`` positions."""
     vocab_size: int = 50304
@@ -61,6 +73,7 @@ class GPTConfig:
     max_position_embeddings: int = 1024
     initializer_range: float = 0.02
     fuse_attn_qkv: bool = True
+    use_flash_attention: bool = True
     dtype: torch.dtype = torch.bfloat16  # compute dtype; params fp32
     decode_cache_len: Optional[int] = None
     decode_num_pages: Optional[int] = None
@@ -93,8 +106,7 @@ class GPTConfig:
 
 def _param(*shape, device) -> nn.Parameter:
     # weights come from init_params / params_from_jax, never from here
-    return nn.Parameter(torch.empty(*shape, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(*shape, device=device))
 
 
 class Dense(nn.Module):
@@ -133,8 +145,10 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Fused-qkv attention over the paged decode cache (the JAX
-    ``SelfAttention`` decode branch with ``decode_num_pages`` set)."""
+    """Fused-qkv self-attention: causal over the call's own tokens (the
+    JAX ``SelfAttention`` no-cache branch, model.py:310-332) or over the
+    paged decode cache (its decode branch with ``decode_num_pages``
+    set)."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -146,18 +160,29 @@ class SelfAttention(nn.Module):
         self.qkv_proj = Dense(e, nh * 3 * hd, cfg.dtype, device)
         self.out_proj = Dense(nh * hd, e, cfg.dtype, device)
 
-    def forward(self, x, k_pages, v_pages, *, cache_positions,
-                block_tables):
-        """``x`` [b, s, E]; ``k_pages``/``v_pages`` this layer's pools
-        [num_pages, page_size, h, d]; row b writes its s new K/V at logical
-        positions ``cache_positions[b]..`` through ``block_tables`` [b,
-        n_logical] and attends ``[0, cache_positions[b] + i]`` for its
-        query i."""
+    def forward(self, x, k_pages=None, v_pages=None, *, cache_positions=None,
+                block_tables=None, deterministic=True, generator=None):
+        """``x`` [b, s, E]. Without pools: causal attention over the s
+        tokens, attention dropout (unless ``deterministic``) seeded from
+        ``generator``. With ``k_pages``/``v_pages`` (this layer's pools
+        [num_pages, page_size, h, d]): row b writes its s new K/V at
+        logical positions ``cache_positions[b]..`` through
+        ``block_tables`` [b, n_logical] and attends ``[0,
+        cache_positions[b] + i]`` for its query i."""
         cfg = self.cfg
         b, s, _ = x.shape
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         # per head the last axis holds q | k | v (flax kernel [E, nh, 3hd])
         q, k, v = self.qkv_proj(x).view(b, s, nh, 3 * hd).split(hd, dim=-1)
+        if k_pages is None:
+            rate = cfg.attention_probs_dropout_prob
+            seed = None
+            if rate > 0.0 and not deterministic:
+                seed = draw_seed(generator)
+            out = causal_attention(q, k, v, causal=True, dropout_rate=rate,
+                                   seed=seed, deterministic=deterministic,
+                                   use_flash=cfg.use_flash_attention)
+            return self._out_proj(out)
         decode_end = self._update_paged_cache(
             k, v, k_pages, v_pages, cache_positions, block_tables)
         if decode_end is not None:
@@ -223,21 +248,27 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-LN decoder layer: x + attn(norm1(x)), then + mlp(norm2(x))."""
+    """Pre-LN decoder layer: x + drop(attn(norm1(x))), then
+    + drop(mlp(norm2(x)))."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.norm1 = LayerNorm(cfg.hidden_size, cfg.dtype, device)
         self.attn = SelfAttention(cfg, device)
+        self.attn_dropout = HashDropout(cfg.hidden_dropout_prob)
         self.norm2 = LayerNorm(cfg.hidden_size, cfg.dtype, device)
         self.mlp = MLP(cfg, device)
+        self.mlp_dropout = HashDropout(cfg.hidden_dropout_prob)
 
-    def forward(self, x, k_pages, v_pages, *, cache_positions,
-                block_tables):
-        x = x + self.attn(self.norm1(x), k_pages, v_pages,
-                          cache_positions=cache_positions,
-                          block_tables=block_tables)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, k_pages=None, v_pages=None, *, cache_positions=None,
+                block_tables=None, deterministic=True, generator=None):
+        y = self.attn(self.norm1(x), k_pages, v_pages,
+                      cache_positions=cache_positions,
+                      block_tables=block_tables,
+                      deterministic=deterministic, generator=generator)
+        x = x + self.attn_dropout(y, deterministic, generator)
+        y = self.mlp(self.norm2(x))
+        return x + self.mlp_dropout(y, deterministic, generator)
 
 
 class GPTModel(nn.Module):
@@ -251,18 +282,29 @@ class GPTModel(nn.Module):
                                       device=device)
         self.position_embeddings = _param(cfg.max_position_embeddings,
                                           cfg.hidden_size, device=device)
+        self.embed_dropout = HashDropout(cfg.hidden_dropout_prob)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, device) for _ in range(cfg.num_layers))
         self.final_norm = LayerNorm(cfg.hidden_size, cfg.dtype, device)
 
-    def forward(self, input_ids, position_ids, *, cache: Dict[str, torch.Tensor],
-                cache_positions, block_tables):
+    def forward(self, input_ids, position_ids, *,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_positions=None, block_tables=None, deterministic=True,
+                generator: Optional[torch.Generator] = None):
+        """``cache=None`` is the training forward (dropout unless
+        ``deterministic``, every seed drawn from ``generator`` in call
+        order); with a cache, the serving forward (no dropout)."""
         x = (self.word_embeddings[input_ids]
              + self.position_embeddings[position_ids]).to(self.cfg.dtype)
-        for i, layer in enumerate(self.layers):
-            x = layer(x, cache["key"][i], cache["value"][i],
-                      cache_positions=cache_positions,
-                      block_tables=block_tables)
+        if cache is not None:
+            for i, layer in enumerate(self.layers):
+                x = layer(x, cache["key"][i], cache["value"][i],
+                          cache_positions=cache_positions,
+                          block_tables=block_tables)
+            return self.final_norm(x)
+        x = self.embed_dropout(x, deterministic, generator)
+        for layer in self.layers:
+            x = layer(x, deterministic=deterministic, generator=generator)
         return self.final_norm(x)
 
 
@@ -274,11 +316,52 @@ class GPTForPretraining(nn.Module):
         self.cfg = cfg
         self.gpt = GPTModel(cfg, device)
 
-    def forward(self, input_ids, position_ids, *, cache, cache_positions,
-                block_tables) -> torch.Tensor:
+    def forward(self, input_ids, position_ids, *, cache=None,
+                cache_positions=None, block_tables=None, deterministic=True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.gpt(input_ids, position_ids, cache=cache,
                      cache_positions=cache_positions,
-                     block_tables=block_tables)
+                     block_tables=block_tables, deterministic=deterministic,
+                     generator=generator)
         emb = self.gpt.word_embeddings.to(self.cfg.dtype)
         # compute-dtype operands, fp32 accumulation and result
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            return _Bf16LMHead.apply(x, emb)
         return torch.matmul(x.float(), emb.float().t())
+
+
+class _Bf16LMHead(torch.autograd.Function):
+    """bf16 logits = x·Wᵀ on the card as one bf16 GEMM with fp32 output
+    (the flax einsum with ``preferred_element_type=float32``; an fp32 GEMM
+    of the bf16 values would take several times longer). The backward
+    rounds the fp32 cotangent to bf16 for its two products, as the TPU's
+    default-precision matmul does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                        out_dtype=torch.float32).view(*x.shape[:-1],
+                                                      w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        return (g @ w).view_as(x), g.t() @ x.reshape(-1, x.shape[-1])
+
+
+def masked_loss_mean(token_loss: torch.Tensor,
+                     loss_mask: torch.Tensor) -> torch.Tensor:
+    """Loss-mask-weighted mean of per-token losses (model.py:976-980)."""
+    mask = loss_mask.float().reshape(token_loss.shape)
+    return (token_loss * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def pretraining_loss(logits: torch.Tensor, labels: torch.Tensor,
+                     loss_mask: torch.Tensor) -> torch.Tensor:
+    """Masked LM cross-entropy in fp32 (model.py:983-991)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return masked_loss_mean(logz - label_logits, loss_mask)

@@ -1,0 +1,80 @@
+"""Optimizer and gradient-clip construction.
+
+Port of the JAX package's optims/optimizer.py: AdamW (``AdamW``,
+``FusedAdamW``; ``Adam`` with no decay) whose weight decay skips the
+LayerNorm scales and biases and every bias — the set the JAX decay mask
+(``:62-68``) names ``norm1``, ``norm2``, ``final_norm`` and ``bias`` —
+and the global-norm clip of ``optax.clip_by_global_norm``. Momentum/SGD
+and the per-block and by-value clips are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, List, Optional, Tuple
+
+import torch
+
+__all__ = ["build_optimizer", "build_grad_clip", "clip_by_global_norm",
+           "decay_mask"]
+
+_NO_DECAY = {"norm1", "norm2", "final_norm", "bias"}
+
+
+def decay_mask(name: str) -> bool:
+    """Whether the parameter named ``name`` (a dotted ``named_parameters``
+    path) takes weight decay."""
+    return not (_NO_DECAY & set(name.split(".")))
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+                        ) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``, in place: with ``n`` the global L2
+    norm of ``grads``, leave them when ``n < max_norm`` and otherwise
+    replace each g by ``g / n * max_norm`` (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``). Returns ``n`` (fp32, on the
+    grads' device). The choice is made on the device, as optax's select
+    is: every g is divided and multiplied by device scalars that are 1
+    when it is kept (exact), so the host never waits for the norm."""
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, max_norm))
+    return norm
+
+
+def build_grad_clip(clip_cfg) -> Optional[Callable[[List[torch.Tensor]],
+                                                    torch.Tensor]]:
+    """ClipGradByGlobalNorm (and its MoE alias) by name; None when the
+    config names no clip."""
+    if not clip_cfg or not clip_cfg.get("name"):
+        return None
+    name = clip_cfg["name"]
+    if name in ("ClipGradByGlobalNorm", "ClipGradForMOEByGlobalNorm"):
+        max_norm = float(clip_cfg.get("clip_norm", 1.0))
+        return lambda grads: clip_by_global_norm(grads, max_norm)
+    raise NotImplementedError(f"grad clip {name!r} is not ported yet")
+
+
+def build_optimizer(opt_cfg, named_params: Iterable[Tuple[str,
+                                                          torch.nn.Parameter]]
+                    ) -> torch.optim.Optimizer:
+    """AdamW over two parameter groups (decayed / not, by
+    :func:`decay_mask`) with the config's betas, epsilon and weight decay.
+    The learning rate is set by the trainer before every step from its
+    schedule. On CUDA parameters the fused implementation runs."""
+    cfg = dict(opt_cfg or {})
+    name = cfg.get("name", "AdamW")
+    if name not in ("AdamW", "FusedAdamW", "Adam"):
+        raise NotImplementedError(f"optimizer {name!r} is not ported yet")
+    wd = cfg.get("weight_decay", 0.01) if name != "Adam" else 0.0
+    decay, plain = [], []
+    for pname, param in named_params:
+        (decay if decay_mask(pname) else plain).append(param)
+    groups = [{"params": decay, "weight_decay": wd},
+              {"params": plain, "weight_decay": 0.0}]
+    device = (decay + plain)[0].device
+    return torch.optim.AdamW(
+        groups, lr=0.0, betas=(cfg.get("beta1", 0.9), cfg.get("beta2", 0.999)),
+        eps=cfg.get("epsilon", 1e-8), fused=device.type == "cuda")

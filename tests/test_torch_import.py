@@ -39,6 +39,19 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_gate_covers_the_training_slice():
+    """The gate's module list holds every module of the training path, so
+    a slice that drops one from the package fails here."""
+    mods = set(_modules())
+    for name in ("ops.flash_attention", "ops.dropout", "ops.attention",
+                 "models.gpt.model", "models.module",
+                 "models.language_module", "optims.lr_scheduler",
+                 "optims.optimizer", "data.gpt_dataset", "data.sampler",
+                 "data.dataloader", "core.engine", "tools.train"):
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    assert (PKG / "ops" / "csrc" / "flash_attention.cu").is_file()
+
+
 @pytest.mark.parametrize(
     "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
