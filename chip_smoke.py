@@ -1,13 +1,15 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and generation paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
 
 Phases, each printing its own lines; any failure exits non-zero with no
 result line (``--profile`` adds device-time breakdowns of steady decode
-ticks after phase 4 and of train steps after phase 7):
+ticks after phase 4, of train steps after phase 7 and of ``generate()``
+decode steps after phase 10):
 
 1. device    — the card's name and power limit (nvidia-smi) and torch's name;
-2. build     — nvcc builds every kernel of both paths from ``ops/csrc``, one
+2. build     — nvcc builds every kernel of every path from ``ops/csrc``, one
                process per source, all started together;
 3. kernel    — the paged decode kernel against its plain PyTorch version at
                GPT-345M decode shapes (bf16 and fp32), with kernel, plain,
@@ -34,7 +36,24 @@ ticks after phase 4 and of train steps after phase 7):
                layers at full width), on two batches: loss, grad norm and
                every gradient leaf agree; then four planted faults (a
                kernel given seed+1, dV without the keep mask) must each
-               break one of those limits.
+               break one of those limits;
+9. decode    — the contiguous decode kernels B7 and B9 (int8 K/V) on caches
+               of 512, 712 and 1024 positions (tiles of 256, 8 and 256) and
+               the paged int8 kernel B10 on phase 3's pools, each against
+               its plain version at GPT-345M decode shapes (bf16 and fp32),
+               with kernel, plain, library and bound times;
+10. generate — ``GPTGenerationModule.generate_ids`` through ``build_module``
+               on ``generation_gpt_345M_single_card.yaml`` (24 layers, bf16)
+               for 8 left-padded prompts of 24..312 tokens and 200 new
+               tokens, greedy and with the config's sampling: B7 launches
+               steps x 24 times; the first decode step's logits through the
+               kernel and through the plain version agree; then the same at
+               ``Model.decode_kv_dtype=int8`` through B9; tokens/s and ms
+               per decode step printed;
+11. int8     — phase 4's requests through a ``ServingEngine`` at
+               ``kv_dtype="int8"``: B10 launches ticks x 24 times, the
+               prefix is reused, no page leaks, and the pools take
+               (d + 4) / 2d of the bf16 engine's bytes.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs CUDA: without it the script exits
@@ -43,6 +62,8 @@ non-zero before any phase runs.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -57,6 +78,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from fleetx_tpu_torch.models.gpt import generation as gen  # noqa: E402
 from fleetx_tpu_torch.models.gpt import model as gpt_model  # noqa: E402
 from fleetx_tpu_torch.models.gpt.convert import init_params  # noqa: E402
 from fleetx_tpu_torch.models.gpt.generation import (  # noqa: E402
@@ -72,22 +94,35 @@ from fleetx_tpu_torch.models import build_module  # noqa: E402
 from fleetx_tpu_torch.ops import _build  # noqa: E402
 from fleetx_tpu_torch.ops import decode_attention as da  # noqa: E402
 from fleetx_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from fleetx_tpu_torch.ops.quant import (  # noqa: E402
+    dequantize_kv,
+    quant_parity_frac,
+    quantize_kv,
+)
 from fleetx_tpu_torch.serving import ServingEngine, ServingMetrics  # noqa: E402
 from fleetx_tpu_torch.utils.config import get_config  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
+L2_BYTES = 50 * 2 ** 20             # H100 SXM L2, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 LOGIT_TOL = 5e-2  # fp32 logits of bf16 activations after 24 layers
 MAX_NEW = 64
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"  # where the kernel phases make their inputs: the card
 CONFIG = os.path.join(ROOT,
                       "configs/nlp/gpt/generation_gpt_345M_single_card.yaml")
 TRAIN_CONFIG = os.path.join(ROOT,
                             "configs/nlp/gpt/pretrain_gpt_345M_single_card.yaml")
 TRAIN_STEPS = 30
+# phase 10: the generation config at bf16 (the yaml itself computes in
+# fp32: use_pure_fp16 False), 8 prompts left-padded to 312 tokens, so the
+# decode cache right-sizes to 312 + 200 = 512 positions (B7 tiles at 256)
+GEN_BF16 = "Engine.mix_precision.use_pure_fp16=True"
+GEN_PROMPT_LENS = (24, 64, 112, 160, 200, 248, 288, 312)
+GEN_SEED = 2024
 # device-time classes of a profile, by kernel-name marks (first match wins)
 PROFILE_CLASSES = (
-    ("port kernels", ("flash_", "paged_decode")),
+    ("port kernels", ("flash_", "decode_kernel")),
     ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
     ("optimizer", ("multi_tensor", "fused_adam", "FusedAdam")),
     ("int hash", ("<int, int", "Functor<int")),
@@ -108,10 +143,16 @@ def log(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events). A
+    device-side sleep queued first lets the host enqueue every call before
+    the first one runs, so a call shorter than its own Python launch
+    overhead is timed back to back on the device, not at the host's pace
+    (the sleep covers up to 1 ms of host time per call: an autograd
+    backward call takes ~0.5 ms on the host)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(iters * 2e6))  # ~1 ms per call at <= 2 GHz
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -139,7 +180,7 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    seconds = _build.build(da.KERNEL, fa.KERNEL)
+    seconds = _build.build(da.KERNEL, da.DECODE_KERNEL, fa.KERNEL)
     log("build", kernels=",".join(seconds), seconds=round(
         time.perf_counter() - t0, 3))
     for name in seconds:
@@ -191,7 +232,7 @@ def decode_case(dtype, *, b=8, h=16, d=64, page_size=16, n_logical=64,
                     for k, v in pools:
                         k[page, p % page_size] = 1.0e4
                         v[page, p % page_size] = -1.0e4
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     return {"q": q.to(dev), "tables": tables.to(dev),
             "starts": starts.to(torch.int32).to(dev),
             "ends": ends.to(torch.int32).to(dev),
@@ -199,13 +240,15 @@ def decode_case(dtype, *, b=8, h=16, d=64, page_size=16, n_logical=64,
             "page_size": page_size}
 
 
-def decode_bound(case, dtype) -> tuple:
+def decode_bound(case, dtype, quant: bool = False) -> tuple:
     """(bytes, flops) the function must move and do on this case's data:
-    each live K/V vector read once (shared pages once), q read and out
-    written once, the live table entries and window bounds read once."""
+    each live K/V vector read once (shared pages once; at int8 d bytes and
+    its fp32 scale), q read and out written once, the live table entries
+    and window bounds read once."""
     q, tables, ps = case["q"], case["tables"].cpu(), case["page_size"]
     b, _, h, d = q.shape
     item = torch.tensor([], dtype=dtype).element_size()
+    vector = d + 4 if quant else d * item  # bytes of one cached K or V
     live = set()
     live_pos = 0
     for r in range(b):
@@ -214,75 +257,127 @@ def decode_bound(case, dtype) -> tuple:
         for p in range(s, e):
             live.add((int(tables[r, p // ps]), p % ps))
     pages = {pg for pg, _ in live}
-    nbytes = (len(live) * h * d * 2 * item + 2 * b * h * d * item
+    nbytes = (len(live) * h * vector * 2 + 2 * b * h * d * item
               + 4 * len(pages) + 8 * b)
     flops = live_pos * h * 4 * d  # q·k and p·v, 2 flops per multiply-add
     return nbytes, flops
 
 
+def library_decode_ms(q, kvs, starts, ends) -> float:
+    """SDPA over each row's window as a yardstick (never used by the port):
+    one call per K/V copy, pre-transposed to [b, h, L, d] (pre-gathered
+    from the pools for the paged kernels, pre-dequantized to q's dtype for
+    the int8 ones), the window as a boolean mask; timed over the copies in
+    turn."""
+    qt = q.transpose(1, 2).contiguous()
+    args = []
+    for k, v in kvs:
+        pos = torch.arange(k.shape[1], device=q.device)
+        mask = ((pos[None] >= starts[:, None].long())
+                & (pos[None] < ends[:, None].long()))[:, None, None, :]
+        args.append((k.transpose(1, 2).contiguous(),
+                     v.transpose(1, 2).contiguous(), mask))
+    it = iter(range(1 << 30))
+
+    def library():
+        k, v, mask = args[next(it) % len(args)]
+        torch.nn.functional.scaled_dot_product_attention(qt, k, v,
+                                                         attn_mask=mask)
+
+    return cuda_ms(library, iters=100)
+
+
+def rotation_copies(live_bytes: int) -> int:
+    """How many copies of a case's K/V a timed loop rotates over so that
+    they hold at least twice the L2's bytes: each launch then reads its
+    live K/V from HBM, as a model's layers do."""
+    return max(2, math.ceil(2 * L2_BYTES / live_bytes))
+
+
+def check_and_time(name, label, dtype, run, plain, lib_kvs, case,
+                   nbytes, flops, phase="decode", faults=None,
+                   **extra) -> dict:
+    """Hold ``run(i)`` (decode kernel ``name`` on the case's K/V copy i)
+    against ``plain(i)`` on copy 0 — within ``da.KERNEL_TOL`` for B8, by
+    ``da.decode_gaps`` for B7, B9 and B10, where each planted fault of
+    ``faults()`` (outputs of the plain version with one rounding fault,
+    :func:`planted_decode_faults`) must break the limit — and time the
+    kernel, the plain version (both rotating over the copies) and the
+    library call over ``lib_kvs``; logs its lines and returns the JSON
+    record's numbers."""
+    before = dict(da.launches)
+    got = run(0)
+    torch.cuda.synchronize()
+    if da.launches[name] != before[name] + 1:
+        raise AssertionError(f"{name} did not launch")
+    want = plain(0)
+    if name == da.KERNEL:
+        err = (got.float() - want.float()).abs().max().item()
+        tol = da.KERNEL_TOL[dtype]
+        ok = math.isfinite(err) and err <= tol
+        gaps = {}
+    else:
+        gaps = da.decode_gaps(got, want)
+        err, tol, ok = gaps.pop("max_abs_err"), da.DECODE_TOL[dtype], gaps.pop(
+            "ok")
+    if not ok:
+        raise AssertionError(f"{name} {label} {dtype}: max abs err {err}, "
+                             f"{gaps} against {tol}")
+    for fault, out in (faults() if faults is not None else {}).items():
+        caught = da.decode_gaps(got, out)
+        log(phase, name=name, case=repr(label), planted_fault=repr(fault),
+            **caught)
+        if caught["ok"]:
+            raise AssertionError(f"{name} {label}: the limit misses the "
+                                 f"planted fault {fault!r}: {caught}")
+    if not got.float().abs().max().item() < 100.0:
+        raise AssertionError(f"{name} {label}: garbage reached the output")
+    it = iter(range(1 << 30))
+    n = len(case["caches"]) if "caches" in case else len(case["pools"])
+    kernel_ms = cuda_ms(lambda: run(next(it) % n), iters=200)
+    plain_ms = cuda_ms(lambda: plain(next(it) % n), iters=20)
+    library_ms = library_decode_ms(case["q"], lib_kvs, case["starts"],
+                                   case["ends"])
+    da.launches.update(before)  # checks and timing are not the path
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(phase, name=name, case=repr(label),
+        dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol, **gaps,
+        copies=n, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by, bytes=nbytes,
+        flops=flops, gb_per_s=nbytes / kernel_ms * 1e-6, **extra)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def phase_kernel() -> dict:
-    """Kernel vs plain version at 345M decode shapes, bf16 and fp32.
-    Returns the bf16 timings (the serving dtype) for the JSON record."""
+    """B8 against its plain version at 345M decode shapes, bf16 and fp32.
+    Returns the bf16 record (the serving dtype) for the JSON line."""
     record = None
     for dtype in (torch.bfloat16, torch.float32):
         case = decode_case(dtype)
-        q, tables = case["q"], case["tables"]
-        starts, ends = case["starts"], case["ends"]
-        k0, v0 = case["pools"][0]
-        before = da.launches
-        got = da.paged_decode_attention(q, k0, v0, tables=tables, end=ends,
-                                        starts=starts)
-        torch.cuda.synchronize()
-        want = da.paged_decode_attention_ref(q, k0, v0, tables=tables,
-                                             end=ends, starts=starts)
-        err = (got.float() - want.float()).abs().max().item()
-        if not (math.isfinite(err) and err <= da.KERNEL_TOL[dtype]):
-            raise AssertionError(
-                f"paged_decode {dtype}: max abs err {err} > "
-                f"{da.KERNEL_TOL[dtype]}")
-        it = iter(range(1 << 30))
-        pools = case["pools"]
+        q, pools, tables = case["q"], case["pools"], case["tables"]
+        kw = dict(tables=tables, end=case["ends"], starts=case["starts"])
 
-        def kernel():
-            k, v = pools[next(it) % len(pools)]
-            da.paged_decode_attention(q, k, v, tables=tables, end=ends,
-                                      starts=starts)
+        def run(i, fn=da.paged_decode_attention):
+            k, v = pools[i]
+            return fn(q, k, v, **kw)
 
-        def plain():
-            k, v = pools[next(it) % len(pools)]
-            da.paged_decode_attention_ref(q, k, v, tables=tables, end=ends,
-                                          starts=starts)
+        def plain(i):
+            return run(i, da.paged_decode_attention_ref)
 
-        kg = da.paged_gather_kv(k0, tables).transpose(1, 2).contiguous()
-        vg = da.paged_gather_kv(v0, tables).transpose(1, 2).contiguous()
-        pos = torch.arange(kg.shape[2], device=q.device)
-        mask = ((pos[None] >= starts[:, None].long())
-                & (pos[None] < ends[:, None].long()))[:, None, None, :]
-        qt = q.transpose(1, 2).contiguous()
-
-        def library():
-            torch.nn.functional.scaled_dot_product_attention(
-                qt, kg, vg, attn_mask=mask)
-
-        kernel_ms = cuda_ms(kernel, iters=200)
-        plain_ms = cuda_ms(plain, iters=20)
-        library_ms = cuda_ms(library, iters=200)
-        da.launches = before  # timing launches are not the main path's
+        lib_kvs = [(da.paged_gather_kv(k, tables), da.paged_gather_kv(v, tables))
+                   for k, v in pools]
         nbytes, flops = decode_bound(case, dtype)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        log("kernel", name=da.KERNEL, dtype=str(dtype).split(".")[-1],
-            max_abs_err=err, tol=da.KERNEL_TOL[dtype], kernel_ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
-            flops=flops, bound_ms=bound_ms,
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            ends=ends.tolist(), starts=starts.tolist())
+        rec = check_and_time(da.KERNEL, "phase 3 pools", dtype, run, plain,
+                             lib_kvs, case, nbytes, flops, phase="kernel",
+                             ends=case["ends"].tolist(),
+                             starts=case["starts"].tolist())
         if dtype == torch.bfloat16:
-            record = {"max_abs_err": err, "ms": kernel_ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": "bytes" if bytes_ms >= ops_ms
-                      else "operations", "library_ms": library_ms}
+            record = rec
+        del case, pools, lib_kvs
     return record
 
 
@@ -305,18 +400,25 @@ def serving_requests(vocab: int, seed: int = 0) -> list:
             for i, p in enumerate(prompts)]
 
 
-def build_engine():
+def build_engine(kv_dtype=None):
     """A ServingEngine at GPT-345M width (24 layers, hidden 1024, 16 heads
-    of 64, vocab 50304) with random weights from seed 0, bf16 compute."""
+    of 64, vocab 50304) with random weights from seed 0, bf16 compute and
+    bf16 (or ``kv_dtype``) KV pools."""
     conf = get_config(CONFIG)
     cfg = GPTConfig.from_model_config(conf.Model)
     gen_cfg = GenerationConfig.from_config(conf.Generation)
     params = init_params(cfg, seed=0)
     engine = ServingEngine(GPTForPretraining(cfg, device="meta"), params,
                            slots=8, page_size=16, cache_len=1024,
-                           gen_cfg=gen_cfg)
+                           gen_cfg=gen_cfg, kv_dtype=kv_dtype)
     del params
     return engine, cfg
+
+
+def zero_launches() -> None:
+    """Set every decode kernel's launch count to 0 (just before a path)."""
+    for name in da.NAMES:
+        da.launches[name] = 0
 
 
 def serve(engine, requests) -> tuple:
@@ -334,30 +436,38 @@ def serve(engine, requests) -> tuple:
     return results, ticks, time.perf_counter() - t0
 
 
-def phase_serving(engine, cfg) -> dict:
-    """The port's main path: 8 requests through submit/step/drain. Every
-    decode tick must launch the paged decode kernel once per layer."""
+def phase_serving(engine, cfg, phase: str = "serving") -> dict:
+    """The port's serving path: 8 requests through submit/step/drain. Every
+    decode tick must launch the engine's paged decode kernel (B8; B10 at
+    int8 KV) once per layer, and no other decode kernel."""
+    name = "paged_decode_q8" if engine.kv_dtype == "int8" else da.KERNEL
     requests = serving_requests(cfg.vocab_size)
     serve(engine, [dict(prompt=np.arange(40), max_length=4)])  # warm-up
     engine.metrics = ServingMetrics(engine.slots)
-    da.launches = 0
+    engine.publish_quant_metrics()
+    zero_launches()
     results, ticks, seconds = serve(engine, requests)
-    launches = da.launches
+    counts = dict(da.launches)
+    launches = counts.pop(name)
     snap = engine.metrics.snapshot()
     reasons = {r.finish_reason for r in results.values()}
     tokens = sum(len(r.tokens) for r in results.values())
     ttft = [r.ttft_s for r in results.values()]
     tpot = [(r.latency_s - r.ttft_s) / (len(r.tokens) - 1)
             for r in results.values() if len(r.tokens) > 1]
-    log("serving", requests=len(results), tokens=tokens, decode_ticks=ticks,
-        kernel_launches=launches, layers=cfg.num_layers,
+    log(phase, requests=len(results), tokens=tokens, decode_ticks=ticks,
+        kernel=name, kernel_launches=launches, layers=cfg.num_layers,
         tokens_per_s=tokens / seconds, seconds=seconds,
         ttft_ms_p50=float(np.median(ttft)) * 1e3,
         tpot_ms_p50=float(np.median(tpot)) * 1e3,
         prefix_hits=snap["prefix_hits"],
         prefill_tokens_saved=snap["prefill_tokens_saved"],
         pages_in_use=engine.cache_manager.pages_in_use,
+        kv_dtype=snap["kv_dtype"], kv_cache_bytes=snap["kv_cache_bytes"],
+        kv_bytes_per_token=snap["kv_bytes_per_token"],
         finish_reasons=snap["finish_reasons"])
+    if any(counts.values()):
+        raise AssertionError(f"other decode kernels launched: {counts}")
     if len(results) != len(requests) or not reasons <= {"max_length", "eos"}:
         raise AssertionError(f"requests finished {snap['finish_reasons']}")
     for r in results.values():
@@ -372,7 +482,7 @@ def phase_serving(engine, cfg) -> dict:
     if engine.cache_manager.pages_in_use:
         raise AssertionError(f"{engine.cache_manager.pages_in_use} pages "
                              "leaked after the drain")
-    return {"launches": launches}
+    return {"launches": launches, "kv_cache_bytes": snap["kv_cache_bytes"]}
 
 
 def phase_profile(engine, cfg, ticks: int = 20) -> None:
@@ -446,12 +556,12 @@ def flash_inputs(dtype, *, b=8, s=1024, h=16, d=64, copies=3, seed=0):
     strided views of one fused [b, s, h, 3d] buffer (as the qkv projection
     hands them to the kernels) and dO; timed launches rotate over the sets
     so their operands (4 x 16.8 MB in bf16) come cold from HBM."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
     sets = []
     for _ in range(copies):
-        qkv = torch.randn(b, s, h, 3 * d, generator=g, device="cuda")
+        qkv = torch.randn(b, s, h, 3 * d, generator=g, device=DEVICE)
         q, k, v = qkv.to(dtype).split(d, dim=-1)
-        do = torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+        do = torch.randn(b, s, h, d, generator=g, device=DEVICE).to(dtype)
         sets.append((q, k, v, do))
     return sets
 
@@ -867,6 +977,383 @@ def phase_train_e2e(prefix: str, layers: int = 6) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 9
+
+def generation_prompts(vocab: int, seed: int = 4) -> tuple:
+    """Phase 10's batch: 8 prompts of GEN_PROMPT_LENS tokens left-padded
+    (with id 0) to the longest; (ids [8, 312] int64, mask int32)."""
+    rng = np.random.RandomState(seed)
+    width = max(GEN_PROMPT_LENS)
+    ids = np.zeros((len(GEN_PROMPT_LENS), width), np.int64)
+    mask = np.zeros(ids.shape, np.int32)
+    for r, n in enumerate(GEN_PROMPT_LENS):
+        ids[r, width - n:] = rng.randint(0, vocab, n)
+        mask[r, width - n:] = 1
+    return ids, mask
+
+
+def contiguous_cases() -> list:
+    """(label, cache_len, starts, ends) of phase 9's contiguous caches:
+    phase 10's decode cache halfway through the decode (its left pads, one
+    end for every row, as ``generate()`` passes it); a 712-position cache
+    (512-token pad + 200, ``fit_decode_blocks`` tile 8) and a 1024-position
+    one (tile 256), with left pads, ``end=1`` and ends on tile borders."""
+    width = max(GEN_PROMPT_LENS)
+    pads = [width - n for n in GEN_PROMPT_LENS]
+    return [
+        ("generate", 512, pads, [width + 100] * 8),
+        ("block_k 8", 712, [0, 0, 5, 200, 17, 1, 96, 40],
+         [712, 1, 320, 616, 480, 704, 592, 240]),
+        ("block_k 256", 1024, [0, 3, 100, 0, 0, 300, 7, 64],
+         [1024, 256, 512, 768, 1, 900, 1000, 1024]),
+    ]
+
+
+def contiguous_case(dtype, cache_len, starts, ends, *, quant, h=16, d=64,
+                    seed=0) -> dict:
+    """Contiguous decode caches [8, cache_len, 16, 64] on the card: K/V in
+    ``dtype`` or int8 with fp32 scales (``quantize_kv``), large finite
+    values at every slot outside a row's window, as many caches (like a
+    model's layers) as :func:`rotation_copies` of their live bytes, so
+    timed launches read them cold from HBM."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = len(starts)
+    starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ends_t = torch.tensor(ends, dtype=torch.int32, device=dev)
+    pos = torch.arange(cache_len, device=dev)
+    dead = ((pos[None] < starts_t[:, None].long())
+            | (pos[None] >= ends_t[:, None].long()))  # [b, cache_len]
+    q = torch.randn(b, 1, h, d, generator=g, device=dev).to(dtype)
+    item = torch.tensor([], dtype=dtype).element_size()
+    vector = d + 4 if quant else d * item  # bytes of one cached K or V
+    copies = rotation_copies(int((~dead).sum()) * h * vector * 2)
+    caches = []
+    for _ in range(copies):
+        kv = []
+        for garbage in (1.0e4, -1.0e4):
+            x = torch.randn(b, cache_len, h, d, generator=g, device=dev)
+            x[dead] = garbage
+            kv.append(quantize_kv(x) if quant else (x.to(dtype), None))
+        (k, ks), (v, vs) = kv
+        caches.append({"k": k, "v": v, "k_scale": ks, "v_scale": vs})
+    return {"q": q, "starts": starts_t, "ends": ends_t, "caches": caches,
+            "dead": dead}
+
+
+def contiguous_bound(case, dtype, quant: bool) -> tuple:
+    """(bytes, flops): each live K/V vector read once (d bytes and an fp32
+    scale at int8), q read and out written once, the window bounds read."""
+    q = case["q"]
+    b, _, h, d = q.shape
+    item = torch.tensor([], dtype=dtype).element_size()
+    live = int((~case["dead"]).sum())
+    vector = d + 4 if quant else d * item
+    return (live * h * vector * 2 + 2 * b * h * d * item + 8 * b,
+            live * h * 4 * d)
+
+
+def planted_decode_faults(q, k, v, k_scale, v_scale, *, end, starts,
+                          block_k, tables=None) -> dict:
+    """Outputs of the plain version with one rounding fault each, which
+    phase 9's bf16 limit must catch: p kept in fp32, p rounded against
+    the final max instead of each tile's running max, and (int8) K/V
+    dequantized to fp32 instead of q's dtype. ``tables`` gathers each
+    row's logical buffer from paged pools first."""
+    if tables is not None:
+        k, v = (da.paged_gather_kv(t, tables) for t in (k, v))
+        if k_scale is not None:
+            k_scale, v_scale = (da.paged_gather_kv(t, tables)
+                                for t in (k_scale, v_scale))
+
+    def kv(dtype):
+        if k_scale is None:
+            return k.to(dtype), v.to(dtype)
+        return (dequantize_kv(k, k_scale, dtype),
+                dequantize_kv(v, v_scale, dtype))
+
+    def window(q, kv, block_k):
+        return da._window_attention(q, *kv, end=end, starts=starts,
+                                    block_k=block_k)
+
+    faults = {
+        "p not rounded": window(q.float(), [t.float() for t in kv(q.dtype)],
+                                block_k).to(q.dtype),
+        "p against the final max": window(q, kv(q.dtype), k.shape[1])}
+    if k_scale is not None:
+        faults["K/V dequantized to fp32"] = window(q, kv(torch.float32),
+                                                   block_k)
+    return faults
+
+
+def phase_decode_kernels() -> dict:
+    """B7, B9 and B10 each against its plain version at GPT-345M decode
+    shapes, bf16 and fp32. Returns, by kernel name, the bf16 records of
+    the main path's shapes: B7/B9 on phase 10's cache, B10 on phase 3's
+    pools."""
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, cache_len, starts, ends in contiguous_cases():
+            block_k = da.fit_decode_blocks(cache_len)[0]
+            for quant in (False, True):
+                name = "decode_q8" if quant else "decode"
+                case = contiguous_case(dtype, cache_len, starts, ends,
+                                       quant=quant)
+                q, caches = case["q"], case["caches"]
+                kw = dict(end=case["ends"], starts=case["starts"])
+
+                def run(i, fn=da.decode_attention):
+                    c = caches[i]
+                    return fn(q, c["k"], c["v"], k_scale=c["k_scale"],
+                              v_scale=c["v_scale"], **kw)
+
+                def plain(i):
+                    return run(i, da.decode_attention_ref)
+
+                def faults(c=caches[0]):
+                    return planted_decode_faults(
+                        q, c["k"], c["v"], c["k_scale"], c["v_scale"],
+                        block_k=block_k, **kw)
+
+                lib_kvs = [(dequantize_kv(c["k"], c["k_scale"], dtype),
+                            dequantize_kv(c["v"], c["v_scale"], dtype))
+                           if quant else (c["k"], c["v"]) for c in caches]
+                nbytes, flops = contiguous_bound(case, dtype, quant)
+                rec = check_and_time(
+                    name, label, dtype, run, plain, lib_kvs, case, nbytes,
+                    flops, faults=faults if dtype == torch.bfloat16 else None,
+                    cache_len=cache_len, block_k=block_k)
+                del case, caches, lib_kvs
+                if dtype == torch.bfloat16 and label == "generate":
+                    records[name] = rec
+        # B10 on phase 3's pools, quantized, their copies repeated until
+        # they hold twice the L2
+        case = decode_case(dtype)
+        nbytes, flops = decode_bound(case, dtype, quant=True)
+        pools = [(quantize_kv(k.float()), quantize_kv(v.float()))
+                 for k, v in case["pools"]]
+        copies = rotation_copies(nbytes)
+        case["pools"] = pools = [
+            pools[i] if i < len(pools) else
+            tuple((w.clone(), sc.clone()) for w, sc in pools[i % len(pools)])
+            for i in range(max(copies, len(pools)))]
+        q = case["q"]
+        kw = dict(tables=case["tables"], end=case["ends"],
+                  starts=case["starts"])
+
+        def run(i, fn=da.paged_decode_attention):
+            (k, ks), (v, vs) = pools[i]
+            return fn(q, k, v, k_scale=ks, v_scale=vs, **kw)
+
+        def plain(i):
+            return run(i, da.paged_decode_attention_ref)
+
+        def faults():
+            (k, ks), (v, vs) = pools[0]
+            return planted_decode_faults(q, k, v, ks, vs,
+                                         block_k=case["page_size"], **kw)
+
+        lib_kvs = [(dequantize_kv(da.paged_gather_kv(k, case["tables"]),
+                                  da.paged_gather_kv(ks, case["tables"]),
+                                  dtype),
+                    dequantize_kv(da.paged_gather_kv(v, case["tables"]),
+                                  da.paged_gather_kv(vs, case["tables"]),
+                                  dtype))
+                   for (k, ks), (v, vs) in pools]
+        rec = check_and_time(
+            "paged_decode_q8", "phase 3 pools", dtype, run, plain, lib_kvs,
+            case, nbytes, flops,
+            faults=faults if dtype == torch.bfloat16 else None,
+            page_size=case["page_size"])
+        if dtype == torch.bfloat16:
+            records["paged_decode_q8"] = rec
+        del case, pools, lib_kvs
+        torch.cuda.empty_cache()
+    return records
+
+
+# ----------------------------------------------------------------- phase 10
+
+def generation_module(*overrides):
+    """``build_module`` on the generation config at bf16 (plus
+    ``overrides``), weights from ``init_params(seed=GEN_SEED)``."""
+    conf = get_config(CONFIG, overrides=[GEN_BF16, *overrides])
+    module = build_module(conf)
+    module.set_state(init_params(module.gpt_config, seed=GEN_SEED))
+    return module
+
+
+@contextlib.contextmanager
+def watch_decode_steps(attention=None):
+    """For the ``generate()`` calls inside: count the cached forwards
+    (``generation.decode_step``: the prefill and each decode step), record
+    a CUDA event at the end of each, keep the first decode step's logits,
+    and, given ``attention``, run decode attention through it."""
+    calls = {"n": 0, "events": [], "first": None}
+    inner = gen.decode_step
+
+    def watched(model, cache, ids, *args, **kw):
+        logits, cache = inner(model, cache, ids, *args, **kw)
+        calls["n"] += 1
+        calls["events"].append(torch.cuda.Event(enable_timing=True))
+        calls["events"][-1].record()
+        if ids.shape[1] == 1 and calls["first"] is None:
+            calls["first"] = logits[:, -1].float().clone()
+        return logits, cache
+
+    gen.decode_step = watched
+    if attention is not None:
+        gpt_model.decode_attention = attention
+    try:
+        yield calls
+    finally:
+        gen.decode_step = inner
+        gpt_model.decode_attention = da.decode_attention
+
+
+def run_generate(module, ids, mask, gen_cfg, label, name, *, generator=None,
+                 attention=None) -> dict:
+    """One ``generate_ids`` call with ``gen_cfg``; checks that every decode
+    step launched kernel ``name`` once per layer (and no other decode
+    kernel) unless ``attention`` replaces it, and logs tokens/s and ms per
+    decode step (CUDA events between the ends of consecutive steps)."""
+    module.generation_cfg = gen_cfg
+    layers = module.gpt_config.num_layers
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with watch_decode_steps(attention) as calls:
+        out = module.generate_ids(ids, attention_mask=mask,
+                                  generator=generator)  # numpy: synchronised
+    seconds = time.perf_counter() - t0
+    launches = dict(da.launches)
+    steps = calls["n"] - 1
+    ev = calls["events"]
+    step_ms = [a.elapsed_time(b) for a, b in zip(ev[1:], ev[2:])]
+    new = out[:, ids.shape[1]:]
+    vocab = module.gpt_config.vocab_size
+    log("generate", run=repr(label), kv=module.gpt_config.decode_kv_dtype,
+        strategy=gen_cfg.decode_strategy, rows=len(out), new_tokens=new.shape[1],
+        decode_steps=steps, launches={n: c for n, c in launches.items() if c},
+        seconds=seconds, tokens_per_s=new.size / seconds,
+        decode_step_ms_median=float(np.median(step_ms)),
+        decode_step_ms_p90=float(np.percentile(step_ms, 90)),
+        eos_rows=int((new == gen_cfg.eos_token_id).any(1).sum()))
+    want = {n: 0 for n in da.NAMES}
+    if attention is None:
+        want[name] = steps * layers
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    if not (steps >= 1 and new.shape[1] == gen_cfg.max_length
+            and new.min() >= 0 and new.max() < vocab):
+        raise AssertionError(f"{label}: {steps} steps, tokens {new}")
+    if not np.array_equal(out[:, :ids.shape[1]], ids):
+        raise AssertionError(f"{label}: the prompt was not kept")
+    return {"tokens": out, "steps": steps, "first": calls["first"],
+            "launches": launches[name]}
+
+
+def phase_generate(profile: bool) -> dict:
+    """The port's generation path, bf16 KV then int8 KV, each greedy
+    through the kernel and through the plain version (first decode step's
+    logits within LOGIT_TOL), and bf16 with the config's own sampling.
+    Returns the main path's launch counts of B7 and B9."""
+    out = {}
+    greedy_tokens = {}
+    for kv, name in ((None, "decode"), ("int8", "decode_q8")):
+        module = generation_module(
+            *([] if kv is None else [f"Model.decode_kv_dtype={kv}"]))
+        cfg = module.gpt_config
+        ids, mask = generation_prompts(cfg.vocab_size)
+        base = module.generation_cfg
+        greedy = dataclasses.replace(base, decode_strategy="greedy")
+        run_generate(module, ids, mask,
+                     dataclasses.replace(greedy, max_length=4), "warm-up",
+                     name)
+        tag = "bf16 kv" if kv is None else "int8 kv"
+        kernel = run_generate(module, ids, mask, greedy, f"{tag} greedy",
+                              name)
+        launches = kernel["launches"]
+        if kv is None:
+            sampled = run_generate(
+                module, ids, mask, base, f"{tag} sampling", name,
+                generator=torch.Generator(device=DEVICE).manual_seed(7))
+            launches += sampled["launches"]
+        plain = run_generate(module, ids, mask, greedy, f"{tag} greedy plain",
+                             name, attention=da.decode_attention_ref)
+        err = (kernel["first"] - plain["first"]).abs().max().item()
+        width = ids.shape[1]
+        agree = [quant_parity_frac(a[width:], b[width:]) for a, b in
+                 zip(kernel["tokens"], plain["tokens"])]
+        log("generate", kv=tag, first_step_logits_max_abs_err=err,
+            tol=LOGIT_TOL, greedy_common_prefix_frac_kernel_vs_plain=float(
+                np.mean(agree)), per_row=[round(a, 3) for a in agree])
+        if not (math.isfinite(err) and err <= LOGIT_TOL):
+            raise AssertionError(f"{tag}: first decode step logits differ "
+                                 f"by {err}")
+        greedy_tokens[tag] = kernel["tokens"][:, width:]
+        out[name] = {"launches": launches}
+        if profile and kv is None:
+            phase_generate_profile(module, ids, mask, greedy)
+        del module
+        gc.collect()
+        torch.cuda.empty_cache()
+    frac = [quant_parity_frac(a, b) for a, b in
+            zip(greedy_tokens["int8 kv"], greedy_tokens["bf16 kv"])]
+    log("generate", int8_vs_bf16_greedy_quant_parity_frac=float(np.mean(frac)),
+        per_row=[round(f, 3) for f in frac])
+    return out
+
+
+def phase_generate_profile(module, ids, mask, greedy, steps: int = 20):
+    """``--profile``: device time by kernel over ``steps`` steady decode
+    steps of a greedy ``generate()`` (sampling included), and the device's
+    busy share of their wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    inner = gen.decode_step
+    state = {"n": 0}
+
+    def profiled(*args, **kw):
+        if state["n"] == 5:
+            torch.cuda.synchronize()
+            prof.start()
+            state["t0"] = time.perf_counter()
+        result = inner(*args, **kw)
+        state["n"] += 1
+        if state["n"] == 5 + steps:
+            torch.cuda.synchronize()
+            state["wall"] = time.perf_counter() - state["t0"]
+            prof.stop()
+        return result
+
+    module.generation_cfg = dataclasses.replace(greedy, max_length=steps + 10)
+    gen.decode_step = profiled
+    try:
+        module.generate_ids(ids, attention_mask=mask)
+    finally:
+        gen.decode_step = inner
+    report_profile("gen-profile", prof, state["wall"], steps, "step")
+
+
+# ----------------------------------------------------------------- phase 11
+
+def phase_int8_serving(bf16_kv_bytes: int) -> dict:
+    """Phase 4's requests through an int8-KV engine (B10)."""
+    engine, cfg = build_engine(kv_dtype="int8")
+    rec = phase_serving(engine, cfg, "int8-serving")
+    d = cfg.head_dim
+    ratio = rec["kv_cache_bytes"] / bf16_kv_bytes
+    log("int8-serving", kv_cache_bytes_int8=rec["kv_cache_bytes"],
+        kv_cache_bytes_bf16=bf16_kv_bytes, ratio=ratio,
+        want=(d + 4) / (2 * d))
+    if rec["kv_cache_bytes"] * 2 * d != bf16_kv_bytes * (d + 4):
+        raise AssertionError(f"int8 pools take {ratio} of the bf16 bytes")
+    del engine
+    return {"launches": rec["launches"]}
+
+
 def common_prefix(a, b) -> int:
     n = 0
     for x, y in zip(a, b):
@@ -888,7 +1375,8 @@ def main() -> int:
     phase_build()
     kernel = phase_kernel()
     engine, cfg = build_engine()
-    kernel.update(phase_serving(engine, cfg))
+    served = phase_serving(engine, cfg)
+    kernel["launches"] = served["launches"]
     if profile:
         phase_profile(engine, cfg)
     del engine
@@ -903,6 +1391,13 @@ def main() -> int:
         gc.collect()  # the drive's trainer (and its optimizer state)
         torch.cuda.empty_cache()
         phase_train_e2e(prefix)
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode = phase_decode_kernels()
+    for name, counts in phase_generate(profile).items():
+        decode[name].update(counts)
+    decode["paged_decode_q8"].update(
+        phase_int8_serving(served["kv_cache_bytes"]))
     records = [dict(name=da.KERNEL, route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/paged_decode.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",
@@ -914,6 +1409,13 @@ def main() -> int:
             name=name, route="cuda", source=source,
             replaces=f"fleetx_tpu/ops/pallas/flash_attention.py:"
                      f"{replaces[name]}", **flash[name]))
+    replaces = {"decode": 243, "decode_q8": 329, "paged_decode_q8": 479}
+    for name in ("decode", "decode_q8", "paged_decode_q8"):
+        records.append(dict(
+            name=name, route="cuda",
+            source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
+            replaces=f"fleetx_tpu/ops/pallas/decode_attention.py:"
+                     f"{replaces[name]}", **decode[name]))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

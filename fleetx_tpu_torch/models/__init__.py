@@ -7,10 +7,15 @@ __all__ = ["build_module"]
 
 def build_module(cfg):
     """The module named by ``cfg.Model.module`` (reference
-    models/__init__.py). The port registers ``GPTModule``."""
+    models/__init__.py). The port registers ``GPTModule`` and
+    ``GPTGenerationModule``."""
     from fleetx_tpu_torch.models.language_module import GPTModule
+    from fleetx_tpu_torch.models.language_module_generation import (
+        GPTGenerationModule,
+    )
 
-    modules = {"GPTModule": GPTModule}
+    modules = {"GPTModule": GPTModule,
+               "GPTGenerationModule": GPTGenerationModule}
     name = (cfg.get("Model") or {}).get("module") or "GPTModule"
     if name not in modules:
         raise ValueError(f"unknown module {name!r}; the port has "

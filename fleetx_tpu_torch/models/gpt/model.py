@@ -7,8 +7,11 @@ the modules:
   through ``causal_attention`` — the flash kernels — with hash dropout on
   the embeddings, after attention and after the MLP, seeded from an
   explicit ``torch.Generator``; :func:`pretraining_loss` on its logits;
-- the cached forward the serving path takes — a multi-token prefill call
-  or a single-token decode step writing K/V into a shared page pool.
+- the cached forward the decode paths take — a multi-token prefill call
+  or a single-token decode step writing K/V into the decode cache: the
+  contiguous ``[L, b, cache_len, h, d]`` buffers of one-shot
+  ``generate()``, or the shared page pools of the serving engine; at
+  ``decode_kv_dtype="int8"`` either stores int8 with fp32 scales.
 
 Recompute, pipeline/context/expert parallelism and the fused LM-head loss
 are not here.
@@ -26,8 +29,8 @@ params fp32):
 
 Weights live in PyTorch's ``Linear`` layout (``[out, in]``);
 ``convert.params_from_jax`` maps the flax tree onto it. Activations keep
-the JAX layout ``[b, s, h, d]`` and the page pools ``[L, num_pages,
-page_size, h, d]``.
+the JAX layout ``[b, s, h, d]``; the decode cache is a dict of tensors
+stacked over the layers (``models/gpt/generation.py`` builds it).
 """
 
 from __future__ import annotations
@@ -44,14 +47,18 @@ from fleetx_tpu_torch.ops.attention import (
     reference_attention,
 )
 from fleetx_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    fit_decode_blocks,
     paged_decode_attention,
     paged_gather_kv,
 )
 from fleetx_tpu_torch.ops.dropout import HashDropout, draw_seed
+from fleetx_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 
 __all__ = ["DTYPES", "GPTConfig", "GPTForPretraining", "GPTModel",
            "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm",
-           "masked_loss_mean", "pretraining_loss"]
+           "inference_params", "masked_loss_mean", "pad_starts",
+           "pretraining_loss"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -60,9 +67,12 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """GPT hyperparameters (the JAX ``GPTConfig`` fields the port reads).
-    ``decode_*`` size the paged cache: ``decode_num_pages`` pages
-    of ``decode_page_size`` positions shared by all rows, each row
-    addressing a logical window of ``decode_cache_len`` positions."""
+    ``decode_*`` shape the decode cache: with ``decode_num_pages`` set it
+    is paged — ``decode_num_pages`` pages of ``decode_page_size``
+    positions shared by all rows, each row addressing a logical window of
+    ``decode_cache_len`` positions — else contiguous, one buffer per row.
+    ``decode_kv_dtype="int8"`` stores K/V as int8 with one fp32 scale per
+    (position, head) vector, quantized on write."""
     vocab_size: int = 50304
     hidden_size: int = 1024
     num_layers: int = 24
@@ -78,6 +88,7 @@ class GPTConfig:
     decode_cache_len: Optional[int] = None
     decode_num_pages: Optional[int] = None
     decode_page_size: Optional[int] = None
+    decode_kv_dtype: Optional[str] = None  # None (compute dtype) | "int8"
 
     @property
     def head_dim(self) -> int:
@@ -147,8 +158,9 @@ class LayerNorm(nn.Module):
 class SelfAttention(nn.Module):
     """Fused-qkv self-attention: causal over the call's own tokens (the
     JAX ``SelfAttention`` no-cache branch, model.py:310-332) or over the
-    paged decode cache (its decode branch with ``decode_num_pages``
-    set)."""
+    decode cache (its decode branch, :213-286): single-query steps go to
+    the decode kernels — B7/B9 on the contiguous cache, B8/B10 on the
+    paged pool — and every other cached call to the dense masked path."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -160,21 +172,29 @@ class SelfAttention(nn.Module):
         self.qkv_proj = Dense(e, nh * 3 * hd, cfg.dtype, device)
         self.out_proj = Dense(nh * hd, e, cfg.dtype, device)
 
-    def forward(self, x, k_pages=None, v_pages=None, *, cache_positions=None,
-                block_tables=None, deterministic=True, generator=None):
-        """``x`` [b, s, E]. Without pools: causal attention over the s
+    def forward(self, x, cache=None, *, cache_index=None,
+                cache_positions=None, block_tables=None, kv_mask=None,
+                kv_starts=None, decode_end=None, deterministic=True,
+                generator=None):
+        """``x`` [b, s, E]. Without ``cache``: causal attention over the s
         tokens, attention dropout (unless ``deterministic``) seeded from
-        ``generator``. With ``k_pages``/``v_pages`` (this layer's pools
-        [num_pages, page_size, h, d]): row b writes its s new K/V at
-        logical positions ``cache_positions[b]..`` through
-        ``block_tables`` [b, n_logical] and attends ``[0,
-        cache_positions[b] + i]`` for its query i."""
+        ``generator``. With ``cache`` (this layer's ``key``/``value`` and,
+        at int8, ``key_scale``/``value_scale`` tensors): write the s new
+        K/V, then attend. Row b writes at ``cache_positions[b]`` when
+        given, else every row at ``cache_index``; paged caches route the
+        writes through ``block_tables`` [b, n_logical]. Query i of row b
+        attends cache positions ``<=`` its own, restricted by ``kv_mask``
+        [b, 1, 1, cache_len] (True = a real token) when given.
+        ``decode_end`` [b] int32 marks a single-query step: each row's
+        live length after this step's write, the decode kernels' window
+        end; ``kv_starts`` [b] is the window start, the mask's first True
+        (:func:`pad_starts`)."""
         cfg = self.cfg
         b, s, _ = x.shape
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         # per head the last axis holds q | k | v (flax kernel [E, nh, 3hd])
         q, k, v = self.qkv_proj(x).view(b, s, nh, 3 * hd).split(hd, dim=-1)
-        if k_pages is None:
+        if cache is None:
             rate = cfg.attention_probs_dropout_prob
             seed = None
             if rate > 0.0 and not deterministic:
@@ -183,34 +203,115 @@ class SelfAttention(nn.Module):
                                    seed=seed, deterministic=deterministic,
                                    use_flash=cfg.use_flash_attention)
             return self._out_proj(out)
-        decode_end = self._update_paged_cache(
-            k, v, k_pages, v_pages, cache_positions, block_tables)
-        if decode_end is not None:
-            # single-query step: the paged decode kernel reads only each
-            # row's live pages
-            out = paged_decode_attention(
-                q.contiguous(), k_pages, v_pages, tables=block_tables,
-                end=decode_end)
+        paged = cfg.decode_num_pages is not None
+        quant = "key_scale" in cache
+        if paged:
+            self._update_paged_cache(k, v, cache, cache_positions,
+                                     block_tables)
+            page_size = cache["key"].shape[1]
+            length = block_tables.shape[1] * page_size
+        else:
+            self._update_cache(k, v, cache, cache_index, cache_positions)
+            page_size, length = None, cache["key"].shape[1]
+        if decode_end is not None and self._takes_decode_kernel(
+                q.is_cuda, kv_mask, length, page_size):
+            # single-query step: B7/B9 read only the window [kv_starts,
+            # end) of each row, B8/B10 only each row's live pages
+            kw = dict(end=decode_end, starts=kv_starts,
+                      k_scale=cache.get("key_scale"),
+                      v_scale=cache.get("value_scale"))
+            if paged:
+                kw["tables"] = block_tables
+                fn = paged_decode_attention
+            else:
+                fn = decode_attention
+            out = fn(q.contiguous(), cache["key"], cache["value"], **kw)
             return self._out_proj(out)
-        # multi-token (prefill) call: gather each row's logical buffer and
-        # run the dense masked attention under the absolute-position mask
-        k_all = paged_gather_kv(k_pages, block_tables)
-        v_all = paged_gather_kv(v_pages, block_tables)
-        q_pos = cache_positions.long()[:, None] + torch.arange(
-            s, device=x.device)
-        k_pos = torch.arange(k_all.shape[1], device=x.device)
-        causal = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
-        return self._out_proj(reference_attention(q, k_all, v_all, causal))
+        # everything else: dense attention under the absolute-position
+        # mask, over each row's logical buffer (gathered from the pages)
+        names = ("key", "value") + (("key_scale", "value_scale")
+                                    if quant else ())
+        parts = [paged_gather_kv(cache[n], block_tables) if paged
+                 else cache[n] for n in names]
+        k_all, v_all = parts[:2]
+        if quant:
+            k_all = dequantize_kv(k_all, parts[2], q.dtype)
+            v_all = dequantize_kv(v_all, parts[3], q.dtype)
+        offsets = torch.arange(s, device=x.device)
+        q_pos = (int(cache_index) + offsets if cache_positions is None
+                 else cache_positions.long()[:, None] + offsets)  # [(b,) s]
+        k_pos = torch.arange(length, device=x.device)
+        mask = (k_pos <= q_pos[..., None]).reshape(-1, 1, s, length)
+        if kv_mask is not None:
+            mask = kv_mask.bool() & mask
+        return self._out_proj(reference_attention(q, k_all, v_all, mask))
 
     def _out_proj(self, out: torch.Tensor) -> torch.Tensor:
         b, s = out.shape[:2]
         return self.out_proj(out.reshape(b, s, -1))
 
-    def _update_paged_cache(self, k, v, k_pages, v_pages, cache_positions,
-                            block_tables) -> Optional[torch.Tensor]:
-        """Scatter this call's K/V into the pools; returns the per-row live
-        length ``[b]`` int32 for a single-query step (the decode kernel's
-        ``end``), else None.
+    def _takes_decode_kernel(self, on_card: bool, kv_mask, length: int,
+                             page_size: Optional[int] = None) -> bool:
+        """Whether a single-query step over ``length`` cache positions goes
+        to the decode kernels, else to the dense path.
+
+        On the card it always does: a ``kv_mask`` the kernels cannot read
+        raises here, and a cache no 8-row tile divides raises in the
+        wrapper. On the CPU the step takes the path the JAX model's
+        ``_flash_decode_ok`` (:559) picks, so that the parity tests hold
+        each path against its JAX counterpart: the kernels' plain version
+        under ``use_flash_attention`` with an absent or ``[b, 1, 1,
+        length]`` mask over a buffer (the cache, or the page) that an 8-row
+        tile divides."""
+        mask_ok = kv_mask is None or (kv_mask.dim() == 4 and tuple(
+            kv_mask.shape[1:]) == (1, 1, length))
+        if on_card:
+            if not mask_ok:
+                raise ValueError(
+                    f"the decode kernels read a [b, 1, 1, {length}] key "
+                    f"mask, got {tuple(kv_mask.shape)}")
+            return True
+        return (self.cfg.use_flash_attention and mask_ok
+                and fit_decode_blocks(page_size or length)[0] is not None)
+
+    @staticmethod
+    def _quantized(k, v, cache):
+        """This call's K/V as the cache stores them: ``[(name, values)]``,
+        with int8 values and their fp32 scales when the cache is int8."""
+        if "key_scale" not in cache:
+            return [("key", k), ("value", v)]
+        k_w, k_s = quantize_kv(k)
+        v_w, v_s = quantize_kv(v)
+        return [("key", k_w), ("value", v_w), ("key_scale", k_s),
+                ("value_scale", v_s)]
+
+    def _update_cache(self, k, v, cache, cache_index, cache_positions):
+        """Write this call's K/V into the contiguous cache ``[b,
+        cache_len, h, *]`` (JAX ``_update_cache``, :339-459).
+
+        Without ``cache_positions`` every row writes at the scalar
+        ``cache_index``; with them row b writes at ``cache_positions[b]``.
+        A write that would overhang the buffer is shifted back to end at
+        its last slot, as ``dynamic_update_slice`` clamps its start. The
+        cache is updated in place (the JAX module returns new leaves)."""
+        b, s = k.shape[:2]
+        max_len = cache["key"].shape[1]
+        writes = self._quantized(k, v, cache)
+        if cache_positions is None:
+            at = min(max(int(cache_index), 0), max_len - s)
+            for name, t in writes:
+                cache[name][:, at:at + s] = t
+            return
+        at = (cache_positions.long().clamp(0, max_len - s)[:, None]
+              + torch.arange(s, device=k.device))  # [b, s]
+        rows = torch.arange(b, device=k.device)[:, None]
+        for name, t in writes:
+            cache[name][rows, at] = t
+
+    def _update_paged_cache(self, k, v, cache, cache_positions,
+                            block_tables):
+        """Scatter this call's K/V (and, at int8, their scales) into the
+        page pools (JAX ``_update_paged_cache``, :461-557).
 
         Positions clamp to the logical capacity: bucket-tail and inactive-
         lane writes land on a row's last logical slot or, through a zeroed
@@ -218,20 +319,29 @@ class SelfAttention(nn.Module):
         pools are updated in place (the JAX module returns new pools)."""
         cfg = self.cfg
         b, s, nh, hd = k.shape
-        ps = k_pages.shape[1]
+        ps = cache["key"].shape[1]
         max_len = cfg.cache_len
         if ps % 8 or max_len % ps:
             raise ValueError(
                 f"page_size {ps} must be a multiple of 8 and divide the "
                 f"cache length {max_len}")
-        wpos = cache_positions.long()
-        pos = (wpos[:, None] + torch.arange(s, device=k.device)).clamp_max(
-            max_len - 1)
+        if cache_positions is None or block_tables is None:
+            raise ValueError("a paged decode cache needs cache_positions "
+                             "AND block_tables")
+        pos = (cache_positions.long()[:, None]
+               + torch.arange(s, device=k.device)).clamp_max(max_len - 1)
         page = block_tables.long().gather(1, pos // ps).reshape(-1)
         slot = (pos % ps).reshape(-1)
-        k_pages[page, slot] = k.reshape(b * s, nh, hd)
-        v_pages[page, slot] = v.reshape(b * s, nh, hd)
-        return (wpos + 1).to(torch.int32) if s == 1 else None
+        for name, t in self._quantized(k, v, cache):
+            cache[name][page, slot] = t.reshape(b * s, nh, -1)
+
+
+def pad_starts(kv_mask: torch.Tensor) -> torch.Tensor:
+    """Per-row first live cache position, int32 [b], from the ``[b, 1, 1,
+    cache_len]`` key-validity mask (JAX ``_pad_starts``, :620-638): the
+    first True, so left pads before it are outside the decode window and a
+    right-padded mask is exact too."""
+    return kv_mask[:, 0, 0, :].to(torch.int32).argmax(-1).to(torch.int32)
 
 
 class MLP(nn.Module):
@@ -260,12 +370,12 @@ class DecoderLayer(nn.Module):
         self.mlp = MLP(cfg, device)
         self.mlp_dropout = HashDropout(cfg.hidden_dropout_prob)
 
-    def forward(self, x, k_pages=None, v_pages=None, *, cache_positions=None,
-                block_tables=None, deterministic=True, generator=None):
-        y = self.attn(self.norm1(x), k_pages, v_pages,
-                      cache_positions=cache_positions,
-                      block_tables=block_tables,
-                      deterministic=deterministic, generator=generator)
+    def forward(self, x, cache=None, *, deterministic=True, generator=None,
+                **decode):
+        """``decode``: the cached-forward keywords of
+        :meth:`SelfAttention.forward`."""
+        y = self.attn(self.norm1(x), cache, deterministic=deterministic,
+                      generator=generator, **decode)
         x = x + self.attn_dropout(y, deterministic, generator)
         y = self.mlp(self.norm2(x))
         return x + self.mlp_dropout(y, deterministic, generator)
@@ -288,19 +398,40 @@ class GPTModel(nn.Module):
         self.final_norm = LayerNorm(cfg.hidden_size, cfg.dtype, device)
 
     def forward(self, input_ids, position_ids, *,
-                cache: Optional[Dict[str, torch.Tensor]] = None,
-                cache_positions=None, block_tables=None, deterministic=True,
+                cache: Optional[Dict] = None, cache_positions=None,
+                block_tables=None, kv_mask=None, kv_starts=None,
+                deterministic=True,
                 generator: Optional[torch.Generator] = None):
         """``cache=None`` is the training forward (dropout unless
         ``deterministic``, every seed drawn from ``generator`` in call
-        order); with a cache, the serving forward (no dropout)."""
+        order); with a cache (``generation.init_decode_cache``), the
+        cached forward (no dropout), which updates the cache in place —
+        a contiguous cache's ``index`` too (JAX ``cache_index``: the
+        scalar write offset, advanced to the furthest write end).
+        ``kv_starts`` [b], the decode window's start, defaults to
+        :func:`pad_starts` of ``kv_mask``."""
         x = (self.word_embeddings[input_ids]
              + self.position_embeddings[position_ids]).to(self.cfg.dtype)
         if cache is not None:
+            b, s = input_ids.shape
+            index = cache.get("index")
+            if kv_starts is None and kv_mask is not None:
+                kv_starts = pad_starts(kv_mask)
+            decode_end = None
+            if s == 1:  # each row's window end after this step's write
+                decode_end = (
+                    torch.full((b,), index + 1, dtype=torch.int32,
+                               device=x.device) if cache_positions is None
+                    else (cache_positions + 1).to(torch.int32))
+            decode = dict(cache_index=index, cache_positions=cache_positions,
+                          block_tables=block_tables, kv_mask=kv_mask,
+                          kv_starts=kv_starts, decode_end=decode_end)
+            tensors = [n for n, t in cache.items() if torch.is_tensor(t)]
             for i, layer in enumerate(self.layers):
-                x = layer(x, cache["key"][i], cache["value"][i],
-                          cache_positions=cache_positions,
-                          block_tables=block_tables)
+                x = layer(x, {n: cache[n][i] for n in tensors}, **decode)
+            if index is not None:
+                cache["index"] = (index + s if cache_positions is None
+                                  else int(cache_positions.max()) + s)
             return self.final_norm(x)
         x = self.embed_dropout(x, deterministic, generator)
         for layer in self.layers:
@@ -317,11 +448,13 @@ class GPTForPretraining(nn.Module):
         self.gpt = GPTModel(cfg, device)
 
     def forward(self, input_ids, position_ids, *, cache=None,
-                cache_positions=None, block_tables=None, deterministic=True,
+                cache_positions=None, block_tables=None, kv_mask=None,
+                kv_starts=None, deterministic=True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.gpt(input_ids, position_ids, cache=cache,
                      cache_positions=cache_positions,
-                     block_tables=block_tables, deterministic=deterministic,
+                     block_tables=block_tables, kv_mask=kv_mask,
+                     kv_starts=kv_starts, deterministic=deterministic,
                      generator=generator)
         emb = self.gpt.word_embeddings.to(self.cfg.dtype)
         # compute-dtype operands, fp32 accumulation and result
@@ -349,6 +482,18 @@ class _Bf16LMHead(torch.autograd.Function):
         x, w = ctx.saved_tensors
         g = g.reshape(-1, g.shape[-1]).to(x.dtype)
         return (g @ w).view_as(x), g.t() @ x.reshape(-1, x.shape[-1])
+
+
+def inference_params(model: nn.Module, params: Dict[str, torch.Tensor],
+                     device) -> Dict[str, torch.Tensor]:
+    """``params`` on ``device`` for a forward without gradients: fp32, with
+    every :class:`Dense` weight and bias pre-cast to the compute dtype
+    (the forward casts them there anyway, so results are unchanged)."""
+    dense = {f"{name}.{p}" for name, mod in model.named_modules()
+             if isinstance(mod, Dense) for p in ("weight", "bias")}
+    dtype = model.cfg.dtype
+    return {k: v.to(device, dtype if k in dense else torch.float32)
+            for k, v in params.items()}
 
 
 def masked_loss_mean(token_loss: torch.Tensor,

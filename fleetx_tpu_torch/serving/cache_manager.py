@@ -2,9 +2,11 @@
 
 Port of the paged half of the JAX package's ``serving/cache_manager.py``
 without its host/disk spill tier. K/V live in one shared pool of
-``[num_pages, page_size, heads, head_dim]`` pages per layer; each decode
-lane holds a block table of page indices, and a refcounted prefix trie lets
-requests that share whole prompt pages reuse one prefill.
+``[num_pages, page_size, heads, head_dim]`` pages per layer (int8 with
+``[num_pages, page_size, heads, 1]`` fp32 scale pools when the model's
+``decode_kv_dtype`` is int8: a page's scales ride the same page index);
+each decode lane holds a block table of page indices, and a refcounted
+prefix trie lets requests that share whole prompt pages reuse one prefill.
 
 Safety without zeroing: physical page 0 is the TRASH page. It is never
 handed to a request, and every unallocated block-table entry is 0, so a
@@ -313,9 +315,9 @@ class PagedKVCacheManager(_LaneBook):
     free-first; storage admission is by PAGES: a lane is claimable only
     when :class:`PagePool` can cover the prompt, and the chain grows page
     by page as the request decodes. ``cache`` holds the ``{"key",
-    "value"}`` pools ``[L, num_pages, page_size, heads, head_dim]``;
-    ``tables`` the host block tables the engine uploads when ``version``
-    moves."""
+    "value"}`` pools ``[L, num_pages, page_size, heads, head_dim]`` (and,
+    at int8, their ``key_scale``/``value_scale`` pools); ``tables`` the
+    host block tables the engine uploads when ``version`` moves."""
 
     def __init__(self, model, slots: int, cache_len: int, num_pages: int,
                  page_size: int, device=None):
@@ -340,7 +342,13 @@ class PagedKVCacheManager(_LaneBook):
         self.num_pages = num_pages
         self.pool = PagePool(num_pages, page_size, slots,
                              cache_len // page_size)
-        self.cache: Dict[str, torch.Tensor] = init_decode_cache(model, device)
+        self.cache: Dict[str, torch.Tensor] = init_decode_cache(model,
+                                                               device=device)
+
+    def cache_nbytes(self) -> int:
+        """Bytes of the device pools: K/V values plus, at int8, their
+        fp32 scales."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     @property
     def tables(self) -> np.ndarray:

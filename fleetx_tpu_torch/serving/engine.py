@@ -18,12 +18,13 @@ K/V live in a shared ``[num_pages, page_size, heads, head_dim]`` pool per
 layer; each request holds a block table of page indices, and a refcounted
 prefix trie lets requests sharing whole prompt pages reuse one prefill
 (``cache_manager.py``). Each decode tick's attention runs in the paged
-decode kernel (``ops/decode_attention.py``); prefill attention is the
-dense masked path. Lane state lives on the host and rides each tick as
-three small int tensors; the page pools are updated in place.
+decode kernel (``ops/decode_attention.py``: B8, or B10 when ``kv_dtype``
+is ``"int8"`` and the pools hold int8 K/V with fp32 scales); prefill
+attention is the dense masked path. Lane state lives on the host and rides
+each tick as three small int tensors; the page pools are updated in place.
 
 Not ported yet: the slot cache, chunked prefill, the host/disk page tiers,
-speculative decoding, mesh serving, int8 KV and weights, prefill/decode
+speculative decoding, mesh serving, int8 weights, prefill/decode
 roles and KV export, crash recovery (transactional ticks, replay, poison
 bisection, the watchdog), admission limits and deadlines, cancel, and the
 observability exposition.
@@ -43,7 +44,8 @@ from fleetx_tpu_torch.models.gpt.generation import (
     GenerationConfig,
     _top_p_cutoff_bisect,
 )
-from fleetx_tpu_torch.models.gpt.model import Dense
+from fleetx_tpu_torch.models.gpt.model import inference_params
+from fleetx_tpu_torch.ops.quant import resolve_serving_dtype
 from fleetx_tpu_torch.serving.cache_manager import PagedKVCacheManager
 from fleetx_tpu_torch.serving.metrics import ServingMetrics
 from fleetx_tpu_torch.serving.model_protocol import GPTExecutor
@@ -127,7 +129,8 @@ class ServingEngine:
                  base_seed: int = 0, topk_cap: Optional[int] = None,
                  prefill_bucket: Optional[int] = None,
                  page_size: Optional[int] = None,
-                 num_pages: Optional[int] = None):
+                 num_pages: Optional[int] = None,
+                 kv_dtype: Optional[str] = None):
         self.device = resolve_device(device)
         gen_cfg = gen_cfg or GenerationConfig(decode_strategy="greedy")
         if gen_cfg.repetition_penalty != 1.0:
@@ -147,11 +150,17 @@ class ServingEngine:
         # default pool = every lane's full capacity + the trash page
         self.num_pages = (num_pages or _env_int("FLEETX_SERVING_PAGES", 0)
                           or self.slots * (cache_len // self.page_size) + 1)
+        # KV precision: "bf16" keeps the model's compute dtype, "int8"
+        # stores the pools as int8 with fp32 scales (decode through B10)
+        self.kv_dtype = resolve_serving_dtype(kv_dtype,
+                                              "FLEETX_SERVING_KV_DTYPE")
         cfg = dataclasses.replace(
             model.cfg, decode_cache_len=cache_len,
-            decode_num_pages=self.num_pages, decode_page_size=self.page_size)
+            decode_num_pages=self.num_pages, decode_page_size=self.page_size,
+            decode_kv_dtype="int8" if self.kv_dtype == "int8" else None)
         self.model = type(model)(cfg, device="meta")
-        self.model.load_state_dict(self._serving_params(params), assign=True)
+        self.model.load_state_dict(
+            inference_params(self.model, params, self.device), assign=True)
         self.executor = GPTExecutor(self.model)
         self.capabilities = self.executor.capabilities
         self.topk_cap = topk_cap or _env_int("FLEETX_SERVING_TOPK_CAP", 64)
@@ -164,20 +173,25 @@ class ServingEngine:
         self._tables_version = -1     # refreshed when the pool's moves
         self.scheduler = FIFOScheduler()
         self.metrics = ServingMetrics(self.slots)
+        self.publish_quant_metrics()
         self.base_seed = int(base_seed)
         self._next_id = 0
         self._active: Dict[int, Request] = {}  # slot -> request
         self._results: Dict[int, ServingResult] = {}
         self._now = time.perf_counter
 
-    def _serving_params(self, params) -> Dict[str, torch.Tensor]:
-        """``params`` on the engine's device, fp32, with every
-        :class:`Dense` weight and bias pre-cast to the compute dtype."""
-        dense = {f"{name}.{p}" for name, mod in self.model.named_modules()
-                 if isinstance(mod, Dense) for p in ("weight", "bias")}
-        dtype = self.model.cfg.dtype
-        return {k: v.to(self.device, dtype if k in dense else torch.float32)
-                for k, v in params.items()}
+    def publish_quant_metrics(self) -> None:
+        """Push the KV precision and its byte costs into ``metrics`` (JAX
+        ``_publish_quant_metrics``): the K+V bytes one cached token costs
+        over all layers (one fp32 scale per head vector at int8) and the
+        pools' bytes. Call again after swapping ``engine.metrics``."""
+        cfg = self.model.cfg
+        quant = self.kv_dtype == "int8"
+        item = 1 if quant else torch.empty(0, dtype=cfg.dtype).element_size()
+        per_token = cfg.num_layers * cfg.num_attention_heads * 2 * (
+            cfg.head_dim * item + (4 if quant else 0))
+        self.metrics.set_quant_config(self.kv_dtype, per_token,
+                                      self.cache_manager.cache_nbytes())
 
     # ------------------------------------------------------------ lifecycle
 

@@ -2,9 +2,10 @@
 
 A subset of the JAX package's ``ServingMetrics`` (serving/metrics.py):
 request and token counters, TTFT, request latency, tick time, the prefix-
-cache counters and the page gauges, with :meth:`snapshot` giving the same
-key names. The Prometheus registry, histograms and exposition are not
-ported; latency samples are plain lists.
+cache counters, the page gauges and the KV precision with its byte costs,
+with :meth:`snapshot` giving the same key names. The Prometheus registry,
+histograms and exposition are not ported; latency samples are plain
+lists.
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ class ServingMetrics:
         self.prompt_tokens = 0
         self.pages_in_use = 0
         self.pages_total = 0
+        self.kv_dtype = "bf16"
+        self.kv_bytes_per_token = 0
+        self.kv_cache_bytes = 0
         self.finish_reasons: Dict[str, int] = {}
         self.ttft_s: List[float] = []
         self.latency_s: List[float] = []
@@ -88,6 +92,14 @@ class ServingMetrics:
         self.pages_in_use = pages_in_use
         self.pages_total = pages_total
 
+    def set_quant_config(self, kv_dtype: str, kv_bytes_per_token: int,
+                         kv_cache_bytes: int) -> None:
+        """The engine's KV precision (``bf16`` | ``int8``), the K+V bytes
+        one cached token costs over all layers, and the pools' bytes."""
+        self.kv_dtype = kv_dtype
+        self.kv_bytes_per_token = int(kv_bytes_per_token)
+        self.kv_cache_bytes = int(kv_cache_bytes)
+
     @property
     def retired(self) -> int:
         """Requests retired, any finish_reason."""
@@ -122,4 +134,7 @@ class ServingMetrics:
             "pages_total": self.pages_total,
             "tick_ms_p50": tick_p50,
             "tick_ms_p99": tick_p99,
+            "kv_dtype": self.kv_dtype,
+            "kv_bytes_per_token": self.kv_bytes_per_token,
+            "kv_cache_bytes": self.kv_cache_bytes,
         }

@@ -49,6 +49,41 @@ def paged_case(page_size, *, b=4, h=2, d=16, n_logical=6, seed=0):
     return q, k, v, tables, starts, ends
 
 
+def contiguous_case(cache_len, *, b=4, h=2, d=16, seed=0, scalar_end=None):
+    """A contiguous cache ``[b, cache_len, h, d]`` with windows covering
+    every edge: the full cache, ``end=1``, a window with ``starts > 0``
+    ending on a tile border (8 and 256 both divide ``cache_len // 2`` when
+    it is a multiple of 256), and a random one. ``scalar_end`` gives every
+    row that one end (the one-shot ``generate()`` layout), with starts at
+    or below it. Every slot outside a row's window holds garbage."""
+    rng = np.random.RandomState(seed)
+    if scalar_end is None:
+        ends = np.array([cache_len, 1, 8 * (cache_len // 16),
+                         rng.randint(2, cache_len)], np.int32)[:b]
+    else:
+        ends = np.full(b, scalar_end, np.int32)
+    starts = np.minimum(np.array([0, 0, 3, rng.randint(0, 9)], np.int32)[:b],
+                        ends - 1)
+    q = rng.randn(b, 1, h, d).astype(np.float32)
+    k = rng.randn(b, cache_len, h, d).astype(np.float32)
+    v = rng.randn(b, cache_len, h, d).astype(np.float32)
+    pos = np.arange(cache_len)
+    dead = (pos[None] < starts[:, None]) | (pos[None] >= ends[:, None])
+    k[dead] = GARBAGE
+    v[dead] = -GARBAGE
+    return q, k, v, starts, (scalar_end if scalar_end is not None else ends)
+
+
+def quantize_np(x):
+    """Per-vector absmax int8 of ``x`` [..., d] with fp32 scales [..., 1],
+    as ``ops/quant.quantize_kv`` computes it (numpy rounds half to even
+    too); garbage slots stay large and finite after dequantization."""
+    x = np.asarray(x, np.float32)
+    scale = np.abs(x).max(-1, keepdims=True) / np.float32(127.0)
+    q = np.clip(np.round(x / np.maximum(scale, np.float32(1e-12))), -127, 127)
+    return q.astype(np.int8), scale.astype(np.float32)
+
+
 def _torch(x, dtype=None):
     t = torch.from_numpy(np.ascontiguousarray(x))
     return t if dtype is None else t.to(dtype)
@@ -57,6 +92,12 @@ def _torch(x, dtype=None):
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+def _launched(before):
+    """Kernel launches since the snapshot ``before`` of ``da.launches``."""
+    return {n: da.launches[n] - before[n] for n in da.NAMES
+            if da.launches[n] != before[n]}
 
 
 @pytest.mark.cuda
@@ -70,13 +111,93 @@ def test_paged_decode_kernel_matches_plain_version(head_dim, dtype):
         args = [_torch(x, dtype).cuda() for x in (q, k, v)]
         kw = dict(tables=_torch(tables).cuda(), end=_torch(ends).cuda(),
                   starts=_torch(starts).cuda())
-        before = da.launches
+        before = dict(da.launches)
         got = da.paged_decode_attention(*args, **kw)
         torch.cuda.synchronize()
-        assert da.launches == before + 1
+        assert _launched(before) == {"paged_decode": 1}
         want = da.paged_decode_attention_ref(*args, **kw)
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["B7", "B9"])
+def test_contiguous_decode_kernels_match_plain_versions(head_dim, dtype,
+                                                        quant):
+    """B7 and B9 on caches whose ``fit_decode_blocks`` tile is 8 (296 =
+    8 x 37) and 256 (512), with per-row and scalar ends."""
+    _need_card()
+    for cache_len, scalar_end in ((296, None), (512, None), (296, 201),
+                                  (512, 300)):
+        assert da.fit_decode_blocks(cache_len)[0] == (
+            8 if cache_len == 296 else 256)
+        q, k, v, starts, ends = contiguous_case(
+            cache_len, d=head_dim, scalar_end=scalar_end)
+        kw = dict(end=ends if scalar_end else _torch(ends).cuda(),
+                  starts=_torch(starts).cuda())
+        if quant:
+            (k, ks), (v, vs) = quantize_np(k), quantize_np(v)
+            kw.update(k_scale=_torch(ks).cuda(), v_scale=_torch(vs).cuda())
+            k, v = _torch(k).cuda(), _torch(v).cuda()
+        else:
+            k, v = _torch(k, dtype).cuda(), _torch(v, dtype).cuda()
+        q = _torch(q, dtype).cuda()
+        before = dict(da.launches)
+        got = da.decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"decode_q8" if quant else "decode": 1}
+        want = da.decode_attention_ref(q, k, v, **kw)
+        assert got.abs().max() < 10  # no garbage leaked into the output
+        gaps = da.decode_gaps(got, want)
+        assert gaps["ok"], gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_q8_kernel_matches_plain_version(head_dim, dtype):
+    """B10: the paged kernel over int8 pools and their fp32 scale pools."""
+    _need_card()
+    for page_size in (8, 16):
+        q, k, v, tables, starts, ends = paged_case(page_size, d=head_dim)
+        (k, ks), (v, vs) = quantize_np(k), quantize_np(v)
+        args = [_torch(q, dtype).cuda(), _torch(k).cuda(), _torch(v).cuda()]
+        kw = dict(tables=_torch(tables).cuda(), end=_torch(ends).cuda(),
+                  starts=_torch(starts).cuda(), k_scale=_torch(ks).cuda(),
+                  v_scale=_torch(vs).cuda())
+        before = dict(da.launches)
+        got = da.paged_decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"paged_decode_q8": 1}
+        want = da.paged_decode_attention_ref(*args, **kw)
+        gaps = da.decode_gaps(got, want)
+        assert gaps["ok"], gaps
+
+
+@pytest.mark.cuda
+def test_decode_kernels_reject_what_they_do_not_take():
+    """On the card a contract violation raises before any launch: a page
+    wider than the kernels tile, a cache no 8-row tile divides, and int8
+    K/V without scales."""
+    _need_card()
+    q, k, v, tables, _, ends = paged_case(8)
+    wide = np.repeat(k, 64, axis=1)  # 512-position pages
+    before = dict(da.launches)
+    with pytest.raises(ValueError):
+        da.paged_decode_attention(
+            _torch(q).cuda(), _torch(wide).cuda(), _torch(wide).cuda(),
+            tables=_torch(tables).cuda(), end=_torch(ends).cuda())
+    q, k, v, starts, ends = contiguous_case(512)
+    q, k, v = (_torch(x).cuda() for x in (q, k, v))
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k[:, :500].contiguous(),
+                            v[:, :500].contiguous(), end=_torch(ends).cuda())
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k.to(torch.int8), v.to(torch.int8),
+                            end=_torch(ends).cuda())
+    assert _launched(before) == {}
 
 
 @pytest.mark.cuda
@@ -111,13 +232,130 @@ def test_cuda_engine_decodes_through_the_kernel(monkeypatch):
         out = engine.drain()
         return [out[i].tokens.tolist() for i in range(len(prompts))], ticks
 
-    da.launches = 0
+    before = dict(da.launches)
     got, ticks = serve()
-    assert da.launches == ticks * cfg.num_layers and ticks > 0
+    assert _launched(before) == {"paged_decode": ticks * cfg.num_layers}
+    assert ticks > 0
     monkeypatch.setattr(gpt_model, "paged_decode_attention",
                         da.paged_decode_attention_ref)
     want, _ = serve()
     assert got == want
+
+
+def _tiny_cuda_cfg(**kw):
+    from fleetx_tpu_torch.models.gpt.model import GPTConfig
+
+    return GPTConfig(vocab_size=61, hidden_size=64, num_layers=2,
+                     num_attention_heads=2, ffn_hidden_size=128,
+                     max_position_embeddings=128, dtype=torch.float32, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_engine_decodes_through_b10(monkeypatch):
+    """A tiny fp32 engine at ``kv_dtype="int8"`` on the card: every decode
+    tick launches B10 once per layer (and never B8), its pools are int8
+    with fp32 scale pools, and its greedy streams equal an engine whose
+    decode attention is the plain version."""
+    _need_card()
+    from fleetx_tpu_torch.models.gpt.convert import init_params
+    from fleetx_tpu_torch.models.gpt.generation import GenerationConfig
+    from fleetx_tpu_torch.models.gpt.model import GPTForPretraining
+    from fleetx_tpu_torch.serving import ServingEngine
+
+    cfg = _tiny_cuda_cfg()
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 61, n) for n in (5, 17, 40)]
+
+    def serve():
+        engine = ServingEngine(GPTForPretraining(cfg, device="meta"),
+                               init_params(cfg, seed=0), slots=2,
+                               cache_len=64, page_size=8, kv_dtype="int8",
+                               gen_cfg=GenerationConfig(
+                                   decode_strategy="greedy",
+                                   eos_token_id=-1))
+        assert engine.cache_manager.cache["key"].dtype == torch.int8
+        assert engine.cache_manager.cache["key_scale"].dtype == torch.float32
+        for p in prompts:
+            engine.submit(p, max_length=12)
+        ticks = 0
+        while engine.scheduler.queue_depth or engine.cache_manager.active_count:
+            ticks += engine.step()["decoded"] > 0
+        out = engine.drain()
+        assert engine.cache_manager.pages_in_use == 0
+        return [out[i].tokens.tolist() for i in range(len(prompts))], ticks
+
+    before = dict(da.launches)
+    got, ticks = serve()
+    assert _launched(before) == {"paged_decode_q8": ticks * cfg.num_layers}
+    assert ticks > 0
+    monkeypatch.setattr(gpt_model, "paged_decode_attention",
+                        da.paged_decode_attention_ref)
+    want, _ = serve()
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["B7", "B9"])
+def test_cuda_generate_launches_the_decode_kernel_per_layer_and_step(
+        kv, monkeypatch):
+    """One-shot ``generate()`` of a tiny fp32 model on the card: each
+    decode step launches B7 (B9 at int8) once per layer, and the greedy
+    tokens equal a run whose decode attention is the plain version."""
+    _need_card()
+    from fleetx_tpu_torch.models.gpt import generation as gen
+    from fleetx_tpu_torch.models.gpt.convert import init_params
+    from fleetx_tpu_torch.models.gpt.model import GPTForPretraining
+
+    cfg = _tiny_cuda_cfg(use_flash_attention=True, decode_kv_dtype=kv)
+    model = GPTForPretraining(cfg, device="meta")
+    model.load_state_dict(init_params(cfg, seed=0), assign=True)
+    rng = np.random.RandomState(2)
+    ids = torch.tensor(rng.randint(0, 61, (3, 11)))
+    mask = torch.ones(3, 11, dtype=torch.int32)
+    mask[1, :4] = 0
+    gcfg = gen.GenerationConfig(decode_strategy="greedy", max_length=9,
+                                eos_token_id=-1)
+    steps = []
+    step = gen.decode_step
+    monkeypatch.setattr(gen, "decode_step",
+                        lambda *a, **k: steps.append(1) or step(*a, **k))
+    before = dict(da.launches)
+    got = gen.generate(model, ids, gcfg, attention_mask=mask)
+    name = "decode" if kv is None else "decode_q8"
+    assert _launched(before) == {name: (len(steps) - 1) * cfg.num_layers}
+    assert len(steps) == 9  # the prefill and 8 decode steps
+    monkeypatch.setattr(gpt_model, "decode_attention",
+                        da.decode_attention_ref)
+    want = gen.generate(model, ids, gcfg, attention_mask=mask)
+    assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_steps_take_the_kernel_or_raise():
+    """On the card a model without ``use_flash_attention`` still decodes
+    through B7 (its cache rounded up to the 8-row tile), and a key mask the
+    kernel cannot read raises instead of taking the dense path."""
+    _need_card()
+    from fleetx_tpu_torch.models.gpt import generation as gen
+    from fleetx_tpu_torch.models.gpt.convert import init_params
+    from fleetx_tpu_torch.models.gpt.model import GPTForPretraining
+
+    cfg = _tiny_cuda_cfg(use_flash_attention=False)
+    model = GPTForPretraining(cfg, device="meta")
+    model.load_state_dict(init_params(cfg, seed=0), assign=True)
+    ids = torch.tensor(np.random.RandomState(3).randint(0, 61, (2, 7)))
+    gcfg = gen.GenerationConfig(decode_strategy="greedy", max_length=6,
+                                eos_token_id=-1)
+    assert gen.right_size_decode_cache(model, 13) == 16
+    before = dict(da.launches)
+    gen.generate(model, ids, gcfg)
+    assert _launched(before) == {"decode": 5 * cfg.num_layers}
+    cache = gen.init_decode_cache(model, 2, cache_len=16)
+    mask = torch.ones(2, 1, 1, 8, dtype=torch.bool, device="cuda")
+    gen.decode_step(model, cache, ids.cuda(), torch.arange(7).cuda()[None])
+    with pytest.raises(ValueError, match="key mask"):
+        gen.decode_step(model, cache, ids[:, :1].cuda(),
+                        torch.full((2, 1), 7).cuda(), mask)
 
 
 def flash_case(d, *, b=2, s=192, h=3, seed=0, kv_lens=None, dtype=None):

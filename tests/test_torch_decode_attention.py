@@ -1,9 +1,11 @@
-"""Paged decode attention of the PyTorch port against the JAX package.
+"""Decode attention of the PyTorch port against the JAX package.
 
-The port's plain version ``paged_decode_attention_ref`` is held against
-the Pallas paged kernel ``flash_decode_paged_attention`` (run in interpret
-mode on the CPU) on the same numpy inputs. The CUDA kernel itself is held
-against the plain version on the card, in ``test_torch_cuda.py``.
+The port's plain versions are held against the Pallas kernels (run in
+interpret mode on the CPU) on the same numpy inputs: ``decode_attention_ref``
+against ``flash_decode_attention`` (B7, and B9 with int8 K/V and scales),
+``paged_decode_attention_ref`` against ``flash_decode_paged_attention``
+(B8, and B10 with int8 pools and scale pools). The CUDA kernels themselves
+are held against the plain versions on the card, in ``test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -13,10 +15,148 @@ import torch
 import jax.numpy as jnp
 
 from fleetx_tpu.ops.pallas.decode_attention import (
+    fit_decode_blocks as jax_fit_decode_blocks,
+)
+from fleetx_tpu.ops.pallas.decode_attention import (
+    flash_decode_attention,
     flash_decode_paged_attention,
 )
 from fleetx_tpu_torch.ops import decode_attention as da
-from test_torch_cuda import _torch, paged_case
+from test_torch_cuda import _torch, contiguous_case, paged_case, quantize_np
+
+# fp32: summation order only; bf16: both round p against the same per-tile
+# running max, and one bf16 ulp at |out| < 1 covers an fp32 sum landing on
+# the other side of a rounding tie
+PALLAS_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+
+
+@pytest.mark.parametrize("cache_len,block_k", [(296, 8), (512, 256)])
+@pytest.mark.parametrize("end_kind", ["rows", "scalar"])
+@pytest.mark.parametrize("quant", [False, True], ids=["B7", "B9"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contiguous_plain_version_matches_pallas_kernel(
+        cache_len, block_k, end_kind, quant, dtype):
+    """Windows with ``starts > 0``, ``end=1``, ends on tile borders, and
+    garbage outside every window; ``fit_decode_blocks`` tiles 296 = 8 x 37
+    at 8 and 512 at 256, as the JAX function does."""
+    assert da.fit_decode_blocks(cache_len) == jax_fit_decode_blocks(
+        cache_len)
+    assert da.fit_decode_blocks(cache_len)[0] == block_k
+    q, k, v, starts, ends = contiguous_case(
+        cache_len, scalar_end=None if end_kind == "rows" else 201)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jkw = dict(end=jnp.asarray(ends), starts=jnp.asarray(starts))
+    tkw = dict(end=ends if end_kind == "scalar" else _torch(ends),
+               starts=_torch(starts))
+    if quant:
+        (k, ks), (v, vs) = quantize_np(k), quantize_np(v)
+        jkw.update(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        tkw.update(k_scale=_torch(ks), v_scale=_torch(vs))
+        jk, jv, tk, tv = jnp.asarray(k), jnp.asarray(v), _torch(k), _torch(v)
+    else:
+        jk, jv = jnp.asarray(k, jdt), jnp.asarray(v, jdt)
+        tk, tv = _torch(k, tdt), _torch(v, tdt)
+    want = flash_decode_attention(jnp.asarray(q, jdt), jk, jv, **jkw)
+    got = da.decode_attention_ref(_torch(q, tdt), tk, tv, **tkw)
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=PALLAS_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_q8_plain_version_matches_pallas_kernel(page_size, dtype):
+    """B10: int8 pools with fp32 scale pools gathered through the table."""
+    q, k, v, tables, starts, ends = paged_case(page_size, seed=2)
+    (k, ks), (v, vs) = quantize_np(k), quantize_np(v)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = flash_decode_paged_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k), jnp.asarray(v),
+        tables=jnp.asarray(tables), end=jnp.asarray(ends),
+        starts=jnp.asarray(starts), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    got = da.paged_decode_attention_ref(
+        _torch(q, tdt), _torch(k), _torch(v), tables=_torch(tables),
+        end=_torch(ends), starts=_torch(starts), k_scale=_torch(ks),
+        v_scale=_torch(vs))
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=PALLAS_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["B7", "B9"])
+def test_contiguous_wrapper_takes_plain_version_on_cpu(quant):
+    q, k, v, starts, ends = contiguous_case(64, seed=3)
+    kw = dict(end=_torch(ends), starts=_torch(starts))
+    if quant:
+        (k, ks), (v, vs) = quantize_np(k), quantize_np(v)
+        kw.update(k_scale=_torch(ks), v_scale=_torch(vs))
+    args = (_torch(q), _torch(k), _torch(v))
+    before = dict(da.launches)
+    got = da.decode_attention(*args, **kw)
+    assert da.launches == before
+    torch.testing.assert_close(got, da.decode_attention_ref(*args, **kw),
+                               rtol=0, atol=0)
+
+
+def test_paged_q8_wrapper_takes_plain_version_on_cpu():
+    q, k, v, tables, starts, ends = paged_case(8, seed=4)
+    (k, ks), (v, vs) = quantize_np(k), quantize_np(v)
+    args = (_torch(q), _torch(k), _torch(v))
+    kw = dict(tables=_torch(tables), end=_torch(ends), starts=_torch(starts),
+              k_scale=_torch(ks), v_scale=_torch(vs))
+    before = dict(da.launches)
+    got = da.paged_decode_attention(*args, **kw)
+    assert da.launches == before
+    torch.testing.assert_close(
+        got, da.paged_decode_attention_ref(*args, **kw), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", [
+    "one_scale", "int8_without_scales", "scales_without_int8",
+    "scale_dtype", "scale_shape", "cache_len", "head_dim", "ends",
+    "q_len"])
+def test_contiguous_wrapper_rejects_what_the_kernels_do_not_take(bad):
+    q, k, v, starts, ends = contiguous_case(64)
+    (k8, ks), (v8, vs) = quantize_np(k), quantize_np(v)
+    q, k, v, k8, v8, ks, vs = (_torch(x) for x in (q, k, v, k8, v8, ks, vs))
+    kw = dict(end=_torch(ends), starts=_torch(starts))
+    args = [q, k8, v8]
+    kw.update(k_scale=ks, v_scale=vs)
+    if bad == "one_scale":
+        kw["v_scale"] = None
+    elif bad == "int8_without_scales":
+        kw.update(k_scale=None, v_scale=None)
+    elif bad == "scales_without_int8":
+        args = [q, k, v]
+    elif bad == "scale_dtype":
+        kw["k_scale"] = ks.double()
+    elif bad == "scale_shape":
+        kw["v_scale"] = vs[:, :32].contiguous()
+    elif bad == "cache_len":
+        args = [q, k8[:, :60].contiguous(), v8[:, :60].contiguous()]
+        kw.update(k_scale=ks[:, :60].contiguous(),
+                  v_scale=vs[:, :60].contiguous())
+    elif bad == "head_dim":
+        args = [x[..., :8].contiguous() for x in args]
+    elif bad == "ends":
+        kw["end"] = kw["end"][:2]
+    elif bad == "q_len":
+        args[0] = q.expand(-1, 2, -1, -1).contiguous()
+    with pytest.raises(ValueError):
+        da.decode_attention(*args, **kw)
+
+
+def test_fit_decode_blocks_matches_jax():
+    for cache_len in (8, 40, 64, 200, 296, 512, 712, 1000, 1024, 2048, 12):
+        assert da.fit_decode_blocks(cache_len) == jax_fit_decode_blocks(
+            cache_len), cache_len
+        for want in (8, 64, 512):
+            assert da.fit_decode_blocks(cache_len, want) == \
+                jax_fit_decode_blocks(cache_len, want), (cache_len, want)
+
 
 @pytest.mark.parametrize("page_size", [8, 16])
 @pytest.mark.parametrize("dtype,atol", [
@@ -44,7 +184,7 @@ def test_plain_version_matches_pallas_kernel(page_size, dtype, atol):
 
 def test_wrapper_takes_plain_version_on_cpu_without_launching():
     q, k, v, tables, starts, ends = paged_case(8, seed=1)
-    before = da.launches
+    before = dict(da.launches)
     got = da.paged_decode_attention(_torch(q), _torch(k), _torch(v),
                                     tables=_torch(tables), end=_torch(ends),
                                     starts=_torch(starts))
@@ -86,3 +226,26 @@ def test_paged_gather_kv_matches_jax():
     want = np.asarray(jax_gather(jnp.asarray(k), jnp.asarray(tables)))
     got = da.paged_gather_kv(_torch(k), _torch(tables)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fault", ["p not rounded", "p against the final max"])
+def test_decode_limit_passes_one_ulp_and_catches_rounding_faults(fault):
+    """``DECODE_TOL`` at bf16, which holds B7/B9/B10 against their plain
+    version on the card: one output moved by one ulp passes; the plain
+    version with p rounded at another point (kept in fp32, or against the
+    final max instead of each 8-wide tile's) moves too many outputs."""
+    q, k, v, starts, ends = contiguous_case(296)
+    q, k, v = (_torch(x, torch.bfloat16) for x in (q, k, v))
+    kw = dict(end=_torch(ends), starts=_torch(starts))
+    want = da.decode_attention_ref(q, k, v, **kw)
+    moved = want.clone()
+    moved.view(torch.int16).view(-1)[7] += 1  # the next bf16 value
+    gaps = da.decode_gaps(moved, want)
+    assert gaps["ok"] and 0 < gaps["moved_share"] <= 1 / want.numel()
+    if fault == "p not rounded":
+        bad = da._window_attention(q.float(), k.float(), v.float(),
+                                   block_k=8, **kw).to(torch.bfloat16)
+    else:
+        bad = da._window_attention(q, k, v, block_k=296, **kw)
+    gaps = da.decode_gaps(bad, want)
+    assert not gaps["ok"] and gaps["moved_share"] > 0.05, gaps

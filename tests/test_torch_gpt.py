@@ -126,20 +126,26 @@ def _zero_tree(cfg):
 def test_paged_prefill_and_decode_match_jax(flash, monkeypatch):
     """Two prompts prefilled batch-1 into their own pages (bucket-padded
     like the engine), then three batched decode steps over both rows and a
-    free third row whose writes go to the trash page."""
+    free third row whose writes go to the trash page. Both models take the
+    paged decode kernel exactly when ``use_flash_attention`` is on."""
     from fleetx_tpu.ops.pallas import decode_attention as pallas_da
+    from fleetx_tpu_torch.models.gpt import model as gpt_model
 
     if flash:
         monkeypatch.setenv("FLEETX_FORCE_FLASH", "1")
-    calls = []
+    calls, port_calls = [], []
     real = pallas_da.flash_decode_paged_attention
     monkeypatch.setattr(pallas_da, "flash_decode_paged_attention",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
+    port_real = gpt_model.paged_decode_attention
+    monkeypatch.setattr(gpt_model, "paged_decode_attention",
+                        lambda *a, **k: port_calls.append(1)
+                        or port_real(*a, **k))
     decode = dict(decode_cache_len=32, decode_num_pages=9,
                   decode_page_size=PAGE)
     tree = tiny_params(seed=1)
     jm = tiny_jax_model(use_flash=flash, **decode)
-    tm = tiny_torch_model(tree, **decode)
+    tm = tiny_torch_model(tree, use_flash_attention=flash, **decode)
     tables = np.array([[1, 2, 3, 0], [4, 5, 6, 0], [0, 0, 0, 0]], np.int32)
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, 61, 11), rng.randint(0, 61, 5)]
@@ -174,11 +180,40 @@ def test_paged_prefill_and_decode_match_jax(flash, monkeypatch):
         np.testing.assert_allclose(tl[:2], jl[:2], atol=2e-5, rtol=1e-5)
         lengths[:2] += 1
     assert (len(calls) > 0) == flash
+    assert len(port_calls) == (3 * 2 if flash else 0)  # 3 steps x 2 layers
     jpool = jcache["gpt"]["layers"]["layer"]["attn"]
     for name, jname in (("key", "cached_key"), ("value", "cached_value")):
         np.testing.assert_allclose(tcache[name][:, 1:].numpy(),
                                    np.asarray(jpool[jname])[:, 1:],
                                    atol=2e-5, rtol=1e-5)
+
+
+def test_decode_steps_on_the_card_take_the_kernels_or_raise():
+    """On the card a single-query step never takes the dense path: it
+    takes the decode kernels whatever ``use_flash_attention`` says, and a
+    key mask they cannot read raises. On the CPU the JAX model's choice
+    holds: the kernels' plain version under ``use_flash_attention`` with a
+    readable mask over a buffer an 8-row tile divides, else dense."""
+    from fleetx_tpu_torch.models.gpt.model import SelfAttention
+
+    dense = SelfAttention(GPTConfig(**TINY, use_flash_attention=False),
+                          device="meta")
+    flash = SelfAttention(GPTConfig(**TINY), device="meta")
+    mask = torch.ones(2, 1, 1, 32, dtype=torch.bool)
+    for attn in (dense, flash):
+        assert attn._takes_decode_kernel(True, mask, 32)
+        assert attn._takes_decode_kernel(True, None, 36)  # wrapper raises
+        assert attn._takes_decode_kernel(True, None, 64, page_size=8)
+        for bad in (torch.ones(2, 1, 3, 32, dtype=torch.bool),
+                    torch.ones(2, 1, 1, 16, dtype=torch.bool)):
+            with pytest.raises(ValueError, match="key mask"):
+                attn._takes_decode_kernel(True, bad, 32)
+    assert not dense._takes_decode_kernel(False, mask, 32)
+    assert flash._takes_decode_kernel(False, mask, 32)
+    assert flash._takes_decode_kernel(False, None, 64, page_size=8)
+    assert not flash._takes_decode_kernel(False, None, 36)
+    assert not flash._takes_decode_kernel(
+        False, torch.ones(2, 1, 1, 16, dtype=torch.bool), 32)
 
 
 def test_decode_cache_layout():

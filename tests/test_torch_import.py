@@ -52,6 +52,18 @@ def test_gate_covers_the_training_slice():
     assert (PKG / "ops" / "csrc" / "flash_attention.cu").is_file()
 
 
+def test_gate_covers_the_generation_slice():
+    """Likewise for one-shot generation and int8 KV: the quantization
+    helpers, the generation module, the decode kernels' wrapper and its
+    CUDA source."""
+    mods = set(_modules())
+    for name in ("ops.quant", "ops.decode_attention", "models.gpt.generation",
+                 "models.language_module_generation", "serving.engine",
+                 "serving.cache_manager", "serving.metrics"):
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    assert (PKG / "ops" / "csrc" / "decode_attention.cu").is_file()
+
+
 @pytest.mark.parametrize(
     "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))

@@ -100,6 +100,57 @@ def test_greedy_streams_match_jax_engine(weights):
                                            for r in got.values())
 
 
+def test_int8_kv_streams_match_jax_int8_engine(weights, monkeypatch):
+    """Both engines at ``kv_dtype="int8"``; the JAX one decodes through its
+    Pallas int8 paged kernel (interpret mode), the port's through B10's
+    plain version. Greedy streams are byte-identical, the shared prefix is
+    reused, no page leaks, and the KV byte gauges match the JAX ones."""
+    tree, cfg, _ = weights
+    monkeypatch.setenv("FLEETX_FORCE_FLASH", "1")
+    jax_engine = JaxServingEngine(
+        tiny_jax_model(use_flash=True), tree,
+        gen_cfg=JaxGenerationConfig(decode_strategy="greedy",
+                                    eos_token_id=NO_EOS),
+        paged=True, kv_dtype="int8", **ENGINE)
+    requests = _requests()
+    want = _serve(jax_engine, requests)
+    port = _port_engine(weights, kv_dtype="int8")
+    got = _serve(port, requests)
+    assert sorted(got) == sorted(want) == list(range(5))
+    for rid in want:
+        np.testing.assert_array_equal(got[rid].tokens, want[rid].tokens,
+                                      err_msg=f"request {rid}")
+        assert got[rid].finish_reason == want[rid].finish_reason, rid
+    assert len(set(got[3].tokens.tolist())) > 1
+    snap, ref = port.metrics.snapshot(), jax_engine.metrics.snapshot()
+    assert snap["prefix_hits"] == ref["prefix_hits"] == 1
+    assert port.cache_manager.pages_in_use == 0
+    port.cache_manager.pool.check_invariants()
+    assert snap["kv_dtype"] == ref["kv_dtype"] == "int8"
+    assert snap["kv_bytes_per_token"] == ref["kv_bytes_per_token"]
+    # the JAX tree also holds one int32 cache_index per layer
+    assert snap["kv_cache_bytes"] == ref["kv_cache_bytes"] - 4 * cfg.num_layers
+    full = _port_engine(weights).metrics.snapshot()
+    d = cfg.head_dim
+    assert full["kv_dtype"] == "bf16"  # the model's own (here fp32) dtype
+    assert snap["kv_cache_bytes"] * (4 * d) == full["kv_cache_bytes"] * (d + 4)
+
+
+def test_kv_dtype_env_var_is_honored(weights, monkeypatch):
+    monkeypatch.setenv("FLEETX_SERVING_KV_DTYPE", "int8")
+    engine = _port_engine(weights)
+    assert engine.kv_dtype == "int8"
+    cache = engine.cache_manager.cache
+    assert set(cache) == {"key", "value", "key_scale", "value_scale"}
+    assert cache["key"].dtype == torch.int8
+    assert cache["value_scale"].dtype == torch.float32
+    assert cache["key_scale"].shape == (*cache["key"].shape[:-1], 1)
+    assert _port_engine(weights, kv_dtype="bf16").kv_dtype == "bf16"
+    monkeypatch.setenv("FLEETX_SERVING_KV_DTYPE", "fp8")
+    with pytest.raises(ValueError, match="FLEETX_SERVING_KV_DTYPE"):
+        _port_engine(weights)
+
+
 def test_min_length_bans_eos_like_jax(weights):
     """EOS = the request's own first greedy token, banned for 3 tokens;
     an out-of-vocab EOS never matches."""
@@ -219,6 +270,9 @@ def test_engine_without_device_needs_cuda(weights, monkeypatch):
     _, cfg, params = weights
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(GPTForPretraining(cfg, device="meta"), params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(GPTForPretraining(cfg, device="meta"), params,
+                      kv_dtype="int8")
     from fleetx_tpu_torch.models.gpt.convert import init_params
 
     with pytest.raises(RuntimeError, match="CUDA"):
