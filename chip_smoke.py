@@ -23,7 +23,8 @@ decode steps after phase 10):
 6. flash     — the three flash-attention kernels (forward, dQ, dK/dV) each
                against its plain version at GPT-345M training shapes (b 8,
                h 16, s 1024, d 64, causal; bf16 and fp32; dropout 0 and
-               0.1), with kernel, plain, library and bound times;
+               0.1) and at GPT-1.3B's (d 128, bf16), with kernel, plain,
+               library and bound times;
 7. train     — ``Trainer.fit`` through ``build_module``/``build_dataloader``
                on ``pretrain_gpt_345M_single_card.yaml`` (24 layers, batch 8,
                seq 1024, bf16, dropout 0.1) over a seeded synthetic corpus:
@@ -53,11 +54,36 @@ decode steps after phase 10):
 11. int8     — phase 4's requests through a ``ServingEngine`` at
                ``kv_dtype="int8"``: B10 launches ticks x 24 times, the
                prefix is reused, no page leaks, and the pools take
-               (d + 4) / 2d of the bf16 engine's bytes.
+               (d + 4) / 2d of the bf16 engine's bytes;
+12. ce       — the fused LM-head cross-entropy kernels B4 (forward), B5
+               (dh) and B6 (dW) each against its plain version at GPT-1.3B
+               training shapes (8192 tokens, hidden 2048, vocab 50304,
+               bf16) and at a small fp32 case, labels including -1 and both
+               vocab ends, with kernel, plain, library and bound times;
+               three planted faults made through the plain version must
+               each break the bf16 limit;
+13. train-1.3b — ``Trainer.fit`` through ``build_module``/``build_dataloader``
+               on ``pretrain_gpt_1.3B_single_card.yaml`` with
+               ``Model.fused_ce=True`` (24 layers, hidden 2048, 16 heads of
+               128, batch 8, seq 1024, bf16, dropout 0.1, full recompute)
+               for 20 steps, evaluating every 10 steps over 2 batches of
+               the Eval split: B4 launches steps + eval batches times, B5
+               and B6 steps times, B1 24 x (2 steps + eval batches), B2 and
+               B3 24 x steps; every loss finite and falling; step ms,
+               tokens/s, MFU and peak memory printed;
+14. train-1.3b-e2e — one train step of that config cut to 4 layers, on two
+               batches, through the kernels, through the plain versions of
+               B1-B6, through the logits path, without recompute and with
+               layer 0 opted out of it: all agree within limits, the fused
+               path's peak memory lies at least one fp32 logits tensor
+               below the logits path's, and two planted kernel-path faults
+               (B6 without the one-hot term, B4 given labels + 1) must each
+               break a limit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs CUDA: without it the script exits
-non-zero before any phase runs.
+non-zero before any phase runs. ``--profile`` also breaks down the 1.3B
+train steps after phase 13.
 """
 
 from __future__ import annotations
@@ -92,6 +118,7 @@ from fleetx_tpu_torch.core.engine import Trainer, peak_flops  # noqa: E402
 from fleetx_tpu_torch.data import build_dataloader  # noqa: E402
 from fleetx_tpu_torch.models import build_module  # noqa: E402
 from fleetx_tpu_torch.ops import _build  # noqa: E402
+from fleetx_tpu_torch.ops import ce_loss as ce  # noqa: E402
 from fleetx_tpu_torch.ops import decode_attention as da  # noqa: E402
 from fleetx_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from fleetx_tpu_torch.ops.quant import (  # noqa: E402
@@ -114,6 +141,14 @@ CONFIG = os.path.join(ROOT,
 TRAIN_CONFIG = os.path.join(ROOT,
                             "configs/nlp/gpt/pretrain_gpt_345M_single_card.yaml")
 TRAIN_STEPS = 30
+TRAIN_13B_CONFIG = os.path.join(
+    ROOT, "configs/nlp/gpt/pretrain_gpt_1.3B_single_card.yaml")
+TRAIN_13B_STEPS = 20
+EVAL_FREQ, EVAL_ITERS = 10, 2  # phase 13 evaluates after steps 10 and 20
+# phase 12: (tokens, hidden, vocab) by dtype: GPT-1.3B's LM head in bf16,
+# a small case for the fp32 (CUDA-core) kernels
+CE_SHAPES = {torch.bfloat16: (8192, 2048, 50304),
+             torch.float32: (1024, 256, 8192)}
 # phase 10: the generation config at bf16 (the yaml itself computes in
 # fp32: use_pure_fp16 False), 8 prompts left-padded to 312 tokens, so the
 # decode cache right-sizes to 312 + 200 = 512 positions (B7 tiles at 256)
@@ -122,6 +157,8 @@ GEN_PROMPT_LENS = (24, 64, 112, 160, 200, 248, 288, 312)
 GEN_SEED = 2024
 # device-time classes of a profile, by kernel-name marks (first match wins)
 PROFILE_CLASSES = (
+    ("fused CE kernels", ("ce_fwd_kernel", "ce_bwd_kernel",
+                          "ce_combine_kernel")),
     ("port kernels", ("flash_", "decode_kernel")),
     ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
     ("optimizer", ("multi_tensor", "fused_adam", "FusedAdam")),
@@ -135,6 +172,10 @@ PROFILE_CLASSES = (
 # are in PERF.md (sound: 5.7e-6, 1.0e-4, 7.8e-3; faults: 1.1e-3, 6.9e-4,
 # 9.2e-2)
 TRAIN_E2E_TOL = {"loss": 1e-4, "grad_norm": 3e-4, "grad_leaf": 3e-2}
+# phase 14 limits, the same three metrics for the 4-layer GPT-1.3B step
+# (kernels vs plain versions of B1-B6, fused vs logits path), started
+# from phase 8's
+TRAIN_13B_E2E_TOL = dict(TRAIN_E2E_TOL)
 
 
 def log(phase: str, **fields) -> None:
@@ -180,7 +221,7 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    seconds = _build.build(da.KERNEL, da.DECODE_KERNEL, fa.KERNEL)
+    seconds = _build.build(da.KERNEL, da.DECODE_KERNEL, fa.KERNEL, ce.KERNEL)
     log("build", kernels=",".join(seconds), seconds=round(
         time.perf_counter() - t0, 3))
     for name in seconds:
@@ -552,10 +593,11 @@ def phase_e2e(cfg) -> None:
 # ------------------------------------------------------------------ phase 6
 
 def flash_inputs(dtype, *, b=8, s=1024, h=16, d=64, copies=3, seed=0):
-    """GPT-345M training shapes. Each of ``copies`` sets holds q, k, v as
-    strided views of one fused [b, s, h, 3d] buffer (as the qkv projection
-    hands them to the kernels) and dO; timed launches rotate over the sets
-    so their operands (4 x 16.8 MB in bf16) come cold from HBM."""
+    """GPT-345M (d 64) or GPT-1.3B (d 128) training shapes. Each of
+    ``copies`` sets holds q, k, v as strided views of one fused
+    [b, s, h, 3d] buffer (as the qkv projection hands them to the kernels)
+    and dO; timed launches rotate over the sets so their operands (4 x 16.8
+    MB in bf16 at d 64) come cold from HBM."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     sets = []
     for _ in range(copies):
@@ -590,99 +632,113 @@ def _delta(do, out):
 
 def phase_flash() -> dict:
     """B1, B2 and B3 against their plain versions at GPT-345M training
-    shapes, bf16 and fp32, dropout 0 and 0.1, with kernel, plain, library
-    (SDPA, dropout 0, yardstick only) and bound times. Returns the records
-    of the training drive's case (bf16, dropout 0.1) by kernel name."""
+    shapes (head dim 64; bf16 and fp32) and at GPT-1.3B's (head dim 128,
+    bf16), dropout 0 and 0.1, with kernel, plain, library (SDPA, dropout
+    0, yardstick only) and bound times. Returns the records of the 345M
+    drive's case (bf16, dropout 0.1) by kernel name, each with the 1.3B
+    drive's case under ``"d128"``."""
     records = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        sets = flash_inputs(dtype)
-        lib = library_flash_times(sets)
-        for rate in (0.0, 0.1):
-            kw = dict(causal=True, dropout_rate=rate, seed=-1234567)
-            before = dict(fa.launches)
-            state = []
-            for q, k, v, do in sets:
-                out, lse = fa.flash_fwd(q, k, v, **kw)
-                state.append((out, lse, _delta(do, out)))
-            q, k, v, do = sets[0]
-            out, lse, delta = state[0]
-            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-            torch.cuda.synchronize()
-            want_out, want_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
-            want_dq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
-            want_dk, want_dv = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                                    **kw)
-            lse_err = (lse - want_lse).abs().max().item()
-            atol, rtol = fa.FLASH_TOL[dtype]
-            errs = {"flash_fwd": _max_err(out, want_out),
-                    "flash_bwd_dq": _max_err(dq, want_dq),
-                    "flash_bwd_dkv": max(_max_err(dk, want_dk),
-                                         _max_err(dv, want_dv))}
-            # worst |got - want| / (atol + rtol*|want|): <= 1 passes
-            worst = {"flash_fwd": _tol_ratio(out, want_out, atol, rtol),
-                     "flash_bwd_dq": _tol_ratio(dq, want_dq, atol, rtol),
-                     "flash_bwd_dkv": max(_tol_ratio(dk, want_dk, atol, rtol),
-                                          _tol_ratio(dv, want_dv, atol,
-                                                     rtol))}
-            # the backward plain versions sum in the kernels' FMA order, so
-            # their errors can be exactly 0: show the outputs are not
-            mean_abs = {"flash_fwd": out.float().abs().mean().item(),
-                        "flash_bwd_dq": dq.float().abs().mean().item(),
-                        "flash_bwd_dkv": dk.float().abs().mean().item()}
-            del want_out, want_lse, want_dq, want_dk, want_dv
-            it = iter(range(1 << 30))
+    for d, dtypes in ((64, (torch.bfloat16, torch.float32)),
+                      (128, (torch.bfloat16,))):
+        for dtype in dtypes:
+            for name, rec in flash_cases(dtype, d).items():
+                if d == 64:
+                    records[name] = rec
+                else:
+                    records[name]["d128"] = rec
+    return records
 
-            def pick():
-                i = next(it) % len(sets)
-                return sets[i], state[i]
 
-            calls = {
-                "flash_fwd": (
-                    lambda: fa.flash_fwd(*pick()[0][:3], **kw),
-                    lambda: fa.flash_attention_fwd_ref(*pick()[0][:3], **kw)),
-                "flash_bwd_dq": (
-                    lambda: fa.flash_bwd_dq(*_bwd_args(pick()), **kw),
-                    lambda: fa.flash_bwd_dq_ref(*_bwd_args(pick()), **kw)),
-                "flash_bwd_dkv": (
-                    lambda: fa.flash_bwd_dkv(*_bwd_args(pick()), **kw),
-                    lambda: fa.flash_bwd_dkv_ref(*_bwd_args(pick()), **kw)),
-            }
-            for name, (kernel, plain) in calls.items():
-                kernel_ms = cuda_ms(kernel, iters=30, warmup=3)
-                plain_ms = cuda_ms(plain, iters=3, warmup=1)
-                nbytes, flops = flash_bound(name, q)
-                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-                bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-                library_ms = lib["flash_fwd" if name == "flash_fwd"
-                                 else "backward"]
-                log("flash", name=name, dtype=str(dtype).split(".")[-1],
-                    dropout=rate, max_abs_err=errs[name], atol=atol,
-                    rtol=rtol, tol_ratio=worst[name],
-                    out_mean_abs=mean_abs[name],
-                    kernel_ms=kernel_ms, plain_ms=plain_ms,
-                    library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-                    bound_by=bound_by, bytes=nbytes, flops=flops,
-                    tflops=flops / kernel_ms * 1e-9,
-                    **({"lse_max_abs_err": lse_err}
-                       if name == "flash_fwd" else {}))
-                if not worst[name] <= 1.0:
-                    raise AssertionError(
-                        f"{name} {dtype} dropout {rate}: max abs err "
-                        f"{errs[name]}, {worst[name]} x (atol {atol} + rtol "
-                        f"{rtol} x |plain|)")
-                if name == "flash_fwd" and not lse_err <= 1e-3:
-                    raise AssertionError(f"flash_fwd lse err {lse_err}")
-                if dtype == torch.bfloat16 and rate > 0.0:
-                    records[name] = {
-                        "max_abs_err": errs[name], "ms": kernel_ms,
-                        "plain_ms": plain_ms, "bound_ms": max(bytes_ms,
-                                                              ops_ms),
-                        "bound_by": bound_by, "library_ms": library_ms}
-            fa.launches.update(before)  # checks and timing are not the path
-        del sets
-        torch.cuda.empty_cache()
+def flash_cases(dtype, d: int) -> dict:
+    """Phase 6 at one dtype and head dim; returns the dropout-0.1 records
+    by kernel name."""
+    records = {}
+    sets = flash_inputs(dtype, d=d)
+    lib = library_flash_times(sets)
+    for rate in (0.0, 0.1):
+        kw = dict(causal=True, dropout_rate=rate, seed=-1234567)
+        before = dict(fa.launches)
+        state = []
+        for q, k, v, do in sets:
+            out, lse = fa.flash_fwd(q, k, v, **kw)
+            state.append((out, lse, _delta(do, out)))
+        q, k, v, do = sets[0]
+        out, lse, delta = state[0]
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        want_out, want_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+        want_dq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+        want_dk, want_dv = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                **kw)
+        lse_err = (lse - want_lse).abs().max().item()
+        atol, rtol = fa.FLASH_TOL[dtype]
+        errs = {"flash_fwd": _max_err(out, want_out),
+                "flash_bwd_dq": _max_err(dq, want_dq),
+                "flash_bwd_dkv": max(_max_err(dk, want_dk),
+                                     _max_err(dv, want_dv))}
+        # worst |got - want| / (atol + rtol*|want|): <= 1 passes
+        worst = {"flash_fwd": _tol_ratio(out, want_out, atol, rtol),
+                 "flash_bwd_dq": _tol_ratio(dq, want_dq, atol, rtol),
+                 "flash_bwd_dkv": max(_tol_ratio(dk, want_dk, atol, rtol),
+                                      _tol_ratio(dv, want_dv, atol, rtol))}
+        # the backward plain versions sum in the kernels' FMA order, so
+        # their errors can be exactly 0: show the outputs are not
+        mean_abs = {"flash_fwd": out.float().abs().mean().item(),
+                    "flash_bwd_dq": dq.float().abs().mean().item(),
+                    "flash_bwd_dkv": dk.float().abs().mean().item()}
+        del want_out, want_lse, want_dq, want_dk, want_dv
+        it = iter(range(1 << 30))
+
+        def pick():
+            i = next(it) % len(sets)
+            return sets[i], state[i]
+
+        calls = {
+            "flash_fwd": (
+                lambda: fa.flash_fwd(*pick()[0][:3], **kw),
+                lambda: fa.flash_attention_fwd_ref(*pick()[0][:3], **kw)),
+            "flash_bwd_dq": (
+                lambda: fa.flash_bwd_dq(*_bwd_args(pick()), **kw),
+                lambda: fa.flash_bwd_dq_ref(*_bwd_args(pick()), **kw)),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(*_bwd_args(pick()), **kw),
+                lambda: fa.flash_bwd_dkv_ref(*_bwd_args(pick()), **kw)),
+        }
+        for name, (kernel, plain) in calls.items():
+            kernel_ms = cuda_ms(kernel, iters=30, warmup=3)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            nbytes, flops = flash_bound(name, q)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            library_ms = lib["flash_fwd" if name == "flash_fwd"
+                             else "backward"]
+            log("flash", name=name, dtype=str(dtype).split(".")[-1],
+                head_dim=d, dropout=rate, max_abs_err=errs[name], atol=atol,
+                rtol=rtol, tol_ratio=worst[name],
+                out_mean_abs=mean_abs[name],
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by=bound_by, bytes=nbytes, flops=flops,
+                tflops=flops / kernel_ms * 1e-9,
+                **({"lse_max_abs_err": lse_err}
+                   if name == "flash_fwd" else {}))
+            if not worst[name] <= 1.0:
+                raise AssertionError(
+                    f"{name} {dtype} d {d} dropout {rate}: max abs err "
+                    f"{errs[name]}, {worst[name]} x (atol {atol} + rtol "
+                    f"{rtol} x |plain|)")
+            if name == "flash_fwd" and not lse_err <= 1e-3:
+                raise AssertionError(f"flash_fwd lse err {lse_err}")
+            if dtype == torch.bfloat16 and rate > 0.0:
+                records[name] = {
+                    "max_abs_err": errs[name], "ms": kernel_ms,
+                    "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": bound_by, "library_ms": library_ms}
+        fa.launches.update(before)  # checks and timing are not the path
+    del sets, state
+    torch.cuda.empty_cache()
     return records
 
 
@@ -827,9 +883,10 @@ def phase_train(prefix: str, profile: bool) -> dict:
     return {name: {"launches": launches[name]} for name in fa.NAMES}
 
 
-def phase_train_profile(trainer, loader, steps: int = 3) -> None:
+def phase_train_profile(trainer, loader, steps: int = 3,
+                        phase: str = "train-profile") -> None:
     """``--profile``: device time by kernel over ``steps`` train steps of
-    the phase-7 trainer, and the device's busy share of their wall time."""
+    a drive's trainer, and the device's busy share of their wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = trainer._to_device(next(iter(loader)))
@@ -842,7 +899,7 @@ def phase_train_profile(trainer, loader, steps: int = 3) -> None:
             trainer.train_step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile("train-profile", prof, wall, steps, "step")
+    report_profile(phase, prof, wall, steps, "step")
 
 
 def report_profile(phase, prof, wall, n, unit) -> None:
@@ -879,12 +936,15 @@ def report_profile(phase, prof, wall, n, unit) -> None:
 # ------------------------------------------------------------------ phase 8
 
 def _e2e_step(cfg, batch, fns=None) -> tuple:
-    """One train step of a fresh trainer (seeded init) with the flash
-    wrappers named in ``fns`` swapped for the given functions: (loss, grad
-    norm, the unclipped gradients by parameter name)."""
-    saved = {name: getattr(fa, name) for name in fa.NAMES}
-    for name, fn in (fns or {}).items():
-        setattr(fa, name, fn)
+    """One train step of a fresh trainer (seeded init) with the kernel
+    wrappers named in ``fns`` ({(module, name): function}) swapped for the
+    given functions: (loss, grad norm, the unclipped gradients by parameter
+    name, the step's peak device memory in bytes above what was allocated
+    when it began)."""
+    fns = fns or {}
+    saved = {key: getattr(*key) for key in fns}
+    for (mod, name), fn in fns.items():
+        setattr(mod, name, fn)
     try:
         trainer = Trainer(cfg, build_module(cfg))
         trainer.init_state()
@@ -896,21 +956,27 @@ def _e2e_step(cfg, batch, fns=None) -> tuple:
             return clip(gs)
 
         trainer.clip = capture
-        out = trainer.train_step(trainer._to_device(batch))
+        device_batch = trainer._to_device(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # weights, batch, earlier runs
+        out = trainer.train_step(device_batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
     finally:
-        for name, fn in saved.items():
-            setattr(fa, name, fn)
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
     if len(grads) != len(names):
         raise AssertionError(f"{len(grads)} gradients for {len(names)} "
                              "parameters")
-    return float(out["loss"]), float(out["grad_norm"]), dict(zip(names,
-                                                                 grads))
+    return (float(out["loss"]), float(out["grad_norm"]),
+            dict(zip(names, grads)), peak)
 
 
 def _e2e_gaps(run, ref) -> dict:
     """Gaps of ``run`` from ``ref`` in each metric of TRAIN_E2E_TOL, and
     the gradient leaf with the largest gap."""
-    (loss, norm, grads), (loss0, norm0, grads0) = run, ref
+    (loss, norm, grads, _), (loss0, norm0, grads0, _) = run, ref
     leaf = {n: (torch.linalg.vector_norm((grads[n] - g0).float())
                 / torch.linalg.vector_norm(g0.float())).item()
             for n, g0 in grads0.items() if g0.any()}
@@ -933,10 +999,19 @@ def planted_faults() -> dict:
         _, dv = dkv(*a, **{**kw, "dropout_rate": 0.0})
         return dk, dv
 
-    return {"B1 seed+1": {"flash_fwd": reseed(fwd)},
-            "B2 seed+1": {"flash_bwd_dq": reseed(dq)},
-            "B3 seed+1": {"flash_bwd_dkv": reseed(dkv)},
-            "B3 dV without keep": {"flash_bwd_dkv": dv_without_keep}}
+    return {"B1 seed+1": {(fa, "flash_fwd"): reseed(fwd)},
+            "B2 seed+1": {(fa, "flash_bwd_dq"): reseed(dq)},
+            "B3 seed+1": {(fa, "flash_bwd_dkv"): reseed(dkv)},
+            "B3 dV without keep": {(fa, "flash_bwd_dkv"): dv_without_keep}}
+
+
+# the plain versions of B1-B6, keyed as _e2e_step swaps them in
+PLAIN_FLASH = {(fa, "flash_fwd"): fa.flash_attention_fwd_ref,
+               (fa, "flash_bwd_dq"): fa.flash_bwd_dq_ref,
+               (fa, "flash_bwd_dkv"): fa.flash_bwd_dkv_ref}
+PLAIN_CE = {(ce, "fused_ce_fwd"): ce.fused_ce_fwd_ref,
+            (ce, "fused_ce_dh"): ce.fused_ce_dh_ref,
+            (ce, "fused_ce_dw"): ce.fused_ce_dw_ref}
 
 
 def phase_train_e2e(prefix: str, layers: int = 6) -> None:
@@ -948,12 +1023,9 @@ def phase_train_e2e(prefix: str, layers: int = 6) -> None:
     cfg = train_config(prefix, f"Model.num_layers={layers}")
     loader = iter(build_dataloader(cfg, "Train"))
     batches = [next(loader), next(loader)]
-    plain = {"flash_fwd": fa.flash_attention_fwd_ref,
-             "flash_bwd_dq": fa.flash_bwd_dq_ref,
-             "flash_bwd_dkv": fa.flash_bwd_dkv_ref}
     faults = planted_faults()
     for i, batch in enumerate(batches):
-        ref = _e2e_step(cfg, batch, plain)
+        ref = _e2e_step(cfg, batch, PLAIN_FLASH)
         run = _e2e_step(cfg, batch)
         gaps = _e2e_gaps(run, ref)
         log("train-e2e", layers=layers, batch=i, loss_kernel=run[0],
@@ -1354,6 +1426,368 @@ def phase_int8_serving(bf16_kv_bytes: int) -> dict:
     return {"launches": rec["launches"]}
 
 
+# ----------------------------------------------------------------- phase 12
+
+def ce_inputs(dtype, n: int, e: int, v: int, seed: int = 0) -> tuple:
+    """h [n, E] ~ N(0, 1) (as the final LayerNorm hands it over), W [V, E]
+    ~ N(0, 0.05²) (scores of std ~2 at E 2048), int32 labels with -1, 0,
+    V - 1 and V first, and the masked-mean cotangent g = mask / Σ mask over
+    a random 0/1 mask (zeros included), on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    h = torch.randn(n, e, generator=g, device=DEVICE).to(dtype)
+    w = (torch.randn(v, e, generator=g, device=DEVICE) * 0.05).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=g, device=DEVICE,
+                           dtype=torch.int32)
+    labels[:4] = torch.tensor([-1, 0, v - 1, v], dtype=torch.int32)
+    mask = (torch.rand(n, generator=g, device=DEVICE) > 0.2).float()
+    return h, w, labels, mask / mask.sum()
+
+
+def ce_bound(name: str, h: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(bytes, flops) of one call: h, W and the int32 labels read once
+    (and the fp32 a, b, lse in the backward), the outputs written once
+    (fp32 loss and lse; dh or dW in the operands' dtype); 2 flops per
+    multiply-add of s = h·Wᵀ, and of dl times an operand in the
+    backward."""
+    n, e = h.shape
+    v = w.shape[0]
+    operands = (n + v) * e * h.element_size() + 4 * n
+    product = 2 * n * v * e
+    if name == "ce_fwd":
+        return operands + 8 * n, product
+    out = (n if name == "ce_dh" else v) * e * h.element_size()
+    return operands + 12 * n + out, 2 * product
+
+
+def library_ce_times(h, w, labels, g) -> dict:
+    """The logits path as a sequence of PyTorch calls, a yardstick only:
+    forward = one GEMM with fp32 output, logsumexp and a gather of the
+    label logit; backward = softmax minus the one-hot times g, the cast to
+    the operands' dtype, and the two products (dh and dW)."""
+    lab = labels.long().clamp(0, w.shape[0] - 1)[:, None]
+    rows = torch.arange(h.shape[0], device=h.device)
+
+    def logits():
+        if h.dtype == torch.bfloat16:
+            return torch.mm(h, w.t(), out_dtype=torch.float32)
+        return torch.mm(h, w.t())
+
+    def forward():
+        s = logits()
+        return torch.logsumexp(s, -1) - s.gather(1, lab)[:, 0]
+
+    s = logits()
+
+    def backward():
+        dl = torch.softmax(s, -1)
+        dl[rows, lab[:, 0]] -= 1.0
+        dl = (dl * g[:, None]).to(h.dtype)
+        return dl @ w, dl.t() @ h
+
+    return {"forward": cuda_ms(forward, iters=10, warmup=2),
+            "backward": cuda_ms(backward, iters=10, warmup=2)}
+
+
+def planted_ce_faults(h, w, labels, g, lse) -> dict:
+    """Outputs of the plain versions with one fault each, which phase 12's
+    bf16 limit must catch, by (fault, output): dl kept in fp32 before its
+    product; the running sum not rescaled when the max moves; the label
+    column off by one."""
+    args = (h, w, labels, g, -g, lse)
+    loss_nr, lse_nr = ce._fwd_plain(h, w, labels, rescale=False)
+    off = labels + 1
+    return {
+        ("dl kept in fp32", "dh"): ce._grad_plain(
+            *args, wrt="h", dl_dtype=torch.float32),
+        ("dl kept in fp32", "dW"): ce._grad_plain(
+            *args, wrt="w", dl_dtype=torch.float32),
+        ("sum not rescaled", "loss"): loss_nr,
+        ("sum not rescaled", "lse"): lse_nr,
+        ("label column off by one", "loss"): ce.fused_ce_fwd_ref(
+            h, w, off)[0],
+        ("label column off by one", "dh"): ce.fused_ce_dh_ref(
+            h, w, off, g, -g, lse),
+        ("label column off by one", "dW"): ce.fused_ce_dw_ref(
+            h, w, off, g, -g, lse)}
+
+
+def phase_ce() -> dict:
+    """B4, B5 and B6 each against its plain version at GPT-1.3B training
+    shapes (bf16) and at a small fp32 case, with kernel, plain, library
+    and bound times; the bf16 limit must catch each planted fault. The
+    backward kernels and their plain versions take the kernel's lse.
+    Returns the bf16 records by kernel name."""
+    records = {}
+    for dtype, (n, e, v) in CE_SHAPES.items():
+        h, w, labels, g = ce_inputs(dtype, n, e, v)
+        before = dict(ce.launches)
+        loss, lse = ce.fused_ce_fwd(h, w, labels)
+        dh = ce.fused_ce_dh(h, w, labels, g, -g, lse)
+        dw = ce.fused_ce_dw(h, w, labels, g, -g, lse)
+        torch.cuda.synchronize()
+        if {k: ce.launches[k] - before[k] for k in ce.NAMES} != dict.fromkeys(
+                ce.NAMES, 1):
+            raise AssertionError(f"ce launches {ce.launches} from {before}")
+        want_loss, want_lse = ce.fused_ce_fwd_ref(h, w, labels)
+        want = {"loss": want_loss, "lse": want_lse,
+                "dh": ce.fused_ce_dh_ref(h, w, labels, g, -g, lse),
+                "dW": ce.fused_ce_dw_ref(h, w, labels, g, -g, lse)}
+        got = {"loss": loss, "lse": lse, "dh": dh, "dW": dw}
+        kind = {"loss": "stats", "lse": "stats", "dh": "grads",
+                "dW": "grads"}
+        gaps = {k: ce.ce_gaps(got[k], want[k], dtype, kind[k]) for k in got}
+        for k, gap in gaps.items():
+            log("ce", dtype=str(dtype).split(".")[-1], output=k,
+                tol=ce.CE_TOL[dtype][kind[k]],
+                mean_abs=got[k].float().abs().mean().item(), **gap)
+        caught = {}  # fault -> whether any of its outputs breaks the limit
+        if dtype == torch.bfloat16:
+            for (fault, k), out in planted_ce_faults(h, w, labels, g,
+                                                     lse).items():
+                gap = ce.ce_gaps(out, want[k], dtype, kind[k])
+                log("ce", planted_fault=repr(fault), output=k, **gap)
+                caught[fault] = caught.get(fault, False) or not gap["ok"]
+        bad = [k for k, gap in gaps.items() if not gap["ok"]]
+        if bad or not torch.equal(loss[[0, 3]], lse[[0, 3]]):
+            raise AssertionError(f"ce kernels vs plain {dtype}: {bad} "
+                                 f"{gaps}; loss/lse of unmatched labels "
+                                 f"{loss[[0, 3]]} {lse[[0, 3]]}")
+        missed = [fault for fault, hit in caught.items() if not hit]
+        if missed:
+            raise AssertionError(f"the ce limit misses the planted faults "
+                                 f"{missed}")
+        del want, got
+        torch.cuda.empty_cache()
+        lib = library_ce_times(h, w, labels, g)
+        calls = {
+            "ce_fwd": (lambda: ce.fused_ce_fwd(h, w, labels),
+                       lambda: ce.fused_ce_fwd_ref(h, w, labels),
+                       lib["forward"], ("loss", "lse")),
+            "ce_dh": (lambda: ce.fused_ce_dh(h, w, labels, g, -g, lse),
+                      lambda: ce.fused_ce_dh_ref(h, w, labels, g, -g, lse),
+                      lib["backward"], ("dh",)),
+            "ce_dw": (lambda: ce.fused_ce_dw(h, w, labels, g, -g, lse),
+                      lambda: ce.fused_ce_dw_ref(h, w, labels, g, -g, lse),
+                      lib["backward"], ("dW",)),
+        }
+        for name, (kernel, plain, library_ms, outs) in calls.items():
+            kernel_ms = cuda_ms(kernel, iters=10, warmup=2)
+            plain_ms = cuda_ms(plain, iters=2, warmup=1)
+            nbytes, flops = ce_bound(name, h, w)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            err = max(gaps[k]["max_abs_err"] for k in outs)
+            log("ce", name=name, dtype=str(dtype).split(".")[-1], tokens=n,
+                hidden=e, vocab=v, max_abs_err=err, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library="logits path " + ("forward" if name == "ce_fwd"
+                                          else "backward (dh and dW)"),
+                bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by,
+                bytes=nbytes, flops=flops, tflops=flops / kernel_ms * 1e-9,
+                share_of_bound=max(bytes_ms, ops_ms) / kernel_ms)
+            if dtype == torch.bfloat16:
+                records[name] = {
+                    "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                    "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+                    "library_ms": library_ms}
+        ce.launches.update(before)  # checks and timing are not the path
+        del h, w, labels, g, loss, lse, dh, dw
+        torch.cuda.empty_cache()
+    return records
+
+
+# ----------------------------------------------------------------- phase 13
+
+def train_13b_config(prefix: str, *extra):
+    """The 1.3B single-card config with ``Model.fused_ce=True`` over the
+    corpus at ``prefix`` (both splits): a short warmup and a max_lr at
+    which the loss moves within the drive, evaluation every EVAL_FREQ
+    steps over EVAL_ITERS batches; no width, depth, batch or sequence
+    override."""
+    return get_config(TRAIN_13B_CONFIG, overrides=[
+        f"Data.Train.dataset.input_dir={prefix}",
+        f"Data.Eval.dataset.input_dir={prefix}", "Model.fused_ce=True",
+        f"Engine.max_steps={TRAIN_13B_STEPS}", "Engine.logging_freq=5",
+        f"Engine.eval_freq={EVAL_FREQ}", f"Engine.eval_iters={EVAL_ITERS}",
+        "Optimizer.lr.warmup_steps=5", "Optimizer.lr.max_lr=3.0e-4",
+        "Optimizer.lr.min_lr=3.0e-5", "Optimizer.lr.decay_steps=1000",
+        *extra])
+
+
+def zero_train_launches() -> None:
+    """Set B1-B6's launch counts to 0 (just before a path)."""
+    for mod in (fa, ce):
+        for name in mod.NAMES:
+            mod.launches[name] = 0
+
+
+def phase_train_13b(prefix: str, profile: bool) -> dict:
+    """The port's 1.3B training path: ``Trainer.fit`` with the Eval loader
+    on the 1.3B config under fused_ce and full recompute. Returns the
+    launch counts of B1-B6."""
+    cfg = train_13b_config(prefix)
+    module = build_module(cfg)
+    gcfg = module.gpt_config
+    if not (gcfg.fused_ce and gcfg.use_recompute
+            and gcfg.recompute_granularity == "full"):
+        raise AssertionError(f"the 1.3B config resolved to {gcfg}")
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    ends, evals = [], []  # an event at the end of each step; eval records
+    step, evaluate = trainer.train_step, trainer.evaluate
+
+    def timed(batch):
+        out = step(batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    def watched(data, epoch=0):
+        t0 = time.perf_counter()
+        loss = evaluate(data, epoch)
+        torch.cuda.synchronize()
+        evals.append({"after_step": len(ends), "loss": loss,
+                      "seconds": time.perf_counter() - t0})
+        return loss
+
+    trainer.train_step, trainer.evaluate = timed, watched
+    loader = build_dataloader(cfg, "Train")
+    eval_loader = build_dataloader(cfg, "Eval")
+    if len(eval_loader) < EVAL_ITERS:
+        raise AssertionError(f"the Eval split holds {len(eval_loader)} "
+                             f"batches, fewer than {EVAL_ITERS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_launches()
+    t0 = time.perf_counter()
+    trainer.fit(loader, eval_loader)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**fa.launches, **ce.launches}
+    steps, layers = trainer.step, gcfg.num_layers
+    eval_batches = len(evals) * EVAL_ITERS
+    losses = [float(h["loss"]) for h in trainer.history]
+    seq = cfg.Data.Train.dataset.max_seq_len
+    tokens = cfg.Global.global_batch_size * seq
+    # intervals between the ends of consecutive steps, but not across an
+    # evaluation
+    after_eval = {e["after_step"] for e in evals}
+    step_ms = [a.elapsed_time(b) for i, (a, b) in
+               enumerate(zip(ends, ends[1:]), start=1) if i not in after_eval]
+    steady = float(np.median(step_ms[2:])) * 1e-3
+    flops = trainer._flops_per_token(seq)
+    log("train-1.3b", steps=steps, layers=layers,
+        params_m=trainer.n_params / 1e6, dtype=str(gcfg.dtype).split(".")[-1],
+        batch=cfg.Global.global_batch_size, seq=seq,
+        recompute=gcfg.recompute_granularity, fused_ce=gcfg.fused_ce,
+        step_ms_median=steady * 1e3, step_ms_second=step_ms[0],
+        tokens_per_s=tokens / steady,
+        mfu=tokens / steady * flops / peak_flops(trainer.device),
+        fit_seconds=seconds,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches)
+    log("train-1.3b", losses=[round(x, 4) for x in losses],
+        grad_norms=[round(float(h["grad_norm"]), 4)
+                    for h in trainer.history],
+        evals=[{k: (round(v, 4) if isinstance(v, float) else v)
+                for k, v in e.items()} for e in evals])
+    want = {"ce_fwd": steps + eval_batches, "ce_dh": steps, "ce_dw": steps,
+            "flash_fwd": layers * (2 * steps + eval_batches),
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+    if steps != TRAIN_13B_STEPS or len(evals) != TRAIN_13B_STEPS // EVAL_FREQ:
+        raise AssertionError(f"trained {steps} steps with {len(evals)} "
+                             "evaluations")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss in {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if not all(e["loss"] is not None and math.isfinite(e["loss"])
+               for e in evals):
+        raise AssertionError(f"eval losses {evals}")
+    if profile:
+        phase_train_profile(trainer, loader, phase="train-1.3b-profile")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 14
+
+def phase_train_13b_e2e(prefix: str, layers: int = 4) -> None:
+    """One train step of the 1.3B config cut to ``layers`` layers, on its
+    first two batches, five ways: (a) through the kernels, (b) through the
+    plain versions of B1-B6, (c) through the logits path (fused_ce off),
+    (d) without recompute, (e) with layer 0 opted out of recompute. (b)
+    and (c) must lie within TRAIN_13B_E2E_TOL of (a); (d) and (e) must
+    equal (a), or lie within those limits if the card's GEMMs do not
+    repeat bit for bit (logged as ``bitwise``). (a)'s peak memory must lie
+    at least one fp32 logits tensor below (c)'s; each planted kernel-path
+    fault on the first batch must break a limit against (b)."""
+    depth = f"Model.num_layers={layers}"
+    cfgs = {"a kernels": train_13b_config(prefix, depth),
+            "c logits": train_13b_config(prefix, depth, "Model.fused_ce=False"),
+            "d no recompute": train_13b_config(prefix, depth,
+                                               "Model.use_recompute=False"),
+            "e layer 0 not recomputed": train_13b_config(
+                prefix, depth, "Model.no_recompute_layers=[0]")}
+    loader = iter(build_dataloader(cfgs["a kernels"], "Train"))
+    batches = [next(loader), next(loader)]
+    tokens = batches[0]["tokens"].size
+    logits_bytes = tokens * cfgs["a kernels"].Model.vocab_size * 4
+    fwd, dw = ce.fused_ce_fwd, ce.fused_ce_dw
+
+    def dw_without_onehot(h, w, labels, a, b, lse):
+        return dw(h, w, labels, a, torch.zeros_like(b), lse)
+
+    faults = {"B6 without the one-hot term": {
+                  (ce, "fused_ce_dw"): dw_without_onehot},
+              "B4 given labels + 1": {
+                  (ce, "fused_ce_fwd"): lambda h, w, lab: fwd(h, w, lab + 1)}}
+    for i, batch in enumerate(batches):
+        run = _e2e_step(cfgs["a kernels"], batch)
+        ref = _e2e_step(cfgs["a kernels"], batch, {**PLAIN_FLASH, **PLAIN_CE})
+        runs = {"b plain": ref}
+        for label in ("c logits", "d no recompute",
+                      "e layer 0 not recomputed"):
+            runs[label] = _e2e_step(cfgs[label], batch)
+        for label, other in runs.items():
+            gaps = _e2e_gaps(other, run)
+            bitwise = (other[0] == run[0] and other[1] == run[1] and all(
+                torch.equal(g, run[2][n]) for n, g in other[2].items()))
+            log("train-1.3b-e2e", layers=layers, batch=i, run=repr(label),
+                loss_this=other[0], loss_kernels=run[0],
+                grad_norm_this=other[1], grad_norm_kernels=run[1],
+                step_peak_gb_this=other[3] / 1e9,
+                step_peak_gb_kernels=run[3] / 1e9, bitwise=bitwise,
+                tol=TRAIN_13B_E2E_TOL, **gaps)
+            over = [m for m, tol in TRAIN_13B_E2E_TOL.items()
+                    if not gaps[m] <= tol]
+            if over or not (math.isfinite(other[0])
+                            and math.isfinite(other[1])):
+                raise AssertionError(f"1.3B step, batch {i}, {label} vs "
+                                     f"the kernels: {gaps}")
+        saved = runs["c logits"][3] - run[3]
+        log("train-1.3b-e2e", batch=i, peak_mem_saved_gb=saved / 1e9,
+            want_at_least_gb=logits_bytes / 1e9)
+        if saved < logits_bytes:
+            raise AssertionError(f"the fused path saved {saved} bytes of "
+                                 f"peak memory, under {logits_bytes}")
+        if i == 0:
+            for name, fns in faults.items():
+                gaps = _e2e_gaps(_e2e_step(cfgs["a kernels"], batch, fns), ref)
+                caught = [m for m, tol in TRAIN_13B_E2E_TOL.items()
+                          if gaps[m] > tol]
+                log("train-1.3b-e2e", planted_fault=repr(name),
+                    caught=caught, **gaps)
+                if not caught:
+                    raise AssertionError(f"phase 14 misses the planted "
+                                         f"fault {name!r}: {gaps}")
+        del run, ref, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def common_prefix(a, b) -> int:
     n = 0
     for x, y in zip(a, b):
@@ -1398,6 +1832,20 @@ def main() -> int:
         decode[name].update(counts)
     decode["paged_decode_q8"].update(
         phase_int8_serving(served["kv_cache_bytes"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ce_records = phase_ce()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        write_corpus(prefix, tokens=800_000, seed=1)
+        counts = phase_train_13b(prefix, profile)
+        for name in ce.NAMES:
+            ce_records[name]["launches"] = counts[name]
+        for name in fa.NAMES:
+            flash[name]["launches_1_3b"] = counts[name]
+        gc.collect()  # the drive's trainer (and its optimizer state)
+        torch.cuda.empty_cache()
+        phase_train_13b_e2e(prefix)
     records = [dict(name=da.KERNEL, route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/paged_decode.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",
@@ -1416,6 +1864,13 @@ def main() -> int:
             source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
             replaces=f"fleetx_tpu/ops/pallas/decode_attention.py:"
                      f"{replaces[name]}", **decode[name]))
+    replaces = {"ce_fwd": 86, "ce_dh": 119, "ce_dw": 150}
+    for name in ce.NAMES:
+        records.append(dict(
+            name=name, route="cuda",
+            source="fleetx_tpu_torch/ops/csrc/ce_loss.cu",
+            replaces=f"fleetx_tpu/ops/pallas/ce_loss.py:{replaces[name]}",
+            **ce_records[name]))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

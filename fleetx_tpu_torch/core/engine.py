@@ -3,12 +3,13 @@
 Port of the pieces of the JAX package's ``Trainer`` (core/engine.py) that
 single-card pretraining runs: construction (device, optimizer, schedule),
 the train step — micro-batch gradient accumulation (``make_grad_fn``,
-:77-117), the global-norm clip and the AdamW update (:507-546) — and
-``fit`` with its ``loss``/``lr``/``ips``/``mfu`` log line (:778-929).
-PyTorch runs eagerly, so there is no compiled step: the step is the loop
-body. Dropout seeds come from one ``torch.Generator`` seeded with
-``Global.seed``. Checkpoints, the step sentry, preemption, elastic
-resume, the profiler, evaluation and observability are not ported.
+:77-117), the global-norm clip and the AdamW update (:507-546) — ``fit``
+with its ``loss``/``lr``/``ips``/``mfu`` log line (:778-929), and
+``evaluate`` every ``Engine.eval_freq`` steps over ``Engine.eval_iters``
+batches (:920-959). PyTorch runs eagerly, so there is no compiled step:
+the step is the loop body. Dropout seeds come from one ``torch.Generator`` seeded
+with ``Global.seed``. Checkpoints, the step sentry, preemption, elastic
+resume, the profiler and observability are not ported.
 
 MFU is the model-FLOPs count of ``bench.py`` (6 per parameter per token
 plus the causal attention products) over the step time and the card's
@@ -70,6 +71,8 @@ class Trainer:
         self.num_train_epochs = eng.num_train_epochs
         self.accumulate_steps = eng.accumulate_steps or 1
         self.logging_freq = eng.logging_freq
+        self.eval_freq = eng.eval_freq
+        self.eval_iters = eng.eval_iters
         self.seed = int(cfg.Global.seed)
         opt_cfg = cfg.Optimizer or {}
         self.lr_schedule = build_lr_scheduler(opt_cfg.get("lr", 1e-4))
@@ -151,10 +154,12 @@ class Trainer:
         return model_flops_per_token(self.n_params, gcfg.num_layers, seq,
                                      gcfg.hidden_size)
 
-    def fit(self, train_data: Iterable):
+    def fit(self, train_data: Iterable,
+            valid_data: Optional[Iterable] = None):
         """Train until ``Engine.max_steps`` or the end of
         ``Engine.num_train_epochs`` epochs, logging every
-        ``Engine.logging_freq`` steps."""
+        ``Engine.logging_freq`` steps and, given ``valid_data``,
+        evaluating every ``Engine.eval_freq`` steps."""
         if self.optimizer is None:
             self.init_state()
         peak = peak_flops(self.device)
@@ -187,6 +192,33 @@ class Trainer:
                         "batch_cost": dt, "ips_total": ips, "ips": ips,
                         "lr": float(self.lr_schedule(self.step)), "mfu": mfu,
                     })
+                if (self.eval_freq and valid_data is not None
+                        and self.step % self.eval_freq == 0):
+                    self.evaluate(valid_data, epoch=epoch)
             if self.step >= self.max_steps:
                 break
         return self
+
+    # ----------------------------------------------------------------- eval
+    def evaluate(self, valid_data: Iterable, epoch: int = 0
+                 ) -> Optional[float]:
+        """The mean loss over the first ``Engine.eval_iters`` batches of
+        ``valid_data`` (forward only, no dropout, no gradients), logged
+        through ``validation_step_end``; None when there is no batch."""
+        if self.optimizer is None:
+            self.init_state()
+        losses = []
+        t0 = time.time()
+        with torch.no_grad():
+            for i, batch in enumerate(valid_data):
+                if self.eval_iters is not None and i >= self.eval_iters:
+                    break
+                losses.append(self.module.loss_fn(self._to_device(batch),
+                                                  None, train=False))
+        if not losses:
+            return None
+        mean = float(np.mean([float(x) for x in losses]))
+        self.module.validation_step_end({
+            "epoch": epoch, "batch": self.step, "loss": mean,
+            "batch_cost": (time.time() - t0) / len(losses)})
+        return mean

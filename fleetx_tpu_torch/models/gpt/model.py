@@ -13,8 +13,13 @@ the modules:
   ``generate()``, or the shared page pools of the serving engine; at
   ``decode_kv_dtype="int8"`` either stores int8 with fp32 scales.
 
-Recompute, pipeline/context/expert parallelism and the fused LM-head loss
-are not here.
+The training forward recomputes each layer in the backward under
+``use_recompute`` with ``recompute_granularity: full`` (the JAX
+``_remat_policy``, :738-760), except the layers in
+``no_recompute_layers``; with ``fused_ce`` and labels,
+:class:`GPTForPretraining` returns per-token losses through the fused
+LM-head cross-entropy (``ops/ce_loss.py``, B4–B6) instead of logits.
+Pipeline, context and expert parallelism are not here.
 
 Numerics follow the flax modules at the compute dtype (bf16 by default,
 params fp32):
@@ -36,11 +41,12 @@ stacked over the layers (``models/gpt/generation.py`` builds it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fleetx_tpu_torch.ops.attention import (
     causal_attention,
@@ -52,13 +58,14 @@ from fleetx_tpu_torch.ops.decode_attention import (
     paged_decode_attention,
     paged_gather_kv,
 )
+from fleetx_tpu_torch.ops.ce_loss import fused_linear_ce
 from fleetx_tpu_torch.ops.dropout import HashDropout, draw_seed
 from fleetx_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 
 __all__ = ["DTYPES", "GPTConfig", "GPTForPretraining", "GPTModel",
            "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm",
            "inference_params", "masked_loss_mean", "pad_starts",
-           "pretraining_loss"]
+           "pretraining_loss", "recompute_policy"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -89,6 +96,11 @@ class GPTConfig:
     decode_num_pages: Optional[int] = None
     decode_page_size: Optional[int] = None
     decode_kv_dtype: Optional[str] = None  # None (compute dtype) | "int8"
+    use_recompute: bool = False
+    recompute_granularity: Optional[str] = None  # full (full_attn, core_attn: A4)
+    recompute_extra_saves: Optional[Tuple[str, ...]] = None  # not ported (A4)
+    no_recompute_layers: Optional[Tuple[int, ...]] = None
+    fused_ce: bool = False  # per-token loss through B4–B6, logits never stored
 
     @property
     def head_dim(self) -> int:
@@ -105,14 +117,69 @@ class GPTConfig:
 
     @classmethod
     def from_model_config(cls, model_cfg) -> "GPTConfig":
-        """Build from a YAML ``Model`` section (unknown keys ignored, a
-        dtype string mapped to its torch dtype)."""
+        """Build from a YAML ``Model`` section: a dtype string mapped to its
+        torch dtype, list values of ``no_recompute_layers`` and
+        ``recompute_extra_saves`` (or a ``"a,b"`` string) made tuples, as
+        the JAX ``from_model_config`` does. Keys that are no field of the
+        JAX ``GPTConfig`` either (``module``, ``name``, ...) and the JAX
+        switches that only lay the model out over devices (``scan_layers``,
+        ``sequence_parallel``, the MoE and pipeline tuning knobs) are
+        ignored; a JAX switch that changes what the model computes and that
+        the port does not implement raises ``NotImplementedError`` at any
+        value but the one the port computes (:data:`UNPORTED`)."""
+        model_cfg = dict(model_cfg)
+        for key, (computes, item) in UNPORTED.items():
+            value = model_cfg.get(key)
+            if value is not None and not computes(value):
+                raise NotImplementedError(
+                    f"Model.{key}={value!r} is not ported yet (ROADMAP "
+                    f"{item})")
         known = {f.name for f in dataclasses.fields(cls)}
-        kw = {k: v for k, v in dict(model_cfg).items()
+        kw = {k: v for k, v in model_cfg.items()
               if k in known and v is not None}
         if isinstance(kw.get("dtype"), str):
             kw["dtype"] = DTYPES[kw["dtype"]]
+        saves = kw.get("recompute_extra_saves")
+        if isinstance(saves, str):
+            kw["recompute_extra_saves"] = [x for x in saves.split(",") if x]
+        for key in ("no_recompute_layers", "recompute_extra_saves"):
+            if key in kw:
+                kw[key] = tuple(kw[key])
         return cls(**kw)
+
+
+# JAX GPTConfig switches that change what the model computes and that the
+# port does not implement: the test a value must pass (the port computes
+# those values), and the ROADMAP item that ports the rest
+UNPORTED = {
+    "fast_dropout": (lambda v: v is True, "A4"),  # False: flax nn.Dropout
+    "pp_degree": (lambda v: v <= 1, "A6"),
+    "virtual_pp_degree": (lambda v: v <= 1, "A6"),
+    "cp_degree": (lambda v: v <= 1, "A6"),
+    "num_experts": (lambda v: v <= 1, "A8"),
+    "expert_mode": (lambda v: v is False, "A8"),
+}
+
+
+def recompute_policy(cfg: GPTConfig) -> Optional[str]:
+    """The training forward's recompute granularity (JAX
+    ``_remat_policy``, :738-760): None without ``use_recompute``, else
+    ``"full"`` (the default): each layer keeps only its input and reruns
+    its forward in the backward. ``full_attn``, ``core_attn`` and
+    ``recompute_extra_saves`` raise ``NotImplementedError`` (ROADMAP A4);
+    another granularity raises ``ValueError``."""
+    if not cfg.use_recompute:
+        return None
+    granularity = cfg.recompute_granularity or "full"
+    if granularity in ("full_attn", "core_attn") or cfg.recompute_extra_saves:
+        what = (f"recompute_extra_saves={cfg.recompute_extra_saves!r}"
+                if granularity == "full" else
+                f"recompute_granularity={granularity!r}")
+        raise NotImplementedError(f"Model.{what} is not ported yet (ROADMAP "
+                                  "A4); the port recomputes at 'full'")
+    if granularity != "full":
+        raise ValueError(f"unknown recompute_granularity {granularity!r}")
+    return granularity
 
 
 def _param(*shape, device) -> nn.Parameter:
@@ -175,10 +242,10 @@ class SelfAttention(nn.Module):
     def forward(self, x, cache=None, *, cache_index=None,
                 cache_positions=None, block_tables=None, kv_mask=None,
                 kv_starts=None, decode_end=None, deterministic=True,
-                generator=None):
+                seed: Optional[int] = None):
         """``x`` [b, s, E]. Without ``cache``: causal attention over the s
-        tokens, attention dropout (unless ``deterministic``) seeded from
-        ``generator``. With ``cache`` (this layer's ``key``/``value`` and,
+        tokens, with attention dropout (unless ``deterministic``) keyed on
+        the int32 ``seed``. With ``cache`` (this layer's ``key``/``value`` and,
         at int8, ``key_scale``/``value_scale`` tensors): write the s new
         K/V, then attend. Row b writes at ``cache_positions[b]`` when
         given, else every row at ``cache_index``; paged caches route the
@@ -196,9 +263,6 @@ class SelfAttention(nn.Module):
         q, k, v = self.qkv_proj(x).view(b, s, nh, 3 * hd).split(hd, dim=-1)
         if cache is None:
             rate = cfg.attention_probs_dropout_prob
-            seed = None
-            if rate > 0.0 and not deterministic:
-                seed = draw_seed(generator)
             out = causal_attention(q, k, v, causal=True, dropout_rate=rate,
                                    seed=seed, deterministic=deterministic,
                                    use_flash=cfg.use_flash_attention)
@@ -370,15 +434,17 @@ class DecoderLayer(nn.Module):
         self.mlp = MLP(cfg, device)
         self.mlp_dropout = HashDropout(cfg.hidden_dropout_prob)
 
-    def forward(self, x, cache=None, *, deterministic=True, generator=None,
-                **decode):
-        """``decode``: the cached-forward keywords of
-        :meth:`SelfAttention.forward`."""
+    def forward(self, x, cache=None, *, deterministic=True,
+                seeds=(None, None, None), **decode):
+        """``seeds``: the int32 dropout seeds of the attention, attn_dropout
+        and mlp_dropout (see :meth:`GPTModel.dropout_seeds`); ``decode``:
+        the cached-forward keywords of :meth:`SelfAttention.forward`."""
+        attn_seed, attn_drop_seed, mlp_drop_seed = seeds
         y = self.attn(self.norm1(x), cache, deterministic=deterministic,
-                      generator=generator, **decode)
-        x = x + self.attn_dropout(y, deterministic, generator)
+                      seed=attn_seed, **decode)
+        x = x + self.attn_dropout(y, deterministic, seed=attn_drop_seed)
         y = self.mlp(self.norm2(x))
-        return x + self.mlp_dropout(y, deterministic, generator)
+        return x + self.mlp_dropout(y, deterministic, seed=mlp_drop_seed)
 
 
 class GPTModel(nn.Module):
@@ -388,6 +454,7 @@ class GPTModel(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.recompute = recompute_policy(cfg)  # raises on unported options
         self.word_embeddings = _param(cfg.vocab_size, cfg.hidden_size,
                                       device=device)
         self.position_embeddings = _param(cfg.max_position_embeddings,
@@ -403,8 +470,10 @@ class GPTModel(nn.Module):
                 deterministic=True,
                 generator: Optional[torch.Generator] = None):
         """``cache=None`` is the training forward (dropout unless
-        ``deterministic``, every seed drawn from ``generator`` in call
-        order); with a cache (``generation.init_decode_cache``), the
+        ``deterministic``, every seed drawn from ``generator`` before the
+        first layer runs, :meth:`dropout_seeds`; each layer recomputed in
+        the backward under :func:`recompute_policy` unless listed in
+        ``no_recompute_layers``); with a cache (``generation.init_decode_cache``), the
         cached forward (no dropout), which updates the cache in place —
         a contiguous cache's ``index`` too (JAX ``cache_index``: the
         scalar write offset, advanced to the furthest write end).
@@ -433,14 +502,49 @@ class GPTModel(nn.Module):
                 cache["index"] = (index + s if cache_positions is None
                                   else int(cache_positions.max()) + s)
             return self.final_norm(x)
-        x = self.embed_dropout(x, deterministic, generator)
-        for layer in self.layers:
-            x = layer(x, deterministic=deterministic, generator=generator)
+        embed_seed, layer_seeds = self.dropout_seeds(deterministic,
+                                                     generator)
+        x = self.embed_dropout(x, deterministic, seed=embed_seed)
+        skip = set(self.cfg.no_recompute_layers or ())
+        for i, (layer, seeds) in enumerate(zip(self.layers, layer_seeds)):
+            if self.recompute is None or i in skip:
+                x = layer(x, deterministic=deterministic, seeds=seeds)
+            else:
+                # the layer draws nothing (its seeds come in), so the
+                # rerun in the backward sees the forward's dropout masks
+                # without saving or restoring any RNG state
+                x = checkpoint(layer, x, deterministic=deterministic,
+                               seeds=seeds, use_reentrant=False,
+                               preserve_rng_state=False)
         return self.final_norm(x)
+
+    def dropout_seeds(self, deterministic: bool,
+                      generator: Optional[torch.Generator]):
+        """``(embed seed, [(attention, attn_dropout, mlp_dropout) seeds per
+        layer])`` for one training forward, drawn from ``generator`` in the
+        order the sites run (None where a site draws nothing: deterministic,
+        or a rate of 0, or a hidden rate of 1 or more). Drawn before any
+        layer runs, so that a layer recomputed in the backward reuses its
+        forward's seeds and the generator's stream is the same with
+        recompute on or off."""
+        cfg = self.cfg
+
+        def draw(rate: float, hidden: bool) -> Optional[int]:
+            if deterministic or rate <= 0.0 or (hidden and rate >= 1.0):
+                return None
+            return draw_seed(generator)
+
+        hidden = cfg.hidden_dropout_prob
+        embed = draw(hidden, True)
+        layers = [(draw(cfg.attention_probs_dropout_prob, False),
+                   draw(hidden, True), draw(hidden, True))
+                  for _ in self.layers]
+        return embed, layers
 
 
 class GPTForPretraining(nn.Module):
-    """GPTModel plus the tied LM head: fp32 logits [b, s, vocab]."""
+    """GPTModel plus the tied LM head: fp32 logits [b, s, vocab], or with
+    ``fused_ce`` and labels the per-token cross-entropy [b, s]."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -450,13 +554,22 @@ class GPTForPretraining(nn.Module):
     def forward(self, input_ids, position_ids, *, cache=None,
                 cache_positions=None, block_tables=None, kv_mask=None,
                 kv_starts=None, deterministic=True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.gpt(input_ids, position_ids, cache=cache,
                      cache_positions=cache_positions,
                      block_tables=block_tables, kv_mask=kv_mask,
                      kv_starts=kv_starts, deterministic=deterministic,
                      generator=generator)
         emb = self.gpt.word_embeddings.to(self.cfg.dtype)
+        if labels is not None and self.cfg.fused_ce:
+            # JAX model.py:888-899: fp32 per-token losses [b, s] (callers
+            # apply the loss mask); the [b, s, vocab] logits never exist.
+            # dW comes back in the compute dtype and the cast carries it to
+            # the fp32 table, beside the embedding lookup's gradient
+            b, s, e = x.shape
+            return fused_linear_ce(x.reshape(b * s, e), emb,
+                                   labels.reshape(-1)).view(b, s)
         # compute-dtype operands, fp32 accumulation and result
         if x.is_cuda and x.dtype == torch.bfloat16:
             return _Bf16LMHead.apply(x, emb)

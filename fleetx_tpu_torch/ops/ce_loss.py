@@ -1,0 +1,349 @@
+"""Fused LM head and cross-entropy: the CUDA kernels and their plain versions.
+
+Port of the JAX package's ``fused_linear_ce`` (ops/pallas/ce_loss.py:326)
+and its custom VJP (``_fused_ce``, :179-226): the per-token cross-entropy
+of ``logits = hidden @ embᵀ`` without ever storing the ``[tokens, vocab]``
+logits or their gradient. Three kernels in ``csrc/ce_loss.cu``:
+
+- ``ce_fwd`` (B4, ``_fwd_kernel`` :86): per-token loss and log-sum-exp,
+  an online log-sum-exp over vocab tiles;
+- ``ce_dh`` (B5, ``_dh_kernel`` :119): dh = Σ_v dl·W;
+- ``ce_dw`` (B6, ``_dw_kernel`` :150): dW = Σ_tokens dlᵀ·h;
+
+where dl = a·exp(s − lse) + b·onehot(label) is recomputed from the saved
+lse, and (a, b) = (g, −g) for the plain cross-entropy backward.
+:func:`fused_linear_ce` is a ``torch.autograd.Function`` whose forward
+launches B4 and whose backward launches B5 and B6. Each of
+:func:`fused_ce_fwd`, :func:`fused_ce_dh` and :func:`fused_ce_dw` launches
+its kernel on CUDA tensors (or raises) and runs its plain version
+(``*_ref``) on CPU tensors. ``launches`` counts kernel launches by name,
+never plain-version calls.
+
+The casts follow the Pallas kernels: the products take bf16 operands when
+the inputs are bf16 (else fp32) with fp32 accumulation; p = exp(s − lse)
+and dl are fp32, and dl is rounded to the operand dtype before its
+product; dh comes out in h's dtype and dW in W's. A label that matches no
+column (−1, or out of range) contributes no label logit, so its loss is
+the lse. The plain versions walk vocab blocks of :func:`fit_vocab_block`,
+as Pallas does; the kernel's own tile moves only the fp32 rounding of the
+lse, and dl depends on the final lse, not on the tile.
+
+The ``shard_map`` branches of the JAX entry (dp/fsdp token sharding and
+the vocab-parallel form, :348-404) belong to ROADMAP A6 and B12.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from fleetx_tpu_torch.ops import _build
+
+__all__ = ["KERNEL", "NAMES", "MAX_HIDDEN", "CE_TOL", "launches",
+           "ce_gaps", "fit_vocab_block", "fused_linear_ce", "fused_ce_fwd",
+           "fused_ce_dh", "fused_ce_dw", "fused_ce_fwd_ref",
+           "fused_ce_dh_ref", "fused_ce_dw_ref"]
+
+KERNEL = "ce_loss"  # csrc/ce_loss.cu
+NAMES = ("ce_fwd", "ce_dh", "ce_dw")
+# B5 and B6 hold a [16, hidden] fp32 accumulator in shared memory; with
+# their double-buffered operand tiles that fits the card's 227 KB up to
+# this width
+MAX_HIDDEN = 2048
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel vs plain version on the card (see :func:`ce_gaps`): ``stats`` for
+# loss and lse (fp32 outputs), ``grads`` for dh and dW (in the operands'
+# dtype), each (atol as a fraction of the largest |plain| value, rtol,
+# share of elements allowed to differ at all). fp32: summation order only.
+# bf16 grads: the tensor cores sum in another order than the plain
+# version's fp32 GEMMs, which can move the final bf16 rounding of an output
+# by one ulp (2**-8 relative; rtol is two ulps), but only where the fp32
+# sum lies within that order's error of a rounding boundary, so few
+# elements move (at GPT-1.3B's LM head: 1.0% of dh, 3.3% of dW, whose
+# sums over 8192 tokens cancel); a fault in dl's rounding moves a small
+# amount in most elements, which only the share sees
+CE_TOL = {torch.float32: {"stats": (1e-6, 1e-5, 1.0),
+                          "grads": (1e-5, 1e-4, 1.0)},
+          torch.bfloat16: {"stats": (1e-6, 1e-5, 1.0),
+                           "grads": (1e-3, 2.0**-7, 0.1)}}
+
+launches: Dict[str, int] = {name: 0 for name in NAMES}
+
+
+def ce_gaps(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
+            kind: str) -> dict:
+    """How far a kernel's output ``got`` lies from its plain version's
+    ``want``, for operands of ``dtype`` and outputs of ``kind`` (``stats``
+    or ``grads``): ``max_abs_err``, ``tol_ratio`` (the largest |got − want|
+    over atol·max|want| + rtol·|want|; NaN anywhere gives inf),
+    ``moved_share`` (the share of elements that differ at all), and
+    ``ok``: ratio <= 1 and share within :data:`CE_TOL`."""
+    atol_scale, rtol, share = CE_TOL[dtype][kind]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bound = atol_scale * w.abs().max() + rtol * w.abs()
+    ratio = (diff / bound.clamp_min(1e-30)).max().item()
+    ratio = ratio if math.isfinite(ratio) else math.inf
+    moved = (diff > 0).float().mean().item()
+    return {"max_abs_err": diff.max().item(), "tol_ratio": ratio,
+            "moved_share": moved, "ok": ratio <= 1.0 and moved <= share}
+
+
+def fit_vocab_block(v: int, want: int = 512) -> Optional[int]:
+    """Largest lane-aligned block dividing ``v`` and ``<= want``: a
+    multiple of 128, else 64, else None (copy of the JAX function, :60-72,
+    which decides whether the fused path applies)."""
+    for bv in range(want - want % 128, 127, -128):
+        if v % bv == 0:
+            return bv
+    if v % 64 == 0:
+        return 64
+    return None
+
+
+def _fit_token_block(n: int, want: int = 256) -> Optional[int]:
+    """Largest multiple of 8 dividing ``n`` and ``<= want`` (copy of the
+    JAX function, :75-79)."""
+    for bt in range(want - want % 8, 7, -8):
+        if n % bt == 0:
+            return bt
+    return None
+
+
+def _mm_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+# ----------------------------------------------------------- plain versions
+
+def _vocab_blocks(v: int):
+    block = fit_vocab_block(v)
+    if block is None:
+        raise ValueError(f"vocab {v} admits no lane-aligned block (need a "
+                         "128-multiple <= 512 dividing it, or 64 | v)")
+    return [(lo, lo + block) for lo in range(0, v, block)]
+
+
+def _fwd_plain(h, w, labels, *, rescale: bool = True):
+    """Plain B4. The products take operands rounded to the operand dtype
+    in fp32 (exact products, fp32 sums: a bf16 product with fp32
+    accumulation). ``rescale=False`` leaves the running sum unscaled when
+    the running max moves: a planted fault for the card's checks."""
+    mm = _mm_dtype(h.dtype)
+    hm = h.to(mm).float()
+    n = h.shape[0]
+    m = torch.full((n,), -1e30, dtype=torch.float32, device=h.device)
+    l = torch.zeros(n, dtype=torch.float32, device=h.device)
+    lab = torch.zeros(n, dtype=torch.float32, device=h.device)
+    labels = labels.long()
+    for lo, hi in _vocab_blocks(w.shape[0]):
+        s = hm @ w[lo:hi].to(mm).float().t()
+        m_new = torch.maximum(m, s.amax(-1))
+        scale = torch.exp(m - m_new) if rescale else 1.0
+        l = l * scale + torch.exp(s - m_new[:, None]).sum(-1)
+        m = m_new
+        col = torch.arange(lo, hi, device=h.device)
+        lab = lab + torch.where(labels[:, None] == col, s, 0.0).sum(-1)
+    lse = m + torch.log(l)
+    return lse - lab, lse
+
+
+def _grad_plain(h, w, labels, a, b, lse, *, wrt: str, dl_dtype=None):
+    """Plain B5 (``wrt="h"``) or B6 (``wrt="w"``). dl is rounded to
+    ``dl_dtype`` before its product, the operand dtype unless a planted
+    fault of the card's checks names another."""
+    mm = _mm_dtype(h.dtype)
+    dl_dtype = dl_dtype or mm
+    hm = h.to(mm).float()
+    labels = labels.long()
+    out = torch.zeros(h.shape if wrt == "h" else w.shape,
+                      dtype=torch.float32, device=h.device)
+    for lo, hi in _vocab_blocks(w.shape[0]):
+        wm = w[lo:hi].to(mm).float()
+        p = torch.exp(hm @ wm.t() - lse[:, None])
+        col = torch.arange(lo, hi, device=h.device)
+        dl = a[:, None] * p + b[:, None] * (labels[:, None] == col).float()
+        dl = dl.to(dl_dtype).float()
+        if wrt == "h":
+            out += dl @ wm
+        else:
+            out[lo:hi] = dl.t() @ hm
+    return out.to(h.dtype if wrt == "h" else w.dtype)
+
+
+def fused_ce_fwd_ref(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`fused_ce_fwd`: ``(loss, lse)``, fp32 [n].
+    Per vocab block: m_new = max(m, max s), l = l·exp(m − m_new) +
+    Σ exp(s − m_new), label logit += Σ where(label == col, s, 0)."""
+    return _fwd_plain(h, w, labels)
+
+
+def fused_ce_dh_ref(h, w, labels, a, b, lse) -> torch.Tensor:
+    """Plain version of :func:`fused_ce_dh`: dh [n, E] in h's dtype."""
+    return _grad_plain(h, w, labels, a, b, lse, wrt="h")
+
+
+def fused_ce_dw_ref(h, w, labels, a, b, lse) -> torch.Tensor:
+    """Plain version of :func:`fused_ce_dw`: dW [V, E] in W's dtype."""
+    return _grad_plain(h, w, labels, a, b, lse, wrt="w")
+
+
+# ------------------------------------------------------------ the kernels
+
+class _CEParams(ctypes.Structure):
+    """Mirror of ``CEParams`` in ``csrc/ce_loss.cu``."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "h", "w", "labels", "a", "b", "lse", "loss", "grad", "partial")]
+        + [(name, ctypes.c_int) for name in (
+            "n", "vocab", "hidden", "splits")])
+
+
+def _lib():
+    lib = _build.load(KERNEL)
+    if lib.ce_fwd.argtypes is None:
+        for name in NAMES:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(_CEParams), ctypes.c_int,
+                           ctypes.c_void_p]
+        lib.ce_fwd_splits.restype = ctypes.c_int
+        lib.ce_fwd_splits.argtypes = [ctypes.c_int] * 3
+        lib.ce_params_size.restype = ctypes.c_int
+        if lib.ce_params_size() != ctypes.sizeof(_CEParams):
+            raise RuntimeError(
+                f"CEParams is {lib.ce_params_size()} bytes in the library, "
+                f"{ctypes.sizeof(_CEParams)} in the wrapper")
+    return lib
+
+
+def _launch(name: str, h, w, labels, **tensors) -> None:
+    """Fill the kernel's parameter block and launch ``name`` on h's device
+    and current stream; raises on a CUDA error."""
+    prm = _CEParams()
+    for field, t in dict(h=h, w=w, labels=labels, **tensors).items():
+        setattr(prm, field, None if t is None else t.data_ptr())
+    prm.n, prm.hidden = h.shape
+    prm.vocab = w.shape[0]
+    partial = tensors.get("partial")
+    prm.splits = 0 if partial is None else partial.shape[1]
+    with torch.cuda.device(h.device):
+        err = getattr(_lib(), name)(
+            ctypes.byref(prm), _DTYPE_CODES[h.dtype],
+            torch.cuda.current_stream(h.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
+def _check(h, w, labels, *rows) -> None:
+    """Shapes, dtypes and devices every entry takes: h [n, E] and W [V, E]
+    of one dtype (bf16 or fp32), int32 labels [n], fp32 [n] row vectors;
+    on the card also contiguity, 16-byte alignment, E a multiple of 16 up
+    to MAX_HIDDEN."""
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
+        raise ValueError(f"h must be [n, E] and W [V, E], got "
+                         f"{tuple(h.shape)} and {tuple(w.shape)}")
+    n, e = h.shape
+    if h.dtype not in _DTYPE_CODES or w.dtype != h.dtype:
+        raise ValueError(f"h and W must share one dtype, bf16 or fp32; got "
+                         f"{h.dtype} and {w.dtype}")
+    if labels.dtype != torch.int32 or tuple(labels.shape) != (n,):
+        raise ValueError(f"labels must be int32 [n={n}], got {labels.dtype} "
+                         f"{tuple(labels.shape)}")
+    for name, t in (("W", w), ("labels", labels)) + rows:
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    for name, t in rows:
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be fp32 [n={n}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if h.device.type == "cpu":
+        return
+    if e % 16 or e > MAX_HIDDEN:
+        raise ValueError(f"the kernels take a hidden size that is a "
+                         f"multiple of 16 up to {MAX_HIDDEN}, got {e}")
+    for name, t in (("h", h), ("W", w), ("labels", labels)) + rows:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4: ``(loss, lse)``, fp32 [n]. CUDA tensors launch ``ce_fwd``; CPU
+    tensors take :func:`fused_ce_fwd_ref`."""
+    _check(h, w, labels)
+    if h.device.type == "cpu":
+        return fused_ce_fwd_ref(h, w, labels)
+    n = h.shape[0]
+    loss = torch.empty(n, dtype=torch.float32, device=h.device)
+    lse = torch.empty(n, dtype=torch.float32, device=h.device)
+    splits = _lib().ce_fwd_splits(n, w.shape[0], _DTYPE_CODES[h.dtype])
+    # per vocab split: running max, sum and label logit of each token
+    partial = torch.empty((3, splits, n), dtype=torch.float32,
+                          device=h.device)
+    _launch("ce_fwd", h, w, labels, loss=loss, lse=lse, partial=partial)
+    return loss, lse
+
+
+def fused_ce_dh(h, w, labels, a, b, lse) -> torch.Tensor:
+    """B5: dh [n, E] in h's dtype for the cotangent dl = a·softmax +
+    b·onehot. CUDA tensors launch ``ce_dh``; CPU tensors take
+    :func:`fused_ce_dh_ref`."""
+    _check(h, w, labels, ("a", a), ("b", b), ("lse", lse))
+    if h.device.type == "cpu":
+        return fused_ce_dh_ref(h, w, labels, a, b, lse)
+    dh = torch.empty(h.shape, dtype=h.dtype, device=h.device)
+    _launch("ce_dh", h, w, labels, a=a, b=b, lse=lse, grad=dh)
+    return dh
+
+
+def fused_ce_dw(h, w, labels, a, b, lse) -> torch.Tensor:
+    """B6: dW [V, E] in W's dtype for the same cotangent. CUDA tensors
+    launch ``ce_dw``; CPU tensors take :func:`fused_ce_dw_ref`."""
+    _check(h, w, labels, ("a", a), ("b", b), ("lse", lse))
+    if h.device.type == "cpu":
+        return fused_ce_dw_ref(h, w, labels, a, b, lse)
+    dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    _launch("ce_dw", h, w, labels, a=a, b=b, lse=lse, grad=dw)
+    return dw
+
+
+class _FusedLinearCE(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h, w, labels):
+        loss, lse = fused_ce_fwd(h, w, labels)
+        ctx.save_for_backward(h, w, labels, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        neg = -g
+        dh = fused_ce_dh(h, w, labels, g, neg, lse)
+        dw = fused_ce_dw(h, w, labels, g, neg, lse)
+        return dh, dw, None
+
+
+def fused_linear_ce(hidden: torch.Tensor, emb: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy [n] (fp32) of ``logits = hidden @ embᵀ``
+    without storing the logits: ``hidden`` [n, E] and ``emb`` [V, E] of
+    one dtype, integer ``labels`` [n]. Differentiable in hidden and emb;
+    the forward launches B4, the backward B5 and B6 (plain versions on CPU
+    tensors). Raises ``ValueError`` when the vocab admits no lane-aligned
+    block (:func:`fit_vocab_block`) or 8 does not divide n, as the JAX
+    entry does."""
+    n = hidden.shape[0]
+    if fit_vocab_block(emb.shape[0]) is None:
+        raise ValueError(
+            f"fused_linear_ce: vocab {emb.shape[0]} admits no lane-aligned "
+            "block (need a 128-multiple <= 512 dividing it, or 64 | v)")
+    if _fit_token_block(n) is None:
+        raise ValueError(f"fused_linear_ce: 8 must divide tokens {n}")
+    return _FusedLinearCE.apply(hidden.contiguous(), emb.contiguous(),
+                                labels.to(torch.int32).contiguous())

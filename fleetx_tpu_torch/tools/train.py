@@ -2,8 +2,9 @@
 without the elastic supervisor):
 
     python -m fleetx_tpu_torch.tools.train \
-        -c configs/nlp/gpt/pretrain_gpt_345M_single_card.yaml \
-        -o Data.Train.dataset.input_dir=<prefix> -o Engine.max_steps=100
+        -c configs/nlp/gpt/pretrain_gpt_1.3B_single_card.yaml \
+        -o Model.fused_ce=True -o Data.Train.dataset.input_dir=<prefix> \
+        -o Data.Eval.dataset.input_dir=<prefix> -o Engine.max_steps=100
 
 Runs on the GPU and raises without one.
 """
@@ -20,17 +21,19 @@ from fleetx_tpu_torch.utils.log import advertise, logger
 
 
 def main(argv: Optional[List[str]] = None) -> Trainer:
-    """Parse ``-c``/``-o``, build the module, loader and trainer, and fit."""
+    """Parse ``-c``/``-o``, build the module, the loaders (``Eval`` when
+    ``Data.Eval`` and ``Engine.eval_freq`` are set) and the trainer, and
+    fit."""
     args = parse_args(argv)
     cfg = get_config(args.config, overrides=args.override, show=True)
     advertise()
-    if cfg.Engine.eval_freq:
-        logger.warning("evaluation is not ported yet: Engine.eval_freq=%s "
-                       "is ignored", cfg.Engine.eval_freq)
     module = build_module(cfg)
     train_loader = build_dataloader(cfg, "Train")
+    eval_loader = None
+    if cfg.Data and cfg.Data.get("Eval") and cfg.Engine.eval_freq:
+        eval_loader = build_dataloader(cfg, "Eval")
     trainer = Trainer(cfg, module)
-    trainer.fit(train_loader)
+    trainer.fit(train_loader, eval_loader)
     logger.info("training done at step %d", trainer.step)
     return trainer
 

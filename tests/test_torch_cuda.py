@@ -471,3 +471,175 @@ def test_cuda_trainer_step_launches_each_flash_kernel_per_layer(tmp_path):
     moved = [n for n, p in module.nets.named_parameters()
              if not torch.equal(p, before[n])]
     assert "gpt.layers.0.attn.qkv_proj.weight" in moved
+
+
+def ce_case(n, e, v, *, dtype, seed=0):
+    """h [n, E], W [V, E] (scaled so that the softmax is not flat), labels
+    with -1, both vocab ends and one past the end, on the card."""
+    rng = np.random.RandomState(seed)
+    h = _torch(rng.randn(n, e).astype(np.float32), dtype).cuda()
+    w = _torch((rng.randn(v, e) * 3 / np.sqrt(e)).astype(np.float32),
+               dtype).cuda()
+    labels = rng.randint(0, v, n).astype(np.int32)
+    labels[:4] = [-1, 0, v - 1, v]
+    return h, w, _torch(labels).cuda()
+
+
+def _ce_close(got, want, dtype, kind):
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    gaps = ce.ce_gaps(got, want, dtype, kind)
+    assert gaps["ok"], (kind, gaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,v", [(64, 384), (520, 1216)],
+                         ids=["one-tile", "ragged-tiles"])
+def test_ce_kernels_match_plain_versions(hidden, dtype, n, v):
+    """B4, B5 and B6 each against its plain version (labels -1 and V give
+    loss == lse); 520 tokens and 1216 = 9.5 x 128 columns leave ragged
+    tiles in every kernel."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    _need_card()
+    h, w, labels = ce_case(n, hidden, v, dtype=dtype)
+    before = dict(ce.launches)
+    loss, lse = ce.fused_ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    want_loss, want_lse = ce.fused_ce_fwd_ref(h, w, labels)
+    _ce_close(loss, want_loss, dtype, "stats")
+    _ce_close(lse, want_lse, dtype, "stats")
+    assert torch.equal(loss[[0, 3]], lse[[0, 3]])
+    g = torch.rand(n, device="cuda") + 0.5
+    dh = ce.fused_ce_dh(h, w, labels, g, -g, lse)
+    dw = ce.fused_ce_dw(h, w, labels, g, -g, lse)
+    torch.cuda.synchronize()
+    assert dh.dtype == dw.dtype == dtype
+    _ce_close(dh, ce.fused_ce_dh_ref(h, w, labels, g, -g, lse), dtype,
+              "grads")
+    _ce_close(dw, ce.fused_ce_dw_ref(h, w, labels, g, -g, lse), dtype,
+              "grads")
+    assert dh.float().abs().mean() > 1e-4 and dw.float().abs().mean() > 1e-6
+    assert {n_: ce.launches[n_] - before[n_] for n_ in ce.NAMES} == {
+        n_: 1 for n_ in ce.NAMES}
+
+
+@pytest.mark.cuda
+def test_ce_wrappers_reject_what_the_kernels_do_not_take():
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    _need_card()
+    h, w, labels = ce_case(64, 64, 384, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ce.fused_ce_fwd(h[:, :40].contiguous(), w[:, :40].contiguous(),
+                        labels)
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.fused_ce_fwd(h.t().contiguous().t(), w, labels)
+    with pytest.raises(ValueError, match="is on"):
+        ce.fused_ce_fwd(h, w.cpu(), labels)
+    big = torch.zeros(64, 2576, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="up to"):
+        ce.fused_ce_fwd(big, torch.zeros(384, 2576, dtype=torch.bfloat16,
+                                         device="cuda"), labels)
+
+
+def _tiny_train_cfg(tmp_path, *extra):
+    """The tiny config in bf16 with flash attention over a 400-document
+    corpus in ``tmp_path`` (written once: a live loader maps its files)."""
+    from fleetx_tpu_torch.utils.config import get_config
+
+    prefix = str(tmp_path / "tiny")
+    if not (tmp_path / "tiny_ids.npy").exists():
+        rng = np.random.RandomState(0)
+        docs = [rng.randint(0, 120, size=rng.randint(50, 200)).astype(
+            np.int32) for _ in range(400)]
+        np.save(prefix + "_ids.npy", np.concatenate(docs))
+        np.savez(prefix + "_idx.npz", lens=np.array([len(d) for d in docs],
+                                                    np.int32))
+    root = __file__.rsplit("/tests/", 1)[0]
+    return get_config(f"{root}/configs/tiny/pretrain_gpt_tiny_cpu.yaml",
+                      overrides=[f"Data.Train.dataset.input_dir={prefix}",
+                                 f"Data.Eval.dataset.input_dir={prefix}",
+                                 "Model.use_flash_attention=True",
+                                 "Engine.mix_precision.use_pure_fp16=True",
+                                 "Optimizer.lr.warmup_steps=0", *extra],
+                      nranks=1)
+
+
+def _zero_launches():
+    from fleetx_tpu_torch.ops import ce_loss as ce
+    from fleetx_tpu_torch.ops import flash_attention as fa
+
+    for mod in (ce, fa):
+        for name in mod.NAMES:
+            mod.launches[name] = 0
+
+
+def _all_launches():
+    from fleetx_tpu_torch.ops import ce_loss as ce
+    from fleetx_tpu_torch.ops import flash_attention as fa
+
+    return {**fa.launches, **ce.launches}
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_fused_ce_recompute_and_eval_launch_counts(tmp_path):
+    """A tiny bf16 GPT with fused_ce and full recompute trains 2 steps and
+    evaluates once (2 batches) on the card: B4, B5, B6 once per step, B1
+    twice per layer per step (forward and recompute), B2, B3 once; each
+    eval batch B4 and B1 once per layer and no backward kernel."""
+    from fleetx_tpu_torch.core.engine import Trainer
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models import build_module
+
+    _need_card()
+    cfg = _tiny_train_cfg(tmp_path, "Model.fused_ce=True",
+                          "Model.use_recompute=True", "Engine.max_steps=2",
+                          "Engine.eval_freq=2", "Engine.eval_iters=2")
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    _zero_launches()
+    trainer.fit(build_dataloader(cfg, "Train"),
+                build_dataloader(cfg, "Eval"))
+    layers = module.gpt_config.num_layers
+    assert _all_launches() == {
+        "ce_fwd": 2 + 2, "ce_dh": 2, "ce_dw": 2,
+        "flash_fwd": layers * (2 * 2 + 2), "flash_bwd_dq": 2 * layers,
+        "flash_bwd_dkv": 2 * layers}
+    assert all(np.isfinite(float(h["loss"])) for h in trainer.history)
+    _zero_launches()
+    loss = trainer.evaluate(build_dataloader(cfg, "Eval"))
+    assert np.isfinite(loss)
+    assert _all_launches() == {
+        "ce_fwd": 2, "ce_dh": 0, "ce_dw": 0, "flash_fwd": 2 * layers,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_fused_ce_never_takes_the_logits_path(tmp_path):
+    """On the card fused_ce with an unaligned vocab, or a batch whose token
+    count 8 does not divide, raises instead of taking the logits path."""
+    from fleetx_tpu_torch.core.engine import Trainer
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models import build_module
+
+    _need_card()
+    cfg = _tiny_train_cfg(tmp_path, "Model.fused_ce=True",
+                          "Model.vocab_size=1000")
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    batch = trainer._to_device(next(iter(build_dataloader(cfg, "Train"))))
+    with pytest.raises(ValueError, match="lane-aligned"):
+        module.loss_fn(batch, None, train=False)
+    cfg = _tiny_train_cfg(tmp_path, "Model.fused_ce=True")
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    odd = {k: v[:1, :7] for k, v in batch.items()}
+    with pytest.raises(ValueError, match="8 does not divide"):
+        module.loss_fn(odd, None, train=False)

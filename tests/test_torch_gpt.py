@@ -247,3 +247,83 @@ def test_yaml_config_matches_jax_loader():
     with_dtype = GPTConfig.from_model_config(dict(ours.Model,
                                                   dtype="float32"))
     assert with_dtype.dtype == torch.float32
+
+
+@pytest.mark.parametrize("key,value,item", [
+    ("fast_dropout", False, "A4"), ("pp_degree", 2, "A6"),
+    ("virtual_pp_degree", 2, "A6"), ("cp_degree", 2, "A6"),
+    ("num_experts", 8, "A8"), ("expert_mode", True, "A8")])
+def test_config_raises_on_switches_the_port_does_not_compute(key, value,
+                                                             item):
+    """A JAX switch that changes what the model computes raises at any
+    value but the port's, naming its ROADMAP item; the port's own value
+    (the JAX default) loads."""
+    base = dict(TINY)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        GPTConfig.from_model_config({**base, key: value})
+    default = getattr(JaxGPTConfig(), key)
+    assert GPTConfig.from_model_config({**base, key: default}) == \
+        GPTConfig.from_model_config(base)
+
+
+def test_config_ignores_layout_switches_and_reads_recompute_keys():
+    """Layout switches (and keys that are no JAX field) load and change
+    nothing; the recompute and fused-CE keys become fields, lists as
+    tuples as the JAX loader makes them."""
+    base = GPTConfig.from_model_config(TINY)
+    assert GPTConfig.from_model_config(
+        {**TINY, "scan_layers": False, "sequence_parallel": True,
+         "moe_dispatch": "scatter", "module": "GPTModule"}) == base
+    cfg = GPTConfig.from_model_config(
+        {**TINY, "use_recompute": True, "recompute_granularity": "full",
+         "no_recompute_layers": [0], "fused_ce": True,
+         "recompute_extra_saves": "qkv_out,ffn_gelu"})
+    want = JaxGPTConfig.from_model_config(
+        {**TINY, "use_recompute": True, "recompute_granularity": "full",
+         "no_recompute_layers": [0], "fused_ce": True,
+         "recompute_extra_saves": "qkv_out,ffn_gelu"})
+    for key in ("use_recompute", "recompute_granularity",
+                "no_recompute_layers", "fused_ce", "recompute_extra_saves"):
+        assert getattr(cfg, key) == getattr(want, key), key
+    assert cfg.no_recompute_layers == (0,)
+
+
+@pytest.mark.parametrize("granularity,extra,error,match", [
+    ("full_attn", None, NotImplementedError, "ROADMAP A4"),
+    ("core_attn", None, NotImplementedError, "ROADMAP A4"),
+    ("full", ("qkv_out",), NotImplementedError, "ROADMAP A4"),
+    ("bogus", None, ValueError, "unknown recompute_granularity"),
+    (None, None, None, None), ("full", None, None, None)])
+def test_recompute_policy_branches(granularity, extra, error, match):
+    """``full`` (the default granularity) is ported; the other JAX
+    granularities and extra saves raise naming A4, an unknown one raises
+    ValueError as JAX's ``_remat_policy`` does; without use_recompute the
+    granularity is not read."""
+    from fleetx_tpu_torch.models.gpt.model import GPTModel, recompute_policy
+
+    kw = dict(TINY, recompute_granularity=granularity,
+              recompute_extra_saves=extra)
+    off = GPTConfig(**kw)
+    assert recompute_policy(off) is None
+    GPTModel(off, device="meta")
+    on = GPTConfig(**kw, use_recompute=True)
+    if error is None:
+        assert recompute_policy(on) == "full"
+        GPTModel(on, device="meta")
+    else:
+        with pytest.raises(error, match=match):
+            GPTModel(on, device="meta")
+
+
+@pytest.mark.parametrize("name", [
+    "nlp/gpt/pretrain_gpt_345M_single_card.yaml",
+    "nlp/gpt/pretrain_gpt_1.3B_single_card.yaml",
+    "nlp/gpt/generation_gpt_345M_single_card.yaml",
+    "tiny/pretrain_gpt_tiny_cpu.yaml"])
+def test_repo_yamls_still_load(name):
+    from fleetx_tpu_torch.models import build_module
+    from fleetx_tpu_torch.utils.config import get_config
+
+    module = build_module(get_config(os.path.join(ROOT, "configs", name),
+                                     nranks=1))
+    assert all(p.device.type == "meta" for p in module.nets.parameters())

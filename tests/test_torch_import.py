@@ -72,3 +72,13 @@ def test_source_never_names_the_jax_package(path):
     for needle in ("fleetx_tpu.", "import jax", "from jax", "import flax",
                    "from flax"):
         assert needle not in text, f"{path} contains {needle!r}"
+
+
+def test_gate_covers_the_fused_ce_slice():
+    """Likewise for the fused LM-head cross-entropy: its kernel module and
+    CUDA source, and the modules its path runs through."""
+    mods = set(_modules())
+    for name in ("ops.ce_loss", "models.gpt.model", "models.language_module",
+                 "core.engine", "tools.train"):
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    assert (PKG / "ops" / "csrc" / "ce_loss.cu").is_file()
