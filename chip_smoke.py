@@ -78,7 +78,34 @@ decode steps after phase 10):
                path's peak memory lies at least one fp32 logits tensor
                below the logits path's, and two planted kernel-path faults
                (B6 without the one-hot term, B4 given labels + 1) must each
-               break a limit.
+               break a limit;
+15. cp-kernels — the ring-CP pair entries B11 (``block_fwd_lse``,
+               ``block_dq``, ``block_dkv``: B1-B3 with global offsets)
+               against their plain versions at the CP drive's pair shape
+               (b 1, h 16, d 128, s_blk 4096, bf16), a diagonal causal
+               pair and an off-diagonal pair, dropout 0 and 0.1, with
+               kernel, plain, library (SDPA on the pair) and bound times;
+               the offsets or h0 dropped under dropout must break the limit;
+16. cp-ring  — the ring at cp 2 and 4, its ranks processes that share the
+               card over gloo (b 1, h 16, d 128, seq 16384, bf16): output
+               and dq, dk, dv equal single-process B1-B3 on the whole
+               sequence within phase 6's limits at dropout 0 and 0.1; B1
+               launches 3 + 2(cp - 1) times per forward on each rank; the
+               backward without its last shift home must break the limit;
+17. train-cp — ``tools/train.py`` on ``pretrain_gpt_1.3B_longcontext_cp8
+               .yaml`` at cp 2 (the yaml's 8 cut to the card's 2 ranks),
+               seq 16384 (its 32768 cut), one sequence per step (no
+               accumulation), full width and depth, bf16, dropout 0.1, full
+               recompute, on 2 ranks sharing the card over gloo, for 6 steps
+               and one evaluation: losses finite, falling and equal on both
+               ranks, parameters equal across ranks, B1-B3 launched exactly
+               as the ring under recompute launches them, no plain version;
+               step ms, global tokens/s, MFU, the gradient all-reduce's ms,
+               peak memory per rank and the backend printed;
+18. train-cp-e2e — one step of that config cut to 4 layers at seq 4096
+               (hidden dropout 0, attention dropout 0.1) at cp 1, cp 2 and
+               dp 2 x cp 2 on the same global batch: loss, grad norm and
+               every gradient leaf within phase 8's limits of cp 1.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs CUDA: without it the script exits
@@ -1788,6 +1815,600 @@ def phase_train_13b_e2e(prefix: str, layers: int = 4) -> None:
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 15
+# the context-parallel drive: the long-context yaml at cp 2, seq 16384, one
+# sequence per step; its ring pairs are [1, 4096, 16, 128] bf16
+CP_CONFIG = os.path.join(
+    ROOT, "configs/nlp/gpt/pretrain_gpt_1.3B_longcontext_cp8.yaml")
+CP_DEGREE, CP_SEQ, CP_STEPS, CP_EVAL_ITERS = 2, 16384, 6, 1
+CP_BLOCK = CP_SEQ // (2 * CP_DEGREE)
+CP_SEED = -24680  # the pair and ring phases' dropout seed
+# (causal, meta) of phase 15's two pairs: rank 0's late block (id 3) on
+# the diagonal, and against rank 0's early kv block (id 0)
+CP_PAIRS = {"diagonal": (True, (0, 0, 16, 16, 3 * CP_BLOCK, 3 * CP_BLOCK)),
+            "off-diagonal": (False, (0, 0, 16, 16, 3 * CP_BLOCK, 0))}
+BLOCK_KERNEL = {"block_fwd_lse": "flash_fwd", "block_dq": "flash_bwd_dq",
+                "block_dkv": "flash_bwd_dkv"}
+
+
+def cp_pair_bound(name: str, q: torch.Tensor, causal: bool) -> tuple:
+    """(bytes, flops) of one pair call: phase 6's count over the pair's
+    live cells, s(s+1)/2 on the diagonal and s·s across blocks."""
+    nbytes, flops = flash_bound(BLOCK_KERNEL[name], q)
+    if not causal:
+        s = q.shape[1]
+        flops = flops * s // (s + 1) * 2
+    return nbytes, flops
+
+
+def library_pair_times(sets, causal: bool) -> dict:
+    """SDPA forward and backward on the pair's q, k, v (is_causal on the
+    diagonal, no mask across blocks, dropout 0): the yardstick."""
+    fwd, bwd = [], []
+    for q, k, v, do in sets:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+        fwd.append((qt.detach(), kt.detach(), vt.detach()))
+        bwd.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
+    it = iter(range(1 << 30))
+
+    def forward():
+        with torch.no_grad():
+            torch.nn.functional.scaled_dot_product_attention(
+                *fwd[next(it) % len(fwd)], is_causal=causal)
+
+    def backward():
+        out, inputs, dot = bwd[next(it) % len(bwd)]
+        torch.autograd.grad(out, inputs, dot, retain_graph=True)
+
+    return {"block_fwd_lse": cuda_ms(forward, iters=20, warmup=3),
+            "backward": cuda_ms(backward, iters=20, warmup=3)}
+
+
+def _bh(x: torch.Tensor) -> torch.Tensor:
+    """[b, s, h] fp32 -> contiguous [b*h, s] (the plain versions' rows)."""
+    b, s, h = x.shape
+    return x.transpose(1, 2).reshape(b * h, s).contiguous()
+
+
+def _pair_plain(q, k, v, do, meta, causal, rate, kv_len, lse, delta):
+    """The plain versions of B11's three entries (the plain B1-B3 with the
+    same meta): out, lse [b, s, h], and dq, dk, dv from the given lse and
+    delta ([b, s, h], the kernels', as phase 6 feeds both sides)."""
+    b, s, h, _ = q.shape
+    kw = dict(causal=causal, dropout_rate=rate, seed=CP_SEED, meta=meta,
+              kv_lens=torch.full((b,), kv_len, dtype=torch.int32,
+                                 device=q.device))
+    out, plain_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    dq = fa.flash_bwd_dq_ref(q, k, v, do, _bh(lse), _bh(delta), **kw)
+    dk, dv = fa.flash_bwd_dkv_ref(q, k, v, do, _bh(lse), _bh(delta), **kw)
+    return out, plain_lse.view(b, h, s).transpose(1, 2), dq, dk, dv
+
+
+def _pair_kernels(q, k, v, do, meta, causal, rate, kv_len):
+    """B11's three entries on the card: out, lse, dq, dk, dv, and the
+    delta the backward took."""
+    kw = dict(causal=causal, dropout_rate=rate, kv_len=kv_len)
+    out, lse = fa.block_fwd_lse(q, k, v, CP_SEED, meta, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.block_dq(q, k, v, do, lse, delta, CP_SEED, meta, **kw)
+    dk, dv = fa.block_dkv(q, k, v, do, lse, delta, CP_SEED, meta, **kw)
+    return out, lse, dq, dk, dv, delta
+
+
+def _pair_ratios(got, want) -> dict:
+    """B11's entries' worst tol ratio (phase 6's FLASH_TOL at bf16) and
+    max abs error, from (out, lse, dq, dk, dv) of kernels and plain."""
+    atol, rtol = fa.FLASH_TOL[torch.bfloat16]
+    names = {"block_fwd_lse": (0,), "block_dq": (2,), "block_dkv": (3, 4)}
+    return {name: (max(_tol_ratio(got[i], want[i], atol, rtol) for i in idx),
+                   max(_max_err(got[i], want[i]) for i in idx))
+            for name, idx in names.items()}
+
+
+def phase_cp_kernels() -> dict:
+    """B11's entries against their plain versions at the CP drive's pair
+    shape (b 1, h 16, d 128, s_blk 4096, bf16): a diagonal causal pair and
+    an off-diagonal pair with q_off != k_off, dropout 0 and 0.1, with
+    kernel, plain, library (SDPA on the pair) and bound times. Two planted
+    faults under dropout must break the limit: the offsets dropped to 0,
+    and h0 dropped (a pair of heads 16-31 of 32, as under mp). Returns the
+    records of the off-diagonal pair at dropout 0.1 (the ring's hops),
+    with the diagonal pair's time beside."""
+    before = (dict(fa.launches), dict(fa.block_launches))
+    sets = flash_inputs(torch.bfloat16, b=1, s=CP_BLOCK, h=16, d=128,
+                        copies=2, seed=15)
+    records = {name: {} for name in fa.BLOCK_NAMES}
+    for label, (causal, meta) in CP_PAIRS.items():
+        lib = library_pair_times(sets, causal)
+        for rate in (0.0, 0.1):
+            q, k, v, do = sets[0]
+            args = (meta, causal, rate, CP_SEQ)
+            got = _pair_kernels(q, k, v, do, *args)
+            torch.cuda.synchronize()
+            want = _pair_plain(q, k, v, do, *args, got[1], got[5])
+            ratios = _pair_ratios(got, want)
+            lse_err = _max_err(got[1], want[1])
+            del want
+            it = iter(range(1 << 30))
+
+            def inputs():
+                q, k, v, do = sets[next(it) % len(sets)]
+                out, lse = fa.block_fwd_lse(q, k, v, CP_SEED, meta,
+                                            causal=causal, dropout_rate=rate,
+                                            kv_len=CP_SEQ)
+                return q, k, v, do, lse, (do.float() * out.float()).sum(-1)
+
+            staged = [inputs() for _ in sets]
+            kw = dict(causal=causal, dropout_rate=rate, kv_len=CP_SEQ)
+            pick = iter(range(1 << 30))
+
+            def nxt():
+                return staged[next(pick) % len(staged)]
+
+            b = q.shape[0]
+            pkw = dict(causal=causal, dropout_rate=rate, seed=CP_SEED,
+                       meta=meta, kv_lens=torch.full(
+                           (b,), CP_SEQ, dtype=torch.int32, device=q.device))
+
+            def plain_bwd(fn):
+                q, k, v, do, lse, delta = nxt()
+                return fn(q, k, v, do, _bh(lse), _bh(delta), **pkw)
+
+            calls = {
+                "block_fwd_lse": (
+                    lambda: fa.block_fwd_lse(*nxt()[:3], CP_SEED, meta, **kw),
+                    lambda: fa.flash_attention_fwd_ref(*nxt()[:3], **pkw)),
+                "block_dq": (
+                    lambda: fa.block_dq(*nxt(), CP_SEED, meta, **kw),
+                    lambda: plain_bwd(fa.flash_bwd_dq_ref)),
+                "block_dkv": (
+                    lambda: fa.block_dkv(*nxt(), CP_SEED, meta, **kw),
+                    lambda: plain_bwd(fa.flash_bwd_dkv_ref)),
+            }
+            for name, (kernel, plain) in calls.items():
+                kernel_ms = cuda_ms(kernel, iters=20, warmup=3)
+                plain_ms = cuda_ms(plain, iters=2, warmup=1)
+                nbytes, flops = cp_pair_bound(name, q, causal)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+                library_ms = lib["block_fwd_lse" if name == "block_fwd_lse"
+                                 else "backward"]
+                ratio, err = ratios[name]
+                log("cp-kernels", name=name, pair=label, causal=causal,
+                    meta=list(meta), dropout=rate, max_abs_err=err,
+                    tol_ratio=ratio, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    tflops=flops / kernel_ms * 1e-9,
+                    **({"lse_max_abs_err": lse_err}
+                       if name == "block_fwd_lse" else {}))
+                if not ratio <= 1.0:
+                    raise AssertionError(f"{name} {label} dropout {rate}: "
+                                         f"{ratio} x the bf16 limit")
+                if name == "block_fwd_lse" and not lse_err <= 1e-3:
+                    raise AssertionError(f"block_fwd_lse lse err {lse_err}")
+                rec = records[name]
+                if rate > 0.0 and label == "off-diagonal":
+                    rec.update(max_abs_err=max(rec.get("max_abs_err", 0.0),
+                                               err),
+                               ms=kernel_ms, plain_ms=plain_ms,
+                               bound_ms=max(bytes_ms, ops_ms),
+                               bound_by="bytes" if bytes_ms >= ops_ms
+                               else "operations", library_ms=library_ms)
+                elif rate > 0.0:
+                    rec["ms_diagonal"] = kernel_ms
+                    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+            del staged
+    # planted faults at dropout 0.1: the kernels given a wrong meta, held
+    # against the plain versions given the right one
+    q, k, v, do = sets[0]
+    causal, meta = CP_PAIRS["off-diagonal"]
+    mp_meta = (0, 16, 16, 32) + meta[4:]
+    faults = {"offsets dropped": (meta, meta[:4] + (0, 0)),
+              "h0 dropped": (mp_meta, (0, 0, 16, 32) + meta[4:])}
+    for fault, (right, wrong) in faults.items():
+        got = _pair_kernels(q, k, v, do, wrong, causal, 0.1, CP_SEQ)
+        want = _pair_plain(q, k, v, do, right, causal, 0.1, CP_SEQ, got[1],
+                           got[5])
+        ratios = _pair_ratios(got, want)
+        caught = [n for n, (r, _) in ratios.items() if r > 1.0]
+        log("cp-kernels", planted_fault=repr(fault), caught=caught,
+            tol_ratios={n: r for n, (r, _) in ratios.items()})
+        if not caught:
+            raise AssertionError(f"phase 15 misses the planted fault "
+                                 f"{fault!r}: {ratios}")
+        del want, got
+    fa.launches.update(before[0])  # checks and timing are not the path
+    fa.block_launches.update(before[1])
+    del sets
+    torch.cuda.empty_cache()
+    return records
+
+
+# ----------------------------------------------------------------- phase 16
+
+def cp_ring_inputs(seq: int, seed: int = 16) -> tuple:
+    """The global [1, seq, 16, 128] bf16 q, k, v, dO of phase 16, made on
+    the card from a seed (every rank and the parent make the same)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return tuple(torch.randn(1, seq, 16, 128, generator=g, device=DEVICE)
+                 .to(torch.bfloat16) for _ in range(4))
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A bf16 card tensor as int16 bits on the host (picklable, exact)."""
+    return t.detach().contiguous().view(torch.int16).cpu().numpy()
+
+
+def _from_host(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x).view(torch.bfloat16).to(DEVICE)
+
+
+def cp_ring_rank(cp: int, seq: int, rates) -> dict:
+    """One rank of phase 16: this rank's zig-zag share of the ring's
+    forward and backward at each dropout rate (bf16 bits), the launch
+    counts of each, and the shares of a run at rate 0.1 whose backward
+    skips its last shift home (a planted fault)."""
+    from fleetx_tpu_torch.parallel import context_parallel as cpar
+    from fleetx_tpu_torch.parallel.mesh import build_mesh, set_mesh
+
+    mesh = build_mesh(1, cp)
+    set_mesh(mesh)
+    shares = [cpar.zigzag_slice(t, cp, mesh.cp_rank)
+              for t in cp_ring_inputs(seq)]
+
+    def run(rate):
+        q, k, v = (t.detach().clone().requires_grad_() for t in shares[:3])
+        for counts in (fa.launches, fa.block_launches):
+            counts.update(dict.fromkeys(counts, 0))
+        out = cpar.ring_self_attention(
+            q, k, v, causal=True, expected_cp=cp, dropout_rate=rate,
+            seed=CP_SEED if rate else None)
+        torch.cuda.synchronize()
+        fwd = {**fa.launches, **fa.block_launches}
+        out.backward(shares[3])
+        torch.cuda.synchronize()
+        return {"shares": [_to_host(t) for t in (out, q.grad, k.grad,
+                                                 v.grad)],
+                "forward": fwd,
+                "total": {**fa.launches, **fa.block_launches}}
+
+    results = {rate: run(rate) for rate in rates}
+    shift, calls = cpar.ring_shift, []
+
+    def no_last_shift_home(tensors, mesh):
+        calls.append(1)  # forward cp - 1, backward cp - 1 hops, then home
+        if len(calls) == 2 * (cp - 1) + 1:
+            return list(tensors)
+        return shift(tensors, mesh)
+
+    cpar.ring_shift = no_last_shift_home
+    try:
+        results["fault"] = run(0.1)
+    finally:
+        cpar.ring_shift = shift
+    return results
+
+
+def _merged(results, key, cp) -> list:
+    """The global natural-order out, dq, dk, dv from the ranks' shares."""
+    from fleetx_tpu_torch.parallel.context_parallel import zigzag_merge
+
+    return [zigzag_merge(torch.cat([_from_host(r[key]["shares"][i])
+                                    for r in results], dim=1), cp)
+            for i in range(4)]
+
+
+def phase_cp_ring() -> None:
+    """The ring at cp 2 and 4, its ranks processes that share the card over
+    gloo (b 1, h 16, d 128, seq 16384, bf16): the zig-zag-merged output and
+    dq, dk, dv equal single-process B1-B3 on the whole sequence within
+    phase 6's limits at dropout 0 and 0.1; each rank launches B1 (through
+    block_fwd_lse) 3 + 2(cp - 1) times per forward, B2 and B3 as often per
+    backward; the backward without its last shift home breaks the limit."""
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    rates = (0.0, 0.1)
+    before = dict(fa.launches)
+    q, k, v, do = cp_ring_inputs(CP_SEQ)
+    want = {}
+    for rate in rates:
+        qt, kt, vt = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fa.flash_attention(qt, kt, vt, causal=True, dropout_rate=rate,
+                                 seed=CP_SEED)
+        out.backward(do)
+        want[rate] = [out.detach(), qt.grad, kt.grad, vt.grad]
+    torch.cuda.synchronize()
+    fa.launches.update(before)  # the comparison's launches are not the path
+    atol, rtol = fa.FLASH_TOL[torch.bfloat16]
+    for cp in (2, 4):
+        t0 = time.perf_counter()
+        results = spawn(cp_ring_rank, cp, (cp, CP_SEQ, rates), timeout=300)
+        seconds = time.perf_counter() - t0
+        per_pass = 3 + 2 * (cp - 1)
+        for key in rates + ("fault",):
+            got = _merged(results, key, cp)
+            ref = want[0.1 if key == "fault" else key]
+            ratios = [_tol_ratio(g, w, atol, rtol) for g, w in zip(got, ref)]
+            errs = [_max_err(g, w) for g, w in zip(got, ref)]
+            log("cp-ring", cp=cp, seq=CP_SEQ, run=repr(key),
+                tol_ratios=dict(zip(("out", "dq", "dk", "dv"), ratios)),
+                max_abs_errs=dict(zip(("out", "dq", "dk", "dv"), errs)),
+                launches_rank0=results[0][key]["total"],
+                spawn_seconds=seconds)
+            if key == "fault":
+                if max(ratios) <= 1.0:
+                    raise AssertionError(f"phase 16 misses the planted fault "
+                                         f"at cp {cp}: {ratios}")
+                continue
+            if not max(ratios) <= 1.0:
+                raise AssertionError(f"ring at cp {cp}, dropout {key}: "
+                                     f"{ratios} x the bf16 limit")
+            for rank, r in enumerate(results):
+                fwd, total = r[key]["forward"], r[key]["total"]
+                want_fwd = {"flash_fwd": per_pass, "block_fwd_lse": per_pass,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "block_dq": 0, "block_dkv": 0}
+                want_total = {n: per_pass for n in want_fwd}
+                if fwd != want_fwd or total != want_total:
+                    raise AssertionError(f"cp {cp} rank {rank} launches "
+                                         f"{fwd} / {total}")
+        del results
+    del want
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 17
+
+def cp_overrides(prefix: str, *extra) -> list:
+    """The long-context yaml at cp 2, seq 16384, one sequence per step, over
+    the corpus at ``prefix``: a short warmup and a max_lr at which the loss
+    moves within the drive; full width and depth."""
+    return [f"Data.Train.dataset.input_dir={prefix}",
+            f"Data.Eval.dataset.input_dir={prefix}",
+            f"Distributed.cp_degree={CP_DEGREE}",
+            f"Data.Train.dataset.max_seq_len={CP_SEQ}",
+            f"Data.Eval.dataset.max_seq_len={CP_SEQ}",
+            "Global.local_batch_size=1", "Global.micro_batch_size=1",
+            f"Engine.max_steps={CP_STEPS}", "Engine.logging_freq=1",
+            f"Engine.eval_freq={CP_STEPS}",
+            f"Engine.eval_iters={CP_EVAL_ITERS}",
+            "Optimizer.lr.warmup_steps=1", "Optimizer.lr.max_lr=3.0e-4",
+            "Optimizer.lr.min_lr=3.0e-5", "Optimizer.lr.decay_steps=1000",
+            *extra]
+
+
+def cp_train_rank(argv) -> dict:
+    """One rank of phase 17: ``tools/train.py``'s ``main`` on ``argv``,
+    with CUDA events at the ends of the steps, the gradient all-reduce and
+    the ring's block exchanges timed (synchronised on both sides; the
+    exchanges summed per step), the evaluation's mean kept, and the plain
+    versions of B1-B3 counted (none may run)."""
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.core import engine
+    from fleetx_tpu_torch.parallel import context_parallel as cpar
+    from fleetx_tpu_torch.tools import train as train_cli
+
+    backend = dist.get_backend()
+    ends, reduce_ms, shift_ms, step_shift_ms, evals = [], [], [], [], []
+    step, reduce, evaluate = (engine.Trainer.train_step,
+                              engine.all_reduce_sum, engine.Trainer.evaluate)
+    shift = cpar.ring_shift
+
+    def synced_ms(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def timed_step(self, batch):
+        first = len(shift_ms)
+        out = step(self, batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        step_shift_ms.append(sum(shift_ms[first:]))
+        return out
+
+    def timed_reduce(tensors, *a, **kw):
+        reduce_ms.append(synced_ms(reduce, tensors, *a, **kw)[1])
+
+    def timed_shift(tensors, mesh):
+        out, ms = synced_ms(shift, tensors, mesh)
+        shift_ms.append(ms)
+        return out
+
+    def kept_eval(self, data, epoch=0):
+        evals.append(evaluate(self, data, epoch))
+        return evals[-1]
+
+    plain_calls = dict.fromkeys(PLAIN_FLASH.values(), 0)
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            plain_calls[fn] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    engine.Trainer.train_step, engine.Trainer.evaluate = timed_step, kept_eval
+    engine.all_reduce_sum, cpar.ring_shift = timed_reduce, timed_shift
+    for fn in PLAIN_FLASH.values():
+        setattr(fa, fn.__name__, counted(fn))
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (fa.launches, fa.block_launches, ce.launches):
+        counts.update(dict.fromkeys(counts, 0))
+    t0 = time.perf_counter()
+    trainer = train_cli.main(list(argv))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    return {"backend": backend, "losses": [float(h["loss"])
+                                           for h in trainer.history],
+            "grad_norms": [float(h["grad_norm"]) for h in trainer.history],
+            "evals": evals, "step_ms": step_ms, "reduce_ms": reduce_ms,
+            "shift_ms": step_shift_ms, "shifts": len(shift_ms),
+            "launches": {**fa.launches, **fa.block_launches, **ce.launches},
+            "plain_calls": {fn.__name__: n for fn, n in plain_calls.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "checksum": float(sum(p.detach().double().sum()
+                                  for p in trainer.module.nets.parameters())),
+            "n_params": trainer.n_params, "steps": trainer.step,
+            "fit_seconds": seconds,
+            "cp_layers": trainer.module.gpt_config.num_layers,
+            "cp_degree": trainer.module.gpt_config.cp_degree,
+            "fused_ce": trainer.module.gpt_config.fused_ce,
+            "recompute": trainer.module.gpt_config.recompute_granularity}
+
+
+def phase_train_cp(prefix: str) -> dict:
+    """The port's CP training path: ``tools/train.py`` on the long-context
+    yaml (GPT-1.3B at full width and depth, bf16, dropout 0.1, full
+    recompute) at cp 2, seq 16384, on 2 ranks that share the card over
+    gloo, for CP_STEPS steps and one evaluation. Every loss finite and
+    falling and equal on both ranks, the parameters equal across ranks,
+    and B1-B3 launched exactly as the ring under recompute launches them
+    (no plain version). Returns rank 0's B11 launch counts."""
+    from fleetx_tpu_torch.core.engine import model_flops_per_token
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    argv = ["-c", CP_CONFIG] + [x for o in cp_overrides(prefix)
+                                for x in ("-o", o)]
+    results = spawn(cp_train_rank, CP_DEGREE, (argv,), timeout=900)
+    r0 = results[0]
+    layers, per_pass = r0["cp_layers"], 3 + 2 * (CP_DEGREE - 1)
+    steps, evals = r0["steps"], CP_EVAL_ITERS * len(r0["evals"])
+    b1 = layers * per_pass * (2 * steps + evals)  # forward, recompute, eval
+    b23 = layers * per_pass * steps
+    want = {"flash_fwd": b1, "block_fwd_lse": b1, "flash_bwd_dq": b23,
+            "block_dq": b23, "flash_bwd_dkv": b23, "block_dkv": b23,
+            "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
+    steady = float(np.median(r0["step_ms"][1:])) * 1e-3
+    tokens = CP_SEQ  # the global batch: one sequence, split over the ring
+    flops = model_flops_per_token(r0["n_params"], layers, CP_SEQ, 2048)
+    for rank, r in enumerate(results):
+        log("train-cp", rank=rank, backend=r["backend"], steps=r["steps"],
+            layers=layers, cp=r["cp_degree"], seq=CP_SEQ,
+            recompute=r["recompute"], fused_ce=r["fused_ce"],
+            params_m=r["n_params"] / 1e6,
+            step_ms=[round(x, 1) for x in r["step_ms"]],
+            all_reduce_ms=[round(x, 1) for x in r["reduce_ms"]],
+            ring_exchange_ms=[round(x, 1) for x in r["shift_ms"]],
+            ring_exchanges=r["shifts"],
+            peak_mem_gb=r["peak_mem_gb"], fit_seconds=r["fit_seconds"],
+            launches=r["launches"], plain_calls=r["plain_calls"],
+            checksum=r["checksum"])
+    log("train-cp", step_ms_median=steady * 1e3, tokens_per_s=tokens / steady,
+        mfu=tokens / steady * flops / PEAK_FLOPS[torch.bfloat16],
+        all_reduce_ms_median=float(np.median(r0["reduce_ms"])),
+        ring_exchange_ms_median=float(np.median(r0["shift_ms"])),
+        losses=[round(x, 4) for x in r0["losses"]],
+        grad_norms=[round(x, 4) for x in r0["grad_norms"]],
+        evals=r0["evals"])
+    if r0["backend"] != "gloo":
+        raise AssertionError(f"ranks sharing one card ran {r0['backend']}")
+    if steps != CP_STEPS or len(r0["evals"]) != 1:
+        raise AssertionError(f"{steps} steps, {len(r0['evals'])} evals")
+    for rank, r in enumerate(results):
+        if r["launches"] != want or any(r["plain_calls"].values()):
+            raise AssertionError(f"rank {rank}: launches {r['launches']}, "
+                                 f"want {want}; plain {r['plain_calls']}")
+        if (r["losses"] != r0["losses"] or r["evals"] != r0["evals"]
+                or r["checksum"] != r0["checksum"]):
+            raise AssertionError(f"rank {rank} disagrees with rank 0: "
+                                 f"{r['losses']} {r['checksum']}")
+    losses = r0["losses"]
+    if not all(math.isfinite(x) for x in losses + r0["evals"]):
+        raise AssertionError(f"non-finite loss in {losses} {r0['evals']}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return {name: {"launches": r0["launches"][name]}
+            for name in fa.BLOCK_NAMES}
+
+
+# ----------------------------------------------------------------- phase 18
+
+CP_E2E_LAYERS, CP_E2E_SEQ = 4, 4096
+
+
+def cp_e2e_overrides(prefix: str, dp: int, cp: int) -> list:
+    """Phase 18's config: the long-context yaml cut to CP_E2E_LAYERS layers
+    at seq CP_E2E_SEQ, hidden dropout 0 (its mask follows the zig-zag
+    order), attention dropout 0.1; a global batch of 2 sequences over dp
+    ranks."""
+    return [f"Data.Train.dataset.input_dir={prefix}",
+            f"Data.Train.dataset.max_seq_len={CP_E2E_SEQ}",
+            f"Model.num_layers={CP_E2E_LAYERS}",
+            "Model.hidden_dropout_prob=0.0",
+            "Model.attention_probs_dropout_prob=0.1",
+            f"Distributed.dp_degree={dp}", f"Distributed.cp_degree={cp}",
+            f"Global.local_batch_size={2 // dp}",
+            f"Global.micro_batch_size={2 // dp}"]
+
+
+def cp_e2e_rank(overrides, batch, grads_path) -> tuple:
+    """One rank of a phase-18 run: one train step of a fresh trainer on its
+    dp rows of the global ``batch``; rank 0 saves the summed gradients
+    (by parameter name) to ``grads_path``. Returns (loss, grad norm)."""
+    cfg = get_config(CP_CONFIG, overrides=list(overrides))
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state()
+    mesh = trainer.mesh
+    b = batch["tokens"].shape[0] // mesh.dp
+    rows = {k: v[mesh.dp_rank * b:(mesh.dp_rank + 1) * b]
+            for k, v in batch.items()}
+    names = [n for n, _ in trainer.module.nets.named_parameters()]
+    grads, clip = [], trainer.clip
+
+    def capture(gs):
+        grads.extend(g.detach().clone() for g in gs)
+        return clip(gs)
+
+    trainer.clip = capture
+    out = trainer.train_step(trainer._to_device(rows))
+    if mesh.rank == 0:
+        torch.save({n: g.cpu() for n, g in zip(names, grads)}, grads_path)
+    return float(out["loss"]), float(out["grad_norm"])
+
+
+def phase_train_cp_e2e(prefix: str) -> None:
+    """One step of the CP config cut to 4 layers at seq 4096 (hidden
+    dropout 0, attention dropout 0.1) three ways on the same global batch:
+    cp 1 in this process, cp 2 on 2 ranks and dp 2 x cp 2 on 4 ranks (all
+    on the card, over gloo). Loss, grad norm and every gradient leaf of
+    the two rings must lie within phase 8's limits of cp 1."""
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    cfg1 = get_config(CP_CONFIG, overrides=cp_e2e_overrides(prefix, 1, 1),
+                      nranks=1)
+    batch = next(iter(build_dataloader(cfg1, "Train")))
+    ref = _e2e_step(cfg1, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        for dp, cp in ((1, 2), (2, 2)):
+            path = os.path.join(tmp, f"grads_dp{dp}_cp{cp}.pt")
+            outs = spawn(cp_e2e_rank, dp * cp,
+                         (cp_e2e_overrides(prefix, dp, cp), batch, path),
+                         timeout=600)
+            grads = {n: g.to(DEVICE) for n, g in torch.load(path).items()}
+            gaps = _e2e_gaps((outs[0][0], outs[0][1], grads, 0), ref)
+            log("train-cp-e2e", layers=CP_E2E_LAYERS, seq=CP_E2E_SEQ, dp=dp,
+                cp=cp, loss_this=outs[0][0], loss_cp1=ref[0],
+                grad_norm_this=outs[0][1], grad_norm_cp1=ref[1],
+                ranks_agree=len(set(outs)) == 1, tol=TRAIN_E2E_TOL, **gaps)
+            over = [m for m, tol in TRAIN_E2E_TOL.items()
+                    if not gaps[m] <= tol]
+            if over or len(set(outs)) != 1 or not math.isfinite(outs[0][0]):
+                raise AssertionError(f"dp {dp} x cp {cp} vs cp 1: {gaps}, "
+                                     f"ranks {outs}")
+            del grads
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def common_prefix(a, b) -> int:
     n = 0
     for x, y in zip(a, b):
@@ -1846,6 +2467,16 @@ def main() -> int:
         gc.collect()  # the drive's trainer (and its optimizer state)
         torch.cuda.empty_cache()
         phase_train_13b_e2e(prefix)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cp_records = phase_cp_kernels()
+    phase_cp_ring()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        write_corpus(prefix, tokens=800_000, seed=2)
+        for name, counts in phase_train_cp(prefix).items():
+            cp_records[name].update(counts)
+        phase_train_cp_e2e(prefix)
     records = [dict(name=da.KERNEL, route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/paged_decode.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",
@@ -1871,6 +2502,12 @@ def main() -> int:
             source="fleetx_tpu_torch/ops/csrc/ce_loss.cu",
             replaces=f"fleetx_tpu/ops/pallas/ce_loss.py:{replaces[name]}",
             **ce_records[name]))
+    replaces = {"block_fwd_lse": 820, "block_dq": 836, "block_dkv": 852}
+    for name in fa.BLOCK_NAMES:
+        records.append(dict(
+            name=name, route="cuda", source=source,
+            replaces=f"fleetx_tpu/ops/pallas/flash_attention.py:"
+                     f"{replaces[name]}", **cp_records[name]))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

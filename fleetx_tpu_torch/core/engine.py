@@ -11,9 +11,17 @@ the step is the loop body. Dropout seeds come from one ``torch.Generator`` seede
 with ``Global.seed``. Checkpoints, the step sentry, preemption, elastic
 resume, the profiler and observability are not ported.
 
+Over several ranks (``Distributed.dp_degree`` × ``cp_degree``, the current
+mesh of ``parallel/mesh.py``) every rank starts from the same weights and
+seeds; after the backward the gradients are summed over the whole world in
+flat buckets, before the global-norm clip, so every rank takes the same
+update. The logged loss and ``evaluate``'s mean are summed over the world
+too (each rank's loss is its share of the global mean), and only rank 0
+logs.
+
 MFU is the model-FLOPs count of ``bench.py`` (6 per parameter per token
-plus the causal attention products) over the step time and the card's
-bf16 dense peak.
+plus the causal attention products) over the step time and the bf16 dense
+peak of every card the ranks run on.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fleetx_tpu_torch.models.module import BasicModule
 from fleetx_tpu_torch.optims.lr_scheduler import build_lr_scheduler
@@ -30,10 +39,13 @@ from fleetx_tpu_torch.optims.optimizer import (
     build_grad_clip,
     build_optimizer,
 )
+from fleetx_tpu_torch.parallel.env import ranks_per_card
+from fleetx_tpu_torch.parallel.mesh import mesh_from_config
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
 
-__all__ = ["Trainer", "model_flops_per_token", "peak_flops"]
+__all__ = ["Trainer", "model_flops_per_token", "peak_flops",
+           "all_reduce_sum"]
 
 # bf16 dense tensor-core peak by exact device name (NVIDIA data sheet; the
 # PCIe and NVL H100 parts have other peaks and are not listed)
@@ -57,6 +69,38 @@ def peak_flops(device: torch.device) -> Optional[float]:
     return _PEAK_BF16.get(torch.cuda.get_device_name(device))
 
 
+BUCKET_BYTES = 256 << 20  # gradient all-reduce bucket
+
+
+def all_reduce_sum(tensors: List[torch.Tensor],
+                   bucket_bytes: int = BUCKET_BYTES) -> None:
+    """Sum ``tensors`` (of one dtype and device) over the world, in place,
+    packed into flat buckets of at most ``bucket_bytes`` (a tensor larger
+    than that goes alone), one all-reduce per bucket."""
+    bucket: List[torch.Tensor] = []
+    size = 0
+
+    def flush():
+        if not bucket:
+            return
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat)
+        offset = 0
+        for t in bucket:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+        bucket.clear()
+
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if bucket and size + nbytes > bucket_bytes:
+            flush()
+            size = 0
+        bucket.append(t)
+        size += nbytes
+    flush()
+
+
 class Trainer:
     """Trains ``module.nets`` on ``device`` (CUDA unless the caller names
     another; raises without it)."""
@@ -78,6 +122,8 @@ class Trainer:
         self.lr_schedule = build_lr_scheduler(opt_cfg.get("lr", 1e-4))
         self.clip = build_grad_clip(opt_cfg.get("grad_clip"))
         self.generator = torch.Generator().manual_seed(self.seed)
+        self.mesh = mesh_from_config(cfg)
+        self.primary = self.mesh.rank == 0  # the rank that logs
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.n_params = 0
@@ -97,8 +143,9 @@ class Trainer:
         self.n_params = sum(p.numel() for p in nets.parameters())
         self.optimizer = build_optimizer(self.cfg.Optimizer or {},
                                          nets.named_parameters())
-        logger.info("initialized model: %.1fM params on %s",
-                    self.n_params / 1e6, self.device)
+        if self.primary:
+            logger.info("initialized model: %.1fM params on %s (%s)",
+                        self.n_params / 1e6, self.device, self.mesh)
 
     # ----------------------------------------------------------------- step
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
@@ -115,9 +162,11 @@ class Trainer:
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """One optimizer step on a device batch: the mean loss and mean
-        gradients over ``accumulate_steps`` micro-batches, the clip, then
-        AdamW at ``lr(step)``. Returns ``{"loss", "grad_norm", "lr"}``
-        (loss and grad_norm as device scalars)."""
+        gradients over ``accumulate_steps`` micro-batches (summed over the
+        world's ranks, each holding its share of the global mean), the
+        clip, then AdamW at ``lr(step)``. Returns ``{"loss", "grad_norm",
+        "lr"}`` (loss and grad_norm as device scalars, the same on every
+        rank)."""
         nets = self.module.nets
         accum = self.accumulate_steps
         rows = next(iter(batch.values())).shape[0]
@@ -133,6 +182,8 @@ class Trainer:
             loss_sum += loss.detach()
         params = [p for p in nets.parameters() if p.grad is not None]
         grads = [p.grad for p in params]
+        if self.mesh.world > 1:
+            all_reduce_sum(grads + [loss_sum.view(1)])
         if self.clip is not None:
             grad_norm = self.clip(grads)
         else:
@@ -147,6 +198,10 @@ class Trainer:
         return {"loss": loss_sum / accum, "grad_norm": grad_norm, "lr": lr}
 
     # ------------------------------------------------------------------ fit
+    def _log_train(self, log: Dict) -> None:
+        if self.primary:
+            self.module.training_step_end(log)
+
     def _flops_per_token(self, seq: int) -> Optional[float]:
         gcfg = getattr(self.module, "gpt_config", None)
         if gcfg is None:
@@ -163,6 +218,8 @@ class Trainer:
         if self.optimizer is None:
             self.init_state()
         peak = peak_flops(self.device)
+        if peak is not None:  # every card the ranks run on
+            peak *= max(self.mesh.world // ranks_per_card(), 1)
         tokens_per_batch = flops = None
         for epoch in range(self.num_train_epochs):
             sampler = getattr(train_data, "batch_sampler", None)
@@ -173,8 +230,9 @@ class Trainer:
             for batch in train_data:
                 if self.step >= self.max_steps:
                     break
-                if tokens_per_batch is None:
-                    tokens_per_batch = int(np.prod(np.shape(batch["tokens"])))
+                if tokens_per_batch is None:  # the global batch's
+                    tokens_per_batch = self.mesh.dp * int(
+                        np.prod(np.shape(batch["tokens"])))
                     flops = self._flops_per_token(np.shape(batch["tokens"])[1])
                 out = self.train_step(self._to_device(batch))
                 window.append(out["loss"])
@@ -187,7 +245,7 @@ class Trainer:
                     ips = tokens_per_batch / dt
                     mfu = (None if peak is None or flops is None
                            else ips * flops / peak)
-                    self.module.training_step_end({
+                    self._log_train({
                         "epoch": epoch, "batch": self.step, "loss": loss,
                         "batch_cost": dt, "ips_total": ips, "ips": ips,
                         "lr": float(self.lr_schedule(self.step)), "mfu": mfu,
@@ -217,8 +275,12 @@ class Trainer:
                                                   None, train=False))
         if not losses:
             return None
+        if self.mesh.world > 1:  # each rank's is its share of the mean
+            losses = torch.stack(losses)
+            dist.all_reduce(losses)
         mean = float(np.mean([float(x) for x in losses]))
-        self.module.validation_step_end({
-            "epoch": epoch, "batch": self.step, "loss": mean,
-            "batch_cost": (time.time() - t0) / len(losses)})
+        if self.primary:
+            self.module.validation_step_end({
+                "epoch": epoch, "batch": self.step, "loss": mean,
+                "batch_cost": (time.time() - t0) / len(losses)})
         return mean

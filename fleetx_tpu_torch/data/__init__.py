@@ -22,25 +22,25 @@ def build_dataset(ds_cfg, mode: str = "Train", **extra):
 
 
 def build_dataloader(cfg, mode: str = "Train", consumed_samples: int = 0):
-    """Loader of GLOBAL batches from the config's ``Data.<mode>`` section
-    (each process takes its slice when ``torch.distributed`` is up)."""
-    import torch.distributed as dist
-
+    """Loader of the config's ``Data.<mode>`` section: each rank takes its
+    dp rank's slice of every global batch, so the ranks of one cp group
+    (which split one batch's sequences) read the same rows."""
     from fleetx_tpu_torch.data.dataloader import DataLoader, gpt_collate_fn
     from fleetx_tpu_torch.data.sampler import GPTBatchSampler
+    from fleetx_tpu_torch.parallel.mesh import mesh_from_config
 
     section = cfg.Data[mode]
     dataset = build_dataset(section.dataset, mode=mode, seed=cfg.Global.seed)
     sampler_cfg = dict(section.get("sampler") or {})
     sampler_cfg.pop("name", None)
-    up = dist.is_available() and dist.is_initialized()
+    mesh = mesh_from_config(cfg)
     sampler = GPTBatchSampler(
         dataset_len=len(dataset),
         batch_size=cfg.Global.global_batch_size,
         consumed_samples=consumed_samples,
         seed=cfg.Global.seed,
-        process_index=dist.get_rank() if up else 0,
-        process_count=dist.get_world_size() if up else 1,
+        process_index=mesh.dp_rank,
+        process_count=mesh.dp,
         **sampler_cfg,
     )
     loader_cfg = dict(section.get("loader") or {})

@@ -19,7 +19,12 @@ The training forward recomputes each layer in the backward under
 ``no_recompute_layers``; with ``fused_ce`` and labels,
 :class:`GPTForPretraining` returns per-token losses through the fused
 LM-head cross-entropy (``ops/ce_loss.py``, B4–B6) instead of logits.
-Pipeline, context and expert parallelism are not here.
+Under ``cp_degree > 1`` the training forward's attention goes around the
+cp ring (``parallel/context_parallel.py``, B11) on this rank's zig-zag
+share of the sequence; a :class:`~fleetx_tpu_torch.ops.dropout.Shard`
+gives the global batch and sequence offsets that the dropout hashes read
+when the batch or the sequence is split over ranks. Pipeline, tensor and
+expert parallelism are not here.
 
 Numerics follow the flax modules at the compute dtype (bf16 by default,
 params fp32):
@@ -59,13 +64,14 @@ from fleetx_tpu_torch.ops.decode_attention import (
     paged_gather_kv,
 )
 from fleetx_tpu_torch.ops.ce_loss import fused_linear_ce
-from fleetx_tpu_torch.ops.dropout import HashDropout, draw_seed
+from fleetx_tpu_torch.ops.dropout import HashDropout, Shard, draw_seed
 from fleetx_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+from fleetx_tpu_torch.parallel.context_parallel import ring_self_attention
 
 __all__ = ["DTYPES", "GPTConfig", "GPTForPretraining", "GPTModel",
            "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm",
            "inference_params", "masked_loss_mean", "pad_starts",
-           "pretraining_loss", "recompute_policy"]
+           "pretraining_loss", "recompute_policy", "token_losses"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -101,6 +107,7 @@ class GPTConfig:
     recompute_extra_saves: Optional[Tuple[str, ...]] = None  # not ported (A4)
     no_recompute_layers: Optional[Tuple[int, ...]] = None
     fused_ce: bool = False  # per-token loss through B4–B6, logits never stored
+    cp_degree: int = 1  # > 1: attention around the cp ring (zig-zag inputs)
 
     @property
     def head_dim(self) -> int:
@@ -155,7 +162,6 @@ UNPORTED = {
     "fast_dropout": (lambda v: v is True, "A4"),  # False: flax nn.Dropout
     "pp_degree": (lambda v: v <= 1, "A6"),
     "virtual_pp_degree": (lambda v: v <= 1, "A6"),
-    "cp_degree": (lambda v: v <= 1, "A6"),
     "num_experts": (lambda v: v <= 1, "A8"),
     "expert_mode": (lambda v: v is False, "A8"),
 }
@@ -242,10 +248,13 @@ class SelfAttention(nn.Module):
     def forward(self, x, cache=None, *, cache_index=None,
                 cache_positions=None, block_tables=None, kv_mask=None,
                 kv_starts=None, decode_end=None, deterministic=True,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, shard: Optional[Shard] = None):
         """``x`` [b, s, E]. Without ``cache``: causal attention over the s
         tokens, with attention dropout (unless ``deterministic``) keyed on
-        the int32 ``seed``. With ``cache`` (this layer's ``key``/``value`` and,
+        the int32 ``seed``, keyed on the global batch row ``shard.b0 +
+        b``; under ``cp_degree > 1`` around the cp ring, x being this
+        rank's zig-zag share of the sequence (JAX model.py:287-305). With
+        ``cache`` (this layer's ``key``/``value`` and,
         at int8, ``key_scale``/``value_scale`` tensors): write the s new
         K/V, then attend. Row b writes at ``cache_positions[b]`` when
         given, else every row at ``cache_index``; paged caches route the
@@ -263,9 +272,20 @@ class SelfAttention(nn.Module):
         q, k, v = self.qkv_proj(x).view(b, s, nh, 3 * hd).split(hd, dim=-1)
         if cache is None:
             rate = cfg.attention_probs_dropout_prob
+            b0 = 0 if shard is None else shard.b0
+            if cfg.cp_degree > 1:
+                if kv_mask is not None:
+                    raise NotImplementedError("context parallelism does not "
+                                              "support a custom attn_mask")
+                out = ring_self_attention(
+                    q, k, v, causal=True, expected_cp=cfg.cp_degree,
+                    dropout_rate=0.0 if deterministic else rate, seed=seed,
+                    batch_offset=b0)
+                return self._out_proj(out)
             out = causal_attention(q, k, v, causal=True, dropout_rate=rate,
                                    seed=seed, deterministic=deterministic,
-                                   use_flash=cfg.use_flash_attention)
+                                   use_flash=cfg.use_flash_attention,
+                                   meta=(b0, 0, nh, nh, 0, 0))
             return self._out_proj(out)
         paged = cfg.decode_num_pages is not None
         quant = "key_scale" in cache
@@ -435,16 +455,20 @@ class DecoderLayer(nn.Module):
         self.mlp_dropout = HashDropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, cache=None, *, deterministic=True,
-                seeds=(None, None, None), **decode):
+                seeds=(None, None, None), shard: Optional[Shard] = None,
+                **decode):
         """``seeds``: the int32 dropout seeds of the attention, attn_dropout
-        and mlp_dropout (see :meth:`GPTModel.dropout_seeds`); ``decode``:
-        the cached-forward keywords of :meth:`SelfAttention.forward`."""
+        and mlp_dropout (see :meth:`GPTModel.dropout_seeds`); ``shard``:
+        where x lies in the global activation; ``decode``: the
+        cached-forward keywords of :meth:`SelfAttention.forward`."""
         attn_seed, attn_drop_seed, mlp_drop_seed = seeds
         y = self.attn(self.norm1(x), cache, deterministic=deterministic,
-                      seed=attn_seed, **decode)
-        x = x + self.attn_dropout(y, deterministic, seed=attn_drop_seed)
+                      seed=attn_seed, shard=shard, **decode)
+        x = x + self.attn_dropout(y, deterministic, seed=attn_drop_seed,
+                                  shard=shard)
         y = self.mlp(self.norm2(x))
-        return x + self.mlp_dropout(y, deterministic, seed=mlp_drop_seed)
+        return x + self.mlp_dropout(y, deterministic, seed=mlp_drop_seed,
+                                    shard=shard)
 
 
 class GPTModel(nn.Module):
@@ -468,7 +492,8 @@ class GPTModel(nn.Module):
                 cache: Optional[Dict] = None, cache_positions=None,
                 block_tables=None, kv_mask=None, kv_starts=None,
                 deterministic=True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Shard] = None):
         """``cache=None`` is the training forward (dropout unless
         ``deterministic``, every seed drawn from ``generator`` before the
         first layer runs, :meth:`dropout_seeds`; each layer recomputed in
@@ -478,7 +503,9 @@ class GPTModel(nn.Module):
         a contiguous cache's ``index`` too (JAX ``cache_index``: the
         scalar write offset, advanced to the furthest write end).
         ``kv_starts`` [b], the decode window's start, defaults to
-        :func:`pad_starts` of ``kv_mask``."""
+        :func:`pad_starts` of ``kv_mask``. ``shard`` places the training
+        forward's ``[b, s]`` tokens in the global batch and sequence, for
+        the dropout hashes (None: they are the whole of it)."""
         x = (self.word_embeddings[input_ids]
              + self.position_embeddings[position_ids]).to(self.cfg.dtype)
         if cache is not None:
@@ -504,17 +531,20 @@ class GPTModel(nn.Module):
             return self.final_norm(x)
         embed_seed, layer_seeds = self.dropout_seeds(deterministic,
                                                      generator)
-        x = self.embed_dropout(x, deterministic, seed=embed_seed)
+        x = self.embed_dropout(x, deterministic, seed=embed_seed,
+                               shard=shard)
         skip = set(self.cfg.no_recompute_layers or ())
         for i, (layer, seeds) in enumerate(zip(self.layers, layer_seeds)):
             if self.recompute is None or i in skip:
-                x = layer(x, deterministic=deterministic, seeds=seeds)
+                x = layer(x, deterministic=deterministic, seeds=seeds,
+                          shard=shard)
             else:
                 # the layer draws nothing (its seeds come in), so the
                 # rerun in the backward sees the forward's dropout masks
-                # without saving or restoring any RNG state
+                # without saving or restoring any RNG state; under cp the
+                # rerun goes around the ring again, on every rank alike
                 x = checkpoint(layer, x, deterministic=deterministic,
-                               seeds=seeds, use_reentrant=False,
+                               seeds=seeds, shard=shard, use_reentrant=False,
                                preserve_rng_state=False)
         return self.final_norm(x)
 
@@ -555,12 +585,13 @@ class GPTForPretraining(nn.Module):
                 cache_positions=None, block_tables=None, kv_mask=None,
                 kv_starts=None, deterministic=True,
                 generator: Optional[torch.Generator] = None,
-                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                labels: Optional[torch.Tensor] = None,
+                shard: Optional[Shard] = None) -> torch.Tensor:
         x = self.gpt(input_ids, position_ids, cache=cache,
                      cache_positions=cache_positions,
                      block_tables=block_tables, kv_mask=kv_mask,
                      kv_starts=kv_starts, deterministic=deterministic,
-                     generator=generator)
+                     generator=generator, shard=shard)
         emb = self.gpt.word_embeddings.to(self.cfg.dtype)
         if labels is not None and self.cfg.fused_ce:
             # JAX model.py:888-899: fp32 per-token losses [b, s] (callers
@@ -616,10 +647,16 @@ def masked_loss_mean(token_loss: torch.Tensor,
     return (token_loss * mask).sum() / mask.sum().clamp_min(1.0)
 
 
-def pretraining_loss(logits: torch.Tensor, labels: torch.Tensor,
-                     loss_mask: torch.Tensor) -> torch.Tensor:
-    """Masked LM cross-entropy in fp32 (model.py:983-991)."""
+def token_losses(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-token LM cross-entropy in fp32: logsumexp − the label's logit."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     label_logits = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return masked_loss_mean(logz - label_logits, loss_mask)
+    return logz - label_logits
+
+
+def pretraining_loss(logits: torch.Tensor, labels: torch.Tensor,
+                     loss_mask: torch.Tensor) -> torch.Tensor:
+    """Masked LM cross-entropy in fp32 (model.py:983-991)."""
+    return masked_loss_mean(token_losses(logits, labels), loss_mask)

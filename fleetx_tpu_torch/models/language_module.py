@@ -4,7 +4,15 @@ Port of the JAX package's ``LanguageModule`` and ``GPTModule``
 (models/language_module.py:28-71, 187-306): the ``ips:`` and ``[eval]``
 log lines and the GPT pretraining loss, through the logits or, under
 ``Model.fused_ce``, through the fused LM-head cross-entropy (B4–B6).
-Pipeline, context parallelism and pretrained warm starts are not ported.
+
+Under data and context parallelism (``Distributed.dp_degree`` and
+``cp_degree``, the current mesh of ``parallel/mesh.py``) each rank takes
+its dp share of the batch from the loader and, under cp, its two zig-zag
+blocks of each sequence (:meth:`GPTModule.cp_prepare`); its loss is the
+local ``sum(loss·mask)`` over the mask count of the whole global batch, so
+that the trainer's sum of the ranks' gradients is the gradient of JAX's
+``masked_loss_mean`` over the global batch. Pipeline and pretrained warm
+starts are not ported.
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from fleetx_tpu_torch.models.gpt.convert import init_params
 from fleetx_tpu_torch.models.gpt.model import (
@@ -19,9 +28,13 @@ from fleetx_tpu_torch.models.gpt.model import (
     GPTForPretraining,
     masked_loss_mean,
     pretraining_loss,
+    token_losses,
 )
 from fleetx_tpu_torch.models.module import BasicModule
 from fleetx_tpu_torch.ops.ce_loss import fit_vocab_block
+from fleetx_tpu_torch.ops.dropout import Shard
+from fleetx_tpu_torch.parallel.context_parallel import zigzag_slice
+from fleetx_tpu_torch.parallel.mesh import mesh_from_config
 from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["LanguageModule", "GPTModule", "resolve_compute_dtype"]
@@ -84,8 +97,17 @@ class GPTModule(LanguageModule):
     def get_model(self):
         gcfg = GPTConfig.from_model_config(self.cfg.Model)
         eng = self.cfg.get("Engine") or {}
+        cp = (self.cfg.get("Distributed") or {}).get("cp_degree") or 1
         gcfg = GPTConfig(**{**gcfg.__dict__,
-                            "dtype": resolve_compute_dtype(eng)})
+                            "dtype": resolve_compute_dtype(eng),
+                            "cp_degree": cp})
+        if gcfg.fused_ce and cp > 1:
+            # as the JAX module (:208-230): the fused kernel would gather
+            # the sequence-split hidden states; the logits path is taken
+            logger.warning("Model.fused_ce disabled: cp_degree=%d/"
+                           "pp_degree=1 (validated for 1/1); using the "
+                           "logits path", cp)
+            gcfg = GPTConfig(**{**gcfg.__dict__, "fused_ce": False})
         if gcfg.fused_ce and fit_vocab_block(gcfg.vocab_size) is None:
             self.fused_ce_blocked = (
                 f"vocab {gcfg.vocab_size} admits no lane-aligned block "
@@ -100,23 +122,68 @@ class GPTModule(LanguageModule):
     def init_params(self, seed: int, device) -> Dict[str, torch.Tensor]:
         return init_params(self.gpt_config, seed=seed, device=device)
 
+    def cp_prepare(self, batch):
+        """``(tokens, position_ids, labels, loss_mask)`` of this rank (JAX
+        ``cp_prepare``, :254-277): the batch as it is without context
+        parallelism; under cp, this rank's two zig-zag blocks of each
+        sequence, with the true position ids (ring attention is the only
+        position-sensitive op, and the masked losses do not depend on the
+        order)."""
+        tokens = batch["tokens"]
+        position_ids = batch.get("position_ids")
+        labels, loss_mask = batch.get("labels"), batch.get("loss_mask")
+        cp = self.gpt_config.cp_degree
+        if cp <= 1:
+            return tokens, position_ids, labels, loss_mask
+        if position_ids is None:
+            position_ids = torch.arange(
+                tokens.shape[1], device=tokens.device).expand_as(tokens)
+        rank = mesh_from_config(self.cfg).cp_rank
+        return tuple(None if x is None else zigzag_slice(x, cp, rank)
+                     for x in (tokens, position_ids, labels, loss_mask))
+
     def loss_fn(self, batch, generator: Optional[torch.Generator],
                 train: bool) -> torch.Tensor:
         """The masked mean token loss (JAX ``loss_fn``, :279-306): through
         the fused kernels when ``fused_ce`` is on and 8 divides the batch's
         token count, else through the logits (CPU batches only when
-        ``fused_ce`` was asked for)."""
-        tokens, labels = batch["tokens"], batch["labels"]
-        kw = dict(deterministic=not train, generator=generator)
+        ``fused_ce`` was asked for). Over several ranks, this rank's
+        ``sum(loss·mask)`` over the global batch's mask count (an
+        all-reduce of the counts): the ranks' losses sum to the global
+        masked mean."""
+        mesh = mesh_from_config(self.cfg)
+        tokens, position_ids, labels, loss_mask = self.cp_prepare(batch)
+        shard = None
+        if mesh.world > 1:
+            b, s = tokens.shape
+            shard = Shard(b0=mesh.dp_rank * b, batch=mesh.dp * b,
+                          s0=mesh.cp_rank * s, seq=mesh.cp * s)
+        kw = dict(deterministic=not train, generator=generator, shard=shard)
         why = self.fused_ce_blocked
         if self.gpt_config.fused_ce:
             if labels.numel() % 8 == 0:
-                token_loss = self.nets(tokens, batch["position_ids"],
-                                       labels=labels, **kw)
-                return masked_loss_mean(token_loss, batch["loss_mask"])
+                token_loss = self.nets(tokens, position_ids, labels=labels,
+                                       **kw)
+                return self._masked_mean(token_loss, loss_mask, mesh)
             why = f"8 does not divide the batch's {labels.numel()} tokens"
         if why is not None and tokens.is_cuda:
             raise ValueError(f"Model.fused_ce cannot run: {why}; on the "
                              "card the logits path is not taken instead")
-        logits = self.nets(tokens, batch["position_ids"], **kw)
-        return pretraining_loss(logits, labels, batch["loss_mask"])
+        logits = self.nets(tokens, position_ids, **kw)
+        if mesh.world == 1:
+            return pretraining_loss(logits, labels, loss_mask)
+        return self._masked_mean(token_losses(logits, labels), loss_mask,
+                                 mesh)
+
+    @staticmethod
+    def _masked_mean(token_loss, loss_mask, mesh) -> torch.Tensor:
+        """:func:`masked_loss_mean`, with the mask count of every rank's
+        share of the global batch over several ranks."""
+        if mesh.world == 1:
+            return masked_loss_mean(token_loss, loss_mask)
+        mask = loss_mask.float().reshape(token_loss.shape)
+        count = mask.sum()
+        dist.all_reduce(count)
+        # each cp group's ranks hold disjoint tokens of the same rows, and
+        # the dp groups disjoint rows: the sum is the global count
+        return (token_loss * mask).sum() / count.clamp_min(1.0)

@@ -29,8 +29,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      attn_mask: Optional[torch.Tensor] = None,
                      kv_lens: Optional[torch.Tensor] = None,
                      dropout_rate: float = 0.0, seed: Optional[int] = None,
-                     deterministic: bool = True, use_flash: bool = True
-                     ) -> torch.Tensor:
+                     deterministic: bool = True, use_flash: bool = True,
+                     meta=None) -> torch.Tensor:
     """Scaled-dot-product attention over ``[b, s, h, d]`` tensors, routed
     as the JAX function routes it: the flash kernels when ``use_flash``,
     no ``attn_mask``, q and k of one length and (under dropout) a ``seed``;
@@ -39,8 +39,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Otherwise the dense :func:`reference_attention`, whose dropout drops
     probabilities with the same hash mask (the JAX dense path draws its
     own bernoulli bits there). ``kv_lens`` int32 [b] masks right-padded
-    keys. On CPU tensors the flash path runs the kernels' plain
-    versions."""
+    keys. ``meta`` (``(b0, h0, h_local, h_total, 0, 0)``, the identity when
+    None) gives the global batch and head ids that key the dropout hash
+    when the batch or the heads are split over ranks. On CPU tensors the
+    flash path runs the kernels' plain versions."""
     rate = 0.0 if deterministic else float(dropout_rate)
     s = q.shape[1]
     if (use_flash and attn_mask is None and k.shape[1] == s
@@ -54,7 +56,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kv_lens is not None:
             kv_lens = kv_lens.to(device=q.device, dtype=torch.int32)
         out = fa.flash_attention(q, k, v, causal=causal, kv_lens=kv_lens,
-                                 dropout_rate=rate, seed=seed or 0)
+                                 dropout_rate=rate, seed=seed or 0,
+                                 meta=meta)
         return out[:, :s] if pad else out
     if rate > 0.0 and seed is None:
         raise ValueError("dropout_rate > 0 needs a seed")
@@ -71,8 +74,12 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keep = None
     if rate > 0.0:
         dev = q.device
+        b0, h0, h_local, h_total = fa.identity_meta(h)[:4] if meta is None \
+            else meta[:4]
+        bh = torch.arange(b * h, device=dev)
+        bh = (b0 + bh // h_local) * h_total + h0 + bh % h_local
         keep = fa.dropout_keep_scale(
-            seed, torch.arange(b * h, device=dev).view(b, h, 1, 1),
+            seed, bh.view(b, h, 1, 1),
             torch.arange(s, device=dev)[:, None],
             torch.arange(sk, device=dev)[None, :], rate)
     return reference_attention(q, k, v, mask, keep=keep)

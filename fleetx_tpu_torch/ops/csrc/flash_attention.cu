@@ -4,6 +4,10 @@
 //   flash_fwd      <- `_fwd_kernel`     (:287, via `_fwd_call`, :625)
 //   flash_bwd_dq   <- `_bwd_dq_kernel`  (:397, via `_dq_call`, :688)
 //   flash_bwd_dkv  <- `_bwd_dkv_kernel` (:502, via `_dkv_call`, :722)
+// and, called on one (q block, kv block) pair of a context-parallel ring with
+// global offsets, the ring-CP entries `block_fwd_lse`, `block_dq` and
+// `block_dkv` (:820-863) that run those kernels with a `meta` of
+// [b0, h0, h_local, h_total, q_off, k_off] (`_global_ids`, :273-284).
 //
 // Operands keep the model layout [b, s, h, d] (any strides over b, s and h,
 // the head dim contiguous), so q, k and v are read straight out of the fused
@@ -14,16 +18,21 @@
 // Numerics follow the Pallas kernels:
 // - scores s = (q·kᵀ)·scale in fp32 over operands in T (scale after the dot;
 //   q is loaded unscaled, so dq and dk take ·scale at the end, in fp32);
-// - masked scores (causal k > q, or k >= kv_lens[b]) are -1e30 and their p
-//   is exactly 0; a fully masked row emits zeros and lse = m + log(1);
+// - masked scores (causal k_off + k > q_off + q, or k_off + k >= kv_lens[b],
+//   a global key count) are -1e30 and their p is exactly 0; a fully masked
+//   row emits zeros and lse = m + log(1);
 // - the forward takes p against the running max after each 64-wide key
 //   tile, sums the UNDROPPED p into the normaliser l, and rounds the dropped
 //   p to T before p·V; the backward regenerates p = exp(s - lse), scales dP
 //   by the keep mask, uses p∘keep for dV and the undropped p for dS, and
 //   rounds p∘keep and dS to T before their products. Accumulation is fp32.
-// - dropout keeps a cell iff lowbias32(seed, b*h, q, k) & 0x7FFFFFFF >=
-//   threshold, with scale 1/(1-rate) (`dropout_keep_scale`, :149-170); the
-//   hash runs in uint32, so shifts are logical and multiplies wrap.
+// - dropout keeps a cell iff lowbias32(seed, gbh, q_off + q, k_off + k) &
+//   0x7FFFFFFF >= threshold, with scale 1/(1-rate) (`dropout_keep_scale`,
+//   :149-170), gbh = (b0 + bh / h_local) * h_total + h0 + bh % h_local the
+//   global batch*head id; the hash runs in uint32, so shifts are logical and
+//   multiplies wrap. The identity offsets [0, 0, h, h, 0, 0] give gbh = bh
+//   and local positions, so an unsharded call computes what it did before
+//   the offsets existed, bit for bit.
 //
 // Bound on this card, at GPT-345M training shapes (b 8, h 16, s 1024, d 64,
 // causal, bf16): each causal product is b*h*d*s(s+1) = 8.6 GFLOP against
@@ -35,9 +44,10 @@
 // Design (simple first): one 256-thread block per (q tile, b*h) for the
 // forward and dQ, one per (k tile, b*h) for dK/dV; a loop inside the block
 // walks the other operand's 64-row tiles, skipping tiles that are wholly
-// masked (past the causal diagonal or past kv_lens), as the Pallas index maps
-// clamp. The online-softmax state m and l lives in registers of the four
-// threads that own a score row.
+// masked (past the causal diagonal, shifted by q_off - k_off, or past
+// kv_lens - k_off), as the Pallas index maps and tile walks clamp
+// (:361-370, :456-465, :574-577). The online-softmax state m and l lives in
+// registers of the four threads that own a score row.
 // - bf16 (training): operand tiles sit in shared memory as bf16 and every
 //   product runs on the tensor cores through `nvcuda::wmma` 16x16x16
 //   fragments with fp32 accumulation, each warp owning fixed 16x16 blocks of
@@ -86,6 +96,14 @@ struct FlashParams {
   unsigned int threshold;  // int(rate * 2^31)
   float keep_scale;        // float32(1) / float32(1 - rate)
   int seed;
+  // global ids of the call (`_global_ids`): batch and head offsets, local and
+  // total head counts, and the positions of query and key row 0
+  int b0;
+  int h0;
+  int h_local;
+  int h_total;
+  int q_off;
+  int k_off;
   int pad_;
 };
 
@@ -130,9 +148,33 @@ __device__ __forceinline__ float drop_scale(const FlashParams& p, uint32_t bh, u
   return (x & 0x7FFFFFFFu) >= p.threshold ? p.keep_scale : 0.f;
 }
 
+// live keys of the call's rows: kv_lens is a global key count
 __device__ __forceinline__ int live_keys(const FlashParams& p, int b) {
   if (p.kv_lens == nullptr) return p.seq;
-  return min(max(p.kv_lens[b], 0), p.seq);
+  return min(max(p.kv_lens[b] - p.k_off, 0), p.seq);
+}
+
+// the global batch*head id of local row bh, which keys the dropout hash
+__device__ __forceinline__ uint32_t global_bh(const FlashParams& p, int bh) {
+  return static_cast<uint32_t>((p.b0 + bh / p.h_local) * p.h_total + p.h0 + bh % p.h_local);
+}
+
+// key tiles a causal q tile starting at q0 reaches: its last row sees local
+// keys up to q0 + 63 + (q_off - k_off)
+__device__ __forceinline__ int causal_key_tiles(const FlashParams& p, int q0) {
+  const int last = q0 + kTile - 1 + p.q_off - p.k_off;
+  return last < 0 ? 0 : last / kTile + 1;
+}
+
+// the first q tile that sees any key of a causal key tile starting at k0
+__device__ __forceinline__ int causal_first_q_tile(const FlashParams& p, int k0) {
+  const int first = k0 - (p.q_off - p.k_off);
+  return first <= 0 ? 0 : first / kTile;
+}
+
+// causal test of local query row q against local key k, in global positions
+__device__ __forceinline__ bool causal_live(const FlashParams& p, int q, int k) {
+  return !p.causal || p.k_off + k <= p.q_off + q;
 }
 
 // a [kTile, D] tile of a [b, s, h, d] operand into shared memory as fp32,
@@ -177,6 +219,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
 
   const int qt = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
+  const uint32_t gbh = global_bh(p, bh);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int srow = tid >> 2, spart = tid & 3;  // softmax: 4 threads per row
   const int q0 = qt * kTile;
@@ -187,7 +230,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
   load_tile<T, D, LD>(sQ, Q + q0 * p.q_strides[1], p.q_strides[1]);
   const int kv_len = live_keys(p, b);
   int n_tiles = (kv_len + kTile - 1) / kTile;  // tiles holding any live key
-  if (p.causal) n_tiles = min(n_tiles, qt + 1);
+  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0));
 
   float m_run = kNegInf, l_run = 0.f;
   float acc[4][NJ];
@@ -226,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kc = tx + 16 * j;
-        const bool live = k0 + kc < kv_len && (!p.causal || k0 + kc <= q0 + r);
+        const bool live = k0 + kc < kv_len && causal_live(p, q0 + r, k0 + kc);
         sS[r * kLDS + kc] = live ? s[i][j] * p.scale : kNegInf;
       }
     }
@@ -247,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
       const float sv = row[c];
       float pv = sv > 0.5f * kNegInf ? expf(sv - m_new) : 0.f;
       psum += pv;  // the normaliser sums the undropped p
-      if (p.dropout) pv *= drop_scale(p, bh, q0 + srow, k0 + spart * 16 + c);
+      if (p.dropout) pv *= drop_scale(p, gbh, p.q_off + q0 + srow, p.k_off + k0 + spart * 16 + c);
       row[c] = round_to<T>(pv);
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
@@ -318,6 +361,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
 
   const int qt = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
+  const uint32_t gbh = global_bh(p, bh);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = qt * kTile;
   const T* Q = head_ptr<T>(p.q, p.q_strides, b, h);
@@ -333,7 +377,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
   }
   const int kv_len = live_keys(p, b);
   int n_tiles = (kv_len + kTile - 1) / kTile;
-  if (p.causal) n_tiles = min(n_tiles, qt + 1);
+  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0));
 
   float acc[4][NJ];
 #pragma unroll
@@ -380,11 +424,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashParam
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kc = tx + 16 * j;
-        const bool live = k0 + kc < kv_len && (!p.causal || k0 + kc <= q0 + r);
+        const bool live = k0 + kc < kv_len && causal_live(p, q0 + r, k0 + kc);
         const float pv = live ? expf(s[i][j] * p.scale - sLse[r]) : 0.f;
         float d = dp[i][j];
         // dP = (dO·Vᵀ)∘keep; delta already equals rowsum(p∘dP)
-        if (p.dropout) d *= drop_scale(p, bh, q0 + r, k0 + kc);
+        if (p.dropout) d *= drop_scale(p, gbh, p.q_off + q0 + r, p.k_off + k0 + kc);
         sDS[r * kLDS + kc] = round_to<T>(pv * (d - sDelta[r]));
       }
     }
@@ -436,6 +480,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
 
   const int kt = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
+  const uint32_t gbh = global_bh(p, bh);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int k0 = kt * kTile;
   T* dk_out = static_cast<T*>(p.dk);
@@ -465,7 +510,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
   // causal: q tiles before this key tile's diagonal see none of its keys
-  const int first = p.causal ? kt : 0;
+  const int first = p.causal ? causal_first_q_tile(p, k0) : 0;
   const int n_q = p.seq / kTile;
   for (int qt = first; qt < n_q; ++qt) {
     const int q0 = qt * kTile;
@@ -511,11 +556,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kc = tx + 16 * j;
-        const bool live = k0 + kc < kv_len && (!p.causal || k0 + kc <= q0 + r);
+        const bool live = k0 + kc < kv_len && causal_live(p, q0 + r, k0 + kc);
         const float pv = live ? expf(s[i][j] * p.scale - sLse[r]) : 0.f;
         float d = dp[i][j], pd = pv;
         if (p.dropout) {
-          const float keep = drop_scale(p, bh, q0 + r, k0 + kc);
+          const float keep = drop_scale(p, gbh, p.q_off + q0 + r, p.k_off + k0 + kc);
           pd *= keep;  // dropped probabilities feed dV
           d *= keep;
         }
@@ -697,6 +742,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const FlashParam
 
   const int qt = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
+  const uint32_t gbh = global_bh(p, bh);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int srow = tid >> 2, spart = tid & 3;
   const int q0 = qt * kTile;
@@ -707,7 +753,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const FlashParam
   load_tile_bf16<D>(sQ, Q + q0 * p.q_strides[1], p.q_strides[1]);
   const int kv_len = live_keys(p, b);
   int n_tiles = (kv_len + kTile - 1) / kTile;
-  if (p.causal) n_tiles = min(n_tiles, qt + 1);
+  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0));
 
   float m_run = kNegInf, l_run = 0.f;
   float acc[4][NJ];
@@ -731,7 +777,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const FlashParam
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
       const int kg = k0 + spart * 16 + c;
-      const bool live = kg < kv_len && (!p.causal || kg <= q0 + srow);
+      const bool live = kg < kv_len && causal_live(p, q0 + srow, kg);
       sv[c] = live ? row[c] * p.scale : kNegInf;
       mx = fmaxf(mx, sv[c]);
     }
@@ -744,7 +790,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const FlashParam
     for (int c = 0; c < 16; ++c) {
       float pv = sv[c] > 0.5f * kNegInf ? expf(sv[c] - m_new) : 0.f;
       psum += pv;  // the normaliser sums the undropped p
-      if (p.dropout) pv *= drop_scale(p, bh, q0 + srow, k0 + spart * 16 + c);
+      if (p.dropout) pv *= drop_scale(p, gbh, p.q_off + q0 + srow, p.k_off + k0 + spart * 16 + c);
       prow[c] = __float2bfloat16(pv);
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
@@ -812,6 +858,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(const FlashPa
 
   const int qt = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
+  const uint32_t gbh = global_bh(p, bh);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = qt * kTile;
   const bf16* Q = head_ptr<bf16>(p.q, p.q_strides, b, h);
@@ -827,7 +874,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(const FlashPa
   }
   const int kv_len = live_keys(p, b);
   int n_tiles = (kv_len + kTile - 1) / kTile;
-  if (p.causal) n_tiles = min(n_tiles, qt + 1);
+  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0));
 
   FragC dq[frags<D>()];
   zero_acc<D>(dq);
@@ -842,11 +889,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(const FlashPa
     __syncthreads();
     for (int e = tid; e < kTile * kTile; e += kThreads) {
       const int r = e / kTile, kc = e % kTile;
-      const bool live = k0 + kc < kv_len && (!p.causal || k0 + kc <= q0 + r);
+      const bool live = k0 + kc < kv_len && causal_live(p, q0 + r, k0 + kc);
       const float pv = live ? expf(sS[r * kLDF + kc] * p.scale - sLse[r]) : 0.f;
       float d = sDP[r * kLDF + kc];
       // dP = (dO·Vᵀ)∘keep; delta already equals rowsum(p∘dP)
-      if (p.dropout) d *= drop_scale(p, bh, q0 + r, k0 + kc);
+      if (p.dropout) d *= drop_scale(p, gbh, p.q_off + q0 + r, p.k_off + k0 + kc);
       sDS[r * kLDP + kc] = __float2bfloat16(pv * (d - sDelta[r]));
     }
     __syncthreads();
@@ -884,6 +931,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(const FlashP
 
   const int kt = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
+  const uint32_t gbh = global_bh(p, bh);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int k0 = kt * kTile;
   bf16* dk_out = static_cast<bf16*>(p.dk);
@@ -909,7 +957,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(const FlashP
   FragC dk[frags<D>()], dv[frags<D>()];
   zero_acc<D>(dk);
   zero_acc<D>(dv);
-  const int first = p.causal ? kt : 0;  // earlier q tiles see none of these keys
+  // earlier q tiles see none of these keys
+  const int first = p.causal ? causal_first_q_tile(p, k0) : 0;
   const int n_q = p.seq / kTile;
   for (int qt = first; qt < n_q; ++qt) {
     const int q0 = qt * kTile;
@@ -926,11 +975,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(const FlashP
     __syncthreads();
     for (int e = tid; e < kTile * kTile; e += kThreads) {
       const int r = e / kTile, kc = e % kTile;
-      const bool live = k0 + kc < kv_len && (!p.causal || k0 + kc <= q0 + r);
+      const bool live = k0 + kc < kv_len && causal_live(p, q0 + r, k0 + kc);
       const float pv = live ? expf(sS[r * kLDF + kc] * p.scale - sLse[r]) : 0.f;
       float d = sDP[r * kLDF + kc], pd = pv;
       if (p.dropout) {
-        const float keep = drop_scale(p, bh, q0 + r, k0 + kc);
+        const float keep = drop_scale(p, gbh, p.q_off + q0 + r, p.k_off + k0 + kc);
         pd *= keep;  // dropped probabilities feed dV
         d *= keep;
       }

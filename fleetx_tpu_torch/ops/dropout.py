@@ -8,10 +8,18 @@ seed gives the JAX module's mask bit for bit. The seed of each call is one
 int32 drawn from an explicit ``torch.Generator`` (the JAX module folds its
 ``'dropout'`` PRNG key into one). Plain PyTorch on every device: the JAX
 module is pure jnp too, with no Pallas kernel behind it.
+
+When the batch (dp) or the sequence (cp) is split over ranks, i is the
+index the JAX module's ``iota`` over the GLOBAL array gives (:70-72): the
+flat index of the element in the global ``[B, S, ...]`` activation, whose
+sequence is in zig-zag order under cp. A :class:`Shard` says where the
+rank's ``[b, s, ...]`` slice lies in it; with the rank-local index, two cp
+ranks would draw one mask for two different parts of the sequence.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -19,7 +27,18 @@ from torch import nn
 
 from fleetx_tpu_torch.ops.flash_attention import dropout_keep_scale
 
-__all__ = ["HashDropout", "draw_seed"]
+__all__ = ["HashDropout", "Shard", "draw_seed"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """Where a rank's ``[b, s, ...]`` activation lies in the global
+    ``[B, S, ...]`` one: rows from ``b0`` of ``batch`` (B), positions from
+    ``s0`` of ``seq`` (S)."""
+    b0: int
+    batch: int
+    s0: int
+    seq: int
 
 
 def draw_seed(generator: Optional[torch.Generator]) -> int:
@@ -41,17 +60,32 @@ class HashDropout(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Optional[int] = None,
+                shard: Optional[Shard] = None) -> torch.Tensor:
         if deterministic or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        if x.numel() >= (1 << 31):
+        if shard is None:
+            size = x.numel()
+        else:
+            b, s = x.shape[:2]
+            inner = x.numel() // max(b * s, 1)
+            size = shard.batch * shard.seq * inner  # the global activation's
+        if size >= (1 << 31):
             raise ValueError(f"HashDropout supports < 2^31 elements per call; "
-                             f"got shape {tuple(x.shape)}")
+                             f"got {size} (local shape {tuple(x.shape)})")
         if seed is None:
             seed = draw_seed(generator)
-        idx = torch.arange(x.numel(), dtype=torch.int32,
-                           device=x.device).view(x.shape)
+        if shard is None:
+            idx = torch.arange(x.numel(), dtype=torch.int32,
+                               device=x.device).view(x.shape)
+        else:  # the element's flat index in the global activation
+            dev = x.device
+            rows = ((shard.b0 + torch.arange(b, device=dev))[:, None]
+                    * shard.seq + shard.s0 + torch.arange(s, device=dev))
+            idx = (rows[..., None] * inner
+                   + torch.arange(inner, device=dev)).to(torch.int32)
+            idx = idx.view(x.shape)
         scale = dropout_keep_scale(seed, 0, idx, 0, self.rate)
         return x * scale.to(x.dtype)

@@ -8,6 +8,17 @@ Port of the JAX package's ``flash_attention`` (ops/pallas/flash_attention.py:
 - ``flash_bwd_dq`` (B2, ``_bwd_dq_kernel`` :397): dQ from lse and delta;
 - ``flash_bwd_dkv`` (B3, ``_bwd_dkv_kernel`` :502): dK and dV.
 
+Each kernel and plain version takes a ``meta`` of global ids, ``(b0, h0,
+h_local, h_total, q_off, k_off)`` (``_global_ids``, :273-284): the batch and
+head offsets of the call's rows, their local and total head counts, and the
+global positions of query and key row 0. The causal test, the skipping of
+wholly masked tiles, ``kv_lens`` (a global key count) and the dropout hash
+read global ids and positions; the identity meta ``(0, 0, h, h, 0, 0)``
+(``meta=None``) leaves every call as it was, bit for bit. The ring-CP pair
+entries :func:`block_fwd_lse`, :func:`block_dq` and :func:`block_dkv` (B11,
+:820-863) run B1-B3 on one (q block, kv block) pair with such a meta, a
+global ``kv_len`` and lse/delta in the ``[b, s, h]`` layout.
+
 :func:`flash_attention` is a ``torch.autograd.Function`` whose forward
 launches B1 and whose backward computes ``delta = rowsum(dO∘O)`` in fp32
 (outside the kernels, as at :769-770) and launches B2 and B3. Each of
@@ -40,13 +51,15 @@ import torch
 
 from fleetx_tpu_torch.ops import _build
 
-__all__ = ["KERNEL", "NAMES", "TILE", "FLASH_TOL", "launches",
-           "dropout_keep_scale",
-           "flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_attention_fwd_ref", "flash_bwd_dq_ref", "flash_bwd_dkv_ref"]
+__all__ = ["KERNEL", "NAMES", "BLOCK_NAMES", "TILE", "FLASH_TOL",
+           "launches", "block_launches", "dropout_keep_scale",
+           "identity_meta", "flash_attention", "flash_fwd", "flash_bwd_dq",
+           "flash_bwd_dkv", "flash_attention_fwd_ref", "flash_bwd_dq_ref",
+           "flash_bwd_dkv_ref", "block_fwd_lse", "block_dq", "block_dkv"]
 
 KERNEL = "flash_attention"  # csrc/flash_attention.cu
 NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BLOCK_NAMES = ("block_fwd_lse", "block_dq", "block_dkv")  # B11's entries
 TILE = 64  # the kernels' q and k tile rows; sequences are multiples of it
 NEG_INF = -1e30  # the TPU kernels' masked score
 HEAD_DIMS = (16, 32, 64, 128)
@@ -60,6 +73,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 2.0**-7)}
 
 launches: Dict[str, int] = {name: 0 for name in NAMES}
+# launches made through B11's entries (each also counts in ``launches``
+# under the kernel it runs)
+block_launches: Dict[str, int] = {name: 0 for name in BLOCK_NAMES}
 
 # lowbias32 mixing constants as wrapped int32 (the JAX module's _MIX1.._C3)
 _MIX1 = int(np.int32(np.uint32(0x7FEB352D)))
@@ -132,23 +148,46 @@ def _from_bh(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.transpose(1, 2).to(dtype).contiguous()
 
 
-def _live(b: int, s: int, causal: bool, kv_lens, device) -> torch.Tensor:
-    """Bool [b, 1, s, s]: key k is live for query q."""
+def identity_meta(h: int) -> Tuple[int, ...]:
+    """The meta of an unsharded call: global ids are local, offsets 0."""
+    return (0, 0, h, h, 0, 0)
+
+
+def _meta(meta, h: int) -> Tuple[int, ...]:
+    """``meta`` as six ints (the identity when None), checked."""
+    if meta is None:
+        return identity_meta(h)
+    meta = tuple(int(x) for x in meta)
+    if len(meta) != 6 or meta[2] != h or meta[3] < h or min(meta) < 0:
+        raise ValueError(f"meta must be (b0, h0, h_local={h}, h_total >= "
+                         f"{h}, q_off, k_off), non-negative; got {meta}")
+    return meta
+
+
+def _live(b: int, s: int, causal: bool, kv_lens, device,
+          meta) -> torch.Tensor:
+    """Bool [b, 1, s, s]: key k is live for query q (``kv_lens`` a global
+    key count, the causal test on global positions)."""
+    q_off, k_off = meta[4], meta[5]
     pos = torch.arange(s, device=device)
     lens = (torch.full((b,), s, device=device) if kv_lens is None
-            else kv_lens.to(device).long().clamp(0, s))
+            else (kv_lens.to(device).long() - k_off).clamp(0, s))
     live = (pos[None, None, :] < lens[:, None, None])[:, None]  # [b,1,1,s]
     if causal:
-        live = live & (pos[None, :] <= pos[:, None])[None, None]
+        live = live & (pos[None, :] <= pos[:, None] + (q_off - k_off))[
+            None, None]
     return live.expand(b, 1, s, s)
 
 
-def _keep(seed: int, rate: float, b: int, h: int, s: int, device):
+def _keep(seed: int, rate: float, b: int, h: int, s: int, device, meta):
     """fp32 [b, h, s, s] dropout keep scale on the global (b·h, q, k)."""
+    b0, h0, h_local, h_total, q_off, k_off = meta
     bh = torch.arange(b * h, device=device, dtype=torch.int32)
+    bh = (b0 + bh // h_local) * h_total + h0 + bh % h_local
     pos = torch.arange(s, device=device, dtype=torch.int32)
-    keep = dropout_keep_scale(seed, bh[:, None, None], pos[None, :, None],
-                              pos[None, None, :], rate)
+    keep = dropout_keep_scale(seed, bh[:, None, None],
+                              (q_off + pos)[None, :, None],
+                              (k_off + pos)[None, None, :], rate)
     return keep.view(b, h, s, s)
 
 
@@ -160,14 +199,16 @@ def _scores(q, k, live):
 
 
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, kv_lens=None,
-                            dropout_rate: float = 0.0, seed: int = 0
+                            dropout_rate: float = 0.0, seed: int = 0,
+                            meta=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`flash_fwd`: ``(out [b, s, h, d] in q's
     dtype, lse [b*h, s] fp32)``. p is taken against the running max after
     each ``TILE``-wide key tile and rounded to the operand dtype (after
     dropout) before the value product; l sums the undropped p."""
     b, s, h, d = q.shape
-    live = _live(b, s, causal, kv_lens, q.device)
+    meta = _meta(meta, h)
+    live = _live(b, s, causal, kv_lens, q.device, meta)
     sc = _scores(q, k, live)
     nt = s // TILE
     tile_max = sc.view(b, h, s, nt, TILE).amax(-1)
@@ -179,7 +220,7 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, kv_lens=None,
         TILE, -1)
     l = (p * rescale).sum(-1, keepdim=True)
     if dropout_rate > 0.0:
-        p = p * _keep(seed, dropout_rate, b, h, s, q.device)
+        p = p * _keep(seed, dropout_rate, b, h, s, q.device, meta)
     p = p.to(q.dtype).float() * rescale
     l_safe = torch.where(l > 0, l, 1.0)  # fully masked rows emit zeros
     out = torch.matmul(p, _to_bh(v)) / l_safe
@@ -187,46 +228,48 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, kv_lens=None,
     return _from_bh(out, q.dtype), lse.reshape(b * h, s).contiguous()
 
 
-def _probs_and_dp(q, k, v, do, lse, *, causal, kv_lens, dropout_rate, seed):
+def _probs_and_dp(q, k, v, do, lse, *, causal, kv_lens, dropout_rate, seed,
+                  meta):
     """(p, dP, keep): p = exp(s - lse) with masked cells 0, dP = dO·Vᵀ
     (times the keep mask under dropout), all fp32 [b, h, s, s]."""
     b, s, h, _ = q.shape
-    live = _live(b, s, causal, kv_lens, q.device)
+    meta = _meta(meta, h)
+    live = _live(b, s, causal, kv_lens, q.device, meta)
     sc = _scores(q, k, live)
     p = torch.where(live, torch.exp(sc - lse.view(b, h, s, 1)), 0.0)
     dp = torch.matmul(_to_bh(do), _to_bh(v).transpose(-1, -2))
     keep = None
     if dropout_rate > 0.0:
-        keep = _keep(seed, dropout_rate, b, h, s, q.device)
+        keep = _keep(seed, dropout_rate, b, h, s, q.device, meta)
         dp = dp * keep
     return p, dp, keep
 
 
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
-                     kv_lens=None, dropout_rate: float = 0.0, seed: int = 0
-                     ) -> torch.Tensor:
+                     kv_lens=None, dropout_rate: float = 0.0, seed: int = 0,
+                     meta=None) -> torch.Tensor:
     """Plain version of :func:`flash_bwd_dq`: dQ [b, s, h, d] in q's
     dtype. dS = p∘(dP − delta) is rounded to the operand dtype before
     dS·K, and the scale lands on the fp32 sum."""
     b, s, h, d = q.shape
     p, dp, _ = _probs_and_dp(q, k, v, do, lse, causal=causal,
                              kv_lens=kv_lens, dropout_rate=dropout_rate,
-                             seed=seed)
+                             seed=seed, meta=meta)
     ds = (p * (dp - delta.view(b, h, s, 1))).to(q.dtype).float()
     dq = torch.matmul(ds, _to_bh(k)) * (1.0 / math.sqrt(d))
     return _from_bh(dq, q.dtype)
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal: bool = True,
-                      kv_lens=None, dropout_rate: float = 0.0, seed: int = 0
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      kv_lens=None, dropout_rate: float = 0.0, seed: int = 0,
+                      meta=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`flash_bwd_dkv`: ``(dK, dV)`` [b, s, h, d].
     dV takes p∘keep, dS the undropped p; both are rounded to the operand
     dtype before their products."""
     b, s, h, d = q.shape
     p, dp, keep = _probs_and_dp(q, k, v, do, lse, causal=causal,
                                 kv_lens=kv_lens, dropout_rate=dropout_rate,
-                                seed=seed)
+                                seed=seed, meta=meta)
     p_v = p if keep is None else p * keep
     dv = torch.matmul(p_v.to(q.dtype).float().transpose(-1, -2), _to_bh(do))
     ds = (p * (dp - delta.view(b, h, s, 1))).to(q.dtype).float()
@@ -247,7 +290,9 @@ class _FlashParams(ctypes.Structure):
            ("seq", ctypes.c_int), ("causal", ctypes.c_int),
            ("scale", ctypes.c_float), ("dropout", ctypes.c_int),
            ("threshold", ctypes.c_uint), ("keep_scale", ctypes.c_float),
-           ("seed", ctypes.c_int), ("pad_", ctypes.c_int)])
+           ("seed", ctypes.c_int)]
+        + [(name, ctypes.c_int) for name in (
+            "b0", "h0", "h_local", "h_total", "q_off", "k_off", "pad_")])
 
 
 def _lib():
@@ -271,7 +316,7 @@ def _strides(t: torch.Tensor):
 
 
 def _launch(name: str, q, k, v, *, causal, kv_lens, dropout_rate, seed,
-            **tensors) -> None:
+            meta, **tensors) -> None:
     """Fill the kernel's parameter block from the tensors and launch
     ``name`` on q's device and current stream; raises on a CUDA error."""
     b, s, h, d = q.shape
@@ -289,6 +334,8 @@ def _launch(name: str, q, k, v, *, causal, kv_lens, dropout_rate, seed,
         prm.threshold = _keep_threshold(dropout_rate)
         prm.keep_scale = _keep_value(dropout_rate)
     prm.seed = wrap_int32(seed)
+    (prm.b0, prm.h0, prm.h_local, prm.h_total, prm.q_off,
+     prm.k_off) = _meta(meta, h)
     fn = getattr(_lib(), name)
     with torch.cuda.device(q.device):
         err = fn(ctypes.byref(prm), _DTYPE_CODES[q.dtype], d,
@@ -328,13 +375,13 @@ def _check(q, k, v, kv_lens, *others):
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, kv_lens=None,
-              dropout_rate: float = 0.0, seed: int = 0
+              dropout_rate: float = 0.0, seed: int = 0, meta=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: ``(out [b, s, h, d], lse [b*h, s] fp32)``. CUDA tensors launch
     ``flash_fwd``; CPU tensors take :func:`flash_attention_fwd_ref`."""
     _check(q, k, v, kv_lens)
     kw = dict(causal=causal, kv_lens=kv_lens, dropout_rate=dropout_rate,
-              seed=seed)
+              seed=seed, meta=_meta(meta, q.shape[2]))
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, **kw)
     b, s, h, d = q.shape
@@ -358,14 +405,14 @@ def _bwd_inputs(q, k, v, do, lse, delta, kv_lens):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
-                 kv_lens=None, dropout_rate: float = 0.0, seed: int = 0
-                 ) -> torch.Tensor:
+                 kv_lens=None, dropout_rate: float = 0.0, seed: int = 0,
+                 meta=None) -> torch.Tensor:
     """B2: dQ [b, s, h, d] from the forward's lse and delta = rowsum(dO∘O)
     (both fp32 [b*h, s]). CUDA tensors launch ``flash_bwd_dq``; CPU tensors
     take :func:`flash_bwd_dq_ref`."""
     _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     kw = dict(causal=causal, kv_lens=kv_lens, dropout_rate=dropout_rate,
-              seed=seed)
+              seed=seed, meta=_meta(meta, q.shape[2]))
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -375,13 +422,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
-                  kv_lens=None, dropout_rate: float = 0.0, seed: int = 0
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  kv_lens=None, dropout_rate: float = 0.0, seed: int = 0,
+                  meta=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: ``(dK, dV)`` [b, s, h, d]. CUDA tensors launch
     ``flash_bwd_dkv``; CPU tensors take :func:`flash_bwd_dkv_ref`."""
     _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     kw = dict(causal=causal, kv_lens=kv_lens, dropout_rate=dropout_rate,
-              seed=seed)
+              seed=seed, meta=_meta(meta, q.shape[2]))
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -394,11 +441,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_lens, causal, dropout_rate, seed):
+    def forward(ctx, q, k, v, kv_lens, causal, dropout_rate, seed, *meta):
+        # meta is optional (the identity when left out)
+        meta = meta[0] if meta else None
         out, lse = flash_fwd(q, k, v, causal=causal, kv_lens=kv_lens,
-                             dropout_rate=dropout_rate, seed=seed)
+                             dropout_rate=dropout_rate, seed=seed, meta=meta)
         ctx.save_for_backward(q, k, v, out, lse, kv_lens)
-        ctx.opts = dict(causal=causal, dropout_rate=dropout_rate, seed=seed)
+        ctx.opts = dict(causal=causal, dropout_rate=dropout_rate, seed=seed,
+                        meta=meta)
+        ctx.n_args = 7 if meta is None else 8
         return out
 
     @staticmethod
@@ -414,19 +465,96 @@ class _FlashAttention(torch.autograd.Function):
         kw = dict(kv_lens=kv_lens, **ctx.opts)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None, None
+        return (dq, dk, dv) + (None,) * (ctx.n_args - 3)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     kv_lens: Optional[torch.Tensor] = None,
-                    dropout_rate: float = 0.0, seed: int = 0
+                    dropout_rate: float = 0.0, seed: int = 0, meta=None
                     ) -> torch.Tensor:
     """Flash attention over ``[b, s, h, d]`` q, k, v (bf16 or fp32, head
     dim 16/32/64/128 and contiguous, s a multiple of 64): softmax(q·kᵀ/√d)
     under causal ∧ ``k < kv_lens[b]`` (``kv_lens`` int32 [b], optional),
     with hash dropout of rate ``dropout_rate`` keyed on the int32 ``seed``
-    on the value path. Differentiable in q, k and v; the forward launches
-    B1 and the backward B2 and B3 (plain versions on CPU tensors)."""
+    on the value path; ``meta`` gives the global ids the hash and masks
+    read (the identity when None). Differentiable in q, k and v; the
+    forward launches B1 and the backward B2 and B3 (plain versions on CPU
+    tensors)."""
     return _FlashAttention.apply(q, k, v, kv_lens, bool(causal),
-                                 float(dropout_rate), int(seed))
+                                 float(dropout_rate), int(seed),
+                                 _meta(meta, q.shape[2]))
+
+
+# ------------------------------------------------- ring-CP pair entries (B11)
+
+def _lse_to_bsh(lse: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """[b*h, s] fp32 -> [b, s, h]."""
+    return lse.view(b, h, -1).transpose(1, 2)
+
+
+def _lse_from_bsh(lse: torch.Tensor) -> torch.Tensor:
+    """[b, s, h] fp32 -> contiguous [b*h, s]."""
+    b, s, h = lse.shape
+    return lse.float().transpose(1, 2).reshape(b * h, s).contiguous()
+
+
+def _block_kw(q, seed, meta, causal, dropout_rate, kv_len) -> dict:
+    """The kernel keywords of a pair call; on the card a block must be a
+    multiple of the kernels' 64-row tile (the JAX entries take multiples
+    of 8)."""
+    b, s, h, _ = q.shape
+    if q.is_cuda and s % TILE:
+        raise ValueError(f"ring block of {s} rows: the kernels take "
+                         f"multiples of their {TILE}-row tile")
+    kv_lens = torch.full((b,), int(kv_len), dtype=torch.int32,
+                         device=q.device)
+    return dict(causal=bool(causal), kv_lens=kv_lens,
+                dropout_rate=float(dropout_rate), seed=int(seed),
+                meta=_meta(meta, h))
+
+
+def _count_block(name: str, q: torch.Tensor) -> None:
+    if q.is_cuda:
+        block_launches[name] += 1
+
+
+def block_fwd_lse(q, k, v, seed, meta, *, causal: bool,
+                  dropout_rate: float, kv_len: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1 on one (q block, kv block) pair of the ring (JAX
+    ``block_fwd_lse``, :820): ``(out [b, s, h, d], lse [b, s, h] fp32)``.
+    ``meta`` holds the global ids and the blocks' positions; ``kv_len`` is
+    the global key count (keys at or past it are masked). A causal pair
+    sits on the diagonal (q_off == k_off) in the ring, which calls pairs
+    across blocks with ``causal=False``."""
+    b, _, h, _ = q.shape
+    out, lse = flash_fwd(q, k, v, **_block_kw(q, seed, meta, causal,
+                                              dropout_rate, kv_len))
+    _count_block("block_fwd_lse", q)
+    return out, _lse_to_bsh(lse, b, h)
+
+
+def block_dq(q, k, v, do, lse, delta, seed, meta, *, causal: bool,
+             dropout_rate: float, kv_len: int) -> torch.Tensor:
+    """B2 on one pair (JAX ``block_dq``, :836): dq of the q block against
+    the MERGED lse and delta ([b, s, h] fp32) of its rows, so each hop's
+    dq is taken against the global softmax statistics."""
+    dq = flash_bwd_dq(q, k, v, do, _lse_from_bsh(lse), _lse_from_bsh(delta),
+                      **_block_kw(q, seed, meta, causal, dropout_rate,
+                                  kv_len))
+    _count_block("block_dq", q)
+    return dq
+
+
+def block_dkv(q, k, v, do, lse, delta, seed, meta, *, causal: bool,
+              dropout_rate: float, kv_len: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B3 on one pair (JAX ``block_dkv``, :852): ``(dk, dv)`` of the kv
+    block given the merged lse and delta of the q rows."""
+    dk, dv = flash_bwd_dkv(q, k, v, do, _lse_from_bsh(lse),
+                           _lse_from_bsh(delta),
+                           **_block_kw(q, seed, meta, causal, dropout_rate,
+                                       kv_len))
+    _count_block("block_dkv", q)
+    return dk, dv

@@ -6,7 +6,8 @@ Capability parity with the reference config stack
 chains, ``override_config`` ``-o a.b.c=v``, ``process_dist_config`` degree
 math, ``process_global_configs`` batch algebra, ``process_engine_config``
 accumulate_steps). Copy of the JAX package's loader, so both packages read
-the same YAML files the same way; degrees validate against
+the same YAML files the same way; degrees validate against the ranks of
+the initialised ``torch.distributed`` world, else
 ``torch.cuda.device_count()``.
 """
 
@@ -20,7 +21,7 @@ from typing import Any, List, Optional, Sequence
 
 import yaml
 
-from fleetx_tpu_torch.utils.log import logger
+from fleetx_tpu_torch.utils.log import logger, only_primary
 
 __all__ = [
     "AttrDict",
@@ -135,14 +136,18 @@ def override_config(cfg: AttrDict, options: Optional[Sequence[str]] = None) -> A
 
 
 def _device_count() -> int:
-    """Total accelerator count: the visible CUDA cards, or 1 (the CPU)
-    when there are none. Import of torch is deferred so pure config-time
-    tooling stays light."""
+    """The ranks the degrees lay out: the initialised ``torch.distributed``
+    world (ranks may share one card), else the visible CUDA cards, or 1
+    (the CPU) when there are none. Import of torch is deferred so pure
+    config-time tooling stays light."""
     env = os.environ.get("FLEETX_FAKE_DEVICE_COUNT")
     if env:
         return int(env)
     import torch
+    import torch.distributed as dist
 
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
     return torch.cuda.device_count() or 1
 
 
@@ -301,6 +306,7 @@ def get_config(
     return cfg
 
 
+@only_primary
 def print_config(cfg: dict, indent: int = 0) -> None:
     """Pretty-print the config tree via the logger."""
     for k, v in cfg.items():

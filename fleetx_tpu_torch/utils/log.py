@@ -88,6 +88,7 @@ def get_timestamp() -> str:
     return time.strftime("%Y%m%d_%H%M%S", time.localtime())
 
 
+@only_primary
 def advertise() -> None:
     """Startup banner (reference log.py:153)."""
     logger.info("=" * 64)

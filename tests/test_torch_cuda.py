@@ -643,3 +643,130 @@ def test_cuda_fused_ce_never_takes_the_logits_path(tmp_path):
     odd = {k: v[:1, :7] for k, v in batch.items()}
     with pytest.raises(ValueError, match="8 does not divide"):
         module.loss_fn(odd, None, train=False)
+
+
+# --------------------------------------------- ring-CP pair entries (B11)
+
+# (causal, meta [b0, h0, h_local, h_total, q_off, k_off], kv_len)
+BLOCK_CASES = {"diagonal": (True, (1, 2, 3, 9, 256, 256), 512),
+               "below-diagonal": (True, (0, 0, 3, 3, 320, 64), 512),
+               "off-diagonal-kvcut": (False, (2, 0, 3, 6, 384, 128), 300)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_block_entries_match_plain_versions(head_dim, dtype, case, rate):
+    """B11: block_fwd_lse, block_dq and block_dkv on the card against the
+    plain B1-B3 with the same global meta (offsets, b0/h0, a global kv_len
+    below the end), each launching its kernel once."""
+    from fleetx_tpu_torch.ops import flash_attention as fa
+
+    _need_card()
+    causal, meta, kv_len = BLOCK_CASES[case]
+    q, k, v, do, _ = flash_case(head_dim, s=128, dtype=dtype)
+    kw = dict(causal=causal, dropout_rate=rate, kv_len=kv_len)
+    before = {**fa.launches, **fa.block_launches}
+    out, lse = fa.block_fwd_lse(q, k, v, -42, meta, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.block_dq(q, k, v, do, lse, delta, -42, meta, **kw)
+    dk, dv = fa.block_dkv(q, k, v, do, lse, delta, -42, meta, **kw)
+    torch.cuda.synchronize()
+    b, s, h, _ = q.shape
+    pkw = dict(causal=causal, dropout_rate=rate, seed=-42, meta=meta,
+               kv_lens=torch.full((b,), kv_len, dtype=torch.int32,
+                                  device="cuda"))
+    want_out, want_lse = fa.flash_attention_fwd_ref(q, k, v, **pkw)
+    rows = (lse.transpose(1, 2).reshape(b * h, s).contiguous(),
+            delta.transpose(1, 2).reshape(b * h, s).contiguous())
+    want_dq = fa.flash_bwd_dq_ref(q, k, v, do, *rows, **pkw)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(q, k, v, do, *rows, **pkw)
+    atol, rtol = fa.FLASH_TOL[dtype]
+    for got, want in ((out, want_out), (dq, want_dq), (dk, want_dk),
+                      (dv, want_dv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    torch.testing.assert_close(lse, want_lse.view(b, h, s).transpose(1, 2),
+                               atol=1e-4, rtol=1e-5)
+    after = {**fa.launches, **fa.block_launches}
+    assert {n: after[n] - before[n] for n in after} == dict.fromkeys(after, 1)
+
+
+@pytest.mark.cuda
+def test_block_entries_refuse_blocks_off_the_tile_on_the_card():
+    from fleetx_tpu_torch.ops import flash_attention as fa
+
+    _need_card()
+    q = torch.zeros(1, 96, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="64-row tile"):
+        fa.block_fwd_lse(q, q, q, 0, fa.identity_meta(2), causal=True,
+                         dropout_rate=0.0, kv_len=96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ring_on_the_card_over_gloo_equals_single_process_kernels(dtype):
+    """cp 2 ring, its 2 ranks processes that share the card over gloo (CUDA
+    blocks staged through pinned host memory), at dropout 0.1: output and
+    dq, dk, dv equal the single-process kernels' (merges in fp32: twice
+    the kernel limit); each rank launches B1-B3 3 + 2(cp - 1) times."""
+    from fleetx_tpu_torch.ops.flash_attention import FLASH_TOL, flash_attention
+    from test_torch_cp_ranks import ring
+
+    _need_card()
+    rng = np.random.RandomState(3)
+    q, k, v, do = (rng.randn(2, 512, 2, 64).astype(np.float32)
+                   for _ in range(4))
+    *got, launches = ring(q, k, v, do, dp=1, cp=2, rate=0.1, seed=99,
+                          device="cuda", dtype=dtype)
+    qt, kt, vt = (_torch(x, dtype).cuda().requires_grad_() for x in (q, k, v))
+    out = flash_attention(qt, kt, vt, dropout_rate=0.1, seed=99)
+    out.backward(_torch(do, dtype).cuda())
+    atol, rtol = FLASH_TOL[dtype]
+    for g, w in zip(got, (out, qt.grad, kt.grad, vt.grad)):
+        torch.testing.assert_close(torch.from_numpy(g), w.detach().float()
+                                   .cpu(), atol=2 * atol, rtol=2 * rtol)
+    assert launches == [dict.fromkeys(launches[0], 5)] * 2
+
+
+@pytest.mark.cuda
+def test_cuda_cp_trainer_on_two_ranks_sharing_the_card(tmp_path):
+    """Two train steps of the tiny bf16 GPT at cp 2 on 2 ranks sharing the
+    card over gloo, through the real entry points: equal losses and
+    parameters on both ranks, and every layer's ring launching B1-B3
+    (3 + 2(cp - 1) pairs) per step."""
+    from test_torch_cp_ranks import train_program
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    _need_card()
+    rng = np.random.RandomState(0)
+    docs = [rng.randint(0, 120, size=rng.randint(50, 200)).astype(np.int32)
+            for _ in range(60)]
+    prefix = str(tmp_path / "tiny")
+    np.save(prefix + "_ids.npy", np.concatenate(docs))
+    np.savez(prefix + "_idx.npz", lens=np.array([len(d) for d in docs],
+                                                np.int32))
+    root = __file__.rsplit("/tests/", 1)[0]
+    over = [f"Data.Train.dataset.input_dir={prefix}",
+            "Data.Train.dataset.max_seq_len=256",
+            "Model.max_position_embeddings=256",
+            "Model.use_flash_attention=True",
+            "Engine.mix_precision.use_pure_fp16=True",
+            "Global.local_batch_size=2", "Global.micro_batch_size=2",
+            "Distributed.cp_degree=2", "Optimizer.lr.warmup_steps=0"]
+    runs = spawn(train_program, 2,
+                 (f"{root}/configs/tiny/pretrain_gpt_tiny_cpu.yaml", over, 2,
+                  None, "cuda"), timeout=300)
+    assert runs[0]["losses"] == runs[1]["losses"]
+    assert runs[0]["checksum"] == runs[1]["checksum"]
+    assert all(np.isfinite(runs[0]["losses"]))
+    layers = 2
+    for r in runs:
+        assert r["launches"] == {
+            "flash_fwd": 2 * layers * 5, "flash_bwd_dq": 2 * layers * 5,
+            "flash_bwd_dkv": 2 * layers * 5, "block_fwd_lse": 2 * layers * 5,
+            "block_dq": 2 * layers * 5, "block_dkv": 2 * layers * 5}

@@ -251,8 +251,8 @@ def test_yaml_config_matches_jax_loader():
 
 @pytest.mark.parametrize("key,value,item", [
     ("fast_dropout", False, "A4"), ("pp_degree", 2, "A6"),
-    ("virtual_pp_degree", 2, "A6"), ("cp_degree", 2, "A6"),
-    ("num_experts", 8, "A8"), ("expert_mode", True, "A8")])
+    ("virtual_pp_degree", 2, "A6"), ("num_experts", 8, "A8"),
+    ("expert_mode", True, "A8")])
 def test_config_raises_on_switches_the_port_does_not_compute(key, value,
                                                              item):
     """A JAX switch that changes what the model computes raises at any
@@ -264,6 +264,16 @@ def test_config_raises_on_switches_the_port_does_not_compute(key, value,
     default = getattr(JaxGPTConfig(), key)
     assert GPTConfig.from_model_config({**base, key: default}) == \
         GPTConfig.from_model_config(base)
+
+
+@pytest.mark.parametrize("cp", [1, 2, 8])
+def test_config_reads_cp_degree_like_jax(cp):
+    """``cp_degree`` is ported (ring attention, B11): it loads as the JAX
+    loader reads it, at any degree."""
+    got = GPTConfig.from_model_config({**TINY, "cp_degree": cp})
+    assert got.cp_degree == cp
+    assert JaxGPTConfig.from_model_config(
+        {**TINY, "cp_degree": cp}).cp_degree == cp
 
 
 def test_config_ignores_layout_switches_and_reads_recompute_keys():

@@ -82,3 +82,16 @@ def test_gate_covers_the_fused_ce_slice():
                  "core.engine", "tools.train"):
         assert f"fleetx_tpu_torch.{name}" in mods, name
     assert (PKG / "ops" / "csrc" / "ce_loss.cu").is_file()
+
+
+def test_gate_covers_the_context_parallel_slice():
+    """Likewise for data and context parallelism: the process group, the
+    mesh, the ring and the launcher, and the modules the CP path runs
+    through."""
+    mods = set(_modules())
+    for name in ("parallel.env", "parallel.mesh", "parallel.context_parallel",
+                 "parallel.launch", "ops.flash_attention", "ops.dropout",
+                 "models.gpt.model", "models.language_module", "core.engine",
+                 "data", "utils.config", "tools.train"):
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    assert (PKG / "ops" / "csrc" / "flash_attention.cu").is_file()
