@@ -23,8 +23,10 @@ decode steps after phase 10):
 6. flash     — the three flash-attention kernels (forward, dQ, dK/dV) each
                against its plain version at GPT-345M training shapes (b 8,
                h 16, s 1024, d 64, causal; bf16 and fp32; dropout 0 and
-               0.1) and at GPT-1.3B's (d 128, bf16), with kernel, plain,
-               library and bound times;
+               0.1), at GPT-1.3B's (d 128, bf16) and at an mp 2 rank's of
+               GPT-1.3B (8 local heads of 16 taken from an [8, 1024, 8,
+               384] fused-qkv shard, mp rank 1's global-head meta), with
+               kernel, plain, library and bound times;
 7. train     — ``Trainer.fit`` through ``build_module``/``build_dataloader``
                on ``pretrain_gpt_345M_single_card.yaml`` (24 layers, batch 8,
                seq 1024, bf16, dropout 0.1) over a seeded synthetic corpus:
@@ -105,7 +107,31 @@ decode steps after phase 10):
 18. train-cp-e2e — one step of that config cut to 4 layers at seq 4096
                (hidden dropout 0, attention dropout 0.1) at cp 1, cp 2 and
                dp 2 x cp 2 on the same global batch: loss, grad norm and
-               every gradient leaf within phase 8's limits of cp 1.
+               every gradient leaf within phase 8's limits of cp 1;
+19. mp-kernels — the vocab-parallel fused cross-entropy B12 (B4-B6 on a
+               vocab shard, its shards combined over the mp group) on 2
+               ranks sharing the card over gloo, at the mp drive's shard
+               (8192 tokens, hidden 2048, vocab 50304 split in two, bf16),
+               labels over the whole vocab: loss, dh, dW and each rank's
+               partial dh against its plain version within CE_TOL; the
+               backward given b = -a, or off-shard labels wrapped to a
+               column of the shard, must break the limit; B4-B6 at the
+               shard with independent a and b timed beside their plain
+               versions, the logits path on the shard and their bounds;
+20. train-mp — ``tools/train.py`` on ``pretrain_gpt_1.3B_single_card
+               .yaml`` with ``Model.fused_ce=True`` at mp 2 (heads, MLP and
+               vocab split over 2 ranks sharing the card over gloo), full
+               width and depth, batch 8 of 1024 tokens, bf16, dropout 0.1,
+               full recompute, for 5 steps and one evaluation of 1 batch:
+               losses finite, falling and equal on both ranks, replicated
+               parameters equal, B1-B3 and B12 launched exactly as the path
+               launches them, no plain version and no logits path; step
+               ms, tokens/s, MFU, the all-reduce ms per step, peak memory
+               and launches per rank printed;
+21. train-mp-e2e — one step of that config cut to 4 layers at mp 1, mp 2
+               and dp 2 x mp 2 on the same global batch: loss, grad norm
+               and every gathered gradient leaf within phase 8's limits of
+               mp 1.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs CUDA: without it the script exits
@@ -657,33 +683,43 @@ def _delta(do, out):
         b * h, s).contiguous()
 
 
+# phase 20's attention on mp rank 1 of 2: heads 8-15 of GPT-1.3B's 16
+# (b0, h0, h_local, h_total, q_off, k_off)
+FLASH_MP_META = (0, 8, 8, 16, 0, 0)
+
+
 def phase_flash() -> dict:
     """B1, B2 and B3 against their plain versions at GPT-345M training
-    shapes (head dim 64; bf16 and fp32) and at GPT-1.3B's (head dim 128,
-    bf16), dropout 0 and 0.1, with kernel, plain, library (SDPA, dropout
-    0, yardstick only) and bound times. Returns the records of the 345M
-    drive's case (bf16, dropout 0.1) by kernel name, each with the 1.3B
-    drive's case under ``"d128"``."""
+    shapes (head dim 64; bf16 and fp32), at GPT-1.3B's (head dim 128,
+    bf16) and at an mp 2 rank's of GPT-1.3B (8 local heads with mp rank
+    1's global-head meta, so the dropout hash and the grid see phase 20's
+    ids and strides), dropout 0 and 0.1, with kernel, plain, library (SDPA,
+    dropout 0, yardstick only) and bound times. Returns the records of the
+    345M drive's case (bf16, dropout 0.1) by kernel name, each with the
+    1.3B drive's case under ``"d128"`` and the mp drive's under ``"mp"``."""
     records = {}
-    for d, dtypes in ((64, (torch.bfloat16, torch.float32)),
-                      (128, (torch.bfloat16,))):
+    bf16 = torch.bfloat16
+    for d, h, meta, dtypes, key in (
+            (64, 16, None, (bf16, torch.float32), None),
+            (128, 16, None, (bf16,), "d128"),
+            (128, FLASH_MP_META[2], FLASH_MP_META, (bf16,), "mp")):
         for dtype in dtypes:
-            for name, rec in flash_cases(dtype, d).items():
-                if d == 64:
+            for name, rec in flash_cases(dtype, d, h, meta).items():
+                if key is None:
                     records[name] = rec
                 else:
-                    records[name]["d128"] = rec
+                    records[name][key] = rec
     return records
 
 
-def flash_cases(dtype, d: int) -> dict:
-    """Phase 6 at one dtype and head dim; returns the dropout-0.1 records
-    by kernel name."""
+def flash_cases(dtype, d: int, h: int = 16, meta=None) -> dict:
+    """Phase 6 at one dtype, head dim, head count and meta (None: the
+    identity); returns the dropout-0.1 records by kernel name."""
     records = {}
-    sets = flash_inputs(dtype, d=d)
+    sets = flash_inputs(dtype, d=d, h=h)
     lib = library_flash_times(sets)
     for rate in (0.0, 0.1):
-        kw = dict(causal=True, dropout_rate=rate, seed=-1234567)
+        kw = dict(causal=True, dropout_rate=rate, seed=-1234567, meta=meta)
         before = dict(fa.launches)
         state = []
         for q, k, v, do in sets:
@@ -714,6 +750,16 @@ def flash_cases(dtype, d: int) -> dict:
         mean_abs = {"flash_fwd": out.float().abs().mean().item(),
                     "flash_bwd_dq": dq.float().abs().mean().item(),
                     "flash_bwd_dkv": dk.float().abs().mean().item()}
+        if meta is not None and rate > 0.0:
+            # the shard's heads keyed as heads 0.. of an unsharded call
+            # (the identity meta) must break the limit
+            wrong = _tol_ratio(fa.flash_fwd(
+                q, k, v, **dict(kw, meta=None))[0], want_out, atol, rtol)
+            log("flash", name="flash_fwd", heads=h, dropout=rate,
+                planted_fault="'identity meta'", tol_ratio=wrong)
+            if not wrong > 1.0:
+                raise AssertionError(f"the identity meta at h {h} is held "
+                                     f"within the limit ({wrong})")
         del want_out, want_lse, want_dq, want_dk, want_dv
         it = iter(range(1 << 30))
 
@@ -742,7 +788,8 @@ def flash_cases(dtype, d: int) -> dict:
             library_ms = lib["flash_fwd" if name == "flash_fwd"
                              else "backward"]
             log("flash", name=name, dtype=str(dtype).split(".")[-1],
-                head_dim=d, dropout=rate, max_abs_err=errs[name], atol=atol,
+                head_dim=d, heads=h, meta=meta, dropout=rate,
+                max_abs_err=errs[name], atol=atol,
                 rtol=rtol, tol_ratio=worst[name],
                 out_mean_abs=mean_abs[name],
                 kernel_ms=kernel_ms, plain_ms=plain_ms,
@@ -753,7 +800,8 @@ def flash_cases(dtype, d: int) -> dict:
                    if name == "flash_fwd" else {}))
             if not worst[name] <= 1.0:
                 raise AssertionError(
-                    f"{name} {dtype} d {d} dropout {rate}: max abs err "
+                    f"{name} {dtype} d {d} h {h} meta {meta} dropout "
+                    f"{rate}: max abs err "
                     f"{errs[name]}, {worst[name]} x (atol {atol} + rtol "
                     f"{rtol} x |plain|)")
             if name == "flash_fwd" and not lse_err <= 1e-3:
@@ -816,11 +864,12 @@ def library_flash_times(sets) -> dict:
 
 # ------------------------------------------------------------------ phase 7
 
-def write_corpus(prefix: str, tokens: int = 400_000, seed: int = 0) -> None:
+def write_corpus(prefix: str, tokens: int = 400_000, seed: int = 0,
+                 stride: int = 1) -> None:
     """A learnable synthetic corpus for ``GPTDataset``: documents of
-    200-2000 tokens from a 2048-token sub-vocabulary, where each token is
-    followed by one of 4 fixed successors, written as
-    ``{prefix}_ids.npy`` + ``{prefix}_idx.npz``."""
+    200-2000 tokens from a 2048-token sub-vocabulary (ids 0, stride, ...,
+    2047·stride), where each token is followed by one of 4 fixed
+    successors, written as ``{prefix}_ids.npy`` + ``{prefix}_idx.npz``."""
     rng = np.random.RandomState(seed)
     succ = rng.randint(0, 2048, size=(2048, 4)).astype(np.int32)
     docs, total = [], 0
@@ -833,7 +882,7 @@ def write_corpus(prefix: str, tokens: int = 400_000, seed: int = 0) -> None:
             ids[i] = succ[ids[i - 1], pick[i]]
         docs.append(ids)
         total += n
-    np.save(prefix + "_ids.npy", np.concatenate(docs))
+    np.save(prefix + "_ids.npy", np.concatenate(docs) * np.int32(stride))
     np.savez(prefix + "_idx.npz",
              lens=np.array([len(d) for d in docs], np.int32))
 
@@ -978,9 +1027,9 @@ def _e2e_step(cfg, batch, fns=None) -> tuple:
         names = [n for n, _ in trainer.module.nets.named_parameters()]
         grads, clip = [], trainer.clip
 
-        def capture(gs):
+        def capture(gs, norm=None):
             grads.extend(g.detach().clone() for g in gs)
-            return clip(gs)
+            return clip(gs, norm)
 
         trainer.clip = capture
         device_batch = trainer._to_device(batch)
@@ -2363,9 +2412,9 @@ def cp_e2e_rank(overrides, batch, grads_path) -> tuple:
     names = [n for n, _ in trainer.module.nets.named_parameters()]
     grads, clip = [], trainer.clip
 
-    def capture(gs):
+    def capture(gs, norm=None):
         grads.extend(g.detach().clone() for g in gs)
-        return clip(gs)
+        return clip(gs, norm)
 
     trainer.clip = capture
     out = trainer.train_step(trainer._to_device(rows))
@@ -2403,6 +2452,464 @@ def phase_train_cp_e2e(prefix: str) -> None:
             if over or len(set(outs)) != 1 or not math.isfinite(outs[0][0]):
                 raise AssertionError(f"dp {dp} x cp {cp} vs cp 1: {gaps}, "
                                      f"ranks {outs}")
+            del grads
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 19
+# the tensor-parallel drive: the 1.3B yaml at mp 2 on 2 ranks that share
+# the card; each rank's B12 runs B4-B6 on its vocab shard of the LM head,
+# [8192, 2048] bf16 activations against [25152, 2048] of the embeddings
+MP_DEGREE, MP_STEPS, MP_EVAL_ITERS = 2, 5, 1
+MP_CE_SHAPE = (8192, 2048, 50304)  # tokens, hidden, the global vocab
+MP_E2E_LAYERS = 4
+VP_KERNEL = {"vp_ce_fwd": "ce_fwd", "vp_ce_dh": "ce_dh", "vp_ce_dw": "ce_dw"}
+VP_KIND = {"loss": "stats", "dh": "grads", "dW": "grads",
+           "dh_partial": "grads"}
+
+
+def _vp_run(h, shard, labels, g, group, swaps) -> dict:
+    """One B12 forward and backward (cotangent g) of ``fused_linear_ce`` on
+    this rank's ``shard`` with the ce module's entries in ``swaps`` (name:
+    function) swapped in: loss, dh (summed over the shards), this shard's
+    dW, and this rank's partial dh (B5's output before the sum)."""
+    names = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw", "local_labels")
+    saved = {name: getattr(ce, name) for name in names}
+    fns = {**saved, **swaps}
+    partial = []
+
+    def dh_kept(*args):
+        partial.append(fns["fused_ce_dh"](*args))
+        return partial[-1]
+
+    for name, fn in {**fns, "fused_ce_dh": dh_kept}.items():
+        setattr(ce, name, fn)
+    try:
+        hh = h.clone().requires_grad_()
+        ww = shard.clone().requires_grad_()
+        loss = ce.fused_linear_ce(hh, ww, labels, mp_group=group)
+        loss.backward(g)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(ce, name, fn)
+    return {"loss": loss.detach(), "dh": hh.grad, "dW": ww.grad,
+            "dh_partial": partial[0]}
+
+
+def vp_faults() -> dict:
+    """Planted B12 faults phase 19's limits must catch, as swaps of the ce
+    module's entries: the backward kernels given b = -a (the plain
+    cross-entropy's cotangent, not B12's independent one), and labels off
+    the shard wrapped to a column of it instead of -1."""
+    dh, dw = ce.fused_ce_dh, ce.fused_ce_dw
+
+    def wrapped_labels(labels, v_loc, mp_rank):
+        return ((labels.to(torch.int32) - mp_rank * v_loc) % v_loc).to(
+            torch.int32)
+
+    return {"b = -a": {
+                "fused_ce_dh": lambda h, w, l, a, b, lse: dh(h, w, l, a, -a,
+                                                             lse),
+                "fused_ce_dw": lambda h, w, l, a, b, lse: dw(h, w, l, a, -a,
+                                                             lse)},
+            "off-shard labels as column ids": {
+                "local_labels": wrapped_labels}}
+
+
+def vp_rank(n: int, e: int, v: int) -> dict:
+    """One rank of phase 19: B12 on this rank's vocab shard of phase 12's
+    kind of inputs at the path's shape (labels over the global vocab, so
+    about half lie off each shard, and -1 and V among them), through the
+    kernels, through their plain versions and with each planted fault. The
+    gaps of each run from the plain one by output (CE_TOL at bf16; the
+    summed dh against the partials' summed magnitudes plus its own), and
+    B12's launches in the kernel run (one per entry) and the plain run
+    (none); and the time of one all-reduce of a [tokens, hidden]
+    activation over the group."""
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.parallel.mesh import build_mesh, set_mesh
+
+    mesh = build_mesh(1, 1, MP_DEGREE)
+    set_mesh(mesh)
+    h, w, labels, g = ce_inputs(torch.bfloat16, n, e, v, seed=19)
+    v_loc = v // MP_DEGREE
+    shard = w[mesh.mp_rank * v_loc:(mesh.mp_rank + 1) * v_loc].contiguous()
+    del w
+    group, bf16 = mesh.mp_group, torch.bfloat16
+    plain = {"fused_ce_fwd": ce.fused_ce_fwd_ref,
+             "fused_ce_dh": ce.fused_ce_dh_ref,
+             "fused_ce_dw": ce.fused_ce_dw_ref}
+    launched = {}
+    for label, swaps in (("kernels", {}), ("plain", plain)):
+        before = dict(ce.vp_launches)
+        run = _vp_run(h, shard, labels, g, group, swaps)
+        launched[label] = {k: ce.vp_launches[k] - before[k]
+                           for k in ce.VP_NAMES}
+        if label == "kernels":
+            got = run
+    want = run
+    scale = want["dh_partial"].float().abs()
+    dist.all_reduce(scale, group=group)
+    scale += want["dh"].float().abs()  # see ce.ce_gaps
+
+    def gaps(out):
+        return {k: ce.ce_gaps(out[k], want[k], bf16, VP_KIND[k],
+                              scale=scale if k == "dh" else None)
+                for k in VP_KIND}
+
+    faults = {name: gaps(_vp_run(h, shard, labels, g, group, swaps))
+              for name, swaps in vp_faults().items()}
+    # the transport of the mp drive: one [tokens, hidden] activation
+    # all-reduced over the group, bf16 (a row-parallel output) and fp32
+    # (the embedding's sum), 5 times after a warm-up
+    transport = {}
+    for dtype in (bf16, torch.float32):
+        act = torch.ones(n, e, dtype=dtype, device=DEVICE)
+        dist.all_reduce(act, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dist.all_reduce(act, group=group)
+        torch.cuda.synchronize()
+        transport[str(dtype).split(".")[-1]] = {
+            "mb": act.numel() * act.element_size() / 2 ** 20,
+            "ms": (time.perf_counter() - t0) / 5 * 1e3}
+    return {"gaps": gaps(got), "faults": faults, "launched": launched,
+            "transport": transport,
+            "off_shard": float((ce.local_labels(labels, v_loc, mesh.mp_rank)
+                                < 0).float().mean()),
+            "mean_abs": {k: got[k].float().abs().mean().item()
+                         for k in VP_KIND}}
+
+
+def phase_mp_kernels() -> dict:
+    """B12 against its plain version on MP_DEGREE ranks that share the card
+    (loss, dh, dW and each rank's partial dh within CE_TOL at bf16), the
+    planted faults each breaking the limit on some rank; then B12's
+    kernels (B4-B6 at the vocab shard, independent a and b) timed in this
+    process beside their plain versions, the library yardstick (the logits
+    path on the shard) and their bounds. Returns B12's records."""
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    n, e, v = MP_CE_SHAPE
+    v_loc, bf16 = v // MP_DEGREE, torch.bfloat16
+    results = spawn(vp_rank, MP_DEGREE, (n, e, v), timeout=600)
+    caught = {}
+    for rank, r in enumerate(results):
+        for k, gap in r["gaps"].items():
+            log("mp-kernels", rank=rank, output=k, tol=ce.CE_TOL[bf16][
+                VP_KIND[k]], mean_abs=r["mean_abs"][k], **gap)
+        for fault, outs in r["faults"].items():
+            for k, gap in outs.items():
+                log("mp-kernels", rank=rank, planted_fault=repr(fault),
+                    output=k, **gap)
+            caught[fault] = caught.get(fault, False) or not all(
+                gap["ok"] for gap in outs.values())
+        log("mp-kernels", rank=rank, launched=r["launched"],
+            off_shard_labels=r["off_shard"], all_reduce=r["transport"])
+        bad = [k for k, gap in r["gaps"].items() if not gap["ok"]]
+        if bad or r["launched"] != {
+                "kernels": dict.fromkeys(ce.VP_NAMES, 1),
+                "plain": dict.fromkeys(ce.VP_NAMES, 0)}:
+            raise AssertionError(f"B12 vs plain on rank {rank}: {bad} "
+                                 f"{r['gaps']}; launched {r['launched']}")
+    missed = [fault for fault, hit in caught.items() if not hit]
+    if missed:
+        raise AssertionError(f"phase 19 misses the planted faults {missed}")
+    h, w, labels, g = ce_inputs(bf16, n, e, v, seed=19)
+    shard = w[:v_loc].contiguous()  # rank 0's
+    del w
+    l_loc = ce.local_labels(labels, v_loc, 0)
+    before = dict(ce.launches)
+    _, lse = ce.fused_ce_fwd(h, shard, l_loc)
+    a, b = g * 0.5, -g  # independent cotangents, as B12's backward has
+    lib = library_ce_times(h, shard, l_loc, g)
+    calls = {
+        "vp_ce_fwd": (lambda: ce.fused_ce_fwd(h, shard, l_loc),
+                      lambda: ce.fused_ce_fwd_ref(h, shard, l_loc),
+                      lib["forward"], ("loss",)),
+        "vp_ce_dh": (lambda: ce.fused_ce_dh(h, shard, l_loc, a, b, lse),
+                     lambda: ce.fused_ce_dh_ref(h, shard, l_loc, a, b, lse),
+                     lib["backward"], ("dh_partial", "dh")),
+        "vp_ce_dw": (lambda: ce.fused_ce_dw(h, shard, l_loc, a, b, lse),
+                     lambda: ce.fused_ce_dw_ref(h, shard, l_loc, a, b, lse),
+                     lib["backward"], ("dW",))}
+    records = {}
+    for name, (kernel, plain, library_ms, outs) in calls.items():
+        kernel_ms = cuda_ms(kernel, iters=10, warmup=2)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+        nbytes, flops = ce_bound(VP_KERNEL[name], h, shard)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[bf16] * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        err = max(r["gaps"][k]["max_abs_err"] for r in results for k in outs)
+        log("mp-kernels", name=name, kernel=VP_KERNEL[name], tokens=n,
+            hidden=e, vocab_shard=v_loc, max_abs_err=err,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library="logits path on the shard " + (
+                "forward" if name == "vp_ce_fwd" else "backward (dh and dW)"),
+            bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by, bytes=nbytes,
+            flops=flops, tflops=flops / kernel_ms * 1e-9,
+            share_of_bound=max(bytes_ms, ops_ms) / kernel_ms)
+        records[name] = {"max_abs_err": err, "ms": kernel_ms,
+                         "plain_ms": plain_ms,
+                         "bound_ms": max(bytes_ms, ops_ms),
+                         "bound_by": bound_by, "library_ms": library_ms}
+    ce.launches.update(before)  # timing is not the path
+    del h, shard, labels, g, lse, a, b
+    torch.cuda.empty_cache()
+    return records
+
+
+# ----------------------------------------------------------------- phase 20
+
+def mp_overrides(prefix: str, *extra) -> list:
+    """The 1.3B single-card yaml at mp 2 with the fused CE over the corpus
+    at ``prefix``: MP_STEPS steps (warmup 1, a max_lr at which the loss
+    moves within the drive) and one evaluation over MP_EVAL_ITERS batch;
+    full width and depth, the yaml's batch 8 of 1024 tokens."""
+    return [f"Data.Train.dataset.input_dir={prefix}",
+            f"Data.Eval.dataset.input_dir={prefix}", "Model.fused_ce=True",
+            f"Distributed.mp_degree={MP_DEGREE}",
+            f"Engine.max_steps={MP_STEPS}", "Engine.logging_freq=1",
+            f"Engine.eval_freq={MP_STEPS}",
+            f"Engine.eval_iters={MP_EVAL_ITERS}",
+            "Optimizer.lr.warmup_steps=1", "Optimizer.lr.max_lr=3.0e-4",
+            "Optimizer.lr.min_lr=3.0e-5", "Optimizer.lr.decay_steps=1000",
+            *extra]
+
+
+def mp_train_rank(argv) -> dict:
+    """One rank of phase 20: ``tools/train.py``'s ``main`` on ``argv``,
+    with CUDA events at the ends of the steps, every all-reduce timed
+    (synchronised on both sides) and summed per step, the evaluation's
+    mean kept, and the plain versions of B1-B6 and the logits loss
+    counted (none may run)."""
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.core import engine
+    from fleetx_tpu_torch.models import language_module as lm
+    from fleetx_tpu_torch.tools import train as train_cli
+
+    backend = dist.get_backend()
+    ends, evals, reduces, step_reduces = [], [], [], []
+    step, evaluate = engine.Trainer.train_step, engine.Trainer.evaluate
+    all_reduce = dist.all_reduce
+
+    def timed_step(self, batch):
+        first = len(reduces)
+        out = step(self, batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        mine = reduces[first:]
+        step_reduces.append((sum(ms for ms, _ in mine), len(mine),
+                             sum(nbytes for _, nbytes in mine)))
+        return out
+
+    def timed_all_reduce(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(t, *a, **kw)
+        torch.cuda.synchronize()
+        reduces.append(((time.perf_counter() - t0) * 1e3,
+                        t.numel() * t.element_size()))
+        return out
+
+    def kept_eval(self, data, epoch=0):
+        evals.append(evaluate(self, data, epoch))
+        return evals[-1]
+
+    calls = dict.fromkeys(list(PLAIN_FLASH.values())
+                          + list(PLAIN_CE.values()), 0)
+    logits = {"vocab_parallel_token_losses": 0}
+
+    def counted(fn, counts, key):
+        def wrapper(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    engine.Trainer.train_step, engine.Trainer.evaluate = timed_step, kept_eval
+    dist.all_reduce = timed_all_reduce
+    for fn in calls:
+        mod = fa if fn in PLAIN_FLASH.values() else ce
+        setattr(mod, fn.__name__, counted(fn, calls, fn))
+    for name in logits:
+        setattr(lm, name, counted(getattr(lm, name), logits, name))
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (fa.launches, ce.launches, ce.vp_launches):
+        counts.update(dict.fromkeys(counts, 0))
+    t0 = time.perf_counter()
+    trainer = train_cli.main(list(argv))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gcfg = trainer.module.gpt_config
+    nets = trainer.module.nets
+    return {"backend": backend,
+            "losses": [float(x["loss"]) for x in trainer.history],
+            "grad_norms": [float(x["grad_norm"]) for x in trainer.history],
+            "evals": evals,
+            "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+            "reduce_ms": [x[0] for x in step_reduces],
+            "reduces": [x[1] for x in step_reduces],
+            "reduce_gb": [x[2] / 1e9 for x in step_reduces],
+            "launches": {**fa.launches, **ce.launches, **ce.vp_launches},
+            "plain_calls": {fn.__name__: c for fn, c in calls.items()},
+            "logits_calls": logits,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "replicated": float(sum(
+                p.detach().double().sum() for n, p in nets.named_parameters()
+                if n not in trainer.mp_split)),
+            "n_params": trainer.n_params, "steps": trainer.step,
+            "fit_seconds": seconds, "layers": gcfg.num_layers,
+            "mp": gcfg.mp_degree, "fused_ce": gcfg.fused_ce,
+            "recompute": gcfg.recompute_granularity,
+            "tokens": trainer.cfg.Global.global_batch_size
+            * trainer.cfg.Data.Train.dataset.max_seq_len}
+
+
+def phase_train_mp(prefix: str) -> dict:
+    """The port's tensor-parallel training path: ``tools/train.py`` on the
+    1.3B yaml (full width and depth, bf16, dropout 0.1, full recompute)
+    with the fused CE at mp 2, on 2 ranks that share the card over gloo,
+    for MP_STEPS steps and one evaluation. Every loss finite, falling and
+    equal on both ranks, the replicated parameters equal across ranks, and
+    per rank B1-B3 and B12 (B4-B6 on the shard) launched exactly as the
+    path under recompute launches them: no plain version, no logits path.
+    Returns rank 0's launch counts."""
+    from fleetx_tpu_torch.core.engine import model_flops_per_token
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    argv = ["-c", TRAIN_13B_CONFIG] + [x for o in mp_overrides(prefix)
+                                       for x in ("-o", o)]
+    results = spawn(mp_train_rank, MP_DEGREE, (argv,), timeout=900)
+    r0 = results[0]
+    layers, steps = r0["layers"], r0["steps"]
+    evals = MP_EVAL_ITERS * len(r0["evals"])
+    want = {"flash_fwd": layers * (2 * steps + evals),
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+            "ce_fwd": steps + evals, "ce_dh": steps, "ce_dw": steps,
+            "vp_ce_fwd": steps + evals, "vp_ce_dh": steps, "vp_ce_dw": steps}
+    steady = float(np.median(r0["step_ms"][1:])) * 1e-3
+    flops = model_flops_per_token(r0["n_params"], layers, 1024, 2048)
+    for rank, r in enumerate(results):
+        log("train-mp", rank=rank, backend=r["backend"], steps=r["steps"],
+            layers=layers, mp=r["mp"], recompute=r["recompute"],
+            fused_ce=r["fused_ce"], params_m=r["n_params"] / 1e6,
+            step_ms=[round(x, 1) for x in r["step_ms"]],
+            all_reduce_ms=[round(x, 1) for x in r["reduce_ms"]],
+            all_reduces=r["reduces"],
+            all_reduce_gb=[round(x, 3) for x in r["reduce_gb"]],
+            peak_mem_gb=r["peak_mem_gb"], fit_seconds=r["fit_seconds"],
+            launches=r["launches"], plain_calls=r["plain_calls"],
+            logits_calls=r["logits_calls"], replicated=r["replicated"])
+    log("train-mp", step_ms_median=steady * 1e3,
+        tokens_per_s=r0["tokens"] / steady,
+        mfu=r0["tokens"] / steady * flops / PEAK_FLOPS[torch.bfloat16],
+        all_reduce_ms_median=float(np.median(r0["reduce_ms"][1:])),
+        losses=[round(x, 4) for x in r0["losses"]],
+        grad_norms=[round(x, 4) for x in r0["grad_norms"]],
+        evals=r0["evals"])
+    if r0["backend"] != "gloo":
+        raise AssertionError(f"ranks sharing one card ran {r0['backend']}")
+    if steps != MP_STEPS or len(r0["evals"]) != 1 or not r0["fused_ce"]:
+        raise AssertionError(f"{steps} steps, {len(r0['evals'])} evals, "
+                             f"fused_ce {r0['fused_ce']}")
+    for rank, r in enumerate(results):
+        if (r["launches"] != want or any(r["plain_calls"].values())
+                or any(r["logits_calls"].values())):
+            raise AssertionError(
+                f"rank {rank}: launches {r['launches']}, want {want}; plain "
+                f"{r['plain_calls']}; logits {r['logits_calls']}")
+        if (r["losses"] != r0["losses"] or r["evals"] != r0["evals"]
+                or r["replicated"] != r0["replicated"]):
+            raise AssertionError(f"rank {rank} disagrees with rank 0: "
+                                 f"{r['losses']} {r['replicated']}")
+    losses = r0["losses"]
+    if not all(math.isfinite(x) for x in losses + r0["evals"]):
+        raise AssertionError(f"non-finite loss in {losses} {r0['evals']}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return r0["launches"]
+
+
+# ----------------------------------------------------------------- phase 21
+
+def mp_e2e_rank(overrides, batch, grads_path) -> tuple:
+    """One rank of a phase-21 run: one train step of a fresh trainer (its
+    shards of the seeded init) on its dp rows of the global ``batch``; the
+    ranks of dp rank 0 save their gradient shards (by parameter name) to
+    ``grads_path`` formatted with their mp rank. Returns (loss, grad
+    norm)."""
+    cfg = get_config(TRAIN_13B_CONFIG, overrides=list(overrides))
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state()
+    mesh = trainer.mesh
+    b = batch["tokens"].shape[0] // mesh.dp
+    rows = {k: v[mesh.dp_rank * b:(mesh.dp_rank + 1) * b]
+            for k, v in batch.items()}
+    names = [n for n, _ in trainer.module.nets.named_parameters()]
+    grads, clip = [], trainer.clip
+
+    def capture(gs, norm=None):
+        grads.extend(g.detach().clone() for g in gs)
+        return clip(gs, norm)
+
+    trainer.clip = capture
+    out = trainer.train_step(trainer._to_device(rows))
+    if mesh.dp_rank == 0:
+        torch.save({n: g.cpu() for n, g in zip(names, grads)},
+                   grads_path.format(mesh.mp_rank))
+    replicated = float(sum(p.detach().double().sum() for n, p in
+                           trainer.module.nets.named_parameters()
+                           if n not in trainer.mp_split))
+    return float(out["loss"]), float(out["grad_norm"]), replicated
+
+
+def phase_train_mp_e2e(prefix: str) -> None:
+    """One step of the 1.3B config with the fused CE cut to MP_E2E_LAYERS
+    layers (dropout 0.1, full recompute) three ways on the same global
+    batch of 8: mp 1 in this process, mp 2 on 2 ranks and dp 2 x mp 2 on
+    4 ranks (all on the card, over gloo). Loss, grad norm and every
+    gradient leaf (the shards gathered) of both must lie within phase 8's
+    limits of mp 1; every rank the same loss, grad norm and replicated
+    parameters."""
+    from fleetx_tpu_torch.models.gpt.convert import gather_params
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    base = [f"Data.Train.dataset.input_dir={prefix}", "Model.fused_ce=True",
+            f"Model.num_layers={MP_E2E_LAYERS}"]
+    cfg1 = get_config(TRAIN_13B_CONFIG, overrides=base, nranks=1)
+    batch = next(iter(build_dataloader(cfg1, "Train")))
+    rows = batch["tokens"].shape[0]
+    ref = _e2e_step(cfg1, batch)
+    gcfg = build_module(cfg1).gpt_config  # what the shards gather into
+    with tempfile.TemporaryDirectory() as tmp:
+        for dp in (1, 2):
+            path = os.path.join(tmp, f"grads_dp{dp}_mp{{}}.pt")
+            over = base + [f"Distributed.mp_degree={MP_DEGREE}",
+                           f"Distributed.dp_degree={dp}",
+                           f"Global.local_batch_size={rows // dp}",
+                           f"Global.micro_batch_size={rows // dp}"]
+            outs = spawn(mp_e2e_rank, dp * MP_DEGREE, (over, batch, path),
+                         timeout=600)
+            grads = gather_params([torch.load(path.format(r))
+                                   for r in range(MP_DEGREE)], gcfg)
+            grads = {n: g.to(DEVICE) for n, g in grads.items()}
+            gaps = _e2e_gaps((outs[0][0], outs[0][1], grads, 0), ref)
+            log("train-mp-e2e", layers=MP_E2E_LAYERS, dp=dp, mp=MP_DEGREE,
+                loss_this=outs[0][0], loss_mp1=ref[0],
+                grad_norm_this=outs[0][1], grad_norm_mp1=ref[1],
+                ranks_agree=len(set(outs)) == 1, tol=TRAIN_E2E_TOL, **gaps)
+            over = [m for m, tol in TRAIN_E2E_TOL.items()
+                    if not gaps[m] <= tol]
+            if over or len(set(outs)) != 1 or not math.isfinite(outs[0][0]):
+                raise AssertionError(f"dp {dp} x mp {MP_DEGREE} vs mp 1: "
+                                     f"{gaps}, ranks {outs}")
             del grads
     del ref
     gc.collect()
@@ -2477,6 +2984,18 @@ def main() -> int:
         for name, counts in phase_train_cp(prefix).items():
             cp_records[name].update(counts)
         phase_train_cp_e2e(prefix)
+    vp_records = phase_mp_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        # ids spread over the vocab (stride 24: up to 49128), so that about
+        # half of the labels lie on each vocab shard
+        write_corpus(prefix, tokens=800_000, seed=3, stride=24)
+        counts = phase_train_mp(prefix)
+        for name in ce.VP_NAMES:
+            vp_records[name]["launches"] = counts[name]
+        for name in fa.NAMES:
+            flash[name]["launches_mp"] = counts[name]
+        phase_train_mp_e2e(prefix)
     records = [dict(name=da.KERNEL, route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/paged_decode.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",
@@ -2508,6 +3027,12 @@ def main() -> int:
             name=name, route="cuda", source=source,
             replaces=f"fleetx_tpu/ops/pallas/flash_attention.py:"
                      f"{replaces[name]}", **cp_records[name]))
+    for name in ce.VP_NAMES:  # B12: B4-B6 on a vocab shard (_vp_stats)
+        records.append(dict(
+            name=name, route="cuda",
+            source="fleetx_tpu_torch/ops/csrc/ce_loss.cu",
+            replaces="fleetx_tpu/ops/pallas/ce_loss.py:298",
+            **vp_records[name]))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -11,17 +11,21 @@ the step is the loop body. Dropout seeds come from one ``torch.Generator`` seede
 with ``Global.seed``. Checkpoints, the step sentry, preemption, elastic
 resume, the profiler and observability are not ported.
 
-Over several ranks (``Distributed.dp_degree`` × ``cp_degree``, the current
-mesh of ``parallel/mesh.py``) every rank starts from the same weights and
-seeds; after the backward the gradients are summed over the whole world in
-flat buckets, before the global-norm clip, so every rank takes the same
-update. The logged loss and ``evaluate``'s mean are summed over the world
-too (each rank's loss is its share of the global mean), and only rank 0
-logs.
+Over several ranks (``Distributed.dp_degree`` × ``cp_degree`` ×
+``mp_degree``, the current mesh of ``parallel/mesh.py``) every rank starts
+from the same weights (under mp, its shards of them) and seeds; after the
+backward the gradients are summed over the data group (dp × cp: the ranks
+that hold different tokens) in flat buckets, before the global-norm
+clip, whose norm is the whole model's (the shards' squares summed over
+the mp group), so every rank of a replica takes the same update and the
+replicated parameters stay equal on every rank. The logged loss and
+``evaluate``'s mean are summed over the data group too (each rank's loss
+is its share of the global mean), and only rank 0 logs.
 
 MFU is the model-FLOPs count of ``bench.py`` (6 per parameter per token
-plus the causal attention products) over the step time and the bf16 dense
-peak of every card the ranks run on.
+plus the causal attention products; the whole model's parameters under
+mp) over the step time and the bf16 dense peak of every card the ranks
+run on.
 """
 
 from __future__ import annotations
@@ -38,9 +42,11 @@ from fleetx_tpu_torch.optims.lr_scheduler import build_lr_scheduler
 from fleetx_tpu_torch.optims.optimizer import (
     build_grad_clip,
     build_optimizer,
+    global_norm,
 )
 from fleetx_tpu_torch.parallel.env import ranks_per_card
 from fleetx_tpu_torch.parallel.mesh import mesh_from_config
+from fleetx_tpu_torch.parallel.tensor_parallel import mp_split_axes
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
 
@@ -72,11 +78,12 @@ def peak_flops(device: torch.device) -> Optional[float]:
 BUCKET_BYTES = 256 << 20  # gradient all-reduce bucket
 
 
-def all_reduce_sum(tensors: List[torch.Tensor],
+def all_reduce_sum(tensors: List[torch.Tensor], group=None,
                    bucket_bytes: int = BUCKET_BYTES) -> None:
-    """Sum ``tensors`` (of one dtype and device) over the world, in place,
-    packed into flat buckets of at most ``bucket_bytes`` (a tensor larger
-    than that goes alone), one all-reduce per bucket."""
+    """Sum ``tensors`` (of one dtype and device) over ``group`` (the world
+    when None), in place, packed into flat buckets of at most
+    ``bucket_bytes`` (a tensor larger than that goes alone), one
+    all-reduce per bucket."""
     bucket: List[torch.Tensor] = []
     size = 0
 
@@ -84,7 +91,7 @@ def all_reduce_sum(tensors: List[torch.Tensor],
         if not bucket:
             return
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         offset = 0
         for t in bucket:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -127,6 +134,7 @@ class Trainer:
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.n_params = 0
+        self.mp_split: Dict[str, int] = {}  # parameters split over mp
         self.history: List[Dict[str, float]] = []  # one entry per step
 
     # ----------------------------------------------------------------- init
@@ -140,7 +148,11 @@ class Trainer:
                   for k, v in params.items()}
         nets = self.module.nets
         nets.load_state_dict(params, assign=True)
-        self.n_params = sum(p.numel() for p in nets.parameters())
+        self.mp_split = mp_split_axes(nets)
+        # the whole model's count: a shard split over mp counts mp times
+        self.n_params = sum(
+            p.numel() * (self.mesh.mp if n in self.mp_split else 1)
+            for n, p in nets.named_parameters())
         self.optimizer = build_optimizer(self.cfg.Optimizer or {},
                                          nets.named_parameters())
         if self.primary:
@@ -163,7 +175,7 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """One optimizer step on a device batch: the mean loss and mean
         gradients over ``accumulate_steps`` micro-batches (summed over the
-        world's ranks, each holding its share of the global mean), the
+        data group's ranks, each holding its share of the global mean), the
         clip, then AdamW at ``lr(step)``. Returns ``{"loss", "grad_norm",
         "lr"}`` (loss and grad_norm as device scalars, the same on every
         rank)."""
@@ -180,15 +192,17 @@ class Trainer:
             loss = self.module.loss_fn(part, self.generator, train=True)
             (loss / accum).backward()
             loss_sum += loss.detach()
-        params = [p for p in nets.parameters() if p.grad is not None]
-        grads = [p.grad for p in params]
-        if self.mesh.world > 1:
-            all_reduce_sum(grads + [loss_sum.view(1)])
-        if self.clip is not None:
-            grad_norm = self.clip(grads)
-        else:
-            grad_norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g) for g in grads]))
+        named = [(n, p) for n, p in nets.named_parameters()
+                 if p.grad is not None]
+        grads = [p.grad for _, p in named]
+        mesh = self.mesh
+        if mesh.data_world > 1:
+            all_reduce_sum(grads + [loss_sum.view(1)],
+                           group=mesh.data_group)
+        # under mp the whole model's norm, the same on every rank
+        norm = global_norm(grads, [n in self.mp_split for n, _ in named],
+                           mesh.mp_group)
+        grad_norm = norm if self.clip is None else self.clip(grads, norm)
         lr = float(self.lr_schedule(self.step))
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -275,9 +289,9 @@ class Trainer:
                                                   None, train=False))
         if not losses:
             return None
-        if self.mesh.world > 1:  # each rank's is its share of the mean
+        if self.mesh.data_world > 1:  # each rank's is its share of the mean
             losses = torch.stack(losses)
-            dist.all_reduce(losses)
+            dist.all_reduce(losses, group=self.mesh.data_group)
         mean = float(np.mean([float(x) for x in losses]))
         if self.primary:
             self.module.validation_step_end({

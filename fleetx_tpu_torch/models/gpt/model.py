@@ -23,8 +23,15 @@ Under ``cp_degree > 1`` the training forward's attention goes around the
 cp ring (``parallel/context_parallel.py``, B11) on this rank's zig-zag
 share of the sequence; a :class:`~fleetx_tpu_torch.ops.dropout.Shard`
 gives the global batch and sequence offsets that the dropout hashes read
-when the batch or the sequence is split over ranks. Pipeline, tensor and
-expert parallelism are not here.
+when the batch or the sequence is split over ranks. Under ``mp_degree >
+1`` (tensor parallelism, ``parallel/tensor_parallel.py``) each rank holds
+``heads/mp`` heads of every attention (the fused qkv rows of its heads,
+the out_proj columns), ``ffn/mp`` columns of every MLP and ``vocab/mp``
+rows of the word embeddings; the activations between the layers are
+replicated over the mp group, and the training forward returns this
+rank's vocab shard of the logits (or, with ``fused_ce``, the per-token
+losses through the vocab-parallel form B12). Pipeline and expert
+parallelism are not here.
 
 Numerics follow the flax modules at the compute dtype (bf16 by default,
 params fp32):
@@ -67,6 +74,15 @@ from fleetx_tpu_torch.ops.ce_loss import fused_linear_ce
 from fleetx_tpu_torch.ops.dropout import HashDropout, Shard, draw_seed
 from fleetx_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from fleetx_tpu_torch.parallel.context_parallel import ring_self_attention
+from fleetx_tpu_torch.parallel.mesh import get_mesh
+from fleetx_tpu_torch.parallel.tensor_parallel import (
+    ColumnParallelDense,
+    Dense,
+    RowParallelDense,
+    copy_to_mp,
+    current_mp_group,
+    vocab_parallel_embedding,
+)
 
 __all__ = ["DTYPES", "GPTConfig", "GPTForPretraining", "GPTModel",
            "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm",
@@ -108,6 +124,16 @@ class GPTConfig:
     no_recompute_layers: Optional[Tuple[int, ...]] = None
     fused_ce: bool = False  # per-token loss through B4–B6, logits never stored
     cp_degree: int = 1  # > 1: attention around the cp ring (zig-zag inputs)
+    mp_degree: int = 1  # > 1: heads, MLP and vocab split over the mp group
+
+    def __post_init__(self):
+        mp = self.mp_degree
+        for name, size in (("num_attention_heads", self.num_attention_heads),
+                           ("ffn_hidden_size", self.ffn_size),
+                           ("vocab_size", self.vocab_size)):
+            if size % mp:
+                raise ValueError(f"{name} {size} does not split over "
+                                 f"mp_degree {mp}")
 
     @property
     def head_dim(self) -> int:
@@ -193,23 +219,6 @@ def _param(*shape, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device=device))
 
 
-class Dense(nn.Module):
-    """``y = x Wᵀ + b`` at the compute dtype; ``weight`` [out, in] and
-    ``bias`` [out] are held in fp32 (or pre-cast to the compute dtype by
-    an inference caller, which yields the same result)."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype, device=None):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = _param(out_features, in_features, device=device)
-        self.bias = _param(out_features, device=device)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
-
-
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(epsilon=1e-5)``: mean and E[x²]−mean² variance,
     normalisation and affine in fp32, result in the compute dtype."""
@@ -242,8 +251,12 @@ class SelfAttention(nn.Module):
                              "fuse the q/k/v kernels before conversion")
         self.cfg = cfg
         nh, hd, e = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
-        self.qkv_proj = Dense(e, nh * 3 * hd, cfg.dtype, device)
-        self.out_proj = Dense(nh * hd, e, cfg.dtype, device)
+        mp = cfg.mp_degree
+        # a heads shard of the fused qkv is a contiguous block of rows:
+        # each head's q | k | v rows are adjacent
+        self.qkv_proj = ColumnParallelDense(e, nh * 3 * hd, mp, cfg.dtype,
+                                            device)
+        self.out_proj = RowParallelDense(nh * hd, e, mp, cfg.dtype, device)
 
     def forward(self, x, cache=None, *, cache_index=None,
                 cache_positions=None, block_tables=None, kv_mask=None,
@@ -268,11 +281,16 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         nh, hd = cfg.num_attention_heads, cfg.head_dim
+        nh_loc = nh // cfg.mp_degree  # this rank's heads under mp
         # per head the last axis holds q | k | v (flax kernel [E, nh, 3hd])
-        q, k, v = self.qkv_proj(x).view(b, s, nh, 3 * hd).split(hd, dim=-1)
+        q, k, v = self.qkv_proj(x).view(b, s, nh_loc, 3 * hd).split(hd,
+                                                                    dim=-1)
         if cache is None:
             rate = cfg.attention_probs_dropout_prob
             b0 = 0 if shard is None else shard.b0
+            # the global id of this rank's first head keys the dropout
+            # hash, as JAX ``_sharded_flash`` builds its meta (:906-950)
+            h0 = get_mesh().mp_rank * nh_loc
             if cfg.cp_degree > 1:
                 if kv_mask is not None:
                     raise NotImplementedError("context parallelism does not "
@@ -280,13 +298,17 @@ class SelfAttention(nn.Module):
                 out = ring_self_attention(
                     q, k, v, causal=True, expected_cp=cfg.cp_degree,
                     dropout_rate=0.0 if deterministic else rate, seed=seed,
-                    batch_offset=b0)
+                    batch_offset=b0, head_offset=h0, heads_total=nh)
                 return self._out_proj(out)
             out = causal_attention(q, k, v, causal=True, dropout_rate=rate,
                                    seed=seed, deterministic=deterministic,
                                    use_flash=cfg.use_flash_attention,
-                                   meta=(b0, 0, nh, nh, 0, 0))
+                                   meta=(b0, h0, nh_loc, nh, 0, 0))
             return self._out_proj(out)
+        if cfg.mp_degree > 1:
+            raise NotImplementedError("the cached (decode) forward under "
+                                      "mp_degree > 1 is mesh serving, not "
+                                      "ported yet (ROADMAP A2)")
         paged = cfg.decode_num_pages is not None
         quant = "key_scale" in cache
         if paged:
@@ -433,9 +455,11 @@ class MLP(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
-        self.up_proj = Dense(cfg.hidden_size, cfg.ffn_size, cfg.dtype, device)
-        self.down_proj = Dense(cfg.ffn_size, cfg.hidden_size, cfg.dtype,
-                               device)
+        mp = cfg.mp_degree
+        self.up_proj = ColumnParallelDense(cfg.hidden_size, cfg.ffn_size, mp,
+                                           cfg.dtype, device)
+        self.down_proj = RowParallelDense(cfg.ffn_size, cfg.hidden_size, mp,
+                                          cfg.dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.gelu(self.up_proj(x), approximate="tanh"))
@@ -479,8 +503,10 @@ class GPTModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.recompute = recompute_policy(cfg)  # raises on unported options
-        self.word_embeddings = _param(cfg.vocab_size, cfg.hidden_size,
-                                      device=device)
+        # this rank's vocab rows under mp
+        self.word_embeddings = _param(cfg.vocab_size // cfg.mp_degree,
+                                      cfg.hidden_size, device=device)
+        self.mp_split = {"word_embeddings": 0}
         self.position_embeddings = _param(cfg.max_position_embeddings,
                                           cfg.hidden_size, device=device)
         self.embed_dropout = HashDropout(cfg.hidden_dropout_prob)
@@ -506,8 +532,11 @@ class GPTModel(nn.Module):
         :func:`pad_starts` of ``kv_mask``. ``shard`` places the training
         forward's ``[b, s]`` tokens in the global batch and sequence, for
         the dropout hashes (None: they are the whole of it)."""
-        x = (self.word_embeddings[input_ids]
-             + self.position_embeddings[position_ids]).to(self.cfg.dtype)
+        words = vocab_parallel_embedding(
+            self.word_embeddings, input_ids,
+            current_mp_group(self.cfg.mp_degree))
+        x = (words + self.position_embeddings[position_ids]).to(
+            self.cfg.dtype)
         if cache is not None:
             b, s = input_ids.shape
             index = cache.get("index")
@@ -556,7 +585,13 @@ class GPTModel(nn.Module):
         or a rate of 0, or a hidden rate of 1 or more). Drawn before any
         layer runs, so that a layer recomputed in the backward reuses its
         forward's seeds and the generator's stream is the same with
-        recompute on or off."""
+        recompute on or off.
+
+        Under mp every rank draws the same seeds (one generator seeded
+        alike on every rank): the hidden dropouts act on the activation
+        that is replicated over the mp group, so every mp rank draws the
+        same mask, as GSPMD's one mask over the global array; the
+        attention dropout keys each head's bits on its global head id."""
         cfg = self.cfg
 
         def draw(rate: float, hidden: bool) -> Optional[int]:
@@ -574,7 +609,10 @@ class GPTModel(nn.Module):
 
 class GPTForPretraining(nn.Module):
     """GPTModel plus the tied LM head: fp32 logits [b, s, vocab], or with
-    ``fused_ce`` and labels the per-token cross-entropy [b, s]."""
+    ``fused_ce`` and labels the per-token cross-entropy [b, s]. Under mp
+    the logits are this rank's vocab shard [b, s, vocab/mp]
+    (``tensor_parallel.vocab_parallel_token_losses`` takes their loss) and
+    the fused loss combines the shards' statistics (B12)."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -593,14 +631,19 @@ class GPTForPretraining(nn.Module):
                      kv_starts=kv_starts, deterministic=deterministic,
                      generator=generator, shard=shard)
         emb = self.gpt.word_embeddings.to(self.cfg.dtype)
+        group = current_mp_group(self.cfg.mp_degree)
         if labels is not None and self.cfg.fused_ce:
             # JAX model.py:888-899: fp32 per-token losses [b, s] (callers
             # apply the loss mask); the [b, s, vocab] logits never exist.
             # dW comes back in the compute dtype and the cast carries it to
-            # the fp32 table, beside the embedding lookup's gradient
+            # the fp32 table, beside the embedding lookup's gradient. Under
+            # mp, B12 on this rank's vocab shard (its hidden input passes
+            # copy_to_mp inside)
             b, s, e = x.shape
             return fused_linear_ce(x.reshape(b * s, e), emb,
-                                   labels.reshape(-1)).view(b, s)
+                                   labels.reshape(-1),
+                                   mp_group=group).view(b, s)
+        x = copy_to_mp(x, group)  # each shard's logits give part of dx
         # compute-dtype operands, fp32 accumulation and result
         if x.is_cuda and x.dtype == torch.bfloat16:
             return _Bf16LMHead.apply(x, emb)

@@ -10,9 +10,12 @@ Under data and context parallelism (``Distributed.dp_degree`` and
 its dp share of the batch from the loader and, under cp, its two zig-zag
 blocks of each sequence (:meth:`GPTModule.cp_prepare`); its loss is the
 local ``sum(loss·mask)`` over the mask count of the whole global batch, so
-that the trainer's sum of the ranks' gradients is the gradient of JAX's
-``masked_loss_mean`` over the global batch. Pipeline and pretrained warm
-starts are not ported.
+that the trainer's sum of the ranks' gradients over the data group (dp ×
+cp) is the gradient of JAX's ``masked_loss_mean`` over the global batch.
+Under tensor parallelism (``mp_degree``) the ranks of one mp group read
+the same rows and hold one model between them; their loss is the same
+replicated value, through the vocab-parallel logits loss or B12. Pipeline
+and pretrained warm starts are not ported.
 """
 
 from __future__ import annotations
@@ -27,14 +30,15 @@ from fleetx_tpu_torch.models.gpt.model import (
     GPTConfig,
     GPTForPretraining,
     masked_loss_mean,
-    pretraining_loss,
-    token_losses,
 )
 from fleetx_tpu_torch.models.module import BasicModule
 from fleetx_tpu_torch.ops.ce_loss import fit_vocab_block
 from fleetx_tpu_torch.ops.dropout import Shard
 from fleetx_tpu_torch.parallel.context_parallel import zigzag_slice
 from fleetx_tpu_torch.parallel.mesh import mesh_from_config
+from fleetx_tpu_torch.parallel.tensor_parallel import (
+    vocab_parallel_token_losses,
+)
 from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["LanguageModule", "GPTModule", "resolve_compute_dtype"]
@@ -87,20 +91,23 @@ class GPTModule(LanguageModule):
     """GPT pretraining: batch = tokens, position_ids, labels, loss_mask.
 
     ``Model.fused_ce`` takes the loss through the fused LM-head
-    cross-entropy. As in JAX, a vocab with no lane-aligned block demotes
-    it to the logits path with a warning, and so does (per batch) a token
-    count that 8 does not divide; on the card either raises instead, so
-    that the logits path is never taken there in silence."""
+    cross-entropy (under mp its vocab-parallel form B12). As in JAX, a
+    vocab (per mp shard) with no lane-aligned block demotes it to the
+    logits path with a warning, and so does (per batch) a token count that
+    8 does not divide; on the card either raises instead, so that the
+    logits path is never taken there in silence."""
 
     fused_ce_blocked: Optional[str] = None  # why fused_ce was demoted
 
     def get_model(self):
         gcfg = GPTConfig.from_model_config(self.cfg.Model)
         eng = self.cfg.get("Engine") or {}
-        cp = (self.cfg.get("Distributed") or {}).get("cp_degree") or 1
+        dist_cfg = self.cfg.get("Distributed") or {}
+        cp = dist_cfg.get("cp_degree") or 1
+        mp = dist_cfg.get("mp_degree") or 1
         gcfg = GPTConfig(**{**gcfg.__dict__,
                             "dtype": resolve_compute_dtype(eng),
-                            "cp_degree": cp})
+                            "cp_degree": cp, "mp_degree": mp})
         if gcfg.fused_ce and cp > 1:
             # as the JAX module (:208-230): the fused kernel would gather
             # the sequence-split hidden states; the logits path is taken
@@ -108,10 +115,10 @@ class GPTModule(LanguageModule):
                            "pp_degree=1 (validated for 1/1); using the "
                            "logits path", cp)
             gcfg = GPTConfig(**{**gcfg.__dict__, "fused_ce": False})
-        if gcfg.fused_ce and fit_vocab_block(gcfg.vocab_size) is None:
+        if gcfg.fused_ce and fit_vocab_block(gcfg.vocab_size // mp) is None:
             self.fused_ce_blocked = (
-                f"vocab {gcfg.vocab_size} admits no lane-aligned block "
-                "(128-multiple or 64)")
+                f"vocab {gcfg.vocab_size} / mp {mp} admits no lane-aligned "
+                "block (128-multiple or 64)")
             logger.warning("Model.fused_ce disabled: %s; using the logits "
                            "path (a batch on the card raises)",
                            self.fused_ce_blocked)
@@ -120,7 +127,10 @@ class GPTModule(LanguageModule):
         return GPTForPretraining(self.gpt_config, device="meta")
 
     def init_params(self, seed: int, device) -> Dict[str, torch.Tensor]:
-        return init_params(self.gpt_config, seed=seed, device=device)
+        """This rank's weights: under mp, its shards of the whole model's
+        seeded draw."""
+        return init_params(self.gpt_config, seed=seed, device=device,
+                           mp_rank=mesh_from_config(self.cfg).mp_rank)
 
     def cp_prepare(self, batch):
         """``(tokens, position_ids, labels, loss_mask)`` of this rank (JAX
@@ -147,14 +157,15 @@ class GPTModule(LanguageModule):
         """The masked mean token loss (JAX ``loss_fn``, :279-306): through
         the fused kernels when ``fused_ce`` is on and 8 divides the batch's
         token count, else through the logits (CPU batches only when
-        ``fused_ce`` was asked for). Over several ranks, this rank's
+        ``fused_ce`` was asked for). Over several data ranks, this rank's
         ``sum(loss·mask)`` over the global batch's mask count (an
-        all-reduce of the counts): the ranks' losses sum to the global
-        masked mean."""
+        all-reduce of the counts over the data group): the ranks' losses
+        sum to the global masked mean. Under mp the logits are this rank's
+        vocab shard and their loss is combined over the mp group."""
         mesh = mesh_from_config(self.cfg)
         tokens, position_ids, labels, loss_mask = self.cp_prepare(batch)
         shard = None
-        if mesh.world > 1:
+        if mesh.data_world > 1:  # mp ranks share rows and positions
             b, s = tokens.shape
             shard = Shard(b0=mesh.dp_rank * b, batch=mesh.dp * b,
                           s0=mesh.cp_rank * s, seq=mesh.cp * s)
@@ -170,20 +181,21 @@ class GPTModule(LanguageModule):
             raise ValueError(f"Model.fused_ce cannot run: {why}; on the "
                              "card the logits path is not taken instead")
         logits = self.nets(tokens, position_ids, **kw)
-        if mesh.world == 1:
-            return pretraining_loss(logits, labels, loss_mask)
-        return self._masked_mean(token_losses(logits, labels), loss_mask,
-                                 mesh)
+        token_loss = vocab_parallel_token_losses(logits, labels,
+                                                 mesh.mp_group)
+        return self._masked_mean(token_loss, loss_mask, mesh)
 
     @staticmethod
     def _masked_mean(token_loss, loss_mask, mesh) -> torch.Tensor:
-        """:func:`masked_loss_mean`, with the mask count of every rank's
-        share of the global batch over several ranks."""
-        if mesh.world == 1:
+        """:func:`masked_loss_mean` (JAX ``pretraining_loss``,
+        model.py:983-991), with the mask count of every data rank's share
+        of the global batch over several."""
+        if mesh.data_world == 1:
             return masked_loss_mean(token_loss, loss_mask)
         mask = loss_mask.float().reshape(token_loss.shape)
         count = mask.sum()
-        dist.all_reduce(count)
         # each cp group's ranks hold disjoint tokens of the same rows, and
-        # the dp groups disjoint rows: the sum is the global count
+        # the dp groups disjoint rows: the sum over the data group is the
+        # global count (the mp ranks hold the same tokens: not over them)
+        dist.all_reduce(count, group=mesh.data_group)
         return (token_loss * mask).sum() / count.clamp_min(1.0)

@@ -28,27 +28,47 @@ the lse. The plain versions walk vocab blocks of :func:`fit_vocab_block`,
 as Pallas does; the kernel's own tile moves only the fp32 rounding of the
 lse, and dl depends on the final lse, not on the tile.
 
-The ``shard_map`` branches of the JAX entry (dp/fsdp token sharding and
-the vocab-parallel form, :348-404) belong to ROADMAP A6 and B12.
+The vocab-parallel form (B12, JAX ``_local_labels``/``_vp_stats``,
+:289-323, and the mp branch of ``fused_linear_ce``, :365-395) runs under
+tensor parallelism: with an ``mp_group``, :func:`fused_linear_ce` maps the
+global labels to this rank's vocab shard (:func:`local_labels`, −1 off
+the shard), runs B4 on the shard through :func:`vp_stats`, whose forward
+returns the shard's per-token (lse, label logit) and whose backward feeds
+their cotangents (a, b) straight to B5 and B6 as dl = a·softmax_local +
+b·onehot, and combines the shards outside the kernels
+(``tensor_parallel.vocab_parallel_combine``). No new kernel body: B4
+already gives an off-shard label no label logit, and B5/B6 take per-token
+a and b. ``vp_launches`` counts B12's kernel launches by entry. The dp
+token-sharding branch of the JAX entry is placement: each dp rank calls
+this function on its own tokens.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from fleetx_tpu_torch.ops import _build
+from fleetx_tpu_torch.parallel.tensor_parallel import (
+    copy_to_mp,
+    local_labels,
+    vocab_parallel_combine,
+)
 
-__all__ = ["KERNEL", "NAMES", "MAX_HIDDEN", "CE_TOL", "launches",
-           "ce_gaps", "fit_vocab_block", "fused_linear_ce", "fused_ce_fwd",
-           "fused_ce_dh", "fused_ce_dw", "fused_ce_fwd_ref",
-           "fused_ce_dh_ref", "fused_ce_dw_ref"]
+__all__ = ["KERNEL", "NAMES", "VP_NAMES", "MAX_HIDDEN", "CE_TOL",
+           "launches", "vp_launches", "ce_gaps", "fit_vocab_block",
+           "fused_linear_ce", "fused_ce_fwd", "fused_ce_dh", "fused_ce_dw",
+           "fused_ce_fwd_ref", "fused_ce_dh_ref", "fused_ce_dw_ref",
+           "local_labels", "vp_stats", "vp_stats_ref"]
 
 KERNEL = "ce_loss"  # csrc/ce_loss.cu
 NAMES = ("ce_fwd", "ce_dh", "ce_dw")
+VP_NAMES = ("vp_ce_fwd", "vp_ce_dh", "vp_ce_dw")  # B12's entries over B4-B6
 # B5 and B6 hold a [16, hidden] fp32 accumulator in shared memory; with
 # their double-buffered operand tiles that fits the card's 227 KB up to
 # this width
@@ -72,20 +92,26 @@ CE_TOL = {torch.float32: {"stats": (1e-6, 1e-5, 1.0),
                            "grads": (1e-3, 2.0**-7, 0.1)}}
 
 launches: Dict[str, int] = {name: 0 for name in NAMES}
+vp_launches: Dict[str, int] = {name: 0 for name in VP_NAMES}
 
 
 def ce_gaps(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
-            kind: str) -> dict:
+            kind: str, scale: Optional[torch.Tensor] = None) -> dict:
     """How far a kernel's output ``got`` lies from its plain version's
     ``want``, for operands of ``dtype`` and outputs of ``kind`` (``stats``
     or ``grads``): ``max_abs_err``, ``tol_ratio`` (the largest |got − want|
-    over atol·max|want| + rtol·|want|; NaN anywhere gives inf),
-    ``moved_share`` (the share of elements that differ at all), and
-    ``ok``: ratio <= 1 and share within :data:`CE_TOL`."""
+    over atol·max(scale) + rtol·scale, ``scale`` = |want| unless given;
+    NaN anywhere gives inf), ``moved_share`` (the share of elements that
+    differ at all), and ``ok``: ratio <= 1 and share within
+    :data:`CE_TOL`. A sum of partial outputs rounded to the operands'
+    dtype (B12's dh, summed over the vocab shards) takes ``scale`` = the
+    partials' summed magnitudes plus the sum's own: each partial's
+    rounding is relative to the partial, and the sum rounds once more."""
     atol_scale, rtol, share = CE_TOL[dtype][kind]
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    bound = atol_scale * w.abs().max() + rtol * w.abs()
+    scale = w.abs() if scale is None else scale.float()
+    bound = atol_scale * scale.max() + rtol * scale
     ratio = (diff / bound.clamp_min(1e-30)).max().item()
     ratio = ratio if math.isfinite(ratio) else math.inf
     moved = (diff > 0).float().mean().item()
@@ -190,6 +216,16 @@ def fused_ce_dh_ref(h, w, labels, a, b, lse) -> torch.Tensor:
 def fused_ce_dw_ref(h, w, labels, a, b, lse) -> torch.Tensor:
     """Plain version of :func:`fused_ce_dw`: dW [V, E] in W's dtype."""
     return _grad_plain(h, w, labels, a, b, lse, wrt="w")
+
+
+def vp_stats_ref(h, w, l_loc) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`vp_stats`' forward: the shard's per-token
+    ``(lse_loc, lab_loc)``, fp32 [n], lab_loc = lse − loss (0 for a label
+    off the shard). Its backward's plain versions are
+    :func:`fused_ce_dh_ref` and :func:`fused_ce_dw_ref` with the
+    cotangents as (a, b)."""
+    loss, lse = fused_ce_fwd_ref(h, w, l_loc)
+    return lse, lse - loss
 
 
 # ------------------------------------------------------------ the kernels
@@ -329,21 +365,77 @@ class _FusedLinearCE(torch.autograd.Function):
         return dh, dw, None
 
 
+class _VPStats(torch.autograd.Function):
+    """B12's stats entry (JAX ``_vp_stats``, :298-323)."""
+
+    @staticmethod
+    def forward(ctx, h, w, l_loc):
+        with _counting("vp_ce_fwd", "ce_fwd"):
+            loss, lse = fused_ce_fwd(h, w, l_loc)
+        ctx.save_for_backward(h, w, l_loc, lse)
+        return lse, lse - loss
+
+    @staticmethod
+    def backward(ctx, ca, cb):
+        h, w, l_loc, lse = ctx.saved_tensors
+        a, b = ((torch.zeros_like(lse) if c is None else c.float().contiguous())
+                for c in (ca, cb))
+        with _counting("vp_ce_dh", "ce_dh"):
+            dh = fused_ce_dh(h, w, l_loc, a, b, lse)
+        with _counting("vp_ce_dw", "ce_dw"):
+            dw = fused_ce_dw(h, w, l_loc, a, b, lse)
+        return dh, dw, None
+
+
+@contextlib.contextmanager
+def _counting(entry: str, kernel: str):
+    """Count one launch of B12's ``entry`` if the call inside launched
+    ``kernel`` (a plain version, on CPU tensors or swapped in, launches
+    nothing and counts nothing)."""
+    before = launches[kernel]
+    yield
+    if launches[kernel] > before:
+        vp_launches[entry] += 1
+
+
+def vp_stats(h: torch.Tensor, w: torch.Tensor, l_loc: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B12: the per-token ``(lse_loc, lab_loc)`` (fp32 [n]) of ``h`` [n, E]
+    over the vocab shard ``w`` [V_loc, E] for shard-local int32 labels
+    ``l_loc`` (−1 off the shard), differentiable in h and w: the forward
+    launches B4, the backward B5 and B6 with the cotangents of (lse_loc,
+    lab_loc) as (a, b). CPU tensors take the plain versions."""
+    return _VPStats.apply(h.contiguous(), w.contiguous(),
+                          l_loc.to(torch.int32).contiguous())
+
+
 def fused_linear_ce(hidden: torch.Tensor, emb: torch.Tensor,
-                    labels: torch.Tensor) -> torch.Tensor:
+                    labels: torch.Tensor, mp_group=None) -> torch.Tensor:
     """Per-token cross-entropy [n] (fp32) of ``logits = hidden @ embᵀ``
     without storing the logits: ``hidden`` [n, E] and ``emb`` [V, E] of
     one dtype, integer ``labels`` [n]. Differentiable in hidden and emb;
     the forward launches B4, the backward B5 and B6 (plain versions on CPU
     tensors). Raises ``ValueError`` when the vocab admits no lane-aligned
     block (:func:`fit_vocab_block`) or 8 does not divide n, as the JAX
-    entry does."""
-    n = hidden.shape[0]
-    if fit_vocab_block(emb.shape[0]) is None:
+    entry does.
+
+    With an ``mp_group`` of more than one rank, ``emb`` is this rank's
+    vocab shard (rank r holds global rows r·V_loc ... (r + 1)·V_loc − 1)
+    and ``labels`` are global: B12 (:func:`vp_stats` on the shard, the
+    shards combined over the group); ``hidden``, replicated, passes
+    ``copy_to_mp``, so that dh is summed over the shards, and dW is this
+    rank's shard's."""
+    n, v = hidden.shape[0], emb.shape[0]
+    if fit_vocab_block(v) is None:
         raise ValueError(
-            f"fused_linear_ce: vocab {emb.shape[0]} admits no lane-aligned "
-            "block (need a 128-multiple <= 512 dividing it, or 64 | v)")
+            f"fused_linear_ce: vocab {'shard ' if mp_group else ''}{v} "
+            "admits no lane-aligned block (need a 128-multiple <= 512 "
+            "dividing it, or 64 | v)")
     if _fit_token_block(n) is None:
         raise ValueError(f"fused_linear_ce: 8 must divide tokens {n}")
-    return _FusedLinearCE.apply(hidden.contiguous(), emb.contiguous(),
-                                labels.to(torch.int32).contiguous())
+    if mp_group is None:
+        return _FusedLinearCE.apply(hidden.contiguous(), emb.contiguous(),
+                                    labels.to(torch.int32).contiguous())
+    l_loc = local_labels(labels, v, dist.get_rank(mp_group))
+    lse_loc, lab_loc = vp_stats(copy_to_mp(hidden, mp_group), emb, l_loc)
+    return vocab_parallel_combine(lse_loc, lab_loc, mp_group)

@@ -4,18 +4,21 @@ Port of the JAX package's optims/optimizer.py: AdamW (``AdamW``,
 ``FusedAdamW``; ``Adam`` with no decay) whose weight decay skips the
 LayerNorm scales and biases and every bias — the set the JAX decay mask
 (``:62-68``) names ``norm1``, ``norm2``, ``final_norm`` and ``bias`` —
-and the global-norm clip of ``optax.clip_by_global_norm``. Momentum/SGD
-and the per-block and by-value clips are not ported.
+and the global-norm clip of ``optax.clip_by_global_norm``. Under tensor
+parallelism the norm is the whole model's, as JAX's norm of the global
+arrays is (:func:`global_norm`). Momentum/SGD and the per-block and
+by-value clips are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["build_optimizer", "build_grad_clip", "clip_by_global_norm",
-           "decay_mask"]
+           "decay_mask", "global_norm"]
 
 _NO_DECAY = {"norm1", "norm2", "final_norm", "bias"}
 
@@ -26,17 +29,37 @@ def decay_mask(name: str) -> bool:
     return not (_NO_DECAY & set(name.split(".")))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
-                        ) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """The L2 norm (fp32, on the grads' device) of ``grads`` as one
+    vector. With an mp ``group``, ``sharded[i]`` says whether ``grads[i]``
+    is this rank's shard of a parameter split over the group: the shards'
+    squares are summed over the group and the replicated gradients (the
+    same on every rank) counted once, so every rank gets the whole
+    model's norm."""
+    if group is None:
+        return torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    zero = torch.zeros((), device=grads[0].device)
+    squares = [sum((torch.linalg.vector_norm(g.float()) ** 2
+                    for g, s in zip(grads, sharded) if s == want), zero)
+               for want in (True, False)]
+    dist.all_reduce(squares[0], group=group)
+    return torch.sqrt(squares[0] + squares[1])
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: with ``n`` the global L2
-    norm of ``grads``, leave them when ``n < max_norm`` and otherwise
-    replace each g by ``g / n * max_norm`` (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``). Returns ``n`` (fp32, on the
-    grads' device). The choice is made on the device, as optax's select
-    is: every g is divided and multiplied by device scalars that are 1
-    when it is kept (exact), so the host never waits for the norm."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm of ``grads`` (``norm`` when given, else :func:`global_norm`),
+    leave them when ``n < max_norm`` and otherwise replace each g by ``g /
+    n * max_norm`` (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``).
+    Returns ``n`` (fp32, on the grads' device). The choice is made on the
+    device, as optax's select is: every g is divided and multiplied by
+    device scalars that are 1 when it is kept (exact), so the host never
+    waits for the norm."""
+    norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     one = torch.ones((), device=norm.device)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -44,16 +67,16 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
     return norm
 
 
-def build_grad_clip(clip_cfg) -> Optional[Callable[[List[torch.Tensor]],
-                                                    torch.Tensor]]:
-    """ClipGradByGlobalNorm (and its MoE alias) by name; None when the
-    config names no clip."""
+def build_grad_clip(clip_cfg) -> Optional[Callable[..., torch.Tensor]]:
+    """ClipGradByGlobalNorm (and its MoE alias) by name, as a function of
+    ``(grads, norm=None)``; None when the config names no clip."""
     if not clip_cfg or not clip_cfg.get("name"):
         return None
     name = clip_cfg["name"]
     if name in ("ClipGradByGlobalNorm", "ClipGradForMOEByGlobalNorm"):
         max_norm = float(clip_cfg.get("clip_norm", 1.0))
-        return lambda grads: clip_by_global_norm(grads, max_norm)
+        return lambda grads, norm=None: clip_by_global_norm(grads, max_norm,
+                                                            norm)
     raise NotImplementedError(f"grad clip {name!r} is not ported yet")
 
 

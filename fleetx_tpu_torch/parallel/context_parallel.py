@@ -137,12 +137,14 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh
 
 # ---------------------------------------------------------- the flash ring
 
-def _block_meta(b0: int, h: int, s_blk: int, q_id: int,
+def _block_meta(ids: Tuple[int, int, int], h: int, s_blk: int, q_id: int,
                 k_id: int) -> Tuple[int, ...]:
-    """Kernel meta of one pair (JAX ``_block_meta``, :166): the global
-    batch offset, heads unsharded, and the blocks' global positions from
+    """Kernel meta of one pair (JAX ``_block_meta``, :166): ``ids`` = (the
+    global batch offset, the global id of the first of the ``h`` local
+    heads, the global head count), and the blocks' global positions from
     their zig-zag ids."""
-    return (b0, 0, h, h, q_id * s_blk, k_id * s_blk)
+    b0, h0, h_total = ids
+    return (b0, h0, h, h_total, q_id * s_blk, k_id * s_blk)
 
 
 def _merge_lse(res, lse, o, l):
@@ -179,7 +181,7 @@ class _RingFlash(torch.autograd.Function):
     (``_ring_flash_bwd``, :276-383) over [b, 2, s_blk, h, d] blocks."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mesh, causal, dropout_rate, seed, b0):
+    def forward(ctx, q, k, v, mesh, causal, dropout_rate, seed, ids):
         cp, me = mesh.cp, mesh.cp_rank
         b, _, s_blk, h, d = q.shape
         q_ids = (me, 2 * cp - 1 - me)
@@ -187,7 +189,7 @@ class _RingFlash(torch.autograd.Function):
 
         def call(qi, q_id, k_blk, v_blk, k_id, diag):
             return fa.block_fwd_lse(q[:, qi], k_blk, v_blk, seed,
-                                    _block_meta(b0, h, s_blk, q_id, k_id),
+                                    _block_meta(ids, h, s_blk, q_id, k_id),
                                     causal=diag, **kw)
 
         res = [q.new_zeros((b, s_blk, h, d), dtype=torch.float32)
@@ -209,13 +211,13 @@ class _RingFlash(torch.autograd.Function):
         out = torch.stack(res, dim=1).to(q.dtype)
         lse_all = torch.stack(lse, dim=1)  # [b, 2, s_blk, h]
         ctx.save_for_backward(q, k, v, out, lse_all)
-        ctx.opts = (mesh, causal, dropout_rate, seed, b0)
+        ctx.opts = (mesh, causal, dropout_rate, seed, ids)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse_all = ctx.saved_tensors
-        mesh, causal, dropout_rate, seed, b0 = ctx.opts
+        mesh, causal, dropout_rate, seed, ids = ctx.opts
         cp, me = mesh.cp, mesh.cp_rank
         b, _, s_blk, h, d = q.shape
         q_ids = (me, 2 * cp - 1 - me)
@@ -228,7 +230,7 @@ class _RingFlash(torch.autograd.Function):
         def pair(qi, k_blk, v_blk, k_id):
             args = (q[:, qi], k_blk, v_blk, do[:, qi], lse_all[:, qi],
                     delta[:, qi], seed,
-                    _block_meta(b0, h, s_blk, q_ids[qi], k_id))
+                    _block_meta(ids, h, s_blk, q_ids[qi], k_id))
             return args
 
         dq = [q.new_zeros((b, s_blk, h, d), dtype=torch.float32)
@@ -266,13 +268,15 @@ class _RingFlash(torch.autograd.Function):
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    mesh: Mesh, causal: bool = True,
                    dropout_rate: float = 0.0, seed: Optional[int] = None,
-                   batch_offset: int = 0) -> torch.Tensor:
+                   batch_offset: int = 0, head_offset: int = 0,
+                   heads_total: Optional[int] = None) -> torch.Tensor:
     """Ring attention over this rank's share ``[b, s_local, h, d]`` of a
     zig-zag-ordered sequence (its two blocks, early then late), around
     ``mesh``'s cp ring. ``dropout_rate > 0`` needs an int32 ``seed``, the
     same on every rank; ``batch_offset`` is the global index of row 0 (dp
-    shards the batch), which keys the dropout hash. Differentiable in q, k
-    and v."""
+    shards the batch), ``head_offset`` the global id of local head 0 of
+    ``heads_total`` (mp shards the heads; h when None): both key the
+    dropout hash. Differentiable in q, k and v."""
     b, s_local, h, d = q.shape
     if s_local % 2 or (s_local // 2) % fa.TILE:
         raise ValueError(
@@ -285,7 +289,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "mask across every call)")
     blocks = [t.view(b, 2, s_local // 2, h, d) for t in (q, k, v)]
     out = _RingFlash.apply(*blocks, mesh, bool(causal), float(dropout_rate),
-                           int(seed or 0), int(batch_offset))
+                           int(seed or 0),
+                           (int(batch_offset), int(head_offset),
+                            int(heads_total or h)))
     return out.view(b, s_local, h, d)
 
 
@@ -294,7 +300,8 @@ def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         expected_cp: Optional[int] = None,
                         dropout_rate: float = 0.0,
                         seed: Optional[int] = None,
-                        batch_offset: int = 0) -> torch.Tensor:
+                        batch_offset: int = 0, head_offset: int = 0,
+                        heads_total: Optional[int] = None) -> torch.Tensor:
     """Attention over this rank's share of a zig-zag-ordered sequence (the
     data path permutes each batch once, ``GPTModule.cp_prepare``), around
     the cp ring of ``mesh`` (the current mesh when None).
@@ -303,7 +310,8 @@ def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     without that cp axis raises instead of running plain attention on
     zig-zag-ordered, i.e. wrongly ordered, data. Without a cp axis and
     without a promise, the inputs are in natural order and plain causal
-    attention is exact. ``dropout_rate > 0`` needs ``seed``."""
+    attention is exact. ``dropout_rate > 0`` needs ``seed``; the offsets
+    are :func:`ring_attention`'s."""
     from fleetx_tpu_torch.ops.attention import causal_attention
 
     mesh = mesh or get_mesh()
@@ -320,7 +328,9 @@ def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return causal_attention(q, k, v, causal=causal,
                                 dropout_rate=dropout_rate, seed=seed,
                                 deterministic=dropout_rate == 0.0,
-                                meta=(batch_offset, 0, h, h, 0, 0))
+                                meta=(batch_offset, head_offset, h,
+                                      heads_total or h, 0, 0))
     return ring_attention(q, k, v, mesh=mesh, causal=causal,
                           dropout_rate=dropout_rate, seed=seed,
-                          batch_offset=batch_offset)
+                          batch_offset=batch_offset, head_offset=head_offset,
+                          heads_total=heads_total)

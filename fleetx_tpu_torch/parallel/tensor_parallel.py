@@ -1,0 +1,235 @@
+"""Tensor (mp) parallelism: the Megatron layers that the JAX rules imply.
+
+The JAX package gets tensor parallelism from GSPMD: ``parallel/sharding.py``
+(:41-89, ``make_rules``) puts the logical axes ``vocab``, ``heads`` and
+``mlp`` on the mesh's ``mp`` axis, the GPT params carry those axes (qkv
+``("embed", "heads", "kv")``, out_proj ``("heads", "kv", "embed")``, up
+``("embed", "mlp")``, down ``("mlp", "embed")``, the word embeddings
+``("vocab", "embed")``) and XLA inserts the collectives. The port has no
+GSPMD, so it writes the Megatron form out (the reference's
+``hybrid_model.py:49-174``): every activation between the layers is
+replicated over the mp group, and
+
+- a column-parallel :class:`Dense` (qkv, up) holds a shard of the output
+  rows and its own bias shard; its input passes :func:`copy_to_mp`
+  (identity forward, the gradient all-reduced over the group);
+- a row-parallel :class:`Dense` (out_proj, down) holds a shard of the input
+  columns; the partial products are all-reduced (:func:`reduce_from_mp`:
+  all-reduce forward, identity backward) and its bias, replicated, is
+  added once after the sum;
+- the word embeddings hold a shard of the vocab rows: a lookup gives 0 for
+  an id off the shard and the shards' rows are all-reduced, a sum with one
+  non-zero term, so exact (:func:`vocab_parallel_embedding`);
+- the loss over vocab-sharded logits combines per-shard log-sum-exp and
+  label logits (:func:`vocab_parallel_token_losses`;
+  :func:`vocab_parallel_combine` is also the outside combine of the fused
+  form, B12, in ``ops/ce_loss.py``).
+
+Partials are reduced in the dtype they arrive in (bf16 on the card, as
+GSPMD reduces the dot's output). Under mp, every rank computes the same
+replicated loss and differentiates its own copy: that is why the backward
+of a reduce is the identity and the backward of a copy a sum.
+
+:func:`mp_split_axes` names the parameters split over mp and the axis along
+which each is cut, as the modules that hold them declare it (``mp_split``);
+``models/gpt/convert.py`` slices and gathers state dicts by it, and the
+trainer counts the whole model's parameters and the global norm by it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from fleetx_tpu_torch.parallel.mesh import get_mesh
+
+__all__ = ["mp_split_axes", "current_mp_group", "copy_to_mp",
+           "reduce_from_mp", "Dense", "ColumnParallelDense",
+           "RowParallelDense", "local_labels", "vocab_parallel_embedding",
+           "vocab_parallel_combine", "vocab_parallel_token_losses"]
+
+
+def mp_split_axes(model: nn.Module) -> Dict[str, int]:
+    """Every parameter of ``model`` that is split over mp, by name, with the
+    axis along which it is cut. Each module declares its own in
+    ``mp_split`` ({parameter name: axis}); the layers declare it at any
+    degree, so a whole (mp 1) model names what a sharded one splits."""
+    out = {}
+    for prefix, module in model.named_modules():
+        for name, axis in getattr(module, "mp_split", {}).items():
+            out[f"{prefix}.{name}" if prefix else name] = axis
+    return out
+
+
+def current_mp_group(mp: int):
+    """The current mesh's mp group for a model built for ``mp`` ranks: None
+    at mp 1; raises when the mesh has another mp axis (a shard run on the
+    wrong layout would be silently wrong)."""
+    mesh = get_mesh()
+    if mesh.mp != mp:
+        raise RuntimeError(f"model built for mp_degree={mp} but the mesh is "
+                           f"{mesh}")
+    return mesh.mp_group if mp > 1 else None
+
+
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    """``t`` summed (or reduced by ``op``) over ``group``, in place."""
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+class _CopyToMP(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromMP(torch.autograd.Function):
+    """All-reduce forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_mp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is, with its gradient summed over ``group`` (the input of
+    a column-parallel layer: each rank's gradient is its shard's part)."""
+    return x if group is None else _CopyToMP.apply(x, group)
+
+
+def reduce_from_mp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (the output of a row-parallel layer); the
+    gradient passes through unchanged."""
+    return x if group is None else _ReduceFromMP.apply(x, group)
+
+
+def _param(*shape, device) -> nn.Parameter:
+    # weights come from init_params / params_from_jax, never from here
+    return nn.Parameter(torch.empty(*shape, device=device))
+
+
+class Dense(nn.Module):
+    """``y = x Wᵀ + b`` at the compute dtype; ``weight`` [out, in] and
+    ``bias`` [out] are held in fp32 (or pre-cast to the compute dtype by
+    an inference caller, which yields the same result)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _param(out_features, in_features, device=device)
+        self.bias = _param(out_features, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class ColumnParallelDense(Dense):
+    """A :class:`Dense` of ``out_features`` split over ``mp`` ranks: this
+    rank's ``out_features / mp`` output rows and their bias. Its input is
+    replicated (:func:`copy_to_mp`); its output is this rank's shard."""
+
+    def __init__(self, in_features: int, out_features: int, mp: int,
+                 dtype: torch.dtype, device=None):
+        super().__init__(in_features, out_features // mp, dtype, device)
+        self.mp = mp
+        self.mp_split = {"weight": 0, "bias": 0}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(copy_to_mp(x, current_mp_group(self.mp)))
+
+
+class RowParallelDense(Dense):
+    """A :class:`Dense` of ``in_features`` split over ``mp`` ranks: this
+    rank's ``in_features / mp`` input columns; the partial products are
+    summed over the group, then the replicated bias is added once (adding
+    it inside each rank's product would count it mp times). At mp 1 it is
+    a :class:`Dense`."""
+
+    def __init__(self, in_features: int, out_features: int, mp: int,
+                 dtype: torch.dtype, device=None):
+        super().__init__(in_features // mp, out_features, dtype, device)
+        self.mp = mp
+        self.mp_split = {"weight": 1}  # the bias is replicated
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = current_mp_group(self.mp)
+        if group is None:
+            return super().forward(x)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return reduce_from_mp(y, group) + self.bias.to(self.dtype)
+
+
+def local_labels(labels: torch.Tensor, v_loc: int, mp_rank: int
+                 ) -> torch.Tensor:
+    """Global ids → ids in vocab shard ``mp_rank`` of ``v_loc`` rows, −1
+    off the shard (JAX ``_local_labels``, ops/pallas/ce_loss.py:289-296):
+    −1 matches no column, so the shard's label logit is 0 and the sum over
+    shards is exactly the owning shard's. int32."""
+    loc = labels.to(torch.int32) - mp_rank * v_loc
+    return torch.where((loc >= 0) & (loc < v_loc), loc, -1)
+
+
+def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor,
+                             group) -> torch.Tensor:
+    """``table[ids]`` for a table split over ``group`` by vocab rows: each
+    rank looks up the ids of its shard (0 for the others) and the rows
+    are summed over the group, which is exact (one non-zero term)."""
+    if group is None:
+        return table[ids]
+    loc = local_labels(ids, table.shape[0], dist.get_rank(group))
+    rows = table[loc.clamp_min(0).long()]
+    return reduce_from_mp(torch.where((loc >= 0)[..., None], rows, 0.0),
+                          group)
+
+
+def vocab_parallel_combine(lse_loc: torch.Tensor, lab_loc: torch.Tensor,
+                           group) -> torch.Tensor:
+    """Per-token loss from each shard's fp32 log-sum-exp and label logit
+    (JAX ``fused_linear_ce``'s mp branch, ops/pallas/ce_loss.py:393-395):
+    logsumexp over the shards of ``lse_loc`` minus the sum of ``lab_loc``.
+    The max is taken without gradient (a shift that cancels); the sums of
+    exp and of the label logits go through one all-reduce, whose backward
+    hands each rank its own cotangents: a = g·exp(lse_loc − lse) and
+    b = −g."""
+    if group is None:
+        return lse_loc - lab_loc
+    m = _all_reduce(lse_loc.detach().clone(), group, dist.ReduceOp.MAX)
+    sums = reduce_from_mp(torch.stack([torch.exp(lse_loc - m), lab_loc]),
+                          group)
+    return m + torch.log(sums[0]) - sums[1]
+
+
+def vocab_parallel_token_losses(logits: torch.Tensor, labels: torch.Tensor,
+                                group) -> torch.Tensor:
+    """Per-token cross-entropy (fp32, labels' shape) of logits split over
+    ``group`` by vocab (``logits`` [..., V/mp], this rank's shard; global
+    ``labels``): the plain PyTorch counterpart of JAX ``pretraining_loss``
+    on vocab-sharded logits (models/gpt/model.py:983-991). Without a group
+    (one rank) it is logsumexp minus the label's logit, as
+    ``models.gpt.model.token_losses``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    rank = dist.get_rank(group) if group is not None else 0
+    loc = local_labels(labels, logits.shape[-1], rank)
+    lab = logits.gather(-1, loc.clamp_min(0).long()[..., None])[..., 0]
+    return vocab_parallel_combine(lse, torch.where(loc >= 0, lab, 0.0),
+                                  group)

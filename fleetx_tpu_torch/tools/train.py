@@ -7,14 +7,24 @@ without the elastic supervisor):
         -o Data.Eval.dataset.input_dir=<prefix> -o Engine.max_steps=100
 
 Runs on the GPU and raises without one. Under a launcher, each process
-is one rank of ``Distributed.dp_degree`` × ``cp_degree``; ranks that share
-a card talk over gloo, ranks with a card each over NCCL:
+is one rank of ``Distributed.dp_degree`` × ``cp_degree`` × ``mp_degree``;
+ranks that share a card talk over gloo, ranks with a card each over NCCL.
+Context parallelism:
 
     python -m torch.distributed.run --nproc_per_node 2 \
         -m fleetx_tpu_torch.tools.train \
         -c configs/nlp/gpt/pretrain_gpt_1.3B_longcontext_cp8.yaml \
         -o Distributed.cp_degree=2 -o Data.Train.dataset.max_seq_len=16384 \
         -o Global.local_batch_size=1 -o Data.Train.dataset.input_dir=<prefix>
+
+Tensor parallelism (heads, MLP and vocab split over 2 ranks; the loss
+through the vocab-parallel fused cross-entropy):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m fleetx_tpu_torch.tools.train \
+        -c configs/nlp/gpt/pretrain_gpt_1.3B_single_card.yaml \
+        -o Distributed.mp_degree=2 -o Model.fused_ce=True \
+        -o Data.Train.dataset.input_dir=<prefix>
 """
 
 from __future__ import annotations

@@ -106,10 +106,10 @@ def train_program(config, overrides, steps, params, device="cpu"):
     names = [n for n, _ in module.nets.named_parameters()]
     grads, clip = [], trainer.clip
 
-    def capture(gs):
+    def capture(gs, norm=None):
         if not grads:
             grads.extend(g.detach().float().cpu().numpy() for g in gs)
-        return clip(gs)
+        return clip(gs, norm)
 
     trainer.clip = capture
     loader = iter(build_dataloader(cfg, "Train"))

@@ -148,12 +148,14 @@ def test_dp2_cp2_and_cp2_match_cp1_and_split_batches_by_dp(tmp_path):
     assert tokens[0].shape == (1, SEQ)
 
 
-@pytest.mark.parametrize("key", ["Distributed.mp_degree",
+@pytest.mark.parametrize("key", ["Distributed.ep_degree",
                                  "Distributed.pp_degree",
                                  "Distributed.sharding.sharding_degree"])
 def test_unported_degrees_raise_naming_a6(tmp_path, key):
+    # ep rides on the data ranks: the two ranks are dp 2
+    dp = ("Distributed.dp_degree=2",) if key.endswith("ep_degree") else ()
     cfg = get_config(TINY, overrides=overrides(tmp_path, "torch",
-                                               f"{key}=2"), nranks=2)
+                                               f"{key}=2", *dp), nranks=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         mesh_from_config(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):

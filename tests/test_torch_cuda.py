@@ -415,6 +415,42 @@ def test_flash_kernels_match_plain_versions(head_dim, dtype, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mp_rank", [0, 1])
+def test_flash_kernels_on_a_heads_shard_match_plain_versions(head_dim, dtype,
+                                                             mp_rank):
+    """B1, B2 and B3 on mp rank ``mp_rank``'s 3 heads of 6 (strided views
+    of a fused-qkv shard), causal at dropout 0.1 with the global-head meta
+    (0, mp_rank·3, 3, 6, 0, 0), against their plain versions given the
+    same meta; the identity meta draws other dropout bits."""
+    from fleetx_tpu_torch.ops import flash_attention as fa
+
+    _need_card()
+    q, k, v, do, _ = flash_case(head_dim, dtype=dtype, seed=mp_rank)
+    meta = (0, 3 * mp_rank, 3, 6, 0, 0)
+    kw = dict(causal=True, dropout_rate=0.1, seed=-7, meta=meta)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        -1, q.shape[1]).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    want_dq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    atol, rtol = fa.FLASH_TOL[dtype]
+    for got, want in ((out, want_out), (dq, want_dq), (dk, want_dk),
+                      (dv, want_dv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    own = fa.flash_fwd(q, k, v, **dict(kw, meta=None))[0]
+    assert (own.float() - want_out.float()).abs().max() > 10 * atol
+
+
+@pytest.mark.cuda
 def test_flash_dropout_mask_on_the_card_equals_the_cpu_hash():
     """The int32 hash run by torch on the card gives the CPU's bits."""
     from fleetx_tpu_torch.ops.flash_attention import dropout_keep_scale
@@ -770,3 +806,102 @@ def test_cuda_cp_trainer_on_two_ranks_sharing_the_card(tmp_path):
             "flash_fwd": 2 * layers * 5, "flash_bwd_dq": 2 * layers * 5,
             "flash_bwd_dkv": 2 * layers * 5, "block_fwd_lse": 2 * layers * 5,
             "block_dq": 2 * layers * 5, "block_dkv": 2 * layers * 5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ce_backward_kernels_take_independent_a_and_b(dtype):
+    """B5 and B6 against their plain versions for dl = a·softmax + b·onehot
+    with a and b independent (B12's cotangents, a = g·exp(lse_loc − lse),
+    b = −g), at a ragged vocab (1216 = 9.5 x 128 columns) and with labels
+    off the vocab (-1 and V: no one-hot term)."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    _need_card()
+    n = 520
+    h, w, labels = ce_case(n, 128, 1216, dtype=dtype, seed=7)
+    _, lse = ce.fused_ce_fwd(h, w, labels)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    a = torch.rand(n, device="cuda", generator=gen) * 0.8 + 0.1
+    b = -(torch.rand(n, device="cuda", generator=gen) + 0.5)
+    for got, want in ((ce.fused_ce_dh(h, w, labels, a, b, lse),
+                       ce.fused_ce_dh_ref(h, w, labels, a, b, lse)),
+                      (ce.fused_ce_dw(h, w, labels, a, b, lse),
+                       ce.fused_ce_dw_ref(h, w, labels, a, b, lse))):
+        torch.cuda.synchronize()
+        _ce_close(got, want, dtype, "grads")
+        # b = -a would be another function: the gate tells them apart
+        assert not ce.ce_gaps(got, ce._grad_plain(
+            h, w, labels, a, -a, lse,
+            wrt="h" if got.shape == h.shape else "w"), dtype, "grads")["ok"]
+
+
+@pytest.mark.cuda
+def test_b12_on_ranks_sharing_the_card_matches_its_plain_version():
+    """B12 at mp 2 on 2 ranks sharing the card over gloo, bf16, against its
+    plain version on the same ranks: each rank's partial dh and dW shard
+    within CE_TOL, the loss within the stats limit, the summed dh within
+    the grads limit relative to the partials' magnitudes and its own (it
+    rounds once more than they do); one launch of
+    each B12 entry per rank, none for the plain version."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+    from test_torch_mp_ranks import spawn_on_card, vp_ce_program
+
+    _need_card()
+    rng = np.random.RandomState(8)
+    n, e, v = 520, 128, 2 * 1216
+    h = rng.randn(n, e).astype(np.float32)
+    w = (rng.randn(v, e) * 3 / np.sqrt(e)).astype(np.float32)
+    labels = rng.randint(0, v, n).astype(np.int32)
+    labels[:3] = [-1, 0, v - 1]
+    g = rng.rand(n).astype(np.float32)
+    args = (h, w, labels, g, 2, "cuda", torch.bfloat16)
+    got = spawn_on_card(vp_ce_program, 2, *args)
+    want = spawn_on_card(vp_ce_program, 2, *args, True)
+    bf16 = torch.bfloat16
+    scale = (sum(torch.from_numpy(r[3]).abs() for r in want)
+             + torch.from_numpy(want[0][1]).abs())  # see ce.ce_gaps
+    for k, w_ in zip(got, want):
+        t = [torch.from_numpy(x) for x in k[:4]]
+        r = [torch.from_numpy(x) for x in w_[:4]]
+        assert ce.ce_gaps(t[0], r[0], bf16, "stats")["ok"]
+        assert ce.ce_gaps(t[1], r[1], bf16, "grads", scale=scale)["ok"]
+        assert ce.ce_gaps(t[2], r[2], bf16, "grads")["ok"]
+        assert ce.ce_gaps(t[3], r[3], bf16, "grads")["ok"]
+        assert k[4] == dict.fromkeys(ce.VP_NAMES, 1)
+        assert w_[4] == dict.fromkeys(ce.VP_NAMES, 0)
+    np.testing.assert_array_equal(got[0][0], got[1][0])
+
+
+@pytest.mark.cuda
+def test_cuda_mp2_trainer_on_two_ranks_sharing_the_card(tmp_path):
+    """Two train steps of the tiny bf16 GPT at mp 2 with fused_ce and full
+    recompute on 2 ranks sharing the card over gloo: equal losses and
+    replicated parameters on both ranks; per rank B12 (and under it B4-B6)
+    once per step and B1 twice per layer per step, B2 and B3 once: no
+    plain version and no logits path."""
+    from test_torch_mp_ranks import mp_train_program, spawn_on_card
+
+    _need_card()
+    cfg = _tiny_train_cfg(tmp_path)  # writes the corpus
+    prefix = str(tmp_path / "tiny")
+    root = __file__.rsplit("/tests/", 1)[0]
+    over = [f"Data.Train.dataset.input_dir={prefix}",
+            "Model.use_flash_attention=True", "Model.fused_ce=True",
+            "Model.use_recompute=True",
+            "Engine.mix_precision.use_pure_fp16=True",
+            "Global.local_batch_size=2", "Global.micro_batch_size=2",
+            "Distributed.mp_degree=2", "Optimizer.lr.warmup_steps=0"]
+    runs = spawn_on_card(mp_train_program, 2,
+                         f"{root}/configs/tiny/pretrain_gpt_tiny_cpu.yaml",
+                         over, 2, None, "cuda")
+    assert runs[0]["losses"] == runs[1]["losses"]
+    assert runs[0]["replicated"] == runs[1]["replicated"]
+    assert all(np.isfinite(runs[0]["losses"]))
+    layers = cfg.Model.num_layers
+    for r in runs:
+        assert r["launches"] == {
+            "flash_fwd": 2 * 2 * layers, "flash_bwd_dq": 2 * layers,
+            "flash_bwd_dkv": 2 * layers, "ce_fwd": 2, "ce_dh": 2, "ce_dw": 2,
+            "vp_ce_fwd": 2, "vp_ce_dh": 2, "vp_ce_dw": 2}

@@ -95,3 +95,15 @@ def test_gate_covers_the_context_parallel_slice():
                  "data", "utils.config", "tools.train"):
         assert f"fleetx_tpu_torch.{name}" in mods, name
     assert (PKG / "ops" / "csrc" / "flash_attention.cu").is_file()
+
+
+def test_gate_covers_the_tensor_parallel_slice():
+    """Likewise for tensor parallelism: the mp layers and the modules the
+    mp path runs through, B12's wrapper and its CUDA source."""
+    mods = set(_modules())
+    for name in ("parallel.tensor_parallel", "parallel.mesh", "ops.ce_loss",
+                 "models.gpt.model", "models.gpt.convert",
+                 "models.language_module", "optims.optimizer", "core.engine",
+                 "tools.train"):
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    assert (PKG / "ops" / "csrc" / "ce_loss.cu").is_file()
