@@ -211,7 +211,8 @@ GEN_SEED = 2024
 # device-time classes of a profile, by kernel-name marks (first match wins)
 PROFILE_CLASSES = (
     ("fused CE kernels", ("ce_fwd_kernel", "ce_bwd_kernel",
-                          "ce_combine_kernel")),
+                          "ce_combine_kernel", "ce_dl_kernel",
+                          "ce_prod_kernel")),
     ("port kernels", ("flash_", "decode_kernel")),
     ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
     ("optimizer", ("multi_tensor", "fused_adam", "FusedAdam")),
@@ -1539,7 +1540,10 @@ def library_ce_times(h, w, labels, g) -> dict:
     """The logits path as a sequence of PyTorch calls, a yardstick only:
     forward = one GEMM with fp32 output, logsumexp and a gather of the
     label logit; backward = softmax minus the one-hot times g, the cast to
-    the operands' dtype, and the two products (dh and dW)."""
+    the operands' dtype, and the two products (dh and dW), from the saved
+    logits; dh and dw = the same function as B5 or B6 alone: the logits
+    GEMM again, softmax minus the one-hot times g, the cast, and the one
+    product."""
     lab = labels.long().clamp(0, w.shape[0] - 1)[:, None]
     rows = torch.arange(h.shape[0], device=h.device)
 
@@ -1554,14 +1558,22 @@ def library_ce_times(h, w, labels, g) -> dict:
 
     s = logits()
 
-    def backward():
-        dl = torch.softmax(s, -1)
+    def dl_of(scores):
+        dl = torch.softmax(scores, -1)
         dl[rows, lab[:, 0]] -= 1.0
-        dl = (dl * g[:, None]).to(h.dtype)
+        return (dl * g[:, None]).to(h.dtype)
+
+    def backward():
+        dl = dl_of(s)
         return dl @ w, dl.t() @ h
 
-    return {"forward": cuda_ms(forward, iters=10, warmup=2),
-            "backward": cuda_ms(backward, iters=10, warmup=2)}
+    times = {"forward": cuda_ms(forward, iters=10, warmup=2),
+             "backward": cuda_ms(backward, iters=10, warmup=2)}
+    del s
+    times["dh"] = cuda_ms(lambda: dl_of(logits()) @ w, iters=10, warmup=2)
+    times["dw"] = cuda_ms(lambda: dl_of(logits()).t() @ h, iters=10,
+                          warmup=2)
+    return times
 
 
 def planted_ce_faults(h, w, labels, g, lse) -> dict:
@@ -1641,11 +1653,16 @@ def phase_ce() -> dict:
                        lib["forward"], ("loss", "lse")),
             "ce_dh": (lambda: ce.fused_ce_dh(h, w, labels, g, -g, lse),
                       lambda: ce.fused_ce_dh_ref(h, w, labels, g, -g, lse),
-                      lib["backward"], ("dh",)),
+                      lib["dh"], ("dh",)),
             "ce_dw": (lambda: ce.fused_ce_dw(h, w, labels, g, -g, lse),
                       lambda: ce.fused_ce_dw_ref(h, w, labels, g, -g, lse),
-                      lib["backward"], ("dW",)),
+                      lib["dw"], ("dW",)),
         }
+        library = {"ce_fwd": "logits path forward",
+                   "ce_dh": "logits path dh alone (GEMM, softmax, one "
+                            "product)",
+                   "ce_dw": "logits path dW alone (GEMM, softmax, one "
+                            "product)"}
         for name, (kernel, plain, library_ms, outs) in calls.items():
             kernel_ms = cuda_ms(kernel, iters=10, warmup=2)
             plain_ms = cuda_ms(plain, iters=2, warmup=1)
@@ -1657,8 +1674,8 @@ def phase_ce() -> dict:
             log("ce", name=name, dtype=str(dtype).split(".")[-1], tokens=n,
                 hidden=e, vocab=v, max_abs_err=err, kernel_ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
-                library="logits path " + ("forward" if name == "ce_fwd"
-                                          else "backward (dh and dW)"),
+                library=library[name],
+                library_backward_ms=lib["backward"],
                 bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by,
                 bytes=nbytes, flops=flops, tflops=flops / kernel_ms * 1e-9,
                 share_of_bound=max(bytes_ms, ops_ms) / kernel_ms)
@@ -1667,6 +1684,8 @@ def phase_ce() -> dict:
                     "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
                     "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
                     "library_ms": library_ms}
+                if name != "ce_fwd":
+                    records[name]["library_backward_ms"] = lib["backward"]
         ce.launches.update(before)  # checks and timing are not the path
         del h, w, labels, g, loss, lse, dh, dw
         torch.cuda.empty_cache()
@@ -2634,10 +2653,10 @@ def phase_mp_kernels() -> dict:
                       lib["forward"], ("loss",)),
         "vp_ce_dh": (lambda: ce.fused_ce_dh(h, shard, l_loc, a, b, lse),
                      lambda: ce.fused_ce_dh_ref(h, shard, l_loc, a, b, lse),
-                     lib["backward"], ("dh_partial", "dh")),
+                     lib["dh"], ("dh_partial", "dh")),
         "vp_ce_dw": (lambda: ce.fused_ce_dw(h, shard, l_loc, a, b, lse),
                      lambda: ce.fused_ce_dw_ref(h, shard, l_loc, a, b, lse),
-                     lib["backward"], ("dW",))}
+                     lib["dw"], ("dW",))}
     records = {}
     for name, (kernel, plain, library_ms, outs) in calls.items():
         kernel_ms = cuda_ms(kernel, iters=10, warmup=2)
@@ -2650,8 +2669,10 @@ def phase_mp_kernels() -> dict:
         log("mp-kernels", name=name, kernel=VP_KERNEL[name], tokens=n,
             hidden=e, vocab_shard=v_loc, max_abs_err=err,
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            library="logits path on the shard " + (
-                "forward" if name == "vp_ce_fwd" else "backward (dh and dW)"),
+            library="logits path on the shard " + {
+                "vp_ce_fwd": "forward", "vp_ce_dh": "dh alone",
+                "vp_ce_dw": "dW alone"}[name],
+            library_backward_ms=lib["backward"],
             bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by, bytes=nbytes,
             flops=flops, tflops=flops / kernel_ms * 1e-9,
             share_of_bound=max(bytes_ms, ops_ms) / kernel_ms)
@@ -2659,6 +2680,8 @@ def phase_mp_kernels() -> dict:
                          "plain_ms": plain_ms,
                          "bound_ms": max(bytes_ms, ops_ms),
                          "bound_by": bound_by, "library_ms": library_ms}
+        if name != "vp_ce_fwd":
+            records[name]["library_backward_ms"] = lib["backward"]
     ce.launches.update(before)  # timing is not the path
     del h, shard, labels, g, lse, a, b
     torch.cuda.empty_cache()

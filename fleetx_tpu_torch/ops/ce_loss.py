@@ -11,7 +11,12 @@ logits or their gradient. Three kernels in ``csrc/ce_loss.cu``:
 - ``ce_dw`` (B6, ``_dw_kernel`` :150): dW = Σ_tokens dlᵀ·h;
 
 where dl = a·exp(s − lse) + b·onehot(label) is recomputed from the saved
-lse, and (a, b) = (g, −g) for the plain cross-entropy backward.
+lse, and (a, b) = (g, −g) for the plain cross-entropy backward. In bf16,
+B5 and B6 each run two GEMMs per chunk of output rows on the tensor
+cores: s of the chunk with dl in its epilogue, rounded to bf16 into a
+scratch, then dl times the other operand. The wrapper sizes the chunks
+and allocates the scratch (at most 256 MB); fp32 keeps one CUDA-core
+kernel per output.
 :func:`fused_linear_ce` is a ``torch.autograd.Function`` whose forward
 launches B4 and whose backward launches B5 and B6. Each of
 :func:`fused_ce_fwd`, :func:`fused_ce_dh` and :func:`fused_ce_dw` launches
@@ -69,11 +74,18 @@ __all__ = ["KERNEL", "NAMES", "VP_NAMES", "MAX_HIDDEN", "CE_TOL",
 KERNEL = "ce_loss"  # csrc/ce_loss.cu
 NAMES = ("ce_fwd", "ce_dh", "ce_dw")
 VP_NAMES = ("vp_ce_fwd", "vp_ce_dh", "vp_ce_dw")  # B12's entries over B4-B6
-# B5 and B6 hold a [16, hidden] fp32 accumulator in shared memory; with
-# their double-buffered operand tiles that fits the card's 227 KB up to
-# this width
+# the fp32 B5 and B6 hold a [16, hidden] fp32 accumulator in shared
+# memory, which with their operand tiles fits the card's 227 KB up to this
+# width
 MAX_HIDDEN = 2048
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 B5 and B6 (two GEMMs per chunk, csrc/ce_loss.cu): the rows of
+# the kernels' output tile (gemm::BM there: the two must agree), the
+# 128x128 output tiles a chunk's second product should give to fill the
+# card's 132 SMs about twice, and the most bytes of the bf16 dl scratch
+_TILE_ROWS = 128
+_WANT_TILES = 256
+_SCRATCH_BYTES = 256 * 2 ** 20
 
 # kernel vs plain version on the card (see :func:`ce_gaps`): ``stats`` for
 # loss and lse (fp32 outputs), ``grads`` for dh and dW (in the operands'
@@ -142,6 +154,31 @@ def _fit_token_block(n: int, want: int = 256) -> Optional[int]:
 
 def _mm_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+def _plan_chunk(n: int, v: int, e: int, wrt: str) -> Tuple[int, int]:
+    """The dl scratch of the bf16 B5 (``wrt="h"``) or B6 (``wrt="w"``) for
+    n tokens, V vocab entries and hidden size E: (chunk, width). The
+    kernels walk the output rows (tokens for dh, vocab entries for dW)
+    ``chunk`` at a time, the last chunk ragged; width is the other
+    operand's rows (V for dh, n for dW). A chunk is a multiple of the
+    128-row tile chosen so that its second product (a [chunk, E] output)
+    holds about ``_WANT_TILES`` 128x128 tiles (2048 rows at E 2048), at
+    most what keeps the scratch within ``_SCRATCH_BYTES``, and all rows
+    where fewer remain. The kernels' TMA loads need 16-byte row strides:
+    raises ``ValueError`` unless 8 divides the width and E."""
+    if wrt not in ("h", "w"):
+        raise ValueError(f"wrt must be 'h' or 'w', got {wrt!r}")
+    rows, width = (n, v) if wrt == "h" else (v, n)
+    if width % 8 or e % 8:
+        raise ValueError(
+            f"the bf16 {'dh' if wrt == 'h' else 'dW'} kernel needs 8 | "
+            f"{'V' if wrt == 'h' else 'n'} and 8 | E for 16-byte rows, got "
+            f"{width} and {e}")
+    want = _TILE_ROWS * -(-_WANT_TILES // -(-e // 128))
+    room = _SCRATCH_BYTES // (2 * max(width, 1)) // _TILE_ROWS * _TILE_ROWS
+    chunk = max(_TILE_ROWS, min(want, room))
+    return (max(rows, 1) if chunk >= rows else chunk), width
 
 
 # ----------------------------------------------------------- plain versions
@@ -233,9 +270,10 @@ def vp_stats_ref(h, w, l_loc) -> Tuple[torch.Tensor, torch.Tensor]:
 class _CEParams(ctypes.Structure):
     """Mirror of ``CEParams`` in ``csrc/ce_loss.cu``."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "h", "w", "labels", "a", "b", "lse", "loss", "grad", "partial")]
+        "h", "w", "labels", "a", "b", "lse", "loss", "grad", "partial",
+        "scratch")]
         + [(name, ctypes.c_int) for name in (
-            "n", "vocab", "hidden", "splits")])
+            "n", "vocab", "hidden", "splits", "chunk")])
 
 
 def _lib():
@@ -264,8 +302,9 @@ def _launch(name: str, h, w, labels, **tensors) -> None:
         setattr(prm, field, None if t is None else t.data_ptr())
     prm.n, prm.hidden = h.shape
     prm.vocab = w.shape[0]
-    partial = tensors.get("partial")
+    partial, scratch = tensors.get("partial"), tensors.get("scratch")
     prm.splits = 0 if partial is None else partial.shape[1]
+    prm.chunk = 0 if scratch is None else scratch.shape[0]
     with torch.cuda.device(h.device):
         err = getattr(_lib(), name)(
             ctypes.byref(prm), _DTYPE_CODES[h.dtype],
@@ -307,6 +346,15 @@ def _check(h, w, labels, *rows) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _scratch(h, w, wrt: str) -> Optional[torch.Tensor]:
+    """The bf16 dl scratch of one chunk of B5 (``wrt="h"``) or B6, shaped
+    by :func:`_plan_chunk` (its rows are the chunk); None in fp32."""
+    if h.dtype != torch.bfloat16:
+        return None
+    return torch.empty(_plan_chunk(h.shape[0], w.shape[0], h.shape[1], wrt),
+                       dtype=torch.bfloat16, device=h.device)
+
+
 def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4: ``(loss, lse)``, fp32 [n]. CUDA tensors launch ``ce_fwd``; CPU
     tensors take :func:`fused_ce_fwd_ref`."""
@@ -332,7 +380,8 @@ def fused_ce_dh(h, w, labels, a, b, lse) -> torch.Tensor:
     if h.device.type == "cpu":
         return fused_ce_dh_ref(h, w, labels, a, b, lse)
     dh = torch.empty(h.shape, dtype=h.dtype, device=h.device)
-    _launch("ce_dh", h, w, labels, a=a, b=b, lse=lse, grad=dh)
+    _launch("ce_dh", h, w, labels, a=a, b=b, lse=lse, grad=dh,
+            scratch=_scratch(h, w, "h"))
     return dh
 
 
@@ -343,7 +392,8 @@ def fused_ce_dw(h, w, labels, a, b, lse) -> torch.Tensor:
     if h.device.type == "cpu":
         return fused_ce_dw_ref(h, w, labels, a, b, lse)
     dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
-    _launch("ce_dw", h, w, labels, a=a, b=b, lse=lse, grad=dw)
+    _launch("ce_dw", h, w, labels, a=a, b=b, lse=lse, grad=dw,
+            scratch=_scratch(h, w, "w"))
     return dw
 
 

@@ -1,0 +1,282 @@
+"""The fused-CE backward kernels B5 (``ce_dh``) and B6 (``ce_dw``) on the
+card, beyond what ``chip_smoke.py`` checks: their numerics over many
+draws of the cotangent, and their times.
+
+    python fleetx_tpu_torch/tools/ce_backward_check.py [--root DIR] \
+        [--seeds 50] [--skip-sweep] [--out FILE]
+
+- The sweep: the bf16 cases of the CE card tests in
+  ``tests/test_torch_cuda.py`` (their shapes and data), each with
+  ``--seeds`` draws of the cotangent besides the test's own. Every draw
+  holds B5 and B6 against their plain versions under ``CE_TOL``
+  (``ce_gaps``) and, where the kernels keep dl in a scratch, goes through
+  :func:`fp64_checks`.
+- The times: B5 and B6 at the GPT-1.3B head (n 8192, E 2048, V 50304,
+  bf16) and at ``chip_smoke.py``'s fp32 case (n 1024, E 256, V 8192),
+  CUDA events over 10 calls after 2.
+
+``--root`` imports ``fleetx_tpu_torch`` from another checkout, such as an
+earlier commit unpacked by ``git archive``, so that one call can hold two
+versions on the same card. Prints the card's name and power limit, then
+one JSON object. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+# (n, E, V, data seed, the test's cotangent seed, how the test draws it):
+# "g" draws g and takes (a, b) = (g, -g), as test_ce_kernels_match_plain_
+# versions; "ab" draws a and b apart, as test_ce_bf16_backward_kernels_
+# against_an_fp64_product
+SWEEP_CASES = {
+    "one-tile-64": (64, 64, 384, 0, 128, "g"),
+    "one-tile-128": (64, 128, 384, 0, 192, "g"),
+    "ragged-tiles-64": (520, 64, 1216, 0, 584, "g"),
+    "ragged-tiles-128": (520, 128, 1216, 0, 648, "g"),
+    "fp64-ragged-tiles": (520, 128, 1216, 11, 11, "ab"),
+    "fp64-ragged-chunks": (2056, 2048, 2112, 11, 11, "ab"),
+}
+TIME_CASES = {"bf16": (8192, 2048, 50304, torch.bfloat16),
+              "fp32": (1024, 256, 8192, torch.float32)}
+
+
+def ce_case(n, e, v, *, dtype, seed=0):
+    """h [n, E], W [V, E] (scaled so that the softmax is not flat), labels
+    with -1, both vocab ends and one past the end, on the card."""
+    rng = np.random.RandomState(seed)
+    h = torch.from_numpy(rng.randn(n, e).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.randn(v, e) * 3 / np.sqrt(e)).astype(
+        np.float32)).to(dtype)
+    labels = rng.randint(0, v, n).astype(np.int32)
+    labels[:4] = [-1, 0, v - 1, v]
+    return h.cuda(), w.cuda(), torch.from_numpy(labels).cuda()
+
+
+def cotangents(n, seed, how):
+    """(a, b) for the backward, drawn from a seeded generator on the card
+    as the card tests draw them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand(n, device="cuda", generator=gen) + 0.5
+    if how == "g":
+        return a, -a
+    return a, -(torch.rand(n, device="cuda", generator=gen) + 0.5)
+
+
+def _bf16_step(x):
+    """The spacing of bf16 numbers at |x| (fp64): 2^(floor(log2|x|) - 7)."""
+    _, exp = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), exp - 8)
+
+
+@contextlib.contextmanager
+def _one_chunk(ce, keep):
+    """Runs the bf16 B5/B6 over one chunk of all output rows and appends
+    each call's dl scratch to ``keep``, leaving the launch counts as they
+    were."""
+    plan, counts = ce._scratch, dict(ce.launches)
+
+    def whole(h, w, wrt):
+        rows, width = ((h.shape[0], w.shape[0]) if wrt == "h"
+                       else (w.shape[0], h.shape[0]))
+        keep.append(torch.empty((rows, width), dtype=torch.bfloat16,
+                                device=h.device))
+        return keep[-1]
+
+    ce._scratch = whole
+    try:
+        yield
+    finally:
+        ce._scratch = plan
+        ce.launches.update(counts)
+
+
+def fp64_checks(h, w, labels, a, b, lse, wrt):
+    """The bf16 B5 (``wrt="h"``) or B6 (``wrt="w"``) against fp64 products,
+    with the kernel's own dl read from its scratch (a second call over one
+    chunk: each dl element comes from the same sums at any chunking).
+    Returns, with the output ``got``:
+
+    - ``dl_steps``: the largest |dl_kernel − dl| over the bf16 spacing at
+      |dl|, dl = a·exp(s − lse) + b·onehot in fp64 (<= 1: the kernel
+      rounds dl to one of its two bf16 neighbours);
+    - ``dl_flips``: the elements where dl_kernel is not dl rounded to
+      nearest (an fp32 s a few bits off the fp64 s rounds the other way);
+    - ``product_ratio``: the largest |got − P(dl_kernel)| over CE_TOL's
+      bound (atol of the largest |value|, rtol of each), P the fp64
+      product with the other operand (<= 1: the product sums in fp32 and
+      rounds once);
+    - ``beyond``, ``beyond_outside_flips``: the elements where the kernel
+      lies farther from P(dl rounded to nearest) than the plain version's
+      error plus CE_TOL's bound, and those of them in an output row (a
+      token of dh, a vocab entry of dW) with no flip of dl_kernel;
+    - ``whole_gap``: the kernel's largest error over the plain version's
+      largest plus CE_TOL's bound at the largest |value| (<= 1);
+    - ``vs_plain``: ``ce_gaps`` of the kernel against its plain version."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    fn, plain = ((ce.fused_ce_dh, ce.fused_ce_dh_ref) if wrt == "h"
+                 else (ce.fused_ce_dw, ce.fused_ce_dw_ref))
+    got = fn(h, w, labels, a, b, lse)
+    want = plain(h, w, labels, a, b, lse)
+    keep = []
+    with _one_chunk(ce, keep):
+        again = fn(h, w, labels, a, b, lse)
+    dl_k = keep[0].double() if wrt == "h" else keep[0].double().t()
+    hd, wd = h.double(), w.double()
+    col = torch.arange(w.shape[0], device=h.device)
+    onehot = (labels.long()[:, None] == col).double()
+    dl = a.double()[:, None] * torch.exp(hd @ wd.t() - lse.double()[:, None]) \
+        + b.double()[:, None] * onehot
+    dl_near = dl.to(torch.bfloat16).double()
+    flips = dl_k != dl_near
+
+    def product(d):
+        return d @ wd if wrt == "h" else d.t() @ hd
+
+    atol, rtol, _ = ce.CE_TOL[torch.bfloat16]["grads"]
+    ref_k = product(dl_k)
+    bound_k = atol * ref_k.abs().max() + rtol * ref_k.abs()
+    ref = product(dl_near)
+    kernel_err = (got.double() - ref).abs()
+    plain_err = (want.double() - ref).abs()
+    top = ref.abs().max()
+    beyond = kernel_err > plain_err + atol * top + rtol * ref.abs()
+    flip_rows = flips.any(1) if wrt == "h" else flips.any(0)
+    return {
+        "got": got,
+        "same_at_one_chunk": bool(torch.equal(again, got)),
+        "dl_steps": ((dl_k - dl).abs() / _bf16_step(dl)).max().item(),
+        "dl_flips": int(flips.sum().item()),
+        "product_ratio": ((got.double() - ref_k).abs() / bound_k).max().item(),
+        "beyond": int(beyond.sum().item()),
+        "beyond_outside_flips": int((beyond & ~flip_rows[:, None]).sum()
+                                    .item()),
+        "whole_gap": (kernel_err.max() / (plain_err.max()
+                                          + (atol + rtol) * top)).item(),
+        "vs_plain": ce.ce_gaps(got, want, torch.bfloat16, "grads"),
+    }
+
+
+def sweep(seeds: int) -> dict:
+    """Per case and output (dh, dW): the draws whose ``ce_gaps`` against
+    the plain version fails, the worst and the test draw's tol ratio, and
+    where the kernels keep dl in a scratch the worst of
+    :func:`fp64_checks`' readings."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    scratch = hasattr(ce, "_scratch")
+    out = {}
+    for case, (n, e, v, data_seed, test_seed, how) in SWEEP_CASES.items():
+        h, w, labels = ce_case(n, e, v, dtype=torch.bfloat16, seed=data_seed)
+        _, lse = ce.fused_ce_fwd(h, w, labels)
+        draws = sorted(set(range(seeds)) | {test_seed})
+        for wrt, name in (("h", "dh"), ("w", "dW")):
+            row = {"draws": len(draws), "failed": [], "worst_tol_ratio": 0.0}
+            for seed in draws:
+                a, b = cotangents(n, seed, how)
+                if scratch:
+                    got = fp64_checks(h, w, labels, a, b, lse, wrt)
+                    gap = got.pop("vs_plain")
+                    del got["got"]
+                    for k, x in got.items():
+                        if k == "same_at_one_chunk":
+                            row[k] = row.get(k, True) and x
+                        else:
+                            row[f"max_{k}"] = max(row.get(f"max_{k}", 0), x)
+                else:
+                    fn, plain = ((ce.fused_ce_dh, ce.fused_ce_dh_ref)
+                                 if wrt == "h" else
+                                 (ce.fused_ce_dw, ce.fused_ce_dw_ref))
+                    gap = ce.ce_gaps(fn(h, w, labels, a, b, lse),
+                                     plain(h, w, labels, a, b, lse),
+                                     torch.bfloat16, "grads")
+                if not gap["ok"]:
+                    row["failed"].append(seed)
+                row["worst_tol_ratio"] = max(row["worst_tol_ratio"],
+                                             gap["tol_ratio"])
+                row["max_moved_share"] = max(row.get("max_moved_share", 0),
+                                             gap["moved_share"])
+                if seed == test_seed:
+                    row["test_draw"] = {"seed": seed, **gap}
+            out[f"{case}/{name}"] = row
+    return out
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events, a
+    device-side sleep queued first so that the host enqueues every call
+    before the first one runs)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(iters * 2e6))
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def times() -> dict:
+    """ms of B5 and B6 per case of TIME_CASES."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    out = {}
+    for case, (n, e, v, dtype) in TIME_CASES.items():
+        h, w, labels = ce_case(n, e, v, dtype=dtype, seed=7)
+        a, b = cotangents(n, 7, "g")
+        _, lse = ce.fused_ce_fwd(h, w, labels)
+        out[case] = {
+            "ce_dh": cuda_ms(lambda: ce.fused_ce_dh(h, w, labels, a, b, lse)),
+            "ce_dw": cuda_ms(lambda: ce.fused_ce_dw(h, w, labels, a, b, lse))}
+        del h, w, labels, a, b, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))),
+        help="checkout whose fleetx_tpu_torch is held (default: this one)")
+    ap.add_argument("--seeds", type=int, default=50)
+    ap.add_argument("--skip-sweep", action="store_true")
+    ap.add_argument("--out", help="also write the JSON object here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    result = {"root": args.root, "module": ce.__file__, "card": card,
+              "times_ms": times()}
+    if not args.skip_sweep:
+        result["sweep"] = sweep(args.seeds)
+    line = json.dumps(result)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,6 +11,8 @@ product on both sides, so the loss keeps the fp32 limit and dh, dW (bf16
 outputs) differ by at most a few bf16 ulps (``BF16_GRAD_ULPS``).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -172,3 +174,106 @@ def test_planted_fault_knobs_move_the_plain_version():
     good = ce._grad_plain(*args, wrt="h")
     fault = ce._grad_plain(*args, wrt="h", dl_dtype=torch.float32)
     assert not torch.equal(good, fault)
+
+
+# (n, V, E, wrt): chunk, chunks, rows of the last chunk. GPT-1.3B's LM
+# head (V 50304) and its mp-2 shard (V_loc 25152) at 8192 tokens, a small
+# case that takes one chunk, and E 2048 with 2056 tokens / 2112 vocab rows
+# that leaves a ragged last chunk of 8 / 64 rows
+CHUNK_CASES = {
+    "1.3B-dh": ((8192, 50304, 2048, "h"), 2048, 4, 2048),
+    "1.3B-dW": ((8192, 50304, 2048, "w"), 2048, 25, 1152),
+    "shard-dh": ((8192, 25152, 2048, "h"), 2048, 4, 2048),
+    "shard-dW": ((8192, 25152, 2048, "w"), 2048, 13, 576),
+    "small-dh": ((520, 1216, 128, "h"), 520, 1, 520),
+    "small-dW": ((520, 1216, 128, "w"), 1216, 1, 1216),
+    "ragged-dh": ((2056, 2112, 2048, "h"), 2048, 2, 8),
+    "ragged-dW": ((2056, 2112, 2048, "w"), 2048, 2, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNK_CASES), ids=list(CHUNK_CASES))
+def test_chunk_plan(case):
+    """The bf16 B5/B6 chunk planner: chunk rows (a multiple of the 128-row
+    tile unless one chunk takes all rows), the ragged last chunk, the
+    scratch's shape and bytes (one chunk of bf16 dl, rows as long as the
+    other operand's rows, within 256 MB) and its 16-byte row stride, which
+    the kernels' TMA loads need."""
+    (n, v, e, wrt), chunk, count, last = CHUNK_CASES[case]
+    rows, width = (n, v) if wrt == "h" else (v, n)
+    assert ce._plan_chunk(n, v, e, wrt) == (chunk, width)
+    assert -(-rows // chunk) == count
+    assert rows - (count - 1) * chunk == last
+    assert chunk * width * 2 <= ce._SCRATCH_BYTES == 256 * 2 ** 20
+    assert (width * 2) % 16 == 0
+    assert chunk % 128 == 0 or chunk == rows
+
+
+def test_chunk_plan_at_the_1_3b_head_fills_the_card_and_bounds_the_scratch():
+    """At E 2048 a chunk's second product is [2048, 2048]: 256 output
+    tiles of 128x128 (about two per SM of 132); dh's scratch is 206 MB,
+    dW's 33.5 MB; a vocab so wide that 2048 rows would pass 256 MB takes
+    fewer rows per chunk."""
+    chunk, width = ce._plan_chunk(8192, 50304, 2048, "h")
+    assert (chunk // 128) * (2048 // 128) == 256
+    assert chunk * width * 2 == 206_045_184
+    assert math.prod(ce._plan_chunk(8192, 50304, 2048, "w")) * 2 == 33_554_432
+    chunk, width = ce._plan_chunk(8192, 262144, 2048, "h")
+    assert chunk == 512 and chunk * width * 2 <= ce._SCRATCH_BYTES
+
+
+def test_chunk_plan_refuses_rows_off_16_bytes():
+    with pytest.raises(ValueError, match="16-byte"):
+        ce._plan_chunk(64, 1220, 64, "h")  # dh's scratch rows are V long
+    with pytest.raises(ValueError, match="16-byte"):
+        ce._plan_chunk(60, 384, 64, "w")  # dW's are n long
+    with pytest.raises(ValueError, match="wrt"):
+        ce._plan_chunk(64, 384, 64, "x")
+    assert ce._plan_chunk(60, 384, 64, "h") == (60, 384)
+
+
+def test_params_mirror_the_kernels_struct():
+    """``_CEParams`` lists the fields of ``CEParams`` in csrc/ce_loss.cu
+    in order (pointers, then ints), the scratch and its chunk among them;
+    the wrapper's chunks are whole tiles of the kernels' gemm::BM rows."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ce.__file__).parent / "csrc" / "ce_loss.cu").read_text()
+    body = re.search(r"struct CEParams \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*[\w\s\*]*?[\s\*](\w+);", body, re.M)
+    assert fields == [name for name, _ in ce._CEParams._fields_]
+    assert {"scratch", "chunk"} <= set(fields)
+    bm = re.search(r"constexpr int BM = (\d+);", src).group(1)
+    assert int(bm) == ce._TILE_ROWS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_backward_wrappers_keep_signatures_outputs_and_counts(dtype):
+    """fused_ce_dh / fused_ce_dw keep their signatures (h, w, labels, a, b,
+    lse); on CPU tensors they return the plain versions' dh [n, E] and dW
+    [V, E] in the operands' dtype, allocate no scratch and count no
+    launch."""
+    import inspect
+
+    for fn in (ce.fused_ce_dh, ce.fused_ce_dw):
+        assert list(inspect.signature(fn).parameters) == [
+            "h", "w", "labels", "a", "b", "lse"]
+    h, w, labels, _ = _case(64, 32, 384, seed=3)
+    args = (torch.from_numpy(h).to(dtype), torch.from_numpy(w).to(dtype),
+            torch.from_numpy(labels))
+    _, lse = ce.fused_ce_fwd(*args)
+    g = torch.from_numpy(np.random.RandomState(3).rand(64).astype(
+        np.float32))
+    before = dict(ce.launches)
+    dh = ce.fused_ce_dh(*args, g, -g, lse)
+    dw = ce.fused_ce_dw(*args, g, -g, lse)
+    assert ce.launches == before
+    assert dh.dtype == dw.dtype == dtype
+    assert dh.shape == (64, 32) and dw.shape == (384, 32)
+    assert torch.equal(dh, ce.fused_ce_dh_ref(*args, g, -g, lse))
+    assert torch.equal(dw, ce.fused_ce_dw_ref(*args, g, -g, lse))
+    # only the bf16 kernels take a scratch (fp32 keeps the one-pass design)
+    assert (ce._scratch(args[0], args[1], "h") is None) == (
+        dtype == torch.float32)
