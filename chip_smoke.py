@@ -11,9 +11,12 @@ decode steps after phase 10):
 1. device    — the card's name and power limit (nvidia-smi) and torch's name;
 2. build     — nvcc builds every kernel of every path from ``ops/csrc``, one
                process per source, all started together;
-3. kernel    — the paged decode kernel against its plain PyTorch version at
-               GPT-345M decode shapes (bf16 and fp32), with kernel, plain,
-               library and bound times;
+3. kernel    — the paged decode kernel B8 (the decode template over bf16
+               or fp32 pools) against its plain PyTorch version at GPT-345M
+               decode shapes (bf16 and fp32), with kernel, plain, library
+               and bound times; two planted rounding faults made through
+               the plain version (p kept in fp32, p against the final max)
+               must each break the bf16 limit;
 4. serving   — a ``ServingEngine`` at GPT-345M width (random weights from a
                seed) serves 8 requests; the kernel launch counts must equal
                decode ticks x layers, the shared prefix must be reused, and
@@ -180,15 +183,30 @@ from fleetx_tpu_torch.ops.quant import (  # noqa: E402
     quantize_kv,
 )
 from fleetx_tpu_torch.serving import ServingEngine, ServingMetrics  # noqa: E402
+from fleetx_tpu_torch.tools.kernel_cases import (  # noqa: E402
+    CP_BLOCK,
+    CP_DEGREE,
+    CP_PAIRS,
+    CP_SEED,
+    CP_SEQ,
+    DEVICE,
+    FLASH_MP_META,
+    GEN_PROMPT_LENS,
+    contiguous_case,
+    contiguous_cases,
+    cuda_ms,
+    decode_bound,
+    decode_case,
+    flash_inputs,
+    rotation_copies,
+)
 from fleetx_tpu_torch.utils.config import get_config  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
-L2_BYTES = 50 * 2 ** 20             # H100 SXM L2, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 LOGIT_TOL = 5e-2  # fp32 logits of bf16 activations after 24 layers
 MAX_NEW = 64
 ROOT = os.path.dirname(os.path.abspath(__file__))
-DEVICE = "cuda"  # where the kernel phases make their inputs: the card
 CONFIG = os.path.join(ROOT,
                       "configs/nlp/gpt/generation_gpt_345M_single_card.yaml")
 TRAIN_CONFIG = os.path.join(ROOT,
@@ -203,10 +221,8 @@ EVAL_FREQ, EVAL_ITERS = 10, 2  # phase 13 evaluates after steps 10 and 20
 CE_SHAPES = {torch.bfloat16: (8192, 2048, 50304),
              torch.float32: (1024, 256, 8192)}
 # phase 10: the generation config at bf16 (the yaml itself computes in
-# fp32: use_pure_fp16 False), 8 prompts left-padded to 312 tokens, so the
-# decode cache right-sizes to 312 + 200 = 512 positions (B7 tiles at 256)
+# fp32: use_pure_fp16 False) over GEN_PROMPT_LENS
 GEN_BF16 = "Engine.mix_precision.use_pure_fp16=True"
-GEN_PROMPT_LENS = (24, 64, 112, 160, 200, 248, 288, 312)
 GEN_SEED = 2024
 # device-time classes of a profile, by kernel-name marks (first match wins)
 PROFILE_CLASSES = (
@@ -237,27 +253,6 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events). A
-    device-side sleep queued first lets the host enqueue every call before
-    the first one runs, so a call shorter than its own Python launch
-    overhead is timed back to back on the device, not at the host's pace
-    (the sleep covers up to 1 ms of host time per call: an autograd
-    backward call takes ~0.5 ms on the host)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(iters * 2e6))  # ~1 ms per call at <= 2 GHz
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
 # ----------------------------------------------------------------- phase 1-2
 
 def phase_device() -> dict:
@@ -275,7 +270,7 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    seconds = _build.build(da.KERNEL, da.DECODE_KERNEL, fa.KERNEL, ce.KERNEL)
+    seconds = _build.build(da.KERNEL, fa.KERNEL, ce.KERNEL)
     log("build", kernels=",".join(seconds), seconds=round(
         time.perf_counter() - t0, 3))
     for name in seconds:
@@ -285,78 +280,6 @@ def phase_build() -> None:
 
 
 # ------------------------------------------------------------------ phase 3
-
-def decode_case(dtype, *, b=8, h=16, d=64, page_size=16, n_logical=64,
-                copies=8, seed=0):
-    """GPT-345M decode shapes: 8 rows of 16 heads of 64 over a pool of
-    1 + 8*64 pages. Windows drawn from 1..1024 with page-boundary ends,
-    starts > 0 and rows 0/1 sharing their first 4 physical pages; the trash
-    page and every slot outside a window hold large finite values. The
-    pool is replicated ``copies`` times (like a model's layers) so timed
-    launches read it cold from HBM, not from the 50 MB L2."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    num_pages = 1 + b * n_logical
-    cap = n_logical * page_size
-    ends = torch.randint(1, cap + 1, (b,), generator=g)
-    ends[1], ends[2], ends[3] = cap, 1, 37 * page_size   # boundaries, end=1
-    starts = torch.zeros(b, dtype=torch.int64)
-    starts[4] = 5
-    starts[5] = torch.randint(0, int(ends[5]), (1,), generator=g)[0]
-    ends[0] = max(int(ends[0]), 5 * page_size)           # spans the shared pages
-    tables = torch.zeros(b, n_logical, dtype=torch.int32)
-    for r in range(b):
-        live = range(int(starts[r]) // page_size,
-                     (int(ends[r]) - 1) // page_size + 1)
-        for j in live:
-            tables[r, j] = 1 + r * n_logical + j
-    tables[1, :4] = tables[0, :4]                         # shared prefix pages
-    q = torch.randn(b, 1, h, d, generator=g).to(dtype)
-    pools = []
-    for _ in range(copies):
-        k = torch.randn(num_pages, page_size, h, d, generator=g)
-        v = torch.randn(num_pages, page_size, h, d, generator=g)
-        for t in (k, v):
-            t[0] = 3.0e4  # trash page: large finite garbage
-        pools.append((k.to(dtype), v.to(dtype)))
-    # slots of a row's boundary pages that lie outside its window: garbage
-    for r in range(b):
-        for lo_hi in ((0, int(starts[r])), (int(ends[r]), cap)):
-            for p in range(*lo_hi):
-                page = int(tables[r, p // page_size])
-                if page and not (r == 0 and p < 4 * page_size):
-                    for k, v in pools:
-                        k[page, p % page_size] = 1.0e4
-                        v[page, p % page_size] = -1.0e4
-    dev = torch.device(DEVICE)
-    return {"q": q.to(dev), "tables": tables.to(dev),
-            "starts": starts.to(torch.int32).to(dev),
-            "ends": ends.to(torch.int32).to(dev),
-            "pools": [(k.to(dev), v.to(dev)) for k, v in pools],
-            "page_size": page_size}
-
-
-def decode_bound(case, dtype, quant: bool = False) -> tuple:
-    """(bytes, flops) the function must move and do on this case's data:
-    each live K/V vector read once (shared pages once; at int8 d bytes and
-    its fp32 scale), q read and out written once, the live table entries
-    and window bounds read once."""
-    q, tables, ps = case["q"], case["tables"].cpu(), case["page_size"]
-    b, _, h, d = q.shape
-    item = torch.tensor([], dtype=dtype).element_size()
-    vector = d + 4 if quant else d * item  # bytes of one cached K or V
-    live = set()
-    live_pos = 0
-    for r in range(b):
-        s, e = int(case["starts"][r]), int(case["ends"][r])
-        live_pos += e - s
-        for p in range(s, e):
-            live.add((int(tables[r, p // ps]), p % ps))
-    pages = {pg for pg, _ in live}
-    nbytes = (len(live) * h * vector * 2 + 2 * b * h * d * item
-              + 4 * len(pages) + 8 * b)
-    flops = live_pos * h * 4 * d  # q·k and p·v, 2 flops per multiply-add
-    return nbytes, flops
-
 
 def library_decode_ms(q, kvs, starts, ends) -> float:
     """SDPA over each row's window as a yardstick (never used by the port):
@@ -382,21 +305,14 @@ def library_decode_ms(q, kvs, starts, ends) -> float:
     return cuda_ms(library, iters=100)
 
 
-def rotation_copies(live_bytes: int) -> int:
-    """How many copies of a case's K/V a timed loop rotates over so that
-    they hold at least twice the L2's bytes: each launch then reads its
-    live K/V from HBM, as a model's layers do."""
-    return max(2, math.ceil(2 * L2_BYTES / live_bytes))
-
-
 def check_and_time(name, label, dtype, run, plain, lib_kvs, case,
                    nbytes, flops, phase="decode", faults=None,
                    **extra) -> dict:
     """Hold ``run(i)`` (decode kernel ``name`` on the case's K/V copy i)
-    against ``plain(i)`` on copy 0 — within ``da.KERNEL_TOL`` for B8, by
-    ``da.decode_gaps`` for B7, B9 and B10, where each planted fault of
-    ``faults()`` (outputs of the plain version with one rounding fault,
-    :func:`planted_decode_faults`) must break the limit — and time the
+    against ``plain(i)`` on copy 0 by ``da.decode_gaps``, where each
+    planted fault of ``faults()`` (outputs of the plain version with one
+    rounding fault, :func:`planted_decode_faults`) must break the limit,
+    and time the
     kernel, the plain version (both rotating over the copies) and the
     library call over ``lib_kvs``; logs its lines and returns the JSON
     record's numbers."""
@@ -406,15 +322,8 @@ def check_and_time(name, label, dtype, run, plain, lib_kvs, case,
     if da.launches[name] != before[name] + 1:
         raise AssertionError(f"{name} did not launch")
     want = plain(0)
-    if name == da.KERNEL:
-        err = (got.float() - want.float()).abs().max().item()
-        tol = da.KERNEL_TOL[dtype]
-        ok = math.isfinite(err) and err <= tol
-        gaps = {}
-    else:
-        gaps = da.decode_gaps(got, want)
-        err, tol, ok = gaps.pop("max_abs_err"), da.DECODE_TOL[dtype], gaps.pop(
-            "ok")
+    gaps = da.decode_gaps(got, want)
+    err, tol, ok = gaps.pop("max_abs_err"), da.DECODE_TOL[dtype], gaps.pop("ok")
     if not ok:
         raise AssertionError(f"{name} {label} {dtype}: max abs err {err}, "
                              f"{gaps} against {tol}")
@@ -448,8 +357,9 @@ def check_and_time(name, label, dtype, run, plain, lib_kvs, case,
 
 
 def phase_kernel() -> dict:
-    """B8 against its plain version at 345M decode shapes, bf16 and fp32.
-    Returns the bf16 record (the serving dtype) for the JSON line."""
+    """B8 against its plain version at 345M decode shapes, bf16 and fp32;
+    at bf16 the planted rounding faults must break the limit. Returns the
+    bf16 record (the serving dtype) for the JSON line."""
     record = None
     for dtype in (torch.bfloat16, torch.float32):
         case = decode_case(dtype)
@@ -463,13 +373,19 @@ def phase_kernel() -> dict:
         def plain(i):
             return run(i, da.paged_decode_attention_ref)
 
+        def faults():
+            k, v = pools[0]
+            return planted_decode_faults(q, k, v, None, None,
+                                         block_k=case["page_size"], **kw)
+
         lib_kvs = [(da.paged_gather_kv(k, tables), da.paged_gather_kv(v, tables))
                    for k, v in pools]
         nbytes, flops = decode_bound(case, dtype)
-        rec = check_and_time(da.KERNEL, "phase 3 pools", dtype, run, plain,
-                             lib_kvs, case, nbytes, flops, phase="kernel",
-                             ends=case["ends"].tolist(),
-                             starts=case["starts"].tolist())
+        rec = check_and_time(
+            "paged_decode", "phase 3 pools", dtype, run, plain, lib_kvs, case,
+            nbytes, flops, phase="kernel",
+            faults=faults if dtype == torch.bfloat16 else None,
+            ends=case["ends"].tolist(), starts=case["starts"].tolist())
         if dtype == torch.bfloat16:
             record = rec
         del case, pools, lib_kvs
@@ -535,7 +451,7 @@ def phase_serving(engine, cfg, phase: str = "serving") -> dict:
     """The port's serving path: 8 requests through submit/step/drain. Every
     decode tick must launch the engine's paged decode kernel (B8; B10 at
     int8 KV) once per layer, and no other decode kernel."""
-    name = "paged_decode_q8" if engine.kv_dtype == "int8" else da.KERNEL
+    name = "paged_decode_q8" if engine.kv_dtype == "int8" else "paged_decode"
     requests = serving_requests(cfg.vocab_size)
     serve(engine, [dict(prompt=np.arange(40), max_length=4)])  # warm-up
     engine.metrics = ServingMetrics(engine.slots)
@@ -646,22 +562,6 @@ def phase_e2e(cfg) -> None:
 
 # ------------------------------------------------------------------ phase 6
 
-def flash_inputs(dtype, *, b=8, s=1024, h=16, d=64, copies=3, seed=0):
-    """GPT-345M (d 64) or GPT-1.3B (d 128) training shapes. Each of
-    ``copies`` sets holds q, k, v as strided views of one fused
-    [b, s, h, 3d] buffer (as the qkv projection hands them to the kernels)
-    and dO; timed launches rotate over the sets so their operands (4 x 16.8
-    MB in bf16 at d 64) come cold from HBM."""
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    sets = []
-    for _ in range(copies):
-        qkv = torch.randn(b, s, h, 3 * d, generator=g, device=DEVICE)
-        q, k, v = qkv.to(dtype).split(d, dim=-1)
-        do = torch.randn(b, s, h, d, generator=g, device=DEVICE).to(dtype)
-        sets.append((q, k, v, do))
-    return sets
-
-
 def flash_bound(name: str, q: torch.Tensor) -> tuple:
     """(bytes, flops) of one causal call at q's shape: each input read
     once and each output written once; 2 flops per multiply-add over the
@@ -682,11 +582,6 @@ def _delta(do, out):
     b, s, h, _ = out.shape
     return (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
         b * h, s).contiguous()
-
-
-# phase 20's attention on mp rank 1 of 2: heads 8-15 of GPT-1.3B's 16
-# (b0, h0, h_local, h_total, q_off, k_off)
-FLASH_MP_META = (0, 8, 8, 16, 0, 0)
 
 
 def phase_flash() -> dict:
@@ -1141,55 +1036,6 @@ def generation_prompts(vocab: int, seed: int = 4) -> tuple:
     return ids, mask
 
 
-def contiguous_cases() -> list:
-    """(label, cache_len, starts, ends) of phase 9's contiguous caches:
-    phase 10's decode cache halfway through the decode (its left pads, one
-    end for every row, as ``generate()`` passes it); a 712-position cache
-    (512-token pad + 200, ``fit_decode_blocks`` tile 8) and a 1024-position
-    one (tile 256), with left pads, ``end=1`` and ends on tile borders."""
-    width = max(GEN_PROMPT_LENS)
-    pads = [width - n for n in GEN_PROMPT_LENS]
-    return [
-        ("generate", 512, pads, [width + 100] * 8),
-        ("block_k 8", 712, [0, 0, 5, 200, 17, 1, 96, 40],
-         [712, 1, 320, 616, 480, 704, 592, 240]),
-        ("block_k 256", 1024, [0, 3, 100, 0, 0, 300, 7, 64],
-         [1024, 256, 512, 768, 1, 900, 1000, 1024]),
-    ]
-
-
-def contiguous_case(dtype, cache_len, starts, ends, *, quant, h=16, d=64,
-                    seed=0) -> dict:
-    """Contiguous decode caches [8, cache_len, 16, 64] on the card: K/V in
-    ``dtype`` or int8 with fp32 scales (``quantize_kv``), large finite
-    values at every slot outside a row's window, as many caches (like a
-    model's layers) as :func:`rotation_copies` of their live bytes, so
-    timed launches read them cold from HBM."""
-    dev = torch.device(DEVICE)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    b = len(starts)
-    starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
-    ends_t = torch.tensor(ends, dtype=torch.int32, device=dev)
-    pos = torch.arange(cache_len, device=dev)
-    dead = ((pos[None] < starts_t[:, None].long())
-            | (pos[None] >= ends_t[:, None].long()))  # [b, cache_len]
-    q = torch.randn(b, 1, h, d, generator=g, device=dev).to(dtype)
-    item = torch.tensor([], dtype=dtype).element_size()
-    vector = d + 4 if quant else d * item  # bytes of one cached K or V
-    copies = rotation_copies(int((~dead).sum()) * h * vector * 2)
-    caches = []
-    for _ in range(copies):
-        kv = []
-        for garbage in (1.0e4, -1.0e4):
-            x = torch.randn(b, cache_len, h, d, generator=g, device=dev)
-            x[dead] = garbage
-            kv.append(quantize_kv(x) if quant else (x.to(dtype), None))
-        (k, ks), (v, vs) = kv
-        caches.append({"k": k, "v": v, "k_scale": ks, "v_scale": vs})
-    return {"q": q, "starts": starts_t, "ends": ends_t, "caches": caches,
-            "dead": dead}
-
-
 def contiguous_bound(case, dtype, quant: bool) -> tuple:
     """(bytes, flops): each live K/V vector read once (d bytes and an fp32
     scale at int8), q read and out written once, the window bounds read."""
@@ -1205,7 +1051,7 @@ def contiguous_bound(case, dtype, quant: bool) -> tuple:
 def planted_decode_faults(q, k, v, k_scale, v_scale, *, end, starts,
                           block_k, tables=None) -> dict:
     """Outputs of the plain version with one rounding fault each, which
-    phase 9's bf16 limit must catch: p kept in fp32, p rounded against
+    phase 3's and 9's bf16 limit must catch: p kept in fp32, p rounded against
     the final max instead of each tile's running max, and (int8) K/V
     dequantized to fp32 instead of q's dtype. ``tables`` gathers each
     row's logical buffer from paged pools first."""
@@ -1580,7 +1426,9 @@ def planted_ce_faults(h, w, labels, g, lse) -> dict:
     """Outputs of the plain versions with one fault each, which phase 12's
     bf16 limit must catch, by (fault, output): dl kept in fp32 before its
     product; the running sum not rescaled when the max moves; the label
-    column off by one."""
+    column off by one. The grads are held by the same flip-aware check as
+    the kernels' (readings of the kernels' own dl), so a fault passes
+    only where the kernels' dl would explain it."""
     args = (h, w, labels, g, -g, lse)
     loss_nr, lse_nr = ce._fwd_plain(h, w, labels, rescale=False)
     off = labels + 1
@@ -1597,6 +1445,37 @@ def planted_ce_faults(h, w, labels, g, lse) -> dict:
             h, w, off, g, -g, lse),
         ("label column off by one", "dW"): ce.fused_ce_dw_ref(
             h, w, off, g, -g, lse)}
+
+
+def ce_readings(h, w, labels, a, b, lse, wrt: str, group=None):
+    """The readings ``ce.grads_gaps`` takes of the bf16 B5 (``wrt="h"``) or
+    B6's own dl on these inputs (computed at the first call, then kept).
+    With an mp ``group``, those of the sum over the group of B5's partial
+    dh: every rank's rows must be sound, the product is the sum of the
+    ranks' fp64 products, and its scale their summed magnitudes plus the
+    sum's own (as ``ce.ce_gaps`` scales the summed dh). Those take
+    collectives, so they are made here, on every rank at once, and not
+    when ``ce.grads_gaps`` first asks (only where some element is beyond
+    the bound, which may differ by rank)."""
+    import torch.distributed as dist
+
+    kept = []
+
+    def readings():
+        if not kept:
+            kept.append(ce.kernel_readings(h, w, labels, a, b, lse, wrt))
+        return kept[0]
+
+    if group is None:
+        return readings
+    rows_ok, product = readings()
+    ok = rows_ok.to(torch.int32)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+    total, scale = product.clone(), product.abs()
+    dist.all_reduce(total, group=group)
+    dist.all_reduce(scale, group=group)
+    kept[0] = (ok.bool(), total, scale + total.abs())
+    return readings
 
 
 def phase_ce() -> dict:
@@ -1623,7 +1502,16 @@ def phase_ce() -> dict:
         got = {"loss": loss, "lse": lse, "dh": dh, "dW": dw}
         kind = {"loss": "stats", "lse": "stats", "dh": "grads",
                 "dW": "grads"}
-        gaps = {k: ce.ce_gaps(got[k], want[k], dtype, kind[k]) for k in got}
+        readings = {"dh": ce_readings(h, w, labels, g, -g, lse, "h"),
+                    "dW": ce_readings(h, w, labels, g, -g, lse, "w")}
+
+        def gaps_of(out, k):
+            # bf16 grads: aware of dl's rounding flips (ce.grads_gaps)
+            if dtype == torch.bfloat16 and kind[k] == "grads":
+                return ce.grads_gaps(out, want[k], readings[k])
+            return ce.ce_gaps(out, want[k], dtype, kind[k])
+
+        gaps = {k: gaps_of(got[k], k) for k in got}
         for k, gap in gaps.items():
             log("ce", dtype=str(dtype).split(".")[-1], output=k,
                 tol=ce.CE_TOL[dtype][kind[k]],
@@ -1632,7 +1520,7 @@ def phase_ce() -> dict:
         if dtype == torch.bfloat16:
             for (fault, k), out in planted_ce_faults(h, w, labels, g,
                                                      lse).items():
-                gap = ce.ce_gaps(out, want[k], dtype, kind[k])
+                gap = gaps_of(out, k)
                 log("ce", planted_fault=repr(fault), output=k, **gap)
                 caught[fault] = caught.get(fault, False) or not gap["ok"]
         bad = [k for k, gap in gaps.items() if not gap["ok"]]
@@ -1644,7 +1532,7 @@ def phase_ce() -> dict:
         if missed:
             raise AssertionError(f"the ce limit misses the planted faults "
                                  f"{missed}")
-        del want, got
+        del want, got, readings
         torch.cuda.empty_cache()
         lib = library_ce_times(h, w, labels, g)
         calls = {
@@ -1888,13 +1776,7 @@ def phase_train_13b_e2e(prefix: str, layers: int = 4) -> None:
 # sequence per step; its ring pairs are [1, 4096, 16, 128] bf16
 CP_CONFIG = os.path.join(
     ROOT, "configs/nlp/gpt/pretrain_gpt_1.3B_longcontext_cp8.yaml")
-CP_DEGREE, CP_SEQ, CP_STEPS, CP_EVAL_ITERS = 2, 16384, 6, 1
-CP_BLOCK = CP_SEQ // (2 * CP_DEGREE)
-CP_SEED = -24680  # the pair and ring phases' dropout seed
-# (causal, meta) of phase 15's two pairs: rank 0's late block (id 3) on
-# the diagonal, and against rank 0's early kv block (id 0)
-CP_PAIRS = {"diagonal": (True, (0, 0, 16, 16, 3 * CP_BLOCK, 3 * CP_BLOCK)),
-            "off-diagonal": (False, (0, 0, 16, 16, 3 * CP_BLOCK, 0))}
+CP_STEPS, CP_EVAL_ITERS = 6, 1
 BLOCK_KERNEL = {"block_fwd_lse": "flash_fwd", "block_dq": "flash_bwd_dq",
                 "block_dkv": "flash_bwd_dkv"}
 
@@ -2493,17 +2375,24 @@ def _vp_run(h, shard, labels, g, group, swaps) -> dict:
     """One B12 forward and backward (cotangent g) of ``fused_linear_ce`` on
     this rank's ``shard`` with the ce module's entries in ``swaps`` (name:
     function) swapped in: loss, dh (summed over the shards), this shard's
-    dW, and this rank's partial dh (B5's output before the sum)."""
+    dW, this rank's partial dh (B5's output before the sum), and the
+    arguments the backward gave B5 and B6 (``args``, by ``wrt``)."""
     names = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw", "local_labels")
     saved = {name: getattr(ce, name) for name in names}
     fns = {**saved, **swaps}
-    partial = []
+    partial, args = [], {}
 
-    def dh_kept(*args):
-        partial.append(fns["fused_ce_dh"](*args))
+    def dh_kept(*a):
+        args["h"] = a
+        partial.append(fns["fused_ce_dh"](*a))
         return partial[-1]
 
-    for name, fn in {**fns, "fused_ce_dh": dh_kept}.items():
+    def dw_kept(*a):
+        args["w"] = a
+        return fns["fused_ce_dw"](*a)
+
+    for name, fn in {**fns, "fused_ce_dh": dh_kept,
+                     "fused_ce_dw": dw_kept}.items():
         setattr(ce, name, fn)
     try:
         hh = h.clone().requires_grad_()
@@ -2515,7 +2404,7 @@ def _vp_run(h, shard, labels, g, group, swaps) -> dict:
         for name, fn in saved.items():
             setattr(ce, name, fn)
     return {"loss": loss.detach(), "dh": hh.grad, "dW": ww.grad,
-            "dh_partial": partial[0]}
+            "dh_partial": partial[0], "args": args}
 
 
 def vp_faults() -> dict:
@@ -2574,10 +2463,19 @@ def vp_rank(n: int, e: int, v: int) -> dict:
     scale = want["dh_partial"].float().abs()
     dist.all_reduce(scale, group=group)
     scale += want["dh"].float().abs()  # see ce.ce_gaps
+    # the grads' checks are aware of dl's rounding flips: readings of the
+    # kernels' own dl (B5's partial, its sum over the group, B6's shard),
+    # by which the kernel run and every planted fault are held
+    dh_args, dw_args = got["args"]["h"], got["args"]["w"]
+    readings = {"dh_partial": ce_readings(*dh_args, "h"),
+                "dh": ce_readings(*dh_args, "h", group=group),
+                "dW": ce_readings(*dw_args, "w")}
 
     def gaps(out):
-        return {k: ce.ce_gaps(out[k], want[k], bf16, VP_KIND[k],
-                              scale=scale if k == "dh" else None)
+        return {k: ce.grads_gaps(out[k], want[k], readings[k],
+                                 scale=scale if k == "dh" else None)
+                if VP_KIND[k] == "grads" else
+                ce.ce_gaps(out[k], want[k], bf16, VP_KIND[k])
                 for k in VP_KIND}
 
     faults = {name: gaps(_vp_run(h, shard, labels, g, group, swaps))
@@ -3019,8 +2917,8 @@ def main() -> int:
         for name in fa.NAMES:
             flash[name]["launches_mp"] = counts[name]
         phase_train_mp_e2e(prefix)
-    records = [dict(name=da.KERNEL, route="cuda",
-                    source="fleetx_tpu_torch/ops/csrc/paged_decode.cu",
+    records = [dict(name="paged_decode", route="cuda",
+                    source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",
                     **kernel)]
     source = "fleetx_tpu_torch/ops/csrc/flash_attention.cu"

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into a shared library under ``build/`` beside this file
-(listed in ``.gitignore``), named by the source's hash, so an edited source
-rebuilds and an unchanged one is reused. Libraries are loaded with ``ctypes``.
+(listed in ``.gitignore``), named by the hash of the source and of every
+shared header ``csrc/*.cuh``, so an edited source or header rebuilds and
+an unchanged one is reused. Libraries are loaded with ``ctypes``.
 Nothing is built at import: the first launch of a kernel builds it, and
 :func:`build` builds several at once (one ``nvcc`` each, run in parallel).
 """
@@ -42,9 +43,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of kernel ``name``, keyed by its source, the shared
+    headers (a source may include any of them) and the flags."""
+    sha = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.name.encode() + header.read_bytes())
+    sha.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{sha.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> Dict[str, float]:

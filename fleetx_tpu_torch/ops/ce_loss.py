@@ -66,7 +66,8 @@ from fleetx_tpu_torch.parallel.tensor_parallel import (
 )
 
 __all__ = ["KERNEL", "NAMES", "VP_NAMES", "MAX_HIDDEN", "CE_TOL",
-           "launches", "vp_launches", "ce_gaps", "fit_vocab_block",
+           "launches", "vp_launches", "ce_gaps", "grads_gaps",
+           "kernel_readings", "fp64_checks", "fit_vocab_block",
            "fused_linear_ce", "fused_ce_fwd", "fused_ce_dh", "fused_ce_dw",
            "fused_ce_fwd_ref", "fused_ce_dh_ref", "fused_ce_dw_ref",
            "local_labels", "vp_stats", "vp_stats_ref"]
@@ -129,6 +130,94 @@ def ce_gaps(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
     moved = (diff > 0).float().mean().item()
     return {"max_abs_err": diff.max().item(), "tol_ratio": ratio,
             "moved_share": moved, "ok": ratio <= 1.0 and moved <= share}
+
+
+def grads_gaps(got: torch.Tensor, want: torch.Tensor, readings,
+               scale: Optional[torch.Tensor] = None) -> dict:
+    """:func:`ce_gaps` of a bf16 dh or dW (``grads``) made aware of dl's
+    rounding flips. A bf16 kernel rounds dl = a·exp(s − lse) + b·onehot
+    from an fp32 s a few bits off the plain version's, so where dl lies
+    near a rounding boundary it may take the other bf16 neighbour of the
+    exact dl: a one-step flip at a large p moves a whole output row by
+    the step times |W| (or |h|), which can pass ``CE_TOL``'s atol. An
+    element beyond the bound is therefore accepted only where both hold:
+    every dl the output's row was multiplied from is a bf16 value within
+    one bf16 step of the exact dl, and the element lies within
+    ``CE_TOL``'s bound of the fp64 product of that dl. ``readings()``
+    gives ``(rows_ok, product)`` (:func:`kernel_readings`) or, for a sum
+    of partial outputs (see :func:`ce_gaps`' ``scale``), ``(rows_ok,
+    product, product_scale)``; it is called only when some element is
+    beyond the bound. A NaN or infinite element is beyond the bound and
+    never accepted. The share of elements that move at all stays held to
+    ``CE_TOL``, and the tolerance is not widened: a fault in dl's
+    rounding, or in the product, still fails.
+
+    Returns :func:`ce_gaps`' fields (``tol_ratio`` the strict one), with
+    ``beyond`` (elements past the strict bound), ``accepted`` (those of
+    them the flips explain) and ``ok``."""
+    gap = ce_gaps(got, want, torch.bfloat16, "grads", scale=scale)
+    atol_scale, rtol, share = CE_TOL[torch.bfloat16]["grads"]
+    w = want.float()
+    ref = w.abs() if scale is None else scale.float()
+    # written as "not within" so that a NaN counts as beyond
+    beyond = ~((got.float() - w).abs() <= atol_scale * ref.max() + rtol * ref)
+    n_beyond = int(beyond.sum().item())
+    accepted = 0
+    if n_beyond:
+        rows_ok, product, *rest = readings()
+        ref_p = rest[0] if rest else product.abs()
+        prod_bound = atol_scale * ref_p.max() + rtol * ref_p
+        near = (got.double() - product).abs() <= prod_bound
+        accepted = int((beyond & near & rows_ok[:, None]).sum().item())
+    gap.update(beyond=n_beyond, accepted=accepted,
+               ok=gap["moved_share"] <= share and accepted == n_beyond)
+    return gap
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (fp64): 2^(floor(log2|x|) - 7)."""
+    _, exp = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), exp - 8)
+
+
+def _exact_dl(h, w, labels, a, b, lse, lo: int, hi: int) -> torch.Tensor:
+    """dl of tokens lo..hi-1 over the whole vocab in fp64 [hi - lo, V]."""
+    hd, wd = h[lo:hi].double(), w.double()
+    col = torch.arange(w.shape[0], device=h.device)
+    onehot = (labels[lo:hi].long()[:, None] == col).double()
+    return (a[lo:hi].double()[:, None]
+            * torch.exp(hd @ wd.t() - lse[lo:hi].double()[:, None])
+            + b[lo:hi].double()[:, None] * onehot)
+
+
+def _dl_readings(h, w, labels, a, b, lse, dl: torch.Tensor, wrt: str,
+                 chunk: int = 1024):
+    """What :func:`grads_gaps` needs of the dl [n, V] (tokens by vocab) an
+    output was multiplied from: ``rows_ok`` (bool, one per output row: a
+    token of dh for ``wrt="h"``, a vocab entry of dW for ``wrt="w"``),
+    every dl of the row a bf16 value within one bf16 step of the exact
+    dl; and ``product``, the fp64 product of dl with the other operand
+    (dl·W or dlᵀ·h). Walks ``chunk`` tokens at a time, so that fp64 [chunk,
+    V] blocks are the largest it holds."""
+    n, v = dl.shape
+    hd, wd = h.double(), w.double()
+    ok_tokens = torch.ones(n, dtype=torch.bool, device=h.device)
+    ok_vocab = torch.ones(v, dtype=torch.bool, device=h.device)
+    product = torch.zeros((n if wrt == "h" else v, h.shape[1]),
+                          dtype=torch.float64, device=h.device)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        exact = _exact_dl(h, w, labels, a, b, lse, lo, hi)
+        own = dl[lo:hi].double()
+        fine = ((own - exact).abs() <= _bf16_step(exact)) & (
+            dl[lo:hi].to(torch.bfloat16).double() == own)
+        ok_tokens[lo:hi] = fine.all(1)
+        ok_vocab &= fine.all(0)
+        if wrt == "h":
+            product[lo:hi] = own @ wd
+        else:
+            product += own.t() @ hd[lo:hi]
+    return (ok_tokens if wrt == "h" else ok_vocab), product
 
 
 def fit_vocab_block(v: int, want: int = 512) -> Optional[int]:
@@ -215,6 +304,15 @@ def _fwd_plain(h, w, labels, *, rescale: bool = True):
     return lse - lab, lse
 
 
+def _dl_block(hm, wm, labels, a, b, lse, lo: int, hi: int) -> torch.Tensor:
+    """fp32 dl = a·exp(s − lse) + b·onehot of vocab columns lo..hi-1, s
+    from the operands ``hm`` [n, E] and ``wm`` [hi - lo, E] (fp32 copies
+    of the rounded operands)."""
+    p = torch.exp(hm @ wm.t() - lse[:, None])
+    col = torch.arange(lo, hi, device=hm.device)
+    return a[:, None] * p + b[:, None] * (labels.long()[:, None] == col).float()
+
+
 def _grad_plain(h, w, labels, a, b, lse, *, wrt: str, dl_dtype=None):
     """Plain B5 (``wrt="h"``) or B6 (``wrt="w"``). dl is rounded to
     ``dl_dtype`` before its product, the operand dtype unless a planted
@@ -222,14 +320,11 @@ def _grad_plain(h, w, labels, a, b, lse, *, wrt: str, dl_dtype=None):
     mm = _mm_dtype(h.dtype)
     dl_dtype = dl_dtype or mm
     hm = h.to(mm).float()
-    labels = labels.long()
     out = torch.zeros(h.shape if wrt == "h" else w.shape,
                       dtype=torch.float32, device=h.device)
     for lo, hi in _vocab_blocks(w.shape[0]):
         wm = w[lo:hi].to(mm).float()
-        p = torch.exp(hm @ wm.t() - lse[:, None])
-        col = torch.arange(lo, hi, device=h.device)
-        dl = a[:, None] * p + b[:, None] * (labels[:, None] == col).float()
+        dl = _dl_block(hm, wm, labels, a, b, lse, lo, hi)
         dl = dl.to(dl_dtype).float()
         if wrt == "h":
             out += dl @ wm
@@ -395,6 +490,97 @@ def fused_ce_dw(h, w, labels, a, b, lse) -> torch.Tensor:
     _launch("ce_dw", h, w, labels, a=a, b=b, lse=lse, grad=dw,
             scratch=_scratch(h, w, "w"))
     return dw
+
+
+def _one_chunk(h, w, labels, a, b, lse, wrt: str):
+    """The bf16 B5 (``wrt="h"``) or B6 (``wrt="w"``) over one chunk of all
+    output rows, its launch not counted: ``(output, dl)``, dl [n, V]
+    (tokens by vocab, bf16) read from the scratch. Each dl element comes
+    from the same sums at any chunking."""
+    _check(h, w, labels, ("a", a), ("b", b), ("lse", lse))
+    rows, width = ((h.shape[0], w.shape[0]) if wrt == "h"
+                   else (w.shape[0], h.shape[0]))
+    scratch = torch.empty((rows, width), dtype=torch.bfloat16,
+                          device=h.device)
+    grad = torch.empty(h.shape if wrt == "h" else w.shape, dtype=h.dtype,
+                       device=h.device)
+    counts = dict(launches)
+    _launch("ce_dh" if wrt == "h" else "ce_dw", h, w, labels, a=a, b=b,
+            lse=lse, grad=grad, scratch=scratch)
+    launches.update(counts)
+    return grad, (scratch if wrt == "h" else scratch.t())
+
+
+def kernel_readings(h, w, labels, a, b, lse, wrt: str):
+    """The readings :func:`grads_gaps` takes of the bf16 B5 (``wrt="h"``)
+    or B6 (``wrt="w"``) on these inputs (:func:`_dl_readings` of the dl
+    [n, V] the kernel multiplies, read from its scratch by a second call
+    over one chunk; the launch counts are left as they were)."""
+    dl = _one_chunk(h, w, labels, a, b, lse, wrt)[1]
+    return _dl_readings(h, w, labels, a, b, lse, dl, wrt)
+
+
+def fp64_checks(h, w, labels, a, b, lse, wrt):
+    """The bf16 B5 (``wrt="h"``) or B6 (``wrt="w"``) against fp64 products,
+    with the kernel's own dl, read as :func:`kernel_readings` reads it.
+    Returns, with the output
+    ``got``:
+
+    - ``dl_steps``: the largest |dl_kernel − dl| over the bf16 spacing at
+      |dl|, dl = a·exp(s − lse) + b·onehot in fp64 (<= 1: the kernel
+      rounds dl to one of its two bf16 neighbours);
+    - ``dl_flips``: the elements where dl_kernel is not dl rounded to
+      nearest (an fp32 s a few bits off the fp64 s rounds the other way);
+    - ``product_ratio``: the largest |got − P(dl_kernel)| over CE_TOL's
+      bound (atol of the largest |value|, rtol of each), P the fp64
+      product with the other operand (<= 1: the product sums in fp32 and
+      rounds once);
+    - ``beyond``, ``beyond_outside_flips``: the elements where the kernel
+      lies farther from P(dl rounded to nearest) than the plain version's
+      error plus CE_TOL's bound, and those of them in an output row (a
+      token of dh, a vocab entry of dW) with no flip of dl_kernel;
+    - ``whole_gap``: the kernel's largest error over the plain version's
+      largest plus CE_TOL's bound at the largest |value| (<= 1);
+    - ``same_at_one_chunk``: the one-chunk call's output equals ``got``;
+    - ``vs_plain``: :func:`grads_gaps` of the kernel against its plain
+      version, its dl the kernel's."""
+    fn, plain = ((fused_ce_dh, fused_ce_dh_ref) if wrt == "h"
+                 else (fused_ce_dw, fused_ce_dw_ref))
+    got = fn(h, w, labels, a, b, lse)
+    want = plain(h, w, labels, a, b, lse)
+    again, dl_own = _one_chunk(h, w, labels, a, b, lse, wrt)
+    dl_k = dl_own.double()
+    dl = _exact_dl(h, w, labels, a, b, lse, 0, h.shape[0])
+    dl_near = dl.to(torch.bfloat16).double()
+    flips = dl_k != dl_near
+    hd, wd = h.double(), w.double()
+
+    def product(d):
+        return d @ wd if wrt == "h" else d.t() @ hd
+
+    atol, rtol, _ = CE_TOL[torch.bfloat16]["grads"]
+    ref_k = product(dl_k)
+    bound_k = atol * ref_k.abs().max() + rtol * ref_k.abs()
+    ref = product(dl_near)
+    kernel_err = (got.double() - ref).abs()
+    plain_err = (want.double() - ref).abs()
+    top = ref.abs().max()
+    beyond = kernel_err > plain_err + atol * top + rtol * ref.abs()
+    flip_rows = flips.any(1) if wrt == "h" else flips.any(0)
+    return {
+        "got": got,
+        "same_at_one_chunk": bool(torch.equal(again, got)),
+        "dl_steps": ((dl_k - dl).abs() / _bf16_step(dl)).max().item(),
+        "dl_flips": int(flips.sum().item()),
+        "product_ratio": ((got.double() - ref_k).abs() / bound_k).max().item(),
+        "beyond": int(beyond.sum().item()),
+        "beyond_outside_flips": int((beyond & ~flip_rows[:, None]).sum()
+                                    .item()),
+        "whole_gap": (kernel_err.max() / (plain_err.max()
+                                          + (atol + rtol) * top)).item(),
+        "vs_plain": grads_gaps(got, want, lambda: _dl_readings(
+            h, w, labels, a, b, lse, dl_own, wrt)),
+    }
 
 
 class _FusedLinearCE(torch.autograd.Function):

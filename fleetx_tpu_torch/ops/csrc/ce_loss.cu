@@ -73,6 +73,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 // Shared with the Python wrapper (ctypes.Structure `_CEParams`): keep the
 // field order and types in step.
 struct CEParams {
@@ -97,6 +99,8 @@ namespace {
 
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
+using hopper::device_int;
+using hopper::set_smem;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -472,6 +476,8 @@ __global__ void __launch_bounds__(kThreads) ce_bwd_kernel(const CEParams p) {
 
 namespace gemm {
 
+using namespace hopper;
+
 constexpr int BM = 128;          // output rows of a tile: 64 per consumer warpgroup
 constexpr int BN = 256;          // output columns of a tile
 constexpr int BK = 64;           // reduction depth of a stage: one 128-byte swizzle row
@@ -516,87 +522,6 @@ struct Smem {
 // the swizzled tiles need 1024-byte aligned addresses: the kernel aligns
 // the dynamic shared memory itself
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n .reg .b64 state;\n mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// a wait longer than this (~10 s) is a fault: trap, so that the launch
-// fails instead of hanging the card
-constexpr long long kHangCycles = 20'000'000'000LL;
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > kHangCycles) __trap();
-  } while (!done);
-}
-
-// the box of `map` at (c0 innermost, c1) into dst, completing on bar;
-// the parts outside the tensor are filled with zeros
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// a wgmma descriptor of a 128-byte swizzled tile at p: lbo and sbo in
-// bytes (K-major: sbo = 1024 between 8-row groups, lbo unused; N-major:
-// lbo between kBoxN-wide column blocks, sbo = 1024 between 8-deep groups)
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator accesses across a wgmma wait
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
 
 // d[0:128] (+)= A·B for one warpgroup: A a K-major [64][16] bf16 tile, B a
 // [256][16] (K-major) or [16][256] (N-major: kTransB) tile, both in shared
@@ -797,7 +722,7 @@ __device__ __forceinline__ void body(const CUtensorMap& tmA, const CUtensorMap& 
       mbar_init(&s.full[i], 1);
       mbar_init(&s.empty[i], 128 * kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -805,10 +730,10 @@ __device__ __forceinline__ void body(const CUtensorMap& tmA, const CUtensorMap& 
   // (launched at 168 a thread: 128 x kProducerRegs + 256 x kConsumerRegs
   // = 384 x 168); the two branches never rejoin
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) producer<kNMajorB>(tmA, tmB, g, s, m_tiles, tiles, kblocks);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+    setmaxnreg_inc<kConsumerRegs>();
     consumer<kNMajorB, kEpi>(g, s, wg - 1, threadIdx.x - 128 * wg, m_tiles, tiles, kblocks);
   }
 }
@@ -832,20 +757,6 @@ __global__ void __launch_bounds__(gemm::kThreads, 1)
 }
 
 // ------------------------------------------------------------------ launch
-
-int device_int(cudaDeviceAttr attr) {
-  int dev = 0, value = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&value, attr, dev);
-  return value;
-}
-
-int set_smem(const void* kernel, size_t smem) {
-  if (smem > static_cast<size_t>(device_int(cudaDevAttrMaxSharedMemoryPerBlockOptin)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem, const CEParams& p, cudaStream_t stream) {
@@ -888,40 +799,14 @@ int bwd_fp32(const CEParams& p, cudaStream_t st) {
   return launch(ce_bwd_kernel<kTokenRows>, grid, BwdShape::smem(p.hidden), p, st);
 }
 
-// the driver's cuTensorMapEncodeTiled, taken through the runtime so that
-// the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // a TMA map of the row-major bf16 matrix [rows, cols] at base, boxes of
 // [box_rows, box_cols] with 128-byte swizzle (box_cols 64), zeros outside
 bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
                 int box_cols) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::tensor_map_bf16(map, base, 2, dims, strides, box);
 }
 
 template <typename Kernel>
@@ -929,16 +814,13 @@ int launch_gemm(Kernel kernel, const CUtensorMap& a, const CUtensorMap& b, const
                 cudaStream_t st) {
   const int tiles = ((g.m + gemm::BM - 1) / gemm::BM) * ((g.n + gemm::BN - 1) / gemm::BN);
   if (tiles == 0) return 0;
-  const int err = set_smem(reinterpret_cast<const void*>(kernel), gemm::kSmemBytes);
+  int err = set_smem(reinterpret_cast<const void*>(kernel), gemm::kSmemBytes);
   if (err != 0) return err;
-  // setmaxnreg.inc would wait forever for registers the launch did not
-  // reserve: refuse a build that takes fewer than 168 a thread
-  cudaFuncAttributes attr;
-  const cudaError_t got = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
-  if (got != cudaSuccess) return static_cast<int>(got);
-  if (attr.numRegs * gemm::kThreads <
-      128 * (gemm::kProducerRegs + gemm::kConsumerRegs * gemm::kConsumers))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
+  // the launch holds 168 registers a thread for setmaxnreg to share out
+  err = hopper::check_regs(reinterpret_cast<const void*>(kernel),
+                           128 * (gemm::kProducerRegs + gemm::kConsumerRegs * gemm::kConsumers) /
+                               gemm::kThreads);
+  if (err != 0) return err;
   const int sms = device_int(cudaDevAttrMultiProcessorCount);
   kernel<<<tiles < sms ? tiles : sms, gemm::kThreads, gemm::kSmemBytes, st>>>(a, b, g);
   return static_cast<int>(cudaGetLastError());

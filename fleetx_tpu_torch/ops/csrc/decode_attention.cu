@@ -1,7 +1,7 @@
-// Single-query decode attention over the contiguous cache and over int8
-// K/V, for NVIDIA Hopper (sm_90a).
+// Single-query decode attention over the contiguous cache and over paged
+// pools, in the operand dtype or int8, for NVIDIA Hopper (sm_90a).
 //
-// Replaces three TPU kernels of fleetx_tpu/ops/pallas/decode_attention.py,
+// Replaces the four TPU kernels of fleetx_tpu/ops/pallas/decode_attention.py,
 // which share one online-softmax body (`_decode_kernel`, :243) and differ
 // in how a K/V row is found and loaded:
 //
@@ -9,9 +9,13 @@
 //       contiguous cache, K/V in the operand dtype T;
 //   B9  `_decode_kernel_q8` (:329): the same over int8 K/V with one fp32
 //       scale per cached (position, head) vector;
-//   B10 `_paged_decode_kernel_q8` (:479) via `flash_decode_paged_attention`
-//       (:525): int8 K/V and scales in [num_pages, page_size, h, *] pools,
-//       reached through each row's block table.
+//   B8  `_paged_decode_kernel` (:465) via `flash_decode_paged_attention`
+//       (:525): K/V in T in [num_pages, page_size, h, d] pools, reached
+//       through each row's block table; the Pallas kernel is
+//       `_decode_kernel` with the page as its tile (`major = page_size`),
+//       and so is this one: the paged body over T pools, block_k the page's;
+//   B10 `_paged_decode_kernel_q8` (:479): the same over int8 K/V and scale
+//       pools.
 //
 // For every (batch row b, head h) it computes softmax(q·kᵀ/√d)·v of one
 // query against the row's window [starts[b], ends[b]) of cached positions:
@@ -337,10 +341,10 @@ int launch(int head_dim, int batch, const Args& a, cudaStream_t stream) {
 template <typename T>
 int launch_kind(int quant, int paged, int head_dim, int batch, const Args& a,
                 cudaStream_t stream) {
-  if (!quant && !paged) return launch<T, T, false>(head_dim, batch, a, stream);      // B7
+  if (!quant && !paged) return launch<T, T, false>(head_dim, batch, a, stream);  // B7
   if (quant && !paged) return launch<T, int8_t, false>(head_dim, batch, a, stream);  // B9
-  if (quant && paged) return launch<T, int8_t, true>(head_dim, batch, a, stream);    // B10
-  return static_cast<int>(cudaErrorInvalidValue);  // paged T pools: paged_decode.cu (B8)
+  if (!quant) return launch<T, T, true>(head_dim, batch, a, stream);  // B8
+  return launch<T, int8_t, true>(head_dim, batch, a, stream);  // B10
 }
 
 }  // namespace

@@ -14,10 +14,11 @@ window ``[starts[b], end[b])`` of cached positions. Two cache layouts:
   kernels B8 (``_paged_decode_kernel`` :465) and, at int8, B10
   (``_paged_decode_kernel_q8`` :479).
 
+All four run one template, ``csrc/decode_attention.cu``, as the JAX kernels
+share ``_decode_kernel``'s body (B8 is it with the page as its tile).
 :func:`decode_attention` and :func:`paged_decode_attention` are the
-wrappers: on CUDA tensors they launch the hand-written kernel (B8 in
-``csrc/paged_decode.cu``; B7, B9 and B10 in ``csrc/decode_attention.cu``)
-or raise; on CPU tensors they run the plain version
+wrappers: on CUDA tensors they launch the hand-written kernel or raise;
+on CPU tensors they run the plain version
 (:func:`decode_attention_ref`, :func:`paged_decode_attention_ref`), which
 repeats the kernels' casts and is what the kernels are held against on
 the card. :func:`paged_gather_kv` materialises each row's logical buffer
@@ -46,13 +47,12 @@ import torch
 from fleetx_tpu_torch.ops import _build
 from fleetx_tpu_torch.ops.quant import dequantize_kv
 
-__all__ = ["DECODE_KERNEL", "DECODE_TOL", "KERNEL", "KERNEL_TOL", "NAMES",
+__all__ = ["DECODE_TOL", "KERNEL", "NAMES",
            "launches", "decode_attention", "decode_attention_ref",
            "decode_gaps", "fit_decode_blocks", "paged_decode_attention",
            "paged_decode_attention_ref", "paged_gather_kv"]
 
-KERNEL = "paged_decode"             # csrc/paged_decode.cu: B8
-DECODE_KERNEL = "decode_attention"  # csrc/decode_attention.cu: B7, B9, B10
+KERNEL = "decode_attention"  # csrc/decode_attention.cu: B7, B8, B9, B10
 # kernel names, the keys of ``launches``: B8, B7, B9, B10
 NAMES = ("paged_decode", "decode", "decode_q8", "paged_decode_q8")
 NEG_INF = -1e30  # the TPU kernels' running-max sentinel
@@ -62,11 +62,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_BLOCK_K = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# B8 vs its plain version on the card, max abs error by dtype: both take p
-# against the same per-tile running max, so they differ in fp32 summation
-# order only, which can move a bf16 rounding of p or of the output one ulp
-KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# B7, B9 and B10 vs their plain version on the card, (atol, share) by
+# B7-B10 vs their plain version on the card, (atol, share) by
 # dtype (see decode_gaps): the same fp32 summation-order gap, read two
 # ways. A score one fp32 ulp off can flip the bf16 rounding of one p, so a
 # few bf16 outputs move (by several ulps where they are small); a fault in
@@ -273,8 +269,8 @@ def _check(q, k, v, k_scale, v_scale, tables=None):
 
 
 def _check_tile(width: int) -> None:
-    """The paged kernels round p per page (B8) or per ``block_k`` tile,
-    which is the page up to 256 positions; wider pages raise."""
+    """The paged kernels round p per ``block_k`` tile, the page itself,
+    which the kernels hold up to 256 positions; wider pages raise."""
     if width > MAX_BLOCK_K:
         raise ValueError(f"the CUDA kernels tile at most {MAX_BLOCK_K} "
                          f"positions, got {width}")
@@ -291,8 +287,8 @@ def _raise_on(err: int, name: str) -> None:
 
 def _launch_decode(name, q, k, v, k_scale, v_scale, tables, first, ends,
                    out, length, n_logical, page_size, block_k) -> None:
-    """Launch one of B7, B9, B10 from ``csrc/decode_attention.cu``."""
-    fn = _build.load(DECODE_KERNEL).decode_attention
+    """Launch one of B7-B10 from ``csrc/decode_attention.cu``."""
+    fn = _build.load(KERNEL).decode_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
@@ -365,9 +361,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
     The kernels' contract holds on every device (page_size a multiple of
     8, see :func:`_check` for the rest); anything else raises. CUDA
-    tensors then launch ``csrc/paged_decode.cu`` (B8) or
-    ``csrc/decode_attention.cu`` (B10); CPU tensors take
-    :func:`paged_decode_attention_ref`."""
+    tensors then launch ``csrc/decode_attention.cu`` (B8, B10); CPU
+    tensors take :func:`paged_decode_attention_ref`."""
     _check(q, k_pages, v_pages, k_scale, v_scale, tables)
     page_size = k_pages.shape[1]
     block_k = _paged_block_k(page_size)
@@ -376,28 +371,15 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             q, k_pages, v_pages, tables=tables, end=end, starts=starts,
             k_scale=k_scale, v_scale=v_scale)
     _check_tile(page_size)
-    b, _, h, d = q.shape
+    b = q.shape[0]
     ends = _row_ints(end, b, q.device)
     first = _row_ints(starts, b, q.device)
     out = torch.empty_like(q)
     if b == 0:
         return out
     n_logical = tables.shape[1]
-    if k_scale is not None:
-        _launch_decode("paged_decode_q8", q, k_pages, v_pages, k_scale,
-                       v_scale, tables, first, ends, out,
-                       n_logical * page_size, n_logical, page_size, block_k)
-        return out
-    fn = _build.load(KERNEL).paged_decode_attention
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
-            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(q.device):
-        err = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
-                 v_pages.data_ptr(), tables.data_ptr(), first.data_ptr(),
-                 ends.data_ptr(), out.data_ptr(), b, h, n_logical, page_size,
-                 1.0 / math.sqrt(d), _stream(q))
-    _raise_on(err, "paged_decode_attention")
-    launches["paged_decode"] += 1
+    _launch_decode("paged_decode" if k_scale is None else "paged_decode_q8",
+                   q, k_pages, v_pages, k_scale, v_scale, tables, first,
+                   ends, out, n_logical * page_size, n_logical, page_size,
+                   block_k)
     return out

@@ -4,7 +4,9 @@ Port of the JAX package's ``flash_attention`` (ops/pallas/flash_attention.py:
 954) and its custom VJP (``_flash``, :668-786). Three kernels in
 ``csrc/flash_attention.cu``:
 
-- ``flash_fwd`` (B1, ``_fwd_kernel`` :287): out and the fp32 log-sum-exp;
+- ``flash_fwd`` (B1, ``_fwd_kernel`` :287): out and the fp32 log-sum-exp
+  (at bf16 and head dim 64 or 128, the training path's, a TMA + wgmma
+  kernel: q, k and v must then lie on 16 bytes, see :func:`_check_tma`);
 - ``flash_bwd_dq`` (B2, ``_bwd_dq_kernel`` :397): dQ from lse and delta;
 - ``flash_bwd_dkv`` (B3, ``_bwd_dkv_kernel`` :502): dK and dV.
 
@@ -63,6 +65,7 @@ BLOCK_NAMES = ("block_fwd_lse", "block_dq", "block_dkv")  # B11's entries
 TILE = 64  # the kernels' q and k tile rows; sequences are multiples of it
 NEG_INF = -1e30  # the TPU kernels' masked score
 HEAD_DIMS = (16, 32, 64, 128)
+TMA_DIMS = (64, 128)  # head dims of the bf16 TMA + wgmma forward
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel vs plain version on the card, |got - want| <= atol + rtol*|want|
@@ -374,12 +377,32 @@ def _check(q, k, v, kv_lens, *others):
                              f"{q.device}")
 
 
+def _check_tma(*named) -> None:
+    """The bf16 forward at d 64 and 128 loads q, k and v by TMA, which
+    takes a base and strides (over the dimensions of more than one row) on
+    16 bytes: raises ``ValueError`` for any other view (no other kernel
+    takes it instead)."""
+    for name, t in named:
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st in strides):
+            raise ValueError(
+                f"{name}: the bf16 forward at head_dim {t.shape[-1]} loads "
+                f"by TMA and needs a 16-byte aligned base and strides, got "
+                f"data_ptr % 16 = {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride())}")
+
+
 def flash_fwd(q, k, v, *, causal: bool = True, kv_lens=None,
               dropout_rate: float = 0.0, seed: int = 0, meta=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: ``(out [b, s, h, d], lse [b*h, s] fp32)``. CUDA tensors launch
-    ``flash_fwd``; CPU tensors take :func:`flash_attention_fwd_ref`."""
+    ``flash_fwd`` (at bf16, d 64 and 128, the TMA + wgmma kernel, whose
+    operands must lie on 16 bytes: see :func:`_check_tma`); CPU tensors
+    take :func:`flash_attention_fwd_ref`."""
     _check(q, k, v, kv_lens)
+    if q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] in TMA_DIMS:
+        _check_tma(("q", q), ("k", k), ("v", v))
     kw = dict(causal=causal, kv_lens=kv_lens, dropout_rate=dropout_rate,
               seed=seed, meta=_meta(meta, q.shape[2]))
     if q.device.type == "cpu":

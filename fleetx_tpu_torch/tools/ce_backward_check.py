@@ -8,9 +8,10 @@ draws of the cotangent, and their times.
 - The sweep: the bf16 cases of the CE card tests in
   ``tests/test_torch_cuda.py`` (their shapes and data), each with
   ``--seeds`` draws of the cotangent besides the test's own. Every draw
-  holds B5 and B6 against their plain versions under ``CE_TOL``
-  (``ce_gaps``) and, where the kernels keep dl in a scratch, goes through
-  :func:`fp64_checks`.
+  goes through ``ce_loss.fp64_checks``: B5 and B6 against their plain
+  versions under ``CE_TOL``, aware of dl's rounding flips
+  (``ce_loss.grads_gaps``), and against fp64 products of their own dl.
+  It needs a tree whose ``ce_loss`` has ``fp64_checks``.
 - The times: B5 and B6 at the GPT-1.3B head (n 8192, E 2048, V 50304,
   bf16) and at ``chip_smoke.py``'s fp32 case (n 1024, E 256, V 8192),
   CUDA events over 10 calls after 2.
@@ -24,7 +25,6 @@ one JSON object. Needs a GPU.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -71,109 +71,16 @@ def cotangents(n, seed, how):
     return a, -(torch.rand(n, device="cuda", generator=gen) + 0.5)
 
 
-def _bf16_step(x):
-    """The spacing of bf16 numbers at |x| (fp64): 2^(floor(log2|x|) - 7)."""
-    _, exp = torch.frexp(x.abs().clamp_min(2.0 ** -126))
-    return torch.ldexp(torch.ones_like(x), exp - 8)
-
-
-@contextlib.contextmanager
-def _one_chunk(ce, keep):
-    """Runs the bf16 B5/B6 over one chunk of all output rows and appends
-    each call's dl scratch to ``keep``, leaving the launch counts as they
-    were."""
-    plan, counts = ce._scratch, dict(ce.launches)
-
-    def whole(h, w, wrt):
-        rows, width = ((h.shape[0], w.shape[0]) if wrt == "h"
-                       else (w.shape[0], h.shape[0]))
-        keep.append(torch.empty((rows, width), dtype=torch.bfloat16,
-                                device=h.device))
-        return keep[-1]
-
-    ce._scratch = whole
-    try:
-        yield
-    finally:
-        ce._scratch = plan
-        ce.launches.update(counts)
-
-
-def fp64_checks(h, w, labels, a, b, lse, wrt):
-    """The bf16 B5 (``wrt="h"``) or B6 (``wrt="w"``) against fp64 products,
-    with the kernel's own dl read from its scratch (a second call over one
-    chunk: each dl element comes from the same sums at any chunking).
-    Returns, with the output ``got``:
-
-    - ``dl_steps``: the largest |dl_kernel − dl| over the bf16 spacing at
-      |dl|, dl = a·exp(s − lse) + b·onehot in fp64 (<= 1: the kernel
-      rounds dl to one of its two bf16 neighbours);
-    - ``dl_flips``: the elements where dl_kernel is not dl rounded to
-      nearest (an fp32 s a few bits off the fp64 s rounds the other way);
-    - ``product_ratio``: the largest |got − P(dl_kernel)| over CE_TOL's
-      bound (atol of the largest |value|, rtol of each), P the fp64
-      product with the other operand (<= 1: the product sums in fp32 and
-      rounds once);
-    - ``beyond``, ``beyond_outside_flips``: the elements where the kernel
-      lies farther from P(dl rounded to nearest) than the plain version's
-      error plus CE_TOL's bound, and those of them in an output row (a
-      token of dh, a vocab entry of dW) with no flip of dl_kernel;
-    - ``whole_gap``: the kernel's largest error over the plain version's
-      largest plus CE_TOL's bound at the largest |value| (<= 1);
-    - ``vs_plain``: ``ce_gaps`` of the kernel against its plain version."""
-    from fleetx_tpu_torch.ops import ce_loss as ce
-
-    fn, plain = ((ce.fused_ce_dh, ce.fused_ce_dh_ref) if wrt == "h"
-                 else (ce.fused_ce_dw, ce.fused_ce_dw_ref))
-    got = fn(h, w, labels, a, b, lse)
-    want = plain(h, w, labels, a, b, lse)
-    keep = []
-    with _one_chunk(ce, keep):
-        again = fn(h, w, labels, a, b, lse)
-    dl_k = keep[0].double() if wrt == "h" else keep[0].double().t()
-    hd, wd = h.double(), w.double()
-    col = torch.arange(w.shape[0], device=h.device)
-    onehot = (labels.long()[:, None] == col).double()
-    dl = a.double()[:, None] * torch.exp(hd @ wd.t() - lse.double()[:, None]) \
-        + b.double()[:, None] * onehot
-    dl_near = dl.to(torch.bfloat16).double()
-    flips = dl_k != dl_near
-
-    def product(d):
-        return d @ wd if wrt == "h" else d.t() @ hd
-
-    atol, rtol, _ = ce.CE_TOL[torch.bfloat16]["grads"]
-    ref_k = product(dl_k)
-    bound_k = atol * ref_k.abs().max() + rtol * ref_k.abs()
-    ref = product(dl_near)
-    kernel_err = (got.double() - ref).abs()
-    plain_err = (want.double() - ref).abs()
-    top = ref.abs().max()
-    beyond = kernel_err > plain_err + atol * top + rtol * ref.abs()
-    flip_rows = flips.any(1) if wrt == "h" else flips.any(0)
-    return {
-        "got": got,
-        "same_at_one_chunk": bool(torch.equal(again, got)),
-        "dl_steps": ((dl_k - dl).abs() / _bf16_step(dl)).max().item(),
-        "dl_flips": int(flips.sum().item()),
-        "product_ratio": ((got.double() - ref_k).abs() / bound_k).max().item(),
-        "beyond": int(beyond.sum().item()),
-        "beyond_outside_flips": int((beyond & ~flip_rows[:, None]).sum()
-                                    .item()),
-        "whole_gap": (kernel_err.max() / (plain_err.max()
-                                          + (atol + rtol) * top)).item(),
-        "vs_plain": ce.ce_gaps(got, want, torch.bfloat16, "grads"),
-    }
-
-
 def sweep(seeds: int) -> dict:
-    """Per case and output (dh, dW): the draws whose ``ce_gaps`` against
-    the plain version fails, the worst and the test draw's tol ratio, and
-    where the kernels keep dl in a scratch the worst of
-    :func:`fp64_checks`' readings."""
+    """Per case and output (dh, dW): the draws whose check against the
+    plain version fails (``vs_plain`` of ``ce_loss.fp64_checks``: CE_TOL,
+    aware of dl's rounding flips), the worst and the test draw's strict
+    tol ratio, and the worst of the other fp64 readings."""
     from fleetx_tpu_torch.ops import ce_loss as ce
 
-    scratch = hasattr(ce, "_scratch")
+    if not hasattr(ce, "fp64_checks"):
+        raise SystemExit(f"{ce.__file__} has no fp64_checks: time it with "
+                         "--skip-sweep")
     out = {}
     for case, (n, e, v, data_seed, test_seed, how) in SWEEP_CASES.items():
         h, w, labels = ce_case(n, e, v, dtype=torch.bfloat16, seed=data_seed)
@@ -183,26 +90,22 @@ def sweep(seeds: int) -> dict:
             row = {"draws": len(draws), "failed": [], "worst_tol_ratio": 0.0}
             for seed in draws:
                 a, b = cotangents(n, seed, how)
-                if scratch:
-                    got = fp64_checks(h, w, labels, a, b, lse, wrt)
-                    gap = got.pop("vs_plain")
-                    del got["got"]
-                    for k, x in got.items():
-                        if k == "same_at_one_chunk":
-                            row[k] = row.get(k, True) and x
-                        else:
-                            row[f"max_{k}"] = max(row.get(f"max_{k}", 0), x)
-                else:
-                    fn, plain = ((ce.fused_ce_dh, ce.fused_ce_dh_ref)
-                                 if wrt == "h" else
-                                 (ce.fused_ce_dw, ce.fused_ce_dw_ref))
-                    gap = ce.ce_gaps(fn(h, w, labels, a, b, lse),
-                                     plain(h, w, labels, a, b, lse),
-                                     torch.bfloat16, "grads")
+                got = ce.fp64_checks(h, w, labels, a, b, lse, wrt)
+                gap = got.pop("vs_plain")
+                del got["got"]
+                for k, x in got.items():
+                    if k == "same_at_one_chunk":
+                        row[k] = row.get(k, True) and x
+                    else:
+                        row[f"max_{k}"] = max(row.get(f"max_{k}", 0), x)
                 if not gap["ok"]:
                     row["failed"].append(seed)
                 row["worst_tol_ratio"] = max(row["worst_tol_ratio"],
                                              gap["tol_ratio"])
+                row["strict_failures"] = row.get("strict_failures", 0) + (
+                    gap["beyond"] > 0)
+                row["max_accepted"] = max(row.get("max_accepted", 0),
+                                          gap["accepted"])
                 row["max_moved_share"] = max(row.get("max_moved_share", 0),
                                              gap["moved_share"])
                 if seed == test_seed:

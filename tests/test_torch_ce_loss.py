@@ -277,3 +277,118 @@ def test_backward_wrappers_keep_signatures_outputs_and_counts(dtype):
     # only the bf16 kernels take a scratch (fp32 keeps the one-pass design)
     assert (ce._scratch(args[0], args[1], "h") is None) == (
         dtype == torch.float32)
+
+
+def _plain_dl(h, w, labels, a, b, lse, dl_dtype=None):
+    """The dl [n, V] the plain B5/B6 multiply, in fp32: rounded to
+    ``dl_dtype`` (the operand dtype unless a planted fault names
+    another)."""
+    mm = ce._mm_dtype(h.dtype)
+    hm = h.to(mm).float()
+    out = torch.empty((h.shape[0], w.shape[0]), dtype=torch.float32)
+    for lo, hi in ce._vocab_blocks(w.shape[0]):
+        out[:, lo:hi] = ce._dl_block(hm, w[lo:hi].to(mm).float(), labels, a,
+                                     b, lse, lo, hi).to(dl_dtype or mm).float()
+    return out
+
+
+def _flip_case(wrt, seed=5, n=32, e=64, v=256):
+    """A stand-in for a bf16 B5 (``wrt="h"``) or B6 on the CPU: bf16
+    operands, the plain version's output ``want`` and its dl (rounded to
+    nearest), and the exact dl's other bf16 neighbour at every element
+    (``other``, where that neighbour lies within one bf16 step of the
+    exact dl: ``flippable``), with the element whose flip moves its output
+    row the most."""
+    rng = np.random.RandomState(seed)
+    bf16 = torch.bfloat16
+    h = torch.from_numpy(rng.randn(n, e).astype(np.float32)).to(bf16)
+    w = torch.from_numpy((rng.randn(v, e) * 3 / np.sqrt(e)).astype(
+        np.float32)).to(bf16)
+    labels = torch.from_numpy(rng.randint(0, v, n).astype(np.int32))
+    a = torch.from_numpy((rng.rand(n) + 0.5).astype(np.float32))
+    b = -a
+    _, lse = ce._fwd_plain(h, w, labels)
+    args = (h, w, labels, a, b, lse)
+    want = ce._grad_plain(*args, wrt=wrt)
+    near = _plain_dl(*args).double()
+    exact = ce._exact_dl(*args, 0, n)
+    step = ce._bf16_step(near)
+    other = torch.where(exact > near, near + step, near - step)
+    flippable = ((other - exact).abs() <= ce._bf16_step(exact)) & (
+        other.to(bf16).double() == other)
+    rows = (w if wrt == "h" else h).double().abs().amax(1)
+    move = (other - near).abs() * (rows[None, :] if wrt == "h"
+                                   else rows[:, None])
+    i, j = divmod(int(torch.where(flippable, move, 0.0).argmax()), v)
+    return args, want, near, other, (i, j)
+
+
+def _output(args, dl, wrt):
+    """The output a kernel makes of ``dl``: its fp32 product with the other
+    operand, rounded to bf16 once."""
+    h, w = args[:2]
+    prod = dl.float() @ w.float() if wrt == "h" else dl.float().t() @ h.float()
+    return prod.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("wrt", ["h", "w"])
+def test_grads_check_accepts_a_one_step_dl_flip(wrt):
+    """The flip-aware bf16 grads check (``grads_gaps``): an output whose dl
+    took the exact dl's other bf16 neighbour at one element moves a whole
+    row past CE_TOL's strict bound, and passes, since that dl is within
+    one bf16 step of the exact dl and the output holds against the fp64
+    product of it. CE_TOL itself is unchanged."""
+    args, want, near, other, (i, j) = _flip_case(wrt)
+    dl = near.clone()
+    dl[i, j] = other[i, j]
+    got = _output(args, dl, wrt)
+    strict = ce.ce_gaps(got, want, torch.bfloat16, "grads")
+    assert not strict["ok"] and strict["tol_ratio"] > 1.0
+    gaps = ce.grads_gaps(got, want,
+                         lambda: ce._dl_readings(*args, dl.float(), wrt))
+    assert gaps["ok"], gaps
+    assert gaps["beyond"] > 0 and gaps["accepted"] == gaps["beyond"]
+    assert gaps["tol_ratio"] == strict["tol_ratio"]
+    # the sound output (dl rounded to nearest) needs no readings at all
+    sound = ce.grads_gaps(_output(args, near, wrt), want, None)
+    assert sound["ok"] and sound["beyond"] == 0
+
+
+@pytest.mark.parametrize("wrt", ["h", "w"])
+@pytest.mark.parametrize("fault", ["product", "two steps", "dl in fp32",
+                                   "one NaN", "all NaN"])
+def test_grads_check_catches_planted_faults(wrt, fault):
+    """What the flips do not explain still fails: a product fault (one row
+    of the other operand scaled by 1.25 inside the product, from the right
+    dl), a dl two bf16 steps off at the flipped element, dl kept in fp32
+    (no bf16 value, the planted fault of the card's phase 12), and NaN
+    written over one element or the whole output of the sound dl (as an
+    unwritten tile or a race would leave it)."""
+    args, want, near, other, (i, j) = _flip_case(wrt)
+    dl = near.clone()
+    if fault == "product":
+        h, w = args[:2]
+        if wrt == "h":
+            w2 = w.float().clone()
+            w2[j] *= 1.25
+            got = (dl.float() @ w2).to(torch.bfloat16)
+        else:
+            h2 = h.float().clone()
+            h2[i] *= 1.25
+            got = (dl.float().t() @ h2).to(torch.bfloat16)
+    elif fault == "two steps":
+        dl[i, j] = near[i, j] + 2 * (other[i, j] - near[i, j])
+        got = _output(args, dl, wrt)
+    elif fault == "dl in fp32":
+        dl = _plain_dl(*args, dl_dtype=torch.float32).double()
+        got = ce._grad_plain(*args, wrt=wrt, dl_dtype=torch.float32)
+    else:
+        got = _output(args, dl, wrt)
+        if fault == "one NaN":
+            got[i if wrt == "h" else j, 0] = math.nan
+        else:
+            got.fill_(math.nan)
+    gaps = ce.grads_gaps(got, want,
+                         lambda: ce._dl_readings(*args, dl.float(), wrt))
+    assert not gaps["ok"], gaps
+    assert gaps["accepted"] < gaps["beyond"] or gaps["moved_share"] > 0.1
