@@ -29,7 +29,9 @@ decode steps after phase 10):
                0.1), at GPT-1.3B's (d 128, bf16) and at an mp 2 rank's of
                GPT-1.3B (8 local heads of 16 taken from an [8, 1024, 8,
                384] fused-qkv shard, mp rank 1's global-head meta), with
-               kernel, plain, library and bound times;
+               kernel, plain, library and bound times; at dropout 0.1 the
+               dQ and dK/dV kernels given another seed's keep mask, or
+               delta zeroed, must each break the limit on their outputs;
 7. train     — ``Trainer.fit`` through ``build_module``/``build_dataloader``
                on ``pretrain_gpt_345M_single_card.yaml`` (24 layers, batch 8,
                seq 1024, bf16, dropout 0.1) over a seeded synthetic corpus:
@@ -90,7 +92,8 @@ decode steps after phase 10):
                (b 1, h 16, d 128, s_blk 4096, bf16), a diagonal causal
                pair and an off-diagonal pair, dropout 0 and 0.1, with
                kernel, plain, library (SDPA on the pair) and bound times;
-               the offsets or h0 dropped under dropout must break the limit;
+               the offsets or h0 dropped under dropout must break the limit
+               on both ``block_dq`` and ``block_dkv``;
 16. cp-ring  — the ring at cp 2 and 4, its ranks processes that share the
                card over gloo (b 1, h 16, d 128, seq 16384, bf16): output
                and dq, dk, dv equal single-process B1-B3 on the whole
@@ -197,8 +200,10 @@ from fleetx_tpu_torch.tools.kernel_cases import (  # noqa: E402
     cuda_ms,
     decode_bound,
     decode_case,
+    flash_delta,
     flash_inputs,
     rotation_copies,
+    sdpa_times,
 )
 from fleetx_tpu_torch.utils.config import get_config  # noqa: E402
 
@@ -578,21 +583,17 @@ def flash_bound(name: str, q: torch.Tensor) -> tuple:
     return 6 * operand + 2 * row, 4 * product  # ... -> dK, dV
 
 
-def _delta(do, out):
-    b, s, h, _ = out.shape
-    return (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
-        b * h, s).contiguous()
-
-
 def phase_flash() -> dict:
     """B1, B2 and B3 against their plain versions at GPT-345M training
     shapes (head dim 64; bf16 and fp32), at GPT-1.3B's (head dim 128,
     bf16) and at an mp 2 rank's of GPT-1.3B (8 local heads with mp rank
     1's global-head meta, so the dropout hash and the grid see phase 20's
     ids and strides), dropout 0 and 0.1, with kernel, plain, library (SDPA,
-    dropout 0, yardstick only) and bound times. Returns the records of the
-    345M drive's case (bf16, dropout 0.1) by kernel name, each with the
-    1.3B drive's case under ``"d128"`` and the mp drive's under ``"mp"``."""
+    dropout 0, yardstick only) and bound times; at dropout 0.1 two planted
+    faults (another seed, delta zeroed) must break B2's and B3's limits.
+    Returns the records of the 345M drive's case (bf16, dropout 0.1) by
+    kernel name, each with the 1.3B drive's case under ``"d128"`` and the
+    mp drive's under ``"mp"``."""
     records = {}
     bf16 = torch.bfloat16
     for d, h, meta, dtypes, key in (
@@ -613,14 +614,14 @@ def flash_cases(dtype, d: int, h: int = 16, meta=None) -> dict:
     identity); returns the dropout-0.1 records by kernel name."""
     records = {}
     sets = flash_inputs(dtype, d=d, h=h)
-    lib = library_flash_times(sets)
+    lib = sdpa_times(sets, causal=True)
     for rate in (0.0, 0.1):
         kw = dict(causal=True, dropout_rate=rate, seed=-1234567, meta=meta)
         before = dict(fa.launches)
         state = []
         for q, k, v, do in sets:
             out, lse = fa.flash_fwd(q, k, v, **kw)
-            state.append((out, lse, _delta(do, out)))
+            state.append((out, lse, flash_delta(do, out)))
         q, k, v, do = sets[0]
         out, lse, delta = state[0]
         dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
@@ -641,8 +642,7 @@ def flash_cases(dtype, d: int, h: int = 16, meta=None) -> dict:
                  "flash_bwd_dq": _tol_ratio(dq, want_dq, atol, rtol),
                  "flash_bwd_dkv": max(_tol_ratio(dk, want_dk, atol, rtol),
                                       _tol_ratio(dv, want_dv, atol, rtol))}
-        # the backward plain versions sum in the kernels' FMA order, so
-        # their errors can be exactly 0: show the outputs are not
+        # the outputs' mean magnitude: a kernel that wrote zeros shows here
         mean_abs = {"flash_fwd": out.float().abs().mean().item(),
                     "flash_bwd_dq": dq.float().abs().mean().item(),
                     "flash_bwd_dkv": dk.float().abs().mean().item()}
@@ -656,6 +656,28 @@ def flash_cases(dtype, d: int, h: int = 16, meta=None) -> dict:
             if not wrong > 1.0:
                 raise AssertionError(f"the identity meta at h {h} is held "
                                      f"within the limit ({wrong})")
+        if rate > 0.0:
+            # B2 and B3 given another seed's keep mask, or delta zeroed,
+            # must each break the limit on their own outputs
+            for fault, seed, fdelta in (
+                    ("seed + 1", kw["seed"] + 1, delta),
+                    ("delta zeroed", kw["seed"], torch.zeros_like(delta))):
+                fkw = dict(kw, seed=seed)
+                fdq = fa.flash_bwd_dq(q, k, v, do, lse, fdelta, **fkw)
+                fdk, fdv = fa.flash_bwd_dkv(q, k, v, do, lse, fdelta, **fkw)
+                for name, ratio in (
+                        ("flash_bwd_dq", _tol_ratio(fdq, want_dq, atol, rtol)),
+                        ("flash_bwd_dkv", max(
+                            _tol_ratio(fdk, want_dk, atol, rtol),
+                            _tol_ratio(fdv, want_dv, atol, rtol)))):
+                    log("flash", name=name, dtype=str(dtype).split(".")[-1],
+                        head_dim=d, heads=h, dropout=rate,
+                        planted_fault=repr(fault), tol_ratio=ratio)
+                    if not ratio > 1.0:
+                        raise AssertionError(
+                            f"{name} d {d} h {h}: the planted fault "
+                            f"{fault!r} is held within the limit ({ratio})")
+                del fdq, fdk, fdv
         del want_out, want_lse, want_dq, want_dk, want_dv
         it = iter(range(1 << 30))
 
@@ -681,7 +703,7 @@ def flash_cases(dtype, d: int, h: int = 16, meta=None) -> dict:
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-            library_ms = lib["flash_fwd" if name == "flash_fwd"
+            library_ms = lib["forward" if name == "flash_fwd"
                              else "backward"]
             log("flash", name=name, dtype=str(dtype).split(".")[-1],
                 head_dim=d, heads=h, meta=meta, dropout=rate,
@@ -727,35 +749,6 @@ def _tol_ratio(got, want, atol, rtol) -> float:
     err = (got.float() - want.float()).abs()
     ratio = (err / (atol + rtol * want.float().abs())).max().item()
     return ratio if math.isfinite(ratio) else math.inf
-
-
-def library_flash_times(sets) -> dict:
-    """PyTorch's fused attention on the same inputs, as a yardstick only:
-    ``scaled_dot_product_attention(is_causal=True)`` forward, and its
-    backward (dQ, dK and dV in one call), at dropout 0, in PyTorch's
-    [b, h, s, d] layout."""
-    fwd, bwd = [], []
-    for q, k, v, do in sets:
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
-        fwd.append((qt.detach(), kt.detach(), vt.detach()))
-        bwd.append((out, (qt, kt, vt), dot))
-    it = iter(range(1 << 30))
-
-    def forward():
-        with torch.no_grad():
-            torch.nn.functional.scaled_dot_product_attention(
-                *fwd[next(it) % len(fwd)], is_causal=True)
-
-    def backward():
-        out, inputs, dot = bwd[next(it) % len(bwd)]
-        torch.autograd.grad(out, inputs, dot, retain_graph=True)
-
-    return {"flash_fwd": cuda_ms(forward, iters=30, warmup=3),
-            "backward": cuda_ms(backward, iters=30, warmup=3)}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1791,32 +1784,6 @@ def cp_pair_bound(name: str, q: torch.Tensor, causal: bool) -> tuple:
     return nbytes, flops
 
 
-def library_pair_times(sets, causal: bool) -> dict:
-    """SDPA forward and backward on the pair's q, k, v (is_causal on the
-    diagonal, no mask across blocks, dropout 0): the yardstick."""
-    fwd, bwd = [], []
-    for q, k, v, do in sets:
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal)
-        fwd.append((qt.detach(), kt.detach(), vt.detach()))
-        bwd.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
-    it = iter(range(1 << 30))
-
-    def forward():
-        with torch.no_grad():
-            torch.nn.functional.scaled_dot_product_attention(
-                *fwd[next(it) % len(fwd)], is_causal=causal)
-
-    def backward():
-        out, inputs, dot = bwd[next(it) % len(bwd)]
-        torch.autograd.grad(out, inputs, dot, retain_graph=True)
-
-    return {"block_fwd_lse": cuda_ms(forward, iters=20, warmup=3),
-            "backward": cuda_ms(backward, iters=20, warmup=3)}
-
-
 def _bh(x: torch.Tensor) -> torch.Tensor:
     """[b, s, h] fp32 -> contiguous [b*h, s] (the plain versions' rows)."""
     b, s, h = x.shape
@@ -1863,16 +1830,17 @@ def phase_cp_kernels() -> dict:
     shape (b 1, h 16, d 128, s_blk 4096, bf16): a diagonal causal pair and
     an off-diagonal pair with q_off != k_off, dropout 0 and 0.1, with
     kernel, plain, library (SDPA on the pair) and bound times. Two planted
-    faults under dropout must break the limit: the offsets dropped to 0,
-    and h0 dropped (a pair of heads 16-31 of 32, as under mp). Returns the
-    records of the off-diagonal pair at dropout 0.1 (the ring's hops),
-    with the diagonal pair's time beside."""
+    faults under dropout must break the limit on both ``block_dq`` and
+    ``block_dkv``: the offsets dropped to 0, and h0 dropped (a pair of
+    heads 16-31 of 32, as under mp). Returns the records of the
+    off-diagonal pair at dropout 0.1 (the ring's hops), with the diagonal
+    pair's time beside."""
     before = (dict(fa.launches), dict(fa.block_launches))
     sets = flash_inputs(torch.bfloat16, b=1, s=CP_BLOCK, h=16, d=128,
                         copies=2, seed=15)
     records = {name: {} for name in fa.BLOCK_NAMES}
     for label, (causal, meta) in CP_PAIRS.items():
-        lib = library_pair_times(sets, causal)
+        lib = sdpa_times(sets, causal, iters=20)
         for rate in (0.0, 0.1):
             q, k, v, do = sets[0]
             args = (meta, causal, rate, CP_SEQ)
@@ -1924,7 +1892,7 @@ def phase_cp_kernels() -> dict:
                 nbytes, flops = cp_pair_bound(name, q, causal)
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 ops_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-                library_ms = lib["block_fwd_lse" if name == "block_fwd_lse"
+                library_ms = lib["forward" if name == "block_fwd_lse"
                                  else "backward"]
                 ratio, err = ratios[name]
                 log("cp-kernels", name=name, pair=label, causal=causal,
@@ -1967,9 +1935,10 @@ def phase_cp_kernels() -> dict:
         caught = [n for n, (r, _) in ratios.items() if r > 1.0]
         log("cp-kernels", planted_fault=repr(fault), caught=caught,
             tol_ratios={n: r for n, (r, _) in ratios.items()})
-        if not caught:
-            raise AssertionError(f"phase 15 misses the planted fault "
-                                 f"{fault!r}: {ratios}")
+        missed = {"block_dq", "block_dkv"} - set(caught)
+        if missed:
+            raise AssertionError(f"phase 15's {sorted(missed)} miss the "
+                                 f"planted fault {fault!r}: {ratios}")
         del want, got
     fa.launches.update(before[0])  # checks and timing are not the path
     fa.block_launches.update(before[1])

@@ -10,11 +10,12 @@
 // [b0, h0, h_local, h_total, q_off, k_off] (`_global_ids`, :273-284).
 //
 // Operands keep the model layout [b, s, h, d] (any strides over b, s and h,
-// the head dim contiguous; the bf16 forward at d 64/128 loads by TMA and
-// needs the base and those strides on 16 bytes), so q, k and v are read
-// straight out of the fused qkv projection. Outputs (o, dq, dk, dv) are contiguous [b, s, h, d]; lse
-// and delta are fp32 [b*h, s]. T is bf16 or fp32; d is 16, 32, 64 or 128;
-// s is a multiple of the 64-row tile (the wrapper pads).
+// the head dim contiguous), so q, k and v are read straight out of the
+// fused qkv projection; the bf16 kernels at d 64/128 load by TMA and need
+// the base and those strides (and, for dK/dV, lse and delta) on 16 bytes.
+// Outputs (o, dq, dk, dv) are contiguous [b, s, h, d]; lse and delta are
+// fp32 [b*h, s]. T is bf16 or fp32; d is 16, 32, 64 or 128; s is a
+// multiple of the 64-row tile (the wrapper pads).
 //
 // Numerics follow the Pallas kernels:
 // - scores s = (q·kᵀ)·scale in fp32 over operands in T (scale after the dot;
@@ -45,46 +46,51 @@
 // Every kernel skips the key (or query) tiles that are wholly masked (past
 // the causal diagonal, shifted by q_off - k_off, or past kv_lens - k_off),
 // as the Pallas index maps and tile walks clamp (:361-370, :456-465,
-// :574-577), and takes p against the running max after each 64-key tile.
+// :574-577), and the forward takes p against the running max after each
+// 64-key tile.
 //
-// The bf16 forward at d 64 and 128 (the training path's), on TMA and
-// wgmma: one 384-thread block per (128 query rows, b*h row). Warpgroup 0
-// gives its registers up (setmaxnreg) and one of its threads loads, by TMA
+// bf16 at d 64 and 128 (every training path's) runs on TMA and wgmma: one
+// block per (128 rows of its own operand, b*h row), in which one thread
+// (in the forward, of a producer warpgroup that gives its registers up by
+// setmaxnreg; in the backward, whose two consumer warpgroups need more
+// registers than that split gives them, thread 0 of the consumers) loads,
+// by TMA
 // through 4-D tensor maps over the call's [b, s, h, d] strides (so strided
-// views of the fused qkv, and heads shards, load as they are), Q once and
-// the 64-key K and V tiles into a ring of three stages on mbarriers, each
-// tile D/64 boxes of 64 columns with 128-byte swizzle; rows past the
-// sequence arrive as zeros. Warpgroups 1 and 2 each own 64 query rows: per
-// key tile S = Q·Kᵀ is one wgmma m64n64k16 chain over d with both operands
-// in shared memory; scale, masks, running max, p, the undropped row sum,
-// the keep mask and the rescale of O run in registers on the accumulator
-// layout, whose p∘keep, rounded to bf16 in pairs, is already the register
-// A operand of O += P·V (wgmma m64n{d}k16, V through the transpose bit).
-// No score or output tile passes through shared memory. The grid walks the
-// b*h rows in groups whose K and V fit the L2 together, and within a group
-// starts the query blocks with the most key tiles first.
-// The other kernels (simple first): one 256-thread block per (q tile, b*h)
-// for the forward at d 16/32 and dQ, one per (k tile, b*h) for dK/dV; a
-// loop inside the block walks the other operand's 64-row tiles. The
-// online-softmax state m and l lives in registers of the four threads that
-// own a score row.
-// - bf16: operand tiles sit in shared memory as bf16 and every product
-//   runs on the tensor cores through `nvcuda::wmma` 16x16x16 fragments
-//   with fp32 accumulation, each warp owning fixed 16x16 blocks of the
-//   output. Scores and dP land in fp32 shared-memory tiles, where the CUDA
-//   cores apply scale, mask, exp, dropout and the casts; the rounded p∘keep
-//   and dS go back to shared memory as bf16 operands. dQ, dK and dV stay in
-//   accumulator fragments across the loop; the d 16/32 forward's output
-//   takes each tile's p·V from shared memory into registers, because the
-//   per-row rescale by alpha cannot reach into a fragment.
-// - fp32 (the exactness path): tiles staged as fp32; each thread owns a 4x4
-//   (or 4 x d/16) register tile of every product, rows ty + 16i and columns
-//   tx + 16j, computed with fp32 FMAs on the CUDA cores.
-// TMA staging and wgmma for the backward are later work.
+// views of the fused qkv, and heads shards, load as they are), the block's
+// own operands once and the other side's 64-row tiles into a ring of three
+// stages on mbarriers, each tile D/64 boxes of 64 columns with 128-byte
+// swizzle; rows past the sequence arrive as zeros and are not stored.
+// Two consumer warpgroups each own 64 of the block's rows. Every score tile is
+// a wgmma m64n64k16 chain over d with both operands in shared memory; its
+// accumulator layout is the register A layout of m64n{d}k16, so the
+// elementwise pass (scale, masks, exp, the keep mask), run branch-free in
+// registers and rounded to bf16 in pairs, feeds the next product directly
+// (the other operand through the transpose bit). No score tile passes
+// through shared memory, and no output element is written by two blocks
+// (no atomics: two launches give the same bits).
+// - forward (B1): own rows Q; per 64-key tile S = Q·Kᵀ, the online softmax
+//   (masks only on tiles that cross the diagonal or kv_lens), O = alpha·O +
+//   (p∘keep)·V.
+// - dQ (B2): own rows Q and dO, with their lse and delta; per key tile S =
+//   Q·Kᵀ and dP = dO·Vᵀ, dS = p∘(dP∘keep − delta), dQ += dS·K.
+// - dK/dV (B3): own rows K and V; per 64-query tile, streamed with its lse
+//   and delta, the transposed Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, whose layout
+//   makes (p∘keep)ᵀ and dSᵀ the A operands of dV += (p∘keep)ᵀ·dO and dK +=
+//   dSᵀ·Q. The hash keeps its (q, k) order: its row term is the key's.
+// The grid walks b*h rows in groups whose streamed operands fit the L2,
+// heaviest blocks first.
+//
+// fp32 (the exactness path), and bf16 at d 16/32: the CUDA-core kernels,
+// one 256-thread block per (64-row tile, b*h row), a loop inside the block
+// walking the other operand's 64-row tiles. Tiles are staged in shared
+// memory as fp32 (bf16 operands convert exactly); each thread owns a 4x4
+// (or 4 x d/16) register tile of every product, rows ty + 16i and columns
+// tx + 16j, computed with fp32 FMAs; p∘keep and dS are rounded to T before
+// their products (`round_to`). The forward's online-softmax state m and l
+// lives in registers of the four threads that own a score row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -633,427 +639,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashPara
   }
 }
 
-// ------------------------------------------------- bf16 tensor-core kernels
-
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kLDF = kTile + 4;  // fp32 row pitch of a [64][64] score tile
-constexpr int kLDP = kTile + 8;  // bf16 row pitch of a [64][64] p or dS tile
-
-// bf16 row pitch of a [64][D] operand tile, fp32 pitch of a [64][D] output;
-// both keep every 16x16 fragment 32-byte aligned
-template <int D>
-__host__ __device__ constexpr int ldh() { return D + 8; }
-template <int D>
-__host__ __device__ constexpr int ldo() { return D + 4; }
-// accumulator fragments per warp for a [64][D] output (D/4 blocks of 16x16)
-template <int D>
-__host__ __device__ constexpr int frags() { return D >= 32 ? D / 32 : 1; }
-
-// a [64][D] bf16 tile of a [b, s, h, d] operand into shared memory (pitch
-// ldh<D>): 16-byte loads when the rows allow them (always in the model,
-// whose q, k, v rows start on 8-element boundaries), else element by element
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base,
-                                               long long row_stride) {
-  if (((reinterpret_cast<uintptr_t>(base) | (row_stride * sizeof(bf16))) & 15) == 0) {
-    constexpr int kChunks = D / 8;  // 8 bf16 per 16 bytes
-    for (int e = threadIdx.x; e < kTile * kChunks; e += kThreads) {
-      const int r = e / kChunks, c = (e % kChunks) * 8;
-      *reinterpret_cast<uint4*>(dst + r * ldh<D>() + c) =
-          *reinterpret_cast<const uint4*>(base + r * row_stride + c);
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * ldh<D>() + c] = base[r * row_stride + c];
-  }
-}
-
-// c[64][64] (fp32, pitch kLDF) = a[64][D] · b[64][D]ᵀ over bf16 tiles of
-// pitch ldh<D>; warp w computes blocks (w/2, 2(w%2)) and (w/2, 2(w%2)+1)
-template <int D>
-__device__ __forceinline__ void mm_abt(float* c, const bf16* a, const bf16* b) {
-  const int warp = threadIdx.x >> 5, i = warp >> 1;
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const int j = (warp & 1) * 2 + jj;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBT fb;
-      wmma::load_matrix_sync(fa, a + 16 * i * ldh<D>() + 16 * kk, ldh<D>());
-      wmma::load_matrix_sync(fb, b + 16 * j * ldh<D>() + 16 * kk, ldh<D>());
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + 16 * i * kLDF + 16 * j, acc, kLDF, wmma::mem_row_major);
-  }
-}
-
-// acc += op(a) · b for the warp's blocks of a [64][D] output: a is a
-// [64][64] bf16 tile of pitch kLDP (op = transpose when kTransA), b a
-// [64][D] bf16 tile of pitch ldh<D>. Block t = warp + 8n is (t / (D/16),
-// t % (D/16)).
-template <int D, bool kTransA>
-__device__ __forceinline__ void mm_acc(FragC* acc, const bf16* a, const bf16* b) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int n = 0; n < frags<D>(); ++n) {
-    const int t = warp + kWarps * n;
-    if (t >= D / 4) break;
-    const int i = t / (D / 16), j = t % (D / 16);
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, b + 16 * kk * ldh<D>() + 16 * j, ldh<D>());
-      if constexpr (kTransA) {
-        FragAT fa;
-        wmma::load_matrix_sync(fa, a + 16 * kk * kLDP + 16 * i, kLDP);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      } else {
-        FragA fa;
-        wmma::load_matrix_sync(fa, a + 16 * i * kLDP + 16 * kk, kLDP);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_acc(float* out, const FragC* acc) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int n = 0; n < frags<D>(); ++n) {
-    const int t = warp + kWarps * n;
-    if (t >= D / 4) break;
-    const int i = t / (D / 16), j = t % (D / 16);
-    wmma::store_matrix_sync(out + 16 * i * ldo<D>() + 16 * j, acc[n], ldo<D>(),
-                            wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void zero_acc(FragC* acc) {
-#pragma unroll
-  for (int n = 0; n < frags<D>(); ++n) wmma::fill_fragment(acc[n], 0.f);
-}
-
-// shared memory: fp32 tiles first (sizes multiples of 32 bytes), then bf16
-template <int D>
-constexpr size_t fwd_tc_smem() {
-  return sizeof(float) * (kTile * kLDF + kTile * ldo<D>() + 2 * kTile) +
-         sizeof(bf16) * (3 * kTile * ldh<D>() + kTile * kLDP);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const FlashParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int NJ = D / 16;
-  float* sS = reinterpret_cast<float*>(smem_raw);  // [64][kLDF]: q·kᵀ
-  float* sO = sS + kTile * kLDF;                   // [64][ldo]: this tile's p·V
-  float* sAlpha = sO + kTile * ldo<D>();
-  float* sL = sAlpha + kTile;
-  bf16* sQ = reinterpret_cast<bf16*>(sL + kTile);
-  bf16* sK = sQ + kTile * ldh<D>();
-  bf16* sV = sK + kTile * ldh<D>();
-  bf16* sP = sV + kTile * ldh<D>();  // [64][kLDP]: p∘keep rounded to bf16
-
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const uint32_t gbh = global_bh(p, bh);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int srow = tid >> 2, spart = tid & 3;
-  const int q0 = qt * kTile;
-  const bf16* Q = head_ptr<bf16>(p.q, p.q_strides, b, h);
-  const bf16* K = head_ptr<bf16>(p.k, p.k_strides, b, h);
-  const bf16* V = head_ptr<bf16>(p.v, p.v_strides, b, h);
-
-  load_tile_bf16<D>(sQ, Q + q0 * p.q_strides[1], p.q_strides[1]);
-  const int kv_len = live_keys(p, b);
-  int n_tiles = (kv_len + kTile - 1) / kTile;
-  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0));
-
-  float m_run = kNegInf, l_run = 0.f;
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();  // the previous tile's reads of sK, sV, sP, sO are done
-    load_tile_bf16<D>(sK, K + k0 * p.k_strides[1], p.k_strides[1]);
-    load_tile_bf16<D>(sV, V + k0 * p.v_strides[1], p.v_strides[1]);
-    __syncthreads();
-    mm_abt<D>(sS, sQ, sK);
-    __syncthreads();
-
-    const float* row = sS + srow * kLDF + spart * 16;
-    float sv[16];
-    float mx = kNegInf;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const int kg = k0 + spart * 16 + c;
-      const bool live = kg < kv_len && causal_live(p, q0 + srow, kg);
-      sv[c] = live ? row[c] * p.scale : kNegInf;
-      mx = fmaxf(mx, sv[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    float psum = 0.f;
-    bf16* prow = sP + srow * kLDP + spart * 16;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      float pv = sv[c] > 0.5f * kNegInf ? expf(sv[c] - m_new) : 0.f;
-      psum += pv;  // the normaliser sums the undropped p
-      if (p.dropout) pv *= drop_scale(p, gbh, p.q_off + q0 + srow, p.k_off + k0 + spart * 16 + c);
-      prow[c] = __float2bfloat16(pv);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    const float alpha = expf(m_run - m_new);
-    l_run = alpha * l_run + psum;
-    m_run = m_new;
-    if (spart == 0) sAlpha[srow] = alpha;
-    __syncthreads();
-
-    FragC pv[frags<D>()];
-    zero_acc<D>(pv);
-    mm_acc<D, false>(pv, sP, sV);
-    store_acc<D>(sO, pv);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float a = sAlpha[r];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(acc[i][j], a, sO[r * ldo<D>() + tx + 16 * j]);
-    }
-  }
-
-  if (spart == 0) {
-    const float l_safe = l_run > 0.f ? l_run : 1.f;  // fully masked rows emit zeros
-    sL[srow] = l_safe;
-    p.lse[static_cast<size_t>(bh) * p.seq + q0 + srow] = m_run + logf(l_safe);
-  }
-  __syncthreads();
-  bf16* out = static_cast<bf16*>(p.out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float l = sL[r];
-    bf16* dst = out + out_offset(p, b, q0 + r, h, D);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dst[tx + 16 * j] = __float2bfloat16(acc[i][j] / l);
-  }
-}
-
-// the backward kernels: two fp32 score tiles (s, dP) — reused at the end
-// to stage a [64][D] output — then four bf16 operand tiles and two bf16
-// [64][64] tiles (p∘keep, dS)
-template <int D>
-constexpr size_t bwd_tc_smem() {
-  return sizeof(float) * (2 * kTile * kLDF + 2 * kTile) +
-         sizeof(bf16) * (4 * kTile * ldh<D>() + 2 * kTile * kLDP);
-}
-static_assert(2 * kTile * kLDF >= kTile * ldo<128>(), "output staging fits the score tiles");
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(const FlashParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int NJ = D / 16;
-  float* sS = reinterpret_cast<float*>(smem_raw);  // [64][kLDF]: q·kᵀ
-  float* sDP = sS + kTile * kLDF;                  // [64][kLDF]: dO·vᵀ
-  float* sLse = sDP + kTile * kLDF;
-  float* sDelta = sLse + kTile;
-  bf16* sQ = reinterpret_cast<bf16*>(sDelta + kTile);
-  bf16* sDO = sQ + kTile * ldh<D>();
-  bf16* sK = sDO + kTile * ldh<D>();
-  bf16* sV = sK + kTile * ldh<D>();
-  bf16* sDS = sV + kTile * ldh<D>();  // [64][kLDP]: dS rounded to bf16
-
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const uint32_t gbh = global_bh(p, bh);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = qt * kTile;
-  const bf16* Q = head_ptr<bf16>(p.q, p.q_strides, b, h);
-  const bf16* K = head_ptr<bf16>(p.k, p.k_strides, b, h);
-  const bf16* V = head_ptr<bf16>(p.v, p.v_strides, b, h);
-  const bf16* DO = head_ptr<bf16>(p.dout, p.do_strides, b, h);
-
-  load_tile_bf16<D>(sQ, Q + q0 * p.q_strides[1], p.q_strides[1]);
-  load_tile_bf16<D>(sDO, DO + q0 * p.do_strides[1], p.do_strides[1]);
-  if (tid < kTile) {
-    sLse[tid] = p.lse[static_cast<size_t>(bh) * p.seq + q0 + tid];
-    sDelta[tid] = p.delta[static_cast<size_t>(bh) * p.seq + q0 + tid];
-  }
-  const int kv_len = live_keys(p, b);
-  int n_tiles = (kv_len + kTile - 1) / kTile;
-  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0));
-
-  FragC dq[frags<D>()];
-  zero_acc<D>(dq);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile_bf16<D>(sK, K + k0 * p.k_strides[1], p.k_strides[1]);
-    load_tile_bf16<D>(sV, V + k0 * p.v_strides[1], p.v_strides[1]);
-    __syncthreads();
-    mm_abt<D>(sS, sQ, sK);
-    mm_abt<D>(sDP, sDO, sV);
-    __syncthreads();
-    for (int e = tid; e < kTile * kTile; e += kThreads) {
-      const int r = e / kTile, kc = e % kTile;
-      const bool live = k0 + kc < kv_len && causal_live(p, q0 + r, k0 + kc);
-      const float pv = live ? expf(sS[r * kLDF + kc] * p.scale - sLse[r]) : 0.f;
-      float d = sDP[r * kLDF + kc];
-      // dP = (dO·Vᵀ)∘keep; delta already equals rowsum(p∘dP)
-      if (p.dropout) d *= drop_scale(p, gbh, p.q_off + q0 + r, p.k_off + k0 + kc);
-      sDS[r * kLDP + kc] = __float2bfloat16(pv * (d - sDelta[r]));
-    }
-    __syncthreads();
-    mm_acc<D, false>(dq, sDS, sK);
-  }
-
-  __syncthreads();
-  store_acc<D>(sS, dq);  // staged [64][ldo]
-  __syncthreads();
-  bf16* out = static_cast<bf16*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    bf16* dst = out + out_offset(p, b, q0 + r, h, D);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      dst[tx + 16 * j] = __float2bfloat16(sS[r * ldo<D>() + tx + 16 * j] * p.scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(const FlashParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int NJ = D / 16;
-  float* sS = reinterpret_cast<float*>(smem_raw);  // [64 q][kLDF]: q·kᵀ
-  float* sDP = sS + kTile * kLDF;                  // [64 q][kLDF]: dO·vᵀ
-  float* sLse = sDP + kTile * kLDF;
-  float* sDelta = sLse + kTile;
-  bf16* sK = reinterpret_cast<bf16*>(sDelta + kTile);
-  bf16* sV = sK + kTile * ldh<D>();
-  bf16* sQ = sV + kTile * ldh<D>();
-  bf16* sDO = sQ + kTile * ldh<D>();
-  bf16* sP = sDO + kTile * ldh<D>();  // [64 q][kLDP]: p∘keep rounded to bf16
-  bf16* sDS = sP + kTile * kLDP;      // [64 q][kLDP]: dS rounded to bf16
-
-  const int kt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const uint32_t gbh = global_bh(p, bh);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = kt * kTile;
-  bf16* dk_out = static_cast<bf16*>(p.dk);
-  bf16* dv_out = static_cast<bf16*>(p.dv);
-  const int kv_len = live_keys(p, b);
-
-  if (k0 >= kv_len) {  // every score of this key tile is masked
-    for (int e = tid; e < kTile * D; e += kThreads) {
-      const size_t off = out_offset(p, b, k0 + e / D, h, D) + e % D;
-      dk_out[off] = __float2bfloat16(0.f);
-      dv_out[off] = __float2bfloat16(0.f);
-    }
-    return;
-  }
-
-  const bf16* Q = head_ptr<bf16>(p.q, p.q_strides, b, h);
-  const bf16* K = head_ptr<bf16>(p.k, p.k_strides, b, h);
-  const bf16* V = head_ptr<bf16>(p.v, p.v_strides, b, h);
-  const bf16* DO = head_ptr<bf16>(p.dout, p.do_strides, b, h);
-  load_tile_bf16<D>(sK, K + k0 * p.k_strides[1], p.k_strides[1]);
-  load_tile_bf16<D>(sV, V + k0 * p.v_strides[1], p.v_strides[1]);
-
-  FragC dk[frags<D>()], dv[frags<D>()];
-  zero_acc<D>(dk);
-  zero_acc<D>(dv);
-  // earlier q tiles see none of these keys
-  const int first = p.causal ? causal_first_q_tile(p, k0) : 0;
-  const int n_q = p.seq / kTile;
-  for (int qt = first; qt < n_q; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile_bf16<D>(sQ, Q + q0 * p.q_strides[1], p.q_strides[1]);
-    load_tile_bf16<D>(sDO, DO + q0 * p.do_strides[1], p.do_strides[1]);
-    if (tid < kTile) {
-      sLse[tid] = p.lse[static_cast<size_t>(bh) * p.seq + q0 + tid];
-      sDelta[tid] = p.delta[static_cast<size_t>(bh) * p.seq + q0 + tid];
-    }
-    __syncthreads();
-    mm_abt<D>(sS, sQ, sK);
-    mm_abt<D>(sDP, sDO, sV);
-    __syncthreads();
-    for (int e = tid; e < kTile * kTile; e += kThreads) {
-      const int r = e / kTile, kc = e % kTile;
-      const bool live = k0 + kc < kv_len && causal_live(p, q0 + r, k0 + kc);
-      const float pv = live ? expf(sS[r * kLDF + kc] * p.scale - sLse[r]) : 0.f;
-      float d = sDP[r * kLDF + kc], pd = pv;
-      if (p.dropout) {
-        const float keep = drop_scale(p, gbh, p.q_off + q0 + r, p.k_off + k0 + kc);
-        pd *= keep;  // dropped probabilities feed dV
-        d *= keep;
-      }
-      sP[r * kLDP + kc] = __float2bfloat16(pd);
-      sDS[r * kLDP + kc] = __float2bfloat16(pv * (d - sDelta[r]));
-    }
-    __syncthreads();
-    mm_acc<D, true>(dv, sP, sDO);  // dV += (p∘keep)ᵀ·dO
-    mm_acc<D, true>(dk, sDS, sQ);  // dK += dSᵀ·Q
-  }
-
-  // stage dK, then dV, through the score tiles
-  __syncthreads();
-  store_acc<D>(sS, dk);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    bf16* dst = dk_out + out_offset(p, b, k0 + r, h, D);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      dst[tx + 16 * j] = __float2bfloat16(sS[r * ldo<D>() + tx + 16 * j] * p.scale);
-  }
-  __syncthreads();
-  store_acc<D>(sS, dv);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    bf16* dst = dv_out + out_offset(p, b, k0 + r, h, D);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      dst[tx + 16 * j] = __float2bfloat16(sS[r * ldo<D>() + tx + 16 * j]);
-  }
-}
-
-// ------------------------------------- bf16 forward on TMA and wgmma (d 64, 128)
+// ------------------------ bf16 forward and backward on TMA and wgmma (d 64, 128)
 
 namespace wg {
 
 using namespace hopper;
 
-constexpr int kRowsQ = 128;     // query rows of a block: 64 per consumer warpgroup
+// rows of a block's own operand (Q in the forward and dQ, K and V in
+// dK/dV): 64 per consumer warpgroup
+constexpr int kRows = 128;
 constexpr int kConsumers = 2;   // warpgroups 1 and 2; warpgroup 0 loads
 constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kStages = 3;      // K/V tiles in flight
+constexpr int kStages = 3;      // streamed tiles in flight
 constexpr int kBox = 64;        // columns of a TMA box: one 128-byte swizzle row
 // registers a thread after setmaxnreg: the launch holds 168 a thread
 // (65536 / 384, rounded down to 8), the producer keeps 40 of them
@@ -1061,16 +660,24 @@ constexpr int kLaunchRegs = 168;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs =
     (kLaunchRegs * kThreads - 128 * kProducerRegs) / (128 * kConsumers) / 8 * 8;
-// the K and V tiles of the heads that run at once should stay in the 50 MB
-// L2 while their query blocks read them again: heads are grouped to this
-// many bytes of K and V
+// the backward's block: the two consumer warpgroups alone, one of whose
+// threads also keeps the ring full. Its consumers need more than 224
+// registers at d 128 (dK and dV, 64 + 64 fp32 a thread, beside the two
+// 32-value score tiles), which neither the forward's setmaxnreg split
+// (ptxas kept the code after setmaxnreg.inc near the launch's 168 and
+// spilled) nor a producer warp beside them (288 threads: 224 a thread)
+// gives; 256 threads launch at up to 255 each
+constexpr int kBwdThreads = 128 * kConsumers;
+// the streamed tiles of the heads that run at once (K and V; Q and dO in
+// dK/dV) should stay in the 50 MB L2 while the heads' other blocks read
+// them again: heads are grouped to this many bytes of the two operands
 constexpr size_t kGroupBytes = 24u << 20;
 
 // every tile is D / kBox boxes of [rows][kBox], 128-byte swizzle, box j
 // holding columns kBox·j.. of each row
 template <int D>
 struct Smem {
-  bf16 q[kRowsQ * D];
+  bf16 q[kRows * D];
   bf16 k[kStages][kTile * D];
   bf16 v[kStages][kTile * D];
   uint64_t q_full;            // Q has landed
@@ -1078,10 +685,44 @@ struct Smem {
   uint64_t v_full[kStages];   // a V tile has landed
   uint64_t empty[kStages];    // both tiles of a stage are read (every consumer thread)
 };
+
+// dQ: Q and dO of the block's rows once, 64-key K and V tiles streamed
+template <int D>
+struct DqSmem {
+  bf16 q[kRows * D];
+  bf16 dout[kRows * D];
+  bf16 k[kStages][kTile * D];
+  bf16 v[kStages][kTile * D];
+  uint64_t q_full;          // Q and dO have landed
+  uint64_t full[kStages];   // the K and V tiles of a stage have landed
+  uint64_t empty[kStages];  // a stage is read (every consumer thread)
+};
+
+// dK/dV: K and V of the block's rows once, 64-query Q and dO tiles
+// streamed with the tile's lse and delta
+template <int D>
+struct DkvSmem {
+  bf16 k[kRows * D];
+  bf16 v[kRows * D];
+  bf16 q[kStages][kTile * D];
+  bf16 dout[kStages][kTile * D];
+  float lse[kStages][kTile];
+  float delta[kStages][kTile];
+  uint64_t kv_full;         // K and V have landed
+  uint64_t full[kStages];   // Q, dO, lse and delta of a stage have landed
+  uint64_t empty[kStages];  // a stage is read (every consumer thread)
+};
+
 // the swizzled tiles need 1024-byte aligned addresses: the kernel aligns
 // the dynamic shared memory itself
-template <int D>
-constexpr size_t smem_bytes() { return sizeof(Smem<D>) + 1024; }
+template <typename S>
+constexpr size_t smem_bytes() { return sizeof(S) + 1024; }
+
+template <typename S>
+__device__ __forceinline__ S& smem_of(unsigned char* raw) {
+  const uint32_t base = smem_u32(raw);
+  return *reinterpret_cast<S*>(raw + ((1024 - (base & 1023)) & 1023));
+}
 
 // d[0:32] (+)= A·B for one warpgroup: A a K-major [64][16] tile and B a
 // K-major [64][16] tile, both in shared memory behind their descriptors;
@@ -1173,21 +814,94 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-// O (+)= P·V on one warpgroup's 64 rows: four 16-key steps, P's A
-// fragments in registers, V's 16 rows of the step through the transpose
-// bit (column boxes kTile·kBox elements apart)
+// acc = A·Bᵀ on one warpgroup: A its 64 rows of a [a_rows][D] tile
+// (a_rows apart between column boxes), B a [64][D] tile, both K-major in
+// shared memory; over D in 16-deep steps (box kk/4, columns 16·(kk%4)..).
+// Issued, not waited for.
 template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pa)[16],
-                                           const bf16* v) {
+__device__ __forceinline__ void ss_product(float (&acc)[32], const bf16* a, int a_rows,
+                                           const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int col = (kk % 4) * 16;
+    wgmma_ss_m64n64k16(acc, desc(a + (kk / 4) * a_rows * kBox + col, 16, 1024),
+                       desc(b + (kk / 4) * kTile * kBox + col, 16, 1024), kk > 0);
+  }
+}
+
+// acc += A·B on one warpgroup's 64 rows, four 16-deep steps: A a
+// [64][64] bf16 tile in registers (a score tile's accumulator layout,
+// rounded in pairs), B a [64][D] tile in shared memory whose rows are the
+// depth (V for O += P·V; K for dQ += dS·K; dO and Q for dV += Pᵀ·dO and
+// dK += dSᵀ·Q), through the transpose bit (column boxes kTile·kBox
+// elements apart). Issued, not waited for.
+template <int D>
+__device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (&pa)[16],
+                                           const bf16* b) {
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk) {
     const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
-    const uint64_t db = desc(v + kk * 16 * kBox, kTile * kBox * sizeof(bf16), 1024);
+    const uint64_t db = desc(b + kk * 16 * kBox, kTile * kBox * sizeof(bf16), 1024);
     if constexpr (D == 64)
-      wgmma_rs_m64n64k16(o, a, db);
+      wgmma_rs_m64n64k16(acc, a, db);
     else
-      wgmma_rs_m64n128k16(o, a, db);
+      wgmma_rs_m64n128k16(acc, a, db);
   }
+}
+
+// f(kMask, kDropout) with the two flags as compile-time constants
+// (std::integral_constant), so that a tile's elementwise pass is
+// instantiated without the masks where no cell of it is masked
+template <typename F>
+__device__ __forceinline__ void with_flags(bool mask, bool dropout, F&& f) {
+  using yes = std::true_type;
+  using no = std::false_type;
+  if (mask)
+    dropout ? f(yes{}, yes{}) : f(yes{}, no{});
+  else
+    dropout ? f(no{}, yes{}) : f(no{}, no{});
+}
+
+// a [rows][D] tile of a 4-D tensor map at (row, h, b) into dst: D / kBox
+// boxes of [rows][kBox], completing on bar
+template <int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& map, uint64_t* bar,
+                                         int rows, int h, int row, int b) {
+#pragma unroll
+  for (int j = 0; j < D / kBox; ++j) tma_load(dst + j * rows * kBox, &map, bar, j * kBox, h, row, b);
+}
+
+// this block's (row block, b·h row) in a grid of ceil(s / kRows) blocks
+// for every b·h row: the rows in groups of `group`, every row of a group
+// before the group's next block, from the last block when `from_last`
+// (under causal masking the query blocks with the most key tiles) or from
+// the first (the key block that the most query tiles see)
+__device__ __forceinline__ int2 walk(const FlashParams& p, int group, bool from_last) {
+  const int n_blk = (p.seq + kRows - 1) / kRows;
+  const int g = blockIdx.x / (group * n_blk), in_group = blockIdx.x % (group * n_blk);
+  const int rows = min(group, p.batch * p.heads - g * group);
+  const int blk = in_group / rows;
+  return make_int2(from_last ? n_blk - 1 - blk : blk, g * group + in_group % rows);
+}
+
+// the backward's ring of n streamed tiles: thread 0 of the block fills
+// the stages first, then, at the top of iteration `it`, once both
+// warpgroups have read the stage of iteration it - 1, loads iteration
+// it - 1 + kStages there (load(stage, iteration)); its warp waits with
+// it, so that the warpgroup's wgmma instructions run converged
+template <typename Load>
+__device__ __forceinline__ void ring_fill(int n, Load&& load) {
+  if (threadIdx.x == 0)
+    for (int i = 0; i < min(n, kStages); ++i) load(i, i);
+}
+template <typename Load>
+__device__ __forceinline__ void ring_refill(uint64_t* empty, int it, int n, Load&& load) {
+  const int prev = it - 1;
+  if (threadIdx.x == 0 && prev >= 0 && prev + kStages < n) {
+    mbar_wait(&empty[prev % kStages], (prev / kStages) & 1);
+    load(prev % kStages, prev + kStages);
+  }
+  __syncwarp();
 }
 
 // the online softmax of one warpgroup's [64][64] score tile sc, on the
@@ -1281,16 +995,10 @@ __device__ __forceinline__ void consumer(Smem<D>& s, const FlashParams& p, int c
   uint32_t phase = 0;
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kTile;
-    // S = Q·Kᵀ over D in 16-deep steps (box kk/4, columns 16·(kk%4)..)
-    float sc[32];
+    float sc[32];  // S = Q·Kᵀ
     mbar_wait(&s.k_full[stage], phase);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int col = (kk % 4) * 16;
-      wgmma_ss_m64n64k16(sc, desc(qw + (kk / 4) * kRowsQ * kBox + col, 16, 1024),
-                         desc(s.k[stage] + (kk / 4) * kTile * kBox + col, 16, 1024), kk > 0);
-    }
+    ss_product<D>(sc, qw, kRows, s.k[stage]);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(sc);
@@ -1301,17 +1009,9 @@ __device__ __forceinline__ void consumer(Smem<D>& s, const FlashParams& p, int c
                       (p.causal && p.k_off + k0 + kTile - 1 > p.q_off + q_lo);
     float alpha[2];
     uint32_t pa[16];
-    if (mask) {
-      if (p.dropout)
-        softmax_tile<true, true>(sc, m, l, alpha, pa, p, row0, k0, col0, kv_len, hrow);
-      else
-        softmax_tile<true, false>(sc, m, l, alpha, pa, p, row0, k0, col0, kv_len, hrow);
-    } else {
-      if (p.dropout)
-        softmax_tile<false, true>(sc, m, l, alpha, pa, p, row0, k0, col0, kv_len, hrow);
-      else
-        softmax_tile<false, false>(sc, m, l, alpha, pa, p, row0, k0, col0, kv_len, hrow);
-    }
+    with_flags(mask, p.dropout, [&](auto km, auto kd) {
+      softmax_tile<decltype(km)::value, decltype(kd)::value>(sc, m, l, alpha, pa, p, row0, k0, col0, kv_len, hrow);
+    });
     // O = alpha·O + P·V: the rescale in registers, the product added by wgmma
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -1322,7 +1022,7 @@ __device__ __forceinline__ void consumer(Smem<D>& s, const FlashParams& p, int c
     }
     mbar_wait(&s.v_full[stage], phase);
     wgmma_fence();
-    pv_product<D>(o, pa, s.v[stage]);
+    rs_product<D>(o, pa, s.v[stage]);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(o);
@@ -1357,22 +1057,16 @@ __device__ __forceinline__ void producer(const CUtensorMap& tq, const CUtensorMa
                                          const CUtensorMap& tv, Smem<D>& s, int b, int h, int q0,
                                          int n_tiles) {
   constexpr uint32_t kTileBytes = kTile * D * sizeof(bf16);
-  mbar_expect_tx(&s.q_full, kRowsQ * D * sizeof(bf16));
-#pragma unroll
-  for (int j = 0; j < D / kBox; ++j)
-    tma_load(s.q + j * kRowsQ * kBox, &tq, &s.q_full, j * kBox, h, q0, b);
+  mbar_expect_tx(&s.q_full, kRows * D * sizeof(bf16));
+  tma_tile<D>(s.q, tq, &s.q_full, kRows, h, q0, b);
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0; it < n_tiles; ++it) {
     mbar_wait(&s.empty[stage], phase ^ 1);  // passes at once on the first round
     mbar_expect_tx(&s.k_full[stage], kTileBytes);
-#pragma unroll
-    for (int j = 0; j < D / kBox; ++j)
-      tma_load(s.k[stage] + j * kTile * kBox, &tk, &s.k_full[stage], j * kBox, h, it * kTile, b);
+    tma_tile<D>(s.k[stage], tk, &s.k_full[stage], kTile, h, it * kTile, b);
     mbar_expect_tx(&s.v_full[stage], kTileBytes);
-#pragma unroll
-    for (int j = 0; j < D / kBox; ++j)
-      tma_load(s.v[stage] + j * kTile * kBox, &tv, &s.v_full[stage], j * kBox, h, it * kTile, b);
+    tma_tile<D>(s.v[stage], tv, &s.v_full[stage], kTile, h, it * kTile, b);
     if (++stage == kStages) {
       stage = 0;
       phase ^= 1;
@@ -1380,12 +1074,282 @@ __device__ __forceinline__ void producer(const CUtensorMap& tq, const CUtensorMa
   }
 }
 
+// ---------------------------------------------------------------- dQ (B2)
+
+// dS of one warpgroup's [64 q][64 k] tile on the accumulator layout (rows
+// row0 + 8r, keys k0 + 8j + col0 + i) from S = Q·Kᵀ and dP = dO·Vᵀ: p =
+// exp(s·scale − lse) regenerated; with kMask the causal and kv_lens masks
+// (p exactly 0: a masked cell's exp may overflow, and the select drops
+// it); with kDropout dP times the keep mask of the global (gbh, q, k)
+// (hrow: the rows' hash terms); dS = p∘(dP − delta), rounded to bf16 in
+// pairs, which are the A operand of dQ += dS·K. Branch-free over the 32
+// values.
+template <bool kMask, bool kDropout>
+__device__ __forceinline__ void dq_tile(const float (&sc)[32], const float (&dp)[32],
+                                        uint32_t (&ds)[16], const FlashParams& p,
+                                        const float (&lse)[2], const float (&delta)[2], int row0,
+                                        int k0, int col0, int kv_len, const uint32_t (&hrow)[2]) {
+  const uint32_t hcol = static_cast<uint32_t>(p.k_off + k0 + col0) * kC2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float v[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = 4 * j + 2 * r + i;
+        float pv = expf(sc[e] * p.scale - lse[r]);
+        if constexpr (kMask) {
+          const int kg = k0 + 8 * j + col0 + i;
+          pv = kg < kv_len && causal_live(p, row0 + 8 * r, kg) ? pv : 0.f;
+        }
+        float d = dp[e];
+        if constexpr (kDropout)
+          d *= keep_of(p, hrow[r] + hcol + static_cast<uint32_t>(8 * j + i) * kC2);
+        v[i] = pv * (d - delta[r]);
+      }
+      ds[2 * j + r] = pack_bf16(v[0], v[1]);
+    }
+}
+
+// a dQ block: warpgroup c = threadIdx / 128 owns query rows 64c .. 64c +
+// 63 of the block, on the forward's accumulator layout. Thread 0 loads Q
+// and dO once and keeps the ring of K and V tiles full. Per key tile S =
+// Q·Kᵀ and dP = dO·Vᵀ (one commit group), dS in registers, then dQ +=
+// dS·K; dQ·scale is stored at the end.
+template <int D>
+__device__ __forceinline__ void dq_block(const CUtensorMap& tq, const CUtensorMap& tk,
+                                         const CUtensorMap& tv, const CUtensorMap& tdo,
+                                         DqSmem<D>& s, const FlashParams& p, int b, int h, int bh,
+                                         int q0, int n_tiles, int kv_len) {
+  const auto load = [&](int stage, int it) {
+    mbar_expect_tx(&s.full[stage], 2 * kTile * D * sizeof(bf16));
+    tma_tile<D>(s.k[stage], tk, &s.full[stage], kTile, h, it * kTile, b);
+    tma_tile<D>(s.v[stage], tv, &s.full[stage], kTile, h, it * kTile, b);
+  };
+  if (threadIdx.x == 0 && n_tiles > 0) {  // a block with no key tile loads nothing
+    mbar_expect_tx(&s.q_full, 2 * kRows * D * sizeof(bf16));
+    tma_tile<D>(s.q, tq, &s.q_full, kRows, h, q0, b);
+    tma_tile<D>(s.dout, tdo, &s.q_full, kRows, h, q0, b);
+  }
+  ring_fill(n_tiles, load);
+
+  const int c = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + c * 64 + warp * 16 + lane / 4;  // local query rows row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const int q_lo = q0 + c * 64;  // this warpgroup's first row
+  const uint32_t row_key = global_bh(p, bh) * kC3 + static_cast<uint32_t>(p.seed);
+  uint32_t hrow[2];
+  float lse[2], delta[2];  // rows past the sequence take 0 and are not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row0 + 8 * r;
+    hrow[r] = static_cast<uint32_t>(p.q_off + q) * kC1 + row_key;
+    const size_t at = static_cast<size_t>(bh) * p.seq + q;
+    lse[r] = q < p.seq ? p.lse[at] : 0.f;
+    delta[r] = q < p.seq ? p.delta[at] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const bf16* qw = s.q + c * 64 * kBox;  // this warpgroup's rows of each box
+  const bf16* dow = s.dout + c * 64 * kBox;
+
+  if (n_tiles > 0) mbar_wait(&s.q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    ring_refill(s.empty, it, n_tiles, load);
+    const int stage = it % kStages, k0 = it * kTile;
+    float sc[32], dp[32];  // S = Q·Kᵀ, dP = dO·Vᵀ
+    mbar_wait(&s.full[stage], (it / kStages) & 1);
+    wgmma_fence();
+    ss_product<D>(sc, qw, kRows, s.k[stage]);
+    ss_product<D>(dp, dow, kRows, s.v[stage]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    const bool mask = k0 + kTile > kv_len ||
+                      (p.causal && p.k_off + k0 + kTile - 1 > p.q_off + q_lo);
+    uint32_t ds[16];
+    with_flags(mask, p.dropout, [&](auto km, auto kd) {
+      dq_tile<decltype(km)::value, decltype(kd)::value>(sc, dp, ds, p, lse, delta, row0, k0,
+                                                        col0, kv_len, hrow);
+    });
+    wgmma_fence();
+    rs_product<D>(dq, ds, s.k[stage]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dq);
+    fence_regs(ds);
+    mbar_arrive(&s.empty[stage]);
+  }
+
+  bf16* out = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row0 + 8 * r;
+    if (q >= p.seq) continue;
+    bf16* dst = out + out_offset(p, b, q, h, D) + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
+  }
+}
+
+// ------------------------------------------------------------ dK, dV (B3)
+
+// (p∘keep)ᵀ and dSᵀ of one warpgroup's transposed [64 k][64 q] tile on
+// the accumulator layout (key rows key0 + 8r, queries q0 + 8j + col0 + i)
+// from Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, with each column's lse and delta from
+// the stage. The masks as in dq_tile; the keep mask of the same global
+// (gbh, q, k), whose hash now takes its row term from the key (k·C2) and
+// its column term from the query (q·C1). p∘keep and dS = p∘(dP∘keep −
+// delta), rounded to bf16 in pairs, are the A operands of dV += (p∘keep)ᵀ·dO
+// and dK += dSᵀ·Q.
+template <bool kMask, bool kDropout>
+__device__ __forceinline__ void dkv_tile(const float (&st)[32], const float (&dpt)[32],
+                                         uint32_t (&pa)[16], uint32_t (&ds)[16],
+                                         const FlashParams& p, const float* lse,
+                                         const float* delta, int key0, int q0, int col0,
+                                         int kv_len, const uint32_t (&hrow)[2]) {
+  const uint32_t hcol = static_cast<uint32_t>(p.q_off + q0 + col0) * kC1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + col0);
+    const float2 d2 = *reinterpret_cast<const float2*>(delta + 8 * j + col0);
+    const float lc[2] = {l2.x, l2.y}, dc[2] = {d2.x, d2.y};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float pk[2], dsv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = 4 * j + 2 * r + i;
+        float pv = expf(st[e] * p.scale - lc[i]);
+        if constexpr (kMask) {
+          const int kr = key0 + 8 * r;
+          pv = kr < kv_len && causal_live(p, q0 + 8 * j + col0 + i, kr) ? pv : 0.f;
+        }
+        float d = dpt[e];
+        pk[i] = pv;
+        if constexpr (kDropout) {
+          const float keep = keep_of(p, hrow[r] + hcol + static_cast<uint32_t>(8 * j + i) * kC1);
+          pk[i] = pv * keep;  // dropped probabilities feed dV
+          d *= keep;
+        }
+        dsv[i] = pv * (d - dc[i]);
+      }
+      pa[2 * j + r] = pack_bf16(pk[0], pk[1]);
+      ds[2 * j + r] = pack_bf16(dsv[0], dsv[1]);
+    }
+  }
+}
+
+// a dK/dV block: warpgroup c = threadIdx / 128 owns key rows 64c .. 64c
+// + 63 of the block. Thread 0 loads K and V once and keeps the ring of Q
+// and dO tiles, with their rows' lse and delta, full. Per query tile the
+// transposed tiles Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (one commit group), whose
+// accumulator layout makes (p∘keep)ᵀ and dSᵀ the register A operands of
+// dV += (p∘keep)ᵀ·dO and dK += dSᵀ·Q: no score tile passes through shared
+// memory. A warpgroup whose keys all lie past kv_len, or whose first
+// causal query tile comes later than the block's, passes the stages it
+// has no work in (and stores zeros where no query sees its keys).
+template <int D>
+__device__ __forceinline__ void dkv_block(const CUtensorMap& tq, const CUtensorMap& tk,
+                                          const CUtensorMap& tv, const CUtensorMap& tdo,
+                                          DkvSmem<D>& s, const FlashParams& p, int b, int h,
+                                          int bh, int k0, int first, int n_q, int kv_len) {
+  const int n = n_q - first;  // the query tiles the block streams
+  const float* lse_row = p.lse + static_cast<size_t>(bh) * p.seq;
+  const float* delta_row = p.delta + static_cast<size_t>(bh) * p.seq;
+  const auto load = [&](int stage, int it) {
+    constexpr uint32_t kRowBytes = kTile * sizeof(float);
+    const int q0 = (first + it) * kTile;
+    mbar_expect_tx(&s.full[stage], 2 * kTile * D * sizeof(bf16) + 2 * kRowBytes);
+    tma_tile<D>(s.q[stage], tq, &s.full[stage], kTile, h, q0, b);
+    tma_tile<D>(s.dout[stage], tdo, &s.full[stage], kTile, h, q0, b);
+    bulk_load(s.lse[stage], lse_row + q0, kRowBytes, &s.full[stage]);
+    bulk_load(s.delta[stage], delta_row + q0, kRowBytes, &s.full[stage]);
+  };
+  if (threadIdx.x == 0 && n > 0) {  // a block with no query tile loads nothing
+    mbar_expect_tx(&s.kv_full, 2 * kRows * D * sizeof(bf16));
+    tma_tile<D>(s.k, tk, &s.kv_full, kRows, h, k0, b);
+    tma_tile<D>(s.v, tv, &s.kv_full, kRows, h, k0, b);
+  }
+  ring_fill(n, load);
+
+  const int c = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int key0 = k0 + c * 64 + warp * 16 + lane / 4;  // local key rows key0, key0 + 8
+  const int col0 = 2 * (lane % 4);
+  const int k_lo = k0 + c * 64;  // this warpgroup's first key
+  const bool live = k_lo < kv_len;
+  const int own_first = p.causal ? causal_first_q_tile(p, k_lo) : 0;
+  // the row terms of the two rows' dropout hash inputs: the keys'
+  const uint32_t row_key = global_bh(p, bh) * kC3 + static_cast<uint32_t>(p.seed);
+  const uint32_t hrow[2] = {static_cast<uint32_t>(p.k_off + key0) * kC2 + row_key,
+                            static_cast<uint32_t>(p.k_off + key0 + 8) * kC2 + row_key};
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  const bf16* kw = s.k + c * 64 * kBox;  // this warpgroup's rows of each box
+  const bf16* vw = s.v + c * 64 * kBox;
+
+  if (n > 0) mbar_wait(&s.kv_full, 0);
+  for (int it = 0; it < n; ++it) {
+    ring_refill(s.empty, it, n, load);
+    const int stage = it % kStages, q0 = (first + it) * kTile;
+    mbar_wait(&s.full[stage], (it / kStages) & 1);
+    if (live && first + it >= own_first) {
+      float st[32], dpt[32];  // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ
+      wgmma_fence();
+      ss_product<D>(st, kw, kRows, s.q[stage]);
+      ss_product<D>(dpt, vw, kRows, s.dout[stage]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+      const bool mask = k_lo + kTile > kv_len ||
+                        (p.causal && p.k_off + k_lo + kTile - 1 > p.q_off + q0);
+      uint32_t pa[16], ds[16];
+      with_flags(mask, p.dropout, [&](auto km, auto kd) {
+        dkv_tile<decltype(km)::value, decltype(kd)::value>(
+            st, dpt, pa, ds, p, s.lse[stage], s.delta[stage], key0, q0, col0, kv_len, hrow);
+      });
+      wgmma_fence();
+      rs_product<D>(dv, pa, s.dout[stage]);
+      rs_product<D>(dk, ds, s.q[stage]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dv);
+      fence_acc(dk);
+      fence_regs(pa);
+      fence_regs(ds);
+    }
+    mbar_arrive(&s.empty[stage]);
+  }
+
+  bf16* dk_out = static_cast<bf16*>(p.dk);
+  bf16* dv_out = static_cast<bf16*>(p.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int k = key0 + 8 * r;
+    if (k >= p.seq) continue;
+    const size_t off = out_offset(p, b, k, h, D) + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * j) =
+          __floats2bfloat162_rn(dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * j) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 }  // namespace wg
 
-// one block per (128 query rows, b·h row): the heads in groups of
-// `group` b·h rows, and within a group the query blocks with the most key
-// tiles first (under causal masking the last), every head of the group
-// before the next block
+// one block per (128 query rows, b·h row), walked as `wg::walk` says:
+// the heads in groups of `group` b·h rows, and within a group the query
+// blocks with the most key tiles first (under causal masking the last)
 template <int D>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1393,19 +1357,14 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                         const __grid_constant__ CUtensorMap tv, const FlashParams p, int group) {
   using namespace wg;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t base = smem_u32(smem_raw);
-  Smem<D>& s = *reinterpret_cast<Smem<D>*>(smem_raw + ((1024 - (base & 1023)) & 1023));
+  Smem<D>& s = smem_of<Smem<D>>(smem_raw);
 
-  const int n_qb = (p.seq + kRowsQ - 1) / kRowsQ;
-  const int g = blockIdx.x / (group * n_qb), in_group = blockIdx.x % (group * n_qb);
-  const int heads = min(group, p.batch * p.heads - g * group);
-  const int qb = n_qb - 1 - in_group / heads;
-  const int bh = g * group + in_group % heads;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int q0 = qb * kRowsQ;
+  const int2 at = walk(p, group, true);
+  const int bh = at.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = at.x * kRows;
   const int kv_len = live_keys(p, b);
   int n_tiles = (kv_len + kTile - 1) / kTile;  // tiles holding any live key
-  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0, min(kRowsQ, p.seq - q0)));
+  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0, min(kRows, p.seq - q0)));
 
   const int wgi = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -1431,8 +1390,77 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   }
 }
 
+// dQ: one block per (128 query rows, b·h row), walked as the forward's;
+// the key tiles it streams are those the forward's block reads
+template <int D>
+__global__ void __launch_bounds__(wg::kBwdThreads, 1)
+    flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, const FlashParams p,
+                           int group) {
+  using namespace wg;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DqSmem<D>& s = smem_of<DqSmem<D>>(smem_raw);
+
+  const int2 at = walk(p, group, true);
+  const int bh = at.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = at.x * kRows;
+  const int kv_len = live_keys(p, b);
+  int n_tiles = (kv_len + kTile - 1) / kTile;
+  if (p.causal) n_tiles = min(n_tiles, causal_key_tiles(p, q0, min(kRows, p.seq - q0)));
+
+  if (threadIdx.x == 0) {
+    mbar_init(&s.q_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], kBwdThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  dq_block<D>(tq, tk, tv, tdo, s, p, b, h, bh, q0, n_tiles, kv_len);
+}
+
+// dK/dV: one block per (128 key rows, b·h row), the heads in groups of
+// `group` b·h rows and within a group the key blocks that the most query
+// tiles see first (under causal masking the first)
+template <int D>
+__global__ void __launch_bounds__(wg::kBwdThreads, 1)
+    flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo, const FlashParams p,
+                            int group) {
+  using namespace wg;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DkvSmem<D>& s = smem_of<DkvSmem<D>>(smem_raw);
+
+  const int2 at = walk(p, group, false);
+  const int bh = at.y, b = bh / p.heads, h = bh % p.heads;
+  const int k0 = at.x * kRows;
+  const int kv_len = live_keys(p, b);
+  const int n_q = p.seq / kTile;
+  // the query tiles that see a key of the block: none when its keys all
+  // lie past kv_len; under causal masking those from the one that reaches
+  // its first key
+  const int first = k0 >= kv_len ? n_q : p.causal ? min(causal_first_q_tile(p, k0), n_q) : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&s.kv_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], kBwdThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  dkv_block<D>(tq, tk, tv, tdo, s, p, b, h, bh, k0, first, n_q, kv_len);
+}
+
 // ------------------------------------------------------------------ launch
 
+// the CUDA-core kernels: one block per (64-row tile, b·h row)
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, const FlashParams& p, cudaStream_t stream) {
   cudaError_t err =
@@ -1460,52 +1488,97 @@ bool head_map(CUtensorMap* map, const void* base, const long long* strides, cons
   return hopper::tensor_map_bf16(map, base, 4, dims, bytes, box);
 }
 
-// the bf16 forward at d 64 and 128: the maps of q, k and v (refused, as
-// cudaErrorInvalidValue, for a base or stride off 16 bytes), then one
-// block per (128 query rows, b·h row)
+// the maps of a TMA + wgmma call: q and dO with boxes of q_rows rows, k
+// and v of k_rows (dO only when the call has one); false, for the caller
+// to refuse as cudaErrorInvalidValue, on a base or stride off 16 bytes
+template <int D>
+bool wg_maps(CUtensorMap (&m)[4], const FlashParams& p, int q_rows, int k_rows) {
+  return head_map(&m[0], p.q, p.q_strides, p, D, q_rows) &&
+         head_map(&m[1], p.k, p.k_strides, p, D, k_rows) &&
+         head_map(&m[2], p.v, p.v_strides, p, D, k_rows) &&
+         (p.dout == nullptr || head_map(&m[3], p.dout, p.do_strides, p, D, q_rows));
+}
+
+// the shared memory a TMA + wgmma kernel needs, and its grid: the b·h
+// rows grouped so that one group's streamed operands (two of [s, D] bf16
+// per row) fit wg::kGroupBytes, times the 128-row blocks of a row.
+// Returns (group, blocks), or (0, err).
+template <int D>
+int2 wg_grid(const void* kernel, size_t smem, const FlashParams& p) {
+  const int err = hopper::set_smem(kernel, smem);
+  if (err != 0) return make_int2(0, err);
+  const int rows = p.batch * p.heads;
+  const size_t bytes = 2ull * p.seq * D * sizeof(bf16);
+  const int group = static_cast<int>(
+      std::max<size_t>(1, std::min<size_t>(rows, wg::kGroupBytes / bytes)));
+  return make_int2(group, rows * ((p.seq + wg::kRows - 1) / wg::kRows));
+}
+
+// the bf16 forward at d 64 and 128: one block per (128 query rows, b·h row)
 template <int D>
 int fwd_wg(const FlashParams& p, cudaStream_t st) {
-  CUtensorMap tq, tk, tv;
-  if (!head_map(&tq, p.q, p.q_strides, p, D, wg::kRowsQ) ||
-      !head_map(&tk, p.k, p.k_strides, p, D, kTile) ||
-      !head_map(&tv, p.v, p.v_strides, p, D, kTile))
-    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[4];
+  if (!wg_maps<D>(m, p, wg::kRows, kTile)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = wg::smem_bytes<wg::Smem<D>>();
   const void* kernel = reinterpret_cast<const void*>(flash_fwd_wg_kernel<D>);
-  int err = hopper::set_smem(kernel, wg::smem_bytes<D>());
+  const int err = hopper::check_regs(kernel, wg::kLaunchRegs);  // the setmaxnreg split
   if (err != 0) return err;
-  err = hopper::check_regs(kernel, wg::kLaunchRegs);
-  if (err != 0) return err;
-  const int rows = p.batch * p.heads;
-  const size_t kv_bytes = 2ull * p.seq * D * sizeof(bf16);  // one head's K and V
-  const int group = static_cast<int>(
-      std::max<size_t>(1, std::min<size_t>(rows, wg::kGroupBytes / kv_bytes)));
-  const int blocks = rows * ((p.seq + wg::kRowsQ - 1) / wg::kRowsQ);
-  flash_fwd_wg_kernel<D><<<blocks, wg::kThreads, wg::smem_bytes<D>(), st>>>(tq, tk, tv, p, group);
+  const int2 g = wg_grid<D>(kernel, smem, p);
+  if (g.x == 0) return g.y;
+  flash_fwd_wg_kernel<D><<<g.y, wg::kThreads, smem, st>>>(m[0], m[1], m[2], p, g.x);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 takes the tensor-core kernels (the forward at d 64 and 128 the TMA
-// + wgmma one), fp32 the CUDA-core ones
+// the bf16 dQ at d 64 and 128: one block per (128 query rows, b·h row)
+template <int D>
+int bwd_dq_wg(const FlashParams& p, cudaStream_t st) {
+  CUtensorMap m[4];
+  if (!wg_maps<D>(m, p, wg::kRows, kTile)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = wg::smem_bytes<wg::DqSmem<D>>();
+  const int2 g = wg_grid<D>(reinterpret_cast<const void*>(flash_bwd_dq_wg_kernel<D>), smem, p);
+  if (g.x == 0) return g.y;
+  flash_bwd_dq_wg_kernel<D><<<g.y, wg::kBwdThreads, smem, st>>>(m[0], m[1], m[2], m[3], p, g.x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 dK/dV at d 64 and 128: one block per (128 key rows, b·h row);
+// lse and delta arrive by bulk copies, which need them on 16 bytes
+template <int D>
+int bwd_dkv_wg(const FlashParams& p, cudaStream_t st) {
+  CUtensorMap m[4];
+  if (!wg_maps<D>(m, p, kTile, wg::kRows) ||
+      ((reinterpret_cast<uintptr_t>(p.lse) | reinterpret_cast<uintptr_t>(p.delta)) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = wg::smem_bytes<wg::DkvSmem<D>>();
+  const int2 g = wg_grid<D>(reinterpret_cast<const void*>(flash_bwd_dkv_wg_kernel<D>), smem, p);
+  if (g.x == 0) return g.y;
+  flash_bwd_dkv_wg_kernel<D><<<g.y, wg::kBwdThreads, smem, st>>>(m[0], m[1], m[2], m[3], p, g.x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 at d 64 and 128 takes the TMA + wgmma kernels; fp32, and bf16 at
+// d 16 and 32, the CUDA-core ones
+template <typename T, int D>
+constexpr bool kWg = std::is_same_v<T, bf16> && (D == 64 || D == 128);
+
 template <typename T, int D>
 int fwd(const FlashParams& p, cudaStream_t st) {
-  if constexpr (std::is_same_v<T, bf16> && (D == 64 || D == 128))
+  if constexpr (kWg<T, D>)
     return fwd_wg<D>(p, st);
-  else if constexpr (std::is_same_v<T, bf16>)
-    return launch(flash_fwd_tc_kernel<D>, fwd_tc_smem<D>(), p, st);
   else
     return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), p, st);
 }
 template <typename T, int D>
 int bwd_dq(const FlashParams& p, cudaStream_t st) {
-  if constexpr (std::is_same_v<T, bf16>)
-    return launch(flash_bwd_dq_tc_kernel<D>, bwd_tc_smem<D>(), p, st);
+  if constexpr (kWg<T, D>)
+    return bwd_dq_wg<D>(p, st);
   else
     return launch(flash_bwd_dq_kernel<T, D>, dq_smem<D>(), p, st);
 }
 template <typename T, int D>
 int bwd_dkv(const FlashParams& p, cudaStream_t st) {
-  if constexpr (std::is_same_v<T, bf16>)
-    return launch(flash_bwd_dkv_tc_kernel<D>, bwd_tc_smem<D>(), p, st);
+  if constexpr (kWg<T, D>)
+    return bwd_dkv_wg<D>(p, st);
   else
     return launch(flash_bwd_dkv_kernel<T, D>, dkv_smem<D>(), p, st);
 }

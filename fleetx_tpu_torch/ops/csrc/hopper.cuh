@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (ce_loss.cu's GEMMs, flash_attention.cu's forward): mbarriers, TMA loads
-// of tiles described by tensor maps, wgmma shared-memory descriptors and
-// the wgmma fences, and the host side of the tensor maps, which come from
-// libcuda's cuTensorMapEncodeTiled through the runtime's entry-point query
-// (so a library needs no -lcuda).
+// (ce_loss.cu's GEMMs, flash_attention.cu's forward and backward):
+// mbarriers, TMA loads of tiles described by tensor maps and bulk copies
+// of plain rows, wgmma shared-memory descriptors and the wgmma fences, and
+// the host side of the tensor maps, which come from libcuda's
+// cuTensorMapEncodeTiled through the runtime's entry-point query (so a
+// library needs no -lcuda).
 //
 // Every tile here is bf16 with 128-byte swizzle: a box is at most 64
 // elements wide (one 128-byte row), and its shared-memory destination is
@@ -88,6 +89,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src into dst, both on 16 bytes,
+// completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -4,11 +4,13 @@ Port of the JAX package's ``flash_attention`` (ops/pallas/flash_attention.py:
 954) and its custom VJP (``_flash``, :668-786). Three kernels in
 ``csrc/flash_attention.cu``:
 
-- ``flash_fwd`` (B1, ``_fwd_kernel`` :287): out and the fp32 log-sum-exp
-  (at bf16 and head dim 64 or 128, the training path's, a TMA + wgmma
-  kernel: q, k and v must then lie on 16 bytes, see :func:`_check_tma`);
+- ``flash_fwd`` (B1, ``_fwd_kernel`` :287): out and the fp32 log-sum-exp;
 - ``flash_bwd_dq`` (B2, ``_bwd_dq_kernel`` :397): dQ from lse and delta;
 - ``flash_bwd_dkv`` (B3, ``_bwd_dkv_kernel`` :502): dK and dV.
+
+At bf16 and head dim 64 or 128 (the training paths') all three are TMA +
+wgmma kernels, whose operands must lie on 16 bytes (:func:`_check_tma`);
+fp32, and bf16 at head dim 16 or 32, run CUDA-core kernels.
 
 Each kernel and plain version takes a ``meta`` of global ids, ``(b0, h0,
 h_local, h_total, q_off, k_off)`` (``_global_ids``, :273-284): the batch and
@@ -65,7 +67,7 @@ BLOCK_NAMES = ("block_fwd_lse", "block_dq", "block_dkv")  # B11's entries
 TILE = 64  # the kernels' q and k tile rows; sequences are multiples of it
 NEG_INF = -1e30  # the TPU kernels' masked score
 HEAD_DIMS = (16, 32, 64, 128)
-TMA_DIMS = (64, 128)  # head dims of the bf16 TMA + wgmma forward
+TMA_DIMS = (64, 128)  # head dims of the bf16 TMA + wgmma kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel vs plain version on the card, |got - want| <= atol + rtol*|want|
@@ -377,18 +379,25 @@ def _check(q, k, v, kv_lens, *others):
                              f"{q.device}")
 
 
+def _tma(q: torch.Tensor) -> bool:
+    """Whether a call on q runs the TMA + wgmma kernels."""
+    return q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] in TMA_DIMS
+
+
 def _check_tma(*named) -> None:
-    """The bf16 forward at d 64 and 128 loads q, k and v by TMA, which
-    takes a base and strides (over the dimensions of more than one row) on
-    16 bytes: raises ``ValueError`` for any other view (no other kernel
+    """The bf16 kernels at d 64 and 128 load their operands by TMA (and
+    dK/dV its lse and delta rows by bulk copies), which take a base and
+    strides (over the dimensions of more than one row, all but the last)
+    on 16 bytes: raises ``ValueError`` for any other view (no other kernel
     takes it instead)."""
     for name, t in named:
-        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        strides = [st for st, n in zip(t.stride()[:-1], t.shape[:-1])
+                   if n > 1]
         if t.data_ptr() % 16 or any(st * t.element_size() % 16
                                     for st in strides):
             raise ValueError(
-                f"{name}: the bf16 forward at head_dim {t.shape[-1]} loads "
-                f"by TMA and needs a 16-byte aligned base and strides, got "
+                f"{name}: the bf16 kernels at head_dim {TMA_DIMS} load by "
+                f"TMA and need a 16-byte aligned base and strides, got "
                 f"data_ptr % 16 = {t.data_ptr() % 16}, strides "
                 f"{tuple(t.stride())}")
 
@@ -401,7 +410,7 @@ def flash_fwd(q, k, v, *, causal: bool = True, kv_lens=None,
     operands must lie on 16 bytes: see :func:`_check_tma`); CPU tensors
     take :func:`flash_attention_fwd_ref`."""
     _check(q, k, v, kv_lens)
-    if q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] in TMA_DIMS:
+    if _tma(q):
         _check_tma(("q", q), ("k", k), ("v", v))
     kw = dict(causal=causal, kv_lens=kv_lens, dropout_rate=dropout_rate,
               seed=seed, meta=_meta(meta, q.shape[2]))
@@ -425,14 +434,18 @@ def _bwd_inputs(q, k, v, do, lse, delta, kv_lens):
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 [b*h, s], got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if _tma(q):
+        _check_tma(("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse),
+                   ("delta", delta))
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                  kv_lens=None, dropout_rate: float = 0.0, seed: int = 0,
                  meta=None) -> torch.Tensor:
     """B2: dQ [b, s, h, d] from the forward's lse and delta = rowsum(dO∘O)
-    (both fp32 [b*h, s]). CUDA tensors launch ``flash_bwd_dq``; CPU tensors
-    take :func:`flash_bwd_dq_ref`."""
+    (both fp32 [b*h, s]). CUDA tensors launch ``flash_bwd_dq`` (at bf16, d
+    64 and 128, the TMA + wgmma kernel: see :func:`_check_tma`); CPU
+    tensors take :func:`flash_bwd_dq_ref`."""
     _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     kw = dict(causal=causal, kv_lens=kv_lens, dropout_rate=dropout_rate,
               seed=seed, meta=_meta(meta, q.shape[2]))
@@ -448,7 +461,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                   kv_lens=None, dropout_rate: float = 0.0, seed: int = 0,
                   meta=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: ``(dK, dV)`` [b, s, h, d]. CUDA tensors launch
-    ``flash_bwd_dkv``; CPU tensors take :func:`flash_bwd_dkv_ref`."""
+    ``flash_bwd_dkv`` (at bf16, d 64 and 128, the TMA + wgmma kernel: see
+    :func:`_check_tma`); CPU tensors take :func:`flash_bwd_dkv_ref`."""
     _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     kw = dict(causal=causal, kv_lens=kv_lens, dropout_rate=dropout_rate,
               seed=seed, meta=_meta(meta, q.shape[2]))
@@ -479,9 +493,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse, kv_lens = ctx.saved_tensors
         b, s, h, _ = q.shape
-        do = do.to(q.dtype)
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        do = do.to(q.dtype).contiguous()
         # delta = rowsum(dO∘O) in fp32, outside the kernels
         delta = (do.float() * out.float()).sum(-1)  # [b, s, h]
         delta = delta.transpose(1, 2).reshape(b * h, s).contiguous()

@@ -4,13 +4,17 @@ so that two trees can be held against each other in one call.
     python fleetx_tpu_torch/tools/attention_kernel_check.py [--root DIR] \
         [--out FILE]
 
-- B1 (``flash_fwd``) at ``chip_smoke.py`` phase 6's shapes (b 8, s 1024,
-  h 16, causal, bf16, dropout 0.1): GPT-345M (d 64), GPT-1.3B (d 128) and
-  an mp 2 rank of GPT-1.3B (8 heads of 16 as strided views of a fused-qkv
-  shard, the rank's global-head meta);
-- B11's forward (``block_fwd_lse``) on phase 15's pairs (b 1, h 16, d 128,
-  s_blk 4096, bf16, dropout 0.1): the full pair across blocks and the
-  diagonal one;
+- B1, B2 and B3 (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) at
+  ``chip_smoke.py`` phase 6's shapes (b 8, s 1024, h 16, causal, bf16,
+  dropout 0.1): GPT-345M (d 64), GPT-1.3B (d 128) and an mp 2 rank of
+  GPT-1.3B (8 heads of 16 as strided views of a fused-qkv shard, the
+  rank's global-head meta), the backward on the forward's lse and delta;
+- B11's entries (``block_fwd_lse``, ``block_dq``, ``block_dkv``) on phase
+  15's pairs (b 1, h 16, d 128, s_blk 4096, bf16, dropout 0.1): the full
+  pair across blocks and the diagonal one;
+- SDPA's backward (dQ, dK and dV in one call, dropout 0) beside each of
+  those shapes and pairs (causal on phase 6's shapes and the diagonal
+  pair, no mask on the full pair): the yardstick of B2 + B3;
 - B7 and B9 on phase 10's decode cache (phase 9's "generate" case), B8 on
   phase 3's pools and B10 on them quantized, bf16;
 - B1 at phase 6's d 64 and d 128 shapes again, causal and not, at dropout
@@ -68,39 +72,59 @@ def _rotating(fn, n: int):
     return lambda: fn(next(it) % n)
 
 
+def _timed(kc, run, n: int, iters: int) -> dict:
+    """ms of ``run`` rotated over ``n`` input sets, and the digest of its
+    output on the first (a tuple's parts concatenated)."""
+    first = run(0)
+    if isinstance(first, tuple):
+        first = torch.cat([t.reshape(-1) for t in first])
+    return {"ms": kc.cuda_ms(_rotating(run, n), iters=iters, warmup=3),
+            "digest": _digest(first)}
+
+
 def flash_times(kc, fa) -> dict:
-    """B1 at phase 6's three shapes and B11's forward on phase 15's two
-    pairs: ms and output digest by case."""
+    """B1, B2 and B3 at phase 6's three shapes, B11's entries on phase 15's
+    two pairs, and SDPA's backward beside each: ms (and, for the port's
+    kernels, output digest) by case."""
     out = {}
     bf16 = torch.bfloat16
-    for label, d, h, meta in (("b1_d64", 64, 16, None),
-                              ("b1_d128", 128, 16, None),
-                              ("b1_mp", 128, kc.FLASH_MP_META[2],
+    for label, d, h, meta in (("d64", 64, 16, None), ("d128", 128, 16, None),
+                              ("mp", 128, kc.FLASH_MP_META[2],
                                kc.FLASH_MP_META)):
         sets = kc.flash_inputs(bf16, d=d, h=h)
         kw = dict(causal=True, dropout_rate=0.1, seed=-1234567, meta=meta)
-
-        def run(i, sets=sets, kw=kw):
-            return fa.flash_fwd(*sets[i][:3], **kw)[0]
-
-        out[label] = {"ms": kc.cuda_ms(_rotating(run, len(sets)), iters=30,
-                                       warmup=3),
-                      "digest": _digest(run(0))}
-        del sets
+        staged = []
+        for q, k, v, do in sets:
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            staged.append((q, k, v, do, lse, kc.flash_delta(do, o)))
+        runs = {"b1": lambda i: fa.flash_fwd(*sets[i][:3], **kw)[0],
+                "b2": lambda i: fa.flash_bwd_dq(*staged[i], **kw),
+                "b3": lambda i: fa.flash_bwd_dkv(*staged[i], **kw)}
+        for name, run in runs.items():
+            out[f"{name}_{label}"] = _timed(kc, run, len(sets), 30)
+        out[f"sdpa_bwd_{label}"] = kc.sdpa_times(sets, True)["backward"]
+        del sets, staged
     sets = kc.flash_inputs(bf16, b=1, s=kc.CP_BLOCK, h=16, d=128, copies=2,
                            seed=15)
-    for label, pair in (("b11_fwd_full", "off-diagonal"),
-                        ("b11_fwd_diagonal", "diagonal")):
+    for label, pair in (("full", "off-diagonal"), ("diagonal", "diagonal")):
         causal, meta = kc.CP_PAIRS[pair]
-
-        def run(i, causal=causal, meta=meta):
-            q, k, v, _ = sets[i]
-            return fa.block_fwd_lse(q, k, v, kc.CP_SEED, meta, causal=causal,
-                                    dropout_rate=0.1, kv_len=kc.CP_SEQ)[0]
-
-        out[label] = {"ms": kc.cuda_ms(_rotating(run, len(sets)), iters=20,
-                                       warmup=3),
-                      "digest": _digest(run(0))}
+        kw = dict(causal=causal, dropout_rate=0.1, kv_len=kc.CP_SEQ)
+        staged = []
+        for q, k, v, do in sets:
+            o, lse = fa.block_fwd_lse(q, k, v, kc.CP_SEED, meta, **kw)
+            staged.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+        runs = {
+            "b11_fwd": lambda i: fa.block_fwd_lse(
+                *sets[i][:3], kc.CP_SEED, meta, **kw)[0],
+            "b11_dq": lambda i: fa.block_dq(*staged[i], kc.CP_SEED, meta,
+                                            **kw),
+            "b11_dkv": lambda i: fa.block_dkv(*staged[i], kc.CP_SEED, meta,
+                                              **kw)}
+        for name, run in runs.items():
+            out[f"{name}_{label}"] = _timed(kc, run, len(sets), 20)
+        out[f"sdpa_bwd_{label}"] = kc.sdpa_times(sets, causal,
+                                                 iters=20)["backward"]
+        del staged
     del sets
     torch.cuda.empty_cache()
     return out

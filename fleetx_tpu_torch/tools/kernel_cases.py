@@ -21,7 +21,8 @@ from fleetx_tpu_torch.ops.quant import quantize_kv
 __all__ = ["DEVICE", "L2_BYTES", "GEN_PROMPT_LENS", "FLASH_MP_META",
            "CP_DEGREE", "CP_SEQ", "CP_BLOCK", "CP_SEED", "CP_PAIRS",
            "cuda_ms", "rotation_copies", "decode_case", "decode_bound",
-           "flash_inputs", "contiguous_cases", "contiguous_case"]
+           "flash_inputs", "flash_delta", "sdpa_times", "contiguous_cases",
+           "contiguous_case"]
 
 DEVICE = "cuda"  # where the cases are made: the card
 L2_BYTES = 50 * 2 ** 20  # H100 SXM L2, NVIDIA data sheet
@@ -156,6 +157,41 @@ def flash_inputs(dtype, *, b=8, s=1024, h=16, d=64, copies=3, seed=0):
         do = torch.randn(b, s, h, d, generator=g, device=DEVICE).to(dtype)
         sets.append((q, k, v, do))
     return sets
+
+
+def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The backward's delta = rowsum(dO∘O), fp32 [b*h, s], from [b, s, h, d]
+    dO and the forward's out (as the autograd backward computes it)."""
+    b, s, h, _ = out.shape
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, s).contiguous()
+
+
+def sdpa_times(sets, causal: bool, iters: int = 30) -> dict:
+    """PyTorch's fused attention on the sets' q, k, v and dO, a yardstick
+    the port never calls: ``scaled_dot_product_attention`` forward, and its
+    backward (dQ, dK and dV in one call), at dropout 0, in PyTorch's
+    [b, h, s, d] layout; ms under ``"forward"`` and ``"backward"``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd, bwd = [], []
+    for q, k, v, do in sets:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        out = sdpa(qt, kt, vt, is_causal=causal)
+        fwd.append((qt.detach(), kt.detach(), vt.detach()))
+        bwd.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
+    it = iter(range(1 << 30))
+
+    def forward():
+        with torch.no_grad():
+            sdpa(*fwd[next(it) % len(fwd)], is_causal=causal)
+
+    def backward():
+        out, inputs, dot = bwd[next(it) % len(bwd)]
+        torch.autograd.grad(out, inputs, dot, retain_graph=True)
+
+    return {"forward": cuda_ms(forward, iters=iters, warmup=3),
+            "backward": cuda_ms(backward, iters=iters, warmup=3)}
 
 
 def contiguous_cases() -> list:

@@ -453,13 +453,14 @@ def test_flash_kernels_on_a_heads_shard_match_plain_versions(head_dim, dtype,
     assert (own.float() - want_out.float()).abs().max() > 10 * atol
 
 
-# (s, causal, kv_lens, meta) of the bf16 TMA + wgmma forward's cases: s
-# 192 and 1088 leave a last 128-row query block half past the end; kv_lens
-# ending mid-tile (and 0: every row of a batch masked); B11 pairs with
-# global offsets on, below and above the diagonal (above it, the early
-# rows see no key at all); a heads shard of strided views (3 heads of 6
-# cut out of a wider fused buffer, mp rank 1's global-head meta)
-WG_FWD_CASES = {
+# (s, causal, kv_lens, meta) of the bf16 TMA + wgmma kernels' cases: s 192
+# and 1088 leave a last 128-row block half past the end; kv_lens ending
+# mid-tile (and 0: every row of a batch masked, every key past it); B11
+# pairs with global offsets on, below and above the diagonal (above it,
+# the early rows see no key at all, and the late keys no query); a heads
+# shard of strided views (3 heads of 6 cut out of a wider fused buffer, mp
+# rank 1's global-head meta)
+WG_CASES = {
     "s192-causal": (192, True, None, None),
     "s1088-causal": (1088, True, None, None),
     "s1088-full-kvlens-midtile": (1088, False, [1000, 613], None),
@@ -471,55 +472,102 @@ WG_FWD_CASES = {
 }
 
 
+def _rows(x, b, h):
+    """[b, s, h, d] -> [b*h, s, d] (the lse rows' order)."""
+    return x.transpose(1, 2).reshape(b * h, x.shape[1], -1)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
 @pytest.mark.parametrize("head_dim", [64, 128])
-@pytest.mark.parametrize("case", sorted(WG_FWD_CASES))
+@pytest.mark.parametrize("case", sorted(WG_CASES))
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_wgmma_forward_matches_the_plain_version(head_dim, case, rate):
-    """B1 at bf16, d 64 and 128 (the TMA + wgmma kernel) against
-    ``flash_attention_fwd_ref`` within FLASH_TOL, out and lse, one launch
-    each; rows that see no key come out as zeros with lse = -1e30."""
+def test_wgmma_kernels_match_plain_versions(kernel, head_dim, case, rate):
+    """B1, B2 and B3 at bf16, d 64 and 128 (the TMA + wgmma kernels)
+    against their plain versions within FLASH_TOL, each launched twice on
+    the same inputs with the same bits both times (no atomics). The
+    backward takes the forward kernel's lse and delta, as phase 6 feeds
+    both sides. Rows that see no key come out as zeros with lse = -1e30
+    (and zero dq); keys that no query sees, zero dk and dv."""
     from fleetx_tpu_torch.ops import flash_attention as fa
 
     _need_card()
-    s, causal, kv_lens, meta = WG_FWD_CASES[case]
+    s, causal, kv_lens, meta = WG_CASES[case]
     bf16 = torch.bfloat16
     if case == "heads-shard-view":
         rng = np.random.RandomState(3)
         wide = _torch(rng.randn(2, s, 6, 3 * head_dim).astype(np.float32),
                       bf16).cuda()
         q, k, v = wide[:, :, 3:].split(head_dim, dim=-1)
+        do = _torch(rng.randn(2, s, 3, head_dim).astype(np.float32),
+                    bf16).cuda()
         lens = None
     else:
-        q, k, v, _, lens = flash_case(head_dim, s=s, kv_lens=kv_lens,
-                                      dtype=bf16, seed=s)
+        q, k, v, do, lens = flash_case(head_dim, s=s, kv_lens=kv_lens,
+                                       dtype=bf16, seed=s)
+    b, _, h, _ = q.shape
     kw = dict(causal=causal, kv_lens=lens, dropout_rate=rate, seed=-99,
               meta=meta)
-    before = dict(fa.launches)
-    out, lse = fa.flash_fwd(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert {n: fa.launches[n] - before[n] for n in fa.NAMES} == {
-        "flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    want_out, want_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
     atol, rtol = fa.FLASH_TOL[bf16]
-    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
-                               rtol=rtol)
-    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
-    assert out.float().abs().mean() > 1e-3
+    want_out, want_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
     dead = want_lse <= -1e29  # rows that see no key
     if kv_lens is not None and kv_lens[0] == 0 or case == "pair-above-diagonal":
         assert dead.any()
-    assert torch.equal(lse[dead], want_lse[dead])
-    b, _, h, _ = q.shape
-    rows = out.transpose(1, 2).reshape(b * h, s, -1)
-    assert not rows[dead].any()
+    if kernel == "flash_fwd":
+        run = lambda: fa.flash_fwd(q, k, v, **kw)  # noqa: E731
+    else:
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+            b * h, s).contiguous()
+        args = (q, k, v, do, lse, delta)
+        run = lambda: getattr(fa, kernel)(*args, **kw)  # noqa: E731
+    before = dict(fa.launches)
+    got, again = (x if isinstance(x, tuple) else (x,) for x in (run(), run()))
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in fa.NAMES} == {
+        n: 2 * (n == kernel) for n in fa.NAMES}
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    if kernel == "flash_fwd":
+        out, lse = got
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        assert out.float().abs().mean() > 1e-3
+        assert torch.equal(lse[dead], want_lse[dead])
+        assert not _rows(out, b, h)[dead].any()
+        return
+    if kernel == "flash_bwd_dq":
+        want = (fa.flash_bwd_dq_ref(*args, **kw),)
+        assert not _rows(got[0], b, h)[dead].any()
+    else:
+        want = fa.flash_bwd_dkv_ref(*args, **kw)
+        # keys that no query sees: past kv_len, or (causal) past the last
+        # query's global position
+        pos = torch.arange(s, device="cuda")
+        lens_k = (torch.full((b,), s, device="cuda") if lens is None
+                  else (lens.long() - (meta or (0,) * 6)[5]).clamp(0, s))
+        unseen = pos[None, :] >= lens_k[:, None]  # [b, s]
+        if causal:
+            q_off, k_off = (meta or (0,) * 6)[4:]
+            unseen = unseen | (pos[None, :] + k_off > s - 1 + q_off)
+        if kv_lens is not None and kv_lens[0] == 0:
+            assert unseen[0].all()
+        for x in got:
+            assert not x[unseen].any()
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x.float(), y.float(), atol=atol,
+                                   rtol=rtol)
+        assert x.float().abs().mean() > 1e-3  # not trivially zero
 
 
 @pytest.mark.cuda
-def test_wgmma_forward_refuses_views_off_16_bytes():
+def test_wgmma_kernels_refuse_views_off_16_bytes():
     """The TMA loads need a 16-byte aligned base and strides: a view two
     bytes off, or a fused buffer whose rows are not a multiple of 16 bytes,
-    raises before any launch (no other kernel takes it instead)."""
+    as any operand of B1, B2 or B3 (dO too), raises before any launch (no
+    other kernel takes it instead)."""
     from fleetx_tpu_torch.ops import flash_attention as fa
 
     _need_card()
@@ -529,10 +577,18 @@ def test_wgmma_forward_refuses_views_off_16_bytes():
     ok = torch.randn(b, s, h, d, device="cuda").to(torch.bfloat16)
     ragged = torch.randn(b, s, h, 3 * d + 4, device="cuda").to(
         torch.bfloat16)[..., :d]
+    lse = torch.zeros(b * h, s, device="cuda")
     before = dict(fa.launches)
     for q, k, v in ((off, ok, ok), (ok, ok, off), (ragged, ok, ok)):
         with pytest.raises(ValueError, match="16-byte"):
             fa.flash_fwd(q, k, v, causal=True)
+    for bad in (off, ragged):
+        for i in range(4):  # q, k, v, dO
+            args = [ok, ok, ok, ok, lse, lse]
+            args[i] = bad
+            for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+                with pytest.raises(ValueError, match="16-byte"):
+                    fn(*args, causal=True)
     assert fa.launches == before
 
 

@@ -223,3 +223,31 @@ def test_kernel_contract_raises_on_every_device(bad):
         kw["kv_lens"] = torch.tensor([3], dtype=torch.int64)
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q, q, **kw)
+
+
+@pytest.mark.parametrize("bad", ["do-two-bytes-off", "qkv-rows-ragged",
+                                 "lse-one-float-off"])
+def test_tma_check_refuses_views_off_16_bytes(bad):
+    """The bf16 kernels at head dim 64/128 load their operands by TMA and
+    dK/dV's lse and delta rows by bulk copies: ``_check_tma`` passes the
+    model's strided views of a fused qkv and refuses, with ``ValueError``,
+    a dO view two bytes off, a fused buffer whose rows are not a multiple
+    of 16 bytes, and an lse one float (4 bytes) off."""
+    b, s, h, d = 1, 128, 2, 64
+    bf16 = torch.bfloat16
+    q, k, v = torch.zeros(b, s, h, 3 * d, dtype=bf16).split(d, dim=-1)
+    do = torch.zeros(b, s, h, d, dtype=bf16)
+    lse = torch.zeros(b * h, s)
+    ok = dict(q=q, k=k, v=v, do=do, lse=lse, delta=lse.clone())
+    tfa._check_tma(*ok.items())
+    if bad == "do-two-bytes-off":
+        flat = torch.zeros(do.numel() + 8, dtype=bf16)
+        ok["do"] = flat[1:1 + do.numel()].view(do.shape)
+    elif bad == "qkv-rows-ragged":
+        ok["q"], ok["k"], ok["v"] = torch.zeros(
+            b, s, h, 3 * d + 4, dtype=bf16)[..., :3 * d].split(d, dim=-1)
+    else:
+        ok["lse"] = torch.zeros(lse.numel() + 4)[1:1 + lse.numel()].view(
+            b * h, s)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check_tma(*ok.items())
