@@ -231,15 +231,34 @@ GEN_BF16 = "Engine.mix_precision.use_pure_fp16=True"
 GEN_SEED = 2024
 # device-time classes of a profile, by kernel-name marks (first match wins)
 PROFILE_CLASSES = (
-    ("fused CE kernels", ("ce_fwd_kernel", "ce_bwd_kernel",
-                          "ce_combine_kernel", "ce_dl_kernel",
-                          "ce_prod_kernel")),
-    ("port kernels", ("flash_", "decode_kernel")),
+    ("fused CE kernels", ("ce_stats_kernel", "ce_fwd_kernel",
+                          "ce_bwd_kernel", "ce_combine_kernel",
+                          "ce_dl_kernel", "ce_prod_kernel")),
+    ("port kernels", ("flash_", "decode_scores_kernel",
+                      "decode_values_kernel")),
     ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
     ("optimizer", ("multi_tensor", "fused_adam", "FusedAdam")),
     ("int hash", ("<int, int", "Functor<int")),
     ("copies and casts", ("copy", "bfloat16_copy")),
 )
+# the CUDA kernels each entry of the kernels' record launches on the bf16
+# path (the names a profile shows)
+_DECODE_KERNELS = ["decode_scores_kernel", "decode_values_kernel"]
+_CE_GRAD_KERNELS = ["ce_dl_kernel", "ce_prod_kernel"]
+CUDA_KERNELS = {
+    "paged_decode": _DECODE_KERNELS, "decode": _DECODE_KERNELS,
+    "decode_q8": _DECODE_KERNELS, "paged_decode_q8": _DECODE_KERNELS,
+    "flash_fwd": ["flash_fwd_wg_kernel"],
+    "flash_bwd_dq": ["flash_bwd_dq_wg_kernel"],
+    "flash_bwd_dkv": ["flash_bwd_dkv_wg_kernel"],
+    "block_fwd_lse": ["flash_fwd_wg_kernel"],
+    "block_dq": ["flash_bwd_dq_wg_kernel"],
+    "block_dkv": ["flash_bwd_dkv_wg_kernel"],
+    "ce_fwd": ["ce_stats_kernel", "ce_combine_kernel"],
+    "ce_dh": _CE_GRAD_KERNELS, "ce_dw": _CE_GRAD_KERNELS,
+    "vp_ce_fwd": ["ce_stats_kernel", "ce_combine_kernel"],
+    "vp_ce_dh": _CE_GRAD_KERNELS, "vp_ce_dw": _CE_GRAD_KERNELS,
+}
 # phase 8 limits, kernels vs plain versions in one bf16 train step: loss
 # (absolute), grad norm (relative) and the largest relative L2 difference
 # of one gradient leaf. Each lies between the largest gap of sound runs and
@@ -313,8 +332,9 @@ def library_decode_ms(q, kvs, starts, ends) -> float:
 def check_and_time(name, label, dtype, run, plain, lib_kvs, case,
                    nbytes, flops, phase="decode", faults=None,
                    **extra) -> dict:
-    """Hold ``run(i)`` (decode kernel ``name`` on the case's K/V copy i)
-    against ``plain(i)`` on copy 0 by ``da.decode_gaps``, where each
+    """Hold ``run(i)`` (decode kernel ``name`` on the case's K/V copy i),
+    launched twice with equal bits, against ``plain(i)`` on copy 0 by
+    ``da.decode_gaps``, where each
     planted fault of ``faults()`` (outputs of the plain version with one
     rounding fault, :func:`planted_decode_faults`) must break the limit,
     and time the
@@ -323,9 +343,13 @@ def check_and_time(name, label, dtype, run, plain, lib_kvs, case,
     record's numbers."""
     before = dict(da.launches)
     got = run(0)
+    again = run(0)
     torch.cuda.synchronize()
-    if da.launches[name] != before[name] + 1:
+    if da.launches[name] != before[name] + 2:
         raise AssertionError(f"{name} did not launch")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} {label} {dtype}: two launches on the "
+                             "same inputs differ")
     want = plain(0)
     gaps = da.decode_gaps(got, want)
     err, tol, ok = gaps.pop("max_abs_err"), da.DECODE_TOL[dtype], gaps.pop("ok")
@@ -1482,12 +1506,17 @@ def phase_ce() -> dict:
         h, w, labels, g = ce_inputs(dtype, n, e, v)
         before = dict(ce.launches)
         loss, lse = ce.fused_ce_fwd(h, w, labels)
+        again = ce.fused_ce_fwd(h, w, labels)
         dh = ce.fused_ce_dh(h, w, labels, g, -g, lse)
         dw = ce.fused_ce_dw(h, w, labels, g, -g, lse)
         torch.cuda.synchronize()
-        if {k: ce.launches[k] - before[k] for k in ce.NAMES} != dict.fromkeys(
-                ce.NAMES, 1):
+        if {k: ce.launches[k] - before[k] for k in ce.NAMES} != {
+                "ce_fwd": 2, "ce_dh": 1, "ce_dw": 1}:
             raise AssertionError(f"ce launches {ce.launches} from {before}")
+        if not (torch.equal(loss, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"ce_fwd {dtype}: two launches on the same "
+                                 "inputs differ")
+        del again
         want_loss, want_lse = ce.fused_ce_fwd_ref(h, w, labels)
         want = {"loss": want_loss, "lse": want_lse,
                 "dh": ce.fused_ce_dh_ref(h, w, labels, g, -g, lse),
@@ -2511,7 +2540,13 @@ def phase_mp_kernels() -> dict:
     del w
     l_loc = ce.local_labels(labels, v_loc, 0)
     before = dict(ce.launches)
-    _, lse = ce.fused_ce_fwd(h, shard, l_loc)
+    loss, lse = ce.fused_ce_fwd(h, shard, l_loc)
+    again = ce.fused_ce_fwd(h, shard, l_loc)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError("B12's forward at the shard: two launches on the "
+                             "same inputs differ")
+    del loss, again
     a, b = g * 0.5, -g  # independent cotangents, as B12's backward has
     lib = library_ce_times(h, shard, l_loc, g)
     calls = {
@@ -2923,6 +2958,8 @@ def main() -> int:
             source="fleetx_tpu_torch/ops/csrc/ce_loss.cu",
             replaces="fleetx_tpu/ops/pallas/ce_loss.py:298",
             **vp_records[name]))
+    for record in records:  # the bf16 path's CUDA kernels of each entry
+        record["cuda_kernels"] = CUDA_KERNELS[record["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -11,12 +11,15 @@ logits or their gradient. Three kernels in ``csrc/ce_loss.cu``:
 - ``ce_dw`` (B6, ``_dw_kernel`` :150): dW = Σ_tokens dlᵀ·h;
 
 where dl = a·exp(s − lse) + b·onehot(label) is recomputed from the saved
-lse, and (a, b) = (g, −g) for the plain cross-entropy backward. In bf16,
-B5 and B6 each run two GEMMs per chunk of output rows on the tensor
-cores: s of the chunk with dl in its epilogue, rounded to bf16 into a
-scratch, then dl times the other operand. The wrapper sizes the chunks
-and allocates the scratch (at most 256 MB); fp32 keeps one CUDA-core
-kernel per output.
+lse, and (a, b) = (g, −g) for the plain cross-entropy backward. In bf16
+all three run one wgmma GEMM mainloop on the tensor cores. B4 is one
+product, s = h·Wᵀ, whose epilogue reduces each 256-column tile of a row
+to (max, Σ exp(s − max), label logit) in a scratch of one split per tile
+(:func:`_fwd_splits`), which a small kernel folds into each token's lse.
+B5 and B6 each run two GEMMs per chunk of output rows: s of the chunk
+with dl in its epilogue, rounded to bf16 into a scratch, then dl times
+the other operand. The wrappers size the scratches (B5/B6's at most 256
+MB); fp32 keeps one CUDA-core kernel per output.
 :func:`fused_linear_ce` is a ``torch.autograd.Function`` whose forward
 launches B4 and whose backward launches B5 and B6. Each of
 :func:`fused_ce_fwd`, :func:`fused_ce_dh` and :func:`fused_ce_dw` launches
@@ -87,6 +90,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_ROWS = 128
 _WANT_TILES = 256
 _SCRATCH_BYTES = 256 * 2 ** 20
+# the bf16 B4's vocab tile (gemm::BN there): one split of its scratch each
+_VOCAB_TILE = 256
 
 # kernel vs plain version on the card (see :func:`ce_gaps`): ``stats`` for
 # loss and lse (fp32 outputs), ``grads`` for dh and dW (in the operands'
@@ -450,6 +455,18 @@ def _scratch(h, w, wrt: str) -> Optional[torch.Tensor]:
                        dtype=torch.bfloat16, device=h.device)
 
 
+def _fwd_splits(n: int, v: int, dtype: torch.dtype) -> int:
+    """The vocab splits of B4's scratch ``partial`` [3, splits, n] (fp32:
+    per split, each token's max, sum and label logit). In bf16 one per
+    256-column tile of ``ce_stats_kernel``: 197 at the 1.3B head's vocab
+    of 50304 (19.4 MB at 8192 tokens), 99 at its mp 2 shard of 25152; in
+    fp32 the library's count, which depends on the card's SM count. The
+    library refuses a count it did not plan."""
+    if dtype == torch.bfloat16:
+        return -(-v // _VOCAB_TILE)
+    return _lib().ce_fwd_splits(n, v, _DTYPE_CODES[dtype])
+
+
 def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4: ``(loss, lse)``, fp32 [n]. CUDA tensors launch ``ce_fwd``; CPU
     tensors take :func:`fused_ce_fwd_ref`."""
@@ -459,10 +476,8 @@ def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     n = h.shape[0]
     loss = torch.empty(n, dtype=torch.float32, device=h.device)
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
-    splits = _lib().ce_fwd_splits(n, w.shape[0], _DTYPE_CODES[h.dtype])
-    # per vocab split: running max, sum and label logit of each token
-    partial = torch.empty((3, splits, n), dtype=torch.float32,
-                          device=h.device)
+    partial = torch.empty((3, _fwd_splits(n, w.shape[0], h.dtype), n),
+                          dtype=torch.float32, device=h.device)
     _launch("ce_fwd", h, w, labels, loss=loss, lse=lse, partial=partial)
     return loss, lse
 

@@ -12,10 +12,12 @@
 //
 // Numerics follow the Pallas kernels:
 // - s takes T operands with fp32 accumulation;
-// - forward: per vocab tile, m_new = max(m, max s), l = l·exp(m - m_new) +
-//   Σ exp(s - m_new), and the label logit sums s where the global column
-//   equals the label (a label matching no column adds nothing, so its loss
-//   is the lse); lse = m + log(l), loss = lse - label logit;
+// - forward: per vocab tile, its max m_t, l_t = Σ exp(s - m_t) and the
+//   label logit, s where the global column equals the label (a label
+//   matching no column adds nothing, so its loss is the lse); the tiles
+//   combine as m = max m_t, l = Σ l_t·exp(m_t - m) (the fp32 kernel folds
+//   them one after another into a running max and sum, as Pallas does);
+//   lse = m + log(l), loss = lse - label logit;
 // - backward: p = exp(s - lse) and dl = a·p + b·[label == column] in fp32,
 //   then dl is rounded to T before its product; dh and dW are accumulated
 //   in fp32 over the whole reduction and rounded to T once.
@@ -27,51 +29,57 @@
 // operand: 3.41 ms). In fp32 they are bound by operations at 67 TFLOP/s on
 // the CUDA cores.
 //
-// ce_fwd: one 256-thread block per (128-token tile, vocab split) walks its
-// split's 128-column vocab tiles (64 x 64 in fp32); bf16 products run on
-// the tensor cores through `nvcuda::wmma` 16x16x16 fragments, fp32 ones on
-// the CUDA cores, operands staged in shared memory in hidden-dim chunks
-// (cp.async for bf16). Each tile's scores land in an fp32 shared tile,
-// where two threads per token fold them into the running max, sum and
-// label logit; a second small kernel combines the splits per token.
+// All three bf16 kernels run one Hopper GEMM mainloop (`namespace gemm`):
+// a persistent block per SM walks 128 x 256 output tiles (row tiles
+// fastest, so that concurrent blocks share the column operand in L2);
+// warpgroup 0 keeps a ring of four 64-deep stages filled by TMA (128-byte
+// swizzle, zero fill past every edge) on mbarriers, and warpgroups 1 and 2
+// each multiply a 64 x 256 half with fp32 accumulators in registers
+// (m64n256k16), one wgmma group in flight. Only the epilogue on the fp32
+// accumulator differs.
 //
-// ce_dh / ce_dw in bf16: two GEMMs per chunk on `wgmma`. A backward has to
-// multiply twice (s, then dl times an operand), and dl for one output row
-// needs the whole of s's row, so a kernel that keeps the output in one
-// block can reuse each streamed tile for only the few rows whose fp32
-// accumulator fits in shared memory (16 in the first design: ~211 GB of
-// L2 traffic per call, 5% of the tensor cores). Here dl goes through
-// device memory instead, one chunk of output rows at a time (the wrapper
-// plans the chunk and allocates the scratch, <= 256 MB):
+// ce_fwd in bf16: ce_stats_kernel computes S = h·Wᵀ over the same operand
+// maps as ce_dh's first product and, in its epilogue, each row's (max,
+// Σ exp(s - max), label logit) over the tile's columns below V; one tile
+// is one vocab split, so the scratch `partial` is [3][ceil(V / 256)][n]
+// fp32 (19.4 MB at the 1.3B head: 197 splits of 8192 tokens). The small
+// ce_combine_kernel then folds the splits of each token, in split order,
+// into its lse and loss. Up to fp32 association these are the Pallas
+// kernel's numbers: a per-tile (m, l, lab) combined with exp(m_s - m).
+//
+// ce_dh / ce_dw in bf16: two GEMMs per chunk. A backward has to multiply
+// twice (s, then dl times an operand), and dl for one output row needs the
+// whole of s's row, so a kernel that keeps the output in one block can
+// reuse each streamed tile for only the few rows whose fp32 accumulator
+// fits in shared memory (16 in the first design: ~211 GB of L2 traffic per
+// call, 5% of the tensor cores). Here dl goes through device memory
+// instead, one chunk of output rows at a time (the wrapper plans the chunk
+// and allocates the scratch, <= 256 MB):
 // - ce_dh, per token chunk T: ce_dl_kernel<true> computes S = h[T]·Wᵀ and,
-//   in its epilogue on the fp32 accumulator, dl from each row's token
-//   values, rounded to bf16 into the scratch D [|T|, V]; ce_prod_kernel
-//   then computes dh[T] = D·W (reduction over V, fp32 in registers,
-//   rounded once).
+//   in its epilogue, dl from each row's token values, rounded to bf16 into
+//   the scratch D [|T|, V]; ce_prod_kernel then computes dh[T] = D·W
+//   (reduction over V, fp32 in registers, rounded once).
 // - ce_dw, per vocab chunk C: ce_dl_kernel<false> computes
 //   Dᵀ = dl(W[C]·hᵀ) [|C|, n], the token values now per column;
 //   ce_prod_kernel computes dW[C] = Dᵀ·h (reduction over tokens).
 // Writing dl transposed for dW keeps A K-major in both products; B is
-// K-major in the dl product and N-major (rows of W or h) in the second,
-// which the bf16 `wgmma` reads through its descriptor's transpose bit.
-// One mainloop serves both: a persistent block per SM walks 128 x 256
-// output tiles (row tiles fastest, so that concurrent blocks share the
-// column operand in L2); warpgroup 0 keeps a ring of four 64-deep stages
-// filled by TMA (128-byte swizzle, zero fill past every edge) on
-// mbarriers, and warpgroups 1 and 2 each multiply a 64 x 256 half with
-// fp32 accumulators in registers (m64n256k16), one wgmma group in flight.
-// Each streamed tile now serves 128 or 256 rows (~85 flops per byte read
-// against 16), so the two products move ~40 GB through L2 per call at
-// the 1.3B shapes, and the dl chunk adds ~1.65 GB written and read once.
-// The fp32 backward keeps the first, CUDA-core design (below).
+// K-major in the dl and stats products and N-major (rows of W or h) in the
+// second, which the bf16 `wgmma` reads through its descriptor's transpose
+// bit. Each streamed tile serves 128 or 256 rows (~85 flops per byte read
+// against 16), so the backward's two products move ~40 GB through L2 per
+// call at the 1.3B shapes, and the dl chunk adds ~1.65 GB written and read
+// once.
+//
+// fp32 keeps the first, CUDA-core design of all three: ce_fwd_kernel, one
+// 256-thread block per (64-token tile, vocab split), walks its split's
+// 64-column tiles with the operands staged in shared memory in hidden-dim
+// chunks, folding each tile's scores into a running max, sum and label
+// logit, then ce_combine_kernel as above; the backward below.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -97,112 +105,37 @@ struct CEParams {
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 using hopper::device_int;
 using hopper::set_smem;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' initial max
 constexpr int kRows = 16;          // output rows of an fp32 ce_dh / ce_dw block
 constexpr int kCols = 128;         // columns of an fp32 ce_dh / ce_dw tile
+// the row pitch of a staged fp32 tile is odd, so that the scalar products
+// read shared memory without bank conflicts
+constexpr int kPad = 1;
 
-template <typename T>
-constexpr bool kIsBf16 = std::is_same_v<T, bf16>;
-
-// row padding of a staged T tile: bf16 rows stay 16-byte multiples (WMMA
-// ldm, 32-byte aligned fragments), fp32 rows take an odd pitch so that the
-// scalar products read shared memory without bank conflicts
-template <typename T>
-constexpr int kPad = kIsBf16<T> ? 8 : 1;
-
-// 16 bytes from global to shared memory without passing through registers
-// (cp.async); a copy marked invalid reads nothing and writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// wait until at most N of this thread's committed copy groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [r0, r0 + R) x columns [e0, e0 + K) of a row-major [nrows, E]
-// matrix into a shared tile of pitch LD, zero outside the matrix. bf16
-// tiles are copied asynchronously (the caller commits, waits and
-// synchronises before reading them); fp32 tiles synchronously.
-template <typename T, int R, int K, int LD>
-__device__ __forceinline__ void stage(T* dst, const T* src, int nrows, int r0, int E, int e0) {
-  if constexpr (kIsBf16<T>) {
-    constexpr int kChunks = K / 8;  // 8 bf16 per 16 bytes; 8 | E keeps a chunk whole
-    for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const bool valid = r0 + r < nrows && e0 + c < E;
-      cp_async16(dst + r * LD + c,
-                 valid ? src + static_cast<size_t>(r0 + r) * E + e0 + c : src, valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * K; i += kThreads) {
-      const int r = i / K, c = i % K;
-      dst[r * LD + c] = (r0 + r < nrows && e0 + c < E)
-                            ? src[static_cast<size_t>(r0 + r) * E + e0 + c]
-                            : 0.f;
-    }
+// rows [r0, r0 + R) x columns [e0, e0 + K) of a row-major fp32 [nrows, E]
+// matrix into a shared tile of pitch LD, zero outside the matrix
+template <int R, int K, int LD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int nrows, int r0, int E,
+                                      int e0) {
+  for (int i = threadIdx.x; i < R * K; i += kThreads) {
+    const int r = i / K, c = i % K;
+    dst[r * LD + c] =
+        (r0 + r < nrows && e0 + c < E) ? src[static_cast<size_t>(r0 + r) * E + e0 + c] : 0.f;
   }
 }
 
-// A running [BR, BC] score tile s = A·Bᵀ, summed over hidden-dim chunks of
-// EK: A is a staged [BR][EK] tile, B a staged [BC][EK] tile, both of pitch
-// EK + kPad<T>. `store` writes it to an fp32 shared tile of pitch BC + 4.
-template <typename T, int BR, int BC, int EK>
-struct Scores;
-
+// A running [BR, BC] fp32 score tile s = A·Bᵀ on the CUDA cores, summed
+// over hidden-dim chunks of EK: A is a staged [BR][EK] tile, B a staged
+// [BC][EK] tile, both of pitch EK + kPad. `store` writes it to a shared
+// tile of pitch BC + 4.
 template <int BR, int BC, int EK>
-struct Scores<bf16, BR, BC, EK> {
-  static constexpr int LD = EK + kPad<bf16>;
-  static constexpr int FW = BR / 16;  // fragments per warp
-  static_assert(BC / 16 == kWarps, "warp w owns the 16 columns 16w..16w+15");
-  FragC acc[FW];  // fragment f: rows 16f..16f+15
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int f = 0; f < FW; ++f) wmma::fill_fragment(acc[f], 0.f);
-  }
-
-  __device__ __forceinline__ void add(const bf16* sA, const bf16* sB) {
-    const int warp = threadIdx.x >> 5;
-#pragma unroll 1
-    for (int kk = 0; kk < EK / 16; ++kk) {
-      FragBT fb;
-      wmma::load_matrix_sync(fb, sB + 16 * warp * LD + 16 * kk, LD);
-#pragma unroll
-      for (int f = 0; f < FW; ++f) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, sA + 16 * f * LD + 16 * kk, LD);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* sS) const {
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int f = 0; f < FW; ++f)
-      wmma::store_matrix_sync(sS + 16 * f * (BC + 4) + 16 * warp, acc[f], BC + 4,
-                              wmma::mem_row_major);
-  }
-};
-
-template <int BR, int BC, int EK>
-struct Scores<float, BR, BC, EK> {
-  static constexpr int LD = EK + kPad<float>;
+struct Scores {
+  static constexpr int LD = EK + kPad;
   static constexpr int NI = BR / 16, NJ = BC / 16;
   float acc[NI][NJ];  // rows ty + 16i, columns tx + 16j
 
@@ -238,52 +171,44 @@ struct Scores<float, BR, BC, EK> {
   }
 };
 
-// ------------------------------------------------------------------ forward
+// ------------------------------------------------------------ forward, fp32
 
-template <typename T>
 struct FwdShape {
-  static constexpr int BR = kIsBf16<T> ? 128 : 64;  // tokens per block
-  static constexpr int BC = kIsBf16<T> ? 128 : 64;  // vocab columns per tile
-  static constexpr int EK = 64;                        // hidden-dim chunk
-  static constexpr int LD = EK + kPad<T>;
-  static constexpr size_t smem() {
-    return sizeof(float) * BR * (BC + 4) + sizeof(T) * (BR + BC) * LD;
-  }
+  static constexpr int BR = 64;  // tokens per block
+  static constexpr int BC = 64;  // vocab columns per tile
+  static constexpr int EK = 64;  // hidden-dim chunk
+  static constexpr int LD = EK + kPad;
+  static constexpr size_t smem() { return sizeof(float) * (BR * (BC + 4) + (BR + BC) * LD); }
 };
 
-// two blocks per SM: the bf16 accumulators (8 fragments a thread) must fit
-// in 128 registers
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) ce_fwd_kernel(const CEParams p) {
-  using S = FwdShape<T>;
+  using S = FwdShape;
   constexpr int BR = S::BR, BC = S::BC, EK = S::EK, LDS = BC + 4;
-  constexpr int TPR = kThreads / BR;  // threads per token row (2 or 4)
+  constexpr int TPR = kThreads / BR;  // threads per token row
   constexpr int CPT = BC / TPR;       // columns per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sS = reinterpret_cast<float*>(smem_raw);  // [BR][LDS]: this tile's s
-  T* sR = reinterpret_cast<T*>(sS + BR * LDS);     // [BR][LD]: h chunk
-  T* sC = sR + BR * S::LD;                         // [BC][LD]: W chunk
+  float* sR = sS + BR * LDS;                       // [BR][LD]: h chunk
+  float* sC = sR + BR * S::LD;                     // [BC][LD]: W chunk
 
   const int tid = threadIdx.x, row = tid / TPR, part = tid % TPR;
   const int r0 = blockIdx.x * BR, tok = r0 + row;
   const int tiles = (p.vocab + BC - 1) / BC;
   const int t_begin = static_cast<int>(static_cast<long long>(blockIdx.y) * tiles / p.splits);
   const int t_end = static_cast<int>(static_cast<long long>(blockIdx.y + 1) * tiles / p.splits);
-  const T* H = static_cast<const T*>(p.h);
-  const T* W = static_cast<const T*>(p.w);
+  const float* H = static_cast<const float*>(p.h);
+  const float* W = static_cast<const float*>(p.w);
   const int label = tok < p.n ? p.labels[tok] : -1;
 
   float m_run = kNegInf, l_run = 0.f, lab = 0.f;
   for (int t = t_begin; t < t_end; ++t) {
     const int c0 = t * BC;
-    Scores<T, BR, BC, EK> s;
+    Scores<BR, BC, EK> s;
     s.zero();
     for (int e0 = 0; e0 < p.hidden; e0 += EK) {
       __syncthreads();  // the previous chunk's (and tile's) readers are done
-      stage<T, BR, EK, S::LD>(sR, H, p.n, r0, p.hidden, e0);
-      stage<T, BC, EK, S::LD>(sC, W, p.vocab, c0, p.hidden, e0);
-      cp_async_commit();
-      cp_async_wait<0>();  // two blocks per SM overlap one's copies with the other's products
+      stage<BR, EK, S::LD>(sR, H, p.n, r0, p.hidden, e0);
+      stage<BC, EK, S::LD>(sC, W, p.vocab, c0, p.hidden, e0);
       __syncthreads();
       s.add(sR, sC);
     }
@@ -342,7 +267,6 @@ __global__ void ce_combine_kernel(const CEParams p) {
   p.loss[i] = lse - lab;
 }
 
-
 // ---------------------------------------------------------- backward, fp32
 //
 // The first design, kept for fp32 (off the training path, which is bf16):
@@ -356,10 +280,10 @@ __global__ void ce_combine_kernel(const CEParams p) {
 // by the L2 traffic of 16 rows of reuse and by the CUDA cores' rate.
 
 struct BwdShape {
-  static constexpr int EK = 64;             // hidden-dim chunk
-  static constexpr int LD = EK + kPad<float>;  // staged operand pitch
-  static constexpr int LDS = kCols + 4;      // score pitch
-  static constexpr int LDL = kCols + kPad<float>;  // dl pitch
+  static constexpr int EK = 64;            // hidden-dim chunk
+  static constexpr int LD = EK + kPad;     // staged operand pitch
+  static constexpr int LDS = kCols + 4;    // score pitch
+  static constexpr int LDL = kCols + kPad;  // dl pitch
   static size_t smem(int E) {  // operand chunks double-buffered
     return sizeof(float) * (kRows * (E + 4) + kRows * LDS + 4 * kCols +
                             2 * (kRows + kCols) * LD + kRows * LDL);
@@ -427,13 +351,13 @@ __global__ void __launch_bounds__(kThreads) ce_bwd_kernel(const CEParams p) {
     // chunk k is multiplied; a buffer is refilled only after the barrier
     // that ends the products reading it
     auto stage_rc = [&](int k) {
-      stage<float, kRows, EK, LD>(sR + (k & 1) * kRows * LD, R, nr, r0, E, k * EK);
-      stage<float, kCols, EK, LD>(sC + (k & 1) * kCols * LD, C, nc, c0, E, k * EK);
+      stage<kRows, EK, LD>(sR + (k & 1) * kRows * LD, R, nr, r0, E, k * EK);
+      stage<kCols, EK, LD>(sC + (k & 1) * kCols * LD, C, nc, c0, E, k * EK);
     };
     auto stage_c = [&](int k) {
-      stage<float, kCols, EK, LD>(sC + (k & 1) * kCols * LD, C, nc, c0, E, k * EK);
+      stage<kCols, EK, LD>(sC + (k & 1) * kCols * LD, C, nc, c0, E, k * EK);
     };
-    Scores<float, kRows, kCols, EK> s;
+    Scores<kRows, kCols, EK> s;
     s.zero();
     stage_rc(0);
     for (int k = 0; k < chunks; ++k) {
@@ -472,7 +396,7 @@ __global__ void __launch_bounds__(kThreads) ce_bwd_kernel(const CEParams p) {
   }
 }
 
-// ---------------------------------------------------------- backward, bf16
+// ------------------------------------------------- bf16: the GEMM mainloop
 
 namespace gemm {
 
@@ -496,6 +420,7 @@ enum class Epi {
   kDlRows,  // store dl rounded to bf16; rows are tokens row0 + r, columns vocab ids
   kDlCols,  // the same with rows vocab ids row0 + r and columns tokens
   kProd,    // store the product rounded to bf16
+  kStats,   // per row and tile: max, Σ exp(s - max) and the label logit (ce_fwd)
 };
 
 struct Args {
@@ -507,6 +432,7 @@ struct Args {
   const float* a;
   const float* b;
   const int* labels;
+  float* partial;      // kStats: [3][ceil(n / BN)][m] max, sum, label logit
 };
 
 struct Smem {
@@ -579,6 +505,57 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
+// the kStats epilogue of one of a thread's two rows (H2: row r, and the
+// columns 8j + 2·(lane%4) + {0, 1} of d[4j + 2·H2 + {0, 1}]; `left` is
+// the vocab less the thread's first column). A row's 256 columns lie on
+// the four lanes of a quad, 64 each: its max over the columns below the
+// vocab (TMA's zero fill past it is left out; the quad's first lane
+// always holds the tile's first column, which lies below it), then Σ
+// exp(s - max) and the label logit, each over the thread's columns and
+// then over the quad; lane 0 of the quad writes them to the tile's split.
+// Written per row, and with the columns counted from `left`, the epilogue
+// stays in the 168 registers the launch holds (in one loop over both rows
+// ptxas spilled 44 bytes)
+template <int H2>
+__device__ __forceinline__ void stats_row(const float (&d)[128], const Args& g, int r, int left,
+                                          int nt, int lane) {
+  const int label = r < g.m ? g.labels[g.row0 + r] : -1;
+  // the label's column counted from the thread's first one; none below the
+  // vocab (-1 or V and past) matches no column
+  const int at_label = label >= 0 && label < g.n ? label - (g.n - left) : -1;
+  float mx = kNegInf;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    if (8 * j < left) mx = fmaxf(mx, d[4 * j + 2 * H2]);
+    if (8 * j + 1 < left) mx = fmaxf(mx, d[4 * j + 2 * H2 + 1]);
+  }
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  float sum = 0.f, lab = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    if (8 * j < left) sum += expf(d[4 * j + 2 * H2] - mx);
+    if (8 * j + 1 < left) sum += expf(d[4 * j + 2 * H2 + 1] - mx);
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    if (8 * j == at_label) lab = d[4 * j + 2 * H2];
+    if (8 * j + 1 == at_label) lab = d[4 * j + 2 * H2 + 1];
+  }
+  // at most one lane of the quad holds the label logit: the sum is exact
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  lab += __shfl_xor_sync(0xffffffffu, lab, 1);
+  lab += __shfl_xor_sync(0xffffffffu, lab, 2);
+  if (lane % 4 == 0 && r < g.m) {
+    const size_t plane = static_cast<size_t>((g.n + BN - 1) / BN) * g.m;
+    const size_t at = static_cast<size_t>(nt) * g.m + r;
+    g.partial[at] = mx;
+    g.partial[plane + at] = sum;
+    g.partial[2 * plane + at] = lab;
+  }
+}
+
 // the epilogue of one tile on one consumer warpgroup's accumulator: its
 // thread t holds rows warp·16 + lane/4 (+8) and columns 8j + 2·(lane%4)
 // (+1) of the warpgroup's 64 x 256 half; the rows and columns past the
@@ -588,6 +565,13 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], Smem& s, const A
                                          int nt, int t) {
   const int warp = t / 32, lane = t % 32;
   const int col0 = nt * BN + 2 * (lane % 4);
+  if constexpr (kEpi == Epi::kStats) {
+    const int r = mt * BM + c * 64 + warp * 16 + lane / 4;
+    const int left = g.n - col0;  // the thread's column 8j (+1) is below the vocab if < left
+    stats_row<0>(d, g, r, left, nt, lane);
+    stats_row<1>(d, g, r + 8, left, nt, lane);
+    return;
+  }
   if constexpr (kEpi == Epi::kDlCols) {
     named_sync(1 + c);  // this warpgroup is done with the previous tile's values
     for (int i = t; i < BN; i += 128) {
@@ -749,6 +733,14 @@ __global__ void __launch_bounds__(gemm::kThreads, 1)
   gemm::body<false, kTokenRows ? gemm::Epi::kDlRows : gemm::Epi::kDlCols>(a, b, g);
 }
 
+// ce_fwd's product: per token and 256-column vocab tile, (max, sum, label
+// logit) of s = h·Wᵀ into the forward's scratch
+__global__ void __launch_bounds__(gemm::kThreads, 1)
+    ce_stats_kernel(const __grid_constant__ CUtensorMap a, const __grid_constant__ CUtensorMap b,
+                    const gemm::Args g) {
+  gemm::body<false, gemm::Epi::kStats>(a, b, g);
+}
+
 // the second product: dh or dW rows = scratch · (W or h), N-major B
 __global__ void __launch_bounds__(gemm::kThreads, 1)
     ce_prod_kernel(const __grid_constant__ CUtensorMap a, const __grid_constant__ CUtensorMap b,
@@ -771,25 +763,20 @@ bool valid(const CEParams* p, int dtype) {
          p->hidden > 0 && p->hidden % 16 == 0;
 }
 
-template <typename T>
-int splits_for(int n, int vocab) {
-  using S = FwdShape<T>;
-  const int row_blocks = (n + S::BR - 1) / S::BR;
-  const int tiles = (vocab + S::BC - 1) / S::BC;
-  // about two blocks per SM over the whole grid, at most one tile each
+// the forward's vocab splits, the rows of its scratch `partial`: in bf16
+// one per 256-column tile of ce_stats_kernel; in fp32 about two blocks per
+// SM over the whole grid, at most one 64-column tile each
+int splits_for(int n, int vocab, int dtype) {
+  if (dtype == 1) return (vocab + gemm::BN - 1) / gemm::BN;
+  const int row_blocks = (n + FwdShape::BR - 1) / FwdShape::BR;
+  const int tiles = (vocab + FwdShape::BC - 1) / FwdShape::BC;
   const int want = 2 * device_int(cudaDevAttrMultiProcessorCount) / (row_blocks > 0 ? row_blocks : 1);
   return want < 1 ? 1 : (want > tiles ? tiles : want);
 }
 
-template <typename T>
-int fwd(const CEParams& p, cudaStream_t st) {
-  using S = FwdShape<T>;
-  if (p.splits != splits_for<T>(p.n, p.vocab)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((p.n + S::BR - 1) / S::BR, p.splits);
-  const int err = launch(ce_fwd_kernel<T>, grid, S::smem(), p, st);
-  if (err != 0) return err;
-  ce_combine_kernel<<<(p.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+int fwd_fp32(const CEParams& p, cudaStream_t st) {
+  const dim3 grid((p.n + FwdShape::BR - 1) / FwdShape::BR, p.splits);
+  return launch(ce_fwd_kernel, grid, FwdShape::smem(), p, st);
 }
 
 template <bool kTokenRows>
@@ -824,6 +811,19 @@ int launch_gemm(Kernel kernel, const CUtensorMap& a, const CUtensorMap& b, const
   const int sms = device_int(cudaDevAttrMultiProcessorCount);
   kernel<<<tiles < sms ? tiles : sms, gemm::kThreads, gemm::kSmemBytes, st>>>(a, b, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 ce_fwd: the stats product over the same K-major maps as ce_dh's
+// first product (h [n, E] in [128 x 64] boxes, W [V, E] in [256 x 64]
+// boxes: only E needs 16-byte rows, V may be any size)
+int fwd_bf16(const CEParams& p, cudaStream_t st) {
+  CUtensorMap mr, mc;
+  if (!tensor_map(&mr, p.h, p.n, p.hidden, gemm::BM, gemm::BK) ||
+      !tensor_map(&mc, p.w, p.vocab, p.hidden, gemm::BN, gemm::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gemm::Args g{p.n, p.vocab, p.hidden, 0, nullptr, 0,
+                     nullptr, nullptr, nullptr, p.labels, p.partial};
+  return launch_gemm(ce_stats_kernel, mr, mc, g, st);
 }
 
 // bf16 ce_dh (kTokenRows: chunks of tokens) or ce_dw (chunks of vocab
@@ -870,15 +870,20 @@ int bwd_bf16(const CEParams& p, cudaStream_t st) {
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
 // its launches (0 = success); the caller raises on anything else.
-extern "C" int ce_fwd_splits(int n, int vocab, int dtype) {
-  return dtype == 1 ? splits_for<bf16>(n, vocab) : splits_for<float>(n, vocab);
-}
+extern "C" int ce_fwd_splits(int n, int vocab, int dtype) { return splits_for(n, vocab, dtype); }
 
+// the splits' (max, sum, label logit) into each token's lse and loss: the
+// stats kernel (bf16) or ce_fwd_kernel (fp32), then ce_combine_kernel
 extern "C" int ce_fwd(const CEParams* p, int dtype, void* stream) {
   if (!valid(p, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   if (p->n == 0) return 0;
+  if (p->splits != splits_for(p->n, p->vocab, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? fwd<bf16>(*p, st) : fwd<float>(*p, st);
+  const int err = dtype == 1 ? fwd_bf16(*p, st) : fwd_fp32(*p, st);
+  if (err != 0) return err;
+  ce_combine_kernel<<<(p->n + kThreads - 1) / kThreads, kThreads, 0, st>>>(*p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ce_dh(const CEParams* p, int dtype, void* stream) {

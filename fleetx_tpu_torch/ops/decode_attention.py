@@ -15,7 +15,11 @@ window ``[starts[b], end[b])`` of cached positions. Two cache layouts:
   (``_paged_decode_kernel_q8`` :479).
 
 All four run one template, ``csrc/decode_attention.cu``, as the JAX kernels
-share ``_decode_kernel``'s body (B8 is it with the page as its tile).
+share ``_decode_kernel``'s body (B8 is it with the page as its tile). It
+splits each row's window over blocks of 64 positions in two launches
+(scores, then the weighted values, the last block of a row adding the
+splits in order) through a scratch the wrapper allocates
+(:func:`split_plan`).
 :func:`decode_attention` and :func:`paged_decode_attention` are the
 wrappers: on CUDA tensors they launch the hand-written kernel or raise;
 on CPU tensors they run the plain version
@@ -47,10 +51,10 @@ import torch
 from fleetx_tpu_torch.ops import _build
 from fleetx_tpu_torch.ops.quant import dequantize_kv
 
-__all__ = ["DECODE_TOL", "KERNEL", "NAMES",
+__all__ = ["DECODE_TOL", "KERNEL", "NAMES", "SPLIT_POSITIONS",
            "launches", "decode_attention", "decode_attention_ref",
            "decode_gaps", "fit_decode_blocks", "paged_decode_attention",
-           "paged_decode_attention_ref", "paged_gather_kv"]
+           "paged_decode_attention_ref", "paged_gather_kv", "split_plan"]
 
 KERNEL = "decode_attention"  # csrc/decode_attention.cu: B7, B8, B9, B10
 # kernel names, the keys of ``launches``: B8, B7, B9, B10
@@ -58,8 +62,10 @@ NAMES = ("paged_decode", "decode", "decode_q8", "paged_decode_q8")
 NEG_INF = -1e30  # the TPU kernels' running-max sentinel
 HEAD_DIMS = (16, 32, 64, 128)
 # the TPU kernels' default tile width, and the widest tile the CUDA kernels
-# take (they hold one chunk of 256 scores in shared memory)
+# take
 MAX_BLOCK_K = 256
+# positions of one split of a row's window (kSplit in the CUDA template)
+SPLIT_POSITIONS = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # B7-B10 vs their plain version on the card, (atol, share) by
@@ -270,7 +276,8 @@ def _check(q, k, v, k_scale, v_scale, tables=None):
 
 def _check_tile(width: int) -> None:
     """The paged kernels round p per ``block_k`` tile, the page itself,
-    which the kernels hold up to 256 positions; wider pages raise."""
+    which the kernels take up to 256 positions wide (the TPU kernels'
+    widest); wider pages raise."""
     if width > MAX_BLOCK_K:
         raise ValueError(f"the CUDA kernels tile at most {MAX_BLOCK_K} "
                          f"positions, got {width}")
@@ -285,27 +292,42 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def split_plan(b: int, h: int, length: int, d: int):
+    """``(splits, words)`` of the kernels' scratch for ``b`` rows of ``h``
+    heads of ``d`` over a reach of ``length`` positions: each row's reach
+    is cut into ``splits`` = max(1, ceil(length / 64)) splits, and the
+    fp32 scratch holds the scores [b·h, length], each split's max score
+    [b·h, splits] and sums [b·h, splits, d + 1], and one arrival counter
+    per (row, head): ``words`` 4-byte words (266,368, about 1 MB, at
+    GPT-345M's serving pools: 8 rows, 16 heads, 1024 positions, d 64)."""
+    splits = max(1, -(-length // SPLIT_POSITIONS))
+    return splits, b * h * (length + splits * (d + 2) + 1)
+
+
 def _launch_decode(name, q, k, v, k_scale, v_scale, tables, first, ends,
                    out, length, n_logical, page_size, block_k) -> None:
-    """Launch one of B7-B10 from ``csrc/decode_attention.cu``."""
+    """Launch one of B7-B10 from ``csrc/decode_attention.cu``, with its
+    scratch (:func:`split_plan`) allocated on the call's stream."""
     fn = _build.load(KERNEL).decode_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 6 + [ctypes.c_float,
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                ctypes.c_void_p])
     b, _, h, d = q.shape
     quant = k_scale is not None
     null = None
+    splits, words = split_plan(b, h, length, d)
+    scratch = torch.empty(words, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODES[q.dtype], int(quant), int(tables is not None),
                  d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  k_scale.data_ptr() if quant else null,
                  v_scale.data_ptr() if quant else null,
                  tables.data_ptr() if tables is not None else null,
-                 first.data_ptr(), ends.data_ptr(), out.data_ptr(), b, h,
-                 length, n_logical, page_size, block_k, 1.0 / math.sqrt(d),
-                 _stream(q))
+                 first.data_ptr(), ends.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), b, h, length, n_logical, page_size,
+                 block_k, splits, 1.0 / math.sqrt(d), _stream(q))
     _raise_on(err, name)
     launches[name] += 1
 

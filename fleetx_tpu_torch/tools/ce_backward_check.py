@@ -1,6 +1,6 @@
-"""The fused-CE backward kernels B5 (``ce_dh``) and B6 (``ce_dw``) on the
-card, beyond what ``chip_smoke.py`` checks: their numerics over many
-draws of the cotangent, and their times.
+"""The fused-CE kernels on the card, beyond what ``chip_smoke.py``
+checks: the backward kernels B5 (``ce_dh``) and B6 (``ce_dw``) over many
+draws of the cotangent, and the times of all three with B12's forward.
 
     python fleetx_tpu_torch/tools/ce_backward_check.py [--root DIR] \
         [--seeds 50] [--skip-sweep] [--out FILE]
@@ -12,9 +12,12 @@ draws of the cotangent, and their times.
   versions under ``CE_TOL``, aware of dl's rounding flips
   (``ce_loss.grads_gaps``), and against fp64 products of their own dl.
   It needs a tree whose ``ce_loss`` has ``fp64_checks``.
-- The times: B5 and B6 at the GPT-1.3B head (n 8192, E 2048, V 50304,
-  bf16) and at ``chip_smoke.py``'s fp32 case (n 1024, E 256, V 8192),
-  CUDA events over 10 calls after 2.
+- The times: B4 (``ce_fwd``), B5 and B6 at the GPT-1.3B head (n 8192,
+  E 2048, V 50304, bf16) and at ``chip_smoke.py``'s fp32 case (n 1024,
+  E 256, V 8192), and B12's forward (B4 on mp rank 0's vocab shard of
+  25152, labels over the whole vocab, about half off the shard), CUDA
+  events over 10 calls after 2; with the SHA-256 of each forward's
+  (loss, lse), so that two trees can be shown to compute the same bits.
 
 ``--root`` imports ``fleetx_tpu_torch`` from another checkout, such as an
 earlier commit unpacked by ``git archive``, so that one call can hold two
@@ -25,6 +28,7 @@ one JSON object. Needs a GPU.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -132,19 +136,38 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def _digest(*tensors) -> str:
+    sha = hashlib.sha256()
+    for t in tensors:
+        sha.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return sha.hexdigest()[:16]
+
+
 def times() -> dict:
-    """ms of B5 and B6 per case of TIME_CASES."""
+    """ms of B4, B5 and B6 per case of TIME_CASES, and of B12's forward at
+    the 1.3B head's mp 2 shard; each forward's output digest."""
     from fleetx_tpu_torch.ops import ce_loss as ce
 
     out = {}
     for case, (n, e, v, dtype) in TIME_CASES.items():
         h, w, labels = ce_case(n, e, v, dtype=dtype, seed=7)
         a, b = cotangents(n, 7, "g")
-        _, lse = ce.fused_ce_fwd(h, w, labels)
+        loss, lse = ce.fused_ce_fwd(h, w, labels)
         out[case] = {
+            "ce_fwd": cuda_ms(lambda: ce.fused_ce_fwd(h, w, labels)),
+            "ce_fwd_digest": _digest(loss, lse),
             "ce_dh": cuda_ms(lambda: ce.fused_ce_dh(h, w, labels, a, b, lse)),
             "ce_dw": cuda_ms(lambda: ce.fused_ce_dw(h, w, labels, a, b, lse))}
-        del h, w, labels, a, b, lse
+        if case == "bf16":
+            v_loc = v // 2
+            shard = w[:v_loc].contiguous()
+            l_loc = ce.local_labels(labels, v_loc, 0)
+            loss, lse = ce.fused_ce_fwd(h, shard, l_loc)
+            out["bf16_shard"] = {
+                "vp_ce_fwd": cuda_ms(lambda: ce.fused_ce_fwd(h, shard, l_loc)),
+                "vp_ce_fwd_digest": _digest(loss, lse)}
+            del shard, l_loc
+        del h, w, labels, a, b, loss, lse
         torch.cuda.empty_cache()
     return out
 

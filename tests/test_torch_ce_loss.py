@@ -392,3 +392,71 @@ def test_grads_check_catches_planted_faults(wrt, fault):
                          lambda: ce._dl_readings(*args, dl.float(), wrt))
     assert not gaps["ok"], gaps
     assert gaps["accepted"] < gaps["beyond"] or gaps["moved_share"] > 0.1
+
+
+# B4's plan at the 1.3B head (V 50304), its mp 2 shard (25152) and the
+# card tests' ragged vocab (1216): bf16 splits (one per 256-column tile of
+# ce_stats_kernel) and the columns of the last tile
+FWD_PLANS = {50304: (197, 128), 25152: (99, 64), 1216: (5, 192)}
+
+
+@pytest.mark.parametrize("v", sorted(FWD_PLANS), ids=str)
+def test_forward_plan_mirrors_the_kernel(v):
+    """The bf16 B4's scratch: one vocab split per 256-column tile of the
+    stats GEMM (``gemm::BN`` in csrc/ce_loss.cu), so ``partial`` [3,
+    splits, n] holds each token's (max, Σ exp, label logit) per tile;
+    19.4 MB at the 1.3B head's 8192 tokens."""
+    import re
+    from pathlib import Path
+
+    splits, last = FWD_PLANS[v]
+    src = (Path(ce.__file__).parent / "csrc" / "ce_loss.cu").read_text()
+    assert int(re.search(r"constexpr int BN = (\d+);", src).group(1)) == \
+        ce._VOCAB_TILE == 256
+    assert ce._fwd_splits(8192, v, torch.bfloat16) == splits == -(-v // 256)
+    assert v - (splits - 1) * ce._VOCAB_TILE == last
+    if v == 50304:
+        assert 3 * splits * 8192 * 4 == 19_365_888
+
+
+def _tile_stats_then_combine(h, w, labels, tile=256):
+    """B4 as the bf16 kernel computes it, in plain fp32: per 256-column
+    tile of s = h·Wᵀ, each row's max m_t, l_t = Σ exp(s - m_t) and the
+    label logit (columns past V left out); then, per token in tile order,
+    m = max m_t, l = Σ l_t·exp(m_t - m), lse = m + log l, loss = lse -
+    label logit."""
+    s = h.float() @ w.float().t()
+    col = torch.arange(w.shape[0])
+    stats = []
+    for lo in range(0, w.shape[0], tile):
+        st = s[:, lo:lo + tile]
+        m_t = st.amax(-1)
+        stats.append((m_t, torch.exp(st - m_t[:, None]).sum(-1),
+                      torch.where(labels.long()[:, None] == col[lo:lo + tile],
+                                  st, 0.0).sum(-1)))
+    m = torch.stack([m_t for m_t, _, _ in stats]).amax(0)
+    l = sum(l_t * torch.exp(m_t - m) for m_t, l_t, _ in stats)
+    lse = m + torch.log(l)
+    return lse - sum(lab for _, _, lab in stats), lse
+
+
+@pytest.mark.parametrize("n,e,v", [(64, 32, 384), (520, 64, 1216)],
+                         ids=["one-block", "ragged-tiles"])
+def test_tile_stats_then_combine_matches_plain_version_and_pallas(n, e, v):
+    """The bf16 kernel's order of work (256-column tile statistics, then a
+    combine over the tiles; 1216 columns leave a last tile of 192) in
+    fp32 against the plain version's online log-sum-exp and JAX's
+    ``fused_linear_ce`` forward (Pallas in interpret mode): fp32
+    association only."""
+    h, w, labels, _ = _case(n, e, v)
+    ht, wt, lt = (torch.from_numpy(x) for x in (h, w, labels))
+    loss, lse = _tile_stats_then_combine(ht, wt, lt)
+    want_loss, want_lse = ce.fused_ce_fwd_ref(ht, wt, lt)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(loss.numpy(), want_loss.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    jl = np.asarray(jce.fused_linear_ce(jnp.asarray(h), jnp.asarray(w),
+                                        jnp.asarray(labels)))
+    np.testing.assert_allclose(loss.numpy(), jl, rtol=1e-6, atol=1e-6)
+    assert torch.equal(loss[[0, 3]], lse[[0, 3]])  # labels -1 and V + 5

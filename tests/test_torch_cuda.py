@@ -21,21 +21,38 @@ from fleetx_tpu_torch.tools.ce_backward_check import ce_case
 GARBAGE = 3.0e4  # large FINITE values: the Pallas kernel zeroes p, not V
 
 
-def paged_case(page_size, *, b=4, h=2, d=16, n_logical=6, seed=0):
+def split_windows(cap):
+    """Windows that the kernels' split of a row's reach into 64-position
+    pieces cuts every way (``cap`` positions, a multiple of 8 above 200):
+    the whole reach (many splits), one position inside a split and a
+    tile, one from inside a tile across a split border, from position 0
+    over two splits and into a third, an empty window, and one whose end
+    passes the reach (clamped to it)."""
+    return [(0, cap), (70, 71), (60, 130), (0, 150), (5, 5),
+            (cap - 10, cap + 50)]
+
+
+def paged_case(page_size, *, b=4, h=2, d=16, n_logical=6, seed=0,
+               windows=None):
     """Windows covering every edge: a full table, ``end=1``, an end on a
     page boundary with ``starts > 0``, and a random window; rows 0 and 3
-    share their first two physical pages. The trash page, every
-    unallocated table entry and every slot outside a row's window hold
-    garbage."""
+    share their first two physical pages. ``windows`` [(start, end)]
+    replaces them (one row each; ends past the reach are clamped to it).
+    The trash page, every unallocated table entry and every slot outside
+    a row's window hold garbage."""
     rng = np.random.RandomState(seed)
     cap = n_logical * page_size
     ends = np.array([cap, 1, 3 * page_size, rng.randint(2 * page_size, cap)],
                     np.int32)
     starts = np.array([0, 0, page_size + 3, 0], np.int32)
+    if windows is not None:
+        starts, ends = (np.array(x, np.int32) for x in zip(*windows))
+        b = len(windows)
     num_pages = 1 + b * n_logical
     tables = np.zeros((b, n_logical), np.int32)
     for r in range(b):
-        for j in range(starts[r] // page_size, (ends[r] - 1) // page_size + 1):
+        for j in range(starts[r] // page_size,
+                       (min(ends[r], cap) - 1) // page_size + 1):
             tables[r, j] = 1 + r * n_logical + j
     tables[3, :2] = tables[0, :2]
     q = rng.randn(b, 1, h, d).astype(np.float32)
@@ -43,20 +60,22 @@ def paged_case(page_size, *, b=4, h=2, d=16, n_logical=6, seed=0):
     v = rng.randn(num_pages, page_size, h, d).astype(np.float32)
     live = np.zeros((num_pages, page_size), bool)
     for r in range(b):
-        for p in range(starts[r], ends[r]):
+        for p in range(starts[r], min(ends[r], cap)):
             live[tables[r, p // page_size], p % page_size] = True
     k[~live] = GARBAGE
     v[~live] = -GARBAGE
     return q, k, v, tables, starts, ends
 
 
-def contiguous_case(cache_len, *, b=4, h=2, d=16, seed=0, scalar_end=None):
+def contiguous_case(cache_len, *, b=4, h=2, d=16, seed=0, scalar_end=None,
+                    windows=None):
     """A contiguous cache ``[b, cache_len, h, d]`` with windows covering
     every edge: the full cache, ``end=1``, a window with ``starts > 0``
     ending on a tile border (8 and 256 both divide ``cache_len // 2`` when
     it is a multiple of 256), and a random one. ``scalar_end`` gives every
     row that one end (the one-shot ``generate()`` layout), with starts at
-    or below it. Every slot outside a row's window holds garbage."""
+    or below it; ``windows`` [(start, end)] replaces them (one row each).
+    Every slot outside a row's window holds garbage."""
     rng = np.random.RandomState(seed)
     if scalar_end is None:
         ends = np.array([cache_len, 1, 8 * (cache_len // 16),
@@ -65,6 +84,9 @@ def contiguous_case(cache_len, *, b=4, h=2, d=16, seed=0, scalar_end=None):
         ends = np.full(b, scalar_end, np.int32)
     starts = np.minimum(np.array([0, 0, 3, rng.randint(0, 9)], np.int32)[:b],
                         ends - 1)
+    if windows is not None:
+        starts, ends = (np.array(x, np.int32) for x in zip(*windows))
+        b = len(windows)
     q = rng.randn(b, 1, h, d).astype(np.float32)
     k = rng.randn(b, cache_len, h, d).astype(np.float32)
     v = rng.randn(b, cache_len, h, d).astype(np.float32)
@@ -101,43 +123,73 @@ def _launched(before):
             if da.launches[n] != before[n]}
 
 
+def _twice(fn, *args, **kw):
+    """``fn``'s output, after a second launch on the same inputs has given
+    the same bits (the kernels' sums run in one order)."""
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    return got
+
+
+# the decode cases' windows: every edge of the first design's tests, or
+# split_windows (1, 2 and many 64-position splits, a start inside a tile,
+# an empty window, an end clamped at the reach; paged rows 0 and 3 share
+# pages) over reaches of 320 (paged) and 296 / 512 (contiguous)
+DECODE_WINDOWS = ["edges", "splits"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_decode_kernel_matches_plain_version(head_dim, dtype):
+@pytest.mark.parametrize("windows", DECODE_WINDOWS)
+def test_paged_decode_kernel_matches_plain_version(head_dim, dtype, windows):
     """B8: the decode template over pools in the operand dtype, held
-    within DECODE_TOL as B7, B9 and B10 are."""
+    within DECODE_TOL as B7, B9 and B10 are, launched twice with equal
+    bits."""
     _need_card()
     for page_size in (8, 16):
-        q, k, v, tables, starts, ends = paged_case(page_size, d=head_dim)
+        n_logical = 6 if windows == "edges" else 320 // page_size
+        q, k, v, tables, starts, ends = paged_case(
+            page_size, d=head_dim, n_logical=n_logical,
+            windows=None if windows == "edges" else split_windows(320))
         args = [_torch(x, dtype).cuda() for x in (q, k, v)]
         kw = dict(tables=_torch(tables).cuda(), end=_torch(ends).cuda(),
                   starts=_torch(starts).cuda())
         before = dict(da.launches)
-        got = da.paged_decode_attention(*args, **kw)
-        torch.cuda.synchronize()
-        assert _launched(before) == {"paged_decode": 1}
+        got = _twice(da.paged_decode_attention, *args, **kw)
+        assert _launched(before) == {"paged_decode": 2}
         want = da.paged_decode_attention_ref(*args, **kw)
         assert got.abs().max() < 10  # no garbage leaked into the output
         gaps = da.decode_gaps(got, want)
         assert gaps["ok"], gaps
 
 
+def _contiguous_layouts(windows):
+    """(cache_len, scalar_end, windows) of the contiguous card cases."""
+    if windows == "edges":
+        return [(296, None, None), (512, None, None), (296, 201, None),
+                (512, 300, None)]
+    return [(n, None, split_windows(n)) for n in (296, 512)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True], ids=["B7", "B9"])
+@pytest.mark.parametrize("windows", DECODE_WINDOWS)
 def test_contiguous_decode_kernels_match_plain_versions(head_dim, dtype,
-                                                        quant):
+                                                        quant, windows):
     """B7 and B9 on caches whose ``fit_decode_blocks`` tile is 8 (296 =
-    8 x 37) and 256 (512), with per-row and scalar ends."""
+    8 x 37) and 256 (512), with per-row and scalar ends, launched twice
+    with equal bits."""
     _need_card()
-    for cache_len, scalar_end in ((296, None), (512, None), (296, 201),
-                                  (512, 300)):
+    for cache_len, scalar_end, rows in _contiguous_layouts(windows):
         assert da.fit_decode_blocks(cache_len)[0] == (
             8 if cache_len == 296 else 256)
         q, k, v, starts, ends = contiguous_case(
-            cache_len, d=head_dim, scalar_end=scalar_end)
+            cache_len, d=head_dim, scalar_end=scalar_end, windows=rows)
         kw = dict(end=ends if scalar_end else _torch(ends).cuda(),
                   starts=_torch(starts).cuda())
         if quant:
@@ -148,9 +200,8 @@ def test_contiguous_decode_kernels_match_plain_versions(head_dim, dtype,
             k, v = _torch(k, dtype).cuda(), _torch(v, dtype).cuda()
         q = _torch(q, dtype).cuda()
         before = dict(da.launches)
-        got = da.decode_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert _launched(before) == {"decode_q8" if quant else "decode": 1}
+        got = _twice(da.decode_attention, q, k, v, **kw)
+        assert _launched(before) == {"decode_q8" if quant else "decode": 2}
         want = da.decode_attention_ref(q, k, v, **kw)
         assert got.abs().max() < 10  # no garbage leaked into the output
         gaps = da.decode_gaps(got, want)
@@ -160,20 +211,24 @@ def test_contiguous_decode_kernels_match_plain_versions(head_dim, dtype,
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_q8_kernel_matches_plain_version(head_dim, dtype):
-    """B10: the paged kernel over int8 pools and their fp32 scale pools."""
+@pytest.mark.parametrize("windows", DECODE_WINDOWS)
+def test_paged_q8_kernel_matches_plain_version(head_dim, dtype, windows):
+    """B10: the paged kernel over int8 pools and their fp32 scale pools,
+    launched twice with equal bits."""
     _need_card()
     for page_size in (8, 16):
-        q, k, v, tables, starts, ends = paged_case(page_size, d=head_dim)
+        n_logical = 6 if windows == "edges" else 320 // page_size
+        q, k, v, tables, starts, ends = paged_case(
+            page_size, d=head_dim, n_logical=n_logical,
+            windows=None if windows == "edges" else split_windows(320))
         (k, ks), (v, vs) = quantize_np(k), quantize_np(v)
         args = [_torch(q, dtype).cuda(), _torch(k).cuda(), _torch(v).cuda()]
         kw = dict(tables=_torch(tables).cuda(), end=_torch(ends).cuda(),
                   starts=_torch(starts).cuda(), k_scale=_torch(ks).cuda(),
                   v_scale=_torch(vs).cuda())
         before = dict(da.launches)
-        got = da.paged_decode_attention(*args, **kw)
-        torch.cuda.synchronize()
-        assert _launched(before) == {"paged_decode_q8": 1}
+        got = _twice(da.paged_decode_attention, *args, **kw)
+        assert _launched(before) == {"paged_decode_q8": 2}
         want = da.paged_decode_attention_ref(*args, **kw)
         gaps = da.decode_gaps(got, want)
         assert gaps["ok"], gaps
@@ -678,8 +733,7 @@ def test_ce_kernels_match_plain_versions(hidden, dtype, n, v):
     _need_card()
     h, w, labels = ce_case(n, hidden, v, dtype=dtype)
     before = dict(ce.launches)
-    loss, lse = ce.fused_ce_fwd(h, w, labels)
-    torch.cuda.synchronize()
+    loss, lse = _twice_ce_fwd(h, w, labels)
     want_loss, want_lse = ce.fused_ce_fwd_ref(h, w, labels)
     _ce_close(loss, want_loss, dtype, "stats")
     _ce_close(lse, want_lse, dtype, "stats")
@@ -700,7 +754,72 @@ def test_ce_kernels_match_plain_versions(hidden, dtype, n, v):
               "grads", readings("w"))
     assert dh.float().abs().mean() > 1e-4 and dw.float().abs().mean() > 1e-6
     assert {n_: ce.launches[n_] - before[n_] for n_ in ce.NAMES} == {
-        n_: 1 for n_ in ce.NAMES}
+        "ce_fwd": 2, "ce_dh": 1, "ce_dw": 1}
+
+
+def _twice_ce_fwd(h, w, labels):
+    """B4's (loss, lse), after a second launch on the same inputs has
+    given the same bits."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    loss, lse = ce.fused_ce_fwd(h, w, labels)
+    again = ce.fused_ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+    return loss, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [64, 128, 2048])
+@pytest.mark.parametrize("v", [1216, 25152, 50304])
+@pytest.mark.parametrize("n", [64, 520, 8200])
+def test_ce_bf16_forward_on_the_wgmma_mainloop(n, v, hidden):
+    """The bf16 B4 (``ce_stats_kernel``, then ``ce_combine_kernel``)
+    against its plain version within CE_TOL["stats"], launched twice with
+    equal bits: 64, 520 and 8200 tokens leave ragged 128-row tiles; V
+    1216, 25152 and 50304 leave last vocab tiles of 192, 64 and 128
+    columns; labels -1, 0, V - 1 and V (loss == lse where none matches)."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    _need_card()
+    h, w, labels = ce_case(n, hidden, v, dtype=torch.bfloat16)
+    before = ce.launches["ce_fwd"]
+    loss, lse = _twice_ce_fwd(h, w, labels)
+    assert ce.launches["ce_fwd"] == before + 2
+    want_loss, want_lse = ce.fused_ce_fwd_ref(h, w, labels)
+    _ce_close(loss, want_loss, torch.bfloat16, "stats")
+    _ce_close(lse, want_lse, torch.bfloat16, "stats")
+    assert torch.equal(loss[[0, 3]], lse[[0, 3]])
+    assert (loss[1:3] != lse[1:3]).all()
+
+
+@pytest.mark.cuda
+def test_vp_stats_forward_on_a_vocab_shard():
+    """B12's forward (``vp_stats``: B4 on mp rank 1's shard of 25152
+    columns of a 50304 vocab, labels over the whole vocab, so about half
+    lie off the shard and give no label logit) against its plain version
+    within CE_TOL["stats"], launched twice with equal bits, one
+    ``vp_ce_fwd`` launch counted each time."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    _need_card()
+    v_loc = 25152
+    h, w, labels = ce_case(520, 128, 2 * v_loc, dtype=torch.bfloat16, seed=3)
+    shard = w[v_loc:].contiguous()
+    l_loc = ce.local_labels(labels, v_loc, 1)
+    off = (l_loc < 0).float().mean().item()
+    assert 0.3 < off < 0.7
+    before = dict(ce.vp_launches)
+    got = ce.vp_stats(h, shard, l_loc)
+    again = ce.vp_stats(h, shard, l_loc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert ce.vp_launches["vp_ce_fwd"] == before["vp_ce_fwd"] + 2
+    want = ce.vp_stats_ref(h, shard, l_loc.to(torch.int32))
+    for g, w_ in zip(got, want):
+        _ce_close(g, w_, torch.bfloat16, "stats")
+    assert torch.equal(got[1][l_loc < 0], torch.zeros_like(
+        got[1][l_loc < 0]))
 
 
 @pytest.mark.cuda
