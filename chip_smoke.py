@@ -137,9 +137,41 @@ decode steps after phase 10):
 21. train-mp-e2e — one step of that config cut to 4 layers at mp 1, mp 2
                and dp 2 x mp 2 on the same global batch: loss, grad norm
                and every gathered gradient leaf within phase 8's limits of
-               mp 1.
+               mp 1;
+22. resume-1.3b — phase 13's configuration (full width and depth, fused
+               CE, full recompute, dropout 0.1): run A trains 3 steps and
+               saves at step 2 through the async snapshot
+               (``FLEETX_CKPT_ASYNC_SNAPSHOT=1``); run A2 trains the same
+               3 steps again (the card's run-to-run gap: 0 when it repeats
+               bit for bit); run B, a fresh trainer that restores step 2,
+               trains step 3: its loss, grad norm, parameters, AdamW state
+               and generator must equal A's within A2's gap, and a resume
+               without the generator's state or without the AdamW moments
+               must break that gate; checkpoint bytes, the save's blocking
+               and total seconds, the load's seconds and the peak device
+               memory across the save printed;
+23. preempt  — ``tools/train.py`` as a subprocess on the 345M yaml over a
+               seeded corpus: a launch sent SIGTERM once its log shows
+               step 3 exits 0 with a checkpoint at the step it reached, a
+               relaunch with ``Engine.save_load.ckpt_dir`` resumes and ends
+               at step 6, and the two launches' losses, joined, equal an
+               uninterrupted launch's; seconds from the signal to exit and
+               from the relaunch to its first step printed;
+24. sentry   — phase 14's configuration (4 layers): five batches with the
+               third NaN (through B4-B6) skip one step and end with the
+               parameters, AdamW state and generator of a run over the
+               other four, bit for bit, the skipped batch consumed; then
+               phase 13's step with the sentry on and off (on, off, off,
+               on): the cost of its per-step host read;
+25. resume-mp — phase 21's configuration (4 layers) at mp 2 on 2 ranks
+               sharing the card: fresh processes resume a per-rank
+               checkpoint of step 1 and take step 2, equal on both ranks
+               to the uninterrupted run bit for bit (sha256 of every
+               tensor); a load of it at mp 1 raises
+               ``ElasticMeshMismatch`` and quarantines nothing.
 
-The line before the last is the kernels' JSON record; the last line is
+Every drive writes into an output directory of its own, deleted with its
+phase. The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs CUDA: without it the script exits
 non-zero before any phase runs. ``--profile`` also breaks down the 1.3B
 train steps after phase 13.
@@ -150,12 +182,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
+import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -185,6 +222,7 @@ from fleetx_tpu_torch.ops.quant import (  # noqa: E402
     quant_parity_frac,
     quantize_kv,
 )
+from fleetx_tpu_torch.resilience.faults import faults  # noqa: E402
 from fleetx_tpu_torch.serving import ServingEngine, ServingMetrics  # noqa: E402
 from fleetx_tpu_torch.tools.kernel_cases import (  # noqa: E402
     CP_BLOCK,
@@ -800,12 +838,31 @@ def write_corpus(prefix: str, tokens: int = 400_000, seed: int = 0,
              lens=np.array([len(d) for d in docs], np.int32))
 
 
+def own_output_dir(prefix: str) -> str:
+    """The override of a drive's ``Engine.save_load.output_dir``: a fresh
+    directory beside the corpus at ``prefix``, deleted with the phase's
+    temporary directory, so that no drive resumes from another's
+    checkpoint."""
+    return ("Engine.save_load.output_dir="
+            + tempfile.mkdtemp(prefix="out-", dir=os.path.dirname(prefix)))
+
+
+def drop_output_dirs(prefix: str) -> None:
+    """Delete the drives' output directories beside the corpus at
+    ``prefix`` (at the end of a phase: checkpoints take disk)."""
+    root = os.path.dirname(prefix)
+    for name in os.listdir(root):
+        if name.startswith("out-"):
+            shutil.rmtree(os.path.join(root, name))
+
+
 def train_config(prefix: str, *extra):
-    """The 345M pretraining config over the corpus at ``prefix``: a short
-    warmup and a max_lr at which the loss moves within the drive; no
-    width, depth, batch or sequence override."""
+    """The 345M pretraining config over the corpus at ``prefix``, writing
+    into a directory of its own: a short warmup and a max_lr at which the
+    loss moves within the drive; no width, depth, batch or sequence
+    override."""
     return get_config(TRAIN_CONFIG, overrides=[
-        f"Data.Train.dataset.input_dir={prefix}",
+        own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
         f"Engine.max_steps={TRAIN_STEPS}", "Engine.logging_freq=5",
         "Optimizer.lr.warmup_steps=5", "Optimizer.lr.max_lr=5.0e-4",
         "Optimizer.lr.min_lr=5.0e-5", "Optimizer.lr.decay_steps=1000",
@@ -1606,12 +1663,12 @@ def phase_ce() -> dict:
 
 def train_13b_config(prefix: str, *extra):
     """The 1.3B single-card config with ``Model.fused_ce=True`` over the
-    corpus at ``prefix`` (both splits): a short warmup and a max_lr at
-    which the loss moves within the drive, evaluation every EVAL_FREQ
-    steps over EVAL_ITERS batches; no width, depth, batch or sequence
-    override."""
+    corpus at ``prefix`` (both splits), writing into a directory of its
+    own: a short warmup and a max_lr at which the loss moves within the
+    drive, evaluation every EVAL_FREQ steps over EVAL_ITERS batches; no
+    width, depth, batch or sequence override."""
     return get_config(TRAIN_13B_CONFIG, overrides=[
-        f"Data.Train.dataset.input_dir={prefix}",
+        own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
         f"Data.Eval.dataset.input_dir={prefix}", "Model.fused_ce=True",
         f"Engine.max_steps={TRAIN_13B_STEPS}", "Engine.logging_freq=5",
         f"Engine.eval_freq={EVAL_FREQ}", f"Engine.eval_iters={EVAL_ITERS}",
@@ -2115,7 +2172,7 @@ def cp_overrides(prefix: str, *extra) -> list:
     """The long-context yaml at cp 2, seq 16384, one sequence per step, over
     the corpus at ``prefix``: a short warmup and a max_lr at which the loss
     moves within the drive; full width and depth."""
-    return [f"Data.Train.dataset.input_dir={prefix}",
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
             f"Data.Eval.dataset.input_dir={prefix}",
             f"Distributed.cp_degree={CP_DEGREE}",
             f"Data.Train.dataset.max_seq_len={CP_SEQ}",
@@ -2287,7 +2344,7 @@ def cp_e2e_overrides(prefix: str, dp: int, cp: int) -> list:
     at seq CP_E2E_SEQ, hidden dropout 0 (its mask follows the zig-zag
     order), attention dropout 0.1; a global batch of 2 sequences over dp
     ranks."""
-    return [f"Data.Train.dataset.input_dir={prefix}",
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
             f"Data.Train.dataset.max_seq_len={CP_E2E_SEQ}",
             f"Model.num_layers={CP_E2E_LAYERS}",
             "Model.hidden_dropout_prob=0.0",
@@ -2597,7 +2654,7 @@ def mp_overrides(prefix: str, *extra) -> list:
     at ``prefix``: MP_STEPS steps (warmup 1, a max_lr at which the loss
     moves within the drive) and one evaluation over MP_EVAL_ITERS batch;
     full width and depth, the yaml's batch 8 of 1024 tokens."""
-    return [f"Data.Train.dataset.input_dir={prefix}",
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
             f"Data.Eval.dataset.input_dir={prefix}", "Model.fused_ce=True",
             f"Distributed.mp_degree={MP_DEGREE}",
             f"Engine.max_steps={MP_STEPS}", "Engine.logging_freq=1",
@@ -2806,8 +2863,8 @@ def phase_train_mp_e2e(prefix: str) -> None:
     from fleetx_tpu_torch.models.gpt.convert import gather_params
     from fleetx_tpu_torch.parallel.launch import spawn
 
-    base = [f"Data.Train.dataset.input_dir={prefix}", "Model.fused_ce=True",
-            f"Model.num_layers={MP_E2E_LAYERS}"]
+    base = [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
+            "Model.fused_ce=True", f"Model.num_layers={MP_E2E_LAYERS}"]
     cfg1 = get_config(TRAIN_13B_CONFIG, overrides=base, nranks=1)
     batch = next(iter(build_dataloader(cfg1, "Train")))
     rows = batch["tokens"].shape[0]
@@ -2839,6 +2896,551 @@ def phase_train_mp_e2e(prefix: str) -> None:
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 22
+# the resume drive: phase 13's 1.3B configuration, 3 steps, saved at step 2
+RESUME_STEPS, RESUME_SAVE_AT = 3, 2
+
+
+def trainer_tensors(trainer):
+    """(key, tensor) of every parameter and AdamW state tensor (exp_avg,
+    exp_avg_sq, step) by parameter name, and the dropout generator."""
+    for n, p in trainer.module.nets.named_parameters():
+        yield n, p.detach()
+        for k, v in trainer.optimizer.state.get(p, {}).items():
+            yield f"{n}:{k}", v.detach()
+    yield "generator", trainer.generator.get_state()
+
+
+def host_state(trainer) -> dict:
+    """A copy on the host of :func:`trainer_tensors`."""
+    return {k: t.to("cpu", copy=True) for k, t in trainer_tensors(trainer)}
+
+
+def state_gaps(want: dict, trainer) -> dict:
+    """How far ``trainer``'s tensors lie from the host copy ``want``: how
+    many differ in any bit, and the largest absolute gap among them
+    (compared where the trainer's tensor lies, each copy moved there)."""
+    unequal, gap = [], 0.0
+    keys = []
+    for k, t in trainer_tensors(trainer):
+        keys.append(k)
+        ref = want[k].to(t.device)
+        if torch.equal(t, ref):
+            continue
+        unequal.append(k)
+        if t.is_floating_point():
+            gap = max(gap, float((t.double() - ref.double()).abs().max()))
+        else:
+            gap = math.inf
+    if sorted(keys) != sorted(want):
+        raise AssertionError("the trainers hold different state tensors")
+    return {"tensors": len(keys), "unequal": len(unequal),
+            "max_abs_gap": gap, "first_unequal": unequal[:3]}
+
+
+def run_gaps(ref: dict, run: dict, first: int = 0) -> dict:
+    """Per-step loss and grad-norm gaps of ``run`` against ``ref``'s steps
+    from ``first`` on, and the state gaps of ``run`` (already measured)."""
+    n = len(run["losses"])
+    steps = slice(first, first + n)
+    return {"loss": max((abs(a - b) for a, b in
+                         zip(run["losses"], ref["losses"][steps])),
+                        default=0.0),
+            "grad_norm": max((abs(a - b) for a, b in
+                              zip(run["grad_norms"], ref["grad_norms"][steps])),
+                             default=0.0),
+            "state": run["state"]["max_abs_gap"],
+            "unequal_tensors": run["state"]["unequal"]}
+
+
+def resume_config(prefix: str, out: str, *extra):
+    """Phase 13's configuration (full width and depth) for RESUME_STEPS
+    steps without evaluation, writing into ``out``."""
+    return train_13b_config(prefix, f"Engine.max_steps={RESUME_STEPS}",
+                            "Engine.eval_freq=0", "Engine.logging_freq=1",
+                            f"Engine.save_load.output_dir={out}", *extra)
+
+
+def resume_run(cfg, want=None, plant=None, async_snapshot=False) -> dict:
+    """A fresh trainer of ``cfg`` fitted to its max_steps. When ``cfg``'s
+    output directory holds a step, ``init_state`` restores it (timed) and
+    ``load(step=RESUME_SAVE_AT)`` confirms it; ``plant(trainer)`` then
+    plants a fault. Every save is timed, with the peak device memory
+    across it. Returns the per-step losses and grad norms, the B1-B6
+    launches of the fit, the save and load records, and the state: its
+    gaps against the host copy ``want``, or the host copy itself."""
+    if async_snapshot:
+        os.environ["FLEETX_CKPT_ASYNC_SNAPSHOT"] = "1"
+    try:
+        trainer = Trainer(cfg, build_module(cfg))
+    finally:
+        os.environ.pop("FLEETX_CKPT_ASYNC_SNAPSHOT", None)
+    loads, saves = [], []
+    load, save = trainer.load, trainer.save
+
+    def timed_load(step=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = load(step)
+        torch.cuda.synchronize()
+        loads.append({"step": trainer.step, "seconds":
+                      time.perf_counter() - t0})
+        return ok
+
+    def timed_save(epoch=0):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        save(epoch)
+        saves.append({"step": trainer.step,
+                      "held_gb": held / 1e9,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    trainer.load, trainer.save = timed_load, timed_save
+    trainer.init_state()
+    loader = build_dataloader(cfg, "Train")
+    if loads:
+        if not (trainer.load(step=RESUME_SAVE_AT)
+                and trainer.step == RESUME_SAVE_AT):
+            raise AssertionError(f"resumed at step {trainer.step}")
+        loader.batch_sampler.consumed_samples = trainer.consumed_samples
+    if plant is not None:
+        plant(trainer)
+    zero_train_launches()
+    trainer.fit(loader)
+    torch.cuda.synchronize()
+    out = {"losses": [float(h["loss"]) for h in trainer.history],
+           "grad_norms": [float(h["grad_norm"]) for h in trainer.history],
+           "launches": {**fa.launches, **ce.launches}, "loads": loads,
+           "saves": saves, "last_save": trainer.last_save,
+           "save_failures": trainer.save_failures,
+           "step": trainer.step, "consumed": trainer.consumed_samples,
+           "state": (host_state(trainer) if want is None
+                     else state_gaps(want, trainer))}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resume_13b(prefix: str) -> dict:
+    """The port's resume at the 1.3B step. Run A: RESUME_STEPS steps of
+    phase 13's configuration saving at step RESUME_SAVE_AT through the
+    async snapshot. Run A2: the same steps again, no save: the card's
+    run-to-run gap on this path (0 when it repeats bit for bit). Run B: a
+    fresh trainer restores step RESUME_SAVE_AT and trains the last step:
+    its loss, grad norm, parameters, AdamW state and generator must equal
+    A's within A2's gap (bit for bit when that is 0). Two planted faults,
+    a resume without the generator's state and one without the AdamW
+    moments, must each break that gate. Returns run A's launch counts."""
+    out_a = tempfile.mkdtemp(prefix="out-", dir=os.path.dirname(prefix))
+    free = shutil.disk_usage(out_a).free
+    log("resume-1.3b", disk_free_gb=free / 1e9, where=out_a)
+    cfg_a = resume_config(prefix, out_a,
+                          f"Engine.save_load.save_steps={RESUME_SAVE_AT}")
+    a = resume_run(cfg_a, async_snapshot=True)
+    want_state = a.pop("state")
+    layers = cfg_a.Model.num_layers
+    want = {"ce_fwd": RESUME_STEPS, "ce_dh": RESUME_STEPS,
+            "ce_dw": RESUME_STEPS, "flash_fwd": layers * 2 * RESUME_STEPS,
+            "flash_bwd_dq": layers * RESUME_STEPS,
+            "flash_bwd_dkv": layers * RESUME_STEPS}
+    if a["launches"] != want:
+        raise AssertionError(f"run A launched {a['launches']}, want {want}")
+    saved = a["last_save"]
+    if (saved is None or saved["step"] != RESUME_SAVE_AT or a["save_failures"]
+            or saved["total_s"] is None or len(a["saves"]) != 1):
+        raise AssertionError(f"run A's saves: {a['saves']} {saved}")
+    ckpt = os.path.join(out_a, "checkpoints", str(RESUME_SAVE_AT))
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                 for f in os.listdir(ckpt))
+    log("resume-1.3b", run="A", layers=layers, steps=a["step"],
+        losses=a["losses"], grad_norms=a["grad_norms"],
+        launches=a["launches"], checkpoint_bytes=nbytes,
+        state_bytes=saved["bytes"], save_blocking_s=saved["blocking_s"],
+        save_write_s=saved["write_s"], save_total_s=saved["total_s"],
+        save_peak_mem_gb=a["saves"][0]["peak_gb"],
+        save_held_mem_gb=a["saves"][0]["held_gb"])
+    a2 = resume_run(resume_config(prefix, tempfile.mkdtemp(
+        prefix="out-", dir=os.path.dirname(prefix)),
+        "Engine.save_load.save_steps=0"), want=want_state)
+    spread = run_gaps(a, a2)
+    bitwise = (a2["losses"] == a["losses"]
+               and a2["grad_norms"] == a["grad_norms"]
+               and a2["state"]["unequal"] == 0)
+    log("resume-1.3b", run="A2 (the same steps again)", bitwise=bitwise,
+        losses=a2["losses"], grad_norms=a2["grad_norms"],
+        state=a2["state"], run_to_run_gap=spread)
+    if not (math.isfinite(spread["state"]) and a2["step"] == a["step"]):
+        raise AssertionError(f"run A2 against A: {spread}")
+    limit = {k: spread[k] for k in ("loss", "grad_norm", "state")}
+
+    def resumed(plant=None):
+        run = resume_run(resume_config(prefix, out_a), want=want_state,
+                         plant=plant)
+        gaps = run_gaps(a, run, first=RESUME_SAVE_AT)
+        held = (run["step"] == a["step"] and run["consumed"] == a["consumed"]
+                and all(gaps[k] <= limit[k] for k in limit)
+                and (not bitwise or gaps["unequal_tensors"] == 0))
+        return run, gaps, held
+
+    b, gaps, held = resumed()
+    log("resume-1.3b", run="B (resumed)", losses=b["losses"],
+        grad_norms=b["grad_norms"], state=b["state"], gaps=gaps,
+        limit=limit, held=held, load_seconds=b["loads"][0]["seconds"],
+        consumed=b["consumed"], launches=b["launches"])
+    if b["launches"] != {k: v // RESUME_STEPS for k, v in want.items()}:
+        raise AssertionError(f"the resumed step launched {b['launches']}")
+    if not held:
+        raise AssertionError(f"the resume departs from run A: {gaps}, "
+                             f"limit {limit}")
+
+    def no_generator(trainer):
+        trainer.generator.manual_seed(trainer.seed)
+
+    def no_moments(trainer):
+        for s in trainer.optimizer.state.values():
+            s["exp_avg"].zero_()
+            s["exp_avg_sq"].zero_()
+
+    for name, plant in (("generator not restored", no_generator),
+                        ("AdamW moments not restored", no_moments)):
+        _, fault_gaps, fault_held = resumed(plant)
+        log("resume-1.3b", planted_fault=repr(name), gaps=fault_gaps,
+            caught=not fault_held)
+        if fault_held:
+            raise AssertionError(f"phase 22 misses the planted fault "
+                                 f"{name!r}: {fault_gaps}")
+    return {**a["launches"], "checkpoint_bytes": nbytes,
+            "save_blocking_s": saved["blocking_s"],
+            "save_total_s": saved["total_s"],
+            "load_s": b["loads"][0]["seconds"], "bitwise": bitwise}
+
+
+# ----------------------------------------------------------------- phase 23
+PREEMPT_STEPS, PREEMPT_AT = 6, 3
+# the training CLI as a command (its own interpreter)
+TRAIN_CLI = [sys.executable, "-m", "fleetx_tpu_torch.tools.train"]
+TRAIN_LINE = re.compile(r"\[train\] epoch: \d+, batch: (\d+), loss: "
+                        r"([-0-9.naif]+),")
+# the trainer's own lines: a save's and a load's seconds
+SAVED_LINE = re.compile(r"saved checkpoint at step \d+ -> \S+ \(([0-9.]+) s")
+LOADED_LINE = re.compile(r"restored checkpoint step \d+ \(epoch \d+\) in "
+                         r"([0-9.]+) s")
+
+
+def run_cli(argv, signal_at=None, timeout=600.0) -> dict:
+    """``TRAIN_CLI`` with ``argv`` from the repo's root (the synchronous
+    save path: no async snapshot). Its log's per-step losses (as printed,
+    9 decimals), the seconds from launch to its first step line, and,
+    given ``signal_at``, the seconds from the SIGTERM sent once the log
+    shows step ``signal_at`` to the process's exit."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "FLEETX_CKPT_ASYNC_SNAPSHOT"}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(TRAIN_CLI + list(argv), cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    watchdog = threading.Timer(timeout, proc.kill)  # a silent hang ends too
+    watchdog.start()
+    losses, first_step_s, signalled, lines = {}, None, None, []
+    seconds = {}
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            for key, pattern in (("save_s", SAVED_LINE),
+                                 ("load_s", LOADED_LINE)):
+                m = pattern.search(line)
+                if m is not None:
+                    seconds[key] = float(m.group(1))
+            m = TRAIN_LINE.search(line)
+            if m is None:
+                continue
+            losses[int(m.group(1))] = m.group(2)
+            if first_step_s is None:
+                first_step_s = time.perf_counter() - t0
+            if signal_at is not None and signalled is None \
+                    and int(m.group(1)) >= signal_at:
+                signalled = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    exited = time.perf_counter()
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}:\n" + "".join(lines[-40:]))
+    return {"losses": losses, "first_step_s": first_step_s, **seconds,
+            "signal_to_exit_s": (None if signalled is None
+                                 else exited - signalled),
+            "log_tail": lines[-3:]}
+
+
+def phase_preempt(prefix: str) -> dict:
+    """``tools/train.py`` as a subprocess on the 345M yaml (full width and
+    depth) over the corpus at ``prefix``: an uninterrupted reference to
+    step PREEMPT_STEPS; a launch sent SIGTERM once its log shows step
+    PREEMPT_AT must exit 0 with a checkpoint at the step it reached; a
+    relaunch with ``ckpt_dir`` must resume there and end at step
+    PREEMPT_STEPS. The two launches' per-step losses, joined, must equal
+    the reference's as printed (9 decimals, which tell float32 losses of
+    this size apart)."""
+    base = ["-c", TRAIN_CONFIG, "-o", f"Data.Train.dataset.input_dir={prefix}",
+            "-o", f"Engine.max_steps={PREEMPT_STEPS}",
+            "-o", "Engine.logging_freq=1", "-o", "Engine.eval_freq=0",
+            "-o", "Engine.save_load.save_steps=0",
+            "-o", "Optimizer.lr.warmup_steps=2",
+            "-o", "Optimizer.lr.max_lr=5.0e-4"]
+    ref = run_cli(base + ["-o", own_output_dir(prefix)])
+    out = tempfile.mkdtemp(prefix="out-", dir=os.path.dirname(prefix))
+    out_arg = ["-o", f"Engine.save_load.output_dir={out}"]
+    first = run_cli(base + out_arg, signal_at=PREEMPT_AT)
+    steps = sorted(int(n) for n in os.listdir(os.path.join(out, "checkpoints"))
+                   if n.isdigit())
+    second = run_cli(base + out_arg + [
+        "-o", f"Engine.save_load.ckpt_dir={out}"])
+    reached = max(first["losses"])
+    joined = {**first["losses"], **second["losses"]}
+    log("preempt", ref_losses=ref["losses"], first_losses=first["losses"],
+        checkpoints=steps, second_losses=second["losses"],
+        signal_to_exit_s=first["signal_to_exit_s"],
+        save_s=first.get("save_s"), load_s=second.get("load_s"),
+        resume_to_first_step_s=second["first_step_s"],
+        fresh_to_first_step_s=ref["first_step_s"],
+        second_log_tail=second["log_tail"])
+    if steps != [reached] or reached < PREEMPT_AT or reached >= PREEMPT_STEPS:
+        raise AssertionError(f"preempted at step {reached}, checkpoints "
+                             f"{steps}")
+    if (min(second["losses"]) != reached + 1
+            or max(second["losses"]) != PREEMPT_STEPS):
+        raise AssertionError(f"the relaunch trained {sorted(second['losses'])}"
+                             f" after step {reached}")
+    if joined != ref["losses"] or len(joined) != PREEMPT_STEPS:
+        raise AssertionError(f"preempted and resumed {joined} against the "
+                             f"uninterrupted {ref['losses']}")
+    if first.get("save_s") is None or second.get("load_s") is None:
+        raise AssertionError("the launches logged no save or no load")
+    return {"signal_to_exit_s": first["signal_to_exit_s"],
+            "save_s": first["save_s"], "load_s": second["load_s"],
+            "resume_to_first_step_s": second["first_step_s"]}
+
+
+# ----------------------------------------------------------------- phase 24
+SENTRY_LAYERS, SENTRY_BATCHES, SENTRY_NAN_AT = 4, 5, 2
+SENTRY_COST_STEPS = 10
+
+
+def sentry_fit(cfg, data) -> dict:
+    """A fresh trainer of ``cfg`` fitted on the list ``data``; its state
+    on the host, skips, step, consumed samples and B4-B6 launches."""
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state()
+    zero_train_launches()
+    trainer.fit(data)
+    torch.cuda.synchronize()
+    out = {"state": host_state(trainer), "skips": trainer.sentry_skips,
+           "step": trainer.step, "consumed": trainer.consumed_samples,
+           "losses": [float(h["loss"]) for h in trainer.history],
+           "launches": {**fa.launches, **ce.launches}}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sentry_step_ms(prefix: str, sentry: str) -> dict:
+    """SENTRY_COST_STEPS steps of phase 13's configuration with
+    ``FLEETX_SENTRY=sentry``: the median interval between the ends of
+    consecutive steps (CUDA events; the first two left out)."""
+    os.environ["FLEETX_SENTRY"] = sentry
+    try:
+        cfg = train_13b_config(prefix, f"Engine.max_steps={SENTRY_COST_STEPS}",
+                               "Engine.eval_freq=0")
+        trainer = Trainer(cfg, build_module(cfg))
+    finally:
+        os.environ.pop("FLEETX_SENTRY", None)
+    trainer.init_state()
+    ends, step = [], trainer.train_step
+
+    def timed(batch):
+        out = step(batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    trainer.train_step = timed
+    trainer.fit(build_dataloader(cfg, "Train"))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    out = {"sentry": sentry, "step_ms_median": float(np.median(step_ms[2:])),
+           "steps": trainer.step, "enabled": trainer._sentry_enabled}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sentry(prefix: str) -> dict:
+    """Phase 14's 1.3B configuration cut to SENTRY_LAYERS layers: over
+    SENTRY_BATCHES batches with batch SENTRY_NAN_AT poisoned by the fault
+    injector (``loss_mask`` NaN, through B4-B6), the sentry skips one
+    step, and the parameters, AdamW state and generator equal those of a
+    run over the other batches bit for bit; the skipped batch counts as
+    consumed. Then the cost of the sentry's host read: phase 13's
+    configuration (full depth) with the sentry on and off, in the order
+    on, off, off, on."""
+    cfg = train_13b_config(prefix, f"Model.num_layers={SENTRY_LAYERS}",
+                           f"Engine.max_steps={SENTRY_BATCHES}",
+                           "Engine.eval_freq=0")
+    it = iter(build_dataloader(cfg, "Train"))
+    data = [next(it) for _ in range(SENTRY_BATCHES)]
+    faults.configure(nan_batch=str(SENTRY_NAN_AT))
+    try:
+        faulty = sentry_fit(cfg, data)
+        injected = faults.injected["nan"]
+    finally:
+        faults.reset()
+    clean = sentry_fit(cfg, [b for i, b in enumerate(data)
+                             if i != SENTRY_NAN_AT])
+    unequal = [k for k in clean["state"]
+               if not torch.equal(clean["state"][k], faulty["state"][k])]
+    batch = cfg.Global.global_batch_size
+    log("sentry", layers=SENTRY_LAYERS, batches=SENTRY_BATCHES,
+        nan_batch=SENTRY_NAN_AT, injected=injected, skips=faulty["skips"],
+        steps=faulty["step"], consumed=faulty["consumed"],
+        losses=faulty["losses"], clean_losses=clean["losses"],
+        launches=faulty["launches"], clean_launches=clean["launches"],
+        tensors=len(clean["state"]), unequal_tensors=len(unequal))
+    n = SENTRY_BATCHES
+    if (injected != 1 or faulty["skips"] != 1 or faulty["step"] != n - 1
+            or faulty["consumed"] != n * batch
+            or clean["consumed"] != (n - 1) * batch):
+        raise AssertionError(f"skips {faulty['skips']}, step "
+                             f"{faulty['step']}, consumed "
+                             f"{faulty['consumed']}")
+    if any(faulty["launches"][k] != n for k in ce.NAMES):
+        raise AssertionError(f"B4-B6 launched {faulty['launches']}: the NaN "
+                             "batch did not pass through them")
+    if unequal or faulty["losses"] != clean["losses"]:
+        raise AssertionError(f"the skip moved {unequal[:3]}")
+    del faulty, clean
+    costs = [sentry_step_ms(prefix, s) for s in ("1", "0", "0", "1")]
+    on = [c["step_ms_median"] for c in costs if c["sentry"] == "1"]
+    off = [c["step_ms_median"] for c in costs if c["sentry"] == "0"]
+    cost = (np.mean(on) - np.mean(off)) / np.mean(off)
+    log("sentry", step_ms_on=on, step_ms_off=off, cost_share=cost)
+    if [c["enabled"] for c in costs] != [True, False, False, True] or any(
+            c["steps"] != SENTRY_COST_STEPS for c in costs):
+        raise AssertionError(f"the sentry cost runs: {costs}")
+    return {"step_ms_on": on, "step_ms_off": off, "cost_share": cost}
+
+
+# ----------------------------------------------------------------- phase 25
+RESUME_MP_LAYERS = 4
+
+
+def tensor_digests(trainer) -> dict:
+    """sha256 of the bytes of every tensor of :func:`trainer_tensors`."""
+    return {k: hashlib.sha256(t.cpu().reshape(-1).view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()
+            for k, t in trainer_tensors(trainer)}
+
+
+def mp_resume_rank(overrides, resume: bool) -> dict:
+    """One rank of phase 25: a fresh trainer of ``overrides`` (which name
+    its output directory) fitted to its max_steps; with ``resume`` it
+    restores that directory's step 1 first and its sampler starts after
+    the consumed samples. Returns the per-step losses and grad norms,
+    digests of its tensors, its step, consumed samples and launches."""
+    cfg = get_config(TRAIN_13B_CONFIG, overrides=list(overrides))
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state()
+    loader = build_dataloader(cfg, "Train")
+    if resume:
+        if not (trainer.load(step=1) and trainer.step == 1):
+            raise AssertionError(f"resumed at step {trainer.step}")
+        loader.batch_sampler.consumed_samples = trainer.consumed_samples
+    for counts in (fa.launches, ce.launches, ce.vp_launches):
+        counts.update(dict.fromkeys(counts, 0))
+    trainer.fit(loader)
+    torch.cuda.synchronize()
+    return {"losses": [float(h["loss"]) for h in trainer.history],
+            "grad_norms": [float(h["grad_norm"]) for h in trainer.history],
+            "digests": tensor_digests(trainer), "step": trainer.step,
+            "consumed": trainer.consumed_samples,
+            "launches": {**fa.launches, **ce.launches, **ce.vp_launches}}
+
+
+def phase_resume_mp(prefix: str) -> None:
+    """Phase 21's configuration (the 1.3B cut to RESUME_MP_LAYERS layers,
+    fused CE) at mp 2 on 2 ranks sharing the card over gloo: an
+    uninterrupted run of 2 steps that saves per-rank files at step 1 and
+    2; fresh processes resume from a copy of step 1 alone and take step
+    2. On both ranks the step-2 loss and grad norm and every parameter,
+    AdamW tensor and the generator equal the uninterrupted run's (sha256
+    of their bytes). A load of that checkpoint at mp 1 raises
+    ``ElasticMeshMismatch`` and quarantines nothing."""
+    from fleetx_tpu_torch.parallel.launch import spawn
+    from fleetx_tpu_torch.resilience.elastic import ElasticMeshMismatch
+
+    whole = tempfile.mkdtemp(prefix="out-", dir=os.path.dirname(prefix))
+    part = tempfile.mkdtemp(prefix="out-", dir=os.path.dirname(prefix))
+    base = [f"Data.Train.dataset.input_dir={prefix}", "Model.fused_ce=True",
+            f"Model.num_layers={RESUME_MP_LAYERS}", "Engine.max_steps=2",
+            "Engine.logging_freq=1", "Engine.save_load.save_steps=1",
+            "Optimizer.lr.warmup_steps=1", "Optimizer.lr.max_lr=3.0e-4"]
+    mp = [f"Distributed.mp_degree={MP_DEGREE}"]
+    t0 = time.perf_counter()
+    a = spawn(mp_resume_rank, MP_DEGREE,
+              (base + mp + [f"Engine.save_load.output_dir={whole}"], False),
+              timeout=600)
+    shutil.copytree(os.path.join(whole, "checkpoints", "1"),
+                    os.path.join(part, "checkpoints", "1"))
+    files = sorted(os.listdir(os.path.join(part, "checkpoints", "1")))
+    b = spawn(mp_resume_rank, MP_DEGREE,
+              (base + mp + [f"Engine.save_load.output_dir={part}"], True),
+              timeout=600)
+    for rank, (x, y) in enumerate(zip(a, b)):
+        unequal = [k for k in x["digests"] if x["digests"][k] !=
+                   y["digests"].get(k)]
+        log("resume-mp", rank=rank, layers=RESUME_MP_LAYERS, mp=MP_DEGREE,
+            files=files, losses=x["losses"], resumed_losses=y["losses"],
+            grad_norms=x["grad_norms"], resumed_grad_norms=y["grad_norms"],
+            tensors=len(x["digests"]), unequal_tensors=len(unequal),
+            launches=x["launches"], resumed_launches=y["launches"])
+        if (unequal or y["losses"] != x["losses"][1:]
+                or y["grad_norms"] != x["grad_norms"][1:]
+                or (x["step"], x["consumed"]) != (y["step"], y["consumed"])
+                or x["digests"].keys() != y["digests"].keys()):
+            raise AssertionError(f"rank {rank}: the resume departs from the "
+                                 f"uninterrupted run ({unequal[:3]})")
+        if not (y["launches"]["vp_ce_fwd"] == 1
+                and y["launches"]["flash_bwd_dkv"] == RESUME_MP_LAYERS):
+            raise AssertionError(f"rank {rank} launched {y['launches']}")
+    if files != ["meta.json", "state-mp0.pt", "state-mp1.pt"]:
+        raise AssertionError(f"step 1 holds {files}")
+    cfg1 = get_config(TRAIN_13B_CONFIG, overrides=base + [
+        f"Engine.save_load.output_dir={part}"], nranks=1)
+    trainer = Trainer(cfg1, build_module(cfg1))
+    try:
+        trainer.init_state()
+        raise AssertionError("an mp 2 checkpoint loaded at mp 1")
+    except ElasticMeshMismatch as e:
+        refused = str(e)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = sorted(os.listdir(os.path.join(part, "checkpoints")))
+    quarantined = os.path.exists(os.path.join(part, "quarantine"))
+    log("resume-mp", mp1_load=refused, steps_left=steps,
+        quarantined=quarantined, seconds=time.perf_counter() - t0)
+    if steps != ["1", "2"] or quarantined:
+        raise AssertionError(f"after the refused load: {steps}, quarantine "
+                             f"{quarantined}")
 
 
 def common_prefix(a, b) -> int:
@@ -2921,6 +3523,22 @@ def main() -> int:
         for name in fa.NAMES:
             flash[name]["launches_mp"] = counts[name]
         phase_train_mp_e2e(prefix)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        write_corpus(prefix, tokens=800_000, seed=4)
+        resume = phase_resume_13b(prefix)
+        for name in ce.NAMES:
+            ce_records[name]["launches_resume_1_3b"] = resume[name]
+        for name in fa.NAMES:
+            flash[name]["launches_resume_1_3b"] = resume[name]
+        drop_output_dirs(prefix)
+        phase_preempt(prefix)
+        drop_output_dirs(prefix)
+        phase_sentry(prefix)
+        drop_output_dirs(prefix)
+        phase_resume_mp(prefix)
     records = [dict(name="paged_decode", route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",

@@ -1,15 +1,35 @@
 """Trainer: the training loop of the port.
 
-Port of the pieces of the JAX package's ``Trainer`` (core/engine.py) that
-single-card pretraining runs: construction (device, optimizer, schedule),
-the train step — micro-batch gradient accumulation (``make_grad_fn``,
-:77-117), the global-norm clip and the AdamW update (:507-546) — ``fit``
-with its ``loss``/``lr``/``ips``/``mfu`` log line (:778-929), and
-``evaluate`` every ``Engine.eval_freq`` steps over ``Engine.eval_iters``
-batches (:920-959). PyTorch runs eagerly, so there is no compiled step:
-the step is the loop body. Dropout seeds come from one ``torch.Generator`` seeded
-with ``Global.seed``. Checkpoints, the step sentry, preemption, elastic
-resume, the profiler and observability are not ported.
+Port of the JAX package's ``Trainer`` (core/engine.py) for GPT
+pretraining: construction (device, optimizer, schedule), the train step —
+micro-batch gradient accumulation (``make_grad_fn``, :77-117), the
+global-norm clip and the AdamW update (:507-546) — ``fit`` with its
+``loss``/``lr``/``ips``/``mfu`` log line (:778-929), ``evaluate`` every
+``Engine.eval_freq`` steps over ``Engine.eval_iters`` batches
+(:920-959), and the resilience of the run:
+
+- checkpoints (``save``, ``load``, :1010-1435): every
+  ``Engine.save_load.save_steps`` steps into
+  ``<output_dir>/checkpoints/<step>/`` (``core/checkpoint.py``; under
+  ``FLEETX_CKPT_ASYNC_SNAPSHOT=1`` a single process copies the state to
+  the host in the step path and one uploader thread writes it); a load
+  walks back from the newest step and quarantines a step that fails
+  verified restore; ``init_state`` resumes a run whose ``output_dir``
+  holds a step;
+- the step sentry (:252-260, :547-562, :846-880): a step whose loss or
+  gradient norm is not finite (or over ``FLEETX_SENTRY_LOSS_MAX`` /
+  ``FLEETX_SENTRY_GNORM_MAX``) is skipped — no parameter, AdamW state,
+  step count, learning rate or dropout draw moves, but its batch counts as
+  consumed — and ``FLEETX_SENTRY_MAX_SKIPS`` skips in a row save and raise
+  :class:`SentryAbort`;
+- preemption (:1437-1470): SIGTERM during ``fit`` checkpoints and returns;
+- the training fault hooks of ``resilience/faults.py``.
+
+PyTorch runs eagerly, so there is no compiled step: the step is the loop
+body. Dropout seeds come from one ``torch.Generator`` seeded with
+``Global.seed``; it is part of a checkpoint, and a skipped step puts it
+back where it was. The elastic supervisor (``run_elastic``), the
+profiler and the observability counters are not ported.
 
 Over several ranks (``Distributed.dp_degree`` × ``cp_degree`` ×
 ``mp_degree``, the current mesh of ``parallel/mesh.py``) every rank starts
@@ -20,7 +40,14 @@ clip, whose norm is the whole model's (the shards' squares summed over
 the mp group), so every rank of a replica takes the same update and the
 replicated parameters stay equal on every rank. The logged loss and
 ``evaluate``'s mean are summed over the data group too (each rank's loss
-is its share of the global mean), and only rank 0 logs.
+is its share of the global mean), and only rank 0 logs. The sentry's
+verdict is therefore the same on every rank; a SIGTERM that reaches one
+rank reaches the others through a one-element MAX all-reduce over the
+world after each fetch, so all ranks stop after the same step. A
+checkpoint holds one state file per mp rank, written by the ranks of dp
+and cp rank 0 (dp and cp replicas hold the same parameters); a load reads
+the file of its own mp rank, so dp may change between save and load, and
+mp, pp or cp may not (``resilience/elastic.py``).
 
 MFU is the model-FLOPs count of ``bench.py`` (6 per parameter per token
 plus the causal attention products; the whole model's parameters under
@@ -30,13 +57,21 @@ run on.
 
 from __future__ import annotations
 
+import atexit
+import hashlib
+import os
+import shutil
+import signal
+import threading
 import time
+import weakref
 from typing import Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from fleetx_tpu_torch.core.checkpoint import CheckpointStore
 from fleetx_tpu_torch.models.module import BasicModule
 from fleetx_tpu_torch.optims.lr_scheduler import build_lr_scheduler
 from fleetx_tpu_torch.optims.optimizer import (
@@ -47,11 +82,30 @@ from fleetx_tpu_torch.optims.optimizer import (
 from fleetx_tpu_torch.parallel.env import ranks_per_card
 from fleetx_tpu_torch.parallel.mesh import mesh_from_config
 from fleetx_tpu_torch.parallel.tensor_parallel import mp_split_axes
+from fleetx_tpu_torch.resilience.elastic import (
+    ElasticMeshMismatch,
+    validate_restore_mesh,
+)
+from fleetx_tpu_torch.resilience.faults import faults
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
 
-__all__ = ["Trainer", "model_flops_per_token", "peak_flops",
-           "all_reduce_sum"]
+__all__ = ["CheckpointUnrestorable", "SentryAbort", "Trainer",
+           "model_flops_per_token", "peak_flops", "all_reduce_sum"]
+
+
+class CheckpointUnrestorable(RuntimeError):
+    """Checkpoints existed but every candidate failed verified restore
+    (all quarantined). Distinct from the no-checkpoint-yet case, which
+    ``load()`` reports as ``False`` so that a first launch starts fresh:
+    resuming a real run from scratch must fail loudly."""
+
+
+class SentryAbort(RuntimeError):
+    """``FLEETX_SENTRY_MAX_SKIPS`` consecutive train steps were skipped by
+    the step sentry. The parameters and optimizer state are still the
+    last healthy step's (a skipped step never touches them) and a
+    checkpoint is written before this is raised."""
 
 # bf16 dense tensor-core peak by exact device name (NVIDIA data sheet; the
 # PCIe and NVL H100 parts have other peaks and are not listed)
@@ -108,6 +162,12 @@ def all_reduce_sum(tensors: List[torch.Tensor], group=None,
     flush()
 
 
+def _state_digest(state: torch.Tensor) -> float:
+    """A 48-bit digest of a generator state, exact in a float64."""
+    return float(int(hashlib.sha256(state.numpy().tobytes()).hexdigest()[:12],
+                     16))
+
+
 class Trainer:
     """Trains ``module.nets`` on ``device`` (CUDA unless the caller names
     another; raises without it)."""
@@ -124,6 +184,9 @@ class Trainer:
         self.logging_freq = eng.logging_freq
         self.eval_freq = eng.eval_freq
         self.eval_iters = eng.eval_iters
+        save_load = eng.save_load or {}
+        self.save_steps = save_load.get("save_steps", 1000)
+        self.output_dir = save_load.get("output_dir", "./output")
         self.seed = int(cfg.Global.seed)
         opt_cfg = cfg.Optimizer or {}
         self.lr_schedule = build_lr_scheduler(opt_cfg.get("lr", 1e-4))
@@ -136,12 +199,52 @@ class Trainer:
         self.n_params = 0
         self.mp_split: Dict[str, int] = {}  # parameters split over mp
         self.history: List[Dict[str, float]] = []  # one entry per step
+        self.start_epoch = 0
+        self.consumed_samples = 0
+        self._restored_step = None
+        self._preempted = False
+        self._prev_sigterm = None
+        self._store: Optional[CheckpointStore] = None
+        # step-shadow snapshot (FLEETX_CKPT_ASYNC_SNAPSHOT): save() copies
+        # the state to the host in the step path and hands it to one
+        # uploader thread; a single process only, since a multi-rank save
+        # meets at barriers that a per-rank thread would skew
+        self._ckpt_async = (
+            os.environ.get("FLEETX_CKPT_ASYNC_SNAPSHOT", "0") == "1"
+            and self.mesh.world == 1)
+        self._upload_thread: Optional[threading.Thread] = None
+        if self._ckpt_async:
+            # an upload in flight must finish before the interpreter ends,
+            # or its step stays a <step>.tmp; weakly, so that the hook
+            # does not keep the trainer (and its device state) alive
+            ref = weakref.ref(self)
+            atexit.register(lambda: ref() and ref().wait_for_checkpoints())
+        # the step sentry's knobs, read once (JAX :252-260)
+        self._sentry_enabled = os.environ.get("FLEETX_SENTRY", "1") == "1"
+        self._sentry_loss_max = float(
+            os.environ.get("FLEETX_SENTRY_LOSS_MAX", 0) or 0)
+        self._sentry_gnorm_max = float(
+            os.environ.get("FLEETX_SENTRY_GNORM_MAX", 0) or 0)
+        self._sentry_max_skips = int(
+            os.environ.get("FLEETX_SENTRY_MAX_SKIPS", 25) or 25)
+        self.sentry_skips = 0  # total skipped steps this run
+        self._sentry_consecutive = 0
+        self.save_failures = 0  # periodic saves that failed (run survived)
+        self._last_saved_meta = None  # (step, epoch, consumed_samples)
+        # the last save's step, bytes (this rank's file; the snapshot's
+        # tensors while its upload runs), seconds in the step path
+        # (blocking), writing this rank's file (write) and in all (total;
+        # write and total are None while its upload runs)
+        self.last_save: Optional[Dict[str, float]] = None
 
     # ----------------------------------------------------------------- init
     def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None):
         """Load ``params`` (a state dict; fresh weights from
         ``Global.seed`` when None) onto the device and build the
-        optimizer."""
+        optimizer. When ``<output_dir>/checkpoints`` holds a step, the run
+        resumes from it instead (JAX :363-377): ``load()`` restores the
+        newest one that passes verified restore, and raises
+        :class:`CheckpointUnrestorable` when none does."""
         if params is None:
             params = self.module.init_params(self.seed, self.device)
         params = {k: v.to(self.device, torch.float32)
@@ -155,9 +258,13 @@ class Trainer:
             for n, p in nets.named_parameters())
         self.optimizer = build_optimizer(self.cfg.Optimizer or {},
                                          nets.named_parameters())
+        self.step = 0
+        self._restored_step = None
         if self.primary:
             logger.info("initialized model: %.1fM params on %s (%s)",
                         self.n_params / 1e6, self.device, self.mesh)
+        if self._ckpt_store().all_steps():
+            self.load()
 
     # ----------------------------------------------------------------- step
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
@@ -172,13 +279,26 @@ class Trainer:
             out[k] = t.to(self.device, non_blocking=True)
         return out
 
+    def _sentry_ok(self, loss: torch.Tensor, norm: torch.Tensor) -> bool:
+        """The sentry's verdict on a step (JAX :547-562): loss and
+        gradient norm finite and under their thresholds. The one host
+        read of the step."""
+        ok = torch.isfinite(loss) & torch.isfinite(norm)
+        if self._sentry_loss_max > 0:
+            ok &= loss <= self._sentry_loss_max
+        if self._sentry_gnorm_max > 0:
+            ok &= norm <= self._sentry_gnorm_max
+        return bool(ok)
+
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """One optimizer step on a device batch: the mean loss and mean
         gradients over ``accumulate_steps`` micro-batches (summed over the
         data group's ranks, each holding its share of the global mean), the
-        clip, then AdamW at ``lr(step)``. Returns ``{"loss", "grad_norm",
-        "lr"}`` (loss and grad_norm as device scalars, the same on every
-        rank)."""
+        clip, then AdamW at ``lr(step)``. With the sentry on, a step it
+        refuses is skipped: the gradients are dropped and the dropout
+        generator is put back, so nothing moves. Returns ``{"loss",
+        "grad_norm", "lr", "skipped"}`` (loss and grad_norm as device
+        scalars, the same on every rank)."""
         nets = self.module.nets
         accum = self.accumulate_steps
         rows = next(iter(batch.values())).shape[0]
@@ -186,6 +306,8 @@ class Trainer:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{accum} micro-batches")
         micro = rows // accum
+        drawn_from = (self.generator.get_state() if self._sentry_enabled
+                      else None)
         loss_sum = torch.zeros((), device=self.device)
         for i in range(accum):
             part = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
@@ -204,12 +326,19 @@ class Trainer:
                            mesh.mp_group)
         grad_norm = norm if self.clip is None else self.clip(grads, norm)
         lr = float(self.lr_schedule(self.step))
+        loss = loss_sum / accum
+        if self._sentry_enabled and not self._sentry_ok(loss, grad_norm):
+            self.optimizer.zero_grad(set_to_none=True)
+            self.generator.set_state(drawn_from)
+            return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
+                    "skipped": True}
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
-        return {"loss": loss_sum / accum, "grad_norm": grad_norm, "lr": lr}
+        return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
+                "skipped": False}
 
     # ------------------------------------------------------------------ fit
     def _log_train(self, log: Dict) -> None:
@@ -226,29 +355,73 @@ class Trainer:
     def fit(self, train_data: Iterable,
             valid_data: Optional[Iterable] = None):
         """Train until ``Engine.max_steps`` or the end of
-        ``Engine.num_train_epochs`` epochs, logging every
-        ``Engine.logging_freq`` steps and, given ``valid_data``,
-        evaluating every ``Engine.eval_freq`` steps."""
+        ``Engine.num_train_epochs`` epochs (from the restored epoch),
+        logging every ``Engine.logging_freq`` steps, saving every
+        ``Engine.save_load.save_steps`` and, given ``valid_data``,
+        evaluating every ``Engine.eval_freq`` steps. SIGTERM (on the main
+        thread) checkpoints and returns; a data stream that raises banks
+        a checkpoint and re-raises."""
         if self.optimizer is None:
             self.init_state()
+        self._preempted = False  # a fresh fit() trains, not insta-saves
+        self._install_preemption_handler()
+        try:
+            self._fit_epochs(train_data, valid_data)
+        finally:
+            self._restore_preemption_handler()
+        return self
+
+    def _fit_epochs(self, train_data, valid_data) -> None:
         peak = peak_flops(self.device)
         if peak is not None:  # every card the ranks run on
             peak *= max(self.mesh.world // ranks_per_card(), 1)
+        global_batch = self.cfg.Global.global_batch_size
         tokens_per_batch = flops = None
-        for epoch in range(self.num_train_epochs):
+        for epoch in range(self.start_epoch, self.num_train_epochs):
             sampler = getattr(train_data, "batch_sampler", None)
             if sampler is not None and hasattr(sampler, "set_epoch"):
                 sampler.set_epoch(epoch)
             t_last = time.time()
             window = []
-            for batch in train_data:
+            batches = iter(faults.wrap_train_data(train_data))
+            while True:
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    break
+                except Exception:
+                    # bank the healthy progress before surfacing the
+                    # failure, so a restart resumes here
+                    logger.exception(
+                        "train data stream raised at step %d; writing an "
+                        "emergency checkpoint before re-raising", self.step)
+                    self._guarded_save(epoch)
+                    self.wait_for_checkpoints()
+                    raise
                 if self.step >= self.max_steps:
                     break
+                if self._preemption_agreed():
+                    logger.warning("preemption signal received: "
+                                   "checkpointing at step %d and exiting "
+                                   "fit()", self.step)
+                    self.save(epoch=epoch)
+                    self.wait_for_checkpoints()
+                    return
+                # a host loss raises here, before the step: its batch was
+                # fetched but not applied
+                faults.on_train_step(self.step)
                 if tokens_per_batch is None:  # the global batch's
                     tokens_per_batch = self.mesh.dp * int(
                         np.prod(np.shape(batch["tokens"])))
                     flops = self._flops_per_token(np.shape(batch["tokens"])[1])
                 out = self.train_step(self._to_device(batch))
+                # a skipped batch is consumed too: a resume does not
+                # re-feed it
+                self.consumed_samples += global_batch
+                if out["skipped"]:
+                    self._sentry_skip(out, epoch)
+                    continue
+                self._sentry_consecutive = 0
                 window.append(out["loss"])
                 self.history.append(out)
                 if self.step % self.logging_freq == 0:
@@ -267,9 +440,31 @@ class Trainer:
                 if (self.eval_freq and valid_data is not None
                         and self.step % self.eval_freq == 0):
                     self.evaluate(valid_data, epoch=epoch)
+                if self.save_steps and self.step % self.save_steps == 0:
+                    self._guarded_save(epoch)
             if self.step >= self.max_steps:
                 break
-        return self
+        self.wait_for_checkpoints()
+
+    def _sentry_skip(self, out: Dict, epoch: int) -> None:
+        """Count a skipped step (JAX :846-880); after
+        ``FLEETX_SENTRY_MAX_SKIPS`` in a row, save and raise
+        :class:`SentryAbort`."""
+        self.sentry_skips += 1
+        self._sentry_consecutive += 1
+        if self.primary:
+            logger.warning(
+                "sentry: skipped anomalous step %d (loss=%s grad_norm=%s; "
+                "%d skipped total, %d consecutive)", self.step,
+                float(out["loss"]), float(out["grad_norm"]),
+                self.sentry_skips, self._sentry_consecutive)
+        if self._sentry_consecutive >= self._sentry_max_skips:
+            self._guarded_save(epoch)
+            self.wait_for_checkpoints()
+            raise SentryAbort(
+                f"{self._sentry_consecutive} consecutive train steps "
+                f"skipped by the sentry at step {self.step} "
+                "(FLEETX_SENTRY_MAX_SKIPS); last healthy state checkpointed")
 
     # ----------------------------------------------------------------- eval
     def evaluate(self, valid_data: Iterable, epoch: int = 0
@@ -298,3 +493,436 @@ class Trainer:
                 "epoch": epoch, "batch": self.step, "loss": mean,
                 "batch_cost": (time.time() - t0) / len(losses)})
         return mean
+
+    # ------------------------------------------------------ across the ranks
+    def _world_max(self, values: List[float]) -> List[float]:
+        """The elementwise max of ``values`` over every rank (``values``
+        itself on a single rank). Over gloo the reduction runs on the host,
+        over NCCL on the card."""
+        if self.mesh.world == 1:
+            return list(values)
+        on = "cpu" if dist.get_backend() == "gloo" else self.device
+        t = torch.tensor(values, dtype=torch.float64, device=on)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return t.tolist()
+
+    def _all_ok(self, ok: bool) -> bool:
+        """Whether ``ok`` holds on every rank."""
+        return self._world_max([0.0 if ok else 1.0])[0] == 0.0
+
+    def _barrier(self) -> None:
+        self._world_max([0.0])
+
+    # ------------------------------------------------------------ checkpoint
+    def _ckpt_store(self) -> CheckpointStore:
+        if self._store is None:
+            self._store = CheckpointStore(
+                os.path.join(self.output_dir, "checkpoints"), max_to_keep=3)
+        return self._store
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until the in-flight snapshot upload (if any) finishes."""
+        t = self._upload_thread
+        if t is not None:
+            t.join()
+            self._upload_thread = None
+
+    def _record_save_failure(self, step: int) -> None:
+        """Count one failed checkpoint save (the run survives)."""
+        self.save_failures += 1
+
+    def _guarded_save(self, epoch: int = 0) -> None:
+        """A periodic or emergency save that survives a failed write: the
+        failure is logged and counted, and the next cadence retries."""
+        try:
+            self.save(epoch=epoch)
+        except Exception:
+            self._record_save_failure(self.step)
+            logger.exception(
+                "checkpoint save failed at step %d (%d failures so far); "
+                "training continues, next save in %s steps", self.step,
+                self.save_failures, self.save_steps)
+
+    def _dropout_impl(self) -> dict:
+        """The switches that define the dropout noise stream (JAX
+        :1269-1277). The port has no hardware-PRNG flash path."""
+        model_cfg = self.cfg.get("Model") or {}
+        return {"flash_hw_rng": False,
+                "fast_dropout": bool(model_cfg.get("fast_dropout", True))}
+
+    def _save_meta(self, epoch: int) -> dict:
+        """The JSON side of a checkpoint (JAX :1066-1081): epoch, consumed
+        samples, the dropout implementation and the mesh it was written
+        under (the port's has no fsdp or pp axis)."""
+        mesh = self.mesh
+        return {"epoch": epoch, "consumed_samples": self.consumed_samples,
+                "dropout_impl": self._dropout_impl(),
+                "mesh": {"dp": mesh.dp, "fsdp": 1, "mp": mesh.mp, "pp": 1,
+                         "cp": mesh.cp}}
+
+    def _param_names(self) -> List[str]:
+        """The optimizer's parameters' names, in its index order."""
+        name_of = {id(p): n for n, p in self.module.nets.named_parameters()}
+        return [name_of[id(p)] for group in self.optimizer.param_groups
+                for p in group["params"]]
+
+    def _state(self) -> dict:
+        """This rank's checkpoint: step, parameters, the optimizer's state
+        and parameter groups keyed by parameter name, the generator."""
+        names = self._param_names()
+        opt = self.optimizer.state_dict()
+        return {
+            "step": self.step,
+            "params": {n: p.detach() for n, p in
+                       self.module.nets.named_parameters()},
+            "optimizer": {
+                "state": {names[i]: s for i, s in opt["state"].items()},
+                "param_groups": [{**g, "params": [names[i] for i in
+                                                  g["params"]]}
+                                 for g in opt["param_groups"]]},
+            "generator": self.generator.get_state(),
+        }
+
+    def _check_generator_agrees(self) -> None:
+        """Every rank draws the same dropout seeds; a checkpoint keeps one
+        generator state per mp rank, so a rank that drifted would resume
+        another stream. Raise unless all ranks' states are equal."""
+        if self.mesh.world == 1:
+            return
+        d = _state_digest(self.generator.get_state())
+        hi, neg_lo = self._world_max([d, -d])
+        if hi != -neg_lo:
+            raise RuntimeError("the dropout generator's state differs "
+                               "between ranks; refusing to checkpoint")
+
+    def save(self, epoch: int = 0) -> None:
+        """Save step, parameters, AdamW state, generator and meta (JAX
+        :1083-1173). Every rank calls it. A step already saved with the
+        same meta is skipped; a step saved with older meta (sentry skips
+        advance ``consumed_samples`` with the step frozen) is rewritten:
+        the old copy is detached first and reattached if the rewrite
+        fails. Under ``FLEETX_CKPT_ASYNC_SNAPSHOT`` (a single process) the
+        state is copied to the host here and written by an uploader
+        thread; a rewrite stays synchronous."""
+        self.wait_for_checkpoints()  # one upload at a time
+        store = self._ckpt_store()
+        step = self.step
+        meta_sig = (step, epoch, self.consumed_samples)
+        t0 = time.perf_counter()
+        backup = None
+        if step in store.all_steps():
+            if meta_sig == self._last_saved_meta:
+                logger.info("checkpoint for step %d already exists; "
+                            "skipping duplicate save", step)
+                return
+            logger.info("checkpoint for step %d exists but meta advanced "
+                        "(consumed_samples %s); rewriting", step,
+                        self.consumed_samples)
+            backup = self._detach_step(step)
+        try:
+            faults.on_checkpoint_save(step)
+            meta = self._save_meta(epoch)
+            self._check_generator_agrees()
+            state = self._state()
+            if self._ckpt_async and backup is None:
+                host = _to_host(state)
+                nbytes = _nbytes(host)
+                blocking = time.perf_counter() - t0
+                self.last_save = {"step": step, "bytes": nbytes,
+                                  "blocking_s": blocking, "write_s": None,
+                                  "total_s": None}
+                self._upload_thread = threading.Thread(
+                    target=self._upload_snapshot,
+                    args=(store, step, host, meta, meta_sig, t0),
+                    name="fleetx-ckpt-upload", daemon=True)
+                self._upload_thread.start()
+                logger.info("snapshot of step %d handed to the uploader "
+                            "(blocked %.3f s, %.1f MB)", step, blocking,
+                            nbytes / 1e6)
+                return
+            nbytes, write_s = self._write(store, step, state, meta)
+        except BaseException:
+            if backup is not None:
+                self._reattach_step(backup, step)
+            raise
+        if backup is not None and self.primary:
+            shutil.rmtree(backup, ignore_errors=True)
+        dt = time.perf_counter() - t0
+        self.last_save = {"step": step, "bytes": nbytes, "blocking_s": dt,
+                          "write_s": write_s, "total_s": dt}
+        self._last_saved_meta = meta_sig
+        if self.primary:
+            logger.info("saved checkpoint at step %d -> %s (%.3f s, %.1f MB "
+                        "per file)", step, store.step_dir(step), dt,
+                        nbytes / 1e6)
+
+    def _write(self, store: CheckpointStore, step: int, state: dict,
+               meta: dict) -> tuple:
+        """The synchronous, collective write of one step: rank 0 opens
+        ``<step>.tmp``; the ranks of dp and cp rank 0 each write and fsync
+        their mp rank's file; rank 0 commits once every rank's write
+        returned. A failure on any rank drops the partial step and raises
+        on every rank. This rank's file's bytes (0 when it writes none) and
+        seconds writing it."""
+        mesh = self.mesh
+        writer = mesh.dp_rank == 0 and mesh.cp_rank == 0
+        nbytes, write_s, failure = 0, 0.0, None
+        for phase in ("begin", "write", "commit"):
+            try:
+                if phase == "begin" and self.primary:
+                    store.begin(step)
+                elif phase == "write" and writer:
+                    t0 = time.perf_counter()
+                    nbytes = store.write_state(step, mesh.mp_rank, state)
+                    write_s = time.perf_counter() - t0
+                elif phase == "commit" and self.primary:
+                    store.commit(step, meta)
+            except Exception as e:  # reported to every rank below
+                failure = e
+            if not self._all_ok(failure is None):
+                if self.primary:
+                    store.abort(step)
+                raise failure or RuntimeError(
+                    f"checkpoint step {step}: the {phase} failed on "
+                    "another rank")
+        return nbytes, write_s
+
+    def _upload_snapshot(self, store, step, host, meta, meta_sig,
+                         t0) -> None:
+        """Uploader-thread body: write a host snapshot (a single process).
+        ``_last_saved_meta`` moves only once the step is committed; a
+        failure is counted as a synchronous one is."""
+        try:
+            store.begin(step)
+            t_write = time.perf_counter()
+            nbytes = store.write_state(step, 0, host)
+            write_s = time.perf_counter() - t_write
+            store.commit(step, meta)
+            self._last_saved_meta = meta_sig
+            total = time.perf_counter() - t0
+            self.last_save = {**self.last_save, "bytes": nbytes,
+                              "write_s": write_s, "total_s": total}
+            logger.info("saved checkpoint at step %d -> %s (async snapshot: "
+                        "%.3f s blocking / %.3f s total)", step,
+                        store.step_dir(step), self.last_save["blocking_s"],
+                        total)
+        except Exception:
+            store.abort(step)
+            self._record_save_failure(step)
+            logger.exception("async snapshot upload failed at step %d (%d "
+                             "failures so far); training continues, next "
+                             "save retries", step, self.save_failures)
+
+    def _detach_step(self, step: int) -> Optional[str]:
+        """Move an existing step aside (to ``<output_dir>/rewrite/<step>``)
+        before a meta-advanced rewrite (JAX :1209); the backup's path."""
+        store = self._ckpt_store()
+        exists = os.path.isdir(store.step_dir(step))
+        self._barrier()  # every rank has looked before rank 0 moves it
+        hold = os.path.join(self.output_dir, "rewrite")
+        if self.primary and exists:
+            store.detach(step, hold)
+        self._barrier()
+        return os.path.join(hold, str(step)) if exists else None
+
+    def _reattach_step(self, backup: str, step: int) -> None:
+        """Put a detached step back after a failed rewrite (JAX :1232)."""
+        if self.primary:
+            self._ckpt_store().reattach(backup, step)
+            logger.warning("rewrite of checkpoint step %d failed; original "
+                           "copy restored", step)
+        self._barrier()
+
+    def _quarantine_step(self, step: int) -> None:
+        """Move a step that failed verified restore out of the checkpoint
+        root, to ``<output_dir>/quarantine/<step>`` (JAX :1408), so that it
+        is never offered again."""
+        if self.primary:
+            dst = self._ckpt_store().quarantine(
+                step, os.path.join(self.output_dir, "quarantine"))
+            if dst is not None:
+                logger.warning("quarantined corrupt checkpoint step %d -> "
+                               "%s", step, dst)
+        self._barrier()
+
+    def load(self, step: Optional[int] = None) -> bool:
+        """Restore a checkpoint: parameters (in place, so the optimizer
+        keeps stepping them), AdamW state, step, epoch, consumed samples
+        and the dropout generator (JAX :1279-1341). Without ``step`` it
+        walks back from the newest step; one that fails verified restore
+        on any rank (unreadable, another step counter, a key or shape
+        that differs from the model's) is quarantined and the next older
+        one tried. An explicit ``step`` raises instead. False when there
+        is no checkpoint; :class:`CheckpointUnrestorable` when every
+        candidate is bad; a step written under another mp/pp/cp raises
+        :class:`~fleetx_tpu_torch.resilience.elastic.ElasticMeshMismatch`
+        and is not quarantined."""
+        self.wait_for_checkpoints()  # a pending upload is a candidate too
+        store = self._ckpt_store()
+        candidates = ([step] if step is not None
+                      else sorted(store.all_steps(), reverse=True))
+        if not candidates:
+            logger.warning("no checkpoint found under %s", store.root)
+            return False
+        newest = candidates[0]
+        for cand in candidates:
+            if cand == self._restored_step and self.step == cand:
+                return True  # init_state already restored it
+            if self.optimizer is None:
+                raise RuntimeError("call init_state (or fit) before load")
+            t0 = time.perf_counter()
+            restored = failure = None
+            try:
+                restored = self._restore_step(cand)
+            except ElasticMeshMismatch:
+                raise  # a configuration error, not corruption
+            except Exception as e:  # reported to every rank below
+                failure = e
+            if not self._all_ok(failure is None):
+                if step is not None:
+                    raise failure or RuntimeError(
+                        f"checkpoint step {cand} failed verified restore "
+                        "on another rank")
+                logger.error("checkpoint step %d failed verified restore "
+                             "(%s); quarantining it and falling back to the "
+                             "next-older step", cand,
+                             failure if failure is not None
+                             else "on another rank")
+                self._quarantine_step(cand)
+                continue
+            self._apply_restored(cand, *restored)
+            if self.primary:
+                logger.info("restored checkpoint step %d (epoch %d) in "
+                            "%.3f s", cand, self.start_epoch,
+                            time.perf_counter() - t0)
+            if cand != newest:
+                logger.warning("restored FALLBACK checkpoint step %d; newer "
+                               "step(s) %s were quarantined", cand,
+                               [s for s in candidates if s > cand])
+            return True
+        raise CheckpointUnrestorable(
+            f"no restorable checkpoint under {store.root}: every candidate "
+            f"step {candidates} failed verified restore and was "
+            "quarantined")
+
+    def _restore_step(self, step: int):
+        """Read and verify this rank's state of ``step`` (raises on any
+        mismatch). The meta is read first and its mesh checked against
+        this trainer's (JAX :1343-1378)."""
+        store = self._ckpt_store()
+        meta = store.read_meta(step)
+        validate_restore_mesh(meta.get("mesh") or {}, self.mesh, step=step)
+        state = store.read_state(step, self.mesh.mp_rank)
+        if state.get("step") != step:
+            raise ValueError(f"checkpoint dir {step} holds step counter "
+                             f"{state.get('step')}")
+        params = state["params"]
+        want = dict(self.module.nets.named_parameters())
+        if params.keys() != want.keys():
+            raise ValueError(f"checkpoint step {step}: parameters "
+                             f"{sorted(params.keys() ^ want.keys())} differ "
+                             "from the model's")
+        for n, p in want.items():
+            if params[n].shape != p.shape or params[n].dtype != p.dtype:
+                raise ValueError(f"checkpoint step {step}: {n} is "
+                                 f"{tuple(params[n].shape)} {params[n].dtype}"
+                                 f", the model's {tuple(p.shape)} {p.dtype}")
+        opt = state["optimizer"]
+        groups = [g["params"] for g in opt["param_groups"]]
+        names = self._param_names()
+        if [n for g in groups for n in g] != names:
+            raise ValueError(f"checkpoint step {step}: the optimizer's "
+                             "parameter groups differ from the model's")
+        for n, s in opt["state"].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in s and s[k].shape != want[n].shape:
+                    raise ValueError(f"checkpoint step {step}: {k} of {n} "
+                                     f"is {tuple(s[k].shape)}")
+        if not (isinstance(state.get("generator"), torch.Tensor)
+                and state["generator"].dtype == torch.uint8):
+            raise ValueError(f"checkpoint step {step}: no generator state")
+        return state, meta
+
+    def _apply_restored(self, step: int, state: dict, meta: dict) -> None:
+        """Install a verified restore: the parameters copied into the
+        existing ones (the optimizer holds those objects), the AdamW state
+        re-keyed from names to the optimizer's indices, the generator, the
+        step and the resume meta (JAX :1380-1406)."""
+        with torch.no_grad():
+            for n, p in self.module.nets.named_parameters():
+                p.copy_(state["params"][n])
+        index = {n: i for i, n in enumerate(self._param_names())}
+        opt = state["optimizer"]
+        self.optimizer.load_state_dict({
+            "state": {index[n]: s for n, s in opt["state"].items()},
+            "param_groups": [{**g, "params": [index[n] for n in g["params"]]}
+                             for g in opt["param_groups"]]})
+        self.generator.set_state(state["generator"])
+        self.step = step
+        self.start_epoch = meta.get("epoch", 0)
+        self.consumed_samples = meta.get("consumed_samples", 0)
+        # a save at this step with unchanged meta must skip, not rewrite
+        self._last_saved_meta = (step, self.start_epoch,
+                                 self.consumed_samples)
+        saved_impl = meta.get("dropout_impl")
+        if saved_impl is not None and saved_impl != self._dropout_impl():
+            logger.warning(
+                "checkpoint was trained with dropout_impl=%s but this run "
+                "uses %s — the dropout noise stream will differ from an "
+                "uninterrupted run", saved_impl, self._dropout_impl())
+        self._restored_step = step
+
+    # ------------------------------------------------------------ preemption
+    def _install_preemption_handler(self) -> None:
+        """SIGTERM -> finish the in-flight step, checkpoint, return from
+        ``fit`` (JAX :1437-1458). Only the main thread may set a signal
+        handler; elsewhere this does nothing."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+
+        def on_sigterm(signum, frame):
+            self._preempted = True  # the fit loop checkpoints and returns
+
+        try:
+            self._prev_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
+        except (ValueError, OSError):
+            self._prev_sigterm = None
+
+    def _restore_preemption_handler(self) -> None:
+        """Put back whatever SIGTERM handler ``fit`` displaced."""
+        if (self._prev_sigterm is None
+                or threading.current_thread() is not threading.main_thread()):
+            return
+        try:
+            signal.signal(signal.SIGTERM, self._prev_sigterm)
+        except (ValueError, OSError):
+            pass
+        self._prev_sigterm = None
+
+    def _preemption_agreed(self) -> bool:
+        """Whether any rank was sent SIGTERM: ranks must stop after the
+        same step, or one would wait in a collective the others never
+        join."""
+        return self._world_max([float(self._preempted)])[0] > 0
+
+
+def _to_host(tree):
+    """A copy of ``tree``'s tensors on the host (the snapshot's D2H)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def _nbytes(tree) -> int:
+    """The bytes of ``tree``'s tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return 0

@@ -269,7 +269,8 @@ def generate(model, input_ids: torch.Tensor, gen_cfg: GenerationConfig, *,
     every row has finished. ``generator`` drives the sampling draws."""
     if gen_cfg.decode_strategy == "beam_search":
         raise NotImplementedError(
-            "beam search is not ported yet (ROADMAP Queue A, A3)")
+            "beam search is not ported yet (ROADMAP Queue A, \"Beam "
+            "search\")")
     b, prompt_len = input_ids.shape
     total_len = prompt_len + gen_cfg.max_length
     max_pos = model.cfg.max_position_embeddings

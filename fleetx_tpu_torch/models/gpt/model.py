@@ -166,7 +166,7 @@ class GPTConfig:
             if value is not None and not computes(value):
                 raise NotImplementedError(
                     f"Model.{key}={value!r} is not ported yet (ROADMAP "
-                    f"{item})")
+                    f"Queue A, \"{item}\")")
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in model_cfg.items()
               if k in known and v is not None}
@@ -183,13 +183,18 @@ class GPTConfig:
 
 # JAX GPTConfig switches that change what the model computes and that the
 # port does not implement: the test a value must pass (the port computes
-# those values), and the ROADMAP item that ports the rest
+# those values), and the title of the ROADMAP Queue A item that ports the
+# rest
 UNPORTED = {
-    "fast_dropout": (lambda v: v is True, "A4"),  # False: flax nn.Dropout
-    "pp_degree": (lambda v: v <= 1, "A6"),
-    "virtual_pp_degree": (lambda v: v <= 1, "A6"),
-    "num_experts": (lambda v: v <= 1, "A8"),
-    "expert_mode": (lambda v: v is False, "A8"),
+    # False: flax nn.Dropout
+    "fast_dropout": (lambda v: v is True,
+                     "Remaining GPT and Trainer switches"),
+    "pp_degree": (lambda v: v <= 1, "Pipeline parallelism"),
+    "virtual_pp_degree": (lambda v: v <= 1, "Pipeline parallelism"),
+    "num_experts": (lambda v: v <= 1,
+                    "Other families and the rest of the toolkit"),
+    "expert_mode": (lambda v: v is False,
+                    "Other families and the rest of the toolkit"),
 }
 
 
@@ -198,7 +203,8 @@ def recompute_policy(cfg: GPTConfig) -> Optional[str]:
     ``_remat_policy``, :738-760): None without ``use_recompute``, else
     ``"full"`` (the default): each layer keeps only its input and reruns
     its forward in the backward. ``full_attn``, ``core_attn`` and
-    ``recompute_extra_saves`` raise ``NotImplementedError`` (ROADMAP A4);
+    ``recompute_extra_saves`` raise ``NotImplementedError`` (ROADMAP
+    Queue A, "Remaining GPT and Trainer switches");
     another granularity raises ``ValueError``."""
     if not cfg.use_recompute:
         return None
@@ -207,8 +213,9 @@ def recompute_policy(cfg: GPTConfig) -> Optional[str]:
         what = (f"recompute_extra_saves={cfg.recompute_extra_saves!r}"
                 if granularity == "full" else
                 f"recompute_granularity={granularity!r}")
-        raise NotImplementedError(f"Model.{what} is not ported yet (ROADMAP "
-                                  "A4); the port recomputes at 'full'")
+        raise NotImplementedError(
+            f"Model.{what} is not ported yet (ROADMAP Queue A, \"Remaining "
+            "GPT and Trainer switches\"); the port recomputes at 'full'")
     if granularity != "full":
         raise ValueError(f"unknown recompute_granularity {granularity!r}")
     return granularity
@@ -308,7 +315,9 @@ class SelfAttention(nn.Module):
         if cfg.mp_degree > 1:
             raise NotImplementedError("the cached (decode) forward under "
                                       "mp_degree > 1 is mesh serving, not "
-                                      "ported yet (ROADMAP A2)")
+                                      "ported yet (ROADMAP Queue A, "
+                                      "\"Serving features slice 1 left "
+                                      "out\")")
         paged = cfg.decode_num_pages is not None
         quant = "key_scale" in cache
         if paged:

@@ -15,7 +15,9 @@ cp ring strides by mp. Each rank belongs to
   different tokens; losses, mask counts and gradients are summed over it).
 
 Pipeline, sharded-data (fsdp/ZeRO) and expert parallelism above 1 raise
-``NotImplementedError`` (ROADMAP A6).
+``NotImplementedError`` naming the ROADMAP Queue A item that ports them
+("Pipeline parallelism", "fsdp / ZeRO and elastic resume", "Other
+families and the rest of the toolkit").
 
 One mesh is current per process (:func:`get_mesh`); the data loader, the
 module, the model's parallel layers and the trainer read it.
@@ -141,7 +143,13 @@ def build_mesh(dp: int = 1, cp: int = 1, mp: int = 1) -> Mesh:
                 data_group=data_group)
 
 
-_UNPORTED_DEGREES = ("pp_degree", "ep_degree")
+# the degrees the port refuses above 1, and the title of the ROADMAP
+# Queue A item that ports each
+_UNPORTED_DEGREES = {
+    "pp_degree": "Pipeline parallelism",
+    "ep_degree": "Other families and the rest of the toolkit",
+    "sharding.sharding_degree": "fsdp / ZeRO and elastic resume",
+}
 
 
 def mesh_from_config(cfg) -> Mesh:
@@ -149,17 +157,16 @@ def mesh_from_config(cfg) -> Mesh:
     made current) on the first call, the same object while the degrees and
     the world stay the same. ``pp_degree``, ``ep_degree`` or
     ``sharding.sharding_degree`` above 1 raise ``NotImplementedError``
-    (ROADMAP A6)."""
+    naming the ROADMAP item that ports it."""
     d = cfg.get("Distributed") or {}
-    for key in _UNPORTED_DEGREES:
-        if (d.get(key) or 1) > 1:
-            raise NotImplementedError(f"Distributed.{key}={d.get(key)} is "
-                                      "not ported yet (ROADMAP A6)")
-    sharding = (d.get("sharding") or {}).get("sharding_degree") or 1
-    if sharding > 1:
-        raise NotImplementedError(f"Distributed.sharding.sharding_degree="
-                                  f"{sharding} is not ported yet (ROADMAP "
-                                  "A6)")
+    for key, item in _UNPORTED_DEGREES.items():
+        parent, _, leaf = key.rpartition(".")
+        section = (d.get(parent) or {}) if parent else d
+        value = section.get(leaf) or 1
+        if value > 1:
+            raise NotImplementedError(f"Distributed.{key}={value} is not "
+                                      f"ported yet (ROADMAP Queue A, "
+                                      f"\"{item}\")")
     dp, cp = d.get("dp_degree") or 1, d.get("cp_degree") or 1
     mp = d.get("mp_degree") or 1
     if _MESH is None or _key(dp, cp, mp) != _MESH_KEY:

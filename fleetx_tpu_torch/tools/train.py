@@ -1,12 +1,20 @@
 """Pretraining entry point of the port (the JAX package's tools/train.py
-without the elastic supervisor):
+without the elastic supervisor ``run_elastic``, which waits for ROADMAP
+Queue A "fsdp / ZeRO and elastic resume"):
 
     python -m fleetx_tpu_torch.tools.train \
         -c configs/nlp/gpt/pretrain_gpt_1.3B_single_card.yaml \
         -o Model.fused_ce=True -o Data.Train.dataset.input_dir=<prefix> \
         -o Data.Eval.dataset.input_dir=<prefix> -o Engine.max_steps=100
 
-Runs on the GPU and raises without one. Under a launcher, each process
+Runs on the GPU and raises without one. The run checkpoints into
+``<Engine.save_load.output_dir>/checkpoints`` every
+``Engine.save_load.save_steps`` steps and when it is sent SIGTERM (then
+it exits 0). Relaunched with ``-o Engine.save_load.ckpt_dir=<output_dir>``
+(as in the JAX tool, setting it asks for the resume, and the steps are
+read from ``output_dir``), it restores the newest good step and feeds the
+data from the first sample it had not consumed, so it continues as the
+uninterrupted run would. Under a launcher, each process
 is one rank of ``Distributed.dp_degree`` × ``cp_degree`` × ``mp_degree``;
 ranks that share a card talk over gloo, ranks with a card each over NCCL.
 Context parallelism:
@@ -42,8 +50,9 @@ from fleetx_tpu_torch.utils.log import advertise, logger
 def main(argv: Optional[List[str]] = None) -> Trainer:
     """Join the launcher's process group (a single process: none), parse
     ``-c``/``-o``, build the module, the loaders (``Eval`` when
-    ``Data.Eval`` and ``Engine.eval_freq`` are set) and the trainer, fit,
-    and leave the group."""
+    ``Data.Eval`` and ``Engine.eval_freq`` are set) and the trainer,
+    resume when ``Engine.save_load.ckpt_dir`` is set, fit, and leave the
+    group."""
     args = parse_args(argv)
     init_dist_env()
     try:
@@ -55,6 +64,14 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         if cfg.Data and cfg.Data.get("Eval") and cfg.Engine.eval_freq:
             eval_loader = build_dataloader(cfg, "Eval")
         trainer = Trainer(cfg, module)
+        if (cfg.Engine.save_load or {}).get("ckpt_dir"):
+            # a first launch (no checkpoint yet) trains from scratch; if
+            # checkpoints exist but none restores, load() raises
+            # CheckpointUnrestorable
+            trainer.init_state()
+            trainer.load()
+            train_loader.batch_sampler.consumed_samples = (
+                trainer.consumed_samples)
         trainer.fit(train_loader, eval_loader)
         logger.info("training done at step %d", trainer.step)
     finally:

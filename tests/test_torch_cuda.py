@@ -1231,3 +1231,71 @@ def test_cuda_mp2_trainer_on_two_ranks_sharing_the_card(tmp_path):
             "flash_fwd": 2 * 2 * layers, "flash_bwd_dq": 2 * layers,
             "flash_bwd_dkv": 2 * layers, "ce_fwd": 2, "ce_dh": 2, "ce_dw": 2,
             "vp_ce_fwd": 2, "vp_ce_dh": 2, "vp_ce_dw": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("snapshot", ["sync", "async"])
+def test_cuda_trainer_saves_loads_and_continues_bit_for_bit(tmp_path,
+                                                           monkeypatch,
+                                                           snapshot):
+    """The tiny bf16 GPT with fused_ce and full recompute at dropout 0.1
+    on the card: a run saving at steps 2 and 4 (synchronously, or as host
+    snapshots), then a fresh trainer that loads step 2 and continues: the
+    same losses for steps 3 and 4, and the same parameters, fused AdamW
+    state (step counts included) and generator at step 4, bit for bit."""
+    from fleetx_tpu_torch.core.engine import Trainer
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models import build_module
+    from test_torch_ckpt_ranks import assert_states_equal, trainer_state
+
+    _need_card()
+    monkeypatch.setenv("FLEETX_CKPT_ASYNC_SNAPSHOT",
+                       "1" if snapshot == "async" else "0")
+    cfg = _tiny_train_cfg(tmp_path, "Model.fused_ce=True",
+                          "Model.use_recompute=True", "Engine.max_steps=4",
+                          "Engine.save_load.save_steps=2",
+                          f"Engine.save_load.output_dir={tmp_path}/out")
+    runs = []
+    for load in (None, 2):
+        trainer = Trainer(cfg, build_module(cfg))
+        trainer.init_state()
+        loader = build_dataloader(cfg, "Train")
+        if load is not None:
+            assert trainer.load(step=load) and trainer.step == 2
+            loader.batch_sampler.consumed_samples = trainer.consumed_samples
+        trainer.fit(loader)
+        assert trainer.optimizer.defaults["fused"]
+        runs.append(([float(h["loss"]) for h in trainer.history],
+                     trainer_state(trainer)))
+        del trainer
+    assert runs[1][0] == runs[0][0][2:]
+    assert_states_equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_cuda_sentry_skip_leaves_fused_adamw_state_bit_equal(tmp_path):
+    """On the card a NaN batch (``loss_mask`` NaN through B4-B6) is
+    skipped: parameters, the fused AdamW moments and step counts, the
+    step and the generator stay bit for bit where the last applied step
+    left them, and the next good step applies."""
+    from fleetx_tpu_torch.core.engine import Trainer
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models import build_module
+    from test_torch_ckpt_ranks import assert_states_equal, trainer_state
+
+    _need_card()
+    cfg = _tiny_train_cfg(tmp_path, "Model.fused_ce=True",
+                          f"Engine.save_load.output_dir={tmp_path}/out")
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state()
+    loader = iter(build_dataloader(cfg, "Train"))
+    good, bad = next(loader), next(loader)
+    trainer.train_step(trainer._to_device(good))
+    before = trainer_state(trainer)
+    bad = dict(bad, loss_mask=np.full_like(bad["loss_mask"], np.nan))
+    out = trainer.train_step(trainer._to_device(bad))
+    assert out["skipped"] and trainer.step == 1
+    assert_states_equal(before, trainer_state(trainer))
+    out = trainer.train_step(trainer._to_device(good))
+    assert not out["skipped"] and trainer.step == 2
+    assert np.isfinite(float(out["loss"]))

@@ -255,7 +255,8 @@ def test_generate_runs_the_decode_kernel_per_layer_and_step(tree,
 
 def test_beam_search_is_not_ported(tree):
     tm = tiny_torch_model(tree)
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP Queue A, "Beam search"'):
         gen.generate(tm, torch.zeros(1, 3, dtype=torch.int64),
                      gen.GenerationConfig(decode_strategy="beam_search"))
 

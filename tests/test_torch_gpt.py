@@ -10,6 +10,7 @@ paged kernel in interpret mode.
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -250,17 +251,28 @@ def test_yaml_config_matches_jax_loader():
     assert with_dtype.dtype == torch.float32
 
 
+SWITCHES = "Remaining GPT and Trainer switches"
+PIPELINE = "Pipeline parallelism"
+FAMILIES = "Other families and the rest of the toolkit"
+
+
+# the ids name the items as ROADMAP numbered them when these cases were
+# written
 @pytest.mark.parametrize("key,value,item", [
-    ("fast_dropout", False, "A4"), ("pp_degree", 2, "A6"),
-    ("virtual_pp_degree", 2, "A6"), ("num_experts", 8, "A8"),
-    ("expert_mode", True, "A8")])
+    pytest.param("fast_dropout", False, SWITCHES, id="fast_dropout-False-A4"),
+    pytest.param("pp_degree", 2, PIPELINE, id="pp_degree-2-A6"),
+    pytest.param("virtual_pp_degree", 2, PIPELINE,
+                 id="virtual_pp_degree-2-A6"),
+    pytest.param("num_experts", 8, FAMILIES, id="num_experts-8-A8"),
+    pytest.param("expert_mode", True, FAMILIES, id="expert_mode-True-A8")])
 def test_config_raises_on_switches_the_port_does_not_compute(key, value,
                                                              item):
     """A JAX switch that changes what the model computes raises at any
-    value but the port's, naming its ROADMAP item; the port's own value
-    (the JAX default) loads."""
+    value but the port's, naming its ROADMAP item by title; the port's own
+    value (the JAX default) loads."""
     base = dict(TINY)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(f'ROADMAP Queue A, "{item}"')):
         GPTConfig.from_model_config({**base, key: value})
     default = getattr(JaxGPTConfig(), key)
     assert GPTConfig.from_model_config({**base, key: default}) == \
@@ -299,15 +311,22 @@ def test_config_ignores_layout_switches_and_reads_recompute_keys():
     assert cfg.no_recompute_layers == (0,)
 
 
+SWITCHES_MATCH = re.escape(f'ROADMAP Queue A, "{SWITCHES}"')
+
+
 @pytest.mark.parametrize("granularity,extra,error,match", [
-    ("full_attn", None, NotImplementedError, "ROADMAP A4"),
-    ("core_attn", None, NotImplementedError, "ROADMAP A4"),
-    ("full", ("qkv_out",), NotImplementedError, "ROADMAP A4"),
+    pytest.param("full_attn", None, NotImplementedError, SWITCHES_MATCH,
+                 id="full_attn-None-NotImplementedError-ROADMAP A4"),
+    pytest.param("core_attn", None, NotImplementedError, SWITCHES_MATCH,
+                 id="core_attn-None-NotImplementedError-ROADMAP A4"),
+    pytest.param("full", ("qkv_out",), NotImplementedError, SWITCHES_MATCH,
+                 id="full-extra2-NotImplementedError-ROADMAP A4"),
     ("bogus", None, ValueError, "unknown recompute_granularity"),
     (None, None, None, None), ("full", None, None, None)])
 def test_recompute_policy_branches(granularity, extra, error, match):
     """``full`` (the default granularity) is ported; the other JAX
-    granularities and extra saves raise naming A4, an unknown one raises
+    granularities and extra saves raise naming the item "Remaining GPT and
+    Trainer switches", an unknown one raises
     ValueError as JAX's ``_remat_policy`` does; without use_recompute the
     granularity is not read."""
     from fleetx_tpu_torch.models.gpt.model import GPTModel, recompute_policy

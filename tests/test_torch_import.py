@@ -107,3 +107,13 @@ def test_gate_covers_the_tensor_parallel_slice():
                  "tools.train"):
         assert f"fleetx_tpu_torch.{name}" in mods, name
     assert (PKG / "ops" / "csrc" / "ce_loss.cu").is_file()
+
+
+def test_gate_covers_the_resilience_slice():
+    """Likewise for checkpoints, the step sentry and preemption: the
+    checkpoint store, the fault injector, the load-time mesh contract and
+    the trainer and CLI that run them."""
+    mods = set(_modules())
+    for name in ("core.checkpoint", "core.engine", "resilience",
+                 "resilience.faults", "resilience.elastic", "tools.train"):
+        assert f"fleetx_tpu_torch.{name}" in mods, name
