@@ -103,7 +103,8 @@ decode steps after phase 10):
 17. train-cp — ``tools/train.py`` on ``pretrain_gpt_1.3B_longcontext_cp8
                .yaml`` at cp 2 (the yaml's 8 cut to the card's 2 ranks),
                seq 16384 (its 32768 cut), one sequence per step (no
-               accumulation), full width and depth, bf16, dropout 0.1, full
+               accumulation), full width, 12 of its 24 layers (to keep the
+               script inside its time), bf16, dropout 0.1, full
                recompute, on 2 ranks sharing the card over gloo, for 6 steps
                and one evaluation: losses finite, falling and equal on both
                ranks, parameters equal across ranks, B1-B3 launched exactly
@@ -168,11 +169,40 @@ decode steps after phase 10):
                checkpoint of step 1 and take step 2, equal on both ranks
                to the uninterrupted run bit for bit (sha256 of every
                tensor); a load of it at mp 1 raises
-               ``ElasticMeshMismatch`` and quarantines nothing.
+               ``ElasticMeshMismatch`` and quarantines nothing;
+26. pp-e2e   — phase 21's configuration (the 1.3B cut to 4 layers, hidden
+               dropout 0, attention dropout 0.1; the logits loss, as under
+               pp) as 4 microbatches of 2: one step at pp 1 (accumulating
+               over them), pp 2, pp 2 x v 2, mp 2 and pp 2 x mp 2 (ranks
+               sharing the card over gloo) on the same global batch: loss,
+               grad norm and every gradient leaf (the stages joined, the
+               mp shards gathered) of each pipeline within phase 8's
+               limits of the unpipelined run of its layout (pp 1, or mp 2
+               for pp 2 x mp 2, whose gaps to pp 1 are logged); the tied
+               embedding's gradient left unsummed, and two microbatches
+               swapped at the stage boundary, must each break a limit;
+27. train-pp — ``tools/train.py`` on ``pretrain_gpt_1.3B_single_card
+               .yaml`` at pp 2 (12 layers a stage, 2 ranks sharing the card
+               over gloo), full width and depth, bf16, dropout 0.1, full
+               recompute, the logits loss, batch 8 as 4 microbatches of 2,
+               for 5 steps and one 1-batch evaluation, then 3 steps at
+               virtual pp 2: losses finite, falling and equal on both
+               ranks, the tied embedding's copies bit-equal after every
+               step, B1-B3 launched exactly as the schedule launches them,
+               no plain version and no fused CE; step ms, tokens/s, MFU,
+               point-to-point ms and MB, collective ms, each rank's busy
+               share and peak memory printed;
+28. resume-pp — phase 26's configuration at pp 2: fresh processes resume
+               a per-stage checkpoint of step 1 and take step 2, equal on
+               both ranks to the uninterrupted run bit for bit; a load of
+               it at pp 1 raises ``ElasticMeshMismatch`` and quarantines
+               nothing.
 
 Every drive writes into an output directory of its own, deleted with its
-phase. The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Needs CUDA: without it the script exits
+phase. The script is the reaper of every process it starts, also of those
+whose parent ends first, and stops and reaps them all before it prints its
+result or when a phase fails. The line before the last is the kernels' JSON
+record; the last line is ``{"ok": true, "device": {...}}``. Needs CUDA: without it the script exits
 non-zero before any phase runs. ``--profile`` also breaks down the 1.3B
 train steps after phase 13.
 """
@@ -180,11 +210,13 @@ train steps after phase 13.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import hashlib
 import json
 import math
+import multiprocessing.resource_tracker
 import os
 import re
 import shutil
@@ -313,6 +345,83 @@ TRAIN_13B_E2E_TOL = dict(TRAIN_E2E_TOL)
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+# ---------------------------------------------------------------- processes
+
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def adopt_orphans() -> None:
+    """Make this process the parent of every process below it whose own
+    parent ends first, so that :func:`stop_descendants` finds them all."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def descendants() -> dict:
+    """pid -> command line of every process below this one, zombies
+    included."""
+    parents, names = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmdline = f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+        except OSError:  # it ended meanwhile
+            continue
+        # "pid (comm) state ppid ...": comm may hold spaces and parentheses
+        parents[int(entry)] = int(stat.rsplit(")", 1)[1].split()[1])
+        names[int(entry)] = cmdline or stat.split(" ", 1)[1].rsplit(")")[0]
+    below, frontier = {}, [os.getpid()]
+    while frontier:
+        top = frontier.pop()
+        for pid, ppid in parents.items():
+            if ppid == top and pid not in below:
+                below[pid] = names[pid]
+                frontier.append(pid)
+    return below
+
+
+def reap() -> None:
+    """Collect the exit status of every child that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(grace: float = 10.0) -> dict:
+    """Stop every process below this one and reap it: multiprocessing's
+    resource tracker by its own shutdown, the rest by SIGTERM and, after
+    ``grace`` seconds, SIGKILL. Returns those that were still there
+    (pid -> command line)."""
+    tracker = multiprocessing.resource_tracker._resource_tracker
+    if hasattr(tracker, "_stop"):  # else SIGTERM is ignored: SIGKILL
+        tracker._stop()  # closes its pipe and waits for it to exit
+    reap()
+    left = descendants()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in descendants():
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + grace
+        while descendants() and time.monotonic() < deadline:
+            reap()
+            time.sleep(0.05)
+        if not descendants():
+            break
+    if descendants():
+        raise RuntimeError(f"processes outlived SIGKILL: {descendants()}")
+    return left
 
 
 # ----------------------------------------------------------------- phase 1-2
@@ -1856,6 +1965,7 @@ def phase_train_13b_e2e(prefix: str, layers: int = 4) -> None:
 CP_CONFIG = os.path.join(
     ROOT, "configs/nlp/gpt/pretrain_gpt_1.3B_longcontext_cp8.yaml")
 CP_STEPS, CP_EVAL_ITERS = 6, 1
+CP_TRAIN_LAYERS = 12  # phase 17's depth: the yaml's 24 halved for time
 BLOCK_KERNEL = {"block_fwd_lse": "flash_fwd", "block_dq": "flash_bwd_dq",
                 "block_dkv": "flash_bwd_dkv"}
 
@@ -2171,10 +2281,11 @@ def phase_cp_ring() -> None:
 def cp_overrides(prefix: str, *extra) -> list:
     """The long-context yaml at cp 2, seq 16384, one sequence per step, over
     the corpus at ``prefix``: a short warmup and a max_lr at which the loss
-    moves within the drive; full width and depth."""
+    moves within the drive; full width, CP_TRAIN_LAYERS layers."""
     return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
             f"Data.Eval.dataset.input_dir={prefix}",
             f"Distributed.cp_degree={CP_DEGREE}",
+            f"Model.num_layers={CP_TRAIN_LAYERS}",
             f"Data.Train.dataset.max_seq_len={CP_SEQ}",
             f"Data.Eval.dataset.max_seq_len={CP_SEQ}",
             "Global.local_batch_size=1", "Global.micro_batch_size=1",
@@ -2271,8 +2382,8 @@ def cp_train_rank(argv) -> dict:
 
 def phase_train_cp(prefix: str) -> dict:
     """The port's CP training path: ``tools/train.py`` on the long-context
-    yaml (GPT-1.3B at full width and depth, bf16, dropout 0.1, full
-    recompute) at cp 2, seq 16384, on 2 ranks that share the card over
+    yaml (GPT-1.3B at full width, CP_TRAIN_LAYERS layers, bf16, dropout
+    0.1, full recompute) at cp 2, seq 16384, on 2 ranks that share the card over
     gloo, for CP_STEPS steps and one evaluation. Every loss finite and
     falling and equal on both ranks, the parameters equal across ranks,
     and B1-B3 launched exactly as the ring under recompute launches them
@@ -3443,6 +3554,507 @@ def phase_resume_mp(prefix: str) -> None:
                              f"{quarantined}")
 
 
+# ----------------------------------------------------------------- phase 26
+# the pipeline drives: the 1.3B yaml at pp 2, its batch of 8 streamed as 4
+# microbatches of 2 (Engine.accumulate_steps 4); phase 26 and 28 cut it to
+# PP_E2E_LAYERS layers, phase 27 runs it at full width and depth
+PP_DEGREE, PP_MICRO, PP_E2E_LAYERS = 2, 2, 4
+PP_STEPS, PP_V2_STEPS, PP_EVAL_ITERS = 5, 3, 1
+
+
+def pp_e2e_overrides(prefix: str, *extra) -> list:
+    """Phase 26's configuration: the 1.3B yaml cut to PP_E2E_LAYERS layers
+    (the logits loss: the fused CE is off under pp), hidden dropout 0,
+    attention dropout 0.1, microbatches of PP_MICRO rows."""
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
+            f"Model.num_layers={PP_E2E_LAYERS}",
+            "Model.hidden_dropout_prob=0.0",
+            "Model.attention_probs_dropout_prob=0.1",
+            f"Global.micro_batch_size={PP_MICRO}", *extra]
+
+
+def swap_first_sends():
+    """A planted fault: the first stage's first two sends (microbatches 0
+    and 1 leaving chunk 0) go out in the other order, so the next stage
+    runs each microbatch's layers on the other's activations. Returns the
+    function that takes the fault out again."""
+    from fleetx_tpu_torch.parallel import pipeline as pl
+
+    send, held = pl.Transport.send, []
+
+    def swapped(self, t, dst):
+        if len(held) == 0:
+            held.append((t.detach().clone(), dst))
+            return
+        send(self, t, dst)
+        if len(held) == 1:
+            send(self, *held[0])
+            held.append(None)
+
+    pl.Transport.send = swapped
+    return lambda: setattr(pl.Transport, "send", send)
+
+
+def pp_e2e_rank(runs, batch, grads_path) -> list:
+    """One rank of phase 26: for each (label, overrides, fault) of ``runs``
+    in turn, one train step of a fresh trainer (its stage and shards of
+    the seeded init) on the global ``batch``; the ranks of dp rank 0
+    save their gradients (by parameter name) to ``grads_path`` formatted
+    with the label, their stage and mp rank. ``fault``: None, ``"tied"``
+    (the tied embedding's gradient not summed over its two stages) or
+    ``"swap"`` (:func:`swap_first_sends` on the first stage). Returns
+    [(loss, grad norm)] in the order of ``runs``."""
+    from fleetx_tpu_torch.core import engine
+
+    out = []
+    for label, overrides, fault in runs:
+        cfg = get_config(TRAIN_13B_CONFIG, overrides=list(overrides))
+        trainer = Trainer(cfg, build_module(cfg))
+        trainer.init_state()
+        mesh = trainer.mesh
+        undo = None
+        if fault == "tied":
+            summed = engine.Trainer._sum_tied_grads
+            engine.Trainer._sum_tied_grads = lambda self, named: None
+            undo = lambda: setattr(engine.Trainer, "_sum_tied_grads", summed)
+        elif fault == "swap" and mesh.is_first_stage:
+            undo = swap_first_sends()
+        names = [n for n, _ in trainer.module.nets.named_parameters()]
+        grads, clip = [], trainer.clip
+
+        def capture(gs, norm=None):
+            grads.extend(g.detach().clone() for g in gs)
+            return clip(gs, norm)
+
+        trainer.clip = capture
+        try:
+            step = trainer.train_step(trainer._to_device(batch))
+        finally:
+            if undo is not None:
+                undo()
+        if mesh.dp_rank == 0:
+            torch.save({n: g.cpu() for n, g in zip(names, grads)},
+                       grads_path.format(label=label, pp=mesh.pp_rank,
+                                         mp=mesh.mp_rank))
+        out.append((float(step["loss"]), float(step["grad_norm"])))
+        del trainer, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_pp_e2e(prefix: str) -> None:
+    """One step of the 1.3B config cut to PP_E2E_LAYERS layers (hidden
+    dropout 0, attention dropout 0.1) on the same global batch of 8 rows
+    as 4 microbatches of 2: at pp 1 in this process (accumulating over
+    them), and at pp 2, pp 2 × v 2, mp 2 and pp 2 × mp 2 on ranks sharing
+    the card over gloo. Each pipeline is held to the unpipelined run of
+    its own tensor layout within phase 8's limits, every rank the same
+    loss and grad norm: pp 2 and pp 2 × v 2 to pp 1, pp 2 × mp 2 to mp 2
+    (mp's bf16 sums of row-parallel partials alone move the loss by about
+    phase 8's loss limit, phase 21's concern; those gaps to pp 1 are
+    logged beside). Gradients are compared leaf by leaf, the stages
+    joined and the mp shards gathered. The tied embedding's gradient left
+    unsummed over its two stages, and two microbatches' activations
+    swapped at the stage boundary, must each break a limit against pp
+    1."""
+    from fleetx_tpu_torch.models.gpt.convert import (
+        gather_params,
+        gather_stages,
+    )
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    base = pp_e2e_overrides(prefix)
+    cfg1 = get_config(TRAIN_13B_CONFIG, overrides=base, nranks=1)
+    batch = next(iter(build_dataloader(cfg1, "Train")))
+    if cfg1.Engine.accumulate_steps != 4:
+        raise AssertionError(f"pp 1 accumulates "
+                             f"{cfg1.Engine.accumulate_steps} microbatches")
+    gcfg = build_module(cfg1).gpt_config
+    runs = {"pp1": _e2e_step(cfg1, batch)}
+    pp = [f"Distributed.pp_degree={PP_DEGREE}"]
+    mp = [f"Distributed.mp_degree={MP_DEGREE}"]
+    v2 = ["Model.virtual_pp_degree=2"]
+    # label: (overrides, fault, the run it is held to, its pp and mp)
+    two = (PP_DEGREE, 1)
+    plan = {"pp2": (pp, None, "pp1", two),
+            "pp2xv2": (pp + v2, None, "pp1", two),
+            "tied": (pp, "tied", "pp1", two), "swap": (pp, "swap", "pp1", two),
+            "mp2": (mp, None, None, (1, MP_DEGREE)),
+            "pp2xmp2": (pp + mp, None, "mp2", (PP_DEGREE, MP_DEGREE))}
+    faults = {"tied": "the tied embedding's gradient not summed over its "
+                      "two stages",
+              "swap": "microbatches 0 and 1 swapped at the stage boundary"}
+    spawns = {PP_DEGREE: ["pp2", "pp2xv2", "tied", "swap", "mp2"],
+              PP_DEGREE * MP_DEGREE: ["pp2xmp2"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grads_{label}_pp{pp}_mp{mp}.pt")
+        for nprocs, labels in spawns.items():
+            t0 = time.perf_counter()
+            outs = spawn(pp_e2e_rank, nprocs,
+                         ([(x, base + plan[x][0], plan[x][1])
+                           for x in labels], batch, path), timeout=600)
+            for i, label in enumerate(labels):
+                stages, m = plan[label][3]
+                shards = [gather_stages([torch.load(path.format(
+                    label=label, pp=p, mp=r)) for p in range(stages)])
+                    for r in range(m)]
+                grads = gather_params(shards, dataclasses.replace(
+                    gcfg, mp_degree=m))
+                if len({o[i] for o in outs}) != 1:
+                    raise AssertionError(f"{label}: the ranks disagree: "
+                                         f"{[o[i] for o in outs]}")
+                runs[label] = (*outs[0][i], {n: g.to(DEVICE) for n, g in
+                                             grads.items()}, 0)
+            log("pp-e2e", ranks=nprocs, runs=len(labels),
+                seconds=time.perf_counter() - t0)
+    for label, (_, fault, held_to, _) in plan.items():
+        run = runs[label]
+        gaps = _e2e_gaps(run, runs[held_to or "pp1"])
+        over = [m for m, tol in TRAIN_E2E_TOL.items() if not gaps[m] <= tol]
+        if fault is not None:
+            log("pp-e2e", planted_fault=repr(faults[fault]), caught=over,
+                **gaps)
+            if not over:
+                raise AssertionError(f"phase 26 misses the planted fault "
+                                     f"{faults[fault]!r}: {gaps}")
+            continue
+        to_pp1 = {} if held_to in (None, "pp1") else {
+            f"{k}_to_pp1": v for k, v in _e2e_gaps(run, runs["pp1"]).items()}
+        log("pp-e2e", layers=PP_E2E_LAYERS, run=label,
+            held_to=held_to or "none (phase 21 holds mp)", loss_this=run[0],
+            loss_ref=runs[held_to or "pp1"][0], grad_norm_this=run[1],
+            grad_norm_ref=runs[held_to or "pp1"][1], tol=TRAIN_E2E_TOL,
+            **gaps, **to_pp1)
+        if held_to is not None and (over or not math.isfinite(run[0])):
+            raise AssertionError(f"{label} vs {held_to}: {gaps}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 27
+
+def pp_overrides(prefix: str, *extra) -> list:
+    """The 1.3B yaml at pp 2 over the corpus at ``prefix``: its batch of 8
+    as 4 microbatches of 2, the logits loss, PP_STEPS steps (warmup 1, a
+    max_lr at which the loss moves within the drive) and one evaluation
+    over PP_EVAL_ITERS batch; full width and depth, bf16, dropout 0.1,
+    full recompute (all from the yaml)."""
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
+            f"Data.Eval.dataset.input_dir={prefix}",
+            f"Distributed.pp_degree={PP_DEGREE}",
+            f"Global.micro_batch_size={PP_MICRO}",
+            f"Engine.max_steps={PP_STEPS}", "Engine.logging_freq=1",
+            f"Engine.eval_freq={PP_STEPS}",
+            f"Engine.eval_iters={PP_EVAL_ITERS}",
+            "Optimizer.lr.warmup_steps=1", "Optimizer.lr.max_lr=3.0e-4",
+            "Optimizer.lr.min_lr=3.0e-5", "Optimizer.lr.decay_steps=1000",
+            *extra]
+
+
+def pp_fit_watched(argv) -> dict:
+    """``tools/train.py``'s ``main`` on ``argv`` on this rank, watched:
+    CUDA events at the ends of the steps; every point-to-point send and
+    receive and every collective timed on the host (synchronised on both
+    sides, so a receive includes the wait for the other stage) and summed
+    per step with its bytes; a fingerprint of the tied word embedding
+    after every step (two int64 sums of its bits, on the card); the
+    evaluation's mean; the plain versions of B1-B3 counted (none may
+    run); B1-B6 and B12 launches from 0 at the start."""
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.core import engine
+    from fleetx_tpu_torch.parallel import pipeline as pl
+    from fleetx_tpu_torch.tools import train as train_cli
+
+    ends, evals, prints, events = [], [], [], []
+    saved = (engine.Trainer.train_step, engine.Trainer.evaluate,
+             pl.Transport.send, pl.Transport.recv, dist.all_reduce,
+             dist.broadcast)
+    step, evaluate, send, recv, all_reduce, broadcast = saved
+
+    def synced(kind, fn, nbytes):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            events.append((kind, (time.perf_counter() - t0) * 1e3,
+                           nbytes(a, out)))
+            return out
+        return wrapper
+
+    def timed_step(self, batch):
+        first = len(events)
+        out = step(self, batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        mine = events[first:]
+        per = {k: (sum(ms for kk, ms, _ in mine if kk == k),
+                   sum(b for kk, _, b in mine if kk == k))
+               for k in ("p2p", "collective")}
+        tied = self.module.nets.gpt.word_embeddings.detach()
+        bits = tied.view(torch.int32).long()
+        prints.append((per, torch.stack([bits.sum(), (bits * bits).sum()])))
+        return out
+
+    def kept_eval(self, data, epoch=0):
+        evals.append(evaluate(self, data, epoch))
+        return evals[-1]
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    calls = dict.fromkeys(PLAIN_FLASH.values(), 0)
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            calls[fn] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    engine.Trainer.train_step, engine.Trainer.evaluate = timed_step, kept_eval
+    pl.Transport.send = synced("p2p", send, lambda a, out: size(a[1]))
+    pl.Transport.recv = synced("p2p", recv, lambda a, out: size(out))
+    dist.all_reduce = synced("collective", all_reduce,
+                             lambda a, out: size(a[0]))
+    dist.broadcast = synced("collective", broadcast,
+                            lambda a, out: size(a[0]))
+    for fn in calls:
+        setattr(fa, fn.__name__, counted(fn))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for counts in (fa.launches, ce.launches, ce.vp_launches):
+            counts.update(dict.fromkeys(counts, 0))
+        t0 = time.perf_counter()
+        trainer = train_cli.main(list(argv))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        (engine.Trainer.train_step, engine.Trainer.evaluate,
+         pl.Transport.send, pl.Transport.recv, dist.all_reduce,
+         dist.broadcast) = saved
+        for fn in calls:
+            setattr(fa, fn.__name__, fn)
+    gcfg = trainer.module.gpt_config
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    per = [p for p, _ in prints[1:]]
+    tied = trainer.module.nets.gpt.word_embeddings.detach()
+    return {"losses": [float(h["loss"]) for h in trainer.history],
+            "grad_norms": [float(h["grad_norm"]) for h in trainer.history],
+            "evals": evals, "step_ms": step_ms,
+            "p2p_ms": [p["p2p"][0] for p in per],
+            "p2p_mb": [p["p2p"][1] / 1e6 for p in per],
+            "collective_ms": [p["collective"][0] for p in per],
+            "collective_mb": [p["collective"][1] / 1e6 for p in per],
+            "tied_prints": [f.tolist() for _, f in prints],
+            "tied_sha256": hashlib.sha256(tied.cpu().reshape(-1).view(
+                torch.uint8).numpy().tobytes()).hexdigest(),
+            "launches": {**fa.launches, **ce.launches, **ce.vp_launches},
+            "plain_calls": {fn.__name__: c for fn, c in calls.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "n_params": trainer.n_params, "steps": trainer.step,
+            "fit_seconds": seconds, "layers": gcfg.num_layers,
+            "stage_layers": len(trainer.module.nets.gpt.layers),
+            "microbatches": gcfg.num_microbatches,
+            "virtual_pp": gcfg.virtual_pp, "fused_ce": gcfg.fused_ce,
+            "recompute": gcfg.recompute_granularity,
+            "pp_rank": trainer.mesh.pp_rank,
+            "tokens": trainer.cfg.Global.global_batch_size
+            * trainer.cfg.Data.Train.dataset.max_seq_len}
+
+
+def pp_train_rank(argv, argv_v2, port_v2) -> list:
+    """One rank of phase 27: the pp 2 drive (:func:`pp_fit_watched` on
+    ``argv``), then, in a process group rebuilt on ``port_v2``, the
+    virtual pp 2 drive on ``argv_v2``. Returns both records."""
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.parallel.mesh import set_mesh
+
+    backend = dist.get_backend()
+    first = pp_fit_watched(argv)  # main() leaves the group at its end
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_mesh(None)
+    os.environ["MASTER_PORT"] = str(port_v2)
+    second = pp_fit_watched(argv_v2)
+    return [dict(first, backend=backend), dict(second, backend=backend)]
+
+
+def phase_train_pp(prefix: str) -> dict:
+    """The port's pipeline training path: ``tools/train.py`` on the 1.3B
+    yaml at pp 2 (12 of the 24 layers on each of 2 ranks sharing the card
+    over gloo; full width and depth, bf16, dropout 0.1, full recompute,
+    the logits loss), its batch of 8 as 4 microbatches of 2, for PP_STEPS
+    steps and one evaluation; then PP_V2_STEPS steps at virtual pp 2 (two
+    chunks of 6 layers a stage). Losses finite, falling and equal on both
+    ranks; the tied embedding's two copies bit-equal after every step;
+    per rank B1-B3 launched exactly as the schedule launches them (12
+    layers × 4 microbatches forward, recompute and backward per step, the
+    forward per evaluation batch), no plain version and no fused CE.
+    Returns rank 0's launch counts of the pp 2 drive."""
+    from fleetx_tpu_torch.core.engine import model_flops_per_token
+    from fleetx_tpu_torch.parallel.launch import free_port, spawn
+
+    argv = ["-c", TRAIN_13B_CONFIG] + [x for o in pp_overrides(prefix)
+                                       for x in ("-o", o)]
+    argv_v2 = ["-c", TRAIN_13B_CONFIG] + [x for o in pp_overrides(
+        prefix, "Model.virtual_pp_degree=2", f"Engine.max_steps={PP_V2_STEPS}",
+        "Engine.eval_freq=0") for x in ("-o", o)]
+    t0 = time.perf_counter()
+    results = spawn(pp_train_rank, PP_DEGREE, (argv, argv_v2, free_port()),
+                    timeout=900)
+    out = None
+    for drive, (label, steps, evals) in enumerate(
+            (("pp2", PP_STEPS, PP_EVAL_ITERS),
+             ("pp2xv2", PP_V2_STEPS, 0))):
+        runs = [r[drive] for r in results]
+        r0 = runs[0]
+        lps, n = r0["stage_layers"], r0["microbatches"]
+        want = {"flash_fwd": lps * n * (2 * steps + evals),
+                "flash_bwd_dq": lps * n * steps,
+                "flash_bwd_dkv": lps * n * steps,
+                "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0,
+                "vp_ce_fwd": 0, "vp_ce_dh": 0, "vp_ce_dw": 0}
+        steady = float(np.median(r0["step_ms"][1:])) * 1e-3
+        flops = model_flops_per_token(r0["n_params"], r0["layers"], 1024,
+                                      2048)
+        for r in runs:
+            busy = [1.0 - (p + c) / s for p, c, s in
+                    zip(r["p2p_ms"], r["collective_ms"], r["step_ms"])]
+            log("train-pp", run=label, rank=r["pp_rank"],
+                backend=r["backend"], steps=r["steps"], layers=r["layers"],
+                stage_layers=r["stage_layers"], microbatches=n,
+                virtual_pp=r["virtual_pp"], recompute=r["recompute"],
+                fused_ce=r["fused_ce"], params_m=r["n_params"] / 1e6,
+                step_ms=[round(x, 1) for x in r["step_ms"]],
+                p2p_ms=[round(x, 1) for x in r["p2p_ms"]],
+                p2p_mb=[round(x, 1) for x in r["p2p_mb"]],
+                collective_ms=[round(x, 1) for x in r["collective_ms"]],
+                collective_mb=[round(x, 1) for x in r["collective_mb"]],
+                busy_share=[round(x, 3) for x in busy],
+                peak_mem_gb=r["peak_mem_gb"], fit_seconds=r["fit_seconds"],
+                launches=r["launches"], plain_calls=r["plain_calls"])
+        log("train-pp", run=label, step_ms_median=steady * 1e3,
+            tokens_per_s=r0["tokens"] / steady,
+            mfu=r0["tokens"] / steady * flops / PEAK_FLOPS[torch.bfloat16],
+            p2p_ms_median=float(np.median(r0["p2p_ms"])),
+            p2p_mb_per_step=float(np.median(r0["p2p_mb"])),
+            collective_ms_median=float(np.median(r0["collective_ms"])),
+            losses=[round(x, 4) for x in r0["losses"]],
+            grad_norms=[round(x, 4) for x in r0["grad_norms"]],
+            evals=r0["evals"], seconds=time.perf_counter() - t0)
+        if r0["backend"] != "gloo":
+            raise AssertionError(f"ranks sharing one card ran "
+                                 f"{r0['backend']}")
+        if (r0["steps"] != steps or len(r0["evals"]) != (1 if evals else 0)
+                or r0["fused_ce"] or n != 4 or lps != 12):
+            raise AssertionError(f"{label}: {r0['steps']} steps, "
+                                 f"{len(r0['evals'])} evals, fused_ce "
+                                 f"{r0['fused_ce']}, {n} microbatches, "
+                                 f"{lps} layers a stage")
+        for r in runs:
+            if r["launches"] != want or any(r["plain_calls"].values()):
+                raise AssertionError(
+                    f"{label} rank {r['pp_rank']}: launches "
+                    f"{r['launches']}, want {want}; plain "
+                    f"{r['plain_calls']}")
+            if (r["losses"] != r0["losses"] or r["evals"] != r0["evals"]
+                    or r["grad_norms"] != r0["grad_norms"]):
+                raise AssertionError(f"{label}: rank {r['pp_rank']} "
+                                     f"disagrees with rank 0: {r['losses']}")
+            if (r["tied_prints"] != r0["tied_prints"]
+                    or r["tied_sha256"] != r0["tied_sha256"]):
+                raise AssertionError(f"{label}: the tied embedding's copies "
+                                     "differ after a step")
+        losses = r0["losses"]
+        if not all(math.isfinite(x) for x in losses + r0["evals"]):
+            raise AssertionError(f"non-finite loss in {losses} {r0['evals']}")
+        if not np.mean(losses[-2:]) < losses[0]:
+            raise AssertionError(f"{label}: loss did not fall: {losses}")
+        if out is None:
+            out = {k: results[0][0]["launches"][k] for k in fa.NAMES}
+    return out
+
+
+# ----------------------------------------------------------------- phase 28
+
+def phase_resume_pp(prefix: str) -> None:
+    """Phase 26's configuration (the 1.3B cut to PP_E2E_LAYERS layers,
+    logits loss, attention dropout 0.1) at pp 2 on 2 ranks sharing the
+    card over gloo: an uninterrupted run of 2 steps that saves per-stage
+    files at step 1 and 2; fresh processes resume from a copy of step 1
+    alone and take step 2. On both ranks the step-2 loss and grad norm and
+    every parameter, AdamW tensor and the generator equal the
+    uninterrupted run's (sha256 of their bytes). A load of that checkpoint
+    at pp 1 raises ``ElasticMeshMismatch`` and quarantines nothing."""
+    from fleetx_tpu_torch.parallel.launch import spawn
+    from fleetx_tpu_torch.resilience.elastic import ElasticMeshMismatch
+
+    whole = tempfile.mkdtemp(prefix="out-", dir=os.path.dirname(prefix))
+    part = tempfile.mkdtemp(prefix="out-", dir=os.path.dirname(prefix))
+    base = pp_e2e_overrides(prefix, "Engine.max_steps=2",
+                            "Engine.logging_freq=1",
+                            "Engine.save_load.save_steps=1",
+                            "Optimizer.lr.warmup_steps=1",
+                            "Optimizer.lr.max_lr=3.0e-4")[1:]
+    pp = [f"Distributed.pp_degree={PP_DEGREE}"]
+    t0 = time.perf_counter()
+    a = spawn(mp_resume_rank, PP_DEGREE,
+              (base + pp + [f"Engine.save_load.output_dir={whole}"], False),
+              timeout=600)
+    shutil.copytree(os.path.join(whole, "checkpoints", "1"),
+                    os.path.join(part, "checkpoints", "1"))
+    files = sorted(os.listdir(os.path.join(part, "checkpoints", "1")))
+    b = spawn(mp_resume_rank, PP_DEGREE,
+              (base + pp + [f"Engine.save_load.output_dir={part}"], True),
+              timeout=600)
+    lps, n = PP_E2E_LAYERS // PP_DEGREE, 8 // PP_MICRO
+    for rank, (x, y) in enumerate(zip(a, b)):
+        unequal = [k for k in x["digests"] if x["digests"][k] !=
+                   y["digests"].get(k)]
+        log("resume-pp", rank=rank, layers=PP_E2E_LAYERS, pp=PP_DEGREE,
+            files=files, losses=x["losses"], resumed_losses=y["losses"],
+            grad_norms=x["grad_norms"], resumed_grad_norms=y["grad_norms"],
+            tensors=len(x["digests"]), unequal_tensors=len(unequal),
+            launches=x["launches"], resumed_launches=y["launches"])
+        if (unequal or y["losses"] != x["losses"][1:]
+                or y["grad_norms"] != x["grad_norms"][1:]
+                or (x["step"], x["consumed"]) != (y["step"], y["consumed"])
+                or x["digests"].keys() != y["digests"].keys()):
+            raise AssertionError(f"rank {rank}: the resume departs from the "
+                                 f"uninterrupted run ({unequal[:3]})")
+        if not (y["launches"]["flash_fwd"] == 2 * lps * n
+                and y["launches"]["flash_bwd_dkv"] == lps * n
+                and y["launches"]["ce_fwd"] == 0):
+            raise AssertionError(f"rank {rank} launched {y['launches']}")
+    if (a[0]["digests"]["gpt.word_embeddings"]
+            != a[1]["digests"]["gpt.word_embeddings"]):
+        raise AssertionError("the tied embedding's copies differ")
+    if files != ["meta.json", "state-pp0-mp0.pt", "state-pp1-mp0.pt"]:
+        raise AssertionError(f"step 1 holds {files}")
+    cfg1 = get_config(TRAIN_13B_CONFIG, overrides=base + [
+        f"Engine.save_load.output_dir={part}"], nranks=1)
+    trainer = Trainer(cfg1, build_module(cfg1))
+    try:
+        trainer.init_state()
+        raise AssertionError("a pp 2 checkpoint loaded at pp 1")
+    except ElasticMeshMismatch as e:
+        refused = str(e)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = sorted(os.listdir(os.path.join(part, "checkpoints")))
+    quarantined = os.path.exists(os.path.join(part, "quarantine"))
+    log("resume-pp", pp1_load=refused, steps_left=steps,
+        quarantined=quarantined, seconds=time.perf_counter() - t0)
+    if steps != ["1", "2"] or quarantined:
+        raise AssertionError(f"after the refused load: {steps}, quarantine "
+                             f"{quarantined}")
+
+
 def common_prefix(a, b) -> int:
     n = 0
     for x, y in zip(a, b):
@@ -3457,6 +4069,19 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    adopt_orphans()
+    try:
+        records, device = run_phases()
+    finally:
+        left = stop_descendants()
+    log("processes", left_at_end=left)
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+def run_phases() -> tuple:
+    """Every phase in turn; returns the kernels' records and the device."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
@@ -3539,6 +4164,13 @@ def main() -> int:
         phase_sentry(prefix)
         drop_output_dirs(prefix)
         phase_resume_mp(prefix)
+        drop_output_dirs(prefix)
+        phase_train_pp_e2e(prefix)
+        drop_output_dirs(prefix)
+        for name, count in phase_train_pp(prefix).items():
+            flash[name]["launches_pp"] = count
+        drop_output_dirs(prefix)
+        phase_resume_pp(prefix)
     records = [dict(name="paged_decode", route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",
@@ -3578,9 +4210,7 @@ def main() -> int:
             **vp_records[name]))
     for record in records:  # the bf16 path's CUDA kernels of each entry
         record["cuda_kernels"] = CUDA_KERNELS[record["name"]]
-    print(json.dumps({"kernels": records}))
-    print(json.dumps({"ok": True, "device": device}))
-    return 0
+    return records, device
 
 
 if __name__ == "__main__":

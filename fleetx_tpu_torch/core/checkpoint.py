@@ -4,12 +4,14 @@ Stands in for the orbax ``CheckpointManager`` of the JAX package's
 ``Trainer`` (core/engine.py:1010-1030) in torch's own format:
 
     <output_dir>/checkpoints/<step>/meta.json
-    <output_dir>/checkpoints/<step>/state-mp<r>.pt    (one per mp rank)
+    <output_dir>/checkpoints/<step>/state-mp<r>.pt        (one per mp rank)
+    <output_dir>/checkpoints/<step>/state-pp<p>-mp<r>.pt  (at pp > 1)
 
 ``meta.json`` is the trainer's ``_save_meta`` (epoch, consumed samples,
-dropout implementation, mesh); each ``state-mp<r>.pt`` holds ``{"step",
-"params", "optimizer", "generator"}`` of mp rank ``r``, its tensors by
-parameter name. A step is written into ``<step>.tmp`` and becomes
+dropout implementation, mesh); each state file holds ``{"step",
+"params", "optimizer", "generator"}`` of mp rank ``r`` (of pipeline stage
+``p`` at pp > 1; a stage's parameters keep the whole model's names), its
+tensors by parameter name. A step is written into ``<step>.tmp`` and becomes
 ``<step>`` by one ``os.replace`` after every file in it was fsynced, so
 a torn write is never listed: :meth:`CheckpointStore.all_steps` lists
 digit directories only. The newest ``max_to_keep`` steps are kept, as
@@ -32,9 +34,11 @@ __all__ = ["CheckpointStore", "META_FILE", "state_file"]
 META_FILE = "meta.json"
 
 
-def state_file(mp_rank: int) -> str:
-    """The name of mp rank ``mp_rank``'s state file in a step directory."""
-    return f"state-mp{mp_rank}.pt"
+def state_file(mp_rank: int, pp_rank: Optional[int] = None) -> str:
+    """The name of mp rank ``mp_rank``'s state file in a step directory;
+    with ``pp_rank`` (a pipeline's, pp > 1), of that stage's."""
+    stage = "" if pp_rank is None else f"pp{pp_rank}-"
+    return f"state-{stage}mp{mp_rank}.pt"
 
 
 def _fsync_dir(path: str) -> None:
@@ -79,10 +83,13 @@ class CheckpointStore:
         with open(os.path.join(self.step_dir(step), META_FILE)) as f:
             return json.load(f)
 
-    def read_state(self, step: int, mp_rank: int) -> dict:
-        """mp rank ``mp_rank``'s state of ``step``, its tensors on the CPU
-        (tensors and plain containers only: ``weights_only``)."""
-        path = os.path.join(self.step_dir(step), state_file(mp_rank))
+    def read_state(self, step: int, mp_rank: int,
+                   pp_rank: Optional[int] = None) -> dict:
+        """The state of ``step`` of mp rank ``mp_rank`` (of stage
+        ``pp_rank`` at pp > 1), its tensors on the CPU (tensors and plain
+        containers only: ``weights_only``)."""
+        path = os.path.join(self.step_dir(step), state_file(mp_rank,
+                                                            pp_rank))
         return torch.load(path, map_location="cpu", weights_only=True)
 
     # --------------------------------------------------------------- writing
@@ -97,10 +104,11 @@ class CheckpointStore:
             shutil.rmtree(tmp)
         os.makedirs(tmp)
 
-    def write_state(self, step: int, mp_rank: int, state: Dict) -> int:
-        """Write mp rank ``mp_rank``'s ``state`` into ``<step>.tmp`` and
-        fsync it; the file's bytes."""
-        path = os.path.join(self._tmp(step), state_file(mp_rank))
+    def write_state(self, step: int, mp_rank: int, state: Dict,
+                    pp_rank: Optional[int] = None) -> int:
+        """Write the ``state`` of mp rank ``mp_rank`` (of stage ``pp_rank``
+        at pp > 1) into ``<step>.tmp`` and fsync it; the file's bytes."""
+        path = os.path.join(self._tmp(step), state_file(mp_rank, pp_rank))
         with open(path, "wb") as f:
             torch.save(state, f)
             f.flush()

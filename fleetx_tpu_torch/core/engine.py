@@ -31,23 +31,35 @@ body. Dropout seeds come from one ``torch.Generator`` seeded with
 back where it was. The elastic supervisor (``run_elastic``), the
 profiler and the observability counters are not ported.
 
-Over several ranks (``Distributed.dp_degree`` × ``cp_degree`` ×
-``mp_degree``, the current mesh of ``parallel/mesh.py``) every rank starts
-from the same weights (under mp, its shards of them) and seeds; after the
-backward the gradients are summed over the data group (dp × cp: the ranks
-that hold different tokens) in flat buckets, before the global-norm
-clip, whose norm is the whole model's (the shards' squares summed over
-the mp group), so every rank of a replica takes the same update and the
-replicated parameters stay equal on every rank. The logged loss and
-``evaluate``'s mean are summed over the data group too (each rank's loss
-is its share of the global mean), and only rank 0 logs. The sentry's
-verdict is therefore the same on every rank; a SIGTERM that reaches one
-rank reaches the others through a one-element MAX all-reduce over the
-world after each fetch, so all ranks stop after the same step. A
-checkpoint holds one state file per mp rank, written by the ranks of dp
-and cp rank 0 (dp and cp replicas hold the same parameters); a load reads
-the file of its own mp rank, so dp may change between save and load, and
-mp, pp or cp may not (``resilience/elastic.py``).
+Over several ranks (``Distributed.pp_degree`` × ``dp_degree`` ×
+``cp_degree`` × ``mp_degree``, the current mesh of ``parallel/mesh.py``)
+every rank starts from the same weights (under mp and pp, its stage's
+part and its shards of them) and seeds; after the backward the gradients
+are summed over the data group (dp × cp of one stage: the ranks that hold
+different tokens) in flat buckets, before the global-norm clip, whose
+norm is the whole model's (the shards' squares summed over the mp group,
+the stages' over the pp group), so every rank of a replica takes the same
+update and the replicated parameters stay equal on every rank. The logged
+loss and ``evaluate``'s mean are summed over the data group too (each
+rank's loss is its share of the global mean), and only rank 0 logs. The
+sentry's verdict is therefore the same on every rank; a SIGTERM that
+reaches one rank reaches the others through a one-element MAX all-reduce
+over the world after each fetch, so all ranks stop after the same step. A
+checkpoint holds one state file per mp rank (per stage and mp rank under
+pp), written by the ranks of dp and cp rank 0 (dp and cp replicas hold
+the same parameters); a load reads the file of its own stage and mp rank,
+so dp may change between save and load, and mp, pp or cp may not
+(``resilience/elastic.py``).
+
+Under pipeline parallelism (``pp_degree > 1``) there is no accumulation
+outside the pipeline (JAX :186-190): ``train_step`` runs the module's
+schedule (``GPTModule.pipeline_loss``) over ``Engine.accumulate_steps``
+microbatches. The tied word embedding has a copy on the first and on the
+last stage: their gradients are summed over the mesh's embedding group
+before the clip (the reference's SharedLayerDesc all-reduce), the global
+norm counts it once, and the copies stay equal bit for bit. The last
+stage's loss is broadcast over the pp group, so every rank logs and
+judges the same loss.
 
 MFU is the model-FLOPs count of ``bench.py`` (6 per parameter per token
 plus the causal attention products; the whole model's parameters under
@@ -193,6 +205,9 @@ class Trainer:
         self.clip = build_grad_clip(opt_cfg.get("grad_clip"))
         self.generator = torch.Generator().manual_seed(self.seed)
         self.mesh = mesh_from_config(cfg)
+        if self.mesh.pp > 1:
+            # the pipeline streams the microbatches itself (JAX :186-190)
+            self.accumulate_steps = 1
         self.primary = self.mesh.rank == 0  # the rank that logs
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
@@ -252,10 +267,16 @@ class Trainer:
         nets = self.module.nets
         nets.load_state_dict(params, assign=True)
         self.mp_split = mp_split_axes(nets)
-        # the whole model's count: a shard split over mp counts mp times
-        self.n_params = sum(
-            p.numel() * (self.mesh.mp if n in self.mp_split else 1)
-            for n, p in nets.named_parameters())
+        # the whole model's count: a shard split over mp counts mp times,
+        # the stages are summed and the tied copy counts once
+        n_params = sum(p.numel() * (self.mesh.mp if n in self.mp_split
+                                    else 1)
+                       for n, p in nets.named_parameters()
+                       if n not in self._tie_copies())
+        if self.mesh.pp > 1:
+            n_params = self._sum_over([float(n_params)],
+                                      self.mesh.pp_group)[0]
+        self.n_params = int(n_params)
         self.optimizer = build_optimizer(self.cfg.Optimizer or {},
                                          nets.named_parameters())
         self.step = 0
@@ -308,22 +329,34 @@ class Trainer:
         micro = rows // accum
         drawn_from = (self.generator.get_state() if self._sentry_enabled
                       else None)
-        loss_sum = torch.zeros((), device=self.device)
-        for i in range(accum):
-            part = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-            loss = self.module.loss_fn(part, self.generator, train=True)
-            (loss / accum).backward()
-            loss_sum += loss.detach()
+        mesh = self.mesh
+        if mesh.pp > 1:  # the schedule runs the backwards too
+            loss_sum = self.module.pipeline_loss(batch, self.generator,
+                                                 train=True)
+        else:
+            loss_sum = torch.zeros((), device=self.device)
+            for i in range(accum):
+                part = {k: v[i * micro:(i + 1) * micro]
+                        for k, v in batch.items()}
+                loss = self.module.loss_fn(part, self.generator, train=True)
+                (loss / accum).backward()
+                loss_sum += loss.detach()
         named = [(n, p) for n, p in nets.named_parameters()
                  if p.grad is not None]
         grads = [p.grad for _, p in named]
-        mesh = self.mesh
         if mesh.data_world > 1:
             all_reduce_sum(grads + [loss_sum.view(1)],
                            group=mesh.data_group)
-        # under mp the whole model's norm, the same on every rank
-        norm = global_norm(grads, [n in self.mp_split for n, _ in named],
-                           mesh.mp_group)
+        if mesh.pp > 1:
+            self._sum_tied_grads(named)
+            self._from_last_stage(loss_sum)
+        # under mp and pp the whole model's norm, the same on every rank
+        copies = self._tie_copies()
+        counted = [(n, g) for (n, _), g in zip(named, grads)
+                   if n not in copies]
+        norm = global_norm([g for _, g in counted],
+                           [n in self.mp_split for n, _ in counted],
+                           mesh.mp_group, stage_group=mesh.pp_group)
         grad_norm = norm if self.clip is None else self.clip(grads, norm)
         lr = float(self.lr_schedule(self.step))
         loss = loss_sum / accum
@@ -339,6 +372,36 @@ class Trainer:
         self.step += 1
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
                 "skipped": False}
+
+    def _tie_copies(self) -> List[str]:
+        """The parameters that are a copy of another stage's (the last
+        stage's tied word embedding under pp): counted once, on the first
+        stage."""
+        if self.mesh.pp == 1 or not self.mesh.is_last_stage:
+            return []
+        return list(getattr(self.module, "tied_parameters", ()))
+
+    def _sum_tied_grads(self, named) -> None:
+        """Sum the tied parameters' gradients over the embedding group
+        (the first and the last stage), so both copies take one update."""
+        group = self.mesh.embed_group
+        tied = set(getattr(self.module, "tied_parameters", ()))
+        grads = [p.grad for n, p in named if n in tied]
+        if group is not None and grads:
+            all_reduce_sum(grads, group=group)
+
+    def _from_last_stage(self, t: torch.Tensor) -> None:
+        """Overwrite ``t`` with the last stage's (broadcast over the pp
+        group)."""
+        dist.broadcast(t, src=self.mesh.pp_ranks[-1],
+                       group=self.mesh.pp_group)
+
+    def _sum_over(self, values: List[float], group) -> List[float]:
+        """The sum of ``values`` over ``group`` (on the host over gloo)."""
+        on = "cpu" if dist.get_backend(group) == "gloo" else self.device
+        t = torch.tensor(values, dtype=torch.float64, device=on)
+        dist.all_reduce(t, group=group)
+        return t.tolist()
 
     # ------------------------------------------------------------------ fit
     def _log_train(self, log: Dict) -> None:
@@ -470,23 +533,29 @@ class Trainer:
     def evaluate(self, valid_data: Iterable, epoch: int = 0
                  ) -> Optional[float]:
         """The mean loss over the first ``Engine.eval_iters`` batches of
-        ``valid_data`` (forward only, no dropout, no gradients), logged
-        through ``validation_step_end``; None when there is no batch."""
+        ``valid_data`` (forward only, no dropout, no gradients; under pp
+        the pipeline's forwards), logged through ``validation_step_end``;
+        None when there is no batch."""
         if self.optimizer is None:
             self.init_state()
         losses = []
         t0 = time.time()
+        loss_fn = (self.module.pipeline_loss if self.mesh.pp > 1
+                   else self.module.loss_fn)
         with torch.no_grad():
             for i, batch in enumerate(valid_data):
                 if self.eval_iters is not None and i >= self.eval_iters:
                     break
-                losses.append(self.module.loss_fn(self._to_device(batch),
-                                                  None, train=False))
+                losses.append(loss_fn(self._to_device(batch), None,
+                                      train=False))
         if not losses:
             return None
-        if self.mesh.data_world > 1:  # each rank's is its share of the mean
+        if self.mesh.data_world > 1 or self.mesh.pp > 1:
             losses = torch.stack(losses)
+        if self.mesh.data_world > 1:  # each rank's is its share of the mean
             dist.all_reduce(losses, group=self.mesh.data_group)
+        if self.mesh.pp > 1:
+            self._from_last_stage(losses)
         mean = float(np.mean([float(x) for x in losses]))
         if self.primary:
             self.module.validation_step_end({
@@ -553,12 +622,21 @@ class Trainer:
     def _save_meta(self, epoch: int) -> dict:
         """The JSON side of a checkpoint (JAX :1066-1081): epoch, consumed
         samples, the dropout implementation and the mesh it was written
-        under (the port's has no fsdp or pp axis)."""
+        under (the port's has no fsdp axis: 1)."""
         mesh = self.mesh
         return {"epoch": epoch, "consumed_samples": self.consumed_samples,
                 "dropout_impl": self._dropout_impl(),
-                "mesh": {"dp": mesh.dp, "fsdp": 1, "mp": mesh.mp, "pp": 1,
-                         "cp": mesh.cp}}
+                "mesh": {"dp": mesh.dp, "fsdp": 1, "mp": mesh.mp,
+                         "pp": mesh.pp, "cp": mesh.cp}}
+
+    def _pp_rank(self) -> Optional[int]:
+        """This rank's stage in its state file's name (None at pp 1, whose
+        files keep their name)."""
+        return self.mesh.pp_rank if self.mesh.pp > 1 else None
+
+    def _virtual_pp(self) -> int:
+        gcfg = getattr(self.module, "gpt_config", None)
+        return getattr(gcfg, "virtual_pp", 1)
 
     def _param_names(self) -> List[str]:
         """The optimizer's parameters' names, in its index order."""
@@ -568,10 +646,13 @@ class Trainer:
 
     def _state(self) -> dict:
         """This rank's checkpoint: step, parameters, the optimizer's state
-        and parameter groups keyed by parameter name, the generator."""
+        and parameter groups keyed by parameter name, the generator; under
+        pp also the virtual degree, which places the layers."""
         names = self._param_names()
         opt = self.optimizer.state_dict()
-        return {
+        layout = ({"virtual_pp": self._virtual_pp()} if self.mesh.pp > 1
+                  else {})
+        return {**layout,
             "step": self.step,
             "params": {n: p.detach() for n, p in
                        self.module.nets.named_parameters()},
@@ -660,7 +741,7 @@ class Trainer:
                meta: dict) -> tuple:
         """The synchronous, collective write of one step: rank 0 opens
         ``<step>.tmp``; the ranks of dp and cp rank 0 each write and fsync
-        their mp rank's file; rank 0 commits once every rank's write
+        their (stage and) mp rank's file; rank 0 commits once every rank's write
         returned. A failure on any rank drops the partial step and raises
         on every rank. This rank's file's bytes (0 when it writes none) and
         seconds writing it."""
@@ -673,7 +754,8 @@ class Trainer:
                     store.begin(step)
                 elif phase == "write" and writer:
                     t0 = time.perf_counter()
-                    nbytes = store.write_state(step, mesh.mp_rank, state)
+                    nbytes = store.write_state(step, mesh.mp_rank, state,
+                                               self._pp_rank())
                     write_s = time.perf_counter() - t0
                 elif phase == "commit" and self.primary:
                     store.commit(step, meta)
@@ -812,7 +894,12 @@ class Trainer:
         store = self._ckpt_store()
         meta = store.read_meta(step)
         validate_restore_mesh(meta.get("mesh") or {}, self.mesh, step=step)
-        state = store.read_state(step, self.mesh.mp_rank)
+        state = store.read_state(step, self.mesh.mp_rank, self._pp_rank())
+        if state.get("virtual_pp", 1) != self._virtual_pp():
+            raise ElasticMeshMismatch(
+                f"checkpoint step {step} was written at virtual_pp "
+                f"{state.get('virtual_pp', 1)}, this run places its layers "
+                f"at {self._virtual_pp()}")
         if state.get("step") != step:
             raise ValueError(f"checkpoint dir {step} holds step counter "
                              f"{state.get('step')}")

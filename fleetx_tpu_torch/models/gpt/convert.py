@@ -7,27 +7,39 @@ PyTorch's ``Linear`` layout), loaded with
 (``cfg.mp_degree > 1``) both build the whole model's state dict and hand
 back one rank's shards of it (:func:`shard_params`), so an mp run starts
 from the weights an mp 1 run starts from; :func:`gather_params` puts the
-shards back together.
+shards back together. Under pipeline parallelism (``cfg.pp_degree > 1``)
+they hand back one stage's part of that (:func:`stage_params`: the port's
+form of JAX ``init_pipeline_params_via_sequential``), so a pipeline's
+weights equal the unpipelined model's bit for bit; :func:`gather_stages`
+joins the stages' state dicts, and :func:`params_from_checkpoint` reads
+a checkpoint of any (pp, mp) layout back into the whole model's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from fleetx_tpu_torch.models.gpt.model import GPTConfig, GPTForPretraining
+from fleetx_tpu_torch.parallel.pipeline import (
+    maybe_pipeline_params_to_sequential,
+)
 from fleetx_tpu_torch.parallel.tensor_parallel import mp_split_axes
 from fleetx_tpu_torch.utils.device import resolve_device
 
-__all__ = ["init_params", "params_from_jax", "shard_params",
-           "gather_params"]
+__all__ = ["init_params", "params_from_jax", "params_from_checkpoint",
+           "shard_params", "gather_params", "stage_params", "gather_stages",
+           "local_params"]
 
 
 def _whole(cfg: GPTConfig) -> GPTConfig:
-    return dataclasses.replace(cfg, mp_degree=1)
+    """The unsplit, unpipelined model of ``cfg``."""
+    return dataclasses.replace(cfg, mp_degree=1, pp_degree=1,
+                               num_microbatches=1, virtual_pp_degree=1)
 
 
 def _split_axes(cfg: GPTConfig) -> Dict[str, int]:
@@ -67,11 +79,48 @@ def gather_params(shards: Sequence[Dict[str, torch.Tensor]],
                    if name in axes else t) for name, t in shards[0].items()}
 
 
-def params_from_jax(tree, cfg: GPTConfig,
-                    mp_rank: int = 0) -> Dict[str, torch.Tensor]:
+def stage_params(params: Dict[str, torch.Tensor], cfg: GPTConfig,
+                 pp_rank: int) -> Dict[str, torch.Tensor]:
+    """The entries of the whole model's state dict ``params`` (or of one mp
+    rank's shards of it) that stage ``pp_rank`` of ``cfg``'s pipeline
+    holds: its layers, the embeddings on the first stage, the final norm
+    and the word embedding's copy on the last. At pp 1, all of them."""
+    if cfg.pp_degree <= 1:
+        return dict(params)
+    names = GPTForPretraining(dataclasses.replace(cfg, mp_degree=1),
+                              device="meta", pp_rank=pp_rank).state_dict()
+    return {n: t for n, t in params.items() if n in names}
+
+
+def gather_stages(stages: Sequence[Dict[str, torch.Tensor]]
+                  ) -> Dict[str, torch.Tensor]:
+    """One state dict from the stages' (in stage order; the same mp rank):
+    each name from the first stage that holds it, so the tied word
+    embedding (equal on the first and the last stage) once. Also joins
+    gradients, which share the names."""
+    out: Dict[str, torch.Tensor] = {}
+    for part in stages:
+        for n, t in part.items():
+            out.setdefault(n, t)
+    return out
+
+
+def local_params(full: Dict[str, torch.Tensor], cfg: GPTConfig,
+                 mp_rank: int = 0, pp_rank: int = 0
+                 ) -> Dict[str, torch.Tensor]:
+    """Rank (``pp_rank``, ``mp_rank``)'s part of the whole model's state
+    dict ``full``: its stage's entries, cut to its mp shards."""
+    return stage_params(shard_params(full, cfg, mp_rank), cfg, pp_rank)
+
+
+def params_from_jax(tree, cfg: GPTConfig, mp_rank: int = 0,
+                    pp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """State dict from the flax GPT param tree (``{"params": {"gpt": ...}}``
     or the inner dict), given as numpy arrays with the decoder layers
-    scan-stacked on a leading ``[L]`` axis:
+    scan-stacked on a leading ``[L]`` axis, or in a pipeline layout (JAX
+    ``gpt/layers/pipe/...`` or ``pipe_chunk{j}``, mapped back to the
+    sequential one as JAX ``maybe_pipeline_params_to_sequential`` maps
+    it):
 
     - ``qkv_proj.kernel`` [L, E, nh, 3·hd] (q|k|v per head on the last
       axis) → ``attn.qkv_proj.weight`` [nh·3·hd, E];
@@ -80,9 +129,10 @@ def params_from_jax(tree, cfg: GPTConfig,
     - ``up_proj``/``down_proj.kernel`` [L, in, out] → ``weight`` [out, in];
     - norms' ``scale``/``bias`` [L, E] and the embeddings as they are.
 
-    Returned tensors are fp32 on the CPU; under mp, rank ``mp_rank``'s
-    shards of them (:func:`shard_params`)."""
-    gpt = tree.get("params", tree)["gpt"]
+    Returned tensors are fp32 on the CPU; under mp and pp, rank
+    (``pp_rank``, ``mp_rank``)'s part of them (:func:`local_params`)."""
+    gpt = maybe_pipeline_params_to_sequential(tree)
+    gpt = gpt.get("params", gpt)["gpt"]
     stack = gpt["layers"]["layer"]
 
     def t(a) -> torch.Tensor:
@@ -115,19 +165,39 @@ def params_from_jax(tree, cfg: GPTConfig,
         })
     out["gpt.final_norm.scale"] = t(gpt["final_norm"]["scale"])
     out["gpt.final_norm.bias"] = t(gpt["final_norm"]["bias"])
-    return shard_params(out, cfg, mp_rank)
+    return local_params(out, cfg, mp_rank, pp_rank)
+
+
+def params_from_checkpoint(step_dir: str, cfg: GPTConfig
+                           ) -> Dict[str, torch.Tensor]:
+    """The whole model's state dict (fp32, on the CPU) from the step
+    directory ``step_dir`` of a ``Trainer`` checkpoint written under any
+    pp and mp: every stage's file of each mp rank joined
+    (:func:`gather_stages`), then the mp shards (:func:`gather_params`) of
+    the model ``cfg`` describes."""
+    from fleetx_tpu_torch.core.checkpoint import CheckpointStore
+
+    root, step = os.path.split(os.path.abspath(step_dir))
+    store = CheckpointStore(root)
+    mesh = store.read_meta(int(step)).get("mesh") or {}
+    pp, mp = int(mesh.get("pp") or 1), int(mesh.get("mp") or 1)
+    shards = [gather_stages([
+        store.read_state(int(step), m, p if pp > 1 else None)["params"]
+        for p in range(pp)]) for m in range(mp)]
+    return gather_params(shards, dataclasses.replace(cfg, mp_degree=mp))
 
 
 def init_params(cfg: GPTConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
-                mp_rank: int = 0) -> Dict[str, torch.Tensor]:
+                mp_rank: int = 0,
+                pp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """Random fp32 weights drawn from one ``torch.Generator`` seeded with
     ``seed``, with the flax initialisers' distributions: normal(0, 0.02)
     for every kernel, normal(0, ``initializer_range``) for the embeddings,
     zeros for biases and ones for norm scales. (The draws differ from
     JAX's; only the distributions match.) ``device`` defaults to CUDA.
-    Under mp, the whole model is drawn and rank ``mp_rank``'s shards
-    returned."""
+    Under mp and pp, the whole model is drawn and rank (``pp_rank``,
+    ``mp_rank``)'s part returned (:func:`local_params`)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     shapes = GPTForPretraining(_whole(cfg), device="meta").state_dict()
@@ -142,4 +212,4 @@ def init_params(cfg: GPTConfig, seed: int = 0,
                    else 0.02)
             out[name] = torch.empty(meta.shape, device=dev).normal_(
                 0.0, std, generator=gen)
-    return shard_params(out, cfg, mp_rank)
+    return local_params(out, cfg, mp_rank, pp_rank)

@@ -30,8 +30,13 @@ the out_proj columns), ``ffn/mp`` columns of every MLP and ``vocab/mp``
 rows of the word embeddings; the activations between the layers are
 replicated over the mp group, and the training forward returns this
 rank's vocab shard of the logits (or, with ``fused_ce``, the per-token
-losses through the vocab-parallel form B12). Pipeline and expert
-parallelism are not here.
+losses through the vocab-parallel form B12). Under ``pp_degree > 1``
+(pipeline parallelism, ``parallel/pipeline.py``) a model is one stage's:
+its chunks of the decoder layers (each layer keeps its global index in
+its name and its dropout seeds), the embeddings on the first stage, the
+final LayerNorm and the tied LM head on the last, which holds its own
+copy of the word embedding; the trainer sums the two copies' gradients.
+Expert parallelism is not here.
 
 Numerics follow the flax modules at the compute dtype (bf16 by default,
 params fp32):
@@ -75,6 +80,7 @@ from fleetx_tpu_torch.ops.dropout import HashDropout, Shard, draw_seed
 from fleetx_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from fleetx_tpu_torch.parallel.context_parallel import ring_self_attention
 from fleetx_tpu_torch.parallel.mesh import get_mesh
+from fleetx_tpu_torch.parallel.pipeline import stage_chunks, stage_layers
 from fleetx_tpu_torch.parallel.tensor_parallel import (
     ColumnParallelDense,
     Dense,
@@ -125,8 +131,12 @@ class GPTConfig:
     fused_ce: bool = False  # per-token loss through B4–B6, logits never stored
     cp_degree: int = 1  # > 1: attention around the cp ring (zig-zag inputs)
     mp_degree: int = 1  # > 1: heads, MLP and vocab split over the mp group
+    pp_degree: int = 1  # > 1: the decoder layers split over pp stages
+    num_microbatches: int = 1  # under pp: microbatches per step
+    virtual_pp_degree: int = 1  # under pp: layer chunks per stage
 
     def __post_init__(self):
+        stage_chunks(self.num_layers, self.pp_degree, self.virtual_pp)
         mp = self.mp_degree
         for name, size in (("num_attention_heads", self.num_attention_heads),
                            ("ffn_hidden_size", self.ffn_size),
@@ -142,6 +152,12 @@ class GPTConfig:
     @property
     def ffn_size(self) -> int:
         return self.ffn_hidden_size or 4 * self.hidden_size
+
+    @property
+    def virtual_pp(self) -> int:
+        """Layer chunks per stage: the virtual degree under pp (JAX reads
+        it only then), 1 otherwise."""
+        return max(self.virtual_pp_degree, 1) if self.pp_degree > 1 else 1
 
     @property
     def cache_len(self) -> int:
@@ -189,8 +205,6 @@ UNPORTED = {
     # False: flax nn.Dropout
     "fast_dropout": (lambda v: v is True,
                      "Remaining GPT and Trainer switches"),
-    "pp_degree": (lambda v: v <= 1, "Pipeline parallelism"),
-    "virtual_pp_degree": (lambda v: v <= 1, "Pipeline parallelism"),
     "num_experts": (lambda v: v <= 1,
                     "Other families and the rest of the toolkit"),
     "expert_mode": (lambda v: v is False,
@@ -506,22 +520,34 @@ class DecoderLayer(nn.Module):
 
 class GPTModel(nn.Module):
     """Embeddings, the decoder stack and the final LayerNorm; returns the
-    hidden states [b, s, E] in the compute dtype."""
+    hidden states [b, s, E] in the compute dtype. Under ``pp_degree > 1``
+    the stage ``pp_rank``'s part of it, its layers keyed by their global
+    ids; the training forward of a stage is :meth:`embed`,
+    :meth:`run_layers` and ``final_norm``, called by the pipeline's
+    schedule."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0):
         super().__init__()
         self.cfg = cfg
         self.recompute = recompute_policy(cfg)  # raises on unported options
-        # this rank's vocab rows under mp
-        self.word_embeddings = _param(cfg.vocab_size // cfg.mp_degree,
-                                      cfg.hidden_size, device=device)
-        self.mp_split = {"word_embeddings": 0}
-        self.position_embeddings = _param(cfg.max_position_embeddings,
+        pp = cfg.pp_degree
+        first, last = pp_rank == 0, pp_rank == pp - 1
+        if first or last:
+            # this rank's vocab rows under mp; the last stage's is the
+            # tied head's copy
+            self.word_embeddings = _param(cfg.vocab_size // cfg.mp_degree,
                                           cfg.hidden_size, device=device)
-        self.embed_dropout = HashDropout(cfg.hidden_dropout_prob)
-        self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device) for _ in range(cfg.num_layers))
-        self.final_norm = LayerNorm(cfg.hidden_size, cfg.dtype, device)
+            self.mp_split = {"word_embeddings": 0}
+        if first:
+            self.position_embeddings = _param(cfg.max_position_embeddings,
+                                              cfg.hidden_size, device=device)
+            self.embed_dropout = HashDropout(cfg.hidden_dropout_prob)
+        self.layers = nn.ModuleDict(
+            (str(i), DecoderLayer(cfg, device))
+            for i in stage_layers(cfg.num_layers, pp, cfg.virtual_pp,
+                                  pp_rank))
+        if last:
+            self.final_norm = LayerNorm(cfg.hidden_size, cfg.dtype, device)
 
     def forward(self, input_ids, position_ids, *,
                 cache: Optional[Dict] = None, cache_positions=None,
@@ -540,13 +566,15 @@ class GPTModel(nn.Module):
         ``kv_starts`` [b], the decode window's start, defaults to
         :func:`pad_starts` of ``kv_mask``. ``shard`` places the training
         forward's ``[b, s]`` tokens in the global batch and sequence, for
-        the dropout hashes (None: they are the whole of it)."""
-        words = vocab_parallel_embedding(
-            self.word_embeddings, input_ids,
-            current_mp_group(self.cfg.mp_degree))
-        x = (words + self.position_embeddings[position_ids]).to(
-            self.cfg.dtype)
+        the dropout hashes (None: they are the whole of it). The whole
+        model's forward: a pipeline stage runs its part through the
+        schedule instead."""
+        if self.cfg.pp_degree > 1:
+            raise RuntimeError("a pipeline stage holds part of the model; "
+                               "its forward runs through the schedule "
+                               "(GPTModule.pipeline_loss)")
         if cache is not None:
+            x = self._embed(input_ids, position_ids)
             b, s = input_ids.shape
             index = cache.get("index")
             if kv_starts is None and kv_mask is not None:
@@ -561,7 +589,7 @@ class GPTModel(nn.Module):
                           block_tables=block_tables, kv_mask=kv_mask,
                           kv_starts=kv_starts, decode_end=decode_end)
             tensors = [n for n, t in cache.items() if torch.is_tensor(t)]
-            for i, layer in enumerate(self.layers):
+            for i, layer in enumerate(self.layers.values()):
                 x = layer(x, {n: cache[n][i] for n in tensors}, **decode)
             if index is not None:
                 cache["index"] = (index + s if cache_positions is None
@@ -569,10 +597,37 @@ class GPTModel(nn.Module):
             return self.final_norm(x)
         embed_seed, layer_seeds = self.dropout_seeds(deterministic,
                                                      generator)
-        x = self.embed_dropout(x, deterministic, seed=embed_seed,
-                               shard=shard)
+        x = self.embed(input_ids, position_ids, deterministic=deterministic,
+                       seed=embed_seed, shard=shard)
+        x = self.run_layers(x, range(self.cfg.num_layers), layer_seeds,
+                            deterministic=deterministic, shard=shard)
+        return self.final_norm(x)
+
+    def _embed(self, input_ids, position_ids) -> torch.Tensor:
+        words = vocab_parallel_embedding(
+            self.word_embeddings, input_ids,
+            current_mp_group(self.cfg.mp_degree))
+        return (words + self.position_embeddings[position_ids]).to(
+            self.cfg.dtype)
+
+    def embed(self, input_ids, position_ids, *, deterministic=True,
+              seed: Optional[int] = None,
+              shard: Optional[Shard] = None) -> torch.Tensor:
+        """The training forward's embeddings (the first stage's): word
+        plus position embeddings in the compute dtype, then the embedding
+        dropout keyed on ``seed``."""
+        return self.embed_dropout(self._embed(input_ids, position_ids),
+                                  deterministic, seed=seed, shard=shard)
+
+    def run_layers(self, x, layer_ids, layer_seeds, *, deterministic=True,
+                   shard: Optional[Shard] = None) -> torch.Tensor:
+        """``x`` through the decoder layers ``layer_ids`` (global ids, in
+        order) of the training forward, layer i with ``layer_seeds[i]``,
+        each recomputed in the backward under :func:`recompute_policy`
+        unless listed in ``no_recompute_layers``."""
         skip = set(self.cfg.no_recompute_layers or ())
-        for i, (layer, seeds) in enumerate(zip(self.layers, layer_seeds)):
+        for i in layer_ids:
+            layer, seeds = self.layers[str(i)], layer_seeds[i]
             if self.recompute is None or i in skip:
                 x = layer(x, deterministic=deterministic, seeds=seeds,
                           shard=shard)
@@ -584,7 +639,7 @@ class GPTModel(nn.Module):
                 x = checkpoint(layer, x, deterministic=deterministic,
                                seeds=seeds, shard=shard, use_reentrant=False,
                                preserve_rng_state=False)
-        return self.final_norm(x)
+        return x
 
     def dropout_seeds(self, deterministic: bool,
                       generator: Optional[torch.Generator]):
@@ -600,7 +655,10 @@ class GPTModel(nn.Module):
         alike on every rank): the hidden dropouts act on the activation
         that is replicated over the mp group, so every mp rank draws the
         same mask, as GSPMD's one mask over the global array; the
-        attention dropout keys each head's bits on its global head id."""
+        attention dropout keys each head's bits on its global head id.
+        Under pp every stage draws the whole model's seeds, in the order
+        one stage would, and keeps its own layers': a pipeline then draws
+        the masks of the unpipelined model at the same accumulation."""
         cfg = self.cfg
 
         def draw(rate: float, hidden: bool) -> Optional[int]:
@@ -612,7 +670,7 @@ class GPTModel(nn.Module):
         embed = draw(hidden, True)
         layers = [(draw(cfg.attention_probs_dropout_prob, False),
                    draw(hidden, True), draw(hidden, True))
-                  for _ in self.layers]
+                  for _ in range(cfg.num_layers)]
         return embed, layers
 
 
@@ -623,10 +681,10 @@ class GPTForPretraining(nn.Module):
     (``tensor_parallel.vocab_parallel_token_losses`` takes their loss) and
     the fused loss combines the shards' statistics (B12)."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0):
         super().__init__()
         self.cfg = cfg
-        self.gpt = GPTModel(cfg, device)
+        self.gpt = GPTModel(cfg, device, pp_rank)
 
     def forward(self, input_ids, position_ids, *, cache=None,
                 cache_positions=None, block_tables=None, kv_mask=None,
@@ -639,6 +697,13 @@ class GPTForPretraining(nn.Module):
                      block_tables=block_tables, kv_mask=kv_mask,
                      kv_starts=kv_starts, deterministic=deterministic,
                      generator=generator, shard=shard)
+        return self.lm_head(x, labels)
+
+    def lm_head(self, x: torch.Tensor,
+                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The tied head on the final-normed hidden states ``x`` [b, s, E]:
+        fp32 logits, or with ``fused_ce`` and labels the per-token losses
+        (the last stage's, under pp)."""
         emb = self.gpt.word_embeddings.to(self.cfg.dtype)
         group = current_mp_group(self.cfg.mp_degree)
         if labels is not None and self.cfg.fused_ce:

@@ -14,8 +14,12 @@ that the trainer's sum of the ranks' gradients over the data group (dp ×
 cp) is the gradient of JAX's ``masked_loss_mean`` over the global batch.
 Under tensor parallelism (``mp_degree``) the ranks of one mp group read
 the same rows and hold one model between them; their loss is the same
-replicated value, through the vocab-parallel logits loss or B12. Pipeline
-and pretrained warm starts are not ported.
+replicated value, through the vocab-parallel logits loss or B12. Under
+pipeline parallelism (``pp_degree``) every stage reads the batch, which
+streams through the stages as ``Engine.accumulate_steps`` microbatches
+(:meth:`GPTModule.pipeline_loss`, JAX :197-203); the loss is JAX's
+whole-batch masked mean, on the last stage. Pretrained warm starts are
+not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from fleetx_tpu_torch.ops.ce_loss import fit_vocab_block
 from fleetx_tpu_torch.ops.dropout import Shard
 from fleetx_tpu_torch.parallel.context_parallel import zigzag_slice
 from fleetx_tpu_torch.parallel.mesh import mesh_from_config
+from fleetx_tpu_torch.parallel.pipeline import Pipeline, stage_chunks
 from fleetx_tpu_torch.parallel.tensor_parallel import (
     vocab_parallel_token_losses,
 )
@@ -98,6 +103,11 @@ class GPTModule(LanguageModule):
     logits path is never taken there in silence."""
 
     fused_ce_blocked: Optional[str] = None  # why fused_ce was demoted
+    # held by the first stage (the lookup) and the last (the LM head)
+    tied_parameters = ("gpt.word_embeddings",)
+    pipelined = True  # Distributed.pp_degree splits the model in stages
+    pp_rank = 0  # this rank's pipeline stage
+    _pipeline: Optional[Pipeline] = None
 
     def get_model(self):
         gcfg = GPTConfig.from_model_config(self.cfg.Model)
@@ -105,15 +115,23 @@ class GPTModule(LanguageModule):
         dist_cfg = self.cfg.get("Distributed") or {}
         cp = dist_cfg.get("cp_degree") or 1
         mp = dist_cfg.get("mp_degree") or 1
-        gcfg = GPTConfig(**{**gcfg.__dict__,
-                            "dtype": resolve_compute_dtype(eng),
-                            "cp_degree": cp, "mp_degree": mp})
-        if gcfg.fused_ce and cp > 1:
+        pp = (dist_cfg.get("pp_degree") or 1) if self.pipelined else 1
+        extra = {"dtype": resolve_compute_dtype(eng), "cp_degree": cp,
+                 "mp_degree": mp, "pp_degree": pp}
+        if pp > 1:
+            # the pipeline streams the accumulation's microbatches (JAX
+            # :197-203)
+            extra["num_microbatches"] = max(eng.get("accumulate_steps")
+                                            or 1, 1)
+            self.pp_rank = mesh_from_config(self.cfg).pp_rank
+        gcfg = GPTConfig(**{**gcfg.__dict__, **extra})
+        if gcfg.fused_ce and (cp > 1 or pp > 1):
             # as the JAX module (:208-230): the fused kernel would gather
-            # the sequence-split hidden states; the logits path is taken
+            # the sequence-split hidden states under cp, and pp runs the
+            # loss outside its validated path; the logits path is taken
             logger.warning("Model.fused_ce disabled: cp_degree=%d/"
-                           "pp_degree=1 (validated for 1/1); using the "
-                           "logits path", cp)
+                           "pp_degree=%d (validated for 1/1); using the "
+                           "logits path", cp, pp)
             gcfg = GPTConfig(**{**gcfg.__dict__, "fused_ce": False})
         if gcfg.fused_ce and fit_vocab_block(gcfg.vocab_size // mp) is None:
             self.fused_ce_blocked = (
@@ -124,13 +142,15 @@ class GPTModule(LanguageModule):
                            self.fused_ce_blocked)
             gcfg = GPTConfig(**{**gcfg.__dict__, "fused_ce": False})
         self.gpt_config = gcfg
-        return GPTForPretraining(self.gpt_config, device="meta")
+        return GPTForPretraining(self.gpt_config, device="meta",
+                                 pp_rank=self.pp_rank)
 
     def init_params(self, seed: int, device) -> Dict[str, torch.Tensor]:
-        """This rank's weights: under mp, its shards of the whole model's
-        seeded draw."""
+        """This rank's weights: under mp and pp, its stage's part and its
+        shards of the whole model's seeded draw."""
+        mesh = mesh_from_config(self.cfg)
         return init_params(self.gpt_config, seed=seed, device=device,
-                           mp_rank=mesh_from_config(self.cfg).mp_rank)
+                           mp_rank=mesh.mp_rank, pp_rank=mesh.pp_rank)
 
     def cp_prepare(self, batch):
         """``(tokens, position_ids, labels, loss_mask)`` of this rank (JAX
@@ -184,6 +204,74 @@ class GPTModule(LanguageModule):
         token_loss = vocab_parallel_token_losses(logits, labels,
                                                  mesh.mp_group)
         return self._masked_mean(token_loss, loss_mask, mesh)
+
+    @property
+    def pipeline(self) -> Pipeline:
+        """This stage's schedule and transport (made on first use)."""
+        if self._pipeline is None:
+            self._pipeline = Pipeline(mesh_from_config(self.cfg),
+                                      self.gpt_config.virtual_pp)
+        return self._pipeline
+
+    def pipeline_loss(self, batch, generator: Optional[torch.Generator],
+                      train: bool) -> torch.Tensor:
+        """One step of the pipeline on this stage (every stage calls it
+        with the same batch): the batch's ``num_microbatches``
+        microbatches through the schedule, forward and, when ``train``,
+        backward, so the parameters' ``.grad`` hold the sum over the
+        microbatches. Returns this rank's share of the loss on the last
+        stage (0 elsewhere): JAX's ``masked_loss_mean`` over the whole
+        batch (model.py:976-980), Σ over microbatches of Σ(loss·mask)
+        divided by the whole batch's mask count (summed over the data
+        group), not the mean of the microbatches' means.
+
+        Every stage draws the whole model's dropout seeds for each
+        microbatch in order, as one stage accumulating over the same
+        microbatches would, and each layer takes its own."""
+        mesh = mesh_from_config(self.cfg)
+        gcfg = self.gpt_config
+        tokens, position_ids = batch["tokens"], batch.get("position_ids")
+        labels, loss_mask = batch.get("labels"), batch.get("loss_mask")
+        n = gcfg.num_microbatches
+        rows, seq = tokens.shape
+        if rows % n:
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{n} microbatches")
+        mb = rows // n
+        gpt = self.nets.gpt
+        seeds = [gpt.dropout_seeds(not train, generator) for _ in range(n)]
+        shard = None
+        if mesh.data_world > 1:
+            shard = Shard(b0=mesh.dp_rank * mb, batch=mesh.dp * mb, s0=0,
+                          seq=seq)
+        kw = dict(deterministic=not train, shard=shard)
+        count = None
+        if mesh.is_last_stage:
+            count = loss_mask.float().sum()
+            if mesh.data_world > 1:
+                dist.all_reduce(count, group=mesh.data_group)
+        layers = stage_chunks(gcfg.num_layers, gcfg.pp_degree,
+                              gcfg.virtual_pp)  # by global chunk
+        last = len(layers) - 1
+
+        def stage(m: int, g: int, x: Optional[torch.Tensor]):
+            part = slice(m * mb, (m + 1) * mb)
+            embed_seed, layer_seeds = seeds[m]
+            if g == 0:
+                x = gpt.embed(tokens[part], None if position_ids is None
+                              else position_ids[part], seed=embed_seed,
+                              **kw)
+            x = gpt.run_layers(x, layers[g], layer_seeds, **kw)
+            if g < last:
+                return x
+            logits = self.nets.lm_head(gpt.final_norm(x))
+            token_loss = vocab_parallel_token_losses(logits, labels[part],
+                                                     mesh.mp_group)
+            mask = loss_mask[part].float().reshape(token_loss.shape)
+            return (token_loss * mask).sum() / count.clamp_min(1.0)
+
+        return self.pipeline.run(n, stage, (mb, seq, gcfg.hidden_size),
+                                 gcfg.dtype, tokens.device, train)
 
     @staticmethod
     def _masked_mean(token_loss, loss_mask, mesh) -> torch.Tensor:

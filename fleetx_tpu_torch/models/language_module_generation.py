@@ -6,16 +6,23 @@ Port of the JAX package's ``models/language_module_generation.py``
 :meth:`GPTGenerationModule.generate_ids`. ``generate(text)`` — tokenize,
 decode, detokenize — waits for the GPT-2 BPE files (``vocab.json``,
 ``merges.txt``), which the repository does not hold; ids in, ids out is
-the entry until then.
+the entry until then. Decoding runs the whole model: a pipeline-trained
+model's weights are mapped back to it (JAX :40-42), from a JAX
+pipeline-layout tree or from a checkpoint's stage files.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from fleetx_tpu_torch.models.gpt.convert import (
+    params_from_checkpoint,
+    params_from_jax,
+)
 from fleetx_tpu_torch.models.gpt.generation import GenerationConfig, generate
 from fleetx_tpu_torch.models.gpt.model import inference_params
 from fleetx_tpu_torch.models.language_module import GPTModule
@@ -29,16 +36,27 @@ class GPTGenerationModule(GPTModule):
     ``GPTGenerationModule``): ``set_state`` installs weights on a device,
     ``generate_ids`` runs the configured strategy."""
 
+    pipelined = False  # decoding runs the whole model, on one rank
+
     def __init__(self, cfg):
         super().__init__(cfg)
         self.generation_cfg = GenerationConfig.from_config(
             cfg.get("Generation"))
         self.device: Optional[torch.device] = None
 
-    def set_state(self, params: Dict[str, torch.Tensor], device=None) -> None:
-        """Load a state dict (``init_params`` / ``params_from_jax``) onto
-        ``device`` — CUDA unless the caller names another; without CUDA
-        it raises — with the dense weights at the compute dtype."""
+    def set_state(self, params: Union[Dict[str, torch.Tensor], dict, str],
+                  device=None) -> None:
+        """Load the whole model's weights onto ``device`` — CUDA unless the
+        caller names another; without CUDA it raises — with the dense
+        weights at the compute dtype. ``params`` is a state dict
+        (``init_params`` / ``params_from_jax``), a flax param tree of
+        numpy arrays in the sequential or a pipeline layout (JAX
+        ``set_state`` :40-42), or a ``Trainer`` checkpoint's step
+        directory written under any pp and mp."""
+        if isinstance(params, (str, os.PathLike)):
+            params = params_from_checkpoint(params, self.gpt_config)
+        elif "params" in params or "gpt" in params:
+            params = params_from_jax(params, self.gpt_config)
         self.device = resolve_device(device)
         self.nets.load_state_dict(
             inference_params(self.nets, params, self.device), assign=True)

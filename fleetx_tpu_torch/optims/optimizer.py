@@ -5,8 +5,8 @@ Port of the JAX package's optims/optimizer.py: AdamW (``AdamW``,
 LayerNorm scales and biases and every bias — the set the JAX decay mask
 (``:62-68``) names ``norm1``, ``norm2``, ``final_norm`` and ``bias`` —
 and the global-norm clip of ``optax.clip_by_global_norm``. Under tensor
-parallelism the norm is the whole model's, as JAX's norm of the global
-arrays is (:func:`global_norm`). Momentum/SGD and the per-block and
+and pipeline parallelism the norm is the whole model's, as JAX's norm of
+the global arrays is (:func:`global_norm`). Momentum/SGD and the per-block and
 by-value clips are not ported.
 """
 
@@ -31,22 +31,28 @@ def decay_mask(name: str) -> bool:
 
 def global_norm(grads: List[torch.Tensor],
                 sharded: Optional[Sequence[bool]] = None,
-                group=None) -> torch.Tensor:
+                group=None, stage_group=None) -> torch.Tensor:
     """The L2 norm (fp32, on the grads' device) of ``grads`` as one
     vector. With an mp ``group``, ``sharded[i]`` says whether ``grads[i]``
     is this rank's shard of a parameter split over the group: the shards'
     squares are summed over the group and the replicated gradients (the
-    same on every rank) counted once, so every rank gets the whole
-    model's norm."""
-    if group is None:
+    same on every rank) counted once. With a pp ``stage_group`` (each rank
+    one stage's gradients) the stages' squares are summed over it. Every
+    rank gets the whole model's norm."""
+    if group is None and stage_group is None:
         return torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    sharded = sharded if sharded is not None else [False] * len(grads)
     zero = torch.zeros((), device=grads[0].device)
     squares = [sum((torch.linalg.vector_norm(g.float()) ** 2
                     for g, s in zip(grads, sharded) if s == want), zero)
                for want in (True, False)]
-    dist.all_reduce(squares[0], group=group)
-    return torch.sqrt(squares[0] + squares[1])
+    if group is not None:
+        dist.all_reduce(squares[0], group=group)
+    total = squares[0] + squares[1]
+    if stage_group is not None:
+        dist.all_reduce(total, group=stage_group)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,

@@ -4,8 +4,8 @@ Port of :func:`validate_restore_mesh` and :class:`ElasticMeshMismatch`
 from the JAX package's ``resilience/elastic.py`` (:54-96). A checkpoint
 records the mesh it was written under (``meta["mesh"]``); a load onto
 another mesh may change dp (each data replica holds the same parameters,
-so a rank reads the file of its own mp rank), never mp, pp or cp, whose
-extents are baked into the saved shards. A refused load is a
+so a rank reads the file of its own stage and mp rank), never mp, pp or
+cp, whose extents are baked into the saved shards and stages. A refused load is a
 configuration error, not corruption: ``Trainer.load`` re-raises it and
 quarantines nothing.
 
@@ -38,8 +38,8 @@ def validate_restore_mesh(saved: dict, mesh, step: Optional[int] = None
                           ) -> None:
     """Check a checkpoint's recorded mesh ``saved`` (``{"dp", "fsdp",
     "mp", "pp", "cp"}``) against the restoring ``mesh`` (any object with
-    those attributes; the port's ``Mesh`` has no fsdp or pp and counts
-    them as 1). mp/pp/cp must agree, or :class:`ElasticMeshMismatch` is
+    those attributes; the port's ``Mesh`` has no fsdp axis and counts it
+    as 1). mp/pp/cp must agree, or :class:`ElasticMeshMismatch` is
     raised; a dp/fsdp change is logged."""
     def now(ax):
         return int(getattr(mesh, ax, 1))

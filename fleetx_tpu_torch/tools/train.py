@@ -15,9 +15,9 @@ it exits 0). Relaunched with ``-o Engine.save_load.ckpt_dir=<output_dir>``
 read from ``output_dir``), it restores the newest good step and feeds the
 data from the first sample it had not consumed, so it continues as the
 uninterrupted run would. Under a launcher, each process
-is one rank of ``Distributed.dp_degree`` × ``cp_degree`` × ``mp_degree``;
-ranks that share a card talk over gloo, ranks with a card each over NCCL.
-Context parallelism:
+is one rank of ``Distributed.pp_degree`` × ``dp_degree`` × ``cp_degree``
+× ``mp_degree``; ranks that share a card talk over gloo, ranks with a
+card each over NCCL. Context parallelism:
 
     python -m torch.distributed.run --nproc_per_node 2 \
         -m fleetx_tpu_torch.tools.train \
@@ -32,6 +32,17 @@ through the vocab-parallel fused cross-entropy):
         -m fleetx_tpu_torch.tools.train \
         -c configs/nlp/gpt/pretrain_gpt_1.3B_single_card.yaml \
         -o Distributed.mp_degree=2 -o Model.fused_ce=True \
+        -o Data.Train.dataset.input_dir=<prefix>
+
+Pipeline parallelism (12 of the 24 layers on each of 2 stages; the batch
+of 8 streams through them as ``local_batch_size / micro_batch_size`` = 4
+microbatches of 2; add ``-o Model.virtual_pp_degree=2`` for two chunks of
+6 layers per stage):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m fleetx_tpu_torch.tools.train \
+        -c configs/nlp/gpt/pretrain_gpt_1.3B_single_card.yaml \
+        -o Distributed.pp_degree=2 -o Global.micro_batch_size=2 \
         -o Data.Train.dataset.input_dir=<prefix>
 """
 

@@ -150,7 +150,6 @@ def test_dp2_cp2_and_cp2_match_cp1_and_split_batches_by_dp(tmp_path):
 
 
 @pytest.mark.parametrize("key", ["Distributed.ep_degree",
-                                 "Distributed.pp_degree",
                                  "Distributed.sharding.sharding_degree"])
 def test_unported_degrees_raise_naming_a6(tmp_path, key):
     # ep rides on the data ranks: the two ranks are dp 2
@@ -159,7 +158,6 @@ def test_unported_degrees_raise_naming_a6(tmp_path, key):
                                                f"{key}=2", *dp), nranks=2)
     item = {"Distributed.ep_degree": "Other families and the rest of the "
                                      "toolkit",
-            "Distributed.pp_degree": "Pipeline parallelism",
             "Distributed.sharding.sharding_degree":
                 "fsdp / ZeRO and elastic resume"}[key]
     match = re.escape(f'ROADMAP Queue A, "{item}"')

@@ -1299,3 +1299,63 @@ def test_cuda_sentry_skip_leaves_fused_adamw_state_bit_equal(tmp_path):
     out = trainer.train_step(trainer._to_device(good))
     assert not out["skipped"] and trainer.step == 2
     assert np.isfinite(float(out["loss"]))
+
+
+@pytest.mark.cuda
+def test_pp_transport_on_ranks_sharing_the_card():
+    """The stages' transport between 2 ranks sharing the card (gloo, CUDA
+    tensors staged through pinned host memory): three tensors each way,
+    sent back to back, arrive whole, in order and on the card."""
+    from test_torch_mp_ranks import spawn_on_card
+    from test_torch_pp_ranks import transport_program
+
+    _need_card()
+    (sent0, got0, on0), (sent1, got1, on1) = spawn_on_card(
+        transport_program, 2, "cuda")
+    assert got1 == sent0 and got0 == sent1 and on0 and on1
+
+
+@pytest.mark.cuda
+def test_cuda_pp2_trainer_resumes_bit_for_bit(tmp_path):
+    """The tiny bf16 GPT cut to 4 layers at pp 2 (2 ranks sharing the card
+    over gloo), full recompute, dropout 0.1, 2 microbatches: a run of 2
+    steps saving per-stage files at each, then fresh processes resuming
+    step 1 and taking step 2: the same loss and every parameter, fused
+    AdamW tensor and the generator bit for bit on both ranks; the tied
+    embedding's copies equal; per rank B1 twice and B2, B3 once per layer
+    of its stage per microbatch per step."""
+    from test_torch_mp_ranks import spawn_on_card
+    from test_torch_pp_ranks import pp_fit_program
+
+    _need_card()
+    _tiny_train_cfg(tmp_path)  # writes the corpus
+    root = __file__.rsplit("/tests/", 1)[0]
+    config = f"{root}/configs/tiny/pretrain_gpt_tiny_cpu.yaml"
+    over = [f"Data.Train.dataset.input_dir={tmp_path}/tiny",
+            "Model.use_flash_attention=True", "Model.use_recompute=True",
+            "Engine.mix_precision.use_pure_fp16=True", "Model.num_layers=4",
+            "Global.local_batch_size=4", "Global.micro_batch_size=2",
+            "Distributed.pp_degree=2", "Optimizer.lr.warmup_steps=0",
+            "Engine.max_steps=2", "Engine.save_load.save_steps=1"]
+    whole, part = tmp_path / "whole", tmp_path / "part"
+    a = spawn_on_card(pp_fit_program, 2, config,
+                      over + [f"Engine.save_load.output_dir={whole}"], None,
+                      "cuda")
+    import shutil
+
+    shutil.copytree(whole / "checkpoints" / "1", part / "checkpoints" / "1")
+    b = spawn_on_card(pp_fit_program, 2, config,
+                      over + [f"Engine.save_load.output_dir={part}"], 1,
+                      "cuda")
+    for x, y in zip(a, b):
+        assert y["losses"] == x["losses"][1:]
+        assert y["digests"] == x["digests"]
+        assert all(np.isfinite(x["losses"]))
+        # 2 layers a stage, 2 microbatches, 2 steps (A) and 1 (B)
+        assert x["launches"] == {"flash_fwd": 16, "flash_bwd_dq": 8,
+                                 "flash_bwd_dkv": 8}
+        assert y["launches"] == {"flash_fwd": 8, "flash_bwd_dq": 4,
+                                 "flash_bwd_dkv": 4}
+    assert a[0]["losses"] == a[1]["losses"]
+    assert (a[0]["digests"]["gpt.word_embeddings"]
+            == a[1]["digests"]["gpt.word_embeddings"])

@@ -252,7 +252,6 @@ def test_yaml_config_matches_jax_loader():
 
 
 SWITCHES = "Remaining GPT and Trainer switches"
-PIPELINE = "Pipeline parallelism"
 FAMILIES = "Other families and the rest of the toolkit"
 
 
@@ -260,9 +259,6 @@ FAMILIES = "Other families and the rest of the toolkit"
 # written
 @pytest.mark.parametrize("key,value,item", [
     pytest.param("fast_dropout", False, SWITCHES, id="fast_dropout-False-A4"),
-    pytest.param("pp_degree", 2, PIPELINE, id="pp_degree-2-A6"),
-    pytest.param("virtual_pp_degree", 2, PIPELINE,
-                 id="virtual_pp_degree-2-A6"),
     pytest.param("num_experts", 8, FAMILIES, id="num_experts-8-A8"),
     pytest.param("expert_mode", True, FAMILIES, id="expert_mode-True-A8")])
 def test_config_raises_on_switches_the_port_does_not_compute(key, value,
@@ -287,6 +283,25 @@ def test_config_reads_cp_degree_like_jax(cp):
     assert got.cp_degree == cp
     assert JaxGPTConfig.from_model_config(
         {**TINY, "cp_degree": cp}).cp_degree == cp
+
+
+@pytest.mark.parametrize("pp,v", [(1, 1), (1, 2), (2, 1), (2, 2), (4, 2)])
+def test_config_reads_pp_degrees_like_jax(pp, v):
+    """``pp_degree``, ``virtual_pp_degree`` and ``num_microbatches`` are
+    ported (pipeline parallelism): they load as the JAX loader reads them;
+    the virtual degree places layers only under pp (JAX reads it only
+    then), and ``pp · v`` must divide the layers (JAX :282-284)."""
+    model = {**TINY, "num_layers": 8, "pp_degree": pp,
+             "virtual_pp_degree": v, "num_microbatches": 4}
+    got = GPTConfig.from_model_config(model)
+    ref = JaxGPTConfig.from_model_config(model)
+    assert (got.pp_degree, got.virtual_pp_degree, got.num_microbatches) == \
+        (ref.pp_degree, ref.virtual_pp_degree, ref.num_microbatches) == \
+        (pp, v, 4)
+    assert got.virtual_pp == (v if pp > 1 else 1)
+    with pytest.raises(ValueError, match=r"num_layers 6 % \(pp"):
+        GPTConfig.from_model_config({**model, "num_layers": 6,
+                                     "pp_degree": 4})
 
 
 def test_config_ignores_layout_switches_and_reads_recompute_keys():

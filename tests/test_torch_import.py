@@ -117,3 +117,15 @@ def test_gate_covers_the_resilience_slice():
     for name in ("core.checkpoint", "core.engine", "resilience",
                  "resilience.faults", "resilience.elastic", "tools.train"):
         assert f"fleetx_tpu_torch.{name}" in mods, name
+
+
+def test_gate_covers_the_pipeline_slice():
+    """Likewise for pipeline parallelism: the remaps, placement, schedule
+    and transport, and the modules the pp path runs through."""
+    mods = set(_modules())
+    for name in ("parallel.pipeline", "parallel.mesh", "models.gpt.model",
+                 "models.gpt.convert", "models.language_module",
+                 "models.language_module_generation", "core.checkpoint",
+                 "core.engine", "tools.train"):
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    assert (PKG / "ops" / "csrc" / "flash_attention.cu").is_file()

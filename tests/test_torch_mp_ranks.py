@@ -134,16 +134,17 @@ def mp_train_program(config, overrides, steps, params, device="cpu"):
     """``steps`` train steps of ``Trainer`` on this rank through the normal
     entry points (``get_config`` with the world's ranks, ``build_module``,
     ``build_dataloader``), from ``params`` (the WHOLE model's numpy state
-    dict, which this rank shards for its mp rank; None: the seeded init).
-    Returns the per-step losses and grad norms, this rank's shards of the
-    first step's gradients after the data-group sum (numpy, by name),
-    checksums of the final replicated and of all parameters, the first
-    batch's tokens, the mesh coordinates and the launch counts of B1-B3
-    and B12."""
+    dict, which this rank cuts to its pipeline stage and shards for its mp
+    rank; None: the seeded init). Returns the per-step losses and grad
+    norms, this rank's shards of the first step's gradients after the
+    data-group sum (numpy, by name), checksums of the final replicated and
+    of all parameters, the first batch's tokens, the mesh coordinates
+    (dp, cp, mp; the stage apart) and the launch counts of B1-B3 and
+    B12."""
     from fleetx_tpu_torch.core.engine import Trainer
     from fleetx_tpu_torch.data import build_dataloader
     from fleetx_tpu_torch.models import build_module
-    from fleetx_tpu_torch.models.gpt.convert import shard_params
+    from fleetx_tpu_torch.models.gpt.convert import local_params
     from fleetx_tpu_torch.ops import ce_loss as ce
     from fleetx_tpu_torch.ops import flash_attention as fa
     from fleetx_tpu_torch.utils.config import get_config
@@ -152,9 +153,9 @@ def mp_train_program(config, overrides, steps, params, device="cpu"):
     module = build_module(cfg)
     trainer = Trainer(cfg, module, device=device)
     mesh = trainer.mesh
-    trainer.init_state(None if params is None else shard_params(
+    trainer.init_state(None if params is None else local_params(
         {n: torch.from_numpy(p) for n, p in params.items()},
-        module.gpt_config, mesh.mp_rank))
+        module.gpt_config, mesh.mp_rank, mesh.pp_rank))
     names = [n for n, _ in module.nets.named_parameters()]
     grads, clip = [], trainer.clip
 
@@ -184,6 +185,7 @@ def mp_train_program(config, overrides, steps, params, device="cpu"):
             "replicated": checksum(True), "checksum": checksum(False),
             "tokens": np.asarray(first), "n_params": trainer.n_params,
             "coords": (mesh.dp_rank, mesh.cp_rank, mesh.mp_rank),
+            "pp_rank": mesh.pp_rank,
             "launches": {k: v - before[k] for c in counts
                          for k, v in c.items()}}
 
