@@ -103,7 +103,7 @@ decode steps after phase 10):
 17. train-cp — ``tools/train.py`` on ``pretrain_gpt_1.3B_longcontext_cp8
                .yaml`` at cp 2 (the yaml's 8 cut to the card's 2 ranks),
                seq 16384 (its 32768 cut), one sequence per step (no
-               accumulation), full width, 12 of its 24 layers (to keep the
+               accumulation), full width, 2 of its 24 layers (to keep the
                script inside its time), bf16, dropout 0.1, full
                recompute, on 2 ranks sharing the card over gloo, for 6 steps
                and one evaluation: losses finite, falling and equal on both
@@ -111,7 +111,7 @@ decode steps after phase 10):
                as the ring under recompute launches them, no plain version;
                step ms, global tokens/s, MFU, the gradient all-reduce's ms,
                peak memory per rank and the backend printed;
-18. train-cp-e2e — one step of that config cut to 4 layers at seq 4096
+18. train-cp-e2e — one step of that config cut to 2 layers at seq 4096
                (hidden dropout 0, attention dropout 0.1) at cp 1, cp 2 and
                dp 2 x cp 2 on the same global batch: loss, grad norm and
                every gradient leaf within phase 8's limits of cp 1;
@@ -128,19 +128,21 @@ decode steps after phase 10):
 20. train-mp — ``tools/train.py`` on ``pretrain_gpt_1.3B_single_card
                .yaml`` with ``Model.fused_ce=True`` at mp 2 (heads, MLP and
                vocab split over 2 ranks sharing the card over gloo), full
-               width and depth, batch 8 of 1024 tokens, bf16, dropout 0.1,
+               width, 2 of its 24 layers (for time), batch 8 of 1024
+               tokens, bf16, dropout 0.1,
                full recompute, for 5 steps and one evaluation of 1 batch:
                losses finite, falling and equal on both ranks, replicated
                parameters equal, B1-B3 and B12 launched exactly as the path
                launches them, no plain version and no logits path; step
                ms, tokens/s, MFU, the all-reduce ms per step, peak memory
                and launches per rank printed;
-21. train-mp-e2e — one step of that config cut to 4 layers at mp 1, mp 2
+21. train-mp-e2e — one step of that config cut to 2 layers at mp 1, mp 2
                and dp 2 x mp 2 on the same global batch: loss, grad norm
                and every gathered gradient leaf within phase 8's limits of
                mp 1;
-22. resume-1.3b — phase 13's configuration (full width and depth, fused
-               CE, full recompute, dropout 0.1): run A trains 3 steps and
+22. resume-1.3b — phase 13's configuration (full width, 12 of its 24
+               layers for time, fused CE, full recompute, dropout 0.1): run
+               A trains 3 steps and
                saves at step 2 through the async snapshot
                (``FLEETX_CKPT_ASYNC_SNAPSHOT=1``); run A2 trains the same
                3 steps again (the card's run-to-run gap: 0 when it repeats
@@ -164,13 +166,13 @@ decode steps after phase 10):
                other four, bit for bit, the skipped batch consumed; then
                phase 13's step with the sentry on and off (on, off, off,
                on): the cost of its per-step host read;
-25. resume-mp — phase 21's configuration (4 layers) at mp 2 on 2 ranks
+25. resume-mp — phase 21's configuration (2 layers) at mp 2 on 2 ranks
                sharing the card: fresh processes resume a per-rank
                checkpoint of step 1 and take step 2, equal on both ranks
                to the uninterrupted run bit for bit (sha256 of every
                tensor); a load of it at mp 1 raises
                ``ElasticMeshMismatch`` and quarantines nothing;
-26. pp-e2e   — phase 21's configuration (the 1.3B cut to 4 layers, hidden
+26. pp-e2e   — phase 21's configuration at 4 layers (the 1.3B, hidden
                dropout 0, attention dropout 0.1; the logits loss, as under
                pp) as 4 microbatches of 2: one step at pp 1 (accumulating
                over them), pp 2, pp 2 x v 2, mp 2 and pp 2 x mp 2 (ranks
@@ -182,10 +184,11 @@ decode steps after phase 10):
                embedding's gradient left unsummed, and two microbatches
                swapped at the stage boundary, must each break a limit;
 27. train-pp — ``tools/train.py`` on ``pretrain_gpt_1.3B_single_card
-               .yaml`` at pp 2 (12 layers a stage, 2 ranks sharing the card
-               over gloo), full width and depth, bf16, dropout 0.1, full
-               recompute, the logits loss, batch 8 as 4 microbatches of 2,
-               for 5 steps and one 1-batch evaluation, then 3 steps at
+               .yaml`` at pp 2 (2 layers a stage, 4 of its 24, 2 ranks
+               sharing the card over gloo), full width, bf16, dropout
+               0.1, full recompute, the logits loss, batch 8 as 4
+               microbatches of 2, for 5 steps and one 1-batch
+               evaluation, then 3 steps at
                virtual pp 2: losses finite, falling and equal on both
                ranks, the tied embedding's copies bit-equal after every
                step, B1-B3 launched exactly as the schedule launches them,
@@ -196,7 +199,42 @@ decode steps after phase 10):
                a per-stage checkpoint of step 1 and take step 2, equal on
                both ranks to the uninterrupted run bit for bit; a load of
                it at pp 1 raises ``ElasticMeshMismatch`` and quarantines
-               nothing.
+               nothing;
+29. kernels-6.7b — B1-B3 at GPT-6.7B's microbatch (b 2, h 32, s 1024, d
+               128, bf16, dropout 0 and 0.1) and B4-B6 over its 2048 tokens
+               at hidden 4096, vocab 50304 (bf16) against their plain
+               versions at phase 6's and phase 12's limits, each launched
+               twice with equal bits, each with a planted fault that must
+               break its limit; kernel, plain, library and bound times;
+30. train-zero — ``tools/train.py`` on ``pretrain_gpt_6.7B_sharding16
+               .yaml`` at sharding 2 (stage 2; the yaml's 16 cut to the
+               card's 2 ranks sharing it over gloo), full width, 6 of its
+               32 layers, bf16, dropout 0.1, fused CE, full recompute, the
+               yaml's batch (local 8 in 4 microbatches of 2), 3 steps and a
+               1-batch evaluation, the ZeRO update shard on; then the same
+               drive at dp 2 with the replicated update
+               (``FLEETX_ZERO_UPDATE=0``): losses finite and falling, the
+               parameters bit-equal on both ranks after every step, the
+               two runs within phase 8's loss and grad norm limits, and
+               equal up to the first update (the first step with a rate
+               above 0) with its grad norms within 1e-6 and its sampled
+               parameters within a clip-scale rounding, the AdamW state per
+               rank at most 0.55 of the replicated run's, B1-B6 launched as
+               the path launches them; at 2 layers, the two updates with
+               the clip's scale forced to 1 bit-equal for 2 steps, and a
+               norm from one rank's slices alone and one slice left stale
+               on one rank must each break a gate; step ms, tokens/s,
+               MFU, peak memory per rank, reduce-scatter, all-gather and
+               all-reduce ms and GB per step printed;
+31. elastic  — ``tools/train.py`` on the 1.3B yaml at 2 layers, full
+               width, sharding 2 on 2 ranks, with the host-loss fault
+               before step 3: the emergency checkpoint from the sharded
+               moments, the mesh shrunk to one rank (the other exits 0),
+               the resume through reshard-on-load to step 6; the restored
+               step, the consumed samples and every loss within phase 8's
+               loss limit of an uninterrupted 1-rank run; the checkpoint
+               loaded at one rank equals its reload on the 2-rank mesh
+               tensor for tensor and in meta.
 
 Every drive writes into an output directory of its own, deleted with its
 phase. The script is the reaper of every process it starts, also of those
@@ -342,7 +380,16 @@ TRAIN_E2E_TOL = {"loss": 1e-4, "grad_norm": 3e-4, "grad_leaf": 3e-2}
 TRAIN_13B_E2E_TOL = dict(TRAIN_E2E_TOL)
 
 
+_CLOCK = {"t0": time.monotonic(), "phase": None}
+
+
 def log(phase: str, **fields) -> None:
+    """One line of ``phase``; before a phase's first line, a ``[clock]``
+    line with the seconds since the script started."""
+    if phase != _CLOCK["phase"]:
+        _CLOCK["phase"] = phase
+        print(f"[clock] phase={phase} "
+              f"at_s={time.monotonic() - _CLOCK['t0']:.1f}", flush=True)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -780,11 +827,15 @@ def phase_flash() -> dict:
     return records
 
 
-def flash_cases(dtype, d: int, h: int = 16, meta=None) -> dict:
-    """Phase 6 at one dtype, head dim, head count and meta (None: the
-    identity); returns the dropout-0.1 records by kernel name."""
+def flash_cases(dtype, d: int, h: int = 16, meta=None, b: int = 8,
+                strict: bool = False) -> dict:
+    """Phase 6 at one dtype, head dim, head count, meta (None: the
+    identity) and batch; returns the dropout-0.1 records by kernel name.
+    ``strict`` (phase 29) also launches each kernel twice on the same
+    inputs (the bits must be equal) and plants B1 given another seed at
+    dropout 0.1 (it must break the limit)."""
     records = {}
-    sets = flash_inputs(dtype, d=d, h=h)
+    sets = flash_inputs(dtype, d=d, h=h, b=b)
     lib = sdpa_times(sets, causal=True)
     for rate in (0.0, 0.1):
         kw = dict(causal=True, dropout_rate=rate, seed=-1234567, meta=meta)
@@ -804,6 +855,28 @@ def flash_cases(dtype, d: int, h: int = 16, meta=None) -> dict:
                                                 **kw)
         lse_err = (lse - want_lse).abs().max().item()
         atol, rtol = fa.FLASH_TOL[dtype]
+        if strict:
+            again = (*fa.flash_fwd(q, k, v, **kw),
+                     fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                     *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            same = [torch.equal(x, y)
+                    for x, y in zip(again, (out, lse, dq, dk, dv))]
+            log("flash", heads=h, head_dim=d, batch=b, dropout=rate,
+                twice_equal=same)
+            if not all(same):
+                raise AssertionError(f"flash d {d} h {h} b {b}: two "
+                                     f"launches differ ({same})")
+            del again
+            if rate > 0.0:
+                wrong = _tol_ratio(fa.flash_fwd(
+                    q, k, v, **dict(kw, seed=kw["seed"] + 1))[0], want_out,
+                    atol, rtol)
+                log("flash", name="flash_fwd", heads=h, batch=b,
+                    dropout=rate, planted_fault="'seed + 1'",
+                    tol_ratio=wrong)
+                if not wrong > 1.0:
+                    raise AssertionError(f"B1 given seed + 1 at h {h} is "
+                                         f"held within the limit ({wrong})")
         errs = {"flash_fwd": _max_err(out, want_out),
                 "flash_bwd_dq": _max_err(dq, want_dq),
                 "flash_bwd_dkv": max(_max_err(dk, want_dk),
@@ -1107,7 +1180,8 @@ def _e2e_step(cfg, batch, fns=None) -> tuple:
         grads, clip = [], trainer.clip
 
         def capture(gs, norm=None):
-            grads.extend(g.detach().clone() for g in gs)
+            grads.extend(g.detach().clone()
+                         for g in whole_grads(trainer, gs))
             return clip(gs, norm)
 
         trainer.clip = capture
@@ -1668,103 +1742,121 @@ def phase_ce() -> dict:
     backward kernels and their plain versions take the kernel's lse.
     Returns the bf16 records by kernel name."""
     records = {}
-    for dtype, (n, e, v) in CE_SHAPES.items():
-        h, w, labels, g = ce_inputs(dtype, n, e, v)
-        before = dict(ce.launches)
-        loss, lse = ce.fused_ce_fwd(h, w, labels)
-        again = ce.fused_ce_fwd(h, w, labels)
-        dh = ce.fused_ce_dh(h, w, labels, g, -g, lse)
-        dw = ce.fused_ce_dw(h, w, labels, g, -g, lse)
-        torch.cuda.synchronize()
-        if {k: ce.launches[k] - before[k] for k in ce.NAMES} != {
-                "ce_fwd": 2, "ce_dh": 1, "ce_dw": 1}:
-            raise AssertionError(f"ce launches {ce.launches} from {before}")
-        if not (torch.equal(loss, again[0]) and torch.equal(lse, again[1])):
-            raise AssertionError(f"ce_fwd {dtype}: two launches on the same "
-                                 "inputs differ")
-        del again
-        want_loss, want_lse = ce.fused_ce_fwd_ref(h, w, labels)
-        want = {"loss": want_loss, "lse": want_lse,
-                "dh": ce.fused_ce_dh_ref(h, w, labels, g, -g, lse),
-                "dW": ce.fused_ce_dw_ref(h, w, labels, g, -g, lse)}
-        got = {"loss": loss, "lse": lse, "dh": dh, "dW": dw}
-        kind = {"loss": "stats", "lse": "stats", "dh": "grads",
-                "dW": "grads"}
-        readings = {"dh": ce_readings(h, w, labels, g, -g, lse, "h"),
-                    "dW": ce_readings(h, w, labels, g, -g, lse, "w")}
-
-        def gaps_of(out, k):
-            # bf16 grads: aware of dl's rounding flips (ce.grads_gaps)
-            if dtype == torch.bfloat16 and kind[k] == "grads":
-                return ce.grads_gaps(out, want[k], readings[k])
-            return ce.ce_gaps(out, want[k], dtype, kind[k])
-
-        gaps = {k: gaps_of(got[k], k) for k in got}
-        for k, gap in gaps.items():
-            log("ce", dtype=str(dtype).split(".")[-1], output=k,
-                tol=ce.CE_TOL[dtype][kind[k]],
-                mean_abs=got[k].float().abs().mean().item(), **gap)
-        caught = {}  # fault -> whether any of its outputs breaks the limit
+    for dtype, shape in CE_SHAPES.items():
+        got = ce_case(dtype, *shape)
         if dtype == torch.bfloat16:
-            for (fault, k), out in planted_ce_faults(h, w, labels, g,
-                                                     lse).items():
-                gap = gaps_of(out, k)
-                log("ce", planted_fault=repr(fault), output=k, **gap)
-                caught[fault] = caught.get(fault, False) or not gap["ok"]
-        bad = [k for k, gap in gaps.items() if not gap["ok"]]
-        if bad or not torch.equal(loss[[0, 3]], lse[[0, 3]]):
-            raise AssertionError(f"ce kernels vs plain {dtype}: {bad} "
-                                 f"{gaps}; loss/lse of unmatched labels "
-                                 f"{loss[[0, 3]]} {lse[[0, 3]]}")
-        missed = [fault for fault, hit in caught.items() if not hit]
-        if missed:
-            raise AssertionError(f"the ce limit misses the planted faults "
-                                 f"{missed}")
-        del want, got, readings
-        torch.cuda.empty_cache()
-        lib = library_ce_times(h, w, labels, g)
-        calls = {
-            "ce_fwd": (lambda: ce.fused_ce_fwd(h, w, labels),
-                       lambda: ce.fused_ce_fwd_ref(h, w, labels),
-                       lib["forward"], ("loss", "lse")),
-            "ce_dh": (lambda: ce.fused_ce_dh(h, w, labels, g, -g, lse),
-                      lambda: ce.fused_ce_dh_ref(h, w, labels, g, -g, lse),
-                      lib["dh"], ("dh",)),
-            "ce_dw": (lambda: ce.fused_ce_dw(h, w, labels, g, -g, lse),
-                      lambda: ce.fused_ce_dw_ref(h, w, labels, g, -g, lse),
-                      lib["dw"], ("dW",)),
-        }
-        library = {"ce_fwd": "logits path forward",
-                   "ce_dh": "logits path dh alone (GEMM, softmax, one "
-                            "product)",
-                   "ce_dw": "logits path dW alone (GEMM, softmax, one "
-                            "product)"}
-        for name, (kernel, plain, library_ms, outs) in calls.items():
-            kernel_ms = cuda_ms(kernel, iters=10, warmup=2)
-            plain_ms = cuda_ms(plain, iters=2, warmup=1)
-            nbytes, flops = ce_bound(name, h, w)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-            err = max(gaps[k]["max_abs_err"] for k in outs)
-            log("ce", name=name, dtype=str(dtype).split(".")[-1], tokens=n,
-                hidden=e, vocab=v, max_abs_err=err, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, library_ms=library_ms,
-                library=library[name],
-                library_backward_ms=lib["backward"],
-                bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by,
-                bytes=nbytes, flops=flops, tflops=flops / kernel_ms * 1e-9,
-                share_of_bound=max(bytes_ms, ops_ms) / kernel_ms)
-            if dtype == torch.bfloat16:
-                records[name] = {
-                    "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                    "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
-                    "library_ms": library_ms}
-                if name != "ce_fwd":
-                    records[name]["library_backward_ms"] = lib["backward"]
-        ce.launches.update(before)  # checks and timing are not the path
-        del h, w, labels, g, loss, lse, dh, dw
-        torch.cuda.empty_cache()
+            records = got
+    return records
+
+
+def ce_case(dtype, n: int, e: int, v: int, strict: bool = False) -> dict:
+    """Phase 12 at one dtype and (tokens, hidden, vocab); returns the bf16
+    records by kernel name. ``strict`` (phase 29) launches B5 and B6 twice
+    too (B4 always is): the bits must be equal."""
+    records = {}
+    h, w, labels, g = ce_inputs(dtype, n, e, v)
+    before = dict(ce.launches)
+    loss, lse = ce.fused_ce_fwd(h, w, labels)
+    again = ce.fused_ce_fwd(h, w, labels)
+    dh = ce.fused_ce_dh(h, w, labels, g, -g, lse)
+    dw = ce.fused_ce_dw(h, w, labels, g, -g, lse)
+    torch.cuda.synchronize()
+    if {k: ce.launches[k] - before[k] for k in ce.NAMES} != {
+            "ce_fwd": 2, "ce_dh": 1, "ce_dw": 1}:
+        raise AssertionError(f"ce launches {ce.launches} from {before}")
+    if not (torch.equal(loss, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"ce_fwd {dtype}: two launches on the same "
+                             "inputs differ")
+    if strict:
+        same = [torch.equal(dh, ce.fused_ce_dh(h, w, labels, g, -g, lse)),
+                torch.equal(dw, ce.fused_ce_dw(h, w, labels, g, -g, lse))]
+        log("ce", tokens=n, hidden=e, vocab=v, twice_equal_dh_dw=same)
+        if not all(same):
+            raise AssertionError(f"ce_dh/ce_dw at E {e}: two launches "
+                                 f"differ ({same})")
+    del again
+    want_loss, want_lse = ce.fused_ce_fwd_ref(h, w, labels)
+    want = {"loss": want_loss, "lse": want_lse,
+            "dh": ce.fused_ce_dh_ref(h, w, labels, g, -g, lse),
+            "dW": ce.fused_ce_dw_ref(h, w, labels, g, -g, lse)}
+    got = {"loss": loss, "lse": lse, "dh": dh, "dW": dw}
+    kind = {"loss": "stats", "lse": "stats", "dh": "grads",
+            "dW": "grads"}
+    readings = {"dh": ce_readings(h, w, labels, g, -g, lse, "h"),
+                "dW": ce_readings(h, w, labels, g, -g, lse, "w")}
+
+    def gaps_of(out, k):
+        # bf16 grads: aware of dl's rounding flips (ce.grads_gaps)
+        if dtype == torch.bfloat16 and kind[k] == "grads":
+            return ce.grads_gaps(out, want[k], readings[k])
+        return ce.ce_gaps(out, want[k], dtype, kind[k])
+
+    gaps = {k: gaps_of(got[k], k) for k in got}
+    for k, gap in gaps.items():
+        log("ce", dtype=str(dtype).split(".")[-1], output=k,
+            tol=ce.CE_TOL[dtype][kind[k]],
+            mean_abs=got[k].float().abs().mean().item(), **gap)
+    caught = {}  # fault -> whether any of its outputs breaks the limit
+    if dtype == torch.bfloat16:
+        for (fault, k), out in planted_ce_faults(h, w, labels, g,
+                                                 lse).items():
+            gap = gaps_of(out, k)
+            log("ce", planted_fault=repr(fault), output=k, **gap)
+            caught[fault] = caught.get(fault, False) or not gap["ok"]
+    bad = [k for k, gap in gaps.items() if not gap["ok"]]
+    if bad or not torch.equal(loss[[0, 3]], lse[[0, 3]]):
+        raise AssertionError(f"ce kernels vs plain {dtype}: {bad} "
+                             f"{gaps}; loss/lse of unmatched labels "
+                             f"{loss[[0, 3]]} {lse[[0, 3]]}")
+    missed = [fault for fault, hit in caught.items() if not hit]
+    if missed:
+        raise AssertionError(f"the ce limit misses the planted faults "
+                             f"{missed}")
+    del want, got, readings
+    torch.cuda.empty_cache()
+    lib = library_ce_times(h, w, labels, g)
+    calls = {
+        "ce_fwd": (lambda: ce.fused_ce_fwd(h, w, labels),
+                   lambda: ce.fused_ce_fwd_ref(h, w, labels),
+                   lib["forward"], ("loss", "lse")),
+        "ce_dh": (lambda: ce.fused_ce_dh(h, w, labels, g, -g, lse),
+                  lambda: ce.fused_ce_dh_ref(h, w, labels, g, -g, lse),
+                  lib["dh"], ("dh",)),
+        "ce_dw": (lambda: ce.fused_ce_dw(h, w, labels, g, -g, lse),
+                  lambda: ce.fused_ce_dw_ref(h, w, labels, g, -g, lse),
+                  lib["dw"], ("dW",)),
+    }
+    library = {"ce_fwd": "logits path forward",
+               "ce_dh": "logits path dh alone (GEMM, softmax, one "
+                        "product)",
+               "ce_dw": "logits path dW alone (GEMM, softmax, one "
+                        "product)"}
+    for name, (kernel, plain, library_ms, outs) in calls.items():
+        kernel_ms = cuda_ms(kernel, iters=10, warmup=2)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+        nbytes, flops = ce_bound(name, h, w)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        err = max(gaps[k]["max_abs_err"] for k in outs)
+        log("ce", name=name, dtype=str(dtype).split(".")[-1], tokens=n,
+            hidden=e, vocab=v, max_abs_err=err, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library=library[name],
+            library_backward_ms=lib["backward"],
+            bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by,
+            bytes=nbytes, flops=flops, tflops=flops / kernel_ms * 1e-9,
+            share_of_bound=max(bytes_ms, ops_ms) / kernel_ms)
+        if dtype == torch.bfloat16:
+            records[name] = {
+                "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+                "library_ms": library_ms}
+            if name != "ce_fwd":
+                records[name]["library_backward_ms"] = lib["backward"]
+    ce.launches.update(before)  # checks and timing are not the path
+    del h, w, labels, g, loss, lse, dh, dw
+    torch.cuda.empty_cache()
     return records
 
 
@@ -1965,7 +2057,7 @@ def phase_train_13b_e2e(prefix: str, layers: int = 4) -> None:
 CP_CONFIG = os.path.join(
     ROOT, "configs/nlp/gpt/pretrain_gpt_1.3B_longcontext_cp8.yaml")
 CP_STEPS, CP_EVAL_ITERS = 6, 1
-CP_TRAIN_LAYERS = 12  # phase 17's depth: the yaml's 24 halved for time
+CP_TRAIN_LAYERS = 2  # phase 17's depth: the yaml's 24 cut for time
 BLOCK_KERNEL = {"block_fwd_lse": "flash_fwd", "block_dq": "flash_bwd_dq",
                 "block_dkv": "flash_bwd_dkv"}
 
@@ -2447,7 +2539,7 @@ def phase_train_cp(prefix: str) -> dict:
 
 # ----------------------------------------------------------------- phase 18
 
-CP_E2E_LAYERS, CP_E2E_SEQ = 4, 4096
+CP_E2E_LAYERS, CP_E2E_SEQ = 2, 4096
 
 
 def cp_e2e_overrides(prefix: str, dp: int, cp: int) -> list:
@@ -2465,6 +2557,13 @@ def cp_e2e_overrides(prefix: str, dp: int, cp: int) -> list:
             f"Global.micro_batch_size={2 // dp}"]
 
 
+def whole_grads(trainer, grads):
+    """The whole gradients of the clip's ``grads``: under the ZeRO
+    weight-update shard this rank's slices, gathered over the zero group
+    (a collective: every rank of the step calls it)."""
+    return grads if trainer.zero is None else trainer.zero.whole(grads)
+
+
 def cp_e2e_rank(overrides, batch, grads_path) -> tuple:
     """One rank of a phase-18 run: one train step of a fresh trainer on its
     dp rows of the global ``batch``; rank 0 saves the summed gradients
@@ -2480,7 +2579,7 @@ def cp_e2e_rank(overrides, batch, grads_path) -> tuple:
     grads, clip = [], trainer.clip
 
     def capture(gs, norm=None):
-        grads.extend(g.detach().clone() for g in gs)
+        grads.extend(g.detach().clone() for g in whole_grads(trainer, gs))
         return clip(gs, norm)
 
     trainer.clip = capture
@@ -2491,11 +2590,12 @@ def cp_e2e_rank(overrides, batch, grads_path) -> tuple:
 
 
 def phase_train_cp_e2e(prefix: str) -> None:
-    """One step of the CP config cut to 4 layers at seq 4096 (hidden
-    dropout 0, attention dropout 0.1) three ways on the same global batch:
-    cp 1 in this process, cp 2 on 2 ranks and dp 2 x cp 2 on 4 ranks (all
-    on the card, over gloo). Loss, grad norm and every gradient leaf of
-    the two rings must lie within phase 8's limits of cp 1."""
+    """One step of the CP config cut to CP_E2E_LAYERS layers at seq 4096
+    (hidden dropout 0, attention dropout 0.1) three ways on the same
+    global batch: cp 1 in this process, cp 2 on 2 ranks and dp 2 x cp 2 on
+    4 ranks (all on the card, over gloo). Loss, grad norm and every
+    gradient leaf of the two rings must lie within phase 8's limits of cp
+    1."""
     from fleetx_tpu_torch.parallel.launch import spawn
 
     cfg1 = get_config(CP_CONFIG, overrides=cp_e2e_overrides(prefix, 1, 1),
@@ -2530,8 +2630,9 @@ def phase_train_cp_e2e(prefix: str) -> None:
 # the card; each rank's B12 runs B4-B6 on its vocab shard of the LM head,
 # [8192, 2048] bf16 activations against [25152, 2048] of the embeddings
 MP_DEGREE, MP_STEPS, MP_EVAL_ITERS = 2, 5, 1
+MP_TRAIN_LAYERS = 2  # phase 20's depth: the yaml's 24 cut for time
 MP_CE_SHAPE = (8192, 2048, 50304)  # tokens, hidden, the global vocab
-MP_E2E_LAYERS = 4
+MP_E2E_LAYERS = 2
 VP_KERNEL = {"vp_ce_fwd": "ce_fwd", "vp_ce_dh": "ce_dh", "vp_ce_dw": "ce_dw"}
 VP_KIND = {"loss": "stats", "dh": "grads", "dW": "grads",
            "dh_partial": "grads"}
@@ -2764,10 +2865,12 @@ def mp_overrides(prefix: str, *extra) -> list:
     """The 1.3B single-card yaml at mp 2 with the fused CE over the corpus
     at ``prefix``: MP_STEPS steps (warmup 1, a max_lr at which the loss
     moves within the drive) and one evaluation over MP_EVAL_ITERS batch;
-    full width and depth, the yaml's batch 8 of 1024 tokens."""
+    full width, MP_TRAIN_LAYERS layers, the yaml's batch 8 of 1024
+    tokens."""
     return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
             f"Data.Eval.dataset.input_dir={prefix}", "Model.fused_ce=True",
             f"Distributed.mp_degree={MP_DEGREE}",
+            f"Model.num_layers={MP_TRAIN_LAYERS}",
             f"Engine.max_steps={MP_STEPS}", "Engine.logging_freq=1",
             f"Engine.eval_freq={MP_STEPS}",
             f"Engine.eval_iters={MP_EVAL_ITERS}",
@@ -2949,7 +3052,7 @@ def mp_e2e_rank(overrides, batch, grads_path) -> tuple:
     grads, clip = [], trainer.clip
 
     def capture(gs, norm=None):
-        grads.extend(g.detach().clone() for g in gs)
+        grads.extend(g.detach().clone() for g in whole_grads(trainer, gs))
         return clip(gs, norm)
 
     trainer.clip = capture
@@ -3012,6 +3115,8 @@ def phase_train_mp_e2e(prefix: str) -> None:
 # ----------------------------------------------------------------- phase 22
 # the resume drive: phase 13's 1.3B configuration, 3 steps, saved at step 2
 RESUME_STEPS, RESUME_SAVE_AT = 3, 2
+RESUME_LAYERS = 12  # phase 22's depth: half the yaml's 24, for time (at 24
+# the phase takes 92.5 s of the script's 1,200)
 
 
 def trainer_tensors(trainer):
@@ -3067,9 +3172,10 @@ def run_gaps(ref: dict, run: dict, first: int = 0) -> dict:
 
 
 def resume_config(prefix: str, out: str, *extra):
-    """Phase 13's configuration (full width and depth) for RESUME_STEPS
-    steps without evaluation, writing into ``out``."""
+    """Phase 13's configuration (full width, RESUME_LAYERS layers) for
+    RESUME_STEPS steps without evaluation, writing into ``out``."""
     return train_13b_config(prefix, f"Engine.max_steps={RESUME_STEPS}",
+                            f"Model.num_layers={RESUME_LAYERS}",
                             "Engine.eval_freq=0", "Engine.logging_freq=1",
                             f"Engine.save_load.output_dir={out}", *extra)
 
@@ -3451,7 +3557,7 @@ def phase_sentry(prefix: str) -> dict:
 
 
 # ----------------------------------------------------------------- phase 25
-RESUME_MP_LAYERS = 4
+RESUME_MP_LAYERS = 2
 
 
 def tensor_digests(trainer) -> dict:
@@ -3560,6 +3666,7 @@ def phase_resume_mp(prefix: str) -> None:
 # PP_E2E_LAYERS layers, phase 27 runs it at full width and depth
 PP_DEGREE, PP_MICRO, PP_E2E_LAYERS = 2, 2, 4
 PP_STEPS, PP_V2_STEPS, PP_EVAL_ITERS = 5, 3, 1
+PP_TRAIN_LAYERS = 4  # phase 27's depth: the yaml's 24 cut for time
 
 
 def pp_e2e_overrides(prefix: str, *extra) -> list:
@@ -3615,7 +3722,7 @@ def pp_e2e_rank(runs, batch, grads_path) -> list:
         undo = None
         if fault == "tied":
             summed = engine.Trainer._sum_tied_grads
-            engine.Trainer._sum_tied_grads = lambda self, named: None
+            engine.Trainer._sum_tied_grads = lambda self, *args: None
             undo = lambda: setattr(engine.Trainer, "_sum_tied_grads", summed)
         elif fault == "swap" and mesh.is_first_stage:
             undo = swap_first_sends()
@@ -3623,7 +3730,8 @@ def pp_e2e_rank(runs, batch, grads_path) -> list:
         grads, clip = [], trainer.clip
 
         def capture(gs, norm=None):
-            grads.extend(g.detach().clone() for g in gs)
+            grads.extend(g.detach().clone()
+                         for g in whole_grads(trainer, gs))
             return clip(gs, norm)
 
         trainer.clip = capture
@@ -3739,11 +3847,12 @@ def pp_overrides(prefix: str, *extra) -> list:
     """The 1.3B yaml at pp 2 over the corpus at ``prefix``: its batch of 8
     as 4 microbatches of 2, the logits loss, PP_STEPS steps (warmup 1, a
     max_lr at which the loss moves within the drive) and one evaluation
-    over PP_EVAL_ITERS batch; full width and depth, bf16, dropout 0.1,
-    full recompute (all from the yaml)."""
+    over PP_EVAL_ITERS batch; full width, PP_TRAIN_LAYERS layers, bf16,
+    dropout 0.1, full recompute (from the yaml)."""
     return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
             f"Data.Eval.dataset.input_dir={prefix}",
             f"Distributed.pp_degree={PP_DEGREE}",
+            f"Model.num_layers={PP_TRAIN_LAYERS}",
             f"Global.micro_batch_size={PP_MICRO}",
             f"Engine.max_steps={PP_STEPS}", "Engine.logging_freq=1",
             f"Engine.eval_freq={PP_STEPS}",
@@ -3885,15 +3994,16 @@ def pp_train_rank(argv, argv_v2, port_v2) -> list:
 
 def phase_train_pp(prefix: str) -> dict:
     """The port's pipeline training path: ``tools/train.py`` on the 1.3B
-    yaml at pp 2 (12 of the 24 layers on each of 2 ranks sharing the card
-    over gloo; full width and depth, bf16, dropout 0.1, full recompute,
-    the logits loss), its batch of 8 as 4 microbatches of 2, for PP_STEPS
-    steps and one evaluation; then PP_V2_STEPS steps at virtual pp 2 (two
-    chunks of 6 layers a stage). Losses finite, falling and equal on both
-    ranks; the tied embedding's two copies bit-equal after every step;
-    per rank B1-B3 launched exactly as the schedule launches them (12
-    layers × 4 microbatches forward, recompute and backward per step, the
-    forward per evaluation batch), no plain version and no fused CE.
+    yaml at pp 2 (PP_TRAIN_LAYERS of its 24 layers, half on each of 2
+    ranks sharing the card over gloo; full width, bf16, dropout 0.1, full
+    recompute, the logits loss), its batch of 8 as 4 microbatches of 2,
+    for PP_STEPS steps and one evaluation; then PP_V2_STEPS steps at
+    virtual pp 2 (two chunks a stage). Losses finite, falling and equal on
+    both ranks; the tied embedding's two copies bit-equal after every
+    step; per rank B1-B3 launched exactly as the schedule launches them
+    (a stage's layers × 4 microbatches forward, recompute and backward
+    per step, the forward per evaluation batch), no plain version and no
+    fused CE.
     Returns rank 0's launch counts of the pp 2 drive."""
     from fleetx_tpu_torch.core.engine import model_flops_per_token
     from fleetx_tpu_torch.parallel.launch import free_port, spawn
@@ -3950,7 +4060,8 @@ def phase_train_pp(prefix: str) -> dict:
             raise AssertionError(f"ranks sharing one card ran "
                                  f"{r0['backend']}")
         if (r0["steps"] != steps or len(r0["evals"]) != (1 if evals else 0)
-                or r0["fused_ce"] or n != 4 or lps != 12):
+                or r0["fused_ce"] or n != 4
+                or lps != PP_TRAIN_LAYERS // PP_DEGREE):
             raise AssertionError(f"{label}: {r0['steps']} steps, "
                                  f"{len(r0['evals'])} evals, fused_ce "
                                  f"{r0['fused_ce']}, {n} microbatches, "
@@ -4064,6 +4175,585 @@ def common_prefix(a, b) -> int:
     return n
 
 
+# ----------------------------------------------------------------- phase 29
+# GPT-6.7B's kernel shapes: the flash kernels at a microbatch of 2 rows of
+# 1024 tokens, 32 heads of 128; the fused CE over those 2048 tokens at its
+# hidden 4096
+FLASH_67B = dict(b=2, h=32, d=128)
+CE_67B_SHAPE = (2048, 4096, 50304)
+
+
+def phase_kernels_67b() -> tuple:
+    """B1-B3 and B4-B6 at GPT-6.7B's shapes against their plain versions
+    (phase 6's and phase 12's limits and planted faults, each kernel
+    launched twice with equal bits), with kernel, plain, library and bound
+    times. Returns the flash and the CE records by kernel name."""
+    flash = flash_cases(torch.bfloat16, FLASH_67B["d"], h=FLASH_67B["h"],
+                        b=FLASH_67B["b"], strict=True)
+    ce_records = ce_case(torch.bfloat16, *CE_67B_SHAPE, strict=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash, ce_records
+
+
+# ----------------------------------------------------------------- phase 30
+TRAIN_67B_CONFIG = os.path.join(
+    ROOT, "configs/nlp/gpt/pretrain_gpt_6.7B_sharding16.yaml")
+ZERO_LAYERS = 6  # of the yaml's 32: the replicated run fits beside it, and
+# the script inside its time
+ZERO_FAULT_LAYERS = 2  # the planted-fault and forced-scale drives' depth
+ZERO_STEPS, ZERO_EVAL_ITERS = 3, 1  # 3 steps (5 until cut for time)
+ZERO_FORCED_STEPS = 2  # the forced-scale pair's steps
+ZERO_SAMPLE_STRIDE = 97  # the first update compared at every 97th element
+ZERO_UPDATE_NORM_TOL = 1e-6  # relative: the norm's summation order alone
+
+
+def zero_overrides(prefix: str, layers: int, steps: int, *extra) -> list:
+    """The 6.7B sharding yaml at sharding 2 on 2 ranks with the fused CE
+    over the corpus at ``prefix``: full width, ``layers`` of its 32, the
+    yaml's batch (local 8 in 4 microbatches of 2), full recompute, bf16,
+    dropout 0.1, ``steps`` steps and one evaluation of ZERO_EVAL_ITERS
+    batch after the last."""
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
+            f"Data.Eval.dataset.input_dir={prefix}", "Model.fused_ce=True",
+            "Distributed.sharding.sharding_degree=2",
+            f"Model.num_layers={layers}", f"Engine.max_steps={steps}",
+            "Engine.logging_freq=1", f"Engine.eval_freq={steps}",
+            f"Engine.eval_iters={ZERO_EVAL_ITERS}",
+            "Optimizer.lr.warmup_steps=1", "Optimizer.lr.max_lr=3.0e-4",
+            "Optimizer.lr.min_lr=3.0e-5", "Optimizer.lr.decay_steps=1000",
+            *extra]
+
+
+def param_digest(trainer) -> int:
+    """A digest of every parameter's bits (their int32 views summed,
+    weighted by the parameter's place), computed on the device."""
+    total = 0
+    for i, p in enumerate(trainer.module.nets.parameters()):
+        bits = p.detach().reshape(-1).view(torch.int32)
+        total += (i + 1) * int(bits.sum(dtype=torch.int64))
+    return total
+
+
+def forced_scale_runs(runs) -> list:
+    """Each ``(argv, zero)`` of ``runs`` fitted in this group, in turn, with
+    ``FLEETX_ZERO_UPDATE=zero`` through the pieces ``tools/train.py``'s
+    ``main`` runs (its group stays up): each run's update shard, losses,
+    grad norms and a digest of the parameters after every step."""
+    from fleetx_tpu_torch.core.engine import Trainer
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models import build_module
+    from fleetx_tpu_torch.utils.config import get_config, parse_args
+
+    out = []
+    for argv, zero in runs:
+        os.environ["FLEETX_ZERO_UPDATE"] = zero
+        args = parse_args(list(argv))
+        cfg = get_config(args.config, overrides=args.override)
+        trainer = Trainer(cfg, build_module(cfg))
+        digests, step = [], trainer.train_step
+
+        def digested(batch, step=step, trainer=trainer, digests=digests):
+            result = step(batch)
+            digests.append(param_digest(trainer))
+            return result
+
+        trainer.train_step = digested
+        trainer.fit(build_dataloader(cfg, "Train"))
+        out.append({"zero": trainer.zero is not None, "digests": digests,
+                    "losses": [float(x["loss"]) for x in trainer.history],
+                    "grad_norms": [float(x["grad_norm"])
+                                   for x in trainer.history]})
+        del trainer, step, digested
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def zero_train_rank(argv, zero: str, fault: str = "", forced=()) -> dict:
+    """One rank of phase 30: ``tools/train.py``'s ``main`` on ``argv`` with
+    ``FLEETX_ZERO_UPDATE=zero``; CUDA events at the ends of the steps, the
+    update shard's reduce-scatter and all-gather (or the replicated path's
+    all-reduce) timed, synchronised on both sides, with their bytes; a
+    digest of the parameters after every step, and on rank 0 every
+    ZERO_SAMPLE_STRIDE-th element of each parameter after the first step
+    with a learning rate above 0 (the warmup's step 1 has 0), with its
+    step; the
+    evaluation's mean; the AdamW state's bytes and the peak memory.
+    ``fault`` names the planted faults: "norm" (the clip's norm from this
+    rank's slices alone, every step), "ungathered" (rank 1 keeps its stale
+    copy of one parameter's other slice in step 2). ``forced`` runs first
+    (:func:`forced_scale_runs`)."""
+    forced = forced_scale_runs(forced)
+    os.environ["FLEETX_ZERO_UPDATE"] = zero
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.core import engine
+    from fleetx_tpu_torch.parallel import sharding
+    from fleetx_tpu_torch.tools import train as train_cli
+
+    ends, evals, digests, comms, current, true_norms = [], [], [], [], [], []
+    sample = []
+    step, evaluate = engine.Trainer.train_step, engine.Trainer.evaluate
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def timed(kind, fn, count):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            current.append((kind, (time.perf_counter() - t0) * 1e3,
+                            count(*a, **kw)))
+            return out
+        return wrapper
+
+    def timed_step(self, batch):
+        del current[:]
+        out = step(self, batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        comms.append(list(current))
+        digests.append(param_digest(self))
+        if not sample and out["lr"] > 0 and dist.get_rank() == 0:
+            sample.append((len(ends), torch.cat([
+                p.detach().reshape(-1)[::ZERO_SAMPLE_STRIDE]
+                for p in self.module.nets.parameters()]).cpu().numpy()))
+        return out
+
+    def kept_eval(self, data, epoch=0):
+        evals.append(evaluate(self, data, epoch))
+        return evals[-1]
+
+    engine.Trainer.train_step, engine.Trainer.evaluate = timed_step, kept_eval
+    sharding.ZeroShards.reduce_scatter = timed(
+        "reduce_scatter", sharding.ZeroShards.reduce_scatter,
+        lambda self, grads: nbytes(grads))
+    sharding.ZeroShards.all_gather = timed(
+        "all_gather", sharding.ZeroShards.all_gather,
+        lambda self: nbytes(self.shards) * self.world)
+    engine.all_reduce_sum = timed("all_reduce", engine.all_reduce_sum,
+                                  lambda tensors, *a, **kw: nbytes(tensors))
+    if "norm" in fault:
+        norm = engine.global_norm
+
+        def local_norm(*a, **kw):
+            true_norms.append(float(norm(*a, **kw)))
+            return norm(*a, **{**kw, "zero_group": None, "zero_parts": None})
+
+        engine.global_norm = local_norm
+    if "ungathered" in fault and dist.get_rank() == 1:
+        place, skipped = sharding._place, []
+
+        def stale_once(target, rows, plan):
+            if len(ends) == 1 and not skipped:
+                skipped.append(True)
+                return
+            place(target, rows, plan)
+
+        sharding._place = stale_once
+    backend = dist.get_backend()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(list(argv))
+    torch.cuda.synchronize()
+    gcfg = trainer.module.gpt_config
+    return {"backend": backend,
+            "zero": trainer.zero is not None,
+            "mesh": (trainer.mesh.dp, trainer.mesh.fsdp),
+            "losses": [float(x["loss"]) for x in trainer.history],
+            "grad_norms": [float(x["grad_norm"]) for x in trainer.history],
+            "lrs": [float(x["lr"]) for x in trainer.history],
+            "weight_decay": float(trainer.cfg.Optimizer.weight_decay),
+            "update_sample": sample[0] if sample else None,
+            "forced": forced,
+            "evals": evals, "digests": digests, "true_norms": true_norms,
+            "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+            "comms": comms, "opt_bytes": trainer.opt_state_device_bytes(),
+            "launches": {**fa.launches, **ce.launches},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "n_params": trainer.n_params, "steps": trainer.step,
+            "accum": trainer.accumulate_steps,
+            "fit_seconds": time.perf_counter() - t0,
+            "layers": gcfg.num_layers, "fused_ce": gcfg.fused_ce,
+            "tokens": trainer.cfg.Global.global_batch_size
+            * trainer.cfg.Data.Train.dataset.max_seq_len}
+
+
+def _comm_per_step(run: dict, kind: str) -> tuple:
+    """Median ms and GB per step of one collective kind (steps 2 on)."""
+    ms = [sum(c[1] for c in step if c[0] == kind) for step in run["comms"]]
+    gb = [sum(c[2] for c in step if c[0] == kind) / 1e9
+          for step in run["comms"]]
+    return float(np.median(ms[1:] or ms)), float(np.median(gb))
+
+
+def first_update_gaps(a: dict, b: dict) -> dict:
+    """Two runs from the same weights and batches that may differ only in
+    the clip's scale (the norm's summation order), up to the first step k
+    with a learning rate above 0: the largest loss gap and relative grad
+    norm gap of steps 1..k, and the sampled parameters' gaps after step k
+    in units of the limit a clip-scale rounding allows (two fp32 ulps of
+    the value plus ``lr · 2**-20``, a few ulps of AdamW's unit ratio m /
+    (sqrt(v) + eps) at the step's rate); the same ratio for ``a``'s
+    parameters moved by the weight decay's size ``lr · wd`` (the limit's
+    resolution: above 1)."""
+    (k, x), (kb, y) = a["update_sample"], b["update_sample"]
+    lr = a["lrs"][k - 1]
+    limit = (2 * np.spacing(np.maximum(np.abs(x), np.abs(y))).astype(
+        np.float64) + lr * 2.0 ** -20)
+    gap = np.abs(x.astype(np.float64) - y)
+    moved = np.abs(x * (1 - lr * a["weight_decay"]) - y.astype(np.float64))
+    return {"step": k, "steps_equal": k == kb, "lr": lr,
+            "loss": max(abs(p - q) for p, q in zip(a["losses"][:k],
+                                                   b["losses"][:k])),
+            "grad_norm": max(abs(p - q) / q for p, q in
+                             zip(a["grad_norms"][:k], b["grad_norms"][:k])),
+            "sampled": int(x.size), "unequal": int((x != y).sum()),
+            "max_abs": float(gap.max()),
+            "max_limit_ratio": float((gap / limit).max()),
+            "decay_sized_limit_ratio": float((moved / limit).max())}
+
+
+def phase_train_zero(prefix: str) -> dict:
+    """The port's sharded data-parallel path: ``tools/train.py`` on the
+    6.7B sharding yaml at sharding 2 (stage 2) on 2 ranks sharing the card
+    over gloo, full width, ZERO_LAYERS layers, bf16, dropout 0.1, fused
+    CE, full recompute, ZERO_STEPS steps and a 1-batch evaluation, the
+    update shard on; then the same drive at dp 2 with
+    ``FLEETX_ZERO_UPDATE=0`` (the replicated update). Gates: losses finite
+    and falling, the parameters bit-equal on both ranks after every step,
+    the two runs within TRAIN_E2E_TOL in loss and grad norm, the AdamW
+    state per rank at most 0.55 of the replicated run's, B1-B6 launched
+    as the path launches them; and the first update (the first step with
+    a learning rate above 0) held tightly, since the two runs differ only
+    in the clip's scale, from the norm's summation order: equal losses
+    up to it, grad norms within ZERO_UPDATE_NORM_TOL relative, and the
+    sampled parameters after it within :func:`first_update_gaps`'s ulp
+    limit. Then,
+    in one group at ZERO_FAULT_LAYERS: the forced-scale pair (the clip's
+    scale 1 on both sides, ``clip_norm`` far above the norm), sharded and
+    replicated for ZERO_FORCED_STEPS steps, whose parameters must be
+    bit-equal after every step, and a 2-step drive with two planted
+    faults that must each break a gate. Returns rank 0's launch counts of
+    the sharded run."""
+    from fleetx_tpu_torch.core.engine import model_flops_per_token
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    def argv(layers, steps, *extra):
+        return ["-c", TRAIN_67B_CONFIG] + [
+            x for o in zero_overrides(prefix, layers, steps, *extra)
+            for x in ("-o", o)]
+
+    dp2 = ("Distributed.sharding.sharding_degree=1",
+           "Distributed.dp_degree=2")
+    runs = {"sharded": spawn(zero_train_rank, 2,
+                             (argv(ZERO_LAYERS, ZERO_STEPS), "1"),
+                             timeout=900)}
+    gc.collect()
+    runs["replicated"] = spawn(zero_train_rank, 2,
+                               (argv(ZERO_LAYERS, ZERO_STEPS, *dp2), "0"),
+                               timeout=900)
+    r0 = runs["sharded"][0]
+    layers, steps = r0["layers"], r0["steps"]
+    evals = ZERO_EVAL_ITERS * len(r0["evals"])
+    micro = r0["accum"]  # the yaml's local batch 8 in microbatches of 2
+    want = {"flash_fwd": layers * (2 * steps * micro + evals),
+            "flash_bwd_dq": layers * steps * micro,
+            "flash_bwd_dkv": layers * steps * micro,
+            "ce_fwd": steps * micro + evals, "ce_dh": steps * micro,
+            "ce_dw": steps * micro}
+    flops = model_flops_per_token(r0["n_params"], layers, 1024, 4096)
+    for label, results in runs.items():
+        for rank, r in enumerate(results):
+            log("train-zero", run=label, rank=rank, backend=r["backend"],
+                zero=r["zero"], dp_fsdp=r["mesh"], steps=r["steps"],
+                layers=layers, params_m=r["n_params"] / 1e6,
+                step_ms=[round(x, 1) for x in r["step_ms"]],
+                peak_mem_gb=r["peak_mem_gb"],
+                opt_state_gb=r["opt_bytes"] / 1e9,
+                fit_seconds=r["fit_seconds"], launches=r["launches"],
+                launches_per_step={
+                    k: (v - evals * {"flash_fwd": layers,
+                                     "ce_fwd": 1}.get(k, 0)) / steps
+                    for k, v in r["launches"].items()})
+        steady = float(np.median(results[0]["step_ms"][1:])) * 1e-3
+        comm = {kind: _comm_per_step(results[0], kind)
+                for kind in ("reduce_scatter", "all_gather", "all_reduce")}
+        log("train-zero", run=label, step_ms_median=steady * 1e3,
+            tokens_per_s=results[0]["tokens"] / steady,
+            mfu=results[0]["tokens"] / steady * flops
+            / PEAK_FLOPS[torch.bfloat16],
+            reduce_scatter_ms=comm["reduce_scatter"][0],
+            reduce_scatter_gb=comm["reduce_scatter"][1],
+            all_gather_ms=comm["all_gather"][0],
+            all_gather_gb=comm["all_gather"][1],
+            all_reduce_ms=comm["all_reduce"][0],
+            all_reduce_gb=comm["all_reduce"][1],
+            losses=[round(x, 5) for x in results[0]["losses"]],
+            grad_norms=[round(x, 5) for x in results[0]["grad_norms"]],
+            evals=results[0]["evals"])
+    rep = runs["replicated"][0]
+    gaps = {"loss": max(abs(a - b) for a, b in zip(r0["losses"],
+                                                  rep["losses"])),
+            "grad_norm": max(abs(a - b) / b for a, b in
+                             zip(r0["grad_norms"], rep["grad_norms"]))}
+    ratio = r0["opt_bytes"] / rep["opt_bytes"]
+    first = first_update_gaps(r0, rep)
+    log("train-zero", sharded_vs_replicated=gaps, tol=TRAIN_E2E_TOL,
+        opt_state_ratio=ratio, first_update=first,
+        first_update_tol={"loss": 0.0, "grad_norm": ZERO_UPDATE_NORM_TOL,
+                          "max_limit_ratio": 1.0},
+        digests_equal_by_step=[x == y for x, y in zip(r0["digests"],
+                                                      rep["digests"])])
+    if r0["backend"] != "gloo" or not r0["zero"] or rep["zero"]:
+        raise AssertionError(f"backend {r0['backend']}, update shard "
+                             f"{r0['zero']} / {rep['zero']}")
+    if r0["mesh"] != (1, 2) or rep["mesh"] != (2, 1):
+        raise AssertionError(f"meshes {r0['mesh']} {rep['mesh']}")
+    if steps != ZERO_STEPS or len(r0["evals"]) != 1 or not r0["fused_ce"]:
+        raise AssertionError(f"{steps} steps, {len(r0['evals'])} evals, "
+                             f"fused_ce {r0['fused_ce']}")
+    for label, results in runs.items():
+        a, b = results
+        if a["digests"] != b["digests"] or len(a["digests"]) != steps:
+            raise AssertionError(f"{label}: the ranks' parameters differ "
+                                 f"after a step: {a['digests']} "
+                                 f"{b['digests']}")
+        if a["losses"] != b["losses"] or a["evals"] != b["evals"]:
+            raise AssertionError(f"{label}: the ranks' losses differ")
+        for r in results:
+            if r["launches"] != want:
+                raise AssertionError(f"{label}: launches {r['launches']}, "
+                                     f"want {want}")
+        losses = a["losses"]
+        if not all(math.isfinite(x) for x in losses + a["evals"]):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        if not np.mean(losses[-2:]) < losses[0]:
+            raise AssertionError(f"{label}: loss did not fall: {losses}")
+    if not (gaps["loss"] <= TRAIN_E2E_TOL["loss"]
+            and gaps["grad_norm"] <= TRAIN_E2E_TOL["grad_norm"]):
+        raise AssertionError(f"sharded vs replicated: {gaps}")
+    if not (first["steps_equal"] and first["loss"] == 0.0
+            and first["grad_norm"] <= ZERO_UPDATE_NORM_TOL
+            and first["max_limit_ratio"] <= 1.0
+            and first["decay_sized_limit_ratio"] > 1.0):
+        raise AssertionError(f"the first update, sharded vs replicated: "
+                             f"{first}")
+    if not ratio <= 0.55:
+        raise AssertionError(f"AdamW state per rank {r0['opt_bytes']} B is "
+                             f"{ratio:.3f} of the replicated run's")
+    launches = r0["launches"]
+    del runs, r0, rep
+    gc.collect()
+    # in one group: first the forced-scale pair, then the planted faults
+    # in a drive of 2 steps: a norm from this rank's slices alone must
+    # break the first update's norm gate against the whole model's norm of
+    # the same gradients; one parameter's slice left stale on rank 1 in
+    # step 2 the bit-equality gate
+    clip_off = "Optimizer.grad_clip.clip_norm=1e9"
+    forced = [(argv(ZERO_FAULT_LAYERS, ZERO_FORCED_STEPS, clip_off), "1"),
+              (argv(ZERO_FAULT_LAYERS, ZERO_FORCED_STEPS, clip_off, *dp2),
+               "0")]
+    a, b = spawn(zero_train_rank, 2,
+                 (argv(ZERO_FAULT_LAYERS, 2), "1", "norm,ungathered",
+                  forced), timeout=900)
+    sharded, replicated = a["forced"]
+    same = [x == y for x, y in zip(sharded["digests"],
+                                   replicated["digests"])]
+    log("train-zero", forced_scale=clip_off, layers=ZERO_FAULT_LAYERS,
+        zero=(sharded["zero"], replicated["zero"]),
+        losses_sharded=sharded["losses"],
+        losses_replicated=replicated["losses"],
+        grad_norms_sharded=sharded["grad_norms"],
+        grad_norms_replicated=replicated["grad_norms"],
+        digests_equal_by_step=same)
+    if not (sharded["zero"] and not replicated["zero"]
+            and len(same) == ZERO_FORCED_STEPS and all(same)
+            and sharded["losses"] == replicated["losses"]
+            and max(sharded["grad_norms"]) < 1e9
+            and b["forced"] == a["forced"]):
+        raise AssertionError("with the clip's scale forced to 1 the sharded "
+                             "and the replicated update part")
+    norm_gap = abs(a["grad_norms"][0] - a["true_norms"][0]) \
+        / a["true_norms"][0]
+    equal = [x == y for x, y in zip(a["digests"], b["digests"])]
+    caught = {"norm": norm_gap > ZERO_UPDATE_NORM_TOL,
+              "ungathered": equal == [True, False]}
+    log("train-zero", planted_faults="'norm' (steps 1-2), 'ungathered' "
+        "(step 2)", grad_norm_gap_step1=norm_gap,
+        ranks_bit_equal_by_step=equal, caught=caught)
+    if not all(caught.values()):
+        raise AssertionError(f"phase 30's gates miss a planted fault: "
+                             f"{caught}")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 31
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_LOSS_AT = 2, 6, 3
+ELASTIC_BATCH = 16  # the global batch: the yaml's local 8 on each of 2
+
+
+def elastic_overrides(prefix: str, out: str, *extra) -> list:
+    """The 1.3B yaml at ELASTIC_LAYERS layers, full width, over the corpus
+    at ``prefix``, fused CE, ELASTIC_STEPS steps of the global batch
+    ELASTIC_BATCH (in one microbatch on each rank), into ``out``."""
+    return [f"Engine.save_load.output_dir={out}",
+            f"Data.Train.dataset.input_dir={prefix}", "Model.fused_ce=True",
+            f"Model.num_layers={ELASTIC_LAYERS}",
+            f"Engine.max_steps={ELASTIC_STEPS}", "Engine.logging_freq=1",
+            "Engine.eval_freq=0",
+            "Optimizer.lr.warmup_steps=1", "Optimizer.lr.max_lr=3.0e-4",
+            "Optimizer.lr.min_lr=3.0e-5", "Optimizer.lr.decay_steps=1000",
+            *extra]
+
+
+def elastic_rank(argv, host_loss_step) -> dict:
+    """One rank of phase 31: ``tools/train.py``'s ``main`` on ``argv`` with
+    the host-loss fault at ``host_loss_step`` (None: no fault); every
+    applied step's loss, whichever trainer took it. Returns whether this
+    rank left, the losses, and the final trainer's step, restored step,
+    consumed samples, mesh and world."""
+    from fleetx_tpu_torch.core import engine
+    from fleetx_tpu_torch.tools import train as train_cli
+
+    losses, step = [], engine.Trainer.train_step
+
+    def kept(self, batch):
+        out = step(self, batch)
+        if not out["skipped"]:
+            losses.append(float(out["loss"]))
+        return out
+
+    engine.Trainer.train_step = kept
+    if host_loss_step is not None:
+        faults.configure(host_loss_step=str(host_loss_step))
+    try:
+        trainer = train_cli.main(list(argv))
+        injected = dict(faults.injected)
+    finally:
+        faults.reset()
+        engine.Trainer.train_step = step
+    out = {"left": trainer is None, "losses": losses, "injected": injected}
+    if trainer is not None:
+        out.update(step=trainer.step, restored=trainer._restored_step,
+                   consumed=trainer.consumed_samples,
+                   mesh=(trainer.mesh.dp, trainer.mesh.fsdp),
+                   world=trainer.mesh.world,
+                   global_batch=trainer.cfg.Global.global_batch_size)
+    return out
+
+
+def reload_digests(trainer, step: int) -> dict:
+    """sha256 of every parameter and whole AdamW moment of ``trainer``
+    after it loads ``step``, with the restored meta (a collective under
+    the update shard: every rank calls it)."""
+    trainer.load(step=step)
+    out = {"meta": (trainer.step, trainer.start_epoch,
+                    trainer.consumed_samples)}
+    tensors = dict(trainer.module.nets.named_parameters())
+    for n, s in trainer.optimizer_state(torch.device("cpu")).items():
+        tensors.update({f"{n}:{k}": v for k, v in s.items()
+                        if k != "step"})
+    for k, t in tensors.items():
+        out[k] = hashlib.sha256(t.detach().cpu().contiguous().reshape(-1)
+                                .view(torch.uint8).numpy().tobytes()
+                                ).hexdigest()
+    return out
+
+
+def reload_rank(overrides, step: int) -> dict:
+    """One rank of phase 31's same-mesh reload: a fresh trainer of the
+    sharding-2 configuration loads ``step``; its digests."""
+    cfg = get_config(TRAIN_13B_CONFIG, overrides=list(overrides))
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state()
+    return reload_digests(trainer, step)
+
+
+def phase_elastic(prefix: str) -> None:
+    """Elastic shrink and reshard-on-load: ``tools/train.py`` on the 1.3B
+    yaml at ELASTIC_LAYERS layers, full width, sharding 2 (stage 2) on 2
+    ranks, the host-loss fault before step ELASTIC_LOSS_AT: the emergency
+    checkpoint is written from the sharded moments, the mesh shrinks to
+    fsdp 1 on 1 rank (rank 1 leaves), the survivor resumes through
+    reshard-on-load and finishes ELASTIC_STEPS steps. Gates: the restored
+    step, the consumed samples, every loss within TRAIN_E2E_TOL of an
+    uninterrupted 1-rank run over the same global batches, rank 1 gone
+    with exit code 0; and the checkpoint loaded at 1 rank equal, tensor
+    for tensor and in meta, to a reload on the 2-rank mesh."""
+    from fleetx_tpu_torch.parallel import launch
+
+    root = os.path.dirname(prefix)
+    one = ("Distributed.sharding.sharding_degree=1",
+           f"Global.local_batch_size={ELASTIC_BATCH}",
+           f"Global.micro_batch_size={ELASTIC_BATCH}")
+    two = ("Distributed.sharding.sharding_degree=2",
+           "Distributed.sharding.sharding_stage=2",
+           f"Global.local_batch_size={ELASTIC_BATCH // 2}",
+           f"Global.micro_batch_size={ELASTIC_BATCH // 2}")
+
+    def argv(out, *extra):
+        return ["-c", TRAIN_13B_CONFIG] + [
+            x for o in elastic_overrides(prefix, out, *extra)
+            for x in ("-o", o)]
+
+    t0 = time.perf_counter()
+    ref = elastic_rank(argv(os.path.join(root, "out-elastic-ref"), *one),
+                       None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(root, "out-elastic")
+    runs = launch.spawn(elastic_rank, 2, (argv(out, *two), ELASTIC_LOSS_AT),
+                        timeout=900)
+    exitcodes = list(launch.last_exitcodes)
+    survivor, departed = runs
+    gap = max(abs(a - b) for a, b in zip(survivor["losses"],
+                                         ref["losses"]))
+    log("elastic", ref_losses=[round(x, 5) for x in ref["losses"]],
+        losses=[round(x, 5) for x in survivor["losses"]],
+        departed_losses=[round(x, 5) for x in departed["losses"]],
+        loss_gap=gap, tol=TRAIN_E2E_TOL["loss"], exitcodes=exitcodes,
+        restored=survivor.get("restored"), mesh=survivor.get("mesh"),
+        consumed=survivor.get("consumed"), seconds=time.perf_counter() - t0)
+    if not departed["left"] or survivor["left"] or exitcodes != [0, 0]:
+        raise AssertionError(f"left {[r['left'] for r in runs]}, exit codes "
+                             f"{exitcodes}")
+    if (survivor["step"], survivor["restored"], survivor["mesh"],
+            survivor["world"]) != (ELASTIC_STEPS, ELASTIC_LOSS_AT, (1, 1), 1):
+        raise AssertionError(f"after the shrink: {survivor}")
+    if survivor["consumed"] != ELASTIC_STEPS * ELASTIC_BATCH \
+            or survivor["global_batch"] != ELASTIC_BATCH:
+        raise AssertionError(f"consumed {survivor['consumed']}")
+    if (len(survivor["losses"]) != ELASTIC_STEPS
+            or departed["losses"] != survivor["losses"][:ELASTIC_LOSS_AT]
+            or not gap <= TRAIN_E2E_TOL["loss"]):
+        raise AssertionError(f"losses {survivor['losses']} against "
+                             f"{ref['losses']}: gap {gap}")
+    # the emergency checkpoint (sharding 2) reloaded on its own mesh and at
+    # one rank
+    same = launch.spawn(reload_rank, 2, (
+        elastic_overrides(prefix, out, *two), ELASTIC_LOSS_AT), timeout=900)
+    cfg = get_config(TRAIN_13B_CONFIG,
+                     overrides=elastic_overrides(prefix, out, *one))
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state()
+    single = reload_digests(trainer, ELASTIC_LOSS_AT)
+    del trainer
+    differ = sorted(k for k in single if single[k] != same[0].get(k))
+    log("elastic", reloaded_tensors=len(single) - 1, meta=single["meta"],
+        ranks_equal=same[0] == same[1], differ=differ[:8])
+    if same[0] != same[1] or differ or single["meta"] != (
+            ELASTIC_LOSS_AT, 0, ELASTIC_LOSS_AT * ELASTIC_BATCH):
+        raise AssertionError(f"reshard-on-load differs in {differ}, meta "
+                             f"{single['meta']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -4171,6 +4861,19 @@ def run_phases() -> tuple:
             flash[name]["launches_pp"] = count
         drop_output_dirs(prefix)
         phase_resume_pp(prefix)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_67b, ce_67b = phase_kernels_67b()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        write_corpus(prefix, tokens=800_000, seed=5)
+        counts = phase_train_zero(prefix)
+        for name, rec in flash_67b.items():
+            flash[name]["6.7b"] = dict(rec, launches=counts[name])
+        for name, rec in ce_67b.items():
+            ce_records[name]["6.7b"] = dict(rec, launches=counts[name])
+        drop_output_dirs(prefix)
+        phase_elastic(prefix)
     records = [dict(name="paged_decode", route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",

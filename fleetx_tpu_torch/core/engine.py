@@ -28,27 +28,43 @@ global-norm clip and the AdamW update (:507-546) — ``fit`` with its
 PyTorch runs eagerly, so there is no compiled step: the step is the loop
 body. Dropout seeds come from one ``torch.Generator`` seeded with
 ``Global.seed``; it is part of a checkpoint, and a skipped step puts it
-back where it was. The elastic supervisor (``run_elastic``), the
-profiler and the observability counters are not ported.
+back where it was. The elastic supervisor that shrinks the mesh after a
+host loss is ``resilience/elastic.run_elastic``; the profiler and the
+observability counters are not ported.
 
 Over several ranks (``Distributed.pp_degree`` × ``dp_degree`` ×
-``cp_degree`` × ``mp_degree``, the current mesh of ``parallel/mesh.py``)
-every rank starts from the same weights (under mp and pp, its stage's
-part and its shards of them) and seeds; after the backward the gradients
-are summed over the data group (dp × cp of one stage: the ranks that hold
-different tokens) in flat buckets, before the global-norm clip, whose
-norm is the whole model's (the shards' squares summed over the mp group,
-the stages' over the pp group), so every rank of a replica takes the same
-update and the replicated parameters stay equal on every rank. The logged
-loss and ``evaluate``'s mean are summed over the data group too (each
-rank's loss is its share of the global mean), and only rank 0 logs. The
-sentry's verdict is therefore the same on every rank; a SIGTERM that
-reaches one rank reaches the others through a one-element MAX all-reduce
-over the world after each fetch, so all ranks stop after the same step. A
+``sharding.sharding_degree`` × ``cp_degree`` × ``mp_degree``, the current
+mesh of ``parallel/mesh.py``) every rank starts from the same weights
+(under mp and pp, its stage's part and its shards of them) and seeds.
+After the backward the gradients are summed over the data group (dp ×
+fsdp × cp of one stage: the ranks that hold different tokens), before
+the global-norm clip, whose norm is the whole model's (the shards'
+squares summed over the mp group, the stages' over the pp group). Two
+layouts of that sum (JAX :204-214):
+
+- the ZeRO weight-update shard (``parallel/sharding.py``), on whenever dp
+  × fsdp > 1 unless ``FLEETX_ZERO_UPDATE=0``: the gradients are
+  reduce-scattered over the zero group (dp × fsdp) and, under cp, the
+  slices summed over the cp group; the norm is taken from the slices, the
+  clip, the sentry and AdamW run on them, the AdamW state lives on them
+  between steps, and the updated slices are all-gathered into the whole
+  parameters;
+- otherwise an all-reduce over the data group in flat buckets, and AdamW
+  on the whole parameters, as before the shard was ported.
+
+Either way every rank of a replica takes the same update and the
+replicated parameters stay equal on every rank. The logged loss and
+``evaluate``'s mean are summed over the data group too (each rank's loss
+is its share of the global mean), and only rank 0 logs. The sentry's
+verdict is therefore the same on every rank; a SIGTERM that reaches one
+rank reaches the others through a one-element MAX all-reduce over the
+world after each fetch, so all ranks stop after the same step. A
 checkpoint holds one state file per mp rank (per stage and mp rank under
-pp), written by the ranks of dp and cp rank 0 (dp and cp replicas hold
-the same parameters); a load reads the file of its own stage and mp rank,
-so dp may change between save and load, and mp, pp or cp may not
+pp) with whole tensors, written by the ranks of dp, fsdp and cp rank 0
+(the replicas hold the same parameters; the AdamW slices are gathered to
+the writer first); a load reads the file of its own stage and mp rank
+and takes its own slices, so dp and fsdp may change between save and
+load (reshard-on-load), and mp, pp or cp may not
 (``resilience/elastic.py``).
 
 Under pipeline parallelism (``pp_degree > 1``) there is no accumulation
@@ -92,7 +108,12 @@ from fleetx_tpu_torch.optims.optimizer import (
     global_norm,
 )
 from fleetx_tpu_torch.parallel.env import ranks_per_card
-from fleetx_tpu_torch.parallel.mesh import mesh_from_config
+from fleetx_tpu_torch.parallel.mesh import get_data_world, mesh_from_config
+from fleetx_tpu_torch.parallel.sharding import (
+    BUCKET_BYTES,
+    ZeroShards,
+    all_reduce_sum,
+)
 from fleetx_tpu_torch.parallel.tensor_parallel import mp_split_axes
 from fleetx_tpu_torch.resilience.elastic import (
     ElasticMeshMismatch,
@@ -102,8 +123,9 @@ from fleetx_tpu_torch.resilience.faults import faults
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
 
-__all__ = ["CheckpointUnrestorable", "SentryAbort", "Trainer",
-           "model_flops_per_token", "peak_flops", "all_reduce_sum"]
+__all__ = ["BUCKET_BYTES", "CheckpointUnrestorable", "SentryAbort",
+           "Trainer", "model_flops_per_token", "peak_flops",
+           "all_reduce_sum"]
 
 
 class CheckpointUnrestorable(RuntimeError):
@@ -141,37 +163,7 @@ def peak_flops(device: torch.device) -> Optional[float]:
     return _PEAK_BF16.get(torch.cuda.get_device_name(device))
 
 
-BUCKET_BYTES = 256 << 20  # gradient all-reduce bucket
-
-
-def all_reduce_sum(tensors: List[torch.Tensor], group=None,
-                   bucket_bytes: int = BUCKET_BYTES) -> None:
-    """Sum ``tensors`` (of one dtype and device) over ``group`` (the world
-    when None), in place, packed into flat buckets of at most
-    ``bucket_bytes`` (a tensor larger than that goes alone), one
-    all-reduce per bucket."""
-    bucket: List[torch.Tensor] = []
-    size = 0
-
-    def flush():
-        if not bucket:
-            return
-        flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat, group=group)
-        offset = 0
-        for t in bucket:
-            t.copy_(flat[offset:offset + t.numel()].view_as(t))
-            offset += t.numel()
-        bucket.clear()
-
-    for t in tensors:
-        nbytes = t.numel() * t.element_size()
-        if bucket and size + nbytes > bucket_bytes:
-            flush()
-            size = 0
-        bucket.append(t)
-        size += nbytes
-    flush()
+_MOMENTS = ("exp_avg", "exp_avg_sq")  # AdamW's per-parameter state
 
 
 def _state_digest(state: torch.Tensor) -> float:
@@ -205,6 +197,12 @@ class Trainer:
         self.clip = build_grad_clip(opt_cfg.get("grad_clip"))
         self.generator = torch.Generator().manual_seed(self.seed)
         self.mesh = mesh_from_config(cfg)
+        # the ZeRO weight-update shard (JAX :204-214): on whenever there is
+        # a data-parallel axis, unless FLEETX_ZERO_UPDATE=0
+        self._zero_update = (
+            os.environ.get("FLEETX_ZERO_UPDATE", "1") == "1"
+            and self.mesh.zero_world > 1)
+        self.zero: Optional[ZeroShards] = None  # made by init_state
         if self.mesh.pp > 1:
             # the pipeline streams the microbatches itself (JAX :186-190)
             self.accumulate_steps = 1
@@ -215,6 +213,7 @@ class Trainer:
         self.mp_split: Dict[str, int] = {}  # parameters split over mp
         self.history: List[Dict[str, float]] = []  # one entry per step
         self.start_epoch = 0
+        self._cur_epoch = 0  # the epoch the fit loop is inside
         self.consumed_samples = 0
         self._restored_step = None
         self._preempted = False
@@ -262,7 +261,7 @@ class Trainer:
         :class:`CheckpointUnrestorable` when none does."""
         if params is None:
             params = self.module.init_params(self.seed, self.device)
-        params = {k: v.to(self.device, torch.float32)
+        params = {k: v.to(self.device, torch.float32).contiguous()
                   for k, v in params.items()}
         nets = self.module.nets
         nets.load_state_dict(params, assign=True)
@@ -277,8 +276,12 @@ class Trainer:
             n_params = self._sum_over([float(n_params)],
                                       self.mesh.pp_group)[0]
         self.n_params = int(n_params)
-        self.optimizer = build_optimizer(self.cfg.Optimizer or {},
-                                         nets.named_parameters())
+        named = list(nets.named_parameters())
+        if self._zero_update:
+            self.zero = ZeroShards(named, self.mp_split, self.mesh)
+            named = list(zip(self.zero.names, self.zero.shards))
+        self._opt_names = {id(t): n for n, t in named}
+        self.optimizer = build_optimizer(self.cfg.Optimizer or {}, named)
         self.step = 0
         self._restored_step = None
         if self.primary:
@@ -341,22 +344,40 @@ class Trainer:
                 loss = self.module.loss_fn(part, self.generator, train=True)
                 (loss / accum).backward()
                 loss_sum += loss.detach()
-        named = [(n, p) for n, p in nets.named_parameters()
-                 if p.grad is not None]
-        grads = [p.grad for _, p in named]
-        if mesh.data_world > 1:
-            all_reduce_sum(grads + [loss_sum.view(1)],
-                           group=mesh.data_group)
+        zero = self.zero
+        if zero is None:
+            named = [(n, p) for n, p in nets.named_parameters()
+                     if p.grad is not None]
+            names, grads = [n for n, _ in named], [p.grad for _, p in named]
+            if mesh.data_world > 1:
+                all_reduce_sum(grads + [loss_sum.view(1)],
+                               group=mesh.data_group)
+        else:
+            # this rank's slices of the sums (a parameter the step did not
+            # reach has a zero gradient); the whole gradients go
+            params = list(nets.parameters())
+            names = zero.names
+            grads = zero.reduce_scatter([
+                p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in params])
+            for p in params:
+                p.grad = None
+            if mesh.data_world > 1:
+                dist.all_reduce(loss_sum, group=mesh.data_group)
         if mesh.pp > 1:
-            self._sum_tied_grads(named)
+            self._sum_tied_grads(names, grads)
             self._from_last_stage(loss_sum)
-        # under mp and pp the whole model's norm, the same on every rank
+        # under mp, pp and the update shard the whole model's norm, the
+        # same on every rank
         copies = self._tie_copies()
-        counted = [(n, g) for (n, _), g in zip(named, grads)
-                   if n not in copies]
-        norm = global_norm([g for _, g in counted],
-                           [n in self.mp_split for n, _ in counted],
-                           mesh.mp_group, stage_group=mesh.pp_group)
+        counted = [i for i, n in enumerate(names) if n not in copies]
+        norm = global_norm(
+            [grads[i] for i in counted],
+            [names[i] in self.mp_split for i in counted], mesh.mp_group,
+            stage_group=mesh.pp_group,
+            zero_parts=(None if zero is None
+                        else [zero.plans[i].parts for i in counted]),
+            zero_group=None if zero is None else mesh.zero_group)
         grad_norm = norm if self.clip is None else self.clip(grads, norm)
         lr = float(self.lr_schedule(self.step))
         loss = loss_sum / accum
@@ -367,8 +388,14 @@ class Trainer:
                     "skipped": True}
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+        if zero is not None:
+            for shard, g in zip(zero.shards, grads):
+                shard.grad = g
+            zero.refresh_staged()
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        if zero is not None:
+            zero.all_gather()
         self.step += 1
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
                 "skipped": False}
@@ -381,14 +408,16 @@ class Trainer:
             return []
         return list(getattr(self.module, "tied_parameters", ()))
 
-    def _sum_tied_grads(self, named) -> None:
-        """Sum the tied parameters' gradients over the embedding group
-        (the first and the last stage), so both copies take one update."""
+    def _sum_tied_grads(self, names: List[str],
+                        grads: List[torch.Tensor]) -> None:
+        """Sum the tied parameters' gradients (or their slices: both copies
+        have one plan) over the embedding group (the first and the last
+        stage), so both copies take one update."""
         group = self.mesh.embed_group
         tied = set(getattr(self.module, "tied_parameters", ()))
-        grads = [p.grad for n, p in named if n in tied]
-        if group is not None and grads:
-            all_reduce_sum(grads, group=group)
+        mine = [g for n, g in zip(names, grads) if n in tied]
+        if group is not None and mine:
+            all_reduce_sum(mine, group=group)
 
     def _from_last_stage(self, t: torch.Tensor) -> None:
         """Overwrite ``t`` with the last stage's (broadcast over the pp
@@ -441,6 +470,7 @@ class Trainer:
         global_batch = self.cfg.Global.global_batch_size
         tokens_per_batch = flops = None
         for epoch in range(self.start_epoch, self.num_train_epochs):
+            self._cur_epoch = epoch
             sampler = getattr(train_data, "batch_sampler", None)
             if sampler is not None and hasattr(sampler, "set_epoch"):
                 sampler.set_epoch(epoch)
@@ -474,7 +504,7 @@ class Trainer:
                 # fetched but not applied
                 faults.on_train_step(self.step)
                 if tokens_per_batch is None:  # the global batch's
-                    tokens_per_batch = self.mesh.dp * int(
+                    tokens_per_batch = get_data_world(self.mesh) * int(
                         np.prod(np.shape(batch["tokens"])))
                     flops = self._flops_per_token(np.shape(batch["tokens"])[1])
                 out = self.train_step(self._to_device(batch))
@@ -622,12 +652,18 @@ class Trainer:
     def _save_meta(self, epoch: int) -> dict:
         """The JSON side of a checkpoint (JAX :1066-1081): epoch, consumed
         samples, the dropout implementation and the mesh it was written
-        under (the port's has no fsdp axis: 1)."""
+        under."""
         mesh = self.mesh
         return {"epoch": epoch, "consumed_samples": self.consumed_samples,
                 "dropout_impl": self._dropout_impl(),
-                "mesh": {"dp": mesh.dp, "fsdp": 1, "mp": mesh.mp,
+                "mesh": {"dp": mesh.dp, "fsdp": mesh.fsdp, "mp": mesh.mp,
                          "pp": mesh.pp, "cp": mesh.cp}}
+
+    def _is_writer(self) -> bool:
+        """Whether this rank writes its (stage and) mp rank's state file:
+        the ranks of dp, fsdp and cp rank 0."""
+        mesh = self.mesh
+        return mesh.dp_rank == 0 and mesh.fsdp_rank == 0 and mesh.cp_rank == 0
 
     def _pp_rank(self) -> Optional[int]:
         """This rank's stage in its state file's name (None at pp 1, whose
@@ -640,16 +676,54 @@ class Trainer:
 
     def _param_names(self) -> List[str]:
         """The optimizer's parameters' names, in its index order."""
-        name_of = {id(p): n for n, p in self.module.nets.named_parameters()}
-        return [name_of[id(p)] for group in self.optimizer.param_groups
+        return [self._opt_names[id(p)] for group in self.optimizer.param_groups
                 for p in group["params"]]
+
+    def opt_state_device_bytes(self) -> int:
+        """The AdamW state's bytes resident on this rank (JAX :677-691):
+        every state tensor at its own size, so the update shard shrinks
+        the moments by the number of slices."""
+        return sum(v.numel() * v.element_size()
+                   for s in self.optimizer.state.values()
+                   for v in s.values() if isinstance(v, torch.Tensor))
+
+    def optimizer_state(self, device: Optional[torch.device] = None,
+                        keep: bool = True) -> Dict[str, Dict]:
+        """The AdamW state by parameter name with whole moments (on
+        ``device``; theirs when None): under the update shard the slices
+        are gathered over the zero group, a collective that every rank of
+        the group enters (with ``keep`` False this rank keeps nothing and
+        gets an empty dict)."""
+        names = self._param_names()
+        opt_params = [p for g in self.optimizer.param_groups
+                      for p in g["params"]]
+        state = {n: dict(self.optimizer.state.get(p, {}))
+                 for n, p in zip(names, opt_params)}
+        zero = self.zero
+        if zero is None or not any(state.values()):
+            return state if keep else {}
+        for k in _MOMENTS:
+            whole = zero.whole([state[n][k] for n in zero.names], device,
+                               keep=keep)
+            for n, t in zip(zero.names, whole):
+                state[n][k] = t
+        return state if keep else {}
 
     def _state(self) -> dict:
         """This rank's checkpoint: step, parameters, the optimizer's state
-        and parameter groups keyed by parameter name, the generator; under
-        pp also the virtual degree, which places the layers."""
+        (whole moments) and parameter groups keyed by parameter name, the
+        generator; under pp also the virtual degree, which places the
+        layers. Under the update shard the moments are gathered to the
+        writer (on the host) first: the ranks of cp rank 0 of each zero
+        group take part."""
         names = self._param_names()
         opt = self.optimizer.state_dict()
+        by_name = {names[i]: s for i, s in opt["state"].items()}
+        if self.zero is not None and self.mesh.cp_rank == 0:
+            writer = self._is_writer()
+            whole = self.optimizer_state(torch.device("cpu"), keep=writer)
+            if writer:
+                by_name = {n: s for n, s in whole.items() if s}
         layout = ({"virtual_pp": self._virtual_pp()} if self.mesh.pp > 1
                   else {})
         return {**layout,
@@ -657,7 +731,7 @@ class Trainer:
             "params": {n: p.detach() for n, p in
                        self.module.nets.named_parameters()},
             "optimizer": {
-                "state": {names[i]: s for i, s in opt["state"].items()},
+                "state": by_name,
                 "param_groups": [{**g, "params": [names[i] for i in
                                                   g["params"]]}
                                  for g in opt["param_groups"]]},
@@ -746,7 +820,7 @@ class Trainer:
         on every rank. This rank's file's bytes (0 when it writes none) and
         seconds writing it."""
         mesh = self.mesh
-        writer = mesh.dp_rank == 0 and mesh.cp_rank == 0
+        writer = self._is_writer()
         nbytes, write_s, failure = 0, 0.0, None
         for phase in ("begin", "write", "commit"):
             try:
@@ -940,8 +1014,16 @@ class Trainer:
                 p.copy_(state["params"][n])
         index = {n: i for i, n in enumerate(self._param_names())}
         opt = state["optimizer"]
+        by_name = opt["state"]
+        if self.zero is not None:  # reshard-on-load: this rank's slices
+            self.zero.refresh_staged()
+            pos = {n: i for i, n in enumerate(self.zero.names)}
+            by_name = {n: {k: (self.zero.shard_of(pos[n], v)
+                               if k in _MOMENTS else v)
+                           for k, v in s.items()}
+                       for n, s in by_name.items()}
         self.optimizer.load_state_dict({
-            "state": {index[n]: s for n, s in opt["state"].items()},
+            "state": {index[n]: s for n, s in by_name.items()},
             "param_groups": [{**g, "params": [index[n] for n in g["params"]]}
                              for g in opt["param_groups"]]})
         self.generator.set_state(state["generator"])

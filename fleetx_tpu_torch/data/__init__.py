@@ -23,11 +23,15 @@ def build_dataset(ds_cfg, mode: str = "Train", **extra):
 
 def build_dataloader(cfg, mode: str = "Train", consumed_samples: int = 0):
     """Loader of the config's ``Data.<mode>`` section: each rank takes its
-    dp rank's slice of every global batch, so the ranks of one cp group
-    (which split one batch's sequences) read the same rows."""
+    data rank's slice of every global batch (dp × fsdp slices), so the
+    ranks of one cp group (which split one batch's sequences) read the
+    same rows."""
     from fleetx_tpu_torch.data.dataloader import DataLoader, gpt_collate_fn
     from fleetx_tpu_torch.data.sampler import GPTBatchSampler
-    from fleetx_tpu_torch.parallel.mesh import mesh_from_config
+    from fleetx_tpu_torch.parallel.mesh import (
+        get_data_world,
+        mesh_from_config,
+    )
 
     section = cfg.Data[mode]
     dataset = build_dataset(section.dataset, mode=mode, seed=cfg.Global.seed)
@@ -39,8 +43,8 @@ def build_dataloader(cfg, mode: str = "Train", consumed_samples: int = 0):
         batch_size=cfg.Global.global_batch_size,
         consumed_samples=consumed_samples,
         seed=cfg.Global.seed,
-        process_index=mesh.dp_rank,
-        process_count=mesh.dp,
+        process_index=mesh.data_rank,
+        process_count=get_data_world(mesh),
         **sampler_cfg,
     )
     loader_cfg = dict(section.get("loader") or {})

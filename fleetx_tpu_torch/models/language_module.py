@@ -39,7 +39,7 @@ from fleetx_tpu_torch.models.module import BasicModule
 from fleetx_tpu_torch.ops.ce_loss import fit_vocab_block
 from fleetx_tpu_torch.ops.dropout import Shard
 from fleetx_tpu_torch.parallel.context_parallel import zigzag_slice
-from fleetx_tpu_torch.parallel.mesh import mesh_from_config
+from fleetx_tpu_torch.parallel.mesh import get_data_world, mesh_from_config
 from fleetx_tpu_torch.parallel.pipeline import Pipeline, stage_chunks
 from fleetx_tpu_torch.parallel.tensor_parallel import (
     vocab_parallel_token_losses,
@@ -187,7 +187,8 @@ class GPTModule(LanguageModule):
         shard = None
         if mesh.data_world > 1:  # mp ranks share rows and positions
             b, s = tokens.shape
-            shard = Shard(b0=mesh.dp_rank * b, batch=mesh.dp * b,
+            shard = Shard(b0=mesh.data_rank * b,
+                          batch=get_data_world(mesh) * b,
                           s0=mesh.cp_rank * s, seq=mesh.cp * s)
         kw = dict(deterministic=not train, generator=generator, shard=shard)
         why = self.fused_ce_blocked
@@ -242,8 +243,8 @@ class GPTModule(LanguageModule):
         seeds = [gpt.dropout_seeds(not train, generator) for _ in range(n)]
         shard = None
         if mesh.data_world > 1:
-            shard = Shard(b0=mesh.dp_rank * mb, batch=mesh.dp * mb, s0=0,
-                          seq=seq)
+            shard = Shard(b0=mesh.data_rank * mb,
+                          batch=get_data_world(mesh) * mb, s0=0, seq=seq)
         kw = dict(deterministic=not train, shard=shard)
         count = None
         if mesh.is_last_stage:

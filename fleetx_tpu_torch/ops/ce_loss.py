@@ -80,7 +80,8 @@ NAMES = ("ce_fwd", "ce_dh", "ce_dw")
 VP_NAMES = ("vp_ce_fwd", "vp_ce_dh", "vp_ce_dw")  # B12's entries over B4-B6
 # the fp32 B5 and B6 hold a [16, hidden] fp32 accumulator in shared
 # memory, which with their operand tiles fits the card's 227 KB up to this
-# width
+# width; the bf16 kernels (TMA + wgmma GEMMs over the hidden dim) take any
+# multiple of 16
 MAX_HIDDEN = 2048
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 B5 and B6 (two GEMMs per chunk, csrc/ce_loss.cu): the rows of
@@ -417,8 +418,8 @@ def _launch(name: str, h, w, labels, **tensors) -> None:
 def _check(h, w, labels, *rows) -> None:
     """Shapes, dtypes and devices every entry takes: h [n, E] and W [V, E]
     of one dtype (bf16 or fp32), int32 labels [n], fp32 [n] row vectors;
-    on the card also contiguity, 16-byte alignment, E a multiple of 16 up
-    to MAX_HIDDEN."""
+    on the card also contiguity, 16-byte alignment, E a multiple of 16
+    (in fp32 up to MAX_HIDDEN)."""
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
         raise ValueError(f"h must be [n, E] and W [V, E], got "
                          f"{tuple(h.shape)} and {tuple(w.shape)}")
@@ -438,9 +439,10 @@ def _check(h, w, labels, *rows) -> None:
                              f"{tuple(t.shape)}")
     if h.device.type == "cpu":
         return
-    if e % 16 or e > MAX_HIDDEN:
+    if e % 16 or (h.dtype == torch.float32 and e > MAX_HIDDEN):
         raise ValueError(f"the kernels take a hidden size that is a "
-                         f"multiple of 16 up to {MAX_HIDDEN}, got {e}")
+                         f"multiple of 16 (in fp32 up to {MAX_HIDDEN}), got "
+                         f"{e}")
     for name, t in (("h", h), ("W", w), ("labels", labels)) + rows:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")

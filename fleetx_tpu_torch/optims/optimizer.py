@@ -6,7 +6,9 @@ LayerNorm scales and biases and every bias — the set the JAX decay mask
 (``:62-68``) names ``norm1``, ``norm2``, ``final_norm`` and ``bias`` —
 and the global-norm clip of ``optax.clip_by_global_norm``. Under tensor
 and pipeline parallelism the norm is the whole model's, as JAX's norm of
-the global arrays is (:func:`global_norm`). Momentum/SGD and the per-block and
+the global arrays is (:func:`global_norm`); under the ZeRO weight-update
+shard the norm, the clip and AdamW run on this rank's slices
+(``parallel/sharding.py``). Momentum/SGD and the per-block and
 by-value clips are not ported.
 """
 
@@ -31,22 +33,46 @@ def decay_mask(name: str) -> bool:
 
 def global_norm(grads: List[torch.Tensor],
                 sharded: Optional[Sequence[bool]] = None,
-                group=None, stage_group=None) -> torch.Tensor:
+                group=None, stage_group=None,
+                zero_parts: Optional[Sequence[int]] = None,
+                zero_group=None) -> torch.Tensor:
     """The L2 norm (fp32, on the grads' device) of ``grads`` as one
     vector. With an mp ``group``, ``sharded[i]`` says whether ``grads[i]``
     is this rank's shard of a parameter split over the group: the shards'
     squares are summed over the group and the replicated gradients (the
-    same on every rank) counted once. With a pp ``stage_group`` (each rank
-    one stage's gradients) the stages' squares are summed over it. Every
-    rank gets the whole model's norm."""
-    if group is None and stage_group is None:
+    same on every rank) counted once. With a ``zero_group`` (the ZeRO
+    weight-update shard, ``parallel/sharding.py``), ``zero_parts[i]`` is
+    the number of slices parameter i is cut into over it (1: whole on
+    every rank): the slices' squares are summed over the group, each
+    slice counted once. With a pp ``stage_group`` (each rank one stage's
+    gradients) the stages' squares are summed over it. Every rank gets
+    the whole model's norm."""
+    if group is None and stage_group is None and zero_group is None:
         return torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
     sharded = sharded if sharded is not None else [False] * len(grads)
     zero = torch.zeros((), device=grads[0].device)
-    squares = [sum((torch.linalg.vector_norm(g.float()) ** 2
-                    for g, s in zip(grads, sharded) if s == want), zero)
-               for want in (True, False)]
+    if zero_group is None:
+        squares = [sum((torch.linalg.vector_norm(g.float()) ** 2
+                        for g, s in zip(grads, sharded) if s == want), zero)
+                   for want in (True, False)]
+    else:
+        # [mp-split, replicated] squares of the slices, summed over the
+        # zero group (a slice that k ranks hold weighs k / world: counted
+        # once), then those of the leaves whole on every rank
+        world = dist.get_world_size(zero_group)
+        sliced = torch.stack([
+            sum((torch.linalg.vector_norm(g.float()) ** 2
+                 * (1.0 if z == world else z / world)
+                 for g, s, z in zip(grads, sharded, zero_parts)
+                 if s == want and z > 1), zero)
+            for want in (True, False)])
+        dist.all_reduce(sliced, group=zero_group)
+        squares = [sliced[i] + sum((torch.linalg.vector_norm(g.float()) ** 2
+                                    for g, s, z in zip(grads, sharded,
+                                                       zero_parts)
+                                    if s == want and z == 1), zero)
+                   for i, want in enumerate((True, False))]
     if group is not None:
         dist.all_reduce(squares[0], group=group)
     total = squares[0] + squares[1]

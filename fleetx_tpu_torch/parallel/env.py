@@ -8,6 +8,8 @@ Each rank computes on card ``LOCAL_RANK % device_count``. The backend
 follows from the cards, never from a config: NCCL when every local rank
 has a card of its own, gloo when ranks share a card (NCCL cannot put two
 ranks on one card) or compute on the CPU. A single process is a no-op.
+:func:`shrink_dist_env` re-forms the group at a smaller size on one host,
+for the elastic supervisor (``resilience/elastic.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["init_dist_env", "set_seed", "get_rank", "get_world_size",
-           "ranks_per_card", "destroy_dist_env"]
+           "ranks_per_card", "destroy_dist_env", "shrink_dist_env"]
 
 _RANKS_PER_CARD = 1
 
@@ -44,13 +46,15 @@ def ranks_per_card() -> int:
     return _RANKS_PER_CARD
 
 
-def init_dist_env(device: Optional[Union[str, torch.device]] = None
-                  ) -> Optional[str]:
+def init_dist_env(device: Optional[Union[str, torch.device]] = None,
+                  store: Optional[dist.Store] = None) -> Optional[str]:
     """Join the process group the launcher's environment describes and
     return its backend; None (and nothing done) for a single process or a
     group that is already up. ``device`` is where the ranks compute: CUDA
     unless the caller names another (raises without CUDA, as every entry
-    point does); a CUDA rank takes card ``LOCAL_RANK % device_count``."""
+    point does); a CUDA rank takes card ``LOCAL_RANK % device_count``.
+    The ranks meet at ``tcp://MASTER_ADDR:MASTER_PORT`` unless a ``store``
+    is given."""
     global _RANKS_PER_CARD
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1 or dist.is_initialized():
@@ -66,10 +70,14 @@ def init_dist_env(device: Optional[Union[str, torch.device]] = None
         _RANKS_PER_CARD = -(-local_world // cards)
         if _RANKS_PER_CARD == 1:
             backend = "nccl"
-    addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
-    port = os.environ["MASTER_PORT"]
-    dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
-                            rank=rank, world_size=world)
+    if store is None:
+        addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
+        port = os.environ["MASTER_PORT"]
+        dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
+                                rank=rank, world_size=world)
+    else:
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world)
     if rank == 0:
         logger.info("distributed: %d ranks over %s on %s (%d rank(s) per "
                     "card)", world, backend, dev.type, _RANKS_PER_CARD)
@@ -80,6 +88,41 @@ def destroy_dist_env() -> None:
     """Leave the process group, if one is up."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def shrink_dist_env(world: int,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> bool:
+    """Re-form the process group with its first ``world`` ranks, on this
+    host. Every rank of the current group calls it: rank 0 picks a free
+    port and sends it to the others over the old group, every rank
+    leaves the old group (and the current mesh is dropped), and the ranks
+    below ``world`` join a new one of that size (``init_dist_env`` on
+    ``device``) through a store that rank 0 serves on the new port. False
+    on a rank that is outside the new world: it holds no group when this
+    returns.
+
+    The store is made here rather than by a ``tcp://`` rendezvous: under
+    ``python -m torch.distributed.run`` (``TORCHELASTIC_USE_AGENT_STORE=
+    True``) that rendezvous makes every rank a client of the launcher's
+    store, and the launcher does not listen on the new port."""
+    from fleetx_tpu_torch.parallel.launch import free_port
+    from fleetx_tpu_torch.parallel.mesh import set_mesh
+
+    rank = get_rank()
+    port = [free_port() if rank == 0 else None]
+    dist.broadcast_object_list(port, src=0)
+    destroy_dist_env()
+    set_mesh(None)
+    if rank >= world:
+        return False
+    os.environ.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_PORT=str(port[0]))
+    addr = os.environ.setdefault("MASTER_ADDR", "127.0.0.1")
+    if world > 1:
+        init_dist_env(device, dist.TCPStore(addr, port[0], world,
+                                            is_master=rank == 0))
+    return True
 
 
 def set_seed(seed: int) -> None:

@@ -5,8 +5,11 @@ is the one of a program that drives ranks from inside Python (a test, a
 smoke script): :func:`spawn` starts ``nprocs`` fresh interpreters, each
 joins the group through :func:`~fleetx_tpu_torch.parallel.env.init_dist_env`
 (rendezvous on a free localhost port), runs ``fn(*args)`` and hands its
-result back. A rank that raises, dies or outlives ``timeout`` stops every
-rank, and the call raises.
+result back. A rank may return early (a rank that leaves an elastic
+shrink) while the others go on. A rank that raises, dies or outlives
+``timeout`` stops every rank, and the call raises. No rank outlives the
+call; :data:`last_exitcodes` holds the ranks' exit codes of the last
+call.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
-__all__ = ["spawn", "free_port"]
+__all__ = ["spawn", "free_port", "last_exitcodes"]
+
+last_exitcodes: List[Optional[int]] = []  # of the last spawn, by rank
 
 
 def free_port() -> int:
@@ -93,4 +98,5 @@ def spawn(fn: Callable, nprocs: int, args: Sequence = (), *,
             if p.is_alive():
                 p.kill()
                 p.join()
+        last_exitcodes[:] = [p.exitcode for p in procs]
     return [got[r] for r in range(nprocs)]

@@ -1,6 +1,5 @@
-"""Pretraining entry point of the port (the JAX package's tools/train.py
-without the elastic supervisor ``run_elastic``, which waits for ROADMAP
-Queue A "fsdp / ZeRO and elastic resume"):
+"""Pretraining entry point of the port (the JAX package's tools/train.py:
+``fit`` runs under the elastic supervisor ``run_elastic``):
 
     python -m fleetx_tpu_torch.tools.train \
         -c configs/nlp/gpt/pretrain_gpt_1.3B_single_card.yaml \
@@ -44,6 +43,23 @@ microbatches of 2; add ``-o Model.virtual_pp_degree=2`` for two chunks of
         -c configs/nlp/gpt/pretrain_gpt_1.3B_single_card.yaml \
         -o Distributed.pp_degree=2 -o Global.micro_batch_size=2 \
         -o Data.Train.dataset.input_dir=<prefix>
+
+Sharded data parallelism (ZeRO stage 2 over 2 ranks: the gradients
+reduce-scattered, AdamW and its state on half of every parameter, the
+parameters all-gathered; 8 of the 32 layers of GPT-6.7B):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m fleetx_tpu_torch.tools.train \
+        -c configs/nlp/gpt/pretrain_gpt_6.7B_sharding16.yaml \
+        -o Distributed.sharding.sharding_degree=2 -o Model.num_layers=8 \
+        -o Model.fused_ce=True -o Data.Train.dataset.input_dir=<prefix>
+
+With ``FLEETX_FAULT_HOST_LOSS_STEP=3`` in the environment the step path
+raises a host loss before step 3: every rank checkpoints, the mesh gives
+up half its data-parallel ranks (dp first, then fsdp), the ranks outside
+the smaller world exit 0, and the others re-form the process group,
+resume from the checkpoint (each taking its slices of the AdamW state)
+and finish the run over the same global batches.
 """
 
 from __future__ import annotations
@@ -54,16 +70,18 @@ from fleetx_tpu_torch.core.engine import Trainer
 from fleetx_tpu_torch.data import build_dataloader
 from fleetx_tpu_torch.models import build_module
 from fleetx_tpu_torch.parallel.env import destroy_dist_env, init_dist_env
+from fleetx_tpu_torch.resilience.elastic import run_elastic
 from fleetx_tpu_torch.utils.config import get_config, parse_args
 from fleetx_tpu_torch.utils.log import advertise, logger
 
 
-def main(argv: Optional[List[str]] = None) -> Trainer:
+def main(argv: Optional[List[str]] = None) -> Optional[Trainer]:
     """Join the launcher's process group (a single process: none), parse
     ``-c``/``-o``, build the module, the loaders (``Eval`` when
     ``Data.Eval`` and ``Engine.eval_freq`` are set) and the trainer,
-    resume when ``Engine.save_load.ckpt_dir`` is set, fit, and leave the
-    group."""
+    resume when ``Engine.save_load.ckpt_dir`` is set, fit under
+    ``run_elastic``, and leave the group. Returns the trainer that
+    finished (None on a rank that left the run in an elastic shrink)."""
     args = parse_args(argv)
     init_dist_env()
     try:
@@ -83,8 +101,14 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
             trainer.load()
             train_loader.batch_sampler.consumed_samples = (
                 trainer.consumed_samples)
-        trainer.fit(train_loader, eval_loader)
-        logger.info("training done at step %d", trainer.step)
+        # the elastic supervisor seam: a HostLossFault mid-fit takes the
+        # emergency checkpoint, shrinks the mesh and resumes through
+        # reshard-on-load; with no fault plan active this is trainer.fit()
+        trainer = run_elastic(
+            cfg, trainer, train_loader, eval_loader,
+            make_loader=lambda c, consumed: build_dataloader(c, "Train"))
+        if trainer is not None:
+            logger.info("training done at step %d", trainer.step)
     finally:
         destroy_dist_env()
     return trainer

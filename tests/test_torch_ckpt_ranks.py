@@ -29,14 +29,11 @@ STEPS, SAVE_AT = 4, 2
 
 def trainer_state(trainer) -> dict:
     """numpy copies of a trainer's parameters, AdamW state (by parameter
-    name) and generator state."""
-    names = trainer._param_names()
+    name; whole moments, gathered under the ZeRO update shard: every rank
+    calls it) and generator state."""
     params = dict(trainer.module.nets.named_parameters())
-    moments = {}
-    for n in names:
-        s = trainer.optimizer.state.get(params[n], {})
-        moments[n] = {k: v.detach().cpu().numpy().copy()
-                      for k, v in s.items()}
+    moments = {n: {k: v.detach().cpu().numpy().copy() for k, v in s.items()}
+               for n, s in trainer.optimizer_state().items()}
     return {"params": {n: p.detach().cpu().numpy().copy()
                        for n, p in params.items()},
             "moments": moments,

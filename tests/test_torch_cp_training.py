@@ -152,14 +152,16 @@ def test_dp2_cp2_and_cp2_match_cp1_and_split_batches_by_dp(tmp_path):
 @pytest.mark.parametrize("key", ["Distributed.ep_degree",
                                  "Distributed.sharding.sharding_degree"])
 def test_unported_degrees_raise_naming_a6(tmp_path, key):
-    # ep rides on the data ranks: the two ranks are dp 2
-    dp = ("Distributed.dp_degree=2",) if key.endswith("ep_degree") else ()
+    # ep rides on the data ranks: the two ranks are dp 2; sharding stages
+    # 1 and 2 are ported, stage 3 (the parameters sharded) is not
+    extra = (("Distributed.dp_degree=2",) if key.endswith("ep_degree")
+             else ("Distributed.sharding.sharding_stage=3",))
     cfg = get_config(TINY, overrides=overrides(tmp_path, "torch",
-                                               f"{key}=2", *dp), nranks=2)
+                                               f"{key}=2", *extra), nranks=2)
     item = {"Distributed.ep_degree": "Other families and the rest of the "
                                      "toolkit",
             "Distributed.sharding.sharding_degree":
-                "fsdp / ZeRO and elastic resume"}[key]
+                "ZeRO stage 3 (parameter sharding)"}[key]
     match = re.escape(f'ROADMAP Queue A, "{item}"')
     with pytest.raises(NotImplementedError, match=match):
         mesh_from_config(cfg)

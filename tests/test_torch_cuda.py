@@ -823,8 +823,9 @@ def test_vp_stats_forward_on_a_vocab_shard():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,e,v", [(520, 128, 1216), (2056, 2048, 2112)],
-                         ids=["ragged-tiles", "ragged-chunks"])
+@pytest.mark.parametrize("n,e,v", [(520, 128, 1216), (2056, 2048, 2112),
+                                   (264, 4096, 1216)],
+                         ids=["ragged-tiles", "ragged-chunks", "hidden-4096"])
 def test_ce_bf16_backward_kernels_against_an_fp64_product(n, e, v):
     """The bf16 B5 and B6 against fp64 products (``fp64_checks``). The
     kernel's own dl (read from its scratch) lies within one bf16 step of
@@ -841,15 +842,18 @@ def test_ce_bf16_backward_kernels_against_an_fp64_product(n, e, v):
     flip-aware ``grads_gaps`` (``vs_plain``). 1216 and 2112 vocab
     rows and 520 tokens leave ragged 128- and 256-wide tiles; at E 2048
     the kernels walk chunks of 2048 rows, so 2056 tokens (dh) and 2112
-    vocab rows (dW) leave a ragged last chunk of 8 and 64 rows."""
+    vocab rows (dW) leave a ragged last chunk of 8 and 64 rows; at E 4096
+    (GPT-6.7B's) chunks of 1024 rows, so 1216 vocab rows leave one of
+    192."""
     from fleetx_tpu_torch.ops import ce_loss as ce
 
     _need_card()
     bf16 = torch.bfloat16
     h, w, labels = ce_case(n, e, v, dtype=bf16, seed=11)
+    limit = 2048 if e <= 2048 else 1024  # the chunk the plan picks at E
     for wrt, rows in (("h", n), ("w", v)):
         chunk, _ = ce._plan_chunk(n, v, e, wrt)
-        assert -(-rows // chunk) == (2 if rows > 2048 else 1)
+        assert -(-rows // chunk) == (2 if rows > limit else 1)
     _, lse = ce.fused_ce_fwd(h, w, labels)
     gen = torch.Generator(device="cuda").manual_seed(11)
     a = torch.rand(n, device="cuda", generator=gen) + 0.5
@@ -902,9 +906,11 @@ def test_ce_wrappers_reject_what_the_kernels_do_not_take():
         ce.fused_ce_fwd(h.t().contiguous().t(), w, labels)
     with pytest.raises(ValueError, match="is on"):
         ce.fused_ce_fwd(h, w.cpu(), labels)
-    big = torch.zeros(64, 2576, dtype=torch.bfloat16, device="cuda")
+    # the fp32 kernels' shared accumulator bounds the hidden size (the
+    # bf16 GEMMs take any multiple of 16: GPT-6.7B's 4096)
+    big = torch.zeros(64, 2576, dtype=torch.float32, device="cuda")
     with pytest.raises(ValueError, match="up to"):
-        ce.fused_ce_fwd(big, torch.zeros(384, 2576, dtype=torch.bfloat16,
+        ce.fused_ce_fwd(big, torch.zeros(384, 2576, dtype=torch.float32,
                                          device="cuda"), labels)
 
 
@@ -1359,3 +1365,80 @@ def test_cuda_pp2_trainer_resumes_bit_for_bit(tmp_path):
     assert a[0]["losses"] == a[1]["losses"]
     assert (a[0]["digests"]["gpt.word_embeddings"]
             == a[1]["digests"]["gpt.word_embeddings"])
+
+
+def _zero_overrides(tmp_path, *extra):
+    """The tiny fp32 config with flash attention at sharding 2 (stage 2)
+    on 2 ranks, 2 microbatches, over ``_tiny_train_cfg``'s corpus."""
+    _tiny_train_cfg(tmp_path)  # writes the corpus
+    return [f"Data.Train.dataset.input_dir={tmp_path}/tiny",
+            "Model.use_flash_attention=True", "Optimizer.lr.warmup_steps=0",
+            "Model.hidden_dropout_prob=0.1",
+            "Model.attention_probs_dropout_prob=0.1",
+            "Distributed.sharding.sharding_degree=2",
+            "Distributed.sharding.sharding_stage=2",
+            "Global.local_batch_size=2", "Global.micro_batch_size=1",
+            *extra]
+
+
+@pytest.mark.cuda
+def test_cuda_zero_trainer_on_two_ranks_matches_the_replicated_update(
+        tmp_path):
+    """The tiny fp32 GPT at sharding 2 on 2 ranks sharing the card (gloo,
+    the update shard's collectives through pinned host buffers), three
+    steps with the update shard on and off: the same losses, parameters
+    and whole AdamW moments within 2e-6, both ranks bit-equal, the AdamW
+    state per rank at most 0.55 of the replicated run's."""
+    from test_torch_mp_ranks import spawn_on_card
+    from test_torch_zero_ranks import (
+        assert_close,
+        assert_replicas_equal,
+        zero_fit_program,
+    )
+
+    _need_card()
+    root = __file__.rsplit("/tests/", 1)[0]
+    config = f"{root}/configs/tiny/pretrain_gpt_tiny_cpu.yaml"
+    over = _zero_overrides(tmp_path,
+                           f"Engine.save_load.output_dir={tmp_path}/out")
+    on = spawn_on_card(zero_fit_program, 2, config, over, 3, None, "1",
+                       None, None, "cuda")
+    off = spawn_on_card(zero_fit_program, 2, config, over, 3, None, "0",
+                        None, None, "cuda")
+    assert [r["zero"] for r in on] == [True, True]
+    assert not any(r["zero"] for r in off)
+    for runs in (on, off):
+        assert_replicas_equal(runs)
+    np.testing.assert_allclose(on[0]["losses"], off[0]["losses"], rtol=0,
+                               atol=1e-6)
+    assert_close(on[0], off[0])
+    assert on[0]["opt_bytes"] <= 0.55 * off[0]["opt_bytes"]
+
+
+@pytest.mark.cuda
+def test_cuda_zero_checkpoint_reshards_onto_one_rank(tmp_path):
+    """Two steps at sharding 2 on 2 ranks sharing the card save step 2
+    (the AdamW slices gathered to the writer); the step reloaded on the
+    same mesh and at one rank in this process: parameters, whole moments
+    and generator bit for bit equal to each other and to the state at the
+    save, the step and consumed samples restored."""
+    from test_torch_ckpt_ranks import assert_states_equal
+    from test_torch_mp_ranks import spawn_on_card
+    from test_torch_reshard_ranks import restore_program, save_program
+
+    _need_card()
+    root = __file__.rsplit("/tests/", 1)[0]
+    config = f"{root}/configs/tiny/pretrain_gpt_tiny_cpu.yaml"
+    over = _zero_overrides(tmp_path)
+    out = str(tmp_path / "out")
+    saved = spawn_on_card(save_program, 2, config, over, out, "cuda")
+    same = spawn_on_card(restore_program, 2, config, over, out, "cuda")
+    single = [o for o in over if not o.startswith(
+        ("Distributed.", "Global.local_batch_size", "Global.micro_batch"))]
+    one = restore_program(config, single + ["Global.local_batch_size=4",
+                                            "Global.micro_batch_size=2"],
+                          out, "cuda")
+    assert saved[0]["zero"] and same[0]["zero"] and not one["zero"]
+    for r in same + [one]:
+        assert (r["step"], r["consumed"]) == (2, 8)
+        assert_states_equal(r["state"], saved[0]["state"])

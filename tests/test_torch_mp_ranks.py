@@ -161,7 +161,11 @@ def mp_train_program(config, overrides, steps, params, device="cpu"):
 
     def capture(gs, norm=None):
         if not grads:  # copies: the clip scales gs in place
-            grads.extend(g.detach().float().cpu().numpy().copy() for g in gs)
+            # under the ZeRO update shard the clip sees this rank's slices:
+            # gathered to the whole gradients (a collective of every rank)
+            whole = gs if trainer.zero is None else trainer.zero.whole(gs)
+            grads.extend(g.detach().float().cpu().numpy().copy()
+                         for g in whole)
         return clip(gs, norm)
 
     trainer.clip = capture
