@@ -287,6 +287,7 @@ from fleetx_tpu_torch.ops import _build  # noqa: E402
 from fleetx_tpu_torch.ops import ce_loss as ce  # noqa: E402
 from fleetx_tpu_torch.ops import decode_attention as da  # noqa: E402
 from fleetx_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from fleetx_tpu_torch.parallel import launch  # noqa: E402
 from fleetx_tpu_torch.ops.quant import (  # noqa: E402
     dequantize_kv,
     quant_parity_frac,
@@ -828,14 +829,15 @@ def phase_flash() -> dict:
 
 
 def flash_cases(dtype, d: int, h: int = 16, meta=None, b: int = 8,
-                strict: bool = False) -> dict:
+                strict: bool = False, s: int = 1024) -> dict:
     """Phase 6 at one dtype, head dim, head count, meta (None: the
-    identity) and batch; returns the dropout-0.1 records by kernel name.
+    identity), batch and sequence; returns the dropout-0.1 records by
+    kernel name.
     ``strict`` (phase 29) also launches each kernel twice on the same
     inputs (the bits must be equal) and plants B1 given another seed at
     dropout 0.1 (it must break the limit)."""
     records = {}
-    sets = flash_inputs(dtype, d=d, h=h, b=b)
+    sets = flash_inputs(dtype, d=d, h=h, b=b, s=s)
     lib = sdpa_times(sets, causal=True)
     for rate in (0.0, 0.1):
         kw = dict(causal=True, dropout_rate=rate, seed=-1234567, meta=meta)
@@ -1608,14 +1610,15 @@ def phase_int8_serving(bf16_kv_bytes: int) -> dict:
 
 # ----------------------------------------------------------------- phase 12
 
-def ce_inputs(dtype, n: int, e: int, v: int, seed: int = 0) -> tuple:
+def ce_inputs(dtype, n: int, e: int, v: int, seed: int = 0,
+              w_std: float = 0.05) -> tuple:
     """h [n, E] ~ N(0, 1) (as the final LayerNorm hands it over), W [V, E]
-    ~ N(0, 0.05²) (scores of std ~2 at E 2048), int32 labels with -1, 0,
-    V - 1 and V first, and the masked-mean cotangent g = mask / Σ mask over
-    a random 0/1 mask (zeros included), on the card."""
+    ~ N(0, w_std²) (0.05: scores of std ~2 at E 2048), int32 labels with
+    -1, 0, V - 1 and V first, and the masked-mean cotangent g = mask / Σ
+    mask over a random 0/1 mask (zeros included), on the card."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     h = torch.randn(n, e, generator=g, device=DEVICE).to(dtype)
-    w = (torch.randn(v, e, generator=g, device=DEVICE) * 0.05).to(dtype)
+    w = (torch.randn(v, e, generator=g, device=DEVICE) * w_std).to(dtype)
     labels = torch.randint(0, v, (n,), generator=g, device=DEVICE,
                            dtype=torch.int32)
     labels[:4] = torch.tensor([-1, 0, v - 1, v], dtype=torch.int32)
@@ -1749,12 +1752,14 @@ def phase_ce() -> dict:
     return records
 
 
-def ce_case(dtype, n: int, e: int, v: int, strict: bool = False) -> dict:
-    """Phase 12 at one dtype and (tokens, hidden, vocab); returns the bf16
-    records by kernel name. ``strict`` (phase 29) launches B5 and B6 twice
-    too (B4 always is): the bits must be equal."""
+def ce_case(dtype, n: int, e: int, v: int, strict: bool = False,
+            w_std: float = 0.05) -> dict:
+    """Phase 12 at one dtype and (tokens, hidden, vocab) over W ~ N(0,
+    w_std²); returns the bf16 records by kernel name. ``strict`` (phase
+    29) launches B5 and B6 twice too (B4 always is): the bits must be
+    equal."""
     records = {}
-    h, w, labels, g = ce_inputs(dtype, n, e, v)
+    h, w, labels, g = ce_inputs(dtype, n, e, v, w_std=w_std)
     before = dict(ce.launches)
     loss, lse = ce.fused_ce_fwd(h, w, labels)
     again = ce.fused_ce_fwd(h, w, labels)
@@ -4225,11 +4230,14 @@ def zero_overrides(prefix: str, layers: int, steps: int, *extra) -> list:
             *extra]
 
 
-def param_digest(trainer) -> int:
+def param_digest(trainer, replicated_only: bool = False) -> int:
     """A digest of every parameter's bits (their int32 views summed,
-    weighted by the parameter's place), computed on the device."""
+    weighted by the parameter's place), computed on the device; with
+    ``replicated_only``, of those mp does not split."""
     total = 0
-    for i, p in enumerate(trainer.module.nets.parameters()):
+    for i, (n, p) in enumerate(trainer.module.nets.named_parameters()):
+        if replicated_only and n in trainer.mp_split:
+            continue
         bits = p.detach().reshape(-1).view(torch.int32)
         total += (i + 1) * int(bits.sum(dtype=torch.int64))
     return total
@@ -4754,15 +4762,657 @@ def phase_elastic(prefix: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 32
+# GPT-175B's kernel shapes at mp 2: the flash kernels over one rank's 48 of
+# the 96 heads of 128 (mp rank 1's global-head meta) at a microbatch of 1
+# row of 2048 tokens; B12's kernels (B4-B6 on the vocab shard) over those
+# 2048 tokens at hidden 12288 and a shard of 25600 of the 51200 rows
+FLASH_175B = dict(b=1, s=2048, h=48, d=128)
+FLASH_175B_META = (0, 48, 48, 96, 0, 0)
+CE_175B_SHAPE = (2048, 12288, 25600)
+# W's stds of the tensor-core comparison: the 175B yaml's
+# initializer_range (scores of std ~2.2 at E 12288) and phase 12's
+CE_175B_W_STDS = (0.02, 0.05)
+
+
+def tensor_core_lse_gaps(n: int, e: int, v: int, w_std: float) -> dict:
+    """B4's lse, its plain version's and cuBLAS's bf16 tensor-core GEMM's
+    (fp32 output) against the lse of an fp64 product, each as its largest
+    ratio to CE_TOL's stats bound: the tensor cores' fp32 accumulation over
+    K = E products drifts from IEEE fp32 sums as K grows."""
+    h, w, labels, _ = ce_inputs(torch.bfloat16, n, e, v, w_std=w_std)
+    _, lse = ce.fused_ce_fwd(h, w, labels)
+    _, lse_plain = ce.fused_ce_fwd_ref(h, w, labels)
+    lse64 = torch.logsumexp(h.double() @ w.double().t(), -1)
+    lse_tc = torch.logsumexp(torch.mm(h, w.t(), out_dtype=torch.float32)
+                             .double(), -1)
+    atol, rtol, _ = ce.CE_TOL[torch.bfloat16]["stats"]
+    bound = atol * lse64.abs().max() + rtol * lse64.abs()
+    out = {k: ((x.double() - lse64).abs() / bound).max().item()
+           for k, x in (("kernel", lse), ("plain", lse_plain),
+                        ("library", lse_tc))}
+    out["kernel_mean_signed"] = (lse.double() - lse64).mean().item()
+    del h, w, lse64, lse_tc
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels_175b() -> tuple:
+    """B1-B3 and B12's kernels at GPT-175B's mp 2 shapes against their
+    plain versions (phase 6's and phase 12's limits and planted faults,
+    each kernel launched twice with equal bits), with kernel, plain,
+    library and bound times. Returns the flash and the CE records by
+    kernel name."""
+    flash = flash_cases(torch.bfloat16, FLASH_175B["d"], h=FLASH_175B["h"],
+                        meta=FLASH_175B_META, b=FLASH_175B["b"],
+                        s=FLASH_175B["s"], strict=True)
+    ce_records = ce_case(torch.bfloat16, *CE_175B_SHAPE, strict=True)
+    # B4's accumulation against fp64 beside the library's tensor cores (a
+    # single accumulator over E 12288 drifts beyond CE_TOL of the IEEE
+    # plain version: cuBLAS's, and B4's before it summed per 1024)
+    for w_std in CE_175B_W_STDS:
+        gaps = tensor_core_lse_gaps(*CE_175B_SHAPE, w_std)
+        log("ce", tokens=CE_175B_SHAPE[0], hidden=CE_175B_SHAPE[1],
+            vocab=CE_175B_SHAPE[2], w_std=w_std,
+            lse_tol_ratio_to_fp64=gaps)
+        if not gaps["kernel"] <= min(gaps["library"], 1.0):
+            raise AssertionError(f"B4's lse at E {CE_175B_SHAPE[1]} drifts "
+                                 f"from fp64 as far as the tensor cores': "
+                                 f"{gaps}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash, ce_records
+
+
+# ----------------------------------------------------------------- phase 33
+SWITCH_LAYERS, SWITCH_STEPS = 4, 3  # the 1.3B yaml's full width, 4 layers
+SAVE_SETS = {"none": ("Model.use_recompute=False",),
+             "full": ("Model.recompute_granularity=full",),
+             "full_attn": ("Model.recompute_granularity=full_attn",),
+             "core_attn": ("Model.recompute_granularity=core_attn",),
+             "full+ffn_gelu": ("Model.recompute_granularity=full",
+                               "Model.recompute_extra_saves=[ffn_gelu]")}
+
+
+def switch_run(prefix: str, batches, steps: int, *extra, params=None,
+               profile_at=None) -> dict:
+    """``steps`` train steps of a fresh 1.3B trainer (SWITCH_LAYERS
+    layers, fused CE, dropout 0.1; the seeded init, or ``params``) on
+    ``batches`` with ``extra`` overrides: losses, grad norms, the first
+    step's unclipped gradients, the peak memory of the steps after the
+    first above what was allocated before them and the memory the last
+    step's forward kept for its backward, step ms (CUDA events), B1-B6 launches per
+    step, the AdamW state's bytes and the trainer."""
+    cfg = train_13b_config(prefix, f"Model.num_layers={SWITCH_LAYERS}",
+                           f"Engine.max_steps={steps}",
+                           "Engine.logging_freq=1", *extra)
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state(params)
+    grads, clip = [], trainer.clip
+
+    def capture(gs, norm=None):
+        if not grads:
+            grads.extend(g.detach().clone() for g in gs)
+        return clip(gs, norm)
+
+    trainer.clip = capture
+    loss_fn, kept = trainer.module.loss_fn, []
+
+    def watched_loss(*a, **kw):  # what the forward keeps for the backward
+        out = loss_fn(*a, **kw)
+        kept.append(torch.cuda.memory_allocated())
+        return out
+
+    trainer.module.loss_fn = watched_loss
+    device_batches = [trainer._to_device(b) for b in batches[:steps]]
+    torch.cuda.synchronize()
+    zero_train_launches()
+    ends = [torch.cuda.Event(enable_timing=True)]
+    ends[0].record()
+    outs, held = [], None
+    for b in device_batches:
+        outs.append(trainer.train_step(b))
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        if held is None:
+            # the steady steps' peak: the first step also allocates the
+            # optimizer state and the gradients
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    trainer.module.loss_fn = loss_fn
+    names = [n for n, _ in trainer.module.nets.named_parameters()]
+    return {"losses": [float(o["loss"]) for o in outs],
+            "kept": kept[-1] - held,
+            "grad_norms": [float(o["grad_norm"]) for o in outs],
+            "grads": dict(zip(names, grads)),
+            "peak": torch.cuda.max_memory_allocated() - held,
+            "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+            "launches": {k: v / steps for mod in (fa, ce)
+                         for k, v in mod.launches.items()},
+            "opt_bytes": trainer.opt_state_device_bytes(),
+            "trainer": trainer}
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    return (a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"]
+            and all(torch.equal(g, b["grads"][n])
+                    for n, g in a["grads"].items()))
+
+
+def _free(*runs) -> None:
+    for run in runs:
+        run.pop("trainer", None)
+        run.pop("grads", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_switches_13b(prefix: str) -> dict:
+    """The GPT and Trainer switches at GPT-1.3B's full width, 4 layers,
+    fused CE, dropout 0.1, on the same seed and batches:
+
+    - the save-sets (none, ``full``, ``full_attn``, ``core_attn``, ``full``
+      + ``ffn_gelu``), 3 steps each: losses and first-step gradients
+      bit-equal to the run without recompute (within TRAIN_E2E_TOL,
+      logged, if the card's GEMMs do not repeat), the memory the forward
+      keeps for the backward ordered full < core_attn <= full_attn <
+      none, the step peak of none the largest (under full the rerun holds
+      a whole layer's activations at once, under a save-set one segment's,
+      so their peaks are not ordered by what is kept), B1 launched 4 times
+      a step without recompute and 8 with (B1 reruns in every save-set's
+      backward);
+    - the split q/k/v layout from the fused run's weights
+      (``qkv_state_layout``, through ``convert_qkv_layout``): 2 steps'
+      losses within TRAIN_E2E_TOL, then a greedy ``generate()`` of 16
+      tokens (fp32 compute) byte-equal to the fused model's;
+    - ``fast_dropout: False``: finite losses, one key's mask equal on the
+      card and on the CPU bit for bit, and the dropout's ms against the
+      hash's on a [8, 1024, 2048] bf16 activation;
+    - Momentum with the block-RMS clip and SGD (nesterov) with the
+      by-value clip, 3 steps on one batch: finite and falling;
+    - ``moment_dtype: bfloat16``: a bf16 first moment, the state 0.75 of
+      the fp32 run's within 1%;
+    - the profiler (``Profiler.enable``, ``scheduler: [1, 3]``) and
+      ``FLEETX_OBS_PORT=0``: the trace file, the kernel view naming
+      ``flash_fwd_wg_kernel`` and ``ce_stats_kernel``, ``/metrics``
+      counting the steps and a tokens/s gauge above 0.
+
+    Returns B1-B6's launches per step by save-set."""
+    import urllib.request
+
+    from fleetx_tpu_torch.models.gpt.convert import qkv_state_layout
+    from fleetx_tpu_torch.models.gpt.generation import GenerationConfig
+    from fleetx_tpu_torch.obs import get_registry
+    from fleetx_tpu_torch.obs import http as obs_http
+    from fleetx_tpu_torch.ops.dropout import (
+        FlaxDropout,
+        HashDropout,
+        threefry_keep,
+    )
+    from fleetx_tpu_torch.utils.profiler_summary import kernel_table
+
+    cfg0 = train_13b_config(prefix)
+    loader = iter(build_dataloader(cfg0, "Train"))
+    batches = [next(loader) for _ in range(SWITCH_STEPS)]
+    runs, launches = {}, {}
+    for label, extra in SAVE_SETS.items():
+        runs[label] = run = switch_run(prefix, batches, SWITCH_STEPS, *extra)
+        launches[label] = run["launches"]
+        log("switches", save_set=label, losses=run["losses"],
+            grad_norms=run["grad_norms"],
+            step_ms=[round(x, 2) for x in run["step_ms"]],
+            step_peak_gb=run["peak"] / 1e9, kept_gb=run["kept"] / 1e9,
+            launches_per_step=run["launches"])
+        run.pop("trainer")
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = runs["none"]
+    for label, run in runs.items():
+        want_b1 = SWITCH_LAYERS * (1 if label == "none" else 2)
+        bitwise = _bitwise(run, ref)
+        gaps = _e2e_gaps((run["losses"][0], run["grad_norms"][0],
+                          run["grads"], 0),
+                         (ref["losses"][0], ref["grad_norms"][0],
+                          ref["grads"], 0))
+        log("switches", save_set=label, bitwise_to_none=bitwise,
+            b1_per_step=run["launches"]["flash_fwd"], want_b1=want_b1,
+            **gaps)
+        if not bitwise and any(gaps[m] > tol for m, tol in
+                               TRAIN_E2E_TOL.items()):
+            raise AssertionError(f"save-set {label} vs none: {gaps}")
+        if run["launches"]["flash_fwd"] != want_b1:
+            raise AssertionError(f"save-set {label}: B1 "
+                                 f"{run['launches']['flash_fwd']} a step, "
+                                 f"want {want_b1}")
+    order = ["full", "core_attn", "full_attn", "none"]
+    kept = [runs[k]["kept"] for k in order]
+    peaks = {k: run["peak"] for k, run in runs.items()}
+    log("switches", kept_order=order, kept_gb=[x / 1e9 for x in kept],
+        step_peak_gb={k: p / 1e9 for k, p in peaks.items()})
+    if not (kept[0] < kept[1] <= kept[2] < kept[3]):
+        raise AssertionError(f"kept for the backward, {order}: {kept}")
+    if max(peaks, key=peaks.get) != "none":
+        raise AssertionError(f"a save-set's step peak over none's: {peaks}")
+    fused_losses = runs["full"]["losses"][:2]
+    _free(*runs.values())
+    # the split q/k/v layout from the fused run's weights
+    fused = switch_run(prefix, batches, 2)
+    start = init_params(fused["trainer"].module.gpt_config, seed=int(
+        cfg0.Global.seed), device=DEVICE)
+    whole = fused["trainer"].module.gpt_config
+    split = switch_run(prefix, batches, 2, "Model.fuse_attn_qkv=False",
+                       params=qkv_state_layout(start, whole, to_fused=False))
+    gaps = [abs(a - b) for a, b in zip(split["losses"], fused["losses"])]
+    log("switches", layout="split q/k/v", losses=split["losses"],
+        losses_fused=fused["losses"], gaps=gaps)
+    if not all(g <= TRAIN_E2E_TOL["loss"] for g in gaps):
+        raise AssertionError(f"split q/k/v vs fused: {gaps}")
+    trained = {n: p.detach() for n, p in
+               fused["trainer"].module.nets.named_parameters()}
+    tokens = {}
+    prompt = torch.from_numpy(batches[0]["tokens"][:4, :32]).to(DEVICE)
+    for layout, weights in (("fused", trained), ("split", qkv_state_layout(
+            trained, whole, to_fused=False))):
+        gcfg = dataclasses.replace(whole, dtype=torch.float32,
+                                   fuse_attn_qkv=layout == "fused")
+        model = gpt_model.GPTForPretraining(gcfg, device="meta")
+        model.load_state_dict(weights, assign=True)
+        before = da.launches["decode"]
+        with torch.no_grad():
+            tokens[layout] = gen.generate(model, prompt, GenerationConfig(
+                max_length=16, decode_strategy="greedy")).cpu()
+        decode_launches = da.launches["decode"] - before
+        del model
+    same = torch.equal(tokens["fused"], tokens["split"])
+    log("switches", layout="split q/k/v", generate_byte_equal=same,
+        decode_launches=decode_launches, new_tokens=16)
+    if not same or decode_launches == 0:
+        raise AssertionError("greedy generate() of the split layout differs "
+                             f"from the fused: {tokens}")
+    _free(fused, split)
+    # fast_dropout: False (flax's threefry nn.Dropout)
+    flax = switch_run(prefix, batches, 2, "Model.fast_dropout=False")
+    key = (0x12345678, 0x9ABCDEF0)
+    idx = torch.arange(8 * 1024 * 2048, device=DEVICE).view(8, 1024, 2048)
+    card = threefry_keep(key, idx, 0.9).cpu()
+    host = threefry_keep(key, idx.cpu(), 0.9)
+    act = torch.randn(8, 1024, 2048, device=DEVICE).to(torch.bfloat16)
+    threefry_ms = cuda_ms(lambda: FlaxDropout(0.1)(act, False, seed=key),
+                          iters=5, warmup=1)
+    hash_ms = cuda_ms(lambda: HashDropout(0.1)(act, False, seed=77),
+                      iters=5, warmup=1)
+    log("switches", dropout="threefry", losses=flax["losses"],
+        mask_card_equals_cpu=torch.equal(card, host),
+        keep_share=card.float().mean().item(), threefry_ms=threefry_ms,
+        hash_ms=hash_ms, activation="[8, 1024, 2048] bf16")
+    if not (torch.equal(card, host)
+            and all(math.isfinite(x) for x in flax["losses"])):
+        raise AssertionError(f"threefry dropout: {flax['losses']}")
+    del idx, act, card, host
+    _free(flax)
+    # Momentum and SGD with the other clips, on one batch thrice
+    same_batch = [batches[0]] * 3
+    lr = ("Optimizer.lr.warmup_steps=0", "Optimizer.lr.max_lr=0.05",
+          "Optimizer.lr.min_lr=0.005")
+    for label, extra in (
+            ("Momentum + ClipGradByNorm", (
+                "Optimizer.name=Momentum", "Optimizer.momentum=0.9",
+                "Optimizer.grad_clip.name=ClipGradByNorm",
+                "Optimizer.grad_clip.clip_norm=1.0")),
+            ("SGD + ClipGradByValue", (
+                "Optimizer.name=SGD", "Optimizer.use_nesterov=True",
+                "Optimizer.grad_clip.name=ClipGradByValue",
+                "Optimizer.grad_clip.clip_value=0.001"))):
+        run = switch_run(prefix, same_batch, 3, *lr, *extra)
+        log("switches", optimizer=repr(label), losses=run["losses"],
+            grad_norms=run["grad_norms"], state_gb=run["opt_bytes"] / 1e9)
+        losses = run["losses"]
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{label}: losses {losses}")
+        _free(run)
+    # AdamW at moment_dtype: bfloat16 against fp32 moments
+    fp32 = switch_run(prefix, batches, 2)
+    bf16 = switch_run(prefix, batches, 2, "Optimizer.moment_dtype=bfloat16")
+    dtypes = {str(st["exp_avg"].dtype)
+              for st in bf16["trainer"].optimizer.state.values()}
+    ratio = bf16["opt_bytes"] / fp32["opt_bytes"]
+    log("switches", moment_dtype="bfloat16", exp_avg_dtypes=sorted(dtypes),
+        state_gb=bf16["opt_bytes"] / 1e9, state_gb_fp32=fp32["opt_bytes"] / 1e9,
+        ratio=ratio, losses=bf16["losses"], losses_fp32=fp32["losses"])
+    if dtypes != {"torch.bfloat16"} or abs(ratio - 0.75) > 0.0075:
+        raise AssertionError(f"bf16 moments: {dtypes}, ratio {ratio}")
+    _free(fp32, bf16)
+    # the profiler and the exposition
+    os.environ["FLEETX_OBS_PORT"] = "0"
+    prof_dir = os.path.join(os.path.dirname(prefix), "profiler_log")
+    cfg = train_13b_config(prefix, f"Model.num_layers={SWITCH_LAYERS}",
+                           f"Engine.max_steps={SWITCH_STEPS}",
+                           "Engine.logging_freq=1", "Profiler.enable=True",
+                           "Profiler.scheduler=[1,3]",
+                           f"Profiler.profiler_log={prof_dir}")
+    text = get_registry().prometheus_text()
+    steps_before = sum(float(line.split()[-1]) for line in text.splitlines()
+                       if line.startswith("fleetx_train_steps_total "))
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.fit(batches)
+    server = obs_http.get_server()
+    body = urllib.request.urlopen(server.url + "/metrics",
+                                  timeout=30).read().decode()
+    metrics = {line.split()[0]: float(line.split()[-1])
+               for line in body.splitlines()
+               if line and not line.startswith("#")}
+    table = [name for name, _, _ in kernel_table(trainer.profiler_trace)]
+    named = {k: any(k in name for name in table)
+             for k in ("flash_fwd_wg_kernel", "ce_stats_kernel")}
+    log("switches", profiler_trace=trainer.profiler_trace,
+        trace_bytes=os.path.getsize(trainer.profiler_trace),
+        kernel_view_top=table[:8], kernel_view_names=named,
+        steps_total=metrics.get("fleetx_train_steps_total"),
+        steps_before=steps_before,
+        tokens_per_s=metrics.get("fleetx_train_tokens_per_second"),
+        hbm_bytes=metrics.get("fleetx_train_step_hbm_bytes"))
+    if not (all(named.values()) and metrics.get(
+            "fleetx_train_steps_total") == steps_before + SWITCH_STEPS
+            and metrics.get("fleetx_train_tokens_per_second", 0) > 0):
+        raise AssertionError(f"profiler/obs: {named}, {metrics}")
+    server.stop()
+    os.environ.pop("FLEETX_OBS_PORT")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------- phase 34
+TRAIN_175B_CONFIG = os.path.join(
+    ROOT, "configs/nlp/gpt/pretrain_gpt_175B_mp8_pp16.yaml")
+SP_LAYERS, SP_STEPS, SP_EVAL_ITERS = 1, 3, 1  # 1 of the yaml's 96 layers
+SP_STEP1_TOL = {"loss": 1e-6, "grad_norm": 1e-4}  # relative, step 1
+
+
+def sp_overrides(prefix: str, *extra) -> list:
+    """The 175B yaml at mp 2 (of its 8) and pp 1 (of its 16), 1 of its
+    96 layers, full width, seq 2048, its core_attn recompute and
+    sequence parallelism, fused CE, a global batch of 2 sequences in 2
+    microbatches of 1, SP_STEPS steps and one evaluation of SP_EVAL_ITERS
+    batch after the last."""
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
+            f"Data.Eval.dataset.input_dir={prefix}",
+            "Distributed.mp_degree=2", "Distributed.pp_degree=1",
+            f"Model.num_layers={SP_LAYERS}", "Model.fused_ce=True",
+            "Global.global_batch_size=2", "Global.local_batch_size=2",
+            "Global.micro_batch_size=1", f"Engine.max_steps={SP_STEPS}",
+            "Engine.logging_freq=1", f"Engine.eval_freq={SP_STEPS}",
+            f"Engine.eval_iters={SP_EVAL_ITERS}",
+            "Optimizer.lr.warmup_steps=1", "Optimizer.lr.max_lr=3.0e-4",
+            "Optimizer.lr.min_lr=3.0e-5", "Optimizer.lr.decay_steps=1000",
+            *extra]
+
+
+def sp_fit(argv=None, overrides=None, steps=SP_STEPS, evaluate=True,
+           fault=None) -> dict:
+    """One drive of phase 34 on this rank: ``tools/train.py``'s ``main`` on
+    ``argv``, or (in a group that is up) the same pieces on ``overrides``
+    for ``steps`` steps without evaluation. Per step: loss, grad norm, the
+    replicated parameters' digest, ms (CUDA events), the sequence
+    collectives' and the all-reduces' ms, calls and GB (each synchronised
+    on both sides), B1-B3 and B12 launches; the peak memory. ``fault``:
+    ``"no sp sum"`` skips the gradient sum on rank 1, ``"s0 at 0"`` keys
+    every sequence shard's hidden dropout at position 0."""
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.core import engine
+    from fleetx_tpu_torch.parallel import tensor_parallel as tp
+    from fleetx_tpu_torch.tools import train as train_cli
+
+    rows = []
+    coll = {"all_gather": [0.0, 0, 0], "reduce_scatter": [0.0, 0, 0],
+            "all_reduce": [0.0, 0, 0]}
+    step, collective = engine.Trainer.train_step, tp._collective
+    all_reduce = dist.all_reduce
+    shard_fn = gpt_model.sequence_shard
+    sp_sum = engine.Trainer._sum_sequence_parallel_grads
+
+    def timed(kind, fn, nbytes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        c = coll[kind]
+        c[0] += (time.perf_counter() - t0) * 1e3
+        c[1] += 1
+        c[2] += nbytes
+        return out
+
+    def timed_collective(op, out, src, group):
+        kind = ("all_gather" if op is dist.all_gather_into_tensor
+                else "reduce_scatter")
+        return timed(kind, lambda: collective(op, out, src, group),
+                     max(out.numel(), src.numel()) * src.element_size())
+
+    def timed_all_reduce(t, *a, **kw):
+        return timed("all_reduce", lambda: all_reduce(t, *a, **kw),
+                     t.numel() * t.element_size())
+
+    def watched_step(self, batch):
+        before = {k: list(v) for k, v in coll.items()}
+        launched = {**fa.launches, **ce.vp_launches}
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(self, batch)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append({
+            "loss": float(out["loss"]), "grad_norm": float(out["grad_norm"]),
+            "replicated": param_digest(self, replicated_only=True),
+            "events": (start, end),
+            "coll": {k: [v[i] - before[k][i] for i in range(3)]
+                     for k, v in coll.items()},
+            "launches": {k: v - launched[k] for k, v in
+                         {**fa.launches, **ce.vp_launches}.items()}})
+        return out
+
+    def skip_on_rank1(self):
+        # rank 1 takes part in the collective (or rank 0 would wait in it)
+        # and keeps its own partial gradients
+        kept = {n: p.grad.clone() for n, p in
+                self.module.nets.named_parameters()
+                if p.grad is not None and n not in self.mp_split}
+        sp_sum(self)
+        if dist.get_rank() == 1:
+            for n, p in self.module.nets.named_parameters():
+                if n in kept:
+                    p.grad.copy_(kept[n])
+
+    engine.Trainer.train_step = watched_step
+    tp._collective = timed_collective
+    dist.all_reduce = timed_all_reduce
+    if fault == "no sp sum":
+        engine.Trainer._sum_sequence_parallel_grads = skip_on_rank1
+    if fault == "s0 at 0":
+        gpt_model.sequence_shard = lambda shard, b, s_loc, mp, r: shard_fn(
+            shard, b, s_loc, mp, 0)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        if argv is not None:
+            trainer = train_cli.main(list(argv))
+        else:
+            cfg = get_config(TRAIN_175B_CONFIG, overrides=list(overrides)
+                             + [f"Engine.max_steps={steps}",
+                                "Engine.eval_freq=0"])
+            trainer = Trainer(cfg, build_module(cfg))
+            trainer.fit(build_dataloader(cfg, "Train"))
+    finally:
+        engine.Trainer.train_step = step
+        tp._collective = collective
+        dist.all_reduce = all_reduce
+        engine.Trainer._sum_sequence_parallel_grads = sp_sum
+        gpt_model.sequence_shard = shard_fn
+    torch.cuda.synchronize()
+    for r in rows:
+        start, end = r.pop("events")
+        r["ms"] = start.elapsed_time(end)
+    gcfg = trainer.module.gpt_config
+    out = {"rows": rows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "sp": gcfg.sp, "recompute": gcfg.recompute_granularity,
+           "n_params": trainer.n_params, "layers": gcfg.num_layers,
+           "hidden": gcfg.hidden_size, "heads": gcfg.num_attention_heads,
+           "vocab": gcfg.vocab_size, "steps": trainer.step,
+           "opt_gb": trainer.opt_state_device_bytes() / 1e9}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank(argv, off, port_v2) -> dict:
+    """One rank of phase 34: the SP drive through ``tools/train.py``'s
+    ``main`` (which leaves the group at its end), then, in a group rebuilt
+    on ``port_v2``, the same drive with ``sequence_parallel: False`` and
+    the two planted faults (2 steps and 1)."""
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.parallel.env import init_dist_env
+    from fleetx_tpu_torch.parallel.mesh import set_mesh
+
+    backend = dist.get_backend()
+    runs = {"on": sp_fit(argv=argv)}
+    set_mesh(None)
+    os.environ["MASTER_PORT"] = str(port_v2)
+    init_dist_env()
+    runs["off"] = sp_fit(overrides=off)
+    on_overrides = [o for o in off if o != "Model.sequence_parallel=False"]
+    # the warmup gives step 1 a rate of 0: the sum's fault shows in step 2
+    for fault, steps in (("no sp sum", 2), ("s0 at 0", 1)):
+        runs[fault] = sp_fit(overrides=on_overrides, steps=steps,
+                             fault=fault)
+    runs["backend"] = backend
+    return runs
+
+
+def phase_train_175b_sp(prefix: str) -> dict:
+    """The port's Megatron sequence-parallel path: ``tools/train.py`` on the
+    175B yaml at mp 2 × SP, one layer at full width, on 2 ranks that share
+    the card over gloo, SP_STEPS steps of 2 microbatches and one
+    evaluation; then the same drive without SP. Gates: every loss finite
+    and falling; the mp-replicated parameters bit-equal on both ranks
+    after every step; SP off within TRAIN_E2E_TOL of SP on in loss and
+    grad norm, and within SP_STEP1_TOL at step 1; B1-B3 and B12 launched
+    as core_attn recompute launches them (B1 twice per microbatch). The
+    planted faults — the SP gradient sum skipped on rank 1, the sequence
+    shards' dropout keyed at position 0 — must break the replicas gate
+    and the step-1 gate. Returns rank 0's launches per step."""
+    from fleetx_tpu_torch.core.engine import model_flops_per_token
+    from fleetx_tpu_torch.parallel.launch import free_port, spawn
+
+    on = sp_overrides(prefix)
+    argv = ["-c", TRAIN_175B_CONFIG] + [x for o in on for x in ("-o", o)]
+    off = sp_overrides(prefix, "Model.sequence_parallel=False")
+    results = spawn(sp_rank, 2, (argv, off, free_port()), timeout=900)
+    r0 = results[0]
+    if r0["backend"] != "gloo":
+        raise AssertionError(f"ranks sharing one card ran {r0['backend']}")
+    first = r0["on"]
+    tokens = 2 * 2048
+    flops = model_flops_per_token(first["n_params"], first["layers"], 2048,
+                                  first["hidden"]) * tokens
+    per_step = {}
+    for label in ("on", "off"):
+        run = r0[label]
+        steady = float(np.median([r["ms"] for r in run["rows"][1:]]))
+        coll = {k: [round(float(np.median([r["coll"][k][i]
+                                            for r in run["rows"][1:]])), 3)
+                    for i in range(3)] for k in run["rows"][0]["coll"]}
+        per_step[label] = run["rows"][-1]["launches"]
+        log("train-175b-sp", sp=run["sp"], layers=run["layers"],
+            hidden=run["hidden"], heads=run["heads"], vocab=run["vocab"],
+            recompute=run["recompute"], params_m=run["n_params"] / 1e6,
+            losses=[r["loss"] for r in run["rows"]],
+            grad_norms=[r["grad_norm"] for r in run["rows"]],
+            step_ms=[round(r["ms"], 1) for r in run["rows"]],
+            step_ms_median=steady, tokens_per_s=tokens / steady * 1e3,
+            mfu=flops / (steady * 1e-3) / PEAK_FLOPS[torch.bfloat16],
+            peak_gb_per_rank=[r[label]["peak_gb"] for r in results],
+            opt_state_gb=run["opt_gb"],
+            collectives_ms_calls_bytes_per_step=coll,
+            launches_last_step=run["rows"][-1]["launches"])
+    # gates
+    for label in ("on", "off"):
+        losses = [r["loss"] for r in r0[label]["rows"]]
+        if not all(math.isfinite(x) for x in losses) or len(losses) != \
+                SP_STEPS:
+            raise AssertionError(f"SP {label}: losses {losses}")
+        for i, (a, b) in enumerate(zip(results[0][label]["rows"],
+                                       results[1][label]["rows"])):
+            if (a["replicated"], a["loss"]) != (b["replicated"], b["loss"]):
+                raise AssertionError(f"SP {label} step {i + 1}: the ranks' "
+                                     f"replicated parameters differ")
+    losses = [r["loss"] for r in first["rows"]]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not first["sp"] or r0["off"]["sp"]:
+        raise AssertionError("the drives' sequence parallelism is not as set")
+    gaps = []
+    for a, b in zip(first["rows"], r0["off"]["rows"]):
+        gaps.append({"loss": abs(a["loss"] - b["loss"]),
+                     "grad_norm": abs(a["grad_norm"] - b["grad_norm"])
+                     / b["grad_norm"]})
+    step1 = {"loss": gaps[0]["loss"] / abs(r0["off"]["rows"][0]["loss"]),
+             "grad_norm": gaps[0]["grad_norm"]}
+    log("train-175b-sp", sp_on_vs_off=gaps, step1_relative=step1,
+        step1_tol=SP_STEP1_TOL, tol=TRAIN_E2E_TOL)
+    if any(g[m] > TRAIN_E2E_TOL[m] for g in gaps for m in g) or any(
+            step1[m] > tol for m, tol in SP_STEP1_TOL.items()):
+        raise AssertionError(f"SP on vs off: {gaps}, step 1 {step1}")
+    want = {"flash_fwd": 4 * SP_LAYERS, "flash_bwd_dq": 2 * SP_LAYERS,
+            "flash_bwd_dkv": 2 * SP_LAYERS, "vp_ce_fwd": 2, "vp_ce_dh": 2,
+            "vp_ce_dw": 2}
+    for label in ("on", "off"):
+        got = {k: r0[label]["rows"][1]["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"SP {label}: launches {got}, want {want}")
+    # planted faults
+    a, b = results[0]["no sp sum"]["rows"][-1], results[1]["no sp sum"][
+        "rows"][-1]
+    caught_sum = a["replicated"] != b["replicated"]
+    wrong = results[0]["s0 at 0"]["rows"][0]["loss"]
+    ref = r0["off"]["rows"][0]["loss"]
+    caught_s0 = abs(wrong - ref) / abs(ref) > SP_STEP1_TOL["loss"]
+    log("train-175b-sp", planted_fault="'SP gradient sum skipped on rank 1'",
+        replicas_differ=caught_sum)
+    log("train-175b-sp", planted_fault="'dropout s0 at 0'", loss=wrong,
+        loss_sp_off=ref, relative=abs(wrong - ref) / abs(ref))
+    if not (caught_sum and caught_s0):
+        raise AssertionError(f"phase 34 misses a planted fault: sum "
+                             f"{caught_sum}, s0 {caught_s0}")
+    return per_step["on"]
+
+
+FORKSERVER_PRELOAD = ("numpy", "torch", "torch.distributed",
+                      "fleetx_tpu_torch.core.engine",
+                      "fleetx_tpu_torch.data", "fleetx_tpu_torch.models",
+                      "fleetx_tpu_torch.parallel.env",
+                      "fleetx_tpu_torch.tools.train")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     adopt_orphans()
+    # the multi-rank drives fork their ranks from one server that has
+    # imported torch and the port once (a fresh interpreter per rank
+    # spent most of its start on those imports)
+    launch.use_forkserver(FORKSERVER_PRELOAD)
     try:
         records, device = run_phases()
     finally:
+        launch.stop_forkserver()
         left = stop_descendants()
     log("processes", left_at_end=left)
     print(json.dumps({"kernels": records}))
@@ -4874,6 +5524,31 @@ def run_phases() -> tuple:
             ce_records[name]["6.7b"] = dict(rec, launches=counts[name])
         drop_output_dirs(prefix)
         phase_elastic(prefix)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_175b, ce_175b = phase_kernels_175b()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        write_corpus(prefix, tokens=800_000, seed=6)
+        for label, counts in phase_switches_13b(prefix).items():
+            for name in fa.NAMES:
+                flash[name].setdefault("launches_per_step_save_sets", {})[
+                    label] = counts[name]
+        drop_output_dirs(prefix)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ids spread over the 51200 rows (stride 24: up to 49128), so that
+        # about half of the labels lie on each vocab shard
+        prefix = os.path.join(tmp, "corpus_175b")
+        write_corpus(prefix, tokens=800_000, seed=7, stride=24)
+        per_step = phase_train_175b_sp(prefix)
+    for name, rec in flash_175b.items():
+        flash[name]["175b"] = dict(rec, launches=SP_STEPS * per_step[name],
+                                   launches_per_step=per_step[name])
+    for name in ce.VP_NAMES:
+        vp_records[name]["175b"] = dict(
+            ce_175b[VP_KERNEL[name]], launches=SP_STEPS * per_step[name],
+            launches_per_step=per_step[name])
     records = [dict(name="paged_decode", route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",

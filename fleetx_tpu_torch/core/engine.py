@@ -25,12 +25,33 @@ global-norm clip and the AdamW update (:507-546) — ``fit`` with its
 - preemption (:1437-1470): SIGTERM during ``fit`` checkpoints and returns;
 - the training fault hooks of ``resilience/faults.py``.
 
+Observability (JAX :264-324, :846-907): the Trainer registers JAX's
+families on the process registry (``obs/``; ``FLEETX_OBS_PORT`` starts
+the exposition server) — steps, sentry skips, save failures and
+quarantines; loss, learning rate, step seconds, tokens/s and MFU at each
+logging step; ``fleetx_train_step_hbm_bytes``, which here is
+``torch.cuda.max_memory_allocated`` of the trainer's card (the peak
+bytes allocated, not JAX's cost-analysis estimate of bytes accessed);
+optimizer-state bytes; checkpoint seconds by phase and bytes — and emits
+the ``sentry_skip``, ``sentry_abort``, ``save_failure``,
+``checkpoint_saved`` and ``checkpoint_quarantine`` events. The attributes
+``sentry_skips``, ``save_failures`` and ``last_save`` read the same
+counts for this trainer. ``train.data``, ``train.step`` and
+``train.callback`` spans mark the fit loop's phases.
+
+The profiler (JAX :1476-1525): with ``Profiler.enable``, a
+``torch.profiler`` window (CPU and CUDA activities) opens after step
+``scheduler[0]`` and closes after step ``scheduler[1]``; each rank writes
+its Chrome trace under ``Profiler.profiler_log``
+(``utils/profiler_summary.trace_path``) and rank 0 prints the summary
+views, parsed from its trace file. The preemption, data-failure and
+sentry-abort paths close the trace without the summary.
+
 PyTorch runs eagerly, so there is no compiled step: the step is the loop
 body. Dropout seeds come from one ``torch.Generator`` seeded with
 ``Global.seed``; it is part of a checkpoint, and a skipped step puts it
 back where it was. The elastic supervisor that shrinks the mesh after a
-host loss is ``resilience/elastic.run_elastic``; the profiler and the
-observability counters are not ported.
+host loss is ``resilience/elastic.run_elastic``.
 
 Over several ranks (``Distributed.pp_degree`` × ``dp_degree`` ×
 ``sharding.sharding_degree`` × ``cp_degree`` × ``mp_degree``, the current
@@ -67,6 +88,12 @@ and takes its own slices, so dp and fsdp may change between save and
 load (reshard-on-load), and mp, pp or cp may not
 (``resilience/elastic.py``).
 
+Under Megatron sequence parallelism (``Model.sequence_parallel`` at mp >
+1) the parameters that mp replicates see only their rank's part of the
+sequence: their gradients are summed over the mp group after the
+backward (:meth:`Trainer._sum_sequence_parallel_grads`), before
+anything else reads them.
+
 Under pipeline parallelism (``pp_degree > 1``) there is no accumulation
 outside the pipeline (JAX :186-190): ``train_step`` runs the module's
 schedule (``GPTModule.pipeline_loss``) over ``Engine.accumulate_steps``
@@ -88,6 +115,7 @@ from __future__ import annotations
 import atexit
 import hashlib
 import os
+import re
 import shutil
 import signal
 import threading
@@ -101,11 +129,16 @@ import torch.distributed as dist
 
 from fleetx_tpu_torch.core.checkpoint import CheckpointStore
 from fleetx_tpu_torch.models.module import BasicModule
+from fleetx_tpu_torch.obs import emit as obs_emit
+from fleetx_tpu_torch.obs import get_registry, span
+from fleetx_tpu_torch.obs import http as obs_http
 from fleetx_tpu_torch.optims.lr_scheduler import build_lr_scheduler
 from fleetx_tpu_torch.optims.optimizer import (
+    Blocks,
     build_grad_clip,
     build_optimizer,
     global_norm,
+    moment_keys,
 )
 from fleetx_tpu_torch.parallel.env import ranks_per_card
 from fleetx_tpu_torch.parallel.mesh import get_data_world, mesh_from_config
@@ -163,7 +196,14 @@ def peak_flops(device: torch.device) -> Optional[float]:
     return _PEAK_BF16.get(torch.cuda.get_device_name(device))
 
 
-_MOMENTS = ("exp_avg", "exp_avg_sq")  # AdamW's per-parameter state
+_LAYER = re.compile(r"^gpt\.layers\.\d+\.")  # a decoder layer's prefix
+
+
+def _is_moment(v, like: torch.Tensor) -> bool:
+    """Whether optimizer state ``v`` is a per-element moment of a
+    parameter shaped like ``like`` (AdamW's ``exp_avg``/``exp_avg_sq``,
+    Momentum's ``momentum_buffer``; not AdamW's 0-d ``step``)."""
+    return torch.is_tensor(v) and v.dim() > 0 and v.shape == like.shape
 
 
 def _state_digest(state: torch.Tensor) -> float:
@@ -195,6 +235,7 @@ class Trainer:
         opt_cfg = cfg.Optimizer or {}
         self.lr_schedule = build_lr_scheduler(opt_cfg.get("lr", 1e-4))
         self.clip = build_grad_clip(opt_cfg.get("grad_clip"))
+        self._grad_clip = self.clip  # kept when a caller wraps self.clip
         self.generator = torch.Generator().manual_seed(self.seed)
         self.mesh = mesh_from_config(cfg)
         # the ZeRO weight-update shard (JAX :204-214): on whenever there is
@@ -250,6 +291,67 @@ class Trainer:
         # (blocking), writing this rank's file (write) and in all (total;
         # write and total are None while its upload runs)
         self.last_save: Optional[Dict[str, float]] = None
+        self._init_obs()
+        self._prof = None  # the open torch.profiler window, if any
+        self._prof_enabled = False
+
+    def _init_obs(self) -> None:
+        """JAX's training families on the process registry (JAX
+        :264-324), every one exposed at zero at once; gauges are process
+        wide (last writer wins), counters accumulate across trainers."""
+        obs_http.maybe_start_from_env()
+        reg = get_registry()
+        self._obs_steps = reg.counter(
+            "fleetx_train_steps_total", "Optimizer steps applied")
+        self._obs_sentry_skips = reg.counter(
+            "fleetx_train_sentry_skips_total",
+            "Train steps skipped by the anomaly sentry")
+        self._obs_save_failures = reg.counter(
+            "fleetx_train_save_failures_total",
+            "Checkpoint saves that failed (run survived)")
+        self._obs_quarantines = reg.counter(
+            "fleetx_train_checkpoint_quarantines_total",
+            "Corrupt checkpoint steps quarantined during restore")
+        self._obs_loss = reg.gauge(
+            "fleetx_train_loss", "Loss averaged over the last logging window")
+        self._obs_lr = reg.gauge(
+            "fleetx_train_learning_rate", "Current learning rate")
+        self._obs_step_time = reg.histogram(
+            "fleetx_train_step_seconds",
+            "Per-step wall clock (logging-window mean samples)")
+        self._obs_tokens_per_s = reg.gauge(
+            "fleetx_train_tokens_per_second",
+            "Training throughput over the last logging window")
+        self._obs_mfu = reg.gauge(
+            "fleetx_train_mfu",
+            "Model-FLOPs utilization: model flops per step / step time / "
+            "peak card FLOPs")
+        self._obs_hbm_bytes = reg.gauge(
+            "fleetx_train_step_hbm_bytes",
+            "Peak device memory allocated on this rank's card "
+            "(torch.cuda.max_memory_allocated)")
+        self._obs_opt_bytes = reg.gauge(
+            "fleetx_train_opt_state_bytes",
+            "Optimizer-state bytes resident per device (ZeRO update "
+            "sharding shrinks this by the dp*fsdp factor)")
+        self._obs_ckpt_seconds = reg.histogram(
+            "fleetx_ckpt_save_seconds",
+            "Checkpoint save duration; phase=blocking is the step-path "
+            "stall (D2H snapshot under FLEETX_CKPT_ASYNC_SNAPSHOT, the "
+            "whole write otherwise), phase=total includes the async upload",
+            labelnames=("phase",))
+        self._obs_ckpt_bytes = reg.gauge(
+            "fleetx_ckpt_bytes",
+            "Bytes of train state in the last checkpoint snapshot")
+        for fam in (self._obs_steps, self._obs_sentry_skips,
+                    self._obs_save_failures, self._obs_quarantines,
+                    self._obs_loss, self._obs_lr, self._obs_step_time,
+                    self._obs_tokens_per_s, self._obs_mfu,
+                    self._obs_hbm_bytes, self._obs_opt_bytes,
+                    self._obs_ckpt_bytes):
+            fam.labels()
+        for phase in ("blocking", "total"):
+            self._obs_ckpt_seconds.labels(phase=phase)
 
     # ----------------------------------------------------------------- init
     def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None):
@@ -284,6 +386,7 @@ class Trainer:
         self.optimizer = build_optimizer(self.cfg.Optimizer or {}, named)
         self.step = 0
         self._restored_step = None
+        self._obs_opt_bytes.set(float(self.opt_state_device_bytes()))
         if self.primary:
             logger.info("initialized model: %.1fM params on %s (%s)",
                         self.n_params / 1e6, self.device, self.mesh)
@@ -344,6 +447,7 @@ class Trainer:
                 loss = self.module.loss_fn(part, self.generator, train=True)
                 (loss / accum).backward()
                 loss_sum += loss.detach()
+        self._sum_sequence_parallel_grads()
         zero = self.zero
         if zero is None:
             named = [(n, p) for n, p in nets.named_parameters()
@@ -378,6 +482,8 @@ class Trainer:
             zero_parts=(None if zero is None
                         else [zero.plans[i].parts for i in counted]),
             zero_group=None if zero is None else mesh.zero_group)
+        if self._grad_clip is not None and self._grad_clip.per_block:
+            self._grad_clip.blocks = self._blocks(names, grads)
         grad_norm = norm if self.clip is None else self.clip(grads, norm)
         lr = float(self.lr_schedule(self.step))
         loss = loss_sum / accum
@@ -399,6 +505,79 @@ class Trainer:
         self.step += 1
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
                 "skipped": False}
+
+    def _blocks(self, names: List[str], grads: List[torch.Tensor]
+                ) -> Blocks:
+        """Which whole JAX leaf each of this step's gradients (this rank's
+        shards or update slices of the parameters ``names``) belongs to,
+        for a per-block clip. A slice's squares are summed over the zero
+        group (a slice that k ranks hold weighs k / world, as in
+        ``global_norm``), an mp shard's over the mp group; then the
+        decoder layers' copies of one parameter are summed, since the JAX
+        model stacks them into one leaf (``nn.scan``, or the pipeline's
+        stages, summed over the pp group) unless it unrolls them
+        (``scan_layers: False`` or ``no_recompute_layers``)."""
+        mesh, zero = self.mesh, self.zero
+        model_cfg = self.cfg.get("Model") or {}
+        stacked = mesh.pp > 1 or (model_cfg.get("scan_layers", True)
+                                  and not model_cfg.get(
+                                      "no_recompute_layers"))
+        keys = [_LAYER.sub("gpt.layers.*.", n) if stacked else n
+                for n in names]
+        uniq = sorted(set(keys))
+        layer_keys = [i for i, k in enumerate(uniq)
+                      if k.startswith("gpt.layers.*.")]
+        index = torch.tensor([uniq.index(k) for k in keys],
+                             device=self.device)
+        split = torch.tensor([n in self.mp_split for n in names],
+                             device=self.device)
+        parts = ([1] * len(names) if zero is None
+                 else [plan.parts for plan in zero.plans])
+        world = mesh.zero_world
+        weight = torch.tensor([0.0 if k == 1 else k / world for k in parts],
+                              device=self.device)
+        sizes = [0.0] * len(uniq)
+        for i, (n, g, k) in enumerate(zip(names, grads, parts)):
+            sizes[uniq.index(keys[i])] += g.numel() * k * (
+                mesh.mp if n in self.mp_split else 1)
+        pp_sum = mesh.pp > 1 and stacked and bool(layer_keys)
+        lo, hi = (layer_keys[0], layer_keys[-1] + 1) if layer_keys else (0, 0)
+        if pp_sum:  # every stage holds some of each layer parameter
+            sizes[lo:hi] = self._sum_over(sizes[lo:hi], mesh.pp_group)
+
+        def sq_sum(sq: torch.Tensor) -> torch.Tensor:
+            if zero is not None:
+                sliced = sq * weight
+                dist.all_reduce(sliced, group=mesh.zero_group)
+                sq = torch.where(weight > 0, sliced, sq)
+            if mesh.mp > 1:
+                shards = sq * split
+                dist.all_reduce(shards, group=mesh.mp_group)
+                sq = torch.where(split, shards, sq)
+            by_key = torch.zeros(len(uniq), device=sq.device).index_add_(
+                0, index, sq)
+            if pp_sum:
+                layers = by_key[lo:hi].contiguous()
+                dist.all_reduce(layers, group=mesh.pp_group)
+                by_key[lo:hi] = layers
+            return by_key[index]
+
+        return Blocks(sq_sum, [int(sizes[uniq.index(k)]) for k in keys])
+
+    def _sum_sequence_parallel_grads(self) -> None:
+        """Under sequence parallelism, sum over the mp group the gradients
+        of every parameter that mp does not split (the rule: absent from
+        ``mp_split``; the LayerNorms, the row-parallel biases, the
+        position table): each rank's saw only its part of the sequence.
+        GSPMD makes this sum in JAX. Without sequence parallelism they
+        are whole, and equal, on every mp rank already."""
+        gcfg = getattr(self.module, "gpt_config", None)
+        if gcfg is None or not gcfg.sp:
+            return
+        grads = [p.grad for n, p in self.module.nets.named_parameters()
+                 if n not in self.mp_split and p.grad is not None]
+        if grads:
+            all_reduce_sum(grads, group=self.mesh.mp_group)
 
     def _tie_copies(self) -> List[str]:
         """The parameters that are a copy of another stage's (the last
@@ -457,6 +636,7 @@ class Trainer:
             self.init_state()
         self._preempted = False  # a fresh fit() trains, not insta-saves
         self._install_preemption_handler()
+        self._profiler_maybe_start()
         try:
             self._fit_epochs(train_data, valid_data)
         finally:
@@ -479,7 +659,8 @@ class Trainer:
             batches = iter(faults.wrap_train_data(train_data))
             while True:
                 try:
-                    batch = next(batches)
+                    with span("train.data", step=self.step):
+                        batch = next(batches)
                 except StopIteration:
                     break
                 except Exception:
@@ -488,6 +669,7 @@ class Trainer:
                     logger.exception(
                         "train data stream raised at step %d; writing an "
                         "emergency checkpoint before re-raising", self.step)
+                    self._profiler_maybe_stop(summary=False)
                     self._guarded_save(epoch)
                     self.wait_for_checkpoints()
                     raise
@@ -497,6 +679,9 @@ class Trainer:
                     logger.warning("preemption signal received: "
                                    "checkpointing at step %d and exiting "
                                    "fit()", self.step)
+                    # the trace closes first; its summary would spend the
+                    # grace window
+                    self._profiler_maybe_stop(summary=False)
                     self.save(epoch=epoch)
                     self.wait_for_checkpoints()
                     return
@@ -507,7 +692,10 @@ class Trainer:
                     tokens_per_batch = get_data_world(self.mesh) * int(
                         np.prod(np.shape(batch["tokens"])))
                     flops = self._flops_per_token(np.shape(batch["tokens"])[1])
-                out = self.train_step(self._to_device(batch))
+                    self._tokens_per_batch = tokens_per_batch
+                    self._flops_per_tok = flops
+                with span("train.step", step=self.step):
+                    out = self.train_step(self._to_device(batch))
                 # a skipped batch is consumed too: a resume does not
                 # re-feed it
                 self.consumed_samples += global_batch
@@ -515,28 +703,46 @@ class Trainer:
                     self._sentry_skip(out, epoch)
                     continue
                 self._sentry_consecutive = 0
+                self._obs_steps.inc()
+                # before the logging, eval and save hooks, so that the
+                # profiled window times the train steps
+                self._profiler_step(self.step)
                 window.append(out["loss"])
                 self.history.append(out)
-                if self.step % self.logging_freq == 0:
-                    loss = float(torch.stack(window).mean())
-                    window = []
-                    dt = (time.time() - t_last) / self.logging_freq
-                    t_last = time.time()
-                    ips = tokens_per_batch / dt
-                    mfu = (None if peak is None or flops is None
-                           else ips * flops / peak)
-                    self._log_train({
-                        "epoch": epoch, "batch": self.step, "loss": loss,
-                        "batch_cost": dt, "ips_total": ips, "ips": ips,
-                        "lr": float(self.lr_schedule(self.step)), "mfu": mfu,
-                    })
-                if (self.eval_freq and valid_data is not None
-                        and self.step % self.eval_freq == 0):
-                    self.evaluate(valid_data, epoch=epoch)
-                if self.save_steps and self.step % self.save_steps == 0:
-                    self._guarded_save(epoch)
+                with span("train.callback", step=self.step):
+                    if self.step % self.logging_freq == 0:
+                        loss = float(torch.stack(window).mean())
+                        window = []
+                        dt = (time.time() - t_last) / self.logging_freq
+                        t_last = time.time()
+                        ips = tokens_per_batch / dt
+                        mfu = (None if peak is None or flops is None
+                               else ips * flops / peak)
+                        lr = float(self.lr_schedule(self.step))
+                        self._obs_loss.set(loss)
+                        self._obs_lr.set(lr)
+                        self._obs_step_time.observe(dt)
+                        self._obs_tokens_per_s.set(ips)
+                        if mfu is not None:
+                            self._obs_mfu.set(mfu)
+                        if self.device.type == "cuda":
+                            self._obs_hbm_bytes.set(float(
+                                torch.cuda.max_memory_allocated(
+                                    self.device)))
+                        self._log_train({
+                            "epoch": epoch, "batch": self.step,
+                            "loss": loss, "batch_cost": dt,
+                            "ips_total": ips, "ips": ips, "lr": lr,
+                            "mfu": mfu,
+                        })
+                    if (self.eval_freq and valid_data is not None
+                            and self.step % self.eval_freq == 0):
+                        self.evaluate(valid_data, epoch=epoch)
+                    if self.save_steps and self.step % self.save_steps == 0:
+                        self._guarded_save(epoch)
             if self.step >= self.max_steps:
                 break
+        self._profiler_maybe_stop()
         self.wait_for_checkpoints()
 
     def _sentry_skip(self, out: Dict, epoch: int) -> None:
@@ -545,6 +751,10 @@ class Trainer:
         :class:`SentryAbort`."""
         self.sentry_skips += 1
         self._sentry_consecutive += 1
+        self._obs_sentry_skips.inc()
+        obs_emit("sentry_skip", step=self.step, loss=float(out["loss"]),
+                 grad_norm=float(out["grad_norm"]),
+                 consecutive=self._sentry_consecutive)
         if self.primary:
             logger.warning(
                 "sentry: skipped anomalous step %d (loss=%s grad_norm=%s; "
@@ -552,8 +762,11 @@ class Trainer:
                 float(out["loss"]), float(out["grad_norm"]),
                 self.sentry_skips, self._sentry_consecutive)
         if self._sentry_consecutive >= self._sentry_max_skips:
+            self._profiler_maybe_stop(summary=False)
             self._guarded_save(epoch)
             self.wait_for_checkpoints()
+            obs_emit("sentry_abort", step=self.step,
+                     consecutive=self._sentry_consecutive)
             raise SentryAbort(
                 f"{self._sentry_consecutive} consecutive train steps "
                 f"skipped by the sentry at step {self.step} "
@@ -629,6 +842,8 @@ class Trainer:
     def _record_save_failure(self, step: int) -> None:
         """Count one failed checkpoint save (the run survives)."""
         self.save_failures += 1
+        self._obs_save_failures.inc()
+        obs_emit("save_failure", step=step, failures=self.save_failures)
 
     def _guarded_save(self, epoch: int = 0) -> None:
         """A periodic or emergency save that survives a failed write: the
@@ -702,7 +917,7 @@ class Trainer:
         zero = self.zero
         if zero is None or not any(state.values()):
             return state if keep else {}
-        for k in _MOMENTS:
+        for k in moment_keys(self.optimizer):
             whole = zero.whole([state[n][k] for n in zero.names], device,
                                keep=keep)
             for n, t in zip(zero.names, whole):
@@ -786,6 +1001,9 @@ class Trainer:
                 self.last_save = {"step": step, "bytes": nbytes,
                                   "blocking_s": blocking, "write_s": None,
                                   "total_s": None}
+                self._obs_ckpt_bytes.set(float(nbytes))
+                self._obs_ckpt_seconds.labels(phase="blocking").observe(
+                    blocking)
                 self._upload_thread = threading.Thread(
                     target=self._upload_snapshot,
                     args=(store, step, host, meta, meta_sig, t0),
@@ -806,6 +1024,10 @@ class Trainer:
         self.last_save = {"step": step, "bytes": nbytes, "blocking_s": dt,
                           "write_s": write_s, "total_s": dt}
         self._last_saved_meta = meta_sig
+        self._obs_ckpt_bytes.set(float(nbytes))
+        self._obs_ckpt_seconds.labels(phase="blocking").observe(dt)
+        self._obs_ckpt_seconds.labels(phase="total").observe(dt)
+        obs_emit("checkpoint_saved", step=step, mode="sync", seconds=dt)
         if self.primary:
             logger.info("saved checkpoint at step %d -> %s (%.3f s, %.1f MB "
                         "per file)", step, store.step_dir(step), dt,
@@ -858,6 +1080,9 @@ class Trainer:
             total = time.perf_counter() - t0
             self.last_save = {**self.last_save, "bytes": nbytes,
                               "write_s": write_s, "total_s": total}
+            self._obs_ckpt_seconds.labels(phase="total").observe(total)
+            obs_emit("checkpoint_saved", step=step, mode="async_snapshot",
+                     seconds=total)
             logger.info("saved checkpoint at step %d -> %s (async snapshot: "
                         "%.3f s blocking / %.3f s total)", step,
                         store.step_dir(step), self.last_save["blocking_s"],
@@ -899,6 +1124,8 @@ class Trainer:
             if dst is not None:
                 logger.warning("quarantined corrupt checkpoint step %d -> "
                                "%s", step, dst)
+                self._obs_quarantines.inc()
+                obs_emit("checkpoint_quarantine", step=step, moved_to=dst)
         self._barrier()
 
     def load(self, step: Optional[int] = None) -> bool:
@@ -947,6 +1174,7 @@ class Trainer:
                 self._quarantine_step(cand)
                 continue
             self._apply_restored(cand, *restored)
+            self._obs_opt_bytes.set(float(self.opt_state_device_bytes()))
             if self.primary:
                 logger.info("restored checkpoint step %d (epoch %d) in "
                             "%.3f s", cand, self.start_epoch,
@@ -995,10 +1223,11 @@ class Trainer:
             raise ValueError(f"checkpoint step {step}: the optimizer's "
                              "parameter groups differ from the model's")
         for n, s in opt["state"].items():
-            for k in ("exp_avg", "exp_avg_sq"):
-                if k in s and s[k].shape != want[n].shape:
+            for k, v in s.items():
+                if (torch.is_tensor(v) and v.dim()
+                        and v.shape != want[n].shape):
                     raise ValueError(f"checkpoint step {step}: {k} of {n} "
-                                     f"is {tuple(s[k].shape)}")
+                                     f"is {tuple(v.shape)}")
         if not (isinstance(state.get("generator"), torch.Tensor)
                 and state["generator"].dtype == torch.uint8):
             raise ValueError(f"checkpoint step {step}: no generator state")
@@ -1018,8 +1247,9 @@ class Trainer:
         if self.zero is not None:  # reshard-on-load: this rank's slices
             self.zero.refresh_staged()
             pos = {n: i for i, n in enumerate(self.zero.names)}
+            whole = dict(self.module.nets.named_parameters())
             by_name = {n: {k: (self.zero.shard_of(pos[n], v)
-                               if k in _MOMENTS else v)
+                               if _is_moment(v, whole[n]) else v)
                            for k, v in s.items()}
                        for n, s in by_name.items()}
         self.optimizer.load_state_dict({
@@ -1040,6 +1270,77 @@ class Trainer:
                 "uses %s — the dropout noise stream will differ from an "
                 "uninterrupted run", saved_impl, self._dropout_impl())
         self._restored_step = step
+
+    # -------------------------------------------------------------- profiler
+    def flops_per_step(self) -> Optional[float]:
+        """The model FLOPs of one step over the global batch (the MFU
+        formula, ``model_flops_per_token``), None before the first batch
+        or without a GPT config."""
+        tokens = getattr(self, "_tokens_per_batch", None)
+        flops = getattr(self, "_flops_per_tok", None)
+        return None if tokens is None or flops is None else tokens * flops
+
+    def _profiler_maybe_start(self) -> None:
+        """Read the ``Profiler`` section (JAX :1476-1484): the window
+        ``scheduler`` [lo, hi] (default [1, 5]) and ``profiler_log``."""
+        prof = self.cfg.get("Profiler") or {}
+        self._prof_enabled = bool(prof.get("enable"))
+        if not self._prof_enabled:
+            return
+        self._prof_window = tuple(prof.get("scheduler") or [1, 5])
+        self._prof_dir = prof.get("profiler_log", "profiler_log")
+        self._prof_run = time.strftime("%Y_%m_%d_%H_%M_%S")
+
+    def _profiler_step(self, step: int) -> None:
+        """After applied step ``step``: open the window at ``lo``, tick,
+        and close it at ``hi`` (JAX :1486-1503)."""
+        if not self._prof_enabled:
+            return
+        lo, hi = self._prof_window
+        if self._prof is None and step >= lo:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+                torch.cuda.synchronize(self.device)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self._prof_ticks = [time.perf_counter()]
+        elif self._prof is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._prof_ticks.append(time.perf_counter())
+        if self._prof is not None and step >= hi:
+            self._prof_enabled = False
+            self._profiler_maybe_stop()
+
+    def _profiler_maybe_stop(self, summary: bool = True) -> None:
+        """Close an open window: write this rank's trace and, on rank 0
+        and unless ``summary`` is False (the preemption path), print the
+        summary views from it (JAX :1505-1525)."""
+        if self._prof is None:
+            return
+        from fleetx_tpu_torch.utils.profiler_summary import (
+            print_summary,
+            trace_path,
+        )
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        path = trace_path(self._prof_dir, self._prof_run, self.mesh.rank)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        self.profiler_trace = path
+        logger.info("profiler trace written to %s", path)
+        if summary and self.primary:
+            ticks = self._prof_ticks
+            print_summary(self, dict(self.cfg.get("Profiler") or {}),
+                          self._prof_dir,
+                          [b - a for a, b in zip(ticks, ticks[1:])],
+                          trace_file=path)
 
     # ------------------------------------------------------------ preemption
     def _install_preemption_handler(self) -> None:

@@ -33,7 +33,7 @@ from fleetx_tpu_torch.utils.device import resolve_device
 
 __all__ = ["init_params", "params_from_jax", "params_from_checkpoint",
            "shard_params", "gather_params", "stage_params", "gather_stages",
-           "local_params"]
+           "local_params", "convert_qkv_layout", "qkv_state_layout"]
 
 
 def _whole(cfg: GPTConfig) -> GPTConfig:
@@ -123,7 +123,9 @@ def params_from_jax(tree, cfg: GPTConfig, mp_rank: int = 0,
     it):
 
     - ``qkv_proj.kernel`` [L, E, nh, 3·hd] (q|k|v per head on the last
-      axis) → ``attn.qkv_proj.weight`` [nh·3·hd, E];
+      axis) → ``attn.qkv_proj.weight`` [nh·3·hd, E]; in the split layout
+      (``fuse_attn_qkv: False``) ``q_proj``/``k_proj``/``v_proj.kernel``
+      [L, E, nh, hd] → ``attn.q_proj.weight`` (and k, v) [nh·hd, E];
     - ``out_proj.kernel`` [L, nh, hd, E] → ``attn.out_proj.weight``
       [E, nh·hd];
     - ``up_proj``/``down_proj.kernel`` [L, in, out] → ``weight`` [out, in];
@@ -143,14 +145,17 @@ def params_from_jax(tree, cfg: GPTConfig, mp_rank: int = 0,
     for i in range(cfg.num_layers):
         pre = f"gpt.layers.{i}."
         attn, mlp = stack["attn"], stack["mlp"]
-        qkv = np.asarray(attn["qkv_proj"]["kernel"][i])
+        for name in ("qkv_proj", "q_proj", "k_proj", "v_proj"):
+            if name in attn:
+                kern = np.asarray(attn[name]["kernel"][i])
+                out[pre + f"attn.{name}.weight"] = t(
+                    kern.reshape(kern.shape[0], -1).T)
+                out[pre + f"attn.{name}.bias"] = t(
+                    np.asarray(attn[name]["bias"][i]).reshape(-1))
         proj = np.asarray(attn["out_proj"]["kernel"][i])
         out.update({
             pre + "norm1.scale": t(stack["norm1"]["scale"][i]),
             pre + "norm1.bias": t(stack["norm1"]["bias"][i]),
-            pre + "attn.qkv_proj.weight": t(qkv.reshape(qkv.shape[0], -1).T),
-            pre + "attn.qkv_proj.bias": t(
-                np.asarray(attn["qkv_proj"]["bias"][i]).reshape(-1)),
             pre + "attn.out_proj.weight": t(
                 proj.reshape(-1, proj.shape[-1]).T),
             pre + "attn.out_proj.bias": t(attn["out_proj"]["bias"][i]),
@@ -166,6 +171,81 @@ def params_from_jax(tree, cfg: GPTConfig, mp_rank: int = 0,
     out["gpt.final_norm.scale"] = t(gpt["final_norm"]["scale"])
     out["gpt.final_norm.bias"] = t(gpt["final_norm"]["bias"])
     return local_params(out, cfg, mp_rank, pp_rank)
+
+
+def convert_qkv_layout(gpt_params: dict, to_fused: bool) -> dict:
+    """The attention projections of a flax-style GPT param tree between
+    the fused layout (``qkv_proj``: kernel [..., embed, heads, 3·kv]) and
+    the split one (``q_proj``/``k_proj``/``v_proj``: kernel [..., embed,
+    heads, kv]), both directions: a numpy copy of the JAX package's
+    ``convert_qkv_layout`` (models/gpt/model.py:930-972), at any nesting
+    depth, scan-stacked ``[L, ...]`` leaves and the biases included."""
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            if k == "qkv_proj" and not to_fused and isinstance(v, dict):
+                kern, bias = v.get("kernel"), v.get("bias")
+                for idx, name in enumerate(("q_proj", "k_proj", "v_proj")):
+                    part = {}
+                    if kern is not None:
+                        part["kernel"] = np.array_split(
+                            np.asarray(kern), 3, axis=-1)[idx]
+                    if bias is not None:
+                        part["bias"] = np.array_split(
+                            np.asarray(bias), 3, axis=-1)[idx]
+                    out[name] = part
+            elif k == "q_proj" and to_fused and isinstance(v, dict):
+                parts = [node[n] for n in ("q_proj", "k_proj", "v_proj")]
+                fused = {}
+                if parts[0].get("kernel") is not None:
+                    fused["kernel"] = np.concatenate(
+                        [np.asarray(pp["kernel"]) for pp in parts], axis=-1)
+                if parts[0].get("bias") is not None:
+                    fused["bias"] = np.concatenate(
+                        [np.asarray(pp["bias"]) for pp in parts], axis=-1)
+                out["qkv_proj"] = fused
+            elif k in ("k_proj", "v_proj") and to_fused:
+                continue  # folded into qkv_proj above
+            else:
+                out[k] = walk(v)
+        return out
+
+    return walk(gpt_params)
+
+
+def qkv_state_layout(params: Dict[str, torch.Tensor], cfg: GPTConfig,
+                     to_fused: bool) -> Dict[str, torch.Tensor]:
+    """A whole model's state dict with its attention projections in the
+    other layout, through :func:`convert_qkv_layout`: each layer's
+    ``qkv_proj`` (or ``q_proj``/``k_proj``/``v_proj``) weight and bias
+    viewed as the flax kernel [E, nh, ·] and bias [nh, ·], converted,
+    and mapped back; every other entry as it is."""
+    nh, hd, e = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
+    names = ("q_proj", "k_proj", "v_proj") if to_fused else ("qkv_proj",)
+    out = {}
+    layers = sorted({int(n.split(".")[2]) for n in params
+                     if n.startswith("gpt.layers.")})
+    for n, v in params.items():
+        if not any(f".attn.{m}." in n for m in names):
+            out[n] = v
+    for i in layers:
+        pre = f"gpt.layers.{i}.attn."
+        tree = {m: {"kernel": params[pre + m + ".weight"].detach().cpu()
+                    .numpy().T.reshape(e, nh, -1),
+                    "bias": params[pre + m + ".bias"].detach().cpu()
+                    .numpy().reshape(nh, -1)} for m in names}
+        for m, leaf in convert_qkv_layout(tree, to_fused).items():
+            like = params[pre + names[0] + ".weight"]
+            out[pre + m + ".weight"] = torch.tensor(
+                leaf["kernel"].reshape(e, -1).T.copy(), dtype=like.dtype,
+                device=like.device)
+            out[pre + m + ".bias"] = torch.tensor(
+                leaf["bias"].reshape(-1), dtype=like.dtype,
+                device=like.device)
+    return out
 
 
 def params_from_checkpoint(step_dir: str, cfg: GPTConfig

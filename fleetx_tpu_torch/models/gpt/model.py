@@ -14,9 +14,10 @@ the modules:
   ``decode_kv_dtype="int8"`` either stores int8 with fp32 scales.
 
 The training forward recomputes each layer in the backward under
-``use_recompute`` with ``recompute_granularity: full`` (the JAX
-``_remat_policy``, :738-760), except the layers in
-``no_recompute_layers``; with ``fused_ce`` and labels,
+``use_recompute`` (the JAX ``_remat_policy``, :738-760), keeping the
+layer's input and the tensors its granularity and
+``recompute_extra_saves`` name (:func:`recompute_policy`), except the
+layers in ``no_recompute_layers``; with ``fused_ce`` and labels,
 :class:`GPTForPretraining` returns per-token losses through the fused
 LM-head cross-entropy (``ops/ce_loss.py``, B4–B6) instead of logits.
 Under ``cp_degree > 1`` the training forward's attention goes around the
@@ -26,17 +27,27 @@ gives the global batch and sequence offsets that the dropout hashes read
 when the batch or the sequence is split over ranks. Under ``mp_degree >
 1`` (tensor parallelism, ``parallel/tensor_parallel.py``) each rank holds
 ``heads/mp`` heads of every attention (the fused qkv rows of its heads,
-the out_proj columns), ``ffn/mp`` columns of every MLP and ``vocab/mp``
-rows of the word embeddings; the activations between the layers are
-replicated over the mp group, and the training forward returns this
-rank's vocab shard of the logits (or, with ``fused_ce``, the per-token
-losses through the vocab-parallel form B12). Under ``pp_degree > 1``
+or its rows of q, k and v, and the out_proj columns), ``ffn/mp`` columns
+of every MLP and ``vocab/mp`` rows of the word embeddings; the
+activations between the layers are replicated over the mp group, or
+under ``sequence_parallel`` split along the sequence (each rank's ``[b,
+s/mp, h]``: the embeddings' output, the LayerNorms, dropouts and
+residuals, the final norm; Megatron sequence parallelism), and the
+training forward returns this rank's vocab shard of the logits (or, with
+``fused_ce``, the per-token losses through the vocab-parallel form B12)
+over the whole sequence. Under ``pp_degree > 1``
 (pipeline parallelism, ``parallel/pipeline.py``) a model is one stage's:
 its chunks of the decoder layers (each layer keeps its global index in
 its name and its dropout seeds), the embeddings on the first stage, the
 final LayerNorm and the tied LM head on the last, which holds its own
 copy of the word embedding; the trainer sums the two copies' gradients.
 Expert parallelism is not here.
+
+The hidden dropouts are the counter hash (``fast_dropout``, the default)
+or flax's threefry ``nn.Dropout`` (``fast_dropout: False``,
+``ops/dropout.FlaxDropout``). ``fuse_attn_qkv: False`` holds q, k and v
+as three column-parallel projections (JAX ``q_proj``/``k_proj``/
+``v_proj``; ``convert.convert_qkv_layout`` maps the trees).
 
 Numerics follow the flax modules at the compute dtype (bf16 by default,
 params fp32):
@@ -76,7 +87,13 @@ from fleetx_tpu_torch.ops.decode_attention import (
     paged_gather_kv,
 )
 from fleetx_tpu_torch.ops.ce_loss import fused_linear_ce
-from fleetx_tpu_torch.ops.dropout import HashDropout, Shard, draw_seed
+from fleetx_tpu_torch.ops.dropout import (
+    FlaxDropout,
+    HashDropout,
+    Shard,
+    draw_key,
+    draw_seed,
+)
 from fleetx_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from fleetx_tpu_torch.parallel.context_parallel import ring_self_attention
 from fleetx_tpu_torch.parallel.mesh import get_mesh
@@ -87,13 +104,15 @@ from fleetx_tpu_torch.parallel.tensor_parallel import (
     RowParallelDense,
     copy_to_mp,
     current_mp_group,
+    gather_from_sequence,
     vocab_parallel_embedding,
 )
 
 __all__ = ["DTYPES", "GPTConfig", "GPTForPretraining", "GPTModel",
            "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm",
            "inference_params", "masked_loss_mean", "pad_starts",
-           "pretraining_loss", "recompute_policy", "token_losses"]
+           "pretraining_loss", "recompute_policy", "sequence_shard",
+           "token_losses", "CHECKPOINT_NAMES"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -118,6 +137,8 @@ class GPTConfig:
     max_position_embeddings: int = 1024
     initializer_range: float = 0.02
     fuse_attn_qkv: bool = True
+    sequence_parallel: bool = False  # at mp > 1: activations split on s
+    fast_dropout: bool = True  # False: flax's threefry nn.Dropout
     use_flash_attention: bool = True
     dtype: torch.dtype = torch.bfloat16  # compute dtype; params fp32
     decode_cache_len: Optional[int] = None
@@ -125,8 +146,8 @@ class GPTConfig:
     decode_page_size: Optional[int] = None
     decode_kv_dtype: Optional[str] = None  # None (compute dtype) | "int8"
     use_recompute: bool = False
-    recompute_granularity: Optional[str] = None  # full (full_attn, core_attn: A4)
-    recompute_extra_saves: Optional[Tuple[str, ...]] = None  # not ported (A4)
+    recompute_granularity: Optional[str] = None  # full | full_attn | core_attn
+    recompute_extra_saves: Optional[Tuple[str, ...]] = None  # CHECKPOINT_NAMES
     no_recompute_layers: Optional[Tuple[int, ...]] = None
     fused_ce: bool = False  # per-token loss through B4–B6, logits never stored
     cp_degree: int = 1  # > 1: attention around the cp ring (zig-zag inputs)
@@ -137,6 +158,11 @@ class GPTConfig:
 
     def __post_init__(self):
         stage_chunks(self.num_layers, self.pp_degree, self.virtual_pp)
+        if self.sp and self.cp_degree > 1:
+            # JAX maps act_seq to ("cp", "mp") (parallel/sharding.py:82)
+            raise NotImplementedError(
+                "Model.sequence_parallel with cp_degree > 1 is not ported "
+                "yet (ROADMAP Queue A, \"Sequence parallel under cp\")")
         mp = self.mp_degree
         for name, size in (("num_attention_heads", self.num_attention_heads),
                            ("ffn_hidden_size", self.ffn_size),
@@ -144,6 +170,12 @@ class GPTConfig:
             if size % mp:
                 raise ValueError(f"{name} {size} does not split over "
                                  f"mp_degree {mp}")
+
+    @property
+    def sp(self) -> bool:
+        """Whether the activations are split along the sequence (Megatron
+        sequence parallelism: the switch at mp > 1)."""
+        return self.sequence_parallel and self.mp_degree > 1
 
     @property
     def head_dim(self) -> int:
@@ -172,10 +204,10 @@ class GPTConfig:
         the JAX ``from_model_config`` does. Keys that are no field of the
         JAX ``GPTConfig`` either (``module``, ``name``, ...) and the JAX
         switches that only lay the model out over devices (``scan_layers``,
-        ``sequence_parallel``, the MoE and pipeline tuning knobs) are
-        ignored; a JAX switch that changes what the model computes and that
-        the port does not implement raises ``NotImplementedError`` at any
-        value but the one the port computes (:data:`UNPORTED`)."""
+        the MoE and pipeline tuning knobs) are ignored; a JAX switch that
+        changes what the model computes and that the port does not
+        implement raises ``NotImplementedError`` at any value but the one
+        the port computes (:data:`UNPORTED`)."""
         model_cfg = dict(model_cfg)
         for key, (computes, item) in UNPORTED.items():
             value = model_cfg.get(key)
@@ -202,9 +234,6 @@ class GPTConfig:
 # those values), and the title of the ROADMAP Queue A item that ports the
 # rest
 UNPORTED = {
-    # False: flax nn.Dropout
-    "fast_dropout": (lambda v: v is True,
-                     "Remaining GPT and Trainer switches"),
     "num_experts": (lambda v: v <= 1,
                     "Other families and the rest of the toolkit"),
     "expert_mode": (lambda v: v is False,
@@ -212,27 +241,61 @@ UNPORTED = {
 }
 
 
-def recompute_policy(cfg: GPTConfig) -> Optional[str]:
-    """The training forward's recompute granularity (JAX
-    ``_remat_policy``, :738-760): None without ``use_recompute``, else
-    ``"full"`` (the default): each layer keeps only its input and reruns
-    its forward in the backward. ``full_attn``, ``core_attn`` and
-    ``recompute_extra_saves`` raise ``NotImplementedError`` (ROADMAP
-    Queue A, "Remaining GPT and Trainer switches");
-    another granularity raises ``ValueError``."""
+# every tensor a save-set can name (JAX ``_CHECKPOINT_NAMES``, :733-735),
+# in the order the decoder layer makes them
+CHECKPOINT_NAMES = ("qkv_out", "core_attn_out", "attn_out", "ffn_gelu",
+                    "mlp_out")
+
+
+def recompute_policy(cfg: GPTConfig) -> Optional[frozenset]:
+    """The training forward's save-set (JAX ``_remat_policy``,
+    :738-760): None without ``use_recompute``, else the named tensors each
+    recomputed layer keeps for its backward besides its input:
+
+    - ``full`` (the default): none; the layer reruns its whole forward;
+    - ``full_attn``: ``attn_out``, the attention block's output after
+      out_proj; the backward reruns the attention block (norm1, the q/k/v
+      projection, B1, out_proj) and, from attn_out, the MLP block;
+    - ``core_attn``: ``core_attn_out``, the attention's output before
+      out_proj; the backward reruns norm1, the projection and B1, and
+      from core_attn_out the rest of the layer;
+
+    plus ``recompute_extra_saves`` (any of :data:`CHECKPOINT_NAMES`, on
+    any granularity). The layer's forward is cut into segments at the
+    kept tensors and each segment runs under ``torch.utils.checkpoint``
+    (``DecoderLayer``): a segment's inputs are what is kept. B1's lse is
+    not kept with ``core_attn_out`` (the flash forward's residuals are
+    internal to the kernel's autograd function, as in JAX's custom VJP),
+    so B1 reruns in the backward under every granularity, as under
+    ``full``: 2 launches per layer per microbatch, against 1 without
+    recompute. An unknown save name or granularity raises ``ValueError``."""
     if not cfg.use_recompute:
         return None
     granularity = cfg.recompute_granularity or "full"
-    if granularity in ("full_attn", "core_attn") or cfg.recompute_extra_saves:
-        what = (f"recompute_extra_saves={cfg.recompute_extra_saves!r}"
-                if granularity == "full" else
-                f"recompute_granularity={granularity!r}")
-        raise NotImplementedError(
-            f"Model.{what} is not ported yet (ROADMAP Queue A, \"Remaining "
-            "GPT and Trainer switches\"); the port recomputes at 'full'")
-    if granularity != "full":
+    extra = tuple(cfg.recompute_extra_saves or ())
+    unknown = set(extra) - set(CHECKPOINT_NAMES)
+    if unknown:
+        raise ValueError(
+            f"recompute_extra_saves {sorted(unknown)} match no "
+            f"checkpoint_name site; known: {sorted(CHECKPOINT_NAMES)}")
+    base = {"full": (), "full_attn": ("attn_out",),
+            "core_attn": ("core_attn_out",)}
+    if granularity not in base:
         raise ValueError(f"unknown recompute_granularity {granularity!r}")
-    return granularity
+    return frozenset(base[granularity] + extra)
+
+
+def sequence_shard(shard: Optional[Shard], b: int, s_loc: int, mp: int,
+                   mp_rank: int) -> Shard:
+    """Where this rank's ``[b, s/mp]`` sequence shard lies in the global
+    activation, for the hidden dropouts under sequence parallelism: its
+    rows as ``shard`` places them (all of them when None), positions from
+    ``mp_rank · s/mp``, so that the mask is the slice of the one an
+    unsplit activation draws."""
+    if shard is None:
+        shard = Shard(b0=0, batch=b, s0=0, seq=s_loc * mp)
+    return Shard(b0=shard.b0, batch=shard.batch,
+                 s0=shard.s0 + mp_rank * s_loc, seq=shard.seq)
 
 
 def _param(*shape, device) -> nn.Parameter:
@@ -259,25 +322,78 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Fused-qkv self-attention: causal over the call's own tokens (the
-    JAX ``SelfAttention`` no-cache branch, model.py:310-332) or over the
+    """Self-attention: causal over the call's own tokens (the JAX
+    ``SelfAttention`` no-cache branch, model.py:310-332) or over the
     decode cache (its decode branch, :213-286): single-query steps go to
     the decode kernels — B7/B9 on the contiguous cache, B8/B10 on the
-    paged pool — and every other cached call to the dense masked path."""
+    paged pool — and every other cached call to the dense masked path.
+    The projection is one fused qkv (``fuse_attn_qkv``) or q, k and v
+    apart (JAX :202-210); the cache holds K and V either way."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
-        if not cfg.fuse_attn_qkv:
-            raise ValueError("the port serves the fused-qkv layout only; "
-                             "fuse the q/k/v kernels before conversion")
         self.cfg = cfg
         nh, hd, e = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
-        mp = cfg.mp_degree
-        # a heads shard of the fused qkv is a contiguous block of rows:
-        # each head's q | k | v rows are adjacent
-        self.qkv_proj = ColumnParallelDense(e, nh * 3 * hd, mp, cfg.dtype,
-                                            device)
-        self.out_proj = RowParallelDense(nh * hd, e, mp, cfg.dtype, device)
+        mp, sp = cfg.mp_degree, cfg.sp
+        if cfg.fuse_attn_qkv:
+            # a heads shard of the fused qkv is a contiguous block of rows:
+            # each head's q | k | v rows are adjacent
+            self.qkv_proj = ColumnParallelDense(e, nh * 3 * hd, mp,
+                                                cfg.dtype, device, sp)
+        else:
+            self.q_proj = ColumnParallelDense(e, nh * hd, mp, cfg.dtype,
+                                              device, sp)
+            self.k_proj = ColumnParallelDense(e, nh * hd, mp, cfg.dtype,
+                                              device, sp)
+            self.v_proj = ColumnParallelDense(e, nh * hd, mp, cfg.dtype,
+                                              device, sp)
+        self.out_proj = RowParallelDense(nh * hd, e, mp, cfg.dtype, device,
+                                         sp)
+
+    def qkv(self, x: torch.Tensor):
+        """``(q, k, v)`` [b, s, heads/mp, d] of ``x`` [b, s(/mp), E] (the
+        JAX ``qkv_out``; under sequence parallelism over the gathered
+        sequence)."""
+        hd = self.cfg.head_dim
+        if self.cfg.fuse_attn_qkv:
+            qkv = self.qkv_proj(x)
+            b, s = qkv.shape[:2]
+            # per head the last axis holds q | k | v (flax [E, nh, 3hd])
+            return qkv.view(b, s, -1, 3 * hd).split(hd, dim=-1)
+        x = self.q_proj.take_input(x)  # one gather (or copy) for all three
+        b, s = x.shape[:2]
+        return tuple(Dense.forward(proj, x).view(b, s, -1, hd)
+                     for proj in (self.q_proj, self.k_proj, self.v_proj))
+
+    def core(self, q, k, v, *, deterministic=True,
+             seed: Optional[int] = None, shard: Optional[Shard] = None,
+             kv_mask=None) -> torch.Tensor:
+        """Causal attention of the training forward (the JAX
+        ``core_attn_out``), with attention dropout (unless
+        ``deterministic``) keyed on the int32 ``seed`` and the global batch
+        row ``shard.b0 + b``; under ``cp_degree > 1`` around the cp ring,
+        q, k, v being this rank's zig-zag share of the sequence (JAX
+        model.py:287-305)."""
+        cfg = self.cfg
+        nh_loc = q.shape[2]
+        rate = cfg.attention_probs_dropout_prob
+        b0 = 0 if shard is None else shard.b0
+        # the global id of this rank's first head keys the dropout hash,
+        # as JAX ``_sharded_flash`` builds its meta (:906-950)
+        h0 = get_mesh().mp_rank * nh_loc
+        nh = cfg.num_attention_heads
+        if cfg.cp_degree > 1:
+            if kv_mask is not None:
+                raise NotImplementedError("context parallelism does not "
+                                          "support a custom attn_mask")
+            return ring_self_attention(
+                q, k, v, causal=True, expected_cp=cfg.cp_degree,
+                dropout_rate=0.0 if deterministic else rate, seed=seed,
+                batch_offset=b0, head_offset=h0, heads_total=nh)
+        return causal_attention(q, k, v, causal=True, dropout_rate=rate,
+                                seed=seed, deterministic=deterministic,
+                                use_flash=cfg.use_flash_attention,
+                                meta=(b0, h0, nh_loc, nh, 0, 0))
 
     def forward(self, x, cache=None, *, cache_index=None,
                 cache_positions=None, block_tables=None, kv_mask=None,
@@ -301,31 +417,11 @@ class SelfAttention(nn.Module):
         (:func:`pad_starts`)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
-        nh_loc = nh // cfg.mp_degree  # this rank's heads under mp
-        # per head the last axis holds q | k | v (flax kernel [E, nh, 3hd])
-        q, k, v = self.qkv_proj(x).view(b, s, nh_loc, 3 * hd).split(hd,
-                                                                    dim=-1)
+        q, k, v = self.qkv(x)
         if cache is None:
-            rate = cfg.attention_probs_dropout_prob
-            b0 = 0 if shard is None else shard.b0
-            # the global id of this rank's first head keys the dropout
-            # hash, as JAX ``_sharded_flash`` builds its meta (:906-950)
-            h0 = get_mesh().mp_rank * nh_loc
-            if cfg.cp_degree > 1:
-                if kv_mask is not None:
-                    raise NotImplementedError("context parallelism does not "
-                                              "support a custom attn_mask")
-                out = ring_self_attention(
-                    q, k, v, causal=True, expected_cp=cfg.cp_degree,
-                    dropout_rate=0.0 if deterministic else rate, seed=seed,
-                    batch_offset=b0, head_offset=h0, heads_total=nh)
-                return self._out_proj(out)
-            out = causal_attention(q, k, v, causal=True, dropout_rate=rate,
-                                   seed=seed, deterministic=deterministic,
-                                   use_flash=cfg.use_flash_attention,
-                                   meta=(b0, h0, nh_loc, nh, 0, 0))
-            return self._out_proj(out)
+            return self._out_proj(self.core(
+                q, k, v, deterministic=deterministic, seed=seed,
+                shard=shard, kv_mask=kv_mask))
         if cfg.mp_degree > 1:
             raise NotImplementedError("the cached (decode) forward under "
                                       "mp_degree > 1 is mesh serving, not "
@@ -478,49 +574,146 @@ class MLP(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
-        mp = cfg.mp_degree
+        mp, sp = cfg.mp_degree, cfg.sp
         self.up_proj = ColumnParallelDense(cfg.hidden_size, cfg.ffn_size, mp,
-                                           cfg.dtype, device)
+                                           cfg.dtype, device, sp)
         self.down_proj = RowParallelDense(cfg.ffn_size, cfg.hidden_size, mp,
-                                          cfg.dtype, device)
+                                          cfg.dtype, device, sp)
+
+    def gelu(self, x: torch.Tensor) -> torch.Tensor:
+        """gelu(up_proj(x)) (the JAX ``ffn_gelu``)."""
+        return F.gelu(self.up_proj(x), approximate="tanh")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.gelu(self.up_proj(x), approximate="tanh"))
+        return self.down_proj(self.gelu(x))
+
+
+def _dropout(cfg: GPTConfig) -> nn.Module:
+    """A hidden dropout: the counter hash, or flax's threefry
+    ``nn.Dropout`` at ``fast_dropout: False`` (JAX ``_dropout``,
+    model.py:656-661)."""
+    if cfg.fast_dropout:
+        return HashDropout(cfg.hidden_dropout_prob)
+    return FlaxDropout(cfg.hidden_dropout_prob)
 
 
 class DecoderLayer(nn.Module):
     """Pre-LN decoder layer: x + drop(attn(norm1(x))), then
-    + drop(mlp(norm2(x)))."""
+    + drop(mlp(norm2(x))).
+
+    The training forward is six stages, the first five ending at the
+    tensor JAX names (``CHECKPOINT_NAMES``): the q/k/v projection
+    (``qkv_out``), attention (``core_attn_out``), out_proj
+    (``attn_out``), the residual then norm2, up_proj and gelu
+    (``ffn_gelu``), down_proj (``mlp_out``), and the MLP dropout; the
+    last residual add follows them. Under recompute the stages run in
+    segments that end at the saved names, each under
+    ``torch.utils.checkpoint``: the backward keeps each segment's inputs —
+    the layer's input and the saved tensors — and reruns the rest."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.norm1 = LayerNorm(cfg.hidden_size, cfg.dtype, device)
         self.attn = SelfAttention(cfg, device)
-        self.attn_dropout = HashDropout(cfg.hidden_dropout_prob)
+        self.attn_dropout = _dropout(cfg)
         self.norm2 = LayerNorm(cfg.hidden_size, cfg.dtype, device)
         self.mlp = MLP(cfg, device)
-        self.mlp_dropout = HashDropout(cfg.hidden_dropout_prob)
+        self.mlp_dropout = _dropout(cfg)
 
     def forward(self, x, cache=None, *, deterministic=True,
                 seeds=(None, None, None), shard: Optional[Shard] = None,
-                **decode):
-        """``seeds``: the int32 dropout seeds of the attention, attn_dropout
-        and mlp_dropout (see :meth:`GPTModel.dropout_seeds`); ``shard``:
-        where x lies in the global activation; ``decode``: the
-        cached-forward keywords of :meth:`SelfAttention.forward`."""
-        attn_seed, attn_drop_seed, mlp_drop_seed = seeds
-        y = self.attn(self.norm1(x), cache, deterministic=deterministic,
-                      seed=attn_seed, shard=shard, **decode)
-        x = x + self.attn_dropout(y, deterministic, seed=attn_drop_seed,
-                                  shard=shard)
-        y = self.mlp(self.norm2(x))
-        return x + self.mlp_dropout(y, deterministic, seed=mlp_drop_seed,
-                                    shard=shard)
+                saves: Optional[frozenset] = None, **decode):
+        """``seeds``: the dropout seeds (keys at ``fast_dropout: False``)
+        of the attention, attn_dropout and mlp_dropout (see
+        :meth:`GPTModel.dropout_seeds`); ``shard``: where x lies in the
+        global activation; ``saves``: the training forward's save-set
+        (:func:`recompute_policy`; None runs it without recompute);
+        ``decode``: the cached-forward keywords of
+        :meth:`SelfAttention.forward`."""
+        if cache is not None:
+            x = x + self.attn(self.norm1(x), cache, **decode)
+            return x + self.mlp(self.norm2(x))
+        ctx = dict(deterministic=deterministic, seeds=seeds, shard=shard)
+        if saves is None:
+            x1, h = self._stages(0, len(_STAGES), x, (), ctx)
+            return x1 + h[0]
+        cuts = [i + 1 for i, name in enumerate(CHECKPOINT_NAMES)
+                if name in saves]
+        bounds = [0] + cuts + [len(_STAGES)]
+        h, x_state = (), x
+        for a, b in zip(bounds, bounds[1:]):
+            if a <= _RESIDUAL:
+                # the layer input goes in (kept anyway); once the residual
+                # stage ran, the segment hands x + drop(attn) out as well
+                out = checkpoint(self._segment, a, b, ctx, x, *h,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+                if b > _RESIDUAL:
+                    x_state, h = out[0], out[1:]
+                else:
+                    h = out
+            else:
+                # past the residual: x + drop(attn) stays outside, its add
+                # needs no saved value
+                h = checkpoint(self._segment, a, b, ctx, None, *h,
+                               use_reentrant=False, preserve_rng_state=False)
+        return x_state + h[0]
+
+    def _segment(self, a: int, b: int, ctx: dict, x, *h):
+        """Stages ``[a, b)`` as one checkpointed function of its inputs:
+        ``(x + drop(attn), *h)`` when the segment ran the residual stage,
+        else ``h``."""
+        x_out, h = self._stages(a, b, x, h, ctx)
+        return (x_out, *h) if a <= _RESIDUAL < b else tuple(h)
+
+    def _stages(self, a: int, b: int, x, h: tuple, ctx: dict):
+        """Run stages ``[a, b)`` of the training forward on the residual
+        stream ``x`` and the branch tensors ``h``; returns ``(x, h)``."""
+        attn_seed, attn_drop_seed, mlp_drop_seed = ctx["seeds"]
+        det, shard = ctx["deterministic"], ctx["shard"]
+        for i in range(a, b):
+            if i == 0:
+                h = tuple(self.attn.qkv(self.norm1(x)))
+            elif i == 1:
+                h = (self.attn.core(*h, deterministic=det, seed=attn_seed,
+                                    shard=shard),)
+            elif i == 2:
+                h = (self.attn._out_proj(h[0]),)
+            elif i == 3:
+                x = x + self.attn_dropout(h[0], det, seed=attn_drop_seed,
+                                          shard=self._hidden_shard(shard,
+                                                                   h[0]))
+                h = (self.mlp.gelu(self.norm2(x)),)
+            elif i == 4:
+                h = (self.mlp.down_proj(h[0]),)
+            else:
+                h = (self.mlp_dropout(h[0], det, seed=mlp_drop_seed,
+                                      shard=self._hidden_shard(shard,
+                                                               h[0])),)
+        return x, h
+
+    def _hidden_shard(self, shard: Optional[Shard], t: torch.Tensor
+                      ) -> Optional[Shard]:
+        """Where a hidden dropout's input ``t`` [b, s(/mp), E] lies in the
+        global activation: ``shard``, or under sequence parallelism this
+        rank's sequence shard of it (:func:`sequence_shard`)."""
+        cfg = self.cfg
+        if not cfg.sp:
+            return shard
+        return sequence_shard(shard, t.shape[0], t.shape[1], cfg.mp_degree,
+                              get_mesh().mp_rank)
+
+
+_STAGES = ("qkv_out", "core_attn_out", "attn_out", "ffn_gelu", "mlp_out",
+           "mlp_dropout")
+_RESIDUAL = 3  # the stage that adds the attention block to the stream
 
 
 class GPTModel(nn.Module):
     """Embeddings, the decoder stack and the final LayerNorm; returns the
-    hidden states [b, s, E] in the compute dtype. Under ``pp_degree > 1``
+    hidden states [b, s, E] in the compute dtype (this rank's [b, s/mp,
+    E] under sequence parallelism). Under ``pp_degree > 1``
     the stage ``pp_rank``'s part of it, its layers keyed by their global
     ids; the training forward of a stage is :meth:`embed`,
     :meth:`run_layers` and ``final_norm``, called by the pipeline's
@@ -529,7 +722,7 @@ class GPTModel(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0):
         super().__init__()
         self.cfg = cfg
-        self.recompute = recompute_policy(cfg)  # raises on unported options
+        self.recompute = recompute_policy(cfg)  # the save-set, or None
         pp = cfg.pp_degree
         first, last = pp_rank == 0, pp_rank == pp - 1
         if first or last:
@@ -541,7 +734,7 @@ class GPTModel(nn.Module):
         if first:
             self.position_embeddings = _param(cfg.max_position_embeddings,
                                               cfg.hidden_size, device=device)
-            self.embed_dropout = HashDropout(cfg.hidden_dropout_prob)
+            self.embed_dropout = _dropout(cfg)
         self.layers = nn.ModuleDict(
             (str(i), DecoderLayer(cfg, device))
             for i in stage_layers(cfg.num_layers, pp, cfg.virtual_pp,
@@ -603,42 +796,58 @@ class GPTModel(nn.Module):
                             deterministic=deterministic, shard=shard)
         return self.final_norm(x)
 
-    def _embed(self, input_ids, position_ids) -> torch.Tensor:
+    def _embed(self, input_ids, position_ids, sp: bool = False
+               ) -> torch.Tensor:
+        """Word plus position embeddings in the compute dtype; with ``sp``
+        this rank's ``[b, s/mp, E]`` part of the sequence (the word rows
+        reduce-scattered, the positions of that part)."""
+        cfg = self.cfg
         words = vocab_parallel_embedding(
             self.word_embeddings, input_ids,
-            current_mp_group(self.cfg.mp_degree))
-        return (words + self.position_embeddings[position_ids]).to(
-            self.cfg.dtype)
+            current_mp_group(cfg.mp_degree), sequence_parallel=sp)
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)[None]
+        if sp:
+            s_loc = words.shape[1]
+            position_ids = position_ids[:, get_mesh().mp_rank * s_loc:][
+                :, :s_loc]
+        return (words + self.position_embeddings[position_ids]).to(cfg.dtype)
 
     def embed(self, input_ids, position_ids, *, deterministic=True,
-              seed: Optional[int] = None,
-              shard: Optional[Shard] = None) -> torch.Tensor:
+              seed=None, shard: Optional[Shard] = None) -> torch.Tensor:
         """The training forward's embeddings (the first stage's): word
         plus position embeddings in the compute dtype, then the embedding
-        dropout keyed on ``seed``."""
-        return self.embed_dropout(self._embed(input_ids, position_ids),
-                                  deterministic, seed=seed, shard=shard)
+        dropout keyed on ``seed``; under sequence parallelism this rank's
+        part of the sequence (a ``seq % mp`` remainder raises
+        ``ValueError``)."""
+        cfg = self.cfg
+        if cfg.sp and input_ids.shape[1] % cfg.mp_degree:
+            raise ValueError(f"sequence parallelism: sequence "
+                             f"{input_ids.shape[1]} does not split over "
+                             f"mp_degree {cfg.mp_degree}")
+        x = self._embed(input_ids, position_ids, sp=cfg.sp)
+        if cfg.sp:
+            shard = sequence_shard(shard, x.shape[0], x.shape[1],
+                                   cfg.mp_degree, get_mesh().mp_rank)
+        return self.embed_dropout(x, deterministic, seed=seed, shard=shard)
 
     def run_layers(self, x, layer_ids, layer_seeds, *, deterministic=True,
                    shard: Optional[Shard] = None) -> torch.Tensor:
         """``x`` through the decoder layers ``layer_ids`` (global ids, in
         order) of the training forward, layer i with ``layer_seeds[i]``,
         each recomputed in the backward under :func:`recompute_policy`
-        unless listed in ``no_recompute_layers``."""
+        unless listed in ``no_recompute_layers``. Under sequence
+        parallelism ``x`` is this rank's sequence shard."""
         skip = set(self.cfg.no_recompute_layers or ())
         for i in layer_ids:
-            layer, seeds = self.layers[str(i)], layer_seeds[i]
-            if self.recompute is None or i in skip:
-                x = layer(x, deterministic=deterministic, seeds=seeds,
-                          shard=shard)
-            else:
-                # the layer draws nothing (its seeds come in), so the
-                # rerun in the backward sees the forward's dropout masks
-                # without saving or restoring any RNG state; under cp the
-                # rerun goes around the ring again, on every rank alike
-                x = checkpoint(layer, x, deterministic=deterministic,
-                               seeds=seeds, shard=shard, use_reentrant=False,
-                               preserve_rng_state=False)
+            # the layer draws nothing (its seeds come in), so a segment
+            # rerun in the backward sees the forward's dropout masks
+            # without saving or restoring any RNG state; under cp and
+            # sequence parallelism its collectives rerun on every rank alike
+            x = self.layers[str(i)](
+                x, deterministic=deterministic, seeds=layer_seeds[i],
+                shard=shard, saves=None if i in skip else self.recompute)
         return x
 
     def dropout_seeds(self, deterministic: bool,
@@ -658,12 +867,18 @@ class GPTModel(nn.Module):
         attention dropout keys each head's bits on its global head id.
         Under pp every stage draws the whole model's seeds, in the order
         one stage would, and keeps its own layers': a pipeline then draws
-        the masks of the unpipelined model at the same accumulation."""
+        the masks of the unpipelined model at the same accumulation. At
+        ``fast_dropout: False`` a hidden site takes a raw threefry key (two
+        uint32 words) instead of a seed; flax's per-module key derivation
+        (``make_rng``) is not copied (ROADMAP Queue C, "Model-level dropout
+        streams")."""
         cfg = self.cfg
 
-        def draw(rate: float, hidden: bool) -> Optional[int]:
+        def draw(rate: float, hidden: bool):
             if deterministic or rate <= 0.0 or (hidden and rate >= 1.0):
                 return None
+            if hidden and not cfg.fast_dropout:
+                return draw_key(generator)  # flax's threefry key
             return draw_seed(generator)
 
         hidden = cfg.hidden_dropout_prob
@@ -703,9 +918,15 @@ class GPTForPretraining(nn.Module):
                 labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The tied head on the final-normed hidden states ``x`` [b, s, E]:
         fp32 logits, or with ``fused_ce`` and labels the per-token losses
-        (the last stage's, under pp)."""
+        (the last stage's, under pp). Under sequence parallelism ``x`` is
+        this rank's [b, s/mp, E] and is all-gathered first: the head and
+        the loss see the whole sequence, and the gather's backward sums
+        dx over the group (in place of ``copy_to_mp``)."""
         emb = self.gpt.word_embeddings.to(self.cfg.dtype)
         group = current_mp_group(self.cfg.mp_degree)
+        sp = self.cfg.sp
+        if sp:
+            x = gather_from_sequence(x, group)
         if labels is not None and self.cfg.fused_ce:
             # JAX model.py:888-899: fp32 per-token losses [b, s] (callers
             # apply the loss mask); the [b, s, vocab] logits never exist.
@@ -715,9 +936,10 @@ class GPTForPretraining(nn.Module):
             # copy_to_mp inside)
             b, s, e = x.shape
             return fused_linear_ce(x.reshape(b * s, e), emb,
-                                   labels.reshape(-1),
-                                   mp_group=group).view(b, s)
-        x = copy_to_mp(x, group)  # each shard's logits give part of dx
+                                   labels.reshape(-1), mp_group=group,
+                                   sequence_parallel=sp).view(b, s)
+        if not sp:
+            x = copy_to_mp(x, group)  # each shard's logits give part of dx
         # compute-dtype operands, fp32 accumulation and result
         if x.is_cuda and x.dtype == torch.bfloat16:
             return _Bf16LMHead.apply(x, emb)

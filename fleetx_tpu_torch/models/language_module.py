@@ -14,7 +14,9 @@ that the trainer's sum of the ranks' gradients over the data group (dp ×
 cp) is the gradient of JAX's ``masked_loss_mean`` over the global batch.
 Under tensor parallelism (``mp_degree``) the ranks of one mp group read
 the same rows and hold one model between them; their loss is the same
-replicated value, through the vocab-parallel logits loss or B12. Under
+replicated value, through the vocab-parallel logits loss or B12 (under
+sequence parallelism each holds its part of the sequence between the
+layers, and the head sees the gathered whole). Under
 pipeline parallelism (``pp_degree``) every stage reads the batch, which
 streams through the stages as ``Engine.accumulate_steps`` microbatches
 (:meth:`GPTModule.pipeline_loss`, JAX :197-203); the loss is JAX's
@@ -271,7 +273,11 @@ class GPTModule(LanguageModule):
             mask = loss_mask[part].float().reshape(token_loss.shape)
             return (token_loss * mask).sum() / count.clamp_min(1.0)
 
-        return self.pipeline.run(n, stage, (mb, seq, gcfg.hidden_size),
+        # under sequence parallelism a stage hands on each mp rank's
+        # [mb, s/mp, h] shard (JAX keeps act_seq on mp through the stages,
+        # parallel/pipeline.py:236, 242)
+        s_loc = seq // gcfg.mp_degree if gcfg.sp else seq
+        return self.pipeline.run(n, stage, (mb, s_loc, gcfg.hidden_size),
                                  gcfg.dtype, tokens.device, train)
 
     @staticmethod

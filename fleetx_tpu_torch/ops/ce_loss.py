@@ -663,7 +663,8 @@ def vp_stats(h: torch.Tensor, w: torch.Tensor, l_loc: torch.Tensor
 
 
 def fused_linear_ce(hidden: torch.Tensor, emb: torch.Tensor,
-                    labels: torch.Tensor, mp_group=None) -> torch.Tensor:
+                    labels: torch.Tensor, mp_group=None,
+                    sequence_parallel: bool = False) -> torch.Tensor:
     """Per-token cross-entropy [n] (fp32) of ``logits = hidden @ embᵀ``
     without storing the logits: ``hidden`` [n, E] and ``emb`` [V, E] of
     one dtype, integer ``labels`` [n]. Differentiable in hidden and emb;
@@ -677,7 +678,9 @@ def fused_linear_ce(hidden: torch.Tensor, emb: torch.Tensor,
     and ``labels`` are global: B12 (:func:`vp_stats` on the shard, the
     shards combined over the group); ``hidden``, replicated, passes
     ``copy_to_mp``, so that dh is summed over the shards, and dW is this
-    rank's shard's."""
+    rank's shard's. Under ``sequence_parallel`` the hidden states come from
+    the sequence all-gather, whose backward sums dh over the group, so
+    they pass as they are."""
     n, v = hidden.shape[0], emb.shape[0]
     if fit_vocab_block(v) is None:
         raise ValueError(
@@ -690,5 +693,7 @@ def fused_linear_ce(hidden: torch.Tensor, emb: torch.Tensor,
         return _FusedLinearCE.apply(hidden.contiguous(), emb.contiguous(),
                                     labels.to(torch.int32).contiguous())
     l_loc = local_labels(labels, v, dist.get_rank(mp_group))
-    lse_loc, lab_loc = vp_stats(copy_to_mp(hidden, mp_group), emb, l_loc)
+    if not sequence_parallel:
+        hidden = copy_to_mp(hidden, mp_group)
+    lse_loc, lab_loc = vp_stats(hidden, emb, l_loc)
     return vocab_parallel_combine(lse_loc, lab_loc, mp_group)

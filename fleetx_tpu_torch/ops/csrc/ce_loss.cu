@@ -415,6 +415,14 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = (168 * kThreads - 128 * kProducerRegs) / (128 * kConsumers) / 8 * 8;
 constexpr uint32_t kABytes = BM * BK * sizeof(bf16);
 constexpr uint32_t kBoxBytes = BK * kBoxN * sizeof(bf16);
+// k-blocks (3072 of the reduction) a fresh accumulator takes before it is
+// added into the tile's running sum. The tensor cores' fp32 accumulation
+// truncates each product group's alignment bits: over a reduction of
+// 12288 (GPT-175B's hidden) a single accumulator drifted beyond CE_TOL of
+// the IEEE sums of the plain version, as cuBLAS's bf16 GEMM does; summed
+// per 3072 and the pieces added in IEEE fp32, the drift stays that of a
+// reduction of 3072 (reductions up to 3072 take one piece, as before)
+constexpr int kPromote = 48;
 
 enum class Epi {
   kDlRows,  // store dl rounded to bf16; rows are tokens row0 + r, columns vocab ids
@@ -433,6 +441,8 @@ struct Args {
   const float* b;
   const int* labels;
   float* partial;      // kStats: [3][ceil(n / BN)][m] max, sum, label logit
+  float* park;         // k > kPromote·BK: each consumer thread's running sum,
+                       // 128 contiguous floats
 };
 
 struct Smem {
@@ -651,17 +661,92 @@ __device__ __forceinline__ void producer(const CUtensorMap& tmA, const CUtensorM
   }
 }
 
+// 16 bytes of a park slot, loaded and stored by volatile asm: the
+// compiler keeps them in program order, so a slot's loads are not hoisted
+// ahead of the others' adds (128 more live registers would spill)
+__device__ __forceinline__ float4 park_ld(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void park_st(float4* p, float x, float y, float z, float w) {
+  asm volatile("st.global.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(x), "f"(y), "f"(z),
+               "f"(w)
+               : "memory");
+}
+
+// whether an epilogue's tiles take their reduction in pieces: the score
+// products s = h·Wᵀ (over the hidden), whose exp the epilogues take; the
+// second products (dl times an operand, kProd) stay in one accumulator,
+// as their bf16 outputs were held at reductions up to 50304 before
+template <Epi kEpi>
+constexpr bool kPieces = kEpi != Epi::kProd;
+
+// the running sum of a tile's accumulator pieces, in the thread's park
+// slot (128 contiguous floats at constant offsets from one pointer): the
+// first piece stored, each later one added in IEEE fp32. The loads go in
+// groups of 8 (in flight together, 32 registers)
+__device__ __forceinline__ void park_add(const float (&d)[128], float4* slot, bool first) {
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      park_st(slot + j, d[4 * j], d[4 * j + 1], d[4 * j + 2], d[4 * j + 3]);
+    return;
+  }
+#pragma unroll
+  for (int g = 0; g < 32; g += 8) {
+    float4 o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = park_ld(slot + g + j);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * (g + j);
+      park_st(slot + g + j, d[i] + o[j].x, d[i + 1] + o[j].y, d[i + 2] + o[j].z,
+              d[i + 3] + o[j].w);
+    }
+  }
+}
+
+// the last piece plus the running sum
+__device__ __forceinline__ void park_settle(float (&d)[128], const float4* slot) {
+#pragma unroll
+  for (int g = 0; g < 32; g += 8) {
+    float4 o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = park_ld(slot + g + j);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * (g + j);
+      d[i] += o[j].x;
+      d[i + 1] += o[j].y;
+      d[i + 2] += o[j].z;
+      d[i + 3] += o[j].w;
+    }
+  }
+}
+
 // a consumer: warpgroup c (thread t of it) multiplies rows 64c .. 64c + 63
-// of each tile and runs the tile's epilogue on its accumulator
+// of each tile and runs the tile's epilogue on its accumulator. For the
+// score products, every kPromote k-blocks the accumulator starts afresh,
+// its piece added into the thread's running sum (park_add)
 template <bool kNMajorB, Epi kEpi>
 __device__ __forceinline__ void consumer(const Args& g, Smem& s, int c, int t, int m_tiles,
                                          int tiles, int kblocks) {
   float d[128];
   int stage = 0;
   uint32_t phase = 0;
+  // the thread's park slot, formed where it is used (a pointer held over
+  // the mainloop would take registers from it)
+  const auto slot = [&]() {
+    return reinterpret_cast<float4*>(g.park) +
+           (static_cast<size_t>(blockIdx.x) * 128 * kConsumers + 128 * c + t) * 32;
+  };
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int mt = tile % m_tiles, nt = tile / m_tiles;
-    int prev = 0;
+    int prev = 0, in_piece = 0;  // k-blocks of the piece so far
     for (int kb = 0; kb < kblocks; ++kb) {
       mbar_wait(&s.full[stage], phase);
       wgmma_fence();
@@ -672,7 +757,7 @@ __device__ __forceinline__ void consumer(const Args& g, Smem& s, int c, int t, i
         const uint64_t da = desc(A + kk * 16, 16, 1024);
         const uint64_t db = kNMajorB ? desc(B + kk * 16 * kBoxN, kBoxBytes, 1024)
                                      : desc(B + kk * 16, 16, 1024);
-        wgmma_m64n256k16<kNMajorB ? 1 : 0>(d, da, db, kb > 0 || kk > 0);
+        wgmma_m64n256k16<kNMajorB ? 1 : 0>(d, da, db, in_piece > 0 || kk > 0);
       }
       wgmma_commit();
       wgmma_wait<1>();  // the previous stage's products are done: release it
@@ -682,10 +767,18 @@ __device__ __forceinline__ void consumer(const Args& g, Smem& s, int c, int t, i
         stage = 0;
         phase ^= 1;
       }
+      ++in_piece;
+      if (kPieces<kEpi> && in_piece == kPromote && kb + 1 < kblocks) {
+        wgmma_wait<0>();  // the piece is complete
+        fence_acc(d);
+        park_add(d, slot(), kb + 1 == kPromote);
+        in_piece = 0;
+      }
     }
     wgmma_wait<0>();  // k > 0: the reduction always has a block
     mbar_arrive(&s.empty[prev]);
     fence_acc(d);
+    if (kPieces<kEpi> && kblocks > kPromote) park_settle(d, slot());
     epilogue<kEpi>(d, s, g, c, mt, nt, t);
   }
 }
@@ -796,8 +889,24 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_
   return hopper::tensor_map_bf16(map, base, 2, dims, strides, box);
 }
 
+// the park slots of a launch of at most `blocks` blocks (kept between
+// launches, grown when a launch needs more)
+float* park_buffer(int blocks) {
+  static float* buf = nullptr;
+  static size_t have = 0;
+  const size_t want = static_cast<size_t>(blocks) * 128 * gemm::kConsumers * 128;
+  if (want > have) {
+    if (buf != nullptr) cudaFree(buf);
+    buf = nullptr;
+    have = 0;
+    if (cudaMalloc(&buf, want * sizeof(float)) != cudaSuccess) return nullptr;
+    have = want;
+  }
+  return buf;
+}
+
 template <typename Kernel>
-int launch_gemm(Kernel kernel, const CUtensorMap& a, const CUtensorMap& b, const gemm::Args& g,
+int launch_gemm(Kernel kernel, const CUtensorMap& a, const CUtensorMap& b, gemm::Args g,
                 cudaStream_t st) {
   const int tiles = ((g.m + gemm::BM - 1) / gemm::BM) * ((g.n + gemm::BN - 1) / gemm::BN);
   if (tiles == 0) return 0;
@@ -809,7 +918,12 @@ int launch_gemm(Kernel kernel, const CUtensorMap& a, const CUtensorMap& b, const
                                gemm::kThreads);
   if (err != 0) return err;
   const int sms = device_int(cudaDevAttrMultiProcessorCount);
-  kernel<<<tiles < sms ? tiles : sms, gemm::kThreads, gemm::kSmemBytes, st>>>(a, b, g);
+  const int blocks = tiles < sms ? tiles : sms;
+  if (g.k > gemm::kPromote * gemm::BK) {
+    g.park = park_buffer(sms);
+    if (g.park == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+  }
+  kernel<<<blocks, gemm::kThreads, gemm::kSmemBytes, st>>>(a, b, g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,6 +10,13 @@ shrink) while the others go on. A rank that raises, dies or outlives
 ``timeout`` stops every rank, and the call raises. No rank outlives the
 call; :data:`last_exitcodes` holds the ranks' exit codes of the last
 call.
+
+A fresh interpreter spends most of its start importing torch and the
+port. :func:`use_forkserver` makes later calls fork their ranks from one
+server process that imported those modules once; each rank still gets
+the caller's environment as it is at the call (a preloaded module read
+its own when the server started). :func:`stop_forkserver` ends the
+server.
 """
 
 from __future__ import annotations
@@ -22,9 +29,30 @@ import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
-__all__ = ["spawn", "free_port", "last_exitcodes"]
+__all__ = ["spawn", "free_port", "last_exitcodes", "stop_forkserver",
+           "use_forkserver"]
 
 last_exitcodes: List[Optional[int]] = []  # of the last spawn, by rank
+_START = {"method": "spawn"}  # how spawn starts its ranks
+
+
+def use_forkserver(preload: Sequence[str]) -> None:
+    """Start the ranks of later calls by forking them from a server
+    process that imports ``preload`` (module names) once, instead of a
+    fresh interpreter each. Nothing may have initialised CUDA in those
+    modules' import."""
+    multiprocessing.set_forkserver_preload(list(preload))
+    _START["method"] = "forkserver"
+
+
+def stop_forkserver() -> None:
+    """End the fork server, if one runs (ranks go back to fresh
+    interpreters)."""
+    from multiprocessing import forkserver
+
+    if _START["method"] == "forkserver":
+        forkserver._forkserver._stop()
+    _START["method"] = "spawn"
 
 
 def free_port() -> int:
@@ -34,7 +62,10 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _rank_main(fn, args, rank, nprocs, port, device, threads, results):
+def _rank_main(fn, args, rank, nprocs, port, device, threads, results,
+               env):
+    os.environ.clear()
+    os.environ.update(env)  # the caller's, as at the call
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(nprocs),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(nprocs),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -62,12 +93,13 @@ def spawn(fn: Callable, nprocs: int, args: Sequence = (), *,
     picklable; ``device`` is where the ranks compute (as for
     ``init_dist_env``: CUDA unless named); ``threads`` > 0 caps each
     rank's intra-op threads."""
-    ctx = multiprocessing.get_context("spawn")
+    ctx = multiprocessing.get_context(_START["method"])
     results = ctx.Queue()
     port = free_port()
+    env = dict(os.environ)
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, tuple(args), rank, nprocs, port, device,
-                               threads, results))
+                               threads, results, env))
              for rank in range(nprocs)]
     for p in procs:
         p.start()

@@ -25,8 +25,27 @@ replicated over the mp group, and
   :func:`vocab_parallel_combine` is also the outside combine of the fused
   form, B12, in ``ops/ce_loss.py``).
 
+Under Megatron sequence parallelism (``Model.sequence_parallel`` at mp >
+1; JAX maps the activations' ``act_seq`` axis to ``mp``,
+``parallel/sharding.py:80-86``) the activations between the
+column-parallel inputs and the row-parallel outputs are split along the
+sequence instead of replicated: each rank holds ``[b, s/mp, h]``, on
+which the LayerNorms, dropouts and residuals run. A column-parallel
+layer all-gathers its input along the sequence
+(:func:`gather_from_sequence`: all-gather forward, reduce-scatter
+backward), a row-parallel layer reduce-scatters its partial products
+(:func:`reduce_scatter_to_sequence`: reduce-scatter forward, all-gather
+backward) and adds its bias to its shard, and the vocab-parallel
+embedding reduce-scatters its rows. :func:`scatter_to_sequence` (split
+forward, all-gather backward) cuts a replicated tensor to this rank's
+shard. The parameters that mp replicates (LayerNorms, row-parallel
+biases, the position table) then see only this rank's positions: their
+gradients are partial and the trainer sums them over the mp group.
+
 Partials are reduced in the dtype they arrive in (bf16 on the card, as
-GSPMD reduces the dot's output). Under mp, every rank computes the same
+GSPMD reduces the dot's output). Over gloo (ranks that share a card) the
+sequence collectives stage tensors on the card through pinned host
+buffers, kept between calls. Under mp, every rank computes the same
 replicated loss and differentiates its own copy: that is why the backward
 of a reduce is the identity and the backward of a copy a sum.
 
@@ -48,9 +67,11 @@ from torch import nn
 from fleetx_tpu_torch.parallel.mesh import get_mesh
 
 __all__ = ["mp_split_axes", "current_mp_group", "copy_to_mp",
-           "reduce_from_mp", "Dense", "ColumnParallelDense",
-           "RowParallelDense", "local_labels", "vocab_parallel_embedding",
-           "vocab_parallel_combine", "vocab_parallel_token_losses"]
+           "reduce_from_mp", "scatter_to_sequence", "gather_from_sequence",
+           "reduce_scatter_to_sequence", "Dense",
+           "ColumnParallelDense", "RowParallelDense", "local_labels",
+           "vocab_parallel_embedding", "vocab_parallel_combine",
+           "vocab_parallel_token_losses"]
 
 
 def mp_split_axes(model: nn.Module) -> Dict[str, int]:
@@ -120,6 +141,157 @@ def reduce_from_mp(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFromMP.apply(x, group)
 
 
+_STAGING: Dict[str, torch.Tensor] = {}  # pinned host buffers, by role
+
+
+def _host(role: str, like: torch.Tensor) -> torch.Tensor:
+    """The pinned host buffer ``role`` (grown when too small) shaped like
+    ``like``."""
+    buf = _STAGING.get(role)
+    if buf is None or buf.numel() < like.numel() or buf.dtype != like.dtype:
+        buf = torch.empty(like.numel(), dtype=like.dtype, pin_memory=True)
+        _STAGING[role] = buf
+    return buf[:like.numel()].view(like.shape)
+
+
+def _collective(op, out: torch.Tensor, src: torch.Tensor, group) -> None:
+    """``op(out, src)`` over ``group``; over gloo with tensors on the card
+    through the pinned host buffers (the copies synchronous, so a buffer
+    is free again when this returns)."""
+    if not (src.is_cuda and dist.get_backend(group) == "gloo"):
+        op(out, src, group=group)
+        return
+    host_src = _host(op.__name__ + ":in", src)
+    host_src.copy_(src)
+    host_out = _host(op.__name__ + ":out", out)
+    op(host_out, host_src, group=group)
+    out.copy_(host_out)
+
+
+def _seq_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` [b, s/mp, ...] of every rank of ``group``, joined along the
+    sequence: [b, s, ...]."""
+    mp = dist.get_world_size(group)
+    x = x.contiguous()
+    flat = torch.empty((mp,) + tuple(x.shape), dtype=x.dtype,
+                       device=x.device)
+    _collective(dist.all_gather_into_tensor, flat.view(-1), x.view(-1),
+                group)
+    b, s = x.shape[:2]
+    return flat.transpose(0, 1).reshape(b, mp * s, *x.shape[2:])
+
+
+def _seq_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x`` [b, s, ...], this rank's part of the
+    sequence: [b, s/mp, ...]."""
+    mp = dist.get_world_size(group)
+    b, s = x.shape[:2]
+    rest = tuple(x.shape[2:])
+    src = x.reshape(b, mp, s // mp, *rest).transpose(0, 1).contiguous()
+    out = torch.empty((b, s // mp) + rest, dtype=x.dtype, device=x.device)
+    _collective(dist.reduce_scatter_tensor, out.view(-1), src.view(-1),
+                group)
+    return out
+
+
+def _seq_split(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's part of the sequence of ``x`` [b, s, ...] (a copy)."""
+    mp, rank = dist.get_world_size(group), dist.get_rank(group)
+    s = x.shape[1] // mp
+    return x.narrow(1, rank * s, s).contiguous()
+
+
+class _ScatterToSequence(torch.autograd.Function):
+    """Split forward; all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _seq_split(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_all_gather(g, ctx.group), None
+
+
+class _GatherFromSequence(torch.autograd.Function):
+    """All-gather forward; reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _seq_all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_reduce_scatter(g, ctx.group), None
+
+
+class _ReduceScatterToSequence(torch.autograd.Function):
+    """Reduce-scatter forward; all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _seq_reduce_scatter(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_all_gather(g, ctx.group), None
+
+
+def _check_seq(x: torch.Tensor, group, what: str) -> None:
+    mp = dist.get_world_size(group)
+    if x.shape[1] % mp:
+        raise ValueError(f"sequence parallelism: {what} sequence "
+                         f"{x.shape[1]} does not split over mp {mp}")
+
+
+def scatter_to_sequence(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's ``[b, s/mp, ...]`` shard of the replicated ``x``; the
+    gradient is all-gathered."""
+    if group is None:
+        return x
+    _check_seq(x, group, "the")
+    return _ScatterToSequence.apply(x, group)
+
+
+def gather_from_sequence(x: torch.Tensor, group) -> torch.Tensor:
+    """The whole ``[b, s, ...]`` from every rank's shard ``x``; the
+    gradient is reduce-scattered (each rank's use of the whole sequence
+    gives part of every shard's gradient)."""
+    if group is None:
+        return x
+    return _GatherFromSequence.apply(x, group)
+
+
+def reduce_scatter_to_sequence(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's shard of the sum over the group of the partials ``x``
+    [b, s, ...] (a row-parallel output); the gradient is all-gathered."""
+    if group is None:
+        return x
+    _check_seq(x, group, "the")
+    return _ReduceScatterToSequence.apply(x, group)
+
+
+class _BiasAdd(torch.autograd.Function):
+    """``y + b`` in y's dtype (b cast to it, as flax adds a bias); the
+    bias's gradient summed over the rows in fp32 and rounded once, so that
+    it is the same whether the rows lie on one rank or are split over the
+    sequence shards (a bf16 round of each shard's partial sum would move
+    its last bits, and through AdamW every later step)."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.b_dtype = b.dtype
+        return y + b.to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = tuple(range(g.dim() - 1))
+        return g, g.float().sum(rows).to(ctx.b_dtype)
+
+
 def _param(*shape, device) -> nn.Parameter:
     # weights come from init_params / params_from_jax, never from here
     return nn.Parameter(torch.empty(*shape, device=device))
@@ -145,16 +317,30 @@ class Dense(nn.Module):
 class ColumnParallelDense(Dense):
     """A :class:`Dense` of ``out_features`` split over ``mp`` ranks: this
     rank's ``out_features / mp`` output rows and their bias. Its input is
-    replicated (:func:`copy_to_mp`); its output is this rank's shard."""
+    replicated (:func:`copy_to_mp`), or under ``sequence_parallel`` this
+    rank's sequence shard, all-gathered (:func:`gather_from_sequence`);
+    its output is this rank's shard of the features over the whole
+    sequence."""
 
     def __init__(self, in_features: int, out_features: int, mp: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None,
+                 sequence_parallel: bool = False):
         super().__init__(in_features, out_features // mp, dtype, device)
         self.mp = mp
+        self.sequence_parallel = sequence_parallel
         self.mp_split = {"weight": 0, "bias": 0}
 
+    def take_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The input as the product reads it: ``x`` through the mp
+        group's collective (a copy, or the sequence all-gather). Layers
+        that share one input (q, k and v) take it once."""
+        group = current_mp_group(self.mp)
+        if self.sequence_parallel:
+            return gather_from_sequence(x, group)
+        return copy_to_mp(x, group)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(copy_to_mp(x, current_mp_group(self.mp)))
+        return super().forward(self.take_input(x))
 
 
 class RowParallelDense(Dense):
@@ -162,12 +348,18 @@ class RowParallelDense(Dense):
     rank's ``in_features / mp`` input columns; the partial products are
     summed over the group, then the replicated bias is added once (adding
     it inside each rank's product would count it mp times). At mp 1 it is
-    a :class:`Dense`."""
+    a :class:`Dense`. Under ``sequence_parallel`` the sum is
+    reduce-scattered along the sequence and the bias added to this rank's
+    shard. Over mp ranks the bias's gradient is summed over the rows in
+    fp32 (:class:`_BiasAdd`): one rounding, with or without the sequence
+    split."""
 
     def __init__(self, in_features: int, out_features: int, mp: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None,
+                 sequence_parallel: bool = False):
         super().__init__(in_features // mp, out_features, dtype, device)
         self.mp = mp
+        self.sequence_parallel = sequence_parallel
         self.mp_split = {"weight": 1}  # the bias is replicated
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -175,7 +367,11 @@ class RowParallelDense(Dense):
         if group is None:
             return super().forward(x)
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-        return reduce_from_mp(y, group) + self.bias.to(self.dtype)
+        if self.sequence_parallel:  # this rank's sequence shard of the sum
+            y = reduce_scatter_to_sequence(y, group)
+        else:
+            y = reduce_from_mp(y, group)
+        return _BiasAdd.apply(y, self.bias)
 
 
 def local_labels(labels: torch.Tensor, v_loc: int, mp_rank: int
@@ -189,16 +385,21 @@ def local_labels(labels: torch.Tensor, v_loc: int, mp_rank: int
 
 
 def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor,
-                             group) -> torch.Tensor:
+                             group, sequence_parallel: bool = False
+                             ) -> torch.Tensor:
     """``table[ids]`` for a table split over ``group`` by vocab rows: each
     rank looks up the ids of its shard (0 for the others) and the rows
-    are summed over the group, which is exact (one non-zero term)."""
+    are summed over the group, which is exact (one non-zero term). Under
+    ``sequence_parallel`` the sum is reduce-scattered: this rank's
+    ``[b, s/mp, E]`` part of the sequence."""
     if group is None:
         return table[ids]
     loc = local_labels(ids, table.shape[0], dist.get_rank(group))
-    rows = table[loc.clamp_min(0).long()]
-    return reduce_from_mp(torch.where((loc >= 0)[..., None], rows, 0.0),
-                          group)
+    rows = torch.where((loc >= 0)[..., None],
+                       table[loc.clamp_min(0).long()], 0.0)
+    if sequence_parallel:
+        return reduce_scatter_to_sequence(rows, group)
+    return reduce_from_mp(rows, group)
 
 
 def vocab_parallel_combine(lse_loc: torch.Tensor, lab_loc: torch.Tensor,

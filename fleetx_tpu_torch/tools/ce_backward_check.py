@@ -3,7 +3,7 @@ checks: the backward kernels B5 (``ce_dh``) and B6 (``ce_dw``) over many
 draws of the cotangent, and the times of all three with B12's forward.
 
     python fleetx_tpu_torch/tools/ce_backward_check.py [--root DIR] \
-        [--seeds 50] [--skip-sweep] [--out FILE]
+        [--seeds 50] [--skip-sweep] [--accumulation] [--out FILE]
 
 - The sweep: the bf16 cases of the CE card tests in
   ``tests/test_torch_cuda.py`` (their shapes and data), each with
@@ -18,6 +18,14 @@ draws of the cotangent, and the times of all three with B12's forward.
   25152, labels over the whole vocab, about half off the shard), CUDA
   events over 10 calls after 2; with the SHA-256 of each forward's
   (loss, lse), so that two trees can be shown to compute the same bits.
+
+- The accumulation (``--accumulation``): B4's lse at 2048 tokens over a
+  vocab shard of 25600, E 2048 and 12288, W ~ N(0, 0.02²) and N(0,
+  0.05²), as its largest ratio to ``CE_TOL``'s stats bound from the lse
+  of an fp64 product, beside the plain version's and cuBLAS's bf16
+  tensor-core GEMM's (fp32 output); and the share of B5's and B6's bf16
+  outputs that move from their plain versions (``grads_gaps``), whose
+  limit is ``CE_TOL``'s 10%.
 
 ``--root`` imports ``fleetx_tpu_torch`` from another checkout, such as an
 earlier commit unpacked by ``git archive``, so that one call can hold two
@@ -172,6 +180,48 @@ def times() -> dict:
     return out
 
 
+def accumulation() -> dict:
+    """The ``--accumulation`` readings by case ("E <hidden> W <std>")."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    n, v = 2048, 25600
+    atol, rtol, _ = ce.CE_TOL[torch.bfloat16]["stats"]
+    out = {}
+    for e in (2048, 12288):
+        for w_std in (0.02, 0.05):
+            g = torch.Generator(device="cuda").manual_seed(0)
+            h = torch.randn(n, e, generator=g, device="cuda").bfloat16()
+            w = (torch.randn(v, e, generator=g, device="cuda")
+                 * w_std).bfloat16()
+            labels = torch.randint(0, v, (n,), generator=g, device="cuda",
+                                   dtype=torch.int32)
+            mask = (torch.rand(n, generator=g, device="cuda") > 0.2).float()
+            a = mask / mask.sum()
+            _, lse = ce.fused_ce_fwd(h, w, labels)
+            _, lse_plain = ce.fused_ce_fwd_ref(h, w, labels)
+            lse64 = torch.logsumexp(h.double() @ w.double().t(), -1)
+            lse_tc = torch.logsumexp(torch.mm(
+                h, w.t(), out_dtype=torch.float32).double(), -1)
+            bound = atol * lse64.abs().max() + rtol * lse64.abs()
+            case = {f"lse_{k}": round(((x.double() - lse64).abs()
+                                       / bound).max().item(), 4)
+                    for k, x in (("kernel", lse), ("plain", lse_plain),
+                                 ("library", lse_tc))}
+            for wrt, fn, ref in (("h", ce.fused_ce_dh, ce.fused_ce_dh_ref),
+                                 ("w", ce.fused_ce_dw, ce.fused_ce_dw_ref)):
+                gaps = ce.grads_gaps(
+                    fn(h, w, labels, a, -a, lse),
+                    ref(h, w, labels, a, -a, lse),
+                    lambda wrt=wrt: ce.kernel_readings(h, w, labels, a, -a,
+                                                       lse, wrt))
+                case["moved_" + ("dh" if wrt == "h" else "dW")] = round(
+                    gaps["moved_share"], 4)
+            out[f"E {e} W {w_std}"] = case
+            del h, w, lse64, lse_tc
+            torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -179,6 +229,7 @@ def main(argv=None) -> int:
         help="checkout whose fleetx_tpu_torch is held (default: this one)")
     ap.add_argument("--seeds", type=int, default=50)
     ap.add_argument("--skip-sweep", action="store_true")
+    ap.add_argument("--accumulation", action="store_true")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -196,6 +247,8 @@ def main(argv=None) -> int:
               "times_ms": times()}
     if not args.skip_sweep:
         result["sweep"] = sweep(args.seeds)
+    if args.accumulation:
+        result["accumulation"] = accumulation()
     line = json.dumps(result)
     print(line)
     if args.out:

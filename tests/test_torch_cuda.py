@@ -1442,3 +1442,134 @@ def test_cuda_zero_checkpoint_reshards_onto_one_rank(tmp_path):
     for r in same + [one]:
         assert (r["step"], r["consumed"]) == (2, 8)
         assert_states_equal(r["state"], saved[0]["state"])
+
+
+@pytest.mark.cuda
+def test_cuda_mp2_sp_trainer_matches_sp_off(tmp_path):
+    """Two train steps of the tiny bf16 GPT at mp 2 with fused_ce and
+    ``core_attn`` recompute on 2 ranks sharing the card, with and without
+    Megatron sequence parallelism: the first loss equal (only the
+    gradients' summation order differs between the layouts), both losses
+    within 1e-3 relative, equal losses and replicated parameters on both
+    ranks of each run, the same launches (B1 twice per layer per step)."""
+    from test_torch_mp_ranks import mp_train_program, spawn_on_card
+
+    _need_card()
+    cfg = _tiny_train_cfg(tmp_path)  # writes the corpus
+    prefix = str(tmp_path / "tiny")
+    root = __file__.rsplit("/tests/", 1)[0]
+    runs = {}
+    for sp in (True, False):
+        over = [f"Data.Train.dataset.input_dir={prefix}",
+                "Model.use_flash_attention=True", "Model.fused_ce=True",
+                "Model.use_recompute=True",
+                "Model.recompute_granularity=core_attn",
+                f"Model.sequence_parallel={sp}",
+                "Engine.mix_precision.use_pure_fp16=True",
+                "Global.local_batch_size=2", "Global.micro_batch_size=2",
+                "Distributed.mp_degree=2", "Optimizer.lr.warmup_steps=0"]
+        runs[sp] = spawn_on_card(
+            mp_train_program, 2,
+            f"{root}/configs/tiny/pretrain_gpt_tiny_cpu.yaml", over, 2, None,
+            "cuda")
+        assert runs[sp][0]["losses"] == runs[sp][1]["losses"]
+        assert runs[sp][0]["replicated"] == runs[sp][1]["replicated"]
+        assert all(np.isfinite(runs[sp][0]["losses"]))
+    on, off = runs[True][0], runs[False][0]
+    assert on["losses"][0] == off["losses"][0]
+    np.testing.assert_allclose(on["losses"], off["losses"], rtol=1e-3)
+    layers = cfg.Model.num_layers
+    assert on["launches"] == off["launches"] == {
+        "flash_fwd": 2 * 2 * layers, "flash_bwd_dq": 2 * layers,
+        "flash_bwd_dkv": 2 * layers, "ce_fwd": 2, "ce_dh": 2, "ce_dw": 2,
+        "vp_ce_fwd": 2, "vp_ce_dh": 2, "vp_ce_dw": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("granularity,extra", [
+    ("full", None), ("full_attn", None), ("core_attn", None),
+    ("full", ("ffn_gelu",)), ("core_attn", ("qkv_out", "mlp_out"))],
+    ids=["full", "full_attn", "core_attn", "full+ffn_gelu",
+         "core_attn+qkv_out+mlp_out"])
+def test_cuda_save_sets_equal_no_recompute(granularity, extra):
+    """The tiny bf16 GPT on the card at dropout 0.1 through the kernels:
+    each save-set's loss and every gradient bit-equal to the run without
+    recompute (the same kernels on the same inputs with the same seeds);
+    B1 launched once per layer without recompute and twice with (its lse
+    is not kept, so it reruns under every save-set)."""
+    import dataclasses
+
+    from fleetx_tpu_torch.models.gpt.convert import init_params
+    from fleetx_tpu_torch.ops import flash_attention as fa
+
+    _need_card()
+    base = gpt_model.GPTConfig(
+        vocab_size=512, hidden_size=256, num_layers=2,
+        num_attention_heads=2, max_position_embeddings=256,
+        dtype=torch.bfloat16)
+    params = init_params(base, seed=3, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 512, (2, 256), generator=gen).cuda()
+    pos = torch.arange(256, device="cuda")[None].expand(2, 256)
+
+    def run(cfg):
+        model = gpt_model.GPTForPretraining(cfg, device="meta")
+        model.load_state_dict({n: t.clone() for n, t in params.items()},
+                              assign=True)
+        before = fa.launches["flash_fwd"]
+        logits = model(ids, pos, deterministic=False,
+                       generator=torch.Generator().manual_seed(1))
+        loss = gpt_model.pretraining_loss(logits, ids, torch.ones_like(ids))
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.detach(), {n: p.grad for n, p in
+                                model.named_parameters()},
+                fa.launches["flash_fwd"] - before)
+
+    ref_loss, ref, ref_b1 = run(base)
+    loss, grads, b1 = run(dataclasses.replace(
+        base, use_recompute=True, recompute_granularity=granularity,
+        recompute_extra_saves=extra))
+    assert (ref_b1, b1) == (base.num_layers, 2 * base.num_layers)
+    assert torch.equal(loss, ref_loss)
+    for n, g in ref.items():
+        assert torch.equal(grads[n], g), n
+
+
+@pytest.mark.cuda
+def test_b12_kernels_at_hidden_12288():
+    """B4-B6 as B12 runs them on a vocab shard at GPT-175B's hidden 12288
+    (labels off the shard at -1, independent a and b), bf16, against their
+    plain versions within CE_TOL (the grads aware of dl's rounding
+    flips), each launched twice with equal bits; B4's lse no further from
+    an fp64 product than cuBLAS's bf16 tensor-core GEMM's. Over a
+    reduction of 12288 a single tensor-core accumulator drifts beyond
+    CE_TOL of the plain version's IEEE sums (the stats at 1.17 times the
+    limit here, before the mainloop summed its accumulator per 3072)."""
+    from fleetx_tpu_torch.ops import ce_loss as ce
+
+    _need_card()
+    n, e, v_loc = 512, 12288, 2 * 1280
+    h, w, labels = ce_case(n, e, 2 * v_loc, dtype=torch.bfloat16, seed=9)
+    l_loc = ce.local_labels(labels, v_loc, 0)
+    shard = w[:v_loc].contiguous()
+    loss, lse = ce.fused_ce_fwd(h, shard, l_loc)
+    again = ce.fused_ce_fwd(h, shard, l_loc)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+    want_loss, want_lse = ce.fused_ce_fwd_ref(h, shard, l_loc)
+    _ce_close(loss, want_loss, torch.bfloat16, "stats")
+    _ce_close(lse, want_lse, torch.bfloat16, "stats")
+    lse64 = torch.logsumexp(h.double() @ shard.double().t(), -1)
+    lse_tc = torch.logsumexp(torch.mm(h, shard.t(), out_dtype=torch.float32)
+                             .double(), -1)
+    assert (lse.double() - lse64).abs().max() <= (lse_tc - lse64).abs().max()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a = torch.rand(n, device="cuda", generator=gen) * 0.8 + 0.1
+    b = -(torch.rand(n, device="cuda", generator=gen) + 0.5)
+    for wrt, fn, ref in (("h", ce.fused_ce_dh, ce.fused_ce_dh_ref),
+                         ("w", ce.fused_ce_dw, ce.fused_ce_dw_ref)):
+        got = _twice(fn, h, shard, l_loc, a, b, lse)
+        want = ref(h, shard, l_loc, a, b, lse)
+        _ce_close(got, want, torch.bfloat16, "grads",
+                  lambda: ce.kernel_readings(h, shard, l_loc, a, b, lse, wrt))

@@ -251,14 +251,12 @@ def test_yaml_config_matches_jax_loader():
     assert with_dtype.dtype == torch.float32
 
 
-SWITCHES = "Remaining GPT and Trainer switches"
 FAMILIES = "Other families and the rest of the toolkit"
 
 
 # the ids name the items as ROADMAP numbered them when these cases were
 # written
 @pytest.mark.parametrize("key,value,item", [
-    pytest.param("fast_dropout", False, SWITCHES, id="fast_dropout-False-A4"),
     pytest.param("num_experts", 8, FAMILIES, id="num_experts-8-A8"),
     pytest.param("expert_mode", True, FAMILIES, id="expert_mode-True-A8")])
 def test_config_raises_on_switches_the_port_does_not_compute(key, value,
@@ -307,11 +305,16 @@ def test_config_reads_pp_degrees_like_jax(pp, v):
 def test_config_ignores_layout_switches_and_reads_recompute_keys():
     """Layout switches (and keys that are no JAX field) load and change
     nothing; the recompute and fused-CE keys become fields, lists as
-    tuples as the JAX loader makes them."""
+    tuples as the JAX loader makes them. ``sequence_parallel`` and
+    ``fast_dropout`` are fields too, read as JAX reads them."""
     base = GPTConfig.from_model_config(TINY)
     assert GPTConfig.from_model_config(
-        {**TINY, "scan_layers": False, "sequence_parallel": True,
-         "moe_dispatch": "scatter", "module": "GPTModule"}) == base
+        {**TINY, "scan_layers": False, "moe_dispatch": "scatter",
+         "module": "GPTModule"}) == base
+    for key, value in (("sequence_parallel", True), ("fast_dropout", False)):
+        got = GPTConfig.from_model_config({**TINY, key: value})
+        assert getattr(got, key) == value == getattr(
+            JaxGPTConfig.from_model_config({**TINY, key: value}), key)
     cfg = GPTConfig.from_model_config(
         {**TINY, "use_recompute": True, "recompute_granularity": "full",
          "no_recompute_layers": [0], "fused_ce": True,
@@ -326,24 +329,23 @@ def test_config_ignores_layout_switches_and_reads_recompute_keys():
     assert cfg.no_recompute_layers == (0,)
 
 
-SWITCHES_MATCH = re.escape(f'ROADMAP Queue A, "{SWITCHES}"')
-
-
 @pytest.mark.parametrize("granularity,extra,error,match", [
-    pytest.param("full_attn", None, NotImplementedError, SWITCHES_MATCH,
-                 id="full_attn-None-NotImplementedError-ROADMAP A4"),
-    pytest.param("core_attn", None, NotImplementedError, SWITCHES_MATCH,
-                 id="core_attn-None-NotImplementedError-ROADMAP A4"),
-    pytest.param("full", ("qkv_out",), NotImplementedError, SWITCHES_MATCH,
-                 id="full-extra2-NotImplementedError-ROADMAP A4"),
+    pytest.param("full_attn", None, None, {"attn_out"},
+                 id="full_attn-None-saves-attn_out"),
+    pytest.param("core_attn", None, None, {"core_attn_out"},
+                 id="core_attn-None-saves-core_attn_out"),
+    pytest.param("full", ("qkv_out",), None, {"qkv_out"},
+                 id="full-extra-saves-qkv_out"),
     ("bogus", None, ValueError, "unknown recompute_granularity"),
-    (None, None, None, None), ("full", None, None, None)])
+    ("full", ("qkv",), ValueError, "match no checkpoint_name site"),
+    (None, None, None, set()), ("full", None, None, set())])
 def test_recompute_policy_branches(granularity, extra, error, match):
-    """``full`` (the default granularity) is ported; the other JAX
-    granularities and extra saves raise naming the item "Remaining GPT and
-    Trainer switches", an unknown one raises
-    ValueError as JAX's ``_remat_policy`` does; without use_recompute the
-    granularity is not read."""
+    """Every JAX granularity is ported: ``full`` (the default) keeps no
+    named tensor, ``full_attn`` keeps ``attn_out``, ``core_attn``
+    ``core_attn_out``, and ``recompute_extra_saves`` add to any of them;
+    an unknown granularity or save name raises ValueError as JAX's
+    ``_remat_policy`` does; without use_recompute the granularity is not
+    read."""
     from fleetx_tpu_torch.models.gpt.model import GPTModel, recompute_policy
 
     kw = dict(TINY, recompute_granularity=granularity,
@@ -353,7 +355,7 @@ def test_recompute_policy_branches(granularity, extra, error, match):
     GPTModel(off, device="meta")
     on = GPTConfig(**kw, use_recompute=True)
     if error is None:
-        assert recompute_policy(on) == "full"
+        assert recompute_policy(on) == frozenset(match)
         GPTModel(on, device="meta")
     else:
         with pytest.raises(error, match=match):
