@@ -235,6 +235,44 @@ decode steps after phase 10):
                loss limit of an uninterrupted 1-rank run; the checkpoint
                loaded at one rank equals its reload on the 2-rank mesh
                tensor for tensor and in meta.
+32. kernels-175b — B1-B3 and B12's kernels at GPT-175B's mp 2 shapes
+               against their plain versions, with planted faults, kernel,
+               plain, library and bound times;
+33. switches-1.3b — the GPT and Trainer switches at GPT-1.3B's width, 4
+               layers: the recompute save-sets against no recompute, the
+               unfused q/k/v, flax dropout, Momentum/SGD, the clips and the
+               bf16 moments;
+34. train-175b-sp — ``tools/train.py`` on the 175B yaml at mp 2 x Megatron
+               sequence parallel, one layer at full width, on 2 ranks
+               sharing the card, against the same drive without SP;
+35. slot-serving — phase 4's requests through the slot cache
+               (``paged=False``): every decode tick launches B7 once per
+               layer and no other decode kernel, nothing leaks; the same
+               requests with B7's plain version: the first decode tick's
+               logits within LOGIT_TOL, the greedy common-prefix fraction
+               logged; then at int8 KV through B9; the launch gate one tick
+               short and the logits gate on rolled rows must break;
+36. chunked  — chunked prefill (chunk 128, ``cache_len`` 1024), paged (B8)
+               and slot (B7), over two prompts of 900 tokens and six of
+               40-64, each against its unchunked engine: at most one
+               prefill-shaped call per tick, every active stream one token
+               on each tick with a prompt mid-prefill, first-token logits
+               within LOGIT_TOL, launches once per layer of each decode
+               forward, nothing leaks; the longest tick and the short
+               streams' TPOT p50/p99 logged; the unchunked run, an engine
+               that skips decode on chunk ticks, and the other long
+               prompt's logits must each break a gate;
+37. spec     — speculative decoding at k 4 on the paged engine, the n-gram
+               proposer on prompts repeating a 32-token pattern and the
+               self-draft proposer, at bf16 and at int8 KV: where a greedy
+               stream parts from the plain engine's, the plain top-2 logit
+               gap there lies within LOGIT_TOL, as does every self-draft
+               rejection's; B8 (B10) launched once per layer of each plain
+               tick, B7 once per layer of each single-token draft forward;
+               a seeded sampling run repeats; acceptance rate, tokens per
+               verify, verify ms and TPOT against the plain engine logged;
+               an engine accepting every draft, the n-gram rejections, a
+               draft step short and another seed must each break a gate.
 
 Every drive writes into an output directory of its own, deleted with its
 phase. The script is the reaper of every process it starts, also of those
@@ -635,17 +673,24 @@ def serving_requests(vocab: int, seed: int = 0) -> list:
             for i, p in enumerate(prompts)]
 
 
-def build_engine(kv_dtype=None):
-    """A ServingEngine at GPT-345M width (24 layers, hidden 1024, 16 heads
-    of 64, vocab 50304) with random weights from seed 0, bf16 compute and
-    bf16 (or ``kv_dtype``) KV pools."""
+def serving_config() -> tuple:
+    """GPT-345M's config (24 layers, hidden 1024, 16 heads of 64, vocab
+    50304, bf16 compute) and its generation knobs."""
     conf = get_config(CONFIG)
-    cfg = GPTConfig.from_model_config(conf.Model)
-    gen_cfg = GenerationConfig.from_config(conf.Generation)
-    params = init_params(cfg, seed=0)
+    return (GPTConfig.from_model_config(conf.Model),
+            GenerationConfig.from_config(conf.Generation))
+
+
+def build_engine(kv_dtype=None, params=None, **kw):
+    """A ServingEngine at GPT-345M width with random weights from seed 0
+    (or ``params``), 8 lanes of 1024 positions, 16-position pages, bf16
+    (or ``kv_dtype``) KV; ``kw`` sets further engine switches."""
+    cfg, gen_cfg = serving_config()
+    if params is None:
+        params = init_params(cfg, seed=0)
+    kw = dict(dict(slots=8, page_size=16, cache_len=1024), **kw)
     engine = ServingEngine(GPTForPretraining(cfg, device="meta"), params,
-                           slots=8, page_size=16, cache_len=1024,
-                           gen_cfg=gen_cfg, kv_dtype=kv_dtype)
+                           gen_cfg=gen_cfg, kv_dtype=kv_dtype, **kw)
     del params
     return engine, cfg
 
@@ -680,6 +725,7 @@ def phase_serving(engine, cfg, phase: str = "serving") -> dict:
     serve(engine, [dict(prompt=np.arange(40), max_length=4)])  # warm-up
     engine.metrics = ServingMetrics(engine.slots)
     engine.publish_quant_metrics()
+    seen = watch_forwards(engine)
     zero_launches()
     results, ticks, seconds = serve(engine, requests)
     counts = dict(da.launches)
@@ -711,9 +757,11 @@ def phase_serving(engine, cfg, phase: str = "serving") -> dict:
             raise AssertionError(f"request {r.id} emitted {r.tokens}")
     if snap["prefix_hits"] < 1:
         raise AssertionError("the shared 64-token prefix was not reused")
-    if launches != ticks * cfg.num_layers:
-        raise AssertionError(f"{launches} kernel launches over {ticks} "
-                             f"decode ticks x {cfg.num_layers} layers")
+    # a speculative engine's verify ticks launch no decode kernel
+    launch_gate(name, launches, seen["decode"], cfg.num_layers)
+    if not engine.spec and seen["decode"] != ticks:
+        raise AssertionError(f"{seen['decode']} decode forwards in {ticks} "
+                             "ticks")
     if engine.cache_manager.pages_in_use:
         raise AssertionError(f"{engine.cache_manager.pages_in_use} pages "
                              "leaked after the drain")
@@ -5392,6 +5440,520 @@ def phase_train_175b_sp(prefix: str) -> dict:
     return per_step["on"]
 
 
+# ------------------------------------------------------------ phases 35-37
+# the serving engine's slot cache, chunked prefill and speculative decoding
+# at GPT-345M width, full depth (24 layers)
+
+CHUNK = 128          # phase 36's prefill chunk
+SPEC_K = 4           # phase 37's draft length
+
+
+def launch_gate(what: str, launches: int, forwards: int, layers: int) -> None:
+    """A decode kernel launched once per layer of each single-token forward
+    of the path, and nowhere else."""
+    if launches != forwards * layers:
+        raise AssertionError(f"{what}: {launches} launches over {forwards} "
+                             f"single-token forwards x {layers} layers")
+
+
+def must_break(gate, *args, label: str) -> None:
+    """A planted fault must make ``gate`` raise."""
+    try:
+        gate(*args)
+    except AssertionError as exc:
+        log(_CLOCK["phase"], planted_fault=label, caught=str(exc)[:120])
+        return
+    raise AssertionError(f"the planted fault {label!r} passed its gate")
+
+
+def watch_forwards(engine) -> dict:
+    """Wrap the engine's executor: count its single-token (decode) and
+    prefill-shaped forwards, and keep the logits of its first decode
+    forward (``first``, cleared by the caller after a warm-up)."""
+    seen = {"decode": 0, "prefill": 0, "first": []}
+    forward = engine.executor.forward
+
+    def counted(cache, ids, *args, **kw):
+        logits, cache = forward(cache, ids, *args, **kw)
+        if ids.shape[1] == 1:
+            seen["decode"] += 1
+            if not seen["first"]:
+                seen["first"].append(logits[:, -1].float().clone())
+        else:
+            seen["prefill"] += 1
+        return logits, cache
+
+    engine.executor.forward = counted
+    return seen
+
+
+def watch_samples(engine) -> dict:
+    """Wrap ``engine._sample``: per request, the logits row each of its
+    tokens came from (first token: ``rows[rid][0]``) and the gap between
+    the row's two largest logits."""
+    rows, gaps = {}, {}
+    sample = engine._sample
+
+    def kept(reqs, logits):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        for i, r in enumerate(reqs):
+            if not r.tokens:
+                rows[r.id] = logits[i].float().clone()
+            gaps.setdefault(r.id, []).append(float(top[i, 0] - top[i, 1]))
+        return sample(reqs, logits)
+
+    engine._sample = kept
+    return {"rows": rows, "gaps": gaps}
+
+
+def tpot_ms(results, ids=None) -> list:
+    """Per-request decode ms per token after the first."""
+    return [(r.latency_s - r.ttft_s) / (len(r.tokens) - 1) * 1e3
+            for rid, r in results.items()
+            if len(r.tokens) > 1 and (ids is None or rid in ids)]
+
+
+def quantiles(xs, qs=(50, 99)) -> list:
+    return [float(np.percentile(xs, q)) for q in qs] if xs else [None] * 2
+
+
+def drained(engine, what: str) -> None:
+    """Nothing leaks after a drain: every lane free, no page held, the
+    manager's invariants hold."""
+    manager = engine.cache_manager
+    if manager.free_count != engine.slots or (
+            engine.paged and manager.pages_in_use):
+        raise AssertionError(f"{what}: {manager.active_count} lanes, "
+                             f"{getattr(manager, 'pages_in_use', 0)} pages "
+                             "held after the drain")
+    manager.check_invariants()
+
+
+def logits_gate(what: str, got, want) -> float:
+    err = (got - want).abs().max().item()
+    if not (math.isfinite(err) and err <= LOGIT_TOL):
+        raise AssertionError(f"{what}: logits differ by {err}")
+    return err
+
+
+def phase_slot_serving(params, cfg) -> dict:
+    """Phase 35: phase 4's requests through the slot cache (``paged=False``)
+    — every decode tick launches B7 once per layer and no other decode
+    kernel, nothing leaks — then through an engine whose B7 is its plain
+    version: the first decode tick's logits agree within LOGIT_TOL and the
+    greedy common-prefix fraction is reported; then at int8 KV (B9). The
+    launch gate given one tick short and the logits gate given the plain
+    run's rows rolled by one must each break."""
+    requests = serving_requests(cfg.vocab_size)
+    greedy_ids = [i for i, r in enumerate(requests)
+                  if r["decode_strategy"] == "greedy"]
+    out, firsts, streams = {}, {}, {}
+    for label, kv, attention in (
+            ("kernel", None, da.decode_attention),
+            ("plain", None, da.decode_attention_ref),
+            ("int8", "int8", da.decode_attention)):
+        engine, _ = build_engine(kv, params=params, paged=False)
+        gpt_model.decode_attention = attention
+        try:
+            serve(engine, [dict(prompt=np.arange(40), max_length=4)])
+            seen = watch_forwards(engine)
+            seen["first"].clear()
+            seen["decode"] = 0
+            zero_launches()
+            results, ticks, seconds = serve(engine, requests)
+        finally:
+            gpt_model.decode_attention = da.decode_attention
+        counts = dict(da.launches)
+        drained(engine, f"slot {label}")
+        name = "decode_q8" if kv else "decode"
+        launches = counts.pop(name) if label != "plain" else 0
+        tokens = sum(len(r.tokens) for r in results.values())
+        log("slot-serving", run=label, kv_dtype=engine.kv_dtype,
+            requests=len(results), tokens=tokens, decode_ticks=ticks,
+            kernel=name, kernel_launches=launches,
+            tokens_per_s=tokens / seconds, seconds=seconds,
+            ttft_ms_p50=float(np.median([r.ttft_s for r in
+                                         results.values()])) * 1e3,
+            tpot_ms_p50=float(np.median(tpot_ms(results))),
+            finish_reasons=engine.metrics.snapshot()["finish_reasons"])
+        if any(counts.values()):
+            raise AssertionError(f"slot {label}: other decode kernels "
+                                 f"launched: {counts}")
+        if len(results) != len(requests):
+            raise AssertionError(f"slot {label}: {len(results)} results")
+        for r in results.values():
+            if not (len(r.tokens) and r.tokens.min() >= 0
+                    and r.tokens.max() < cfg.vocab_size):
+                raise AssertionError(f"request {r.id} emitted {r.tokens}")
+        if label != "plain":
+            launch_gate(f"slot {label}", launches, seen["decode"],
+                        cfg.num_layers)
+            if seen["decode"] != ticks:
+                raise AssertionError(f"{seen['decode']} decode forwards in "
+                                     f"{ticks} ticks")
+            out[name] = {"launches": launches, "ticks": ticks}
+        firsts[label] = seen["first"][0]
+        streams[label] = [results[rid] for rid in sorted(results)]
+        del engine
+    err = logits_gate("slot first tick", firsts["kernel"], firsts["plain"])
+    agree = [common_prefix(streams["kernel"][i].tokens,
+                           streams["plain"][i].tokens)
+             / len(streams["plain"][i].tokens) for i in greedy_ids]
+    log("slot-serving", first_tick_logits_max_abs_err=err, tol=LOGIT_TOL,
+        greedy_common_prefix_frac=float(np.mean(agree)),
+        per_request=[round(a, 3) for a in agree])
+    must_break(launch_gate, "slot kernel", out["decode"]["launches"]
+               - cfg.num_layers, out["decode"]["ticks"], cfg.num_layers,
+               label="one tick through the plain version")
+    must_break(logits_gate, "slot first tick", firsts["kernel"],
+               firsts["plain"].roll(1, 0), label="rows rolled by one")
+    return out
+
+
+def chunked_requests(vocab: int, seed: int = 5) -> list:
+    """Six greedy prompts of 40-64 tokens asking 64 new tokens, and two of
+    900 asking 16, in the order short, short, short, long, short, short,
+    short, long: the long prompts arrive while short streams decode."""
+    rng = np.random.RandomState(seed)
+    lengths = [40, 52, 64, 900, 44, 58, 61, 900]
+    return [dict(prompt=rng.randint(0, vocab, n),
+                 max_length=16 if n == 900 else MAX_NEW, min_length=0,
+                 decode_strategy="greedy") for n in lengths]
+
+
+def chunk_run(params, paged: bool, chunk: int, requests,
+              fault: bool = False) -> dict:
+    """Serve ``requests`` through one engine, tick by tick, recording per
+    tick its prefill-shaped calls, its wall time and, on ticks that start
+    with a prompt mid-prefill, each active stream's token gain.
+    ``fault``: decode skipped on every tick that runs a chunk (a planted
+    stall), for at most 12 ticks."""
+    engine, cfg = build_engine(params=params, paged=paged,
+                               prefill_chunk=chunk)
+    seen = watch_forwards(engine)
+    samples = watch_samples(engine)
+    if fault:
+        run_chunk, tick = engine._chunk_tick, engine._tick_decode
+        state = {"chunked": False}
+
+        def chunk_tick():
+            state["chunked"] = True
+            return run_chunk()
+
+        def tick_decode():
+            if state.pop("chunked", False):
+                return []
+            return tick()
+
+        engine._chunk_tick, engine._tick_decode = chunk_tick, tick_decode
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in requests:
+        engine.submit(**r)
+    per_tick, gains, ticks = [], [], 0
+    while engine.scheduler.queue_depth or engine._active or \
+            engine._prefilling:
+        before = ({r.id: len(r.tokens) for r in engine._active.values()}
+                  if engine._prefilling else {})
+        reqs = list(engine._active.values())
+        prefills = seen["prefill"]
+        t = time.perf_counter()
+        summary = engine.step()
+        per_tick.append((seen["prefill"] - prefills,
+                         time.perf_counter() - t))
+        ticks += summary["decoded"] > 0
+        gains.extend(len(r.tokens) - before[r.id] for r in reqs
+                     if r.id in before)
+        if fault and len(per_tick) >= 12:
+            break
+    results = engine.drain() if not fault else {}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not fault:
+        drained(engine, f"chunked paged={paged} chunk={chunk}")
+    snap = engine.metrics.snapshot()
+    return dict(results=results, per_tick=per_tick, gains=gains,
+                ticks=ticks, seconds=seconds, decode_forwards=seen["decode"],
+                launches=dict(da.launches), first_rows=samples["rows"],
+                prefill_chunks=snap["prefill_chunks"],
+                stall_ms_max=snap["prefill_stall_ms_max"],
+                layers=cfg.num_layers)
+
+
+def one_call_gate(run) -> None:
+    worst = max(n for n, _ in run["per_tick"])
+    if worst > 1:
+        raise AssertionError(f"a tick made {worst} prefill-shaped calls")
+
+
+def stall_gate(run) -> None:
+    if not run["gains"] or set(run["gains"]) != {1}:
+        raise AssertionError(f"active streams gained "
+                             f"{sorted(set(run['gains']))} tokens on ticks "
+                             "with a prompt mid-prefill")
+
+
+def phase_chunked(params, cfg) -> dict:
+    """Phase 36: chunked prefill, paged (B8) and slot (B7), ``prefill_chunk``
+    128, ``cache_len`` 1024, over :func:`chunked_requests`, each against the
+    same engine unchunked. Gates: at most one prefill-shaped call per tick;
+    every active stream gains one token on each tick that starts with a
+    prompt mid-prefill; each request's first-token logits (the final
+    chunk's) within LOGIT_TOL of the unchunked engine's; the decode kernel
+    launched once per layer of each decode forward; nothing leaks.
+    Recorded: the longest tick, and TPOT p50/p99 of the short streams,
+    chunked against unchunked. Planted: the unchunked run through the
+    one-call gate, a chunked engine that skips decode on chunk ticks
+    through the stall gate, and the first long prompt's logits against the
+    second's, must each break."""
+    requests = chunked_requests(cfg.vocab_size)
+    short = {i for i, r in enumerate(requests) if len(r["prompt"]) < 900}
+    longs = sorted(set(range(len(requests))) - short)
+    out = {}
+    for paged in (True, False):
+        name = "paged_decode" if paged else "decode"
+        runs = {c: chunk_run(params, paged, c, requests) for c in (0, CHUNK)}
+        one, base = runs[CHUNK], runs[0]
+        one_call_gate(one)
+        stall_gate(one)
+        errs = [logits_gate(f"request {i} first token",
+                            one["first_rows"][i], base["first_rows"][i])
+                for i in range(len(requests))]
+        for label, run in runs.items():
+            launch_gate(f"chunked {name} chunk={label}", run["launches"][name],
+                        run["decode_forwards"], run["layers"])
+            others = {k: v for k, v in run["launches"].items()
+                      if k != name and v}
+            if others:
+                raise AssertionError(f"other decode kernels launched: "
+                                     f"{others}")
+            p50, p99 = quantiles(tpot_ms(run["results"], short))
+            log("chunked", layout="paged" if paged else "slot",
+                prefill_chunk=label, ticks=len(run["per_tick"]),
+                decode_ticks=run["ticks"],
+                prefill_chunks=run["prefill_chunks"],
+                max_prefill_calls_per_tick=max(n for n, _ in run["per_tick"]),
+                longest_tick_ms=max(t for _, t in run["per_tick"]) * 1e3,
+                prefill_stall_ms_max=run["stall_ms_max"],
+                short_tpot_ms_p50=p50, short_tpot_ms_p99=p99,
+                seconds=run["seconds"], kernel=name,
+                kernel_launches=run["launches"][name])
+        if one["prefill_chunks"] != 2 * math.ceil(900 / CHUNK):
+            raise AssertionError(f"{one['prefill_chunks']} chunks ran")
+        log("chunked", layout="paged" if paged else "slot",
+            first_token_logits_max_abs_err=max(errs), tol=LOGIT_TOL,
+            stream_gains=sorted(set(one["gains"])),
+            gained_ticks=len(one["gains"]))
+        must_break(one_call_gate, base, label="no chunking (one tick admits "
+                   "all eight)")
+        must_break(logits_gate, "long prompts swapped",
+                   one["first_rows"][longs[0]], base["first_rows"][longs[1]],
+                   label="the other long prompt's logits")
+        if paged:
+            must_break(stall_gate, chunk_run(params, True, CHUNK, requests,
+                                             fault=True),
+                       label="decode skipped on chunk ticks")
+        out[name] = {"launches": one["launches"][name],
+                     "decode_ticks": one["ticks"]}
+    return out
+
+
+def spec_requests(vocab: int, seed: int = 6, sampling: bool = False) -> list:
+    """Eight prompts that repeat a 32-token pattern of their own 3 to 8
+    times (96..256 tokens), asking 64 new tokens each."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(8):
+        pattern = rng.randint(0, vocab, 32)
+        kw = (dict(decode_strategy="sampling", temperature=1.0, top_k=50,
+                   top_p=0.75, seed=300 + i) if sampling
+              else dict(decode_strategy="greedy"))
+        out.append(dict(prompt=np.tile(pattern, 3 + i % 6),
+                        max_length=MAX_NEW, min_length=0, **kw))
+    return out
+
+
+def spec_run(params, requests, kv=None, spec=None, fault=None) -> dict:
+    """Serve ``requests`` through one paged engine: plain (``spec`` None),
+    or speculative with ``spec`` = ``"ngram"`` | ``"self"`` at k SPEC_K.
+    Records the decode forwards, the draft's single-token forwards, the
+    launches, each greedy request's top-2 logit gaps (plain) and, at every
+    rejected draft of a greedy row, the verify's gap between its argmax
+    and the drafted token, and the verify calls' ms. ``fault="accept"``:
+    every draft accepted (a planted acceptance fault)."""
+    old = os.environ.pop("FLEETX_SERVING_SPEC_DRAFT", None)
+    try:
+        if spec == "self":
+            os.environ["FLEETX_SERVING_SPEC_DRAFT"] = "self"
+        engine, cfg = build_engine(kv, params=params, spec=spec is not None,
+                                   spec_k=SPEC_K)
+    finally:
+        os.environ.pop("FLEETX_SERVING_SPEC_DRAFT", None)
+        if old is not None:
+            os.environ["FLEETX_SERVING_SPEC_DRAFT"] = old
+    seen = watch_forwards(engine)
+    samples = watch_samples(engine)
+    rejections, verify_ms = [], []
+    if spec is not None:
+        accept, verify = engine._accept, engine._verify
+
+        def timed_verify(draft, k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = verify(draft, k)
+            torch.cuda.synchronize()
+            verify_ms.append((time.perf_counter() - t) * 1e3)
+            return logits
+
+        def watched_accept(logits, draft, dlen):
+            out, emitted, accepted = accept(logits, draft, dlen)
+            for slot, req in engine._active.items():
+                j = int(accepted[slot])
+                if req.greedy and j < dlen[slot]:
+                    row = logits[slot, j]
+                    rejections.append(float(row.max()
+                                            - row[int(draft[slot, j])]))
+            if fault == "accept":
+                for slot in engine._active:
+                    n = int(dlen[slot])
+                    out[slot, :n] = draft[slot, :n]
+                    accepted[slot], emitted[slot] = n, n + 1
+            return out, emitted, accepted
+
+        engine._verify, engine._accept = timed_verify, watched_accept
+    zero_launches()
+    results, ticks, seconds = serve(engine, requests)
+    drained(engine, f"spec {spec} kv={kv}")
+    snap = engine.metrics.snapshot()
+    draft_forwards = (engine._proposer.single_token_forwards
+                      if spec == "self" else 0)
+    del engine
+    return dict(results=results, decode_forwards=seen["decode"],
+                draft_forwards=draft_forwards, launches=dict(da.launches),
+                gaps=samples["gaps"], rejections=rejections,
+                verify_ms=verify_ms, seconds=seconds, snap=snap,
+                layers=cfg.num_layers)
+
+
+def divergence_gate(spec_run_, plain_run) -> list:
+    """Wherever a greedy spec stream parts from the plain engine's, the
+    plain engine's top-2 logit gap at that position lies within LOGIT_TOL
+    (the split comes from rounding between the decode kernel and the dense
+    verify, not from acceptance). Returns the (request, index, gap)
+    splits."""
+    splits = []
+    for rid, want in plain_run["results"].items():
+        got = spec_run_["results"][rid].tokens
+        n = common_prefix(got, want.tokens)
+        if n == len(got) == len(want.tokens):
+            continue
+        gaps = plain_run["gaps"][rid]
+        gap = gaps[n] if n < len(gaps) else float("inf")
+        splits.append((rid, n, gap))
+        if not gap <= LOGIT_TOL:
+            raise AssertionError(f"request {rid} parts from the plain "
+                                 f"stream at token {n}, where the plain "
+                                 f"top-2 gap is {gap}")
+    return splits
+
+
+def rejection_gate(run) -> None:
+    """A self-draft rejection only ever falls on a near-tie."""
+    worst = max(run["rejections"], default=0.0)
+    if not worst <= LOGIT_TOL:
+        raise AssertionError(f"a rejected draft lies {worst} below the "
+                             "verify's argmax")
+
+
+def phase_spec(params, cfg) -> dict:
+    """Phase 37: speculative decoding at k SPEC_K on the paged engine, the
+    n-gram proposer over :func:`spec_requests` and the self-draft proposer
+    (``FLEETX_SERVING_SPEC_DRAFT=self``), at bf16 and at int8 KV, each
+    against the plain engine. Gates: where a greedy stream parts from the
+    plain engine's, the plain top-2 gap there lies within LOGIT_TOL, and so
+    does every self-draft rejection's gap; B8 (B10 at int8) launched once
+    per layer of each plain tick (the verify launches none), B7 once per
+    layer of each single-token draft forward; a seeded sampling run repeats
+    its tokens. Recorded: acceptance rate, tokens per verify, verify ms,
+    TPOT against the plain engine. Planted: an engine that accepts every
+    draft through the divergence gate, the n-gram rejections through the
+    self-draft gate, a launch count one draft step short, and the sampling
+    run with another seed, must each break."""
+    requests = spec_requests(cfg.vocab_size)
+    out = {}
+    for kv in (None, "int8"):
+        paged_name = "paged_decode_q8" if kv else "paged_decode"
+        plain = spec_run(params, requests, kv)
+        launch_gate(f"plain kv={kv}", plain["launches"][paged_name],
+                    plain["decode_forwards"], plain["layers"])
+        base_tpot = float(np.median(tpot_ms(plain["results"])))
+        for proposer in ("ngram", "self"):
+            run = spec_run(params, requests, kv, proposer)
+            launch_gate(f"{proposer} kv={kv} plain ticks",
+                        run["launches"][paged_name], run["decode_forwards"],
+                        run["layers"])
+            launch_gate(f"{proposer} kv={kv} draft", run["launches"]["decode"],
+                        run["draft_forwards"], run["layers"])
+            others = {k: v for k, v in run["launches"].items()
+                      if k not in (paged_name, "decode") and v}
+            if others:
+                raise AssertionError(f"other decode kernels launched: "
+                                     f"{others}")
+            splits = divergence_gate(run, plain)
+            if proposer == "self":
+                rejection_gate(run)
+            snap = run["snap"]
+            log("spec", proposer=proposer, kv_dtype=kv or "bf16", k=SPEC_K,
+                acceptance_rate=snap["spec_acceptance_rate"],
+                tokens_per_verify=snap["spec_tokens_per_tick_mean"],
+                verify_calls=len(run["verify_ms"]),
+                verify_ms_p50=quantiles(run["verify_ms"])[0],
+                plain_ticks=run["decode_forwards"],
+                draft_forwards=run["draft_forwards"],
+                b7_launches=run["launches"]["decode"],
+                paged_launches=run["launches"][paged_name],
+                tpot_ms_p50=float(np.median(tpot_ms(run["results"]))),
+                plain_tpot_ms_p50=base_tpot, splits=splits,
+                rejections=len(run["rejections"]),
+                worst_rejection_gap=max(run["rejections"], default=None),
+                seconds=run["seconds"], plain_seconds=plain["seconds"])
+            key = f"launches_spec_{proposer}"
+            out.setdefault(paged_name, {})[key] = run["launches"][paged_name]
+            if proposer == "self":
+                out.setdefault("decode", {})[
+                    f"launches_draft_{kv or 'bf16'}"] = \
+                    run["launches"]["decode"]
+            if proposer == "ngram" and kv is None:
+                must_break(rejection_gate, run,
+                           label="n-gram rejections through the self-draft "
+                           "gate")
+                must_break(launch_gate, "draft", run["draft_forwards"] + 1,
+                           run["draft_forwards"], run["layers"],
+                           label="a draft step without its launches")
+        if kv is None:
+            faulty = spec_run(params, requests, kv, "ngram", fault="accept")
+            must_break(divergence_gate, faulty, plain,
+                       label="every draft accepted")
+    sampled = [spec_run(params, spec_requests(cfg.vocab_size, sampling=True),
+                        None, "ngram") for _ in range(2)]
+
+    def repeat_gate(a, b) -> None:
+        for rid, r in a["results"].items():
+            if r.tokens.tolist() != b["results"][rid].tokens.tolist():
+                raise AssertionError(f"seeded request {rid} did not repeat")
+
+    repeat_gate(*sampled)
+    other = [dict(r, seed=r["seed"] + 1)
+             for r in spec_requests(cfg.vocab_size, sampling=True)]
+    must_break(repeat_gate, sampled[0],
+               spec_run(params, other, None, "ngram"),
+               label="another seed")
+    log("spec", sampling_repeats=True,
+        sampling_acceptance_rate=sampled[0]["snap"]["spec_acceptance_rate"])
+    return out
+
+
 FORKSERVER_PRELOAD = ("numpy", "torch", "torch.distributed",
                       "fleetx_tpu_torch.core.engine",
                       "fleetx_tpu_torch.data", "fleetx_tpu_torch.models",
@@ -5452,6 +6014,20 @@ def run_phases() -> tuple:
         decode[name].update(counts)
     decode["paged_decode_q8"].update(
         phase_int8_serving(served["kv_cache_bytes"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_params = init_params(cfg, seed=0)
+    slot = phase_slot_serving(serving_params, cfg)
+    chunked = phase_chunked(serving_params, cfg)
+    spec = phase_spec(serving_params, cfg)
+    del serving_params
+    kernel["launches_chunked"] = chunked["paged_decode"]["launches"]
+    kernel.update(spec["paged_decode"])
+    decode["decode"]["launches_slot"] = slot["decode"]["launches"]
+    decode["decode"]["launches_chunked_slot"] = chunked["decode"]["launches"]
+    decode["decode"].update(spec["decode"])
+    decode["decode_q8"]["launches_slot"] = slot["decode_q8"]["launches"]
+    decode["paged_decode_q8"].update(spec["paged_decode_q8"])
     gc.collect()
     torch.cuda.empty_cache()
     ce_records = phase_ce()

@@ -426,8 +426,8 @@ class SelfAttention(nn.Module):
             raise NotImplementedError("the cached (decode) forward under "
                                       "mp_degree > 1 is mesh serving, not "
                                       "ported yet (ROADMAP Queue A, "
-                                      "\"Serving features slice 1 left "
-                                      "out\")")
+                                      "\"Serving features still "
+                                      "missing\")")
         paged = cfg.decode_num_pages is not None
         quant = "key_scale" in cache
         if paged:

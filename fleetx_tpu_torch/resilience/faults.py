@@ -31,7 +31,7 @@ int (``"3"``) or ``"N+"`` for every index >= N (``"0+"`` = always).
 
 The serving injection points (ticks, prefill, poison requests, replicas,
 KV shipping, RPC) wait for the serving features and the fleet layer
-(ROADMAP Queue A, "Serving features slice 1 left out" and "Fleet layer");
+(ROADMAP Queue A, "Serving features still missing" and "Fleet layer");
 the JAX package's structured events wait for the obs module ("Remaining
 GPT and Trainer switches"): an injection here is logged instead.
 """

@@ -1,7 +1,17 @@
-"""Paged KV cache bookkeeping for the serving engine.
+"""KV cache bookkeeping for the serving engine: the slot cache and the
+paged cache.
 
-Port of the paged half of the JAX package's ``serving/cache_manager.py``
-without its host/disk spill tier. K/V live in one shared pool of
+Port of the JAX package's ``serving/cache_manager.py`` without its host and
+disk page tiers (ROADMAP Queue A, "Serving features still missing").
+
+The SLOT cache (:class:`SlotKVCacheManager`, ``FLEETX_SERVING_PAGED=0``) is
+one contiguous ``[L, slots, cache_len, heads, head_dim]`` buffer per K and
+V: lane ``s`` owns row ``s`` whole, and a prompt is prefilled into a batch-1
+cache that :func:`scatter_slot` copies into its row. Inactive lanes ride the
+batched decode step with their write pinned to the row's last positions; a
+row only ever attends ``[0, length)``, so stale rows stay dark.
+
+The PAGED cache: K/V live in one shared pool of
 ``[num_pages, page_size, heads, head_dim]`` pages per layer (int8 with
 ``[num_pages, page_size, heads, 1]`` fp32 scale pools when the model's
 ``decode_kv_dtype`` is int8: a page's scales ride the same page index);
@@ -29,7 +39,21 @@ import torch
 
 from fleetx_tpu_torch.models.gpt.generation import init_decode_cache
 
-__all__ = ["PagePool", "PagedKVCacheManager"]
+__all__ = ["PagePool", "PagedKVCacheManager", "SlotKVCacheManager",
+           "scatter_slot"]
+
+
+def scatter_slot(cache: Dict, small: Dict, slot: int) -> Dict:
+    """Copy a batch-1 contiguous cache (``small``: ``[L, 1, cache_len, h,
+    *]`` tensors) into row ``slot`` of the slot cache ``cache`` (``[L,
+    slots, cache_len, h, *]``), in place, and return ``cache`` (JAX
+    ``scatter_slot``, which returns a new tree). Non-tensor entries (the
+    scalar ``index``) are left alone: per-lane progress lives in the
+    manager."""
+    for name, big in cache.items():
+        if torch.is_tensor(big):
+            big[:, slot] = small[name][:, 0]
+    return cache
 
 
 class _LaneBook:
@@ -46,9 +70,32 @@ class _LaneBook:
         self._free: List[int] = list(range(slots))
 
     @property
+    def free_count(self) -> int:
+        """Number of decode lanes available for admission."""
+        return len(self._free)
+
+    @property
     def active_count(self) -> int:
         """Number of decode lanes currently holding a live request."""
         return self.slots - len(self._free)
+
+    def cache_nbytes(self) -> int:
+        """Bytes of the device cache: K/V values plus, at int8, their fp32
+        scales."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values()
+                   if torch.is_tensor(t))
+
+    def _check_lanes(self) -> None:
+        """Assert the lane book: the free list and the tenants partition
+        the lanes, and a free lane holds no length."""
+        free = set(self._free)
+        assert len(free) == len(self._free), "a lane is free twice"
+        for lane in range(self.slots):
+            held = self.request_ids[lane] is not None
+            assert held != (lane in free), (
+                f"lane {lane} is {'held and free' if held else 'lost'}")
+            assert held or self.lengths[lane] == 0, (
+                f"free lane {lane} keeps length {self.lengths[lane]}")
 
     def _claim_lane(self, request_id: int, length: int) -> int:
         lane = heapq.heappop(self._free)
@@ -62,6 +109,52 @@ class _LaneBook:
         self.request_ids[slot] = None
         self.lengths[slot] = 0
         heapq.heappush(self._free, slot)
+
+
+class SlotKVCacheManager(_LaneBook):
+    """Fixed-slot decode cache plus lane bookkeeping (module docstring).
+
+    ``cache`` holds the contiguous ``{"key", "value"}`` tensors ``[L,
+    slots, cache_len, heads, head_dim]`` (and, at int8, their
+    ``key_scale``/``value_scale``), updated in place by the engine's
+    forwards."""
+
+    def __init__(self, model, slots: int, cache_len: int, device=None):
+        if (model.cfg.decode_cache_len or 0) != cache_len:
+            raise ValueError(
+                f"model.cfg.decode_cache_len ({model.cfg.decode_cache_len}) "
+                f"must equal the manager's cache_len ({cache_len})")
+        if model.cfg.decode_num_pages is not None:
+            raise ValueError("a slot cache needs a model without "
+                             "decode_num_pages")
+        self._init_lanes(slots)
+        self.cache_len = cache_len
+        self.cache: Dict[str, torch.Tensor] = init_decode_cache(
+            model, slots, cache_len=cache_len, device=device)
+
+    def can_admit(self, tokens) -> bool:
+        """A free lane (a slot row holds any prompt the engine accepts)."""
+        return bool(self._free)
+
+    def alloc(self, request_id: int, prompt_len: int) -> Optional[int]:
+        """Claim the lowest free slot for ``request_id`` (None when full)."""
+        if not self._free:
+            return None
+        if prompt_len > self.cache_len:
+            raise ValueError(
+                f"prompt_len {prompt_len} exceeds cache_len {self.cache_len}")
+        return self._claim_lane(request_id, prompt_len)
+
+    def free(self, slot: int) -> None:
+        """Release ``slot`` for the next request. No zeroing: the live-
+        window contract keeps stale rows invisible to the next tenant."""
+        self._release_lane(slot)
+
+    def check_invariants(self) -> None:
+        """Assert the lane book and that every live length fits its row."""
+        self._check_lanes()
+        assert (self.lengths <= self.cache_len).all(), (
+            f"a lane's length passes cache_len {self.cache_len}")
 
 
 class _TrieNode:
@@ -90,10 +183,12 @@ class PagePool:
     frees, the page parks in ``_cached`` — content intact, trie node
     alive — where a later match revives it or LRU eviction reclaims it
     (evicting a node evicts its whole subtree: a child's refcount never
-    exceeds its parent's, so nothing live is stranded)."""
+    exceeds its parent's, so nothing live is stranded). With
+    ``prefix_cache`` off (``FLEETX_SERVING_PREFIX_CACHE=0``) nothing is
+    matched or registered: every page is private to its lane."""
 
     def __init__(self, num_pages: int, page_size: int, lanes: int,
-                 lane_pages: int):
+                 lane_pages: int, prefix_cache: bool = True):
         if page_size < 1:
             raise ValueError(f"page_size must be positive, got {page_size}")
         if num_pages < lane_pages + 1:
@@ -104,6 +199,7 @@ class PagePool:
         self.page_size = page_size
         self.lanes = lanes
         self.lane_pages = lane_pages
+        self.prefix_cache = prefix_cache
         # block tables: 0 = trash page = "not allocated"
         self.tables = np.zeros((lanes, lane_pages), np.int32)
         self.alloc_counts = np.zeros(lanes, np.int64)
@@ -180,7 +276,8 @@ class PagePool:
         reclaimable pool: fresh pages covering the non-shared part of
         ``[0, prompt_len]`` (the +1 slot is the first sampled token's write
         position), plus matched prefix pages parked in the warm cache."""
-        path = self._match_path(self._chunks(tokens))
+        chunks = self._chunks(tokens) if self.prefix_cache else []
+        path = self._match_path(chunks)
         fresh = len(tokens) // self.page_size + 1 - len(path)
         revived = sum(1 for n in path if self.ref[n.page] == 0)
         return fresh + revived
@@ -202,7 +299,8 @@ class PagePool:
             raise ValueError(
                 f"prompt of {len(tokens)} tokens needs {need_total} logical "
                 f"pages; a lane holds {self.lane_pages}")
-        path = self._match_path(self._chunks(tokens))
+        chunks = self._chunks(tokens) if self.prefix_cache else []
+        path = self._match_path(chunks)
         # commit the matched refs FIRST: revived pages leave _cached, so
         # the availability check sees the true reclaimable count and
         # eviction can no longer touch the matched path
@@ -234,6 +332,8 @@ class PagePool:
         trie so later prompts can share them. Idempotent over the already-
         matched prefix; pages become shareable exactly when they will never
         be written again."""
+        if not self.prefix_cache:
+            return
         node = self._root
         row = self.tables[lane]
         for i, c in enumerate(self._chunks(tokens)):
@@ -261,6 +361,44 @@ class PagePool:
         self.alloc_counts[lane] = li + 1
         self.version += 1
         return True
+
+    def ensure_span(self, lane: int, pos: int, n: int) -> int:
+        """Make as many of logical positions ``[pos, pos + n)`` writable for
+        ``lane`` as the pool can supply, in order (the speculative verify's
+        write: the pending token plus up to k drafts). Returns the count of
+        LEADING covered positions: the engine clamps the lane's draft to
+        ``covered - 1``, so no accepted token's K/V lands on the trash
+        page, while the uncovered tail's writes route there harmlessly."""
+        covered = 0
+        for i in range(n):
+            if not self.ensure_page(lane, pos + i):
+                break
+            covered += 1
+        return covered
+
+    def trim_lane(self, lane: int, live_tokens: int) -> int:
+        """Release ``lane``'s pages beyond those covering its
+        ``live_tokens`` valid positions — the speculative tick's cleanup
+        after the verify, returning rejected-draft pages to the pool the
+        same tick, so that a lane's draft window never starves a
+        neighbour's next pending-token page (the plain engine would not
+        have held them, and its ``cache_full`` decisions must be
+        repeated). Only private (refcount-1, unregistered) tail pages go;
+        returns how many."""
+        need = (max(int(live_tokens), 1) - 1) // self.page_size + 1
+        freed = 0
+        for i in range(int(self.alloc_counts[lane]) - 1, need - 1, -1):
+            page = int(self.tables[lane, i])
+            if self.ref[page] != 1 or page in self._node_of_page:
+                break  # a shared page past the live span cannot happen
+            self.ref[page] = 0
+            self._free.append(page)
+            self.tables[lane, i] = 0
+            self.alloc_counts[lane] = i
+            freed += 1
+        if freed:
+            self.version += 1
+        return freed
 
     def free(self, lane: int) -> None:
         """Release every page of ``lane``'s chain (refcount--). Zero-ref
@@ -320,7 +458,7 @@ class PagedKVCacheManager(_LaneBook):
     host block tables the engine uploads when ``version`` moves."""
 
     def __init__(self, model, slots: int, cache_len: int, num_pages: int,
-                 page_size: int, device=None):
+                 page_size: int, prefix_cache: bool = True, device=None):
         if page_size % 8:
             raise ValueError(
                 f"page_size must be a multiple of 8 (the decode kernel's "
@@ -341,14 +479,9 @@ class PagedKVCacheManager(_LaneBook):
         self.page_size = page_size
         self.num_pages = num_pages
         self.pool = PagePool(num_pages, page_size, slots,
-                             cache_len // page_size)
+                             cache_len // page_size, prefix_cache)
         self.cache: Dict[str, torch.Tensor] = init_decode_cache(model,
                                                                device=device)
-
-    def cache_nbytes(self) -> int:
-        """Bytes of the device pools: K/V values plus, at int8, their
-        fp32 scales."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     @property
     def tables(self) -> np.ndarray:
@@ -402,6 +535,35 @@ class PagedKVCacheManager(_LaneBook):
         (``lengths[slot]``); False = pool dry, the caller retires the
         request."""
         return self.pool.ensure_page(slot, int(self.lengths[slot]))
+
+    def ensure_span(self, slot: int, n: int) -> int:
+        """Grow ``slot``'s chain toward covering its next ``n`` write
+        positions (the verify window: pending token + k drafts); returns
+        how many leading positions are covered (:meth:`PagePool.
+        ensure_span`)."""
+        return self.pool.ensure_span(slot, int(self.lengths[slot]), n)
+
+    def trim_span(self, slot: int) -> int:
+        """Return ``slot``'s pages past its live prefix (rejected-draft
+        territory) to the pool (:meth:`PagePool.trim_lane`)."""
+        return self.pool.trim_lane(slot, int(self.lengths[slot]))
+
+    def check_invariants(self) -> None:
+        """Assert the pool's invariants, the lane book, and that between
+        ticks every live lane's chain covers exactly its span: the pages
+        holding ``[0, length)`` and at most the page of the next write —
+        none left over from a verify window (:meth:`trim_span`)."""
+        self.pool.check_invariants()
+        self._check_lanes()
+        ps = self.page_size
+        for lane in range(self.slots):
+            n, length = int(self.pool.alloc_counts[lane]), self.lengths[lane]
+            if self.request_ids[lane] is None:
+                assert n == 0, f"free lane {lane} holds {n} pages"
+                continue
+            assert (n - 1) * ps <= length <= n * ps, (
+                f"lane {lane} holds {n} pages of {ps} for {length} live "
+                "positions")
 
     def free(self, slot: int) -> None:
         """Release the lane and its page chain (no zeroing: see the module

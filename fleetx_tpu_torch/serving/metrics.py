@@ -1,11 +1,14 @@
 """Serving metrics: the counters and latency samples the engine records.
 
 A subset of the JAX package's ``ServingMetrics`` (serving/metrics.py):
-request and token counters, TTFT, request latency, tick time, the prefix-
-cache counters, the page gauges and the KV precision with its byte costs,
-with :meth:`snapshot` giving the same key names. The Prometheus registry,
-histograms and exposition are not ported; latency samples are plain
-lists.
+request and token counters, admission rejects and timeouts, TTFT, request
+latency, tick time, the prefix-cache counters, the page
+gauges, the KV precision with its byte costs, the chunked-prefill counter
+and prefill-stall samples, the queued prompt tokens, and the speculative
+families (proposed, accepted, acceptance rate, tokens per request per
+tick), with :meth:`snapshot` giving the same key names. The Prometheus
+registry, histograms and exposition are not ported (ROADMAP Queue A,
+"Serving features still missing"); samples are plain lists.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class ServingMetrics:
         self.slots = slots
         self.submitted = 0
         self.admitted = 0
+        self.rejected = 0
         self.tokens_generated = 0
         self.ticks = 0
         self.prefix_queries = 0
@@ -43,8 +47,14 @@ class ServingMetrics:
         self.kv_dtype = "bf16"
         self.kv_bytes_per_token = 0
         self.kv_cache_bytes = 0
+        self.prefill_chunks = 0
+        self.prefill_queue_tokens = 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
         self.finish_reasons: Dict[str, int] = {}
         self.ttft_s: List[float] = []
+        self.prefill_stall_s: List[float] = []
+        self.spec_tokens_per_tick: List[int] = []
         self.latency_s: List[float] = []
         self.tick_s: List[float] = []
         self._first_token_t: Optional[float] = None
@@ -57,6 +67,10 @@ class ServingMetrics:
     def record_admit(self) -> None:
         """A request won a decode lane."""
         self.admitted += 1
+
+    def record_reject(self) -> None:
+        """A submit was refused by admission control (queue full)."""
+        self.rejected += 1
 
     def record_first_token(self, ttft_s: float) -> None:
         """First token of a request reached the host (end-to-end TTFT)."""
@@ -80,7 +94,7 @@ class ServingMetrics:
 
     def record_retire(self, latency_s: float, reason: str) -> None:
         """A request finished (``reason``: eos | max_length | cache_full |
-        error)."""
+        timeout | cancelled | error)."""
         self.finish_reasons[reason] = self.finish_reasons.get(reason, 0) + 1
         self.latency_s.append(latency_s)
 
@@ -91,6 +105,29 @@ class ServingMetrics:
         self.tick_s.append(tick_s)
         self.pages_in_use = pages_in_use
         self.pages_total = pages_total
+
+    def observe_prefill_stall(self, stall_s: float) -> None:
+        """One tick spent ``stall_s`` seconds on prefill work (admissions
+        or one chunk) before its decode."""
+        self.prefill_stall_s.append(stall_s)
+
+    def record_prefill_chunk(self, tokens: int) -> None:
+        """One chunked-prefill call wrote ``tokens`` prompt tokens (the
+        count is the signal; the chunk size is a constant)."""
+        del tokens
+        self.prefill_chunks += 1
+
+    def observe_queue_tokens(self, tokens: int) -> None:
+        """Per-tick sample of queued plus mid-chunk prompt tokens."""
+        self.prefill_queue_tokens = int(tokens)
+
+    def record_spec(self, proposed: int, accepted: int,
+                    emitted_rows) -> None:
+        """One speculative tick: ``proposed``/``accepted`` draft tokens over
+        the batch; ``emitted_rows`` each request's emitted-token count."""
+        self.spec_proposed_tokens += int(proposed)
+        self.spec_accepted_tokens += int(accepted)
+        self.spec_tokens_per_tick.extend(int(n) for n in emitted_rows)
 
     def set_quant_config(self, kv_dtype: str, kv_bytes_per_token: int,
                          kv_cache_bytes: int) -> None:
@@ -105,16 +142,36 @@ class ServingMetrics:
         """Requests retired, any finish_reason."""
         return sum(self.finish_reasons.values())
 
+    @property
+    def timeouts(self) -> int:
+        """Requests retired by a queue TTL or deadline."""
+        return self.finish_reasons.get("timeout", 0)
+
+    @property
+    def cancels(self) -> int:
+        """Requests retired by ``cancel()``."""
+        return self.finish_reasons.get("cancelled", 0)
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Lifetime accepted / proposed draft tokens (0 before any)."""
+        return (self.spec_accepted_tokens / self.spec_proposed_tokens
+                if self.spec_proposed_tokens else 0.0)
+
     def snapshot(self) -> Dict:
         """Aggregate view under the JAX package's snapshot key names."""
         span = (self._last_token_t - self._first_token_t
                 if self._first_token_t is not None else None)
         ttft_p50, ttft_p95 = _ms_quantiles(self.ttft_s, (50, 95))
         tick_p50, tick_p99 = _ms_quantiles(self.tick_s, (50, 99))
+        stall_p50, stall_p99 = _ms_quantiles(self.prefill_stall_s, (50, 99))
         return {
             "submitted": self.submitted,
             "admitted": self.admitted,
             "retired": self.retired,
+            "rejected": self.rejected,
+            "timeouts": self.timeouts,
+            "cancels": self.cancels,
             "tokens_generated": self.tokens_generated,
             "ticks": self.ticks,
             "slots": self.slots,
@@ -134,6 +191,18 @@ class ServingMetrics:
             "pages_total": self.pages_total,
             "tick_ms_p50": tick_p50,
             "tick_ms_p99": tick_p99,
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_stall_ms_p50": stall_p50,
+            "prefill_stall_ms_p99": stall_p99,
+            "prefill_stall_ms_max": (max(self.prefill_stall_s) * 1e3
+                                     if self.prefill_stall_s else None),
+            "prefill_queue_tokens": self.prefill_queue_tokens,
+            "spec_proposed_tokens": self.spec_proposed_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_acceptance_rate": self.spec_acceptance_rate,
+            "spec_tokens_per_tick_mean": (
+                float(np.mean(self.spec_tokens_per_tick))
+                if self.spec_tokens_per_tick else None),
             "kv_dtype": self.kv_dtype,
             "kv_bytes_per_token": self.kv_bytes_per_token,
             "kv_cache_bytes": self.kv_cache_bytes,

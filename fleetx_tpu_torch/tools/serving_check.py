@@ -2,6 +2,7 @@
 held against each other in one call.
 
     python fleetx_tpu_torch/tools/serving_check.py [--root DIR] [--out FILE]
+        [--chunk N] [--spec K]
 
 Runs ``chip_smoke.py`` phase 4 (8 requests through a ``ServingEngine`` at
 GPT-345M width with bf16 KV pools: B8) and phase 11 (the same requests at
@@ -13,12 +14,16 @@ the order parent, change, change, parent within one call: serving ticks
 are host-bound, so TPOT moves with the host's pace between calls. Prints
 the card's name and power limit, the phases' own lines, then one JSON
 object with each phase's fields (tokens/s, TTFT and TPOT p50, ticks).
-Needs a GPU.
+``--chunk N`` serves both phases with chunked prefill of N tokens
+(``prefill_chunk``), ``--spec K`` with speculative decoding (the n-gram
+proposer, k = K); the tree under ``--root`` must have the feature. Needs a
+GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import os
@@ -37,6 +42,10 @@ def main(argv=None) -> int:
                     help="checkout whose chip_smoke.py and kernels run "
                          "(default: this one)")
     ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="prefill_chunk of both engines (0: off)")
+    ap.add_argument("--spec", type=int, default=0,
+                    help="speculative decoding with k = SPEC (0: off)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -62,6 +71,13 @@ def main(argv=None) -> int:
         log(phase, **kw)
 
     cs.log = kept
+    switches = {}
+    if args.chunk:
+        switches["prefill_chunk"] = args.chunk
+    if args.spec:
+        switches.update(spec=True, spec_k=args.spec)
+    if switches:
+        cs.build_engine = functools.partial(cs.build_engine, **switches)
     cs._build.build(cs.da.KERNEL)
     engine, cfg = cs.build_engine()
     served = cs.phase_serving(engine, cfg)
@@ -69,7 +85,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cs.phase_int8_serving(served["kv_cache_bytes"])
     line = json.dumps({"root": root, "module": cs.da.__file__, "card": card,
-                       "phases": fields}, default=str)
+                       "switches": switches, "phases": fields}, default=str)
     print(line)
     if args.out:
         with open(args.out, "w") as f:

@@ -352,6 +352,124 @@ def test_cuda_int8_engine_decodes_through_b10(monkeypatch):
     assert got == want
 
 
+# chip_smoke.LOGIT_TOL: logits of one position through two decode paths
+SERVING_LOGIT_TOL = 5e-2
+
+
+def _tiny_engine(cfg, **kw):
+    from fleetx_tpu_torch.models.gpt.convert import init_params
+    from fleetx_tpu_torch.models.gpt.generation import GenerationConfig
+    from fleetx_tpu_torch.models.gpt.model import GPTForPretraining
+    from fleetx_tpu_torch.serving import ServingEngine
+
+    kw = dict(dict(slots=2, cache_len=64, page_size=8), **kw)
+    return ServingEngine(GPTForPretraining(cfg, device="meta"),
+                         init_params(cfg, seed=0),
+                         gen_cfg=GenerationConfig(decode_strategy="greedy",
+                                                  eos_token_id=-1), **kw)
+
+
+def _serve_ticks(engine, prompts, max_length=12):
+    for p in prompts:
+        engine.submit(p, max_length=max_length)
+    ticks = 0
+    while engine.scheduler.queue_depth or engine.cache_manager.active_count:
+        ticks += engine.step()["decoded"] > 0
+    out = engine.drain()
+    engine.cache_manager.check_invariants()
+    assert engine.cache_manager.free_count == engine.slots
+    return [out[i].tokens.tolist() for i in sorted(out)], ticks
+
+
+@pytest.mark.cuda
+def test_cuda_slot_engine_decodes_through_b7(monkeypatch):
+    """A tiny fp32 slot engine (``paged=False``) on the card: every decode
+    tick launches B7 once per layer and never B8, and its greedy streams
+    equal an engine whose B7 is the plain version."""
+    _need_card()
+    cfg = _tiny_cuda_cfg()
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 61, n) for n in (5, 17, 40)]
+    before = dict(da.launches)
+    got, ticks = _serve_ticks(_tiny_engine(cfg, paged=False), prompts)
+    assert _launched(before) == {"decode": ticks * cfg.num_layers}
+    assert ticks > 0
+    monkeypatch.setattr(gpt_model, "decode_attention",
+                        da.decode_attention_ref)
+    want, _ = _serve_ticks(_tiny_engine(cfg, paged=False), prompts)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_cuda_spec_verify_logits_match_plain_ticks(monkeypatch):
+    """A tiny fp32 paged engine drafting with itself (k 3): each position
+    the dense verify scores lies within the serving logit tolerance of the
+    logits the plain engine's B8 ticks gave the same token, the streams are
+    equal, and the plain ticks launched B8 while the draft steps launched
+    B7."""
+    _need_card()
+    cfg = _tiny_cuda_cfg()
+    prompt = np.random.RandomState(3).randint(0, 61, 21)
+    plain = _tiny_engine(cfg)
+    rows = []
+    sample = plain._sample
+
+    def kept(reqs, logits):
+        rows.append(logits[0].float().clone())
+        return sample(reqs, logits)
+
+    plain._sample = kept
+    want, _ = _serve_ticks(plain, [prompt], max_length=16)
+    monkeypatch.setenv("FLEETX_SERVING_SPEC_DRAFT", "self")
+    spec = _tiny_engine(cfg, spec=True, spec_k=3)
+    gaps = []
+    accept = spec._accept
+
+    def compared(logits, draft, dlen):
+        out, emitted, accepted = accept(logits, draft, dlen)
+        (slot, req), = spec._active.items()
+        for j in range(int(emitted[slot])):
+            ref = rows[len(req.tokens) + j]
+            gaps.append((logits[slot, j] - ref).abs().max().item())
+        return out, emitted, accepted
+
+    spec._accept = compared
+    single = []
+    forward = spec.executor.forward
+
+    def counted(cache, ids, *args, **kw):
+        single.append(ids.shape[1] == 1)
+        return forward(cache, ids, *args, **kw)
+
+    spec.executor.forward = counted
+    before = dict(da.launches)
+    got, _ = _serve_ticks(spec, [prompt], max_length=16)
+    assert got == want
+    assert gaps and max(gaps) <= SERVING_LOGIT_TOL, max(gaps)
+    want_launches = {"decode": spec._proposer.single_token_forwards,
+                     "paged_decode": sum(single)}
+    assert _launched(before) == {n: c * cfg.num_layers
+                                 for n, c in want_launches.items() if c}
+    assert want_launches["decode"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_paged_engine_matches_unchunked():
+    """A tiny fp32 paged engine with ``prefill_chunk`` 8: the streams of
+    the unchunked engine, B8 launched once per layer of each tick."""
+    _need_card()
+    cfg = _tiny_cuda_cfg()
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 61, n) for n in (5, 37, 21)]
+    want, _ = _serve_ticks(_tiny_engine(cfg), prompts)
+    before = dict(da.launches)
+    engine = _tiny_engine(cfg, prefill_chunk=8)
+    got, ticks = _serve_ticks(engine, prompts)
+    assert got == want
+    assert engine.metrics.prefill_chunks == 5 + 3
+    assert _launched(before) == {"paged_decode": ticks * cfg.num_layers}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", [None, "int8"], ids=["B7", "B9"])
 def test_cuda_generate_launches_the_decode_kernel_per_layer_and_step(

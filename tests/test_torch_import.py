@@ -129,3 +129,17 @@ def test_gate_covers_the_pipeline_slice():
                  "core.engine", "tools.train"):
         assert f"fleetx_tpu_torch.{name}" in mods, name
     assert (PKG / "ops" / "csrc" / "flash_attention.cu").is_file()
+
+
+def test_gate_covers_the_serving_slice():
+    """Likewise for the serving engine's slot cache, chunked prefill and
+    speculative decoding: the proposers, the scheduler, the executor
+    protocol, the caches and the metrics, and the decode kernels' wrapper
+    and source."""
+    mods = set(_modules())
+    for name in ("serving", "serving.spec", "serving.engine",
+                 "serving.scheduler", "serving.model_protocol",
+                 "serving.cache_manager", "serving.metrics",
+                 "ops.decode_attention", "tools.serving_check"):
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    assert (PKG / "ops" / "csrc" / "decode_attention.cu").is_file()
