@@ -140,7 +140,7 @@ decode steps after phase 10):
                and dp 2 x mp 2 on the same global batch: loss, grad norm
                and every gathered gradient leaf within phase 8's limits of
                mp 1;
-22. resume-1.3b — phase 13's configuration (full width, 12 of its 24
+22. resume-1.3b — phase 13's configuration (full width, 4 of its 24
                layers for time, fused CE, full recompute, dropout 0.1): run
                A trains 3 steps and
                saves at step 2 through the async snapshot
@@ -208,7 +208,7 @@ decode steps after phase 10):
                break its limit; kernel, plain, library and bound times;
 30. train-zero — ``tools/train.py`` on ``pretrain_gpt_6.7B_sharding16
                .yaml`` at sharding 2 (stage 2; the yaml's 16 cut to the
-               card's 2 ranks sharing it over gloo), full width, 6 of its
+               card's 2 ranks sharing it over gloo), full width, 4 of its
                32 layers, bf16, dropout 0.1, fused CE, full recompute, the
                yaml's batch (local 8 in 4 microbatches of 2), 3 steps and a
                1-batch evaluation, the ZeRO update shard on; then the same
@@ -238,7 +238,7 @@ decode steps after phase 10):
 32. kernels-175b — B1-B3 and B12's kernels at GPT-175B's mp 2 shapes
                against their plain versions, with planted faults, kernel,
                plain, library and bound times;
-33. switches-1.3b — the GPT and Trainer switches at GPT-1.3B's width, 4
+33. switches-1.3b — the GPT and Trainer switches at GPT-1.3B's width, 2
                layers: the recompute save-sets against no recompute, the
                unfused q/k/v, flax dropout, Momentum/SGD, the clips and the
                bf16 moments;
@@ -273,6 +273,48 @@ decode steps after phase 10):
                verify, verify ms and TPOT against the plain engine logged;
                an engine accepting every draft, the n-gram rejections, a
                draft step short and another seed must each break a gate.
+38. tiers    — the host and disk page tiers at GPT-345M full depth: four
+               512-token system prompts with 8 requests each (wave 1), 8
+               unrelated prompts that push every warm page out of a
+               256-page pool into a 64-page host tier and a disk tier under
+               a temporary directory (wave 2), then wave 1 again, last
+               group first: its
+               streams byte-equal to an engine whose pool never evicts
+               serving wave 1 twice, both tiers revived from, B8 launched
+               once per layer of each decode forward, nothing leaks; a
+               fresh engine on the directory revives a request's pages and
+               prewarms another's prefix, each stream equal; a flipped
+               byte in one file is refused and the request re-prefilled
+               with wave 1's stream, and values revived one position off
+               their keys must break the first-token logits gate; spill
+               and revive pages, bytes and ms, TTFT cold, revived and
+               prewarmed, and wave 3's host ms by part (ticks, admissions,
+               decode, each tier's puts, gets and syncs) logged;
+39. roles    — a prefill-role and a decode-role engine: phase 4's kind of
+               traffic (8 requests of 32-512 tokens, two sampled) parked
+               after the first token, shipped as bytes by ``export_kv`` and
+               admitted by ``submit(kv_payloads=, history=[t0])``, at bf16
+               (B8) and int8 (B10): streams byte-equal to one colocated
+               engine's and each second token's logits bit-equal to
+               colocated's, shipped bytes = pages x one page's wire size; a
+               ship with a flipped byte is refused (its request replayed,
+               its stream still equal), a page one layer short is refused,
+               and a valid page with its values one position off must break
+               the logits gate; export and admit ms and the time to the
+               second token against colocated logged;
+40. recovery — crash recovery on paged and slot engines at bf16 and int8
+               (B8, B7, B10, B9): a tick fault at tick 5, streams (greedy
+               and seeded sampling) byte-equal to the fault-free run and
+               the first tick after the recovery giving its logits bit for
+               bit (a catch-up one position late must break that); a
+               poison request retired alone by bisection, its neighbours
+               equal; a prefill that fails twice quarantined; a 2 s hang
+               against a 0.5 s watchdog recovered, streams and logits as
+               after the tick fault; every tick failing runs
+               out the recovery budget (``RecoveryExhausted``, health
+               dead); ``shutdown`` under load returns every request's
+               partial stream; time to recover, replay ms and probes
+               logged.
 
 Every drive writes into an output directory of its own, deleted with its
 phase. The script is the reaper of every process it starts, also of those
@@ -332,7 +374,13 @@ from fleetx_tpu_torch.ops.quant import (  # noqa: E402
     quantize_kv,
 )
 from fleetx_tpu_torch.resilience.faults import faults  # noqa: E402
-from fleetx_tpu_torch.serving import ServingEngine, ServingMetrics  # noqa: E402
+from fleetx_tpu_torch.serving import (  # noqa: E402
+    HostPageStore,
+    RecoveryExhausted,
+    ServingEngine,
+    ServingMetrics,
+)
+from fleetx_tpu_torch.serving.cache_manager import payload_nbytes  # noqa: E402
 from fleetx_tpu_torch.tools.kernel_cases import (  # noqa: E402
     CP_BLOCK,
     CP_DEGREE,
@@ -3168,8 +3216,8 @@ def phase_train_mp_e2e(prefix: str) -> None:
 # ----------------------------------------------------------------- phase 22
 # the resume drive: phase 13's 1.3B configuration, 3 steps, saved at step 2
 RESUME_STEPS, RESUME_SAVE_AT = 3, 2
-RESUME_LAYERS = 12  # phase 22's depth: half the yaml's 24, for time (at 24
-# the phase takes 92.5 s of the script's 1,200)
+RESUME_LAYERS = 4  # phase 22's depth: a sixth of the yaml's 24, for the
+# script's time (full width kept)
 
 
 def trainer_tensors(trainer):
@@ -4252,7 +4300,7 @@ def phase_kernels_67b() -> tuple:
 # ----------------------------------------------------------------- phase 30
 TRAIN_67B_CONFIG = os.path.join(
     ROOT, "configs/nlp/gpt/pretrain_gpt_6.7B_sharding16.yaml")
-ZERO_LAYERS = 6  # of the yaml's 32: the replicated run fits beside it, and
+ZERO_LAYERS = 4  # of the yaml's 32: the replicated run fits beside it, and
 # the script inside its time
 ZERO_FAULT_LAYERS = 2  # the planted-fault and forced-scale drives' depth
 ZERO_STEPS, ZERO_EVAL_ITERS = 3, 1  # 3 steps (5 until cut for time)
@@ -4873,7 +4921,8 @@ def phase_kernels_175b() -> tuple:
 
 
 # ----------------------------------------------------------------- phase 33
-SWITCH_LAYERS, SWITCH_STEPS = 4, 3  # the 1.3B yaml's full width, 4 layers
+SWITCH_LAYERS, SWITCH_STEPS = 2, 3  # the 1.3B yaml's full width, 2 layers
+# (for the script's time)
 SAVE_SETS = {"none": ("Model.use_recompute=False",),
              "full": ("Model.recompute_granularity=full",),
              "full_attn": ("Model.recompute_granularity=full_attn",),
@@ -4958,7 +5007,7 @@ def _free(*runs) -> None:
 
 
 def phase_switches_13b(prefix: str) -> dict:
-    """The GPT and Trainer switches at GPT-1.3B's full width, 4 layers,
+    """The GPT and Trainer switches at GPT-1.3B's full width, 2 layers,
     fused CE, dropout 0.1, on the same seed and batches:
 
     - the save-sets (none, ``full``, ``full_attn``, ``core_attn``, ``full``
@@ -4968,9 +5017,9 @@ def phase_switches_13b(prefix: str) -> dict:
       keeps for the backward ordered full < core_attn <= full_attn <
       none, the step peak of none the largest (under full the rerun holds
       a whole layer's activations at once, under a save-set one segment's,
-      so their peaks are not ordered by what is kept), B1 launched 4 times
-      a step without recompute and 8 with (B1 reruns in every save-set's
-      backward);
+      so their peaks are not ordered by what is kept), B1 launched once a
+      layer a step without recompute and twice with (B1 reruns in every
+      save-set's backward);
     - the split q/k/v layout from the fused run's weights
       (``qkv_state_layout``, through ``convert_qkv_layout``): 2 steps'
       losses within TRAIN_E2E_TOL, then a greedy ``generate()`` of 16
@@ -5954,6 +6003,686 @@ def phase_spec(params, cfg) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phases 38-40
+# the serving engine's page tiers, prefill/decode roles with KV shipping
+# and crash recovery at GPT-345M width, full depth (24 layers)
+
+TIER_PREFIX = 512      # phase 38's system prompts, four of them
+TIER_POOL = 257        # phase 38's pool: 256 usable pages of 16
+TIER_HOST_PAGES = 64   # its host tier's budget in pages; the disk the rest
+TIER_DISK_PAGES = 1024
+TIER_LANES = 16        # two system prompts' requests decode together
+
+
+def tier_requests(vocab: int, seed: int = 7) -> tuple:
+    """Phase 38's traffic: wave 1, four 512-token system prompts each with
+    eight requests of 32-64 suffix tokens asking 64 new tokens; wave 2,
+    eight unrelated prompts of 384-448 tokens asking 16, which push every
+    warm page of wave 1 out of the pool (the last ones into the host
+    tier)."""
+    rng = np.random.RandomState(seed)
+    first = []
+    for _ in range(4):
+        prefix = rng.randint(0, vocab, TIER_PREFIX)
+        first += [dict(prompt=np.concatenate(
+            [prefix, rng.randint(0, vocab, rng.randint(32, 65))]),
+            max_length=MAX_NEW, decode_strategy="greedy") for _ in range(8)]
+    second = [dict(prompt=rng.randint(0, vocab, rng.randint(384, 449)),
+                   max_length=16, decode_strategy="greedy")
+              for _ in range(8)]
+    return first, second
+
+
+def in_order(engine, requests) -> list:
+    """:func:`serve`'s results in submit order; with
+    :func:`watch_samples` on the engine, each result carries its first
+    token's logits row as ``first_row``."""
+    results, _, _ = serve(engine, requests)
+    rows = getattr(engine, "first_rows", {})
+    out = []
+    for rid in sorted(results):
+        out.append(results[rid])
+        out[-1].first_row = rows.get(rid)
+    return out
+
+
+def watch_first_rows(engine):
+    engine.first_rows = watch_samples(engine)["rows"]
+    return engine
+
+
+def streams_gate(what: str, got, want) -> None:
+    """Greedy and seeded streams byte-equal, request by request."""
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a.tokens.tolist() != b.tokens.tolist()]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"{what}: the streams of requests {bad} "
+                             f"differ ({len(got)} against {len(want)})")
+
+
+def revival_gate(what: str, got, want) -> None:
+    """Revived pages hold the spilled bytes, so a request served over them
+    makes its reference's very prefill call: the streams byte-equal and
+    the first token's logits bit-equal (a revival one position off can
+    leave a random-weight model's greedy stream as it was, not its
+    logits)."""
+    streams_gate(what, got, want)
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not torch.equal(a.first_row, b.first_row)]
+    if bad:
+        worst = max((got[i].first_row - want[i].first_row).abs().max().item()
+                    for i in bad)
+        raise AssertionError(f"{what}: the first-token logits of requests "
+                             f"{bad} differ (by up to {worst})")
+
+
+def watch_rows(engine) -> dict:
+    """Wrap ``engine._sample``: every logits row a token was drawn from,
+    keyed ``(request id, tokens emitted before it)`` (a rolled-back tick's
+    row is replaced when the tick is redone), with the tick it came on."""
+    rows, ticks = {}, {}
+    sample = engine._sample
+
+    def kept(reqs, logits):
+        for i, r in enumerate(reqs):
+            key = (r.id, len(r.tokens))
+            rows[key] = logits[i].float().clone()
+            ticks[key] = engine._ticks
+        return sample(reqs, logits)
+
+    engine._sample = kept
+    return {"rows": rows, "ticks": ticks}
+
+
+def rows_gate(what: str, got: dict, want: dict, keys) -> None:
+    """The logits rows ``keys`` (``(request, tokens before)`` pairs, the
+    same requests in the same submit order on both engines) bit-equal:
+    replayed or shipped K/V one position off can leave a random-weight
+    model's greedy stream as it was, not these rows."""
+    keys = sorted(keys)
+    missing = [k for k in keys if k not in got or k not in want]
+    bad = [k for k in keys if k not in missing
+           and not torch.equal(got[k], want[k])]
+    if not keys or missing or bad:
+        worst = max(((got[k] - want[k]).abs().max().item() for k in bad),
+                    default=None)
+        raise AssertionError(f"{what}: of {len(keys)} logits rows, {missing} "
+                             f"are missing and {bad} differ (by up to "
+                             f"{worst})")
+
+
+def watch_tiers(engine) -> dict:
+    """Time the pool's batched spill and revive copies (device synced),
+    with their pages and bytes."""
+    seen = {"spill_ms": [], "revive_ms": [], "spill_pages": 0,
+            "revive_pages": 0, "spill_bytes": 0, "revive_bytes": 0}
+    pool = engine.cache_manager.pool
+    spill, revive = pool._spill_fn, pool._revive_fn
+
+    def timed_spill(pages):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = spill(pages)
+        seen["spill_ms"].append((time.perf_counter() - t) * 1e3)
+        seen["spill_pages"] += len(pages)
+        seen["spill_bytes"] += sum(n for _, n in out)
+        return out
+
+    def timed_revive(entries):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        revive(entries)
+        torch.cuda.synchronize()
+        seen["revive_ms"].append((time.perf_counter() - t) * 1e3)
+        seen["revive_pages"] += len(entries)
+        seen["revive_bytes"] += sum(payload_nbytes(p) for _, p in entries)
+
+    pool._spill_fn, pool._revive_fn = timed_spill, timed_revive
+    return seen
+
+
+def time_calls(targets) -> dict:
+    """Wrap each ``(object, method name, label)``: the host ms its calls
+    took, summed per label, and their count (``label + "_calls"``)."""
+    spent = {}
+    for obj, name, label in targets:
+        def timed(*args, _fn=getattr(obj, name), _label=label, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                spent[_label] = spent.get(_label, 0.0) + (
+                    time.perf_counter() - t) * 1e3
+                spent[_label + "_calls"] = spent.get(_label + "_calls", 0) + 1
+        setattr(obj, name, timed)
+    return spent
+
+
+def spill_warm(engine) -> int:
+    """Evict every warm (zero-ref) trie page of ``engine``'s pool through
+    the pool's own LRU eviction, so that the page tiers hold them all;
+    returns how many pages went."""
+    pool = engine.cache_manager.pool
+    n = pool.cached_pages
+    while pool.cached_pages:
+        pool._evict_subtree(next(iter(pool._cached.values())))
+    return n
+
+
+def single_ttft_ms(engine, request) -> tuple:
+    """One request alone on ``engine``: its result and TTFT in ms."""
+    (res,) = in_order(engine, [request])
+    return res, res.ttft_s * 1e3
+
+
+def phase_tiers(params, cfg) -> dict:
+    """Phase 38: the host and disk page tiers (module docstring)."""
+    first, second = tier_requests(cfg.vocab_size)
+    ref = watch_first_rows(build_engine(params=params, slots=TIER_LANES)[0])
+    # 1025 pages: it never evicts here. Its first pass warms the trie (one token a
+    # request, but request 9's whole stream: the corrupt-file check's
+    # reference); the second serves wave 1 from the device trie
+    ref_cold = in_order(ref, [dict(r, max_length=MAX_NEW if i == 9 else 1)
+                              for i, r in enumerate(first)])
+    ref_warm = in_order(ref, first)
+    snap = ref.metrics.snapshot()
+    if snap["prefix_hits"] < 2 * len(first) - 4:
+        raise AssertionError(f"the reference trie missed: {snap}")
+    page_bytes = ref.metrics.kv_bytes_per_token * ref.page_size
+    del ref
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        disk = dict(disk_cache_dir=tmp,
+                    disk_cache_bytes=TIER_DISK_PAGES * page_bytes * 2)
+        engine = watch_first_rows(build_engine(
+            params=params, slots=TIER_LANES, num_pages=TIER_POOL,
+            host_cache_bytes=TIER_HOST_PAGES * page_bytes, **disk)[0])
+        tiers = watch_tiers(engine)
+        seen = watch_forwards(engine)
+        zero_launches()
+        wave1 = in_order(engine, first)
+        in_order(engine, second)
+        host0, disk0 = (engine._dram_store.revived_pages,
+                        engine._disk_store.hits)
+        revived0 = tiers["revive_pages"]
+        # wave 1 again, last group first: the host tier holds the pages
+        # spilled last; its ticks broken down on the host's clock
+        wave3 = time_calls([
+            (engine, "step", "tick"), (engine, "_admit", "admit"),
+            (engine, "_tick_decode", "decode"),
+            (engine._dram_store, "put", "host_put"),
+            (engine._dram_store, "get", "host_get"),
+            (engine._disk_store, "put", "disk_put"),
+            (engine._disk_store, "get", "disk_get"),
+            (engine.metrics, "observe_host_tier", "host_sync"),
+            (engine.metrics, "observe_disk_tier", "disk_sync")])
+        got = in_order(engine, first[::-1])[::-1]
+        for attr in ("step", "_admit", "_tick_decode"):
+            delattr(engine, attr)
+        revival_gate("tiers: wave 1 served again", got, ref_warm)
+        launches = da.launches["paged_decode"]
+        launch_gate("tiers", launches, seen["decode"], cfg.num_layers)
+        drained(engine, "tiers")
+        snap = engine.metrics.snapshot()
+        host_revived = engine._dram_store.revived_pages - host0
+        disk_revived = engine._disk_store.hits - disk0
+        if not (host_revived and disk_revived):
+            raise AssertionError(f"wave 3 revived {host_revived} pages from "
+                                 f"the host, {disk_revived} from the disk")
+        if tiers["revive_pages"] - revived0 < 4 * TIER_PREFIX // 16:
+            raise AssertionError("wave 3 did not revive the prefixes")
+        log("tiers", requests=len(first), second_wave=len(second),
+            pool_pages=TIER_POOL, host_tier_pages=TIER_HOST_PAGES,
+            page_bytes=page_bytes, b8_launches=launches,
+            spilled_pages=tiers["spill_pages"],
+            spilled_bytes=tiers["spill_bytes"],
+            spill_subtrees=len(tiers["spill_ms"]),
+            spill_ms_per_subtree_p50=quantiles(tiers["spill_ms"])[0],
+            spill_ms_max=max(tiers["spill_ms"]),
+            revived_pages=tiers["revive_pages"],
+            revived_bytes=tiers["revive_bytes"],
+            revive_calls=len(tiers["revive_ms"]),
+            revive_ms_per_call_p50=quantiles(tiers["revive_ms"])[0],
+            revive_ms_max=max(tiers["revive_ms"]),
+            wave3_from_host_pages=host_revived,
+            wave3_from_disk_pages=disk_revived,
+            host_evicted_pages=snap["host_evicted_pages"],
+            disk_files=len(os.listdir(tmp)),
+            disk_bytes=snap["disk_cache_bytes"],
+            ttft_ms_p50_wave1=quantiles([r.ttft_s * 1e3 for r in wave1])[0],
+            ttft_ms_p50_wave3=quantiles([r.ttft_s * 1e3 for r in got])[0],
+            tpot_ms_p50_wave3=quantiles(tpot_ms(dict(enumerate(got))))[0])
+        log("tiers", **{f"wave3_{k}" + ("" if k.endswith("_calls") else "_ms"):
+                        v for k, v in sorted(wave3.items())})
+        out["launches"] = launches
+        # the pages still warm in the pool go to the tiers too, so that a
+        # fresh engine finds every page of wave 1 on the disk
+        log("tiers", flushed_warm_pages=spill_warm(engine))
+        del engine
+        # TTFT of one request: cold, its pages revived from the disk, and
+        # after prewarm (a device trie hit). Every engine compared with the
+        # reference has its lanes: a decode forward's rows repeat their
+        # bits only at the same batch
+        cold, _ = build_engine(params=params, slots=TIER_LANES)
+        _, ttft_cold = single_ttft_ms(cold, first[24])
+        del cold
+        fresh = watch_first_rows(build_engine(params=params,
+                                              slots=TIER_LANES, **disk)[0])
+        res, ttft_disk = single_ttft_ms(fresh, first[24])
+        revival_gate("tiers: revived from the disk", [res], [ref_warm[24]])
+        warm = fresh.prewarm(first[0]["prompt"])
+        if warm < TIER_PREFIX:
+            raise AssertionError(f"prewarm made {warm} tokens warm")
+        res, ttft_warm = single_ttft_ms(fresh, first[0])
+        revival_gate("tiers: prewarmed", [res], [ref_warm[0]])
+        # planted: a flipped byte in the file of request 9's first suffix
+        # page; the revival refuses it and prefills from the prefix, as
+        # wave 1 did for that request
+        pool = fresh.cache_manager.pool
+        chunks = pool._chunks(first[9]["prompt"])
+        path = fresh._disk_store._path(tuple(chunks[:TIER_PREFIX // 16 + 1]))
+        raw = bytearray(open(path, "rb").read())
+        raw[len(raw) // 2] ^= 0xFF
+        open(path, "wb").write(bytes(raw))
+        misses = fresh._disk_store.misses
+        (res,) = in_order(fresh, [first[9]])
+        if os.path.exists(path) or fresh._disk_store.misses == misses:
+            raise AssertionError("the corrupt page file was not refused")
+        revival_gate("tiers: corrupt file re-prefilled", [res],
+                     [ref_cold[9]])
+        log("tiers", prewarm_tokens=warm, ttft_ms_cold=ttft_cold,
+            ttft_ms_revived_from_disk=ttft_disk,
+            ttft_ms_prewarmed=ttft_warm, corrupt_file_refused=True)
+        del fresh
+        # planted: values revived one position off their keys
+        bad = watch_first_rows(build_engine(params=params, slots=TIER_LANES,
+                                            **disk)[0])
+        revive = bad.cache_manager.pool._revive_fn
+        value = bad.cache_manager.payload_leaves.index("value")
+
+        def shifted(entries):
+            moved = []
+            for page, payload in entries:
+                payload = list(payload)
+                payload[value] = payload[value].roll(1, dims=1)
+                moved.append((page, payload))
+            revive(moved)
+
+        bad.cache_manager.pool._revive_fn = shifted
+        (res,) = in_order(bad, [first[17]])
+        must_break(revival_gate, "tiers: values one position off", [res],
+                   [ref_warm[17]], label="values revived one position off")
+        log("tiers", planted_stream_differs=res.tokens.tolist()
+            != ref_warm[17].tokens.tolist())
+        del bad
+    return out
+
+
+def ship_run(params, cfg, kv, requests) -> dict:
+    """Phase 39 at one KV precision: ``requests`` through one colocated
+    engine, then through a prefill-role engine shipping each parked
+    request's pages as bytes to a decode-role engine, with the planted
+    faults on two of them."""
+    colocated, _ = build_engine(kv, params=params)
+    want_rows = watch_rows(colocated)["rows"]
+    stamps = {}
+
+    def stamped(i):
+        return lambda rid, tok, done: stamps.setdefault(i, []).append(
+            time.perf_counter())
+
+    t0 = time.perf_counter()
+    for i, r in enumerate(requests):
+        colocated.submit(**r, on_token=stamped(("co", i)))
+    res = colocated.drain()
+    want = [res[rid] for rid in sorted(res)]
+    second_co = [stamps[("co", i)][1] - t0 for i in range(len(requests))]
+    del colocated
+    pre, _ = build_engine(kv, params=params, role="prefill")
+    dec, _ = build_engine(kv, params=params, role="decode")
+    seen = watch_forwards(dec)
+    dec_rows = watch_rows(dec)["rows"]
+    admit_ms, export_ms = [], []
+    admit = dec._admit_shipped
+
+    def timed_admit(req):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        admit(req)
+        torch.cuda.synchronize()
+        admit_ms.append((time.perf_counter() - t) * 1e3)
+
+    dec._admit_shipped = timed_admit
+    name = "paged_decode_q8" if kv else "paged_decode"
+    zero_launches()
+    page_wire = len(HostPageStore.payload_to_bytes(
+        pre.cache_manager.read_pages([1])[0]))
+    t0 = time.perf_counter()
+    rids = [pre.submit(**r) for r in requests]
+    handed, shipped, got, refusals = {}, {}, {}, []
+    first_ship, drids = None, {}
+    while len(got) < len(requests):
+        pre.step()
+        for erid in pre.prefilled_ready():
+            i = rids.index(erid)
+            if i == 2:  # planted: one byte of the ship flipped
+                faults.configure(kv_ship_corrupt=str(pre._fault_ships))
+            t = time.perf_counter()
+            blobs = pre.export_kv(erid)
+            export_ms.append((time.perf_counter() - t) * 1e3)
+            faults.reset()
+            stub = pre.take_result(erid)
+            shipped[i] = sum(len(b) for b in blobs)
+            if i == 0:
+                first_ship = (blobs, stub.tokens)
+            kw = dict(requests[i], history=stub.tokens,
+                      on_token=stamped(("dec", i)))
+            if i == 5:  # planted: a page one layer short
+                leaves = HostPageStore.payload_from_bytes(blobs[0])
+                short = HostPageStore.payload_to_bytes(
+                    [None if x is None else x[:-1] for x in leaves])
+                try:
+                    dec.submit(**kw, kv_payloads=[short] + blobs[1:])
+                except ValueError as exc:
+                    refusals.append(("one layer short", str(exc)[:80]))
+            try:
+                handed[i] = dec.submit(**kw, kv_payloads=blobs)
+            except ValueError as exc:
+                refusals.append(("corrupt ship", str(exc)[:80]))
+                handed[i] = dec.submit(**kw)  # the fallback: replay
+            drids[i] = handed[i]
+        dec.step()
+        for i, drid in list(handed.items()):
+            r = dec.take_result(drid)
+            if r is not None:
+                got[i] = r
+                del handed[i]
+    got = [got[i] for i in range(len(requests))]
+    second_dec = [stamps[("dec", i)][0] - t0 for i in range(len(requests))]
+    if [what for what, _ in refusals] != ["corrupt ship", "one layer short"]:
+        raise AssertionError(f"planted ship faults refused: {refusals}")
+    streams_gate(f"ship {kv or 'bf16'}", got, want)
+    # the decode replica's second token comes from the shipped (or, for
+    # the corrupt ship, replayed) K/V: its logits bit-equal to colocated's
+    second = {(i, 1): dec_rows[(drid, 1)] for i, drid in drids.items()
+              if (drid, 1) in dec_rows}
+    want_second = {(i, 1): want_rows[(rid, 1)]
+                   for i, rid in enumerate(sorted(res))
+                   if (rid, 1) in want_rows}
+    rows_gate(f"ship {kv or 'bf16'}: second-token logits", second,
+              want_second, [(i, 1) for i in range(len(requests))])
+    for i, r in enumerate(requests):
+        pages = -(-len(r["prompt"]) // dec.page_size)
+        if shipped[i] != pages * page_wire:
+            raise AssertionError(f"request {i} shipped {shipped[i]} bytes "
+                                 f"for {pages} pages of {page_wire}")
+    counts = dict(da.launches)
+    launches = counts.pop(name)
+    if any(counts.values()):
+        raise AssertionError(f"ship: other decode kernels launched {counts}")
+    launch_gate(f"ship {kv or 'bf16'}", launches, seen["decode"],
+                cfg.num_layers)
+    drained(dec, "decode role")
+    moved = dict(pages_shipped=pre.metrics.kv_pages_shipped,
+                 pages_revived_remote=dec.metrics.kv_pages_revived_remote)
+    del pre, dec
+    # planted: request 0's first page shipped with its values one position
+    # off their keys (a valid blob), admitted by a fresh decode replica
+    blobs, history = first_ship
+    bad, _ = build_engine(kv, params=params, role="decode")
+    bad_rows = watch_rows(bad)["rows"]
+    leaves = list(HostPageStore.payload_from_bytes(blobs[0]))
+    value = bad.cache_manager.payload_leaves.index("value")
+    leaves[value] = leaves[value].roll(1, dims=1)
+    rid = bad.submit(**dict(requests[0], history=history), kv_payloads=[
+        HostPageStore.payload_to_bytes(leaves)] + blobs[1:])
+    res_bad = bad.drain()[rid]
+    must_break(rows_gate, f"ship {kv or 'bf16'}: values one position off",
+               {(0, 1): bad_rows.get((rid, 1))},
+               {(0, 1): want_second[(0, 1)]}, [(0, 1)],
+               label="a shipped page's values one position off")
+    del bad
+    log("roles", kv_dtype=kv or "bf16", requests=len(requests),
+        kernel=name, kernel_launches=launches,
+        shipped_bytes=sum(shipped.values()), page_wire_bytes=page_wire,
+        **moved,
+        export_ms_p50=quantiles(export_ms)[0], export_ms_max=max(export_ms),
+        admit_ms_p50=quantiles(admit_ms)[0], admit_ms_max=max(admit_ms),
+        ttft_ms_p50_prefill_role=quantiles(
+            [r.ttft_s * 1e3 for r in want])[0],
+        second_token_ms_p50_colocated=quantiles(second_co)[0] * 1e3,
+        second_token_ms_p50_disaggregated=quantiles(second_dec)[0] * 1e3,
+        second_token_logits_bit_equal=len(second),
+        refusals=refusals, planted_stream_differs=res_bad.tokens.tolist()
+        != want[0].tokens.tolist())
+    return {name: launches}
+
+
+def phase_roles(params, cfg) -> dict:
+    """Phase 39: prefill/decode roles with the KV shipped as bytes, at bf16
+    (B8) and int8 (B10) KV."""
+    out = {}
+    for kv in (None, "int8"):
+        out.update(ship_run(params, cfg, kv,
+                            serving_requests(cfg.vocab_size, seed=3)))
+    return out
+
+
+def recovery_requests(vocab: int) -> list:
+    """Phase 40's traffic: phase 4's kind (prompts of 32-512 tokens, two
+    of the eight sampled) at seed 4, 32 new tokens each."""
+    return [dict(r, max_length=32) for r in serving_requests(vocab, seed=4)]
+
+
+def recovery_run(params, cfg, paged=True, kv=None, plan=None,
+                 requests=None, tamper=None, **engine_kw) -> dict:
+    """Serve ``requests`` (default :func:`recovery_requests`) on a fresh
+    engine (given to ``tamper`` first, when set), under the fault ``plan``
+    (its attempt indices counted from this engine's start); record each
+    tick's wall time and summary, every sampled logits row, the rows of
+    the first tick that decoded after each recovery (``post_keys``), the
+    recoveries' replay ms and the launches."""
+    engine, _ = build_engine(kv, params=params, paged=paged, **engine_kw)
+    if tamper is not None:
+        tamper(engine)
+    seen = watch_forwards(engine)
+    watched = watch_rows(engine)
+    spent = {"replay_prefill_ms": [], "catch_up_ms": []}
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spent[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    engine._replay_prefill = timed(engine._replay_prefill,
+                                   "replay_prefill_ms")
+    engine._catch_up = timed(engine._catch_up, "catch_up_ms")
+    requests = requests or recovery_requests(cfg.vocab_size)
+    zero_launches()
+    if plan:
+        faults.configure(**plan)
+    ticks = []
+    try:
+        for r in requests:
+            engine.submit(**r)
+        while engine.scheduler.queue_depth or engine._active:
+            t = time.perf_counter()
+            summary = engine.step()
+            torch.cuda.synchronize()
+            ticks.append((t, time.perf_counter(), summary))
+    finally:
+        faults.reset()
+    for thread in engine.abandoned:
+        thread.join()
+    res = engine.drain()
+    drained(engine, f"recovery paged={paged} kv={kv}")
+    # time to recover: from the start of a faulted tick to the end of the
+    # first tick after it that decoded
+    recover_ms, post = [], set()
+    for j, (t, _, s) in enumerate(ticks):
+        if s["recovered"] and (j == 0 or not ticks[j - 1][2]["recovered"]):
+            k = next((k for k in range(j + 1, len(ticks))
+                      if ticks[k][2]["decoded"]), None)
+            if k is not None:
+                recover_ms.append((ticks[k][1] - t) * 1e3)
+                post.add(k)  # the engine's tick count is the loop's index
+    return dict(results=[res[rid] for rid in sorted(res)], engine=engine,
+                rows=watched["rows"], post_keys=[
+                    key for key, tick in watched["ticks"].items()
+                    if tick in post],
+                decode_forwards=seen["decode"], launches=dict(da.launches),
+                recover_ms=recover_ms, ticks=len(ticks),
+                replay_prefill_ms=sum(spent["replay_prefill_ms"]),
+                replays=len(spent["replay_prefill_ms"]),
+                catch_up_ms=sum(spent["catch_up_ms"]))
+
+
+def phase_recovery(params, cfg) -> dict:
+    """Phase 40: crash recovery, paged and slot (module docstring)."""
+    out = {}
+    clean = {}
+    for paged, kv in ((True, None), (False, None), (True, "int8"),
+                      (False, "int8")):
+        name = ("paged_decode" if paged else "decode") + ("_q8" if kv else "")
+        base = recovery_run(params, cfg, paged, kv)
+        run = recovery_run(params, cfg, paged, kv, plan=dict(tick_raise="5"))
+        what = f"tick 5 raised, paged={paged} kv={kv or 'bf16'}"
+        streams_gate(what, run["results"], base["results"])
+        # the first tick after the recovery decodes from replayed K/V
+        rows_gate(f"{what}: first tick after the recovery", run["rows"],
+                  base["rows"], run["post_keys"])
+        if run["engine"].metrics.engine_recoveries != 1:
+            raise AssertionError(f"{what}: "
+                                 f"{run['engine'].metrics.engine_recoveries} "
+                                 "recoveries")
+        counts = dict(run["launches"])
+        launches = counts.pop(name)
+        if any(counts.values()):
+            raise AssertionError(f"{what}: other kernels launched {counts}")
+        launch_gate(what, launches, run["decode_forwards"], cfg.num_layers)
+        out[name] = {"launches_recovery": launches}
+        log("recovery", run="tick_raise", paged=paged, kv_dtype=kv or "bf16",
+            kernel=name, kernel_launches=launches,
+            decode_forwards=run["decode_forwards"],
+            time_to_recover_ms=run["recover_ms"],
+            replay_prefill_ms=run["replay_prefill_ms"],
+            replays=run["replays"], catch_up_ms=run["catch_up_ms"],
+            ticks=run["ticks"],
+            clean_ticks=base["ticks"], post_recovery_rows=len(
+                run["post_keys"]),
+            sampled_requests=sum(1 for r in recovery_requests(
+                cfg.vocab_size) if r["decode_strategy"] != "greedy"))
+        if kv is None:
+            clean[paged] = base["results"]
+        if paged and kv is None:
+            clean["rows"] = base["rows"]
+            # planted: every catch-up starts one position late, leaving
+            # the first replayed token's K/V unwritten
+            def late(engine):
+                catch_up = engine._catch_up
+                engine._catch_up = lambda replayed: catch_up(
+                    [(req, start + 1) for req, start in replayed])
+
+            bad = recovery_run(params, cfg, paged, kv,
+                               plan=dict(tick_raise="5"), tamper=late)
+            must_break(rows_gate, f"{what}: catch-up one position late",
+                       bad["rows"], base["rows"], bad["post_keys"],
+                       label="catch-up one position late")
+            log("recovery", run="planted_late_catch_up",
+                planted_stream_differs=[r.tokens.tolist() for r in
+                                        bad["results"]]
+                != [r.tokens.tolist() for r in base["results"]])
+            del bad
+        del base, run
+    # a poison request: bisection retires it alone
+    run = recovery_run(params, cfg, plan=dict(poison_request="2"))
+    res, eng = run["results"], run["engine"]
+    if res[2].finish_reason != "error" or eng.metrics.poison_retired != 1:
+        raise AssertionError(f"poison: {res[2].finish_reason}, "
+                             f"{eng.metrics.poison_retired} retired")
+    streams_gate("poison neighbours", res[:2] + res[3:],
+                 clean[True][:2] + clean[True][3:])
+    launch_gate("poison", run["launches"]["paged_decode"],
+                run["decode_forwards"], cfg.num_layers)
+    log("recovery", run="poison", probes=eng.probes,
+        poison_partial_tokens=len(res[2].tokens),
+        recoveries=eng.metrics.engine_recoveries,
+        time_to_recover_ms=run["recover_ms"],
+        replay_prefill_ms=run["replay_prefill_ms"], replays=run["replays"])
+    # a prefill that fails twice: its request is quarantined
+    faults.configure(prefill_raise=f"{eng._fault_prefills}+")
+    try:
+        rid = eng.submit(**serving_requests(cfg.vocab_size, seed=5)[0])
+        res = eng.drain(max_ticks=10)
+    finally:
+        faults.reset()
+    if res[rid].finish_reason != "error" or len(res[rid].tokens):
+        raise AssertionError(f"prefill poison: {res[rid].finish_reason}")
+    log("recovery", run="prefill_raise", quarantined=rid,
+        poison_retired=eng.metrics.poison_retired)
+    del run, eng
+    # a hung tick of ~2 s against a 0.5 s watchdog
+    hang = recovery_run(params, cfg, plan=dict(tick_hang="5", tick_hang_s=2.0),
+                        tick_timeout_s=0.5)
+    eng = hang["engine"]
+    if not eng.hang_diagnostics or eng.metrics.engine_recoveries < 1:
+        raise AssertionError("the hung tick was not caught")
+    streams_gate("hung tick", hang["results"], clean[True])
+    rows_gate("hung tick: first tick after the recovery", hang["rows"],
+              clean["rows"], hang["post_keys"])
+    log("recovery", run="tick_hang", hang_diagnostics=eng.hang_diagnostics,
+        time_to_recover_ms=hang["recover_ms"],
+        replay_prefill_ms=hang["replay_prefill_ms"],
+        zombie_threads=len(eng.abandoned),
+        b8_launches=hang["launches"]["paged_decode"],
+        decode_forwards=hang["decode_forwards"])
+    del hang, eng
+    # every tick raises: the budget runs out and the engine reads dead
+    engine, _ = build_engine(params=params, paged=False, max_recoveries=2)
+    faults.configure(tick_raise="0+")
+    try:
+        engine.submit(**serving_requests(cfg.vocab_size)[0])
+        raised = None
+        for _ in range(10):
+            try:
+                engine.step()
+            except RecoveryExhausted as exc:
+                raised = exc
+                break
+    finally:
+        faults.reset()
+    if raised is None or engine.health()["state"] != "dead":
+        raise AssertionError(f"no RecoveryExhausted ({engine.health()})")
+    log("recovery", run="exhausted", recoveries=engine.metrics
+        .engine_recoveries, health=engine.health()["state"])
+    del engine
+    # shutdown under load with no grace: partials for every request
+    engine, _ = build_engine(params=params)
+    rids = [engine.submit(**r) for r in recovery_requests(cfg.vocab_size)]
+    for _ in range(3):
+        engine.step()
+    res = engine.shutdown(grace_s=0.0)
+    if (set(res) != set(rids)
+            or {r.finish_reason for r in res.values()} != {"shutdown"}
+            or any(not len(res[rid].tokens) for rid in rids)):
+        raise AssertionError("shutdown: " + str(
+            {rid: (r.finish_reason, len(r.tokens)) for rid, r in res.items()}))
+    for i, rid in enumerate(rids):
+        want = clean[True][i].tokens.tolist()
+        if res[rid].tokens.tolist() != want[:len(res[rid].tokens)]:
+            raise AssertionError(f"shutdown: request {i}'s partial stream "
+                                 "is not its stream's head")
+    log("recovery", run="shutdown", partial_tokens=[
+        len(res[rid].tokens) for rid in rids], health=engine.health()["state"])
+    del engine
+    return out
+
+
 FORKSERVER_PRELOAD = ("numpy", "torch", "torch.distributed",
                       "fleetx_tpu_torch.core.engine",
                       "fleetx_tpu_torch.data", "fleetx_tpu_torch.models",
@@ -6020,7 +6749,18 @@ def run_phases() -> tuple:
     slot = phase_slot_serving(serving_params, cfg)
     chunked = phase_chunked(serving_params, cfg)
     spec = phase_spec(serving_params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiers = phase_tiers(serving_params, cfg)
+    roles = phase_roles(serving_params, cfg)
+    recovered = phase_recovery(serving_params, cfg)
     del serving_params
+    kernel["launches_tiers"] = tiers["launches"]
+    kernel["launches_roles"] = roles["paged_decode"]
+    kernel["launches_recovery"] = recovered["paged_decode"]["launches_recovery"]
+    decode["paged_decode_q8"]["launches_roles"] = roles["paged_decode_q8"]
+    for name in ("decode", "decode_q8", "paged_decode_q8"):
+        decode[name].update(recovered[name])
     kernel["launches_chunked"] = chunked["paged_decode"]["launches"]
     kernel.update(spec["paged_decode"])
     decode["decode"]["launches_slot"] = slot["decode"]["launches"]

@@ -1,6 +1,8 @@
-"""Deterministic fault injection for the training path.
+"""Deterministic fault injection for the training path and the serving
+engine.
 
-Port of the training side of the JAX package's ``resilience/faults.py``:
+Port of the training and engine-side serving parts of the JAX package's
+``resilience/faults.py``:
 one process-global :class:`FaultInjector` (``faults``) owns a
 :class:`FaultPlan` parsed from ``FLEETX_FAULT_*`` environment variables
 (read once, when this module is imported) or installed with
@@ -26,14 +28,32 @@ injection stays deterministic under skip and resume):
   :class:`HostLossFault` before the matching applied step runs (each
   step index at most once per configure).
 
+Serving injection points (the engine's crash safety; indices count
+*attempted* device calls, so a tick retried after a recovery takes a fresh
+index and a one-shot selector faults exactly once):
+
+- ``FLEETX_FAULT_TICK_RAISE``: the matching decode ticks raise
+  :class:`TickFault` before their forward;
+- ``FLEETX_FAULT_PREFILL_RAISE``: the matching prefill attempts raise
+  :class:`PrefillFault`;
+- ``FLEETX_FAULT_TICK_HANG`` / ``FLEETX_FAULT_TICK_HANG_S``: the matching
+  decode ticks sleep that long inside the watched call (what
+  ``FLEETX_SERVING_TICK_TIMEOUT_S`` catches);
+- ``FLEETX_FAULT_POISON_REQUEST``: a selector over request ids: any decode
+  tick (or bisection probe) whose batch holds one raises
+  :class:`PoisonFault`;
+- ``FLEETX_FAULT_KV_SHIP_RAISE``: the matching ``export_kv`` attempts raise
+  :class:`KVShipFault` before a page is read;
+- ``FLEETX_FAULT_KV_SHIP_CORRUPT``: the matching exports flip one byte of a
+  serialized page, which the receiver's crc32 check refuses.
+
 Selectors share one grammar: a comma-separated list of entries, each an
 int (``"3"``) or ``"N+"`` for every index >= N (``"0+"`` = always).
 
-The serving injection points (ticks, prefill, poison requests, replicas,
-KV shipping, RPC) wait for the serving features and the fleet layer
-(ROADMAP Queue A, "Serving features still missing" and "Fleet layer");
-the JAX package's structured events wait for the obs module ("Remaining
-GPT and Trainer switches"): an injection here is logged instead.
+The router and RPC injection points (``replica_kill``, ``probe_flap``,
+``rpc_drop``/``rpc_delay``: ``on_router_tick``, ``on_router_probe``,
+``on_rpc``) wait for the fleet layer (ROADMAP Queue A, "Fleet layer").
+Each injection is logged and emitted as a ``fault_injected`` event.
 """
 
 from __future__ import annotations
@@ -45,10 +65,12 @@ from typing import Iterable, Optional
 
 import numpy as np
 
+from fleetx_tpu_torch.obs.events import emit as obs_emit
 from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["CkptFault", "DataFault", "FaultInjector", "FaultPlan",
-           "HostLossFault", "faults"]
+           "HostLossFault", "KVShipFault", "PoisonFault", "PrefillFault",
+           "TickFault", "faults"]
 
 
 class DataFault(RuntimeError):
@@ -62,6 +84,25 @@ class CkptFault(IOError):
 class HostLossFault(RuntimeError):
     """Injected training host loss (FLEETX_FAULT_HOST_LOSS_STEP): a host
     dropped out of the job before the matching step ran."""
+
+
+class TickFault(RuntimeError):
+    """Injected serving decode-tick failure (FLEETX_FAULT_TICK_RAISE)."""
+
+
+class PrefillFault(RuntimeError):
+    """Injected serving prefill failure (FLEETX_FAULT_PREFILL_RAISE)."""
+
+
+class PoisonFault(RuntimeError):
+    """Injected poison-request failure (FLEETX_FAULT_POISON_REQUEST): the
+    decode batch held a request whose presence kills the step."""
+
+
+class KVShipFault(RuntimeError):
+    """Injected KV-export failure (FLEETX_FAULT_KV_SHIP_RAISE): the
+    prefill-role replica died mid-handoff; the caller falls back to
+    replaying the request elsewhere."""
 
 
 class _Selector:
@@ -87,9 +128,16 @@ class _Selector:
         return bool(self.exact) or self.from_ is not None
 
 
+# the plan's selector fields: a plan with none of them set is no plan
+_SELECTORS = ("nan_batch", "data_raise_batch", "data_slow_batch",
+              "ckpt_save_step", "host_loss_step", "tick_raise",
+              "prefill_raise", "tick_hang", "poison_request", "kv_ship_raise",
+              "kv_ship_corrupt")
+
+
 @dataclasses.dataclass
 class FaultPlan:
-    """Parsed training fault schedule (module docstring has the grammar)."""
+    """Parsed fault schedule (module docstring has the grammar)."""
 
     nan_batch: Optional[str] = None
     data_raise_batch: Optional[str] = None
@@ -97,28 +145,43 @@ class FaultPlan:
     data_slow_s: float = 0.05
     ckpt_save_step: Optional[str] = None
     host_loss_step: Optional[str] = None
+    tick_raise: Optional[str] = None
+    prefill_raise: Optional[str] = None
+    tick_hang: Optional[str] = None
+    tick_hang_s: float = 30.0
+    poison_request: Optional[str] = None
+    kv_ship_raise: Optional[str] = None
+    kv_ship_corrupt: Optional[str] = None
 
     @classmethod
     def from_env(cls, env=os.environ) -> Optional["FaultPlan"]:
         """A plan from ``FLEETX_FAULT_*`` (None when none is set). A
         malformed value raises a ValueError naming the variable."""
-        raw = env.get("FLEETX_FAULT_DATA_SLOW_S")
-        try:
-            slow_s = float(raw) if raw else 0.05
-        except ValueError:
-            raise ValueError(f"FLEETX_FAULT_DATA_SLOW_S={raw!r} is not a "
-                             "float")
+        def _float(name, default):
+            raw = env.get(name)
+            if not raw:
+                return default
+            try:
+                return float(raw)
+            except ValueError:
+                raise ValueError(f"{name}={raw!r} is not a float")
+
         plan = cls(
             nan_batch=env.get("FLEETX_FAULT_NAN_BATCH") or None,
             data_raise_batch=env.get("FLEETX_FAULT_DATA_RAISE_BATCH") or None,
             data_slow_batch=env.get("FLEETX_FAULT_DATA_SLOW_BATCH") or None,
-            data_slow_s=slow_s,
+            data_slow_s=_float("FLEETX_FAULT_DATA_SLOW_S", 0.05),
             ckpt_save_step=env.get("FLEETX_FAULT_CKPT_SAVE_STEP") or None,
             host_loss_step=env.get("FLEETX_FAULT_HOST_LOSS_STEP") or None,
+            tick_raise=env.get("FLEETX_FAULT_TICK_RAISE") or None,
+            prefill_raise=env.get("FLEETX_FAULT_PREFILL_RAISE") or None,
+            tick_hang=env.get("FLEETX_FAULT_TICK_HANG") or None,
+            tick_hang_s=_float("FLEETX_FAULT_TICK_HANG_S", 30.0),
+            poison_request=env.get("FLEETX_FAULT_POISON_REQUEST") or None,
+            kv_ship_raise=env.get("FLEETX_FAULT_KV_SHIP_RAISE") or None,
+            kv_ship_corrupt=env.get("FLEETX_FAULT_KV_SHIP_CORRUPT") or None,
         )
-        if not (plan.nan_batch or plan.data_raise_batch
-                or plan.data_slow_batch or plan.ckpt_save_step
-                or plan.host_loss_step):
+        if not any(getattr(plan, f) for f in _SELECTORS):
             return None
         return plan
 
@@ -127,12 +190,16 @@ class FaultInjector:
     """Process-global injector: the active plan and the fetch counter."""
 
     _ZERO = {"nan": 0, "data_raise": 0, "data_slow": 0, "ckpt": 0,
-             "host_loss": 0}
+             "host_loss": 0, "tick_raise": 0, "prefill_raise": 0,
+             "tick_hang": 0, "poison": 0, "kv_ship_raise": 0,
+             "kv_ship_corrupt": 0}
 
     def __init__(self):
         self._plan: Optional[FaultPlan] = None
         self._nan_sel = self._raise_sel = self._slow_sel = None
         self._ckpt_sel = self._host_loss_sel = None
+        self._tick_sel = self._prefill_sel = self._hang_sel = None
+        self._poison_sel = self._ship_raise_sel = self._ship_corrupt_sel = None
         self._host_loss_fired = set()  # step indices already killed once
         self._batch_counter = 0
         self.injected = dict(self._ZERO)
@@ -142,7 +209,7 @@ class FaultInjector:
         counters."""
         if plan is None and kw:
             plan = FaultPlan(**{k: str(v) if v is not None
-                                and k.endswith(("batch", "step")) else v
+                                and k in _SELECTORS else v
                                 for k, v in kw.items()})
 
         def sel(field):
@@ -162,6 +229,12 @@ class FaultInjector:
         self._slow_sel = sel("data_slow_batch")
         self._ckpt_sel = sel("ckpt_save_step")
         self._host_loss_sel = sel("host_loss_step")
+        self._tick_sel = sel("tick_raise")
+        self._prefill_sel = sel("prefill_raise")
+        self._hang_sel = sel("tick_hang")
+        self._poison_sel = sel("poison_request")
+        self._ship_raise_sel = sel("kv_ship_raise")
+        self._ship_corrupt_sel = sel("kv_ship_corrupt")
         self._host_loss_fired = set()
         self._batch_counter = 0
         self.injected = dict(self._ZERO)
@@ -241,6 +314,68 @@ class FaultInjector:
             raise HostLossFault(
                 f"injected host loss before step {step} "
                 "(FLEETX_FAULT_HOST_LOSS_STEP)")
+
+
+    def _injected(self, fault: str, **where) -> None:
+        self.injected[fault] += 1
+        logger.warning("fault: %s injected (%s)", fault, ", ".join(
+            f"{k}={v}" for k, v in where.items()))
+        obs_emit("fault_injected", fault=fault, **where)
+
+    def on_serving_tick(self, tick: int) -> None:
+        """Decode-tick attempt ``tick``: sleep ``tick_hang_s`` and/or raise
+        :class:`TickFault` when it matches. The engine calls this inside
+        the watched device call, so an injected hang is what its watchdog
+        sees."""
+        if self._plan is None:
+            return
+        if self._hang_sel and tick in self._hang_sel:
+            self._injected("tick_hang", tick=tick)
+            time.sleep(self._plan.tick_hang_s)
+        if self._tick_sel and tick in self._tick_sel:
+            self._injected("tick_raise", tick=tick)
+            raise TickFault(f"injected decode-tick failure at tick {tick} "
+                            "(FLEETX_FAULT_TICK_RAISE)")
+
+    def on_serving_prefill(self, attempt: int, request_id: int) -> None:
+        """Raise :class:`PrefillFault` when prefill attempt ``attempt``
+        matches (every prefill the engine makes counts, replays too)."""
+        if self._prefill_sel and attempt in self._prefill_sel:
+            self._injected("prefill_raise", attempt=attempt,
+                           request=request_id)
+            raise PrefillFault(
+                f"injected prefill failure at attempt {attempt} (request "
+                f"{request_id}, FLEETX_FAULT_PREFILL_RAISE)")
+
+    def on_serving_batch(self, request_ids) -> None:
+        """Raise :class:`PoisonFault` when a configured poison request is
+        in ``request_ids`` (a decode tick's batch or a probe's subset)."""
+        if self._poison_sel is None:
+            return
+        hits = [int(r) for r in request_ids if int(r) in self._poison_sel]
+        if hits:
+            self._injected("poison", requests=str(hits))
+            raise PoisonFault(
+                f"injected poison-request failure (requests {hits} in the "
+                "decode batch, FLEETX_FAULT_POISON_REQUEST)")
+
+    def on_kv_ship(self, attempt: int, request_id: int) -> None:
+        """Raise :class:`KVShipFault` when export attempt ``attempt``
+        matches."""
+        if self._ship_raise_sel and attempt in self._ship_raise_sel:
+            self._injected("kv_ship_raise", attempt=attempt,
+                           request=request_id)
+            raise KVShipFault(
+                f"injected KV-export failure at ship attempt {attempt} "
+                f"(request {request_id}, FLEETX_FAULT_KV_SHIP_RAISE)")
+
+    def on_kv_ship_corrupt(self, attempt: int) -> bool:
+        """True when export attempt ``attempt`` should corrupt one of its
+        serialized pages."""
+        if self._ship_corrupt_sel and attempt in self._ship_corrupt_sel:
+            self._injected("kv_ship_corrupt", attempt=attempt)
+            return True
+        return False
 
 
 faults = FaultInjector()

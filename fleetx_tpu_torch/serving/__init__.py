@@ -1,21 +1,33 @@
 """Continuous-batching serving for GPT (the port's serving path): the paged
-and slot caches, chunked prefill, speculative decoding and admission
-limits."""
+and slot caches with the host and disk page tiers, chunked prefill,
+speculative decoding, prefill/decode roles with KV shipping, crash
+recovery and admission limits."""
 
 from fleetx_tpu_torch.serving.cache_manager import (
+    DiskPageStore,
+    HostPageStore,
     PagedKVCacheManager,
     PagePool,
     SlotKVCacheManager,
+    TieredPageStore,
 )
 from fleetx_tpu_torch.serving.engine import (
     QueueFull,
+    RecoveryExhausted,
     ServingEngine,
     ServingResult,
+    ShuttingDown,
+    TickTimeout,
     filter_logits,
     sample_tokens,
 )
 from fleetx_tpu_torch.serving.metrics import ServingMetrics
-from fleetx_tpu_torch.serving.model_protocol import GPTExecutor, ModelCapabilities
+from fleetx_tpu_torch.serving.model_protocol import (
+    ENGINE_SURFACE,
+    GPTExecutor,
+    ModelCapabilities,
+    engine_conforms,
+)
 from fleetx_tpu_torch.serving.scheduler import FIFOScheduler, Request
 from fleetx_tpu_torch.serving.spec import (
     DraftModelProposer,
@@ -23,8 +35,10 @@ from fleetx_tpu_torch.serving.spec import (
     Proposer,
 )
 
-__all__ = ["QueueFull", "ServingEngine", "ServingResult", "GPTExecutor",
-           "ModelCapabilities", "PagePool", "PagedKVCacheManager",
-           "SlotKVCacheManager", "FIFOScheduler", "Request",
-           "DraftModelProposer", "NgramProposer", "Proposer",
-           "ServingMetrics", "filter_logits", "sample_tokens"]
+__all__ = ["QueueFull", "RecoveryExhausted", "ServingEngine",
+           "ServingResult", "ShuttingDown", "TickTimeout", "GPTExecutor",
+           "ModelCapabilities", "ENGINE_SURFACE", "engine_conforms",
+           "PagePool", "PagedKVCacheManager", "SlotKVCacheManager",
+           "HostPageStore", "DiskPageStore", "TieredPageStore",
+           "FIFOScheduler", "Request", "DraftModelProposer", "NgramProposer",
+           "Proposer", "ServingMetrics", "filter_logits", "sample_tokens"]

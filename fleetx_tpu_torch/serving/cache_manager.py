@@ -1,8 +1,7 @@
-"""KV cache bookkeeping for the serving engine: the slot cache and the
-paged cache.
+"""KV cache bookkeeping for the serving engine: the slot cache, the paged
+cache, and the host and disk page tiers under it.
 
-Port of the JAX package's ``serving/cache_manager.py`` without its host and
-disk page tiers (ROADMAP Queue A, "Serving features still missing").
+Port of the JAX package's ``serving/cache_manager.py``.
 
 The SLOT cache (:class:`SlotKVCacheManager`, ``FLEETX_SERVING_PAGED=0``) is
 one contiguous ``[L, slots, cache_len, heads, head_dim]`` buffer per K and
@@ -27,20 +26,522 @@ neither the trash page nor a freed page's stale K/V is ever read.
 
 :class:`PagePool` is pure host state (numpy, no tensors);
 :class:`PagedKVCacheManager` adds the device pools and the decode lanes.
+
+Page tiers: with a store attached, LRU eviction of a zero-ref warm trie
+subtree SPILLS each page (every pool leaf: K, V and, at int8, the scales)
+to the store instead of destroying it, keyed by the page's token-chunk path
+from the trie root. A later prompt with the same prefix revives the
+entries into fresh physical pages — one batched transfer and one
+``index_copy_`` per pool leaf — and skips their prefill. Keys are content
+addresses, so an entry outlives the pool that spilled it (the engine
+threads one store through ``recover()``'s rebuilt manager) and identical
+tokens always mean identical K/V. :class:`HostPageStore` is a byte-bounded
+LRU dict in host memory; :class:`DiskPageStore` keeps one file per page
+under a directory many replicas share (file names are the sha256 of the
+token chunks, as the JAX package names them, so a JAX replica and a port
+replica share one directory); :class:`TieredPageStore` stacks them.
+
+A page's payload is the list of its leaves in the JAX package's
+``jax.tree.leaves`` order of the scanned-layers cache — ``cache_index``
+(None), ``cached_key``, [``cached_key_scale``], ``cached_value``,
+[``cached_value_scale``] — each a host tensor ``[L, page_size, heads,
+head_dim]`` (``[..., 1]`` for a scale). :meth:`HostPageStore.
+payload_to_bytes` writes it in the JAX package's crc32-trailed wire
+format, byte for byte. A payload whose leaves do not match the pool (a
+JAX replica with unrolled layers writes one leaf set per layer) is
+refused, never scattered.
 """
 
 from __future__ import annotations
 
+import hashlib
 import heapq
-from typing import Dict, List, Optional, Tuple
+import os
+import struct
+import time
+import weakref
+import zlib
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fleetx_tpu_torch.models.gpt.generation import init_decode_cache
+from fleetx_tpu_torch.utils.log import logger
 
-__all__ = ["PagePool", "PagedKVCacheManager", "SlotKVCacheManager",
-           "scatter_slot"]
+__all__ = ["DiskPageStore", "HostPageStore", "PagePool",
+           "PagedKVCacheManager", "SlotKVCacheManager", "TieredPageStore",
+           "payload_nbytes", "scatter_slot"]
+
+# the wire format's dtype names (numpy's ``dtype.name``, which the JAX
+# package writes; ``bfloat16`` is ml_dtypes' name) and their torch dtypes
+_WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                "bfloat16": torch.bfloat16, "float64": torch.float64,
+                "int8": torch.int8, "uint8": torch.uint8,
+                "int16": torch.int16, "int32": torch.int32,
+                "int64": torch.int64, "bool": torch.bool}
+_WIRE_NAMES = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+def payload_nbytes(payload) -> int:
+    """Bytes of a page payload's leaves (None leaves count nothing)."""
+    return sum(a.numel() * a.element_size() if torch.is_tensor(a)
+               else int(np.asarray(a).nbytes)
+               for a in payload if a is not None)
+
+
+def _leaf_wire(arr) -> Tuple[str, tuple, bytes]:
+    """``(dtype name, shape, raw C-order bytes)`` of one payload leaf: a
+    torch tensor (bf16 written as its raw 2-byte words) or a numpy
+    array."""
+    if torch.is_tensor(arr):
+        t = arr.detach().to("cpu").contiguous()
+        name = _WIRE_NAMES.get(t.dtype)
+        if name is None:
+            raise ValueError(f"payload leaf dtype {t.dtype} has no wire "
+                             "name; only numeric cache leaves spill")
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16
+               else t).numpy().tobytes()
+        return name, tuple(t.shape), raw
+    a = np.ascontiguousarray(arr)
+    if a.dtype.names is not None or a.dtype.hasobject:
+        raise ValueError(f"payload leaf dtype {a.dtype} is not a plain "
+                         "array dtype; only numeric cache leaves spill")
+    return a.dtype.name, a.shape, a.tobytes()
+
+
+def _leaf_from_wire(name: str, shape: tuple, raw) -> torch.Tensor:
+    dtype = _WIRE_DTYPES.get(name)
+    if dtype is None:
+        raise ValueError(f"payload leaf dtype {name!r} is not one the port "
+                         "reads")
+    if dtype == torch.bfloat16:
+        words = np.frombuffer(raw, dtype=np.int16).reshape(shape)
+        return torch.from_numpy(words.copy()).view(torch.bfloat16)
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    return torch.from_numpy(
+        np.frombuffer(raw, dtype=np_dtype).reshape(shape).copy())
+
+
+class HostPageStore:
+    """Bounded host-memory page tier (module docstring).
+
+    A byte-budgeted LRU dict: ``key`` is a page's token-chunk path (a
+    tuple of full-page token tuples from the trie root), the payload its
+    per-leaf host tensors. Capacity pressure drops the OLDEST entries
+    (``evicted_pages``); a payload larger than the whole budget is refused.
+    The tier is inclusive: :meth:`get` leaves the entry in place, so a
+    page revived into a pool that a fault then destroys revives again."""
+
+    def __init__(self, capacity_bytes: int):
+        if capacity_bytes < 0:
+            raise ValueError(
+                f"capacity_bytes must be >= 0, got {capacity_bytes}")
+        self.capacity_bytes = int(capacity_bytes)
+        self._entries: Dict[tuple, Tuple[object, int]] = {}  # insertion=LRU
+        self.nbytes = 0
+        self.spilled_pages = 0  # lifetime puts accepted
+        self.revived_pages = 0  # lifetime gets on a prefix match
+        self.evicted_pages = 0  # lifetime drops under the budget
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
+    def put(self, key, payload, nbytes: int) -> bool:
+        """Insert one spilled page, evicting the oldest entries until it
+        fits; False (nothing stored) when ``nbytes`` exceeds the budget.
+        Re-putting a key refreshes its payload and LRU place."""
+        if nbytes > self.capacity_bytes:
+            return False
+        old = self._entries.pop(key, None)
+        if old is not None:
+            self.nbytes -= old[1]
+        while self.nbytes + nbytes > self.capacity_bytes and self._entries:
+            k = next(iter(self._entries))
+            self.nbytes -= self._entries.pop(k)[1]
+            self.evicted_pages += 1
+        self._entries[key] = (payload, nbytes)
+        self.nbytes += nbytes
+        self.spilled_pages += 1
+        return True
+
+    def get(self, key):
+        """A matched page's payload, refreshing its LRU place; the entry
+        stays. KeyError if absent."""
+        payload, nbytes = self._entries.pop(key)
+        self._entries[key] = (payload, nbytes)
+        self.revived_pages += 1
+        return payload
+
+    def pop(self, key):
+        """Remove and return an entry's payload. KeyError if absent."""
+        payload, nbytes = self._entries.pop(key)
+        self.nbytes -= nbytes
+        return payload
+
+    def check_invariants(self) -> None:
+        """Byte accounting matches the entries and respects the budget."""
+        want = sum(nb for _, nb in self._entries.values())
+        assert self.nbytes == want, (
+            f"host store nbytes {self.nbytes} != sum of entries {want}")
+        assert self.nbytes <= self.capacity_bytes, (
+            f"host store over budget: {self.nbytes} > {self.capacity_bytes}")
+
+    # The wire format of one payload (little-endian): magic "FXPG", u16
+    # version 2, u16 entry count; per entry a flag byte (0: None; 1: an
+    # array, then a u8-length dtype name, a u8 ndim, u32 dims and a u64
+    # byte count before the raw C-order bytes); a crc32 of everything
+    # before it trails the blob. Version 1 (no crc) is refused.
+
+    _MAGIC = b"FXPG"
+    _VERSION = 2
+
+    @staticmethod
+    def payload_to_bytes(payload) -> bytes:
+        """Serialize one payload (a list of ``Optional`` tensors or numpy
+        arrays) to the wire format above, byte-identical to the JAX
+        package's blob of the same values."""
+        out = [HostPageStore._MAGIC,
+               struct.pack("<HH", HostPageStore._VERSION, len(payload))]
+        for arr in payload:
+            if arr is None:
+                out.append(b"\x00")
+                continue
+            name, shape, raw = _leaf_wire(arr)
+            name = name.encode("ascii")
+            out.append(b"\x01")
+            out.append(struct.pack("<B", len(name)))
+            out.append(name)
+            out.append(struct.pack("<B", len(shape)))
+            out.append(struct.pack(f"<{len(shape)}I", *shape))
+            out.append(struct.pack("<Q", len(raw)))
+            out.append(raw)
+        body = b"".join(out)
+        return body + struct.pack("<I", zlib.crc32(body))
+
+    @staticmethod
+    def payload_from_bytes(buf) -> list:
+        """Inverse of :meth:`payload_to_bytes`: a list of ``Optional`` CPU
+        tensors. The crc32 trailer is checked before any entry is parsed;
+        a malformed, truncated, corrupted or v1 blob raises ValueError."""
+        view = memoryview(buf)
+        if bytes(view[:4]) != HostPageStore._MAGIC:
+            raise ValueError("not a HostPageStore payload (bad magic)")
+        if len(view) < 12:  # magic + header + crc32 trailer
+            raise ValueError(
+                f"truncated payload: {len(view)} bytes is shorter than the "
+                "8-byte header + 4-byte crc32 trailer")
+        version, count = struct.unpack("<HH", view[4:8])
+        if version != HostPageStore._VERSION:
+            raise ValueError(
+                f"unsupported payload version {version}: this build reads "
+                f"v{HostPageStore._VERSION} (crc32-trailed); v1 predates "
+                "the checksum — re-spill the page with a current build")
+        (want_crc,) = struct.unpack("<I", view[-4:])
+        got_crc = zlib.crc32(view[:-4])
+        if got_crc != want_crc:
+            raise ValueError(
+                f"payload crc32 mismatch (stored {want_crc:#010x}, "
+                f"computed {got_crc:#010x}): the page was corrupted in "
+                "flight or at rest")
+        end = len(view) - 4
+        pos, out = 8, []
+        try:
+            for _ in range(count):
+                flag = view[pos]
+                pos += 1
+                if flag == 0:
+                    out.append(None)
+                    continue
+                nlen = view[pos]
+                pos += 1
+                name = bytes(view[pos:pos + nlen]).decode("ascii")
+                pos += nlen
+                ndim = view[pos]
+                pos += 1
+                shape = struct.unpack(f"<{ndim}I", view[pos:pos + 4 * ndim])
+                pos += 4 * ndim
+                (nbytes,) = struct.unpack("<Q", view[pos:pos + 8])
+                pos += 8
+                if pos + nbytes > end:
+                    raise ValueError("entry runs past the crc trailer")
+                out.append(_leaf_from_wire(name, shape,
+                                           view[pos:pos + nbytes]))
+                pos += nbytes
+        except (struct.error, ValueError, IndexError, TypeError,
+                UnicodeDecodeError) as e:
+            raise ValueError(f"truncated/corrupt payload: {e}") from None
+        if pos != end:
+            raise ValueError(
+                f"payload has {end - pos} trailing bytes before the crc")
+        return out
+
+
+def _weak_method(method: Callable) -> Callable:
+    """``method`` without a strong reference to its object: a pool's hooks
+    must not keep their manager, and its device storage, alive in a cycle
+    that only the garbage collector would break."""
+    ref = weakref.WeakMethod(method)
+    return lambda *args: ref()(*args)
+
+
+class DiskPageStore:
+    """Content-addressed, byte-bounded page tier on a shared directory
+    (``FLEETX_SERVING_DISK_CACHE_DIR`` / ``_BYTES``).
+
+    The :class:`HostPageStore` surface over files: one file per page,
+    named by the sha256 of its token-chunk path (the JAX package's names,
+    so replicas of either package share the directory), holding the
+    crc32-trailed wire format. Writes are atomic (a temp file, then a
+    rename); eviction drops the oldest files by mtime (``get`` touches a
+    file), coherent across the processes sharing the directory; a write
+    that fails (a full or read-only directory) stores nothing and returns
+    False. Capacity counts the files' bytes.
+
+    A put keeps the budget from this instance's view of the directory
+    (its files in mtime order and their bytes), kept current by its own
+    puts, gets and removals and listed anew at most every ``rescan_s``
+    seconds, when a sibling's writes show up; so a put costs no listing
+    of the directory, and the per-tick gauge (:attr:`cached_nbytes`)
+    none either. :attr:`nbytes` lists it."""
+
+    _SUFFIX = ".fxpg"
+    #: seconds a put trusts this instance's view of the directory
+    rescan_s = 1.0
+
+    def __init__(self, cache_dir: str, capacity_bytes: int):
+        if capacity_bytes < 0:
+            raise ValueError(
+                f"capacity_bytes must be >= 0, got {capacity_bytes}")
+        if not cache_dir:
+            raise ValueError("cache_dir must be a non-empty path")
+        self.cache_dir = str(cache_dir)
+        self.capacity_bytes = int(capacity_bytes)
+        os.makedirs(self.cache_dir, exist_ok=True)
+        self.spilled_pages = 0  # lifetime puts accepted (this instance)
+        self.revived_pages = 0  # lifetime gets served
+        self.evicted_pages = 0  # lifetime files dropped under the budget
+        self.hits = 0           # gets served
+        self.misses = 0         # membership probes that found nothing
+        self._view: Optional[OrderedDict] = None  # path -> bytes, oldest 1st
+        self._view_bytes = 0
+        self._view_at = 0.0
+
+    def _path(self, key) -> str:
+        """A key's file: sha256 over its int64 chunks, each followed by
+        ``/`` (so ``((1, 2),)`` and ``((1,), (2,))`` differ)."""
+        h = hashlib.sha256()
+        for chunk in key:
+            h.update(np.asarray(chunk, np.int64).tobytes())
+            h.update(b"/")
+        return os.path.join(self.cache_dir, h.hexdigest() + self._SUFFIX)
+
+    def _files(self):
+        """``(path, stat)`` of every store file, oldest mtime first; files
+        a sibling process removed meanwhile are skipped."""
+        out = []
+        try:
+            names = os.listdir(self.cache_dir)
+        except OSError:
+            return []
+        for name in names:
+            if not name.endswith(self._SUFFIX):
+                continue
+            path = os.path.join(self.cache_dir, name)
+            try:
+                out.append((path, os.stat(path)))
+            except OSError:
+                continue
+        out.sort(key=lambda ps: (ps[1].st_mtime, ps[0]))
+        return out
+
+    def __len__(self) -> int:
+        return len(self._files())
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the directory's page files (every writer's), listed."""
+        return sum(st.st_size for _, st in self._files())
+
+    @property
+    def cached_nbytes(self) -> int:
+        """The directory's bytes as of this instance's last listing, with
+        its own writes and removals since; lists only the first time."""
+        if self._view is None:
+            self._refresh(force=True)
+        return self._view_bytes
+
+    def _refresh(self, force: bool = False) -> None:
+        """List the directory into the view when it is older than
+        ``rescan_s`` (or ``force``)."""
+        now = time.monotonic()
+        if force or self._view is None or now - self._view_at >= self.rescan_s:
+            self._view = OrderedDict(
+                (path, st.st_size) for path, st in self._files())
+            self._view_bytes = sum(self._view.values())
+            self._view_at = now
+
+    def _forget(self, path: str) -> None:
+        if self._view is not None:
+            self._view_bytes -= self._view.pop(path, 0)
+
+    def _saw(self, path: str, size: int) -> None:
+        """``path`` holds ``size`` bytes and is the newest file."""
+        if self._view is not None:
+            self._forget(path)
+            self._view[path] = size
+            self._view_bytes += size
+
+    def __contains__(self, key) -> bool:
+        if os.path.exists(self._path(key)):
+            return True
+        self.misses += 1
+        return False
+
+    def put(self, key, payload, nbytes: int = 0) -> bool:
+        """Serialize and store one page, evicting the oldest files until
+        the budget holds; False (nothing stored) when the blob alone
+        exceeds it or the write fails. ``nbytes`` is ignored: the file's
+        bytes are what counts."""
+        del nbytes
+        blob = HostPageStore.payload_to_bytes(payload)
+        if len(blob) > self.capacity_bytes:
+            return False
+        path = self._path(key)
+        tmp = path + f".tmp.{os.getpid()}"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(blob)
+            os.replace(tmp, path)  # readers see the old bytes or the new
+        except OSError:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            return False
+        self.spilled_pages += 1
+        self._refresh()
+        self._saw(path, len(blob))
+        if self._view_bytes > self.capacity_bytes:
+            for victim in list(self._view):
+                if victim == path:
+                    continue  # never the page just written
+                self._forget(victim)
+                try:
+                    os.remove(victim)
+                except OSError:
+                    continue  # a sibling removed it first
+                self.evicted_pages += 1
+                if self._view_bytes <= self.capacity_bytes:
+                    break
+        return True
+
+    def get(self, key):
+        """A stored page's payload, touching its mtime. KeyError when
+        absent; ValueError when the file is corrupt (the file is removed,
+        so the entry reads as absent afterwards)."""
+        path = self._path(key)
+        try:
+            with open(path, "rb") as f:
+                blob = f.read()
+        except OSError:
+            raise KeyError(key) from None
+        try:
+            payload = HostPageStore.payload_from_bytes(blob)
+        except ValueError:
+            self._forget(path)
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            self.misses += 1
+            raise
+        try:
+            os.utime(path)
+            self._saw(path, len(blob))
+        except OSError:
+            self._forget(path)  # a sibling evicted it mid-read
+        self.revived_pages += 1
+        self.hits += 1
+        return payload
+
+    def pop(self, key):
+        """Remove and return an entry's payload. KeyError if absent or
+        corrupt (a corrupt file is removed either way)."""
+        try:
+            payload = self.get(key)
+        except ValueError:
+            raise KeyError(key) from None
+        self.hits -= 1  # a pop is not a hit
+        self.revived_pages -= 1
+        path = self._path(key)
+        self._forget(path)
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+        return payload
+
+    def check_invariants(self) -> None:
+        """The directory's bytes respect the budget (a single file may
+        overshoot it only when a sibling wrote after this instance's last
+        eviction)."""
+        total = self.nbytes
+        assert total <= self.capacity_bytes or len(self._files()) <= 1, (
+            f"disk store over budget: {total} > {self.capacity_bytes}")
+
+
+class TieredPageStore:
+    """The host tier over the disk tier, behind one store surface: puts
+    write through to both, gets serve host-first and promote a disk hit
+    into the host tier (the engine syncs each tier's counters apart)."""
+
+    def __init__(self, host: HostPageStore, disk: DiskPageStore):
+        self.host = host
+        self.disk = disk
+
+    def __contains__(self, key) -> bool:
+        return key in self.host or key in self.disk
+
+    def put(self, key, payload, nbytes: int) -> bool:
+        """Write-through: True when either tier kept the page."""
+        kept_host = self.host.put(key, payload, nbytes)
+        kept_disk = self.disk.put(key, payload, nbytes)
+        return kept_host or kept_disk
+
+    def get(self, key):
+        """Host tier first; a disk hit is promoted into the host tier."""
+        try:
+            return self.host.get(key)
+        except KeyError:
+            pass
+        payload = self.disk.get(key)
+        self.host.put(key, payload, payload_nbytes(payload))
+        return payload
+
+    def pop(self, key):
+        """Invalidate in both tiers; the payload of whichever had it."""
+        payload = None
+        try:
+            payload = self.host.pop(key)
+        except KeyError:
+            pass
+        try:
+            disk_payload = self.disk.pop(key)
+            payload = payload if payload is not None else disk_payload
+        except KeyError:
+            pass
+        if payload is None:
+            raise KeyError(key)
+        return payload
+
+    def check_invariants(self) -> None:
+        self.host.check_invariants()
+        self.disk.check_invariants()
 
 
 def scatter_slot(cache: Dict, small: Dict, slot: int) -> Dict:
@@ -185,10 +686,19 @@ class PagePool:
     (evicting a node evicts its whole subtree: a child's refcount never
     exceeds its parent's, so nothing live is stranded). With
     ``prefix_cache`` off (``FLEETX_SERVING_PREFIX_CACHE=0``) nothing is
-    matched or registered: every page is private to its lane."""
+    matched or registered: every page is private to its lane.
+
+    With a page store (``host_store``, and the manager's ``spill_fn`` /
+    ``revive_fn``) an evicted subtree spills to it, and :meth:`alloc`
+    continues a trie match into the store, reviving the entries into
+    fresh pages; ``check_fn`` refuses a stored payload that does not fit
+    the pool (read as a miss, like a corrupt file)."""
 
     def __init__(self, num_pages: int, page_size: int, lanes: int,
-                 lane_pages: int, prefix_cache: bool = True):
+                 lane_pages: int, prefix_cache: bool = True,
+                 host_store=None, spill_fn: Optional[Callable] = None,
+                 revive_fn: Optional[Callable] = None,
+                 check_fn: Optional[Callable] = None):
         if page_size < 1:
             raise ValueError(f"page_size must be positive, got {page_size}")
         if num_pages < lane_pages + 1:
@@ -213,6 +723,13 @@ class PagePool:
         # bumped on every block-table change so the engine re-uploads the
         # device copy only when something moved
         self.version = 0
+        # the page tier, live only with the trie (entries are matched by
+        # token-chunk path) and both device callbacks
+        self.host_store = (host_store if prefix_cache and spill_fn
+                           and revive_fn else None)
+        self._spill_fn = spill_fn
+        self._revive_fn = revive_fn
+        self._check_fn = check_fn
 
     @property
     def usable_pages(self) -> int:
@@ -229,6 +746,11 @@ class PagePool:
     def pages_in_use(self) -> int:
         """Pages pinned by at least one live lane."""
         return self.usable_pages - self.free_pages
+
+    @property
+    def cached_pages(self) -> int:
+        """Refcount-0 pages kept warm in the trie (reclaimable)."""
+        return len(self._cached)
 
     def _chunks(self, tokens) -> List[tuple]:
         """Full-page token tuples of a prompt, capped so at least the last
@@ -257,19 +779,55 @@ class PagePool:
             self._evict_subtree(next(iter(self._cached.values())))
         return self._free.pop()
 
+    @staticmethod
+    def _node_key(node: _TrieNode) -> tuple:
+        """A node's token-chunk path from the root: the content address
+        its spilled payload is stored under."""
+        parts = []
+        while node is not None and node.key is not None:
+            parts.append(node.key)
+            node = node.parent
+        return tuple(reversed(parts))
+
     def _evict_subtree(self, node: _TrieNode) -> None:
-        """Reclaim a zero-ref cached subtree's physical pages."""
+        """Reclaim a zero-ref cached subtree's physical pages, spilling
+        them to the page store first when one is attached (one batched
+        device read for the whole subtree)."""
         if node.parent is not None:
             del node.parent.children[node.key]
+        victims: List[_TrieNode] = []
         stack = [node]
         while stack:
             n = stack.pop()
             stack.extend(n.children.values())
+            victims.append(n)
+        if self.host_store is not None:
+            keys = [self._node_key(n) for n in victims]
+            for (payload, nbytes), key in zip(
+                    self._spill_fn([n.page for n in victims]), keys):
+                self.host_store.put(key, payload, nbytes)
+        for n in victims:
             self._cached.pop(n.page, None)
             del self._node_of_page[n.page]
             self._free.append(n.page)
             n.children = {}
             n.parent = None
+
+    def _match_host(self, chunks: List[tuple],
+                    path: List[_TrieNode]) -> List[tuple]:
+        """The chunk paths continuing the trie match ``path`` that the
+        page store holds, up to the first miss (a revived page is only
+        attendable when every page before it is present)."""
+        if self.host_store is None:
+            return []
+        key = self._node_key(path[-1]) if path else ()
+        out = []
+        for c in chunks[len(path):]:
+            key = key + (c,)
+            if key not in self.host_store:
+                break
+            out.append(key)
+        return out
 
     def pages_needed(self, tokens) -> int:
         """Pages an ``alloc`` of this prompt would draw from the free or
@@ -288,10 +846,13 @@ class PagePool:
 
     def alloc(self, lane: int, tokens) -> Optional[int]:
         """Build ``lane``'s block table for prompt ``tokens``: shared
-        prefix pages from the trie (refcount++) plus fresh refcount-1
-        pages covering the rest of ``[0, prompt_len]``. Returns the shared
-        prefix length in TOKENS, or None — with nothing committed — when
-        the pool cannot supply the pages."""
+        prefix pages from the trie (refcount++), stored prefix pages
+        revived into fresh pages (one batched device write), plus fresh
+        refcount-1 pages covering the rest of ``[0, prompt_len]``. Returns
+        the shared prefix length in TOKENS (trie-shared and revived pages
+        both skip their prefill), or None — with nothing committed — when
+        the pool cannot supply the pages (a revived page costs a fresh
+        one, so :meth:`pages_needed` counts it)."""
         if self.alloc_counts[lane]:
             raise ValueError(f"lane {lane} already holds pages")
         need_total = len(tokens) // self.page_size + 1
@@ -315,17 +876,51 @@ class PagePool:
                 if self.ref[n.page] == 0:
                     self._cached[n.page] = n
             return None
+        # the stored payloads BEFORE drawing pages: a draw may spill more,
+        # and the store's budget could drop an entry this alloc revives
+        host_keys = self._match_host(chunks, path)
+        payloads = []
+        for k in host_keys:
+            try:
+                payload = self.host_store.get(k)
+                if self._check_fn is not None:
+                    self._check_fn(payload)
+            except (KeyError, ValueError) as e:
+                # a sibling replica evicted the file (KeyError), it failed
+                # its crc or does not fit this pool (ValueError): this key
+                # and every deeper one read as misses and are prefilled
+                if isinstance(e, ValueError):
+                    logger.warning("serving: page store entry refused, "
+                                   "read as a miss: %s", e)
+                break
+            payloads.append(payload)
+        host_keys = host_keys[:len(payloads)]
         row = self.tables[lane]
         row[:] = 0
         for i, n in enumerate(path):
             row[i] = n.page
-        for i in range(len(path), need_total):
+        parent = path[-1] if path else self._root
+        revive = []
+        for j, key in enumerate(host_keys):
+            # revived pages re-enter the trie as registered pages (refcount
+            # 1, shareable at once) at fresh physical homes
+            page = self._take_page()
+            self.ref[page] = 1
+            row[len(path) + j] = page
+            node = _TrieNode(key[-1], page, parent)
+            parent.children[key[-1]] = node
+            self._node_of_page[page] = node
+            parent = node
+            revive.append((page, payloads[j]))
+        for i in range(len(path) + len(host_keys), need_total):
             page = self._take_page()
             self.ref[page] = 1
             row[i] = page
+        if revive:
+            self._revive_fn(revive)
         self.alloc_counts[lane] = need_total
         self.version += 1
-        return len(path) * self.page_size
+        return (len(path) + len(host_keys)) * self.page_size
 
     def register_prefix(self, lane: int, tokens) -> None:
         """Insert ``lane``'s freshly-prefilled FULL prompt pages into the
@@ -423,8 +1018,8 @@ class PagePool:
         self.version += 1
 
     def check_invariants(self) -> None:
-        """Assert page conservation and refcounts; AssertionError names
-        the breach."""
+        """Assert page conservation and refcounts (and the page store's
+        byte accounting); AssertionError names the breach."""
         held = set()
         counts = np.zeros(self.num_pages, np.int64)
         for lane in range(self.lanes):
@@ -444,6 +1039,8 @@ class PagePool:
         assert self.ref[0] >= 1, "trash page unpinned"
         assert (self.ref[1:] == counts[1:]).all(), (
             "refcounts disagree with the lanes' chains")
+        if self.host_store is not None:
+            self.host_store.check_invariants()
 
 
 class PagedKVCacheManager(_LaneBook):
@@ -458,7 +1055,8 @@ class PagedKVCacheManager(_LaneBook):
     host block tables the engine uploads when ``version`` moves."""
 
     def __init__(self, model, slots: int, cache_len: int, num_pages: int,
-                 page_size: int, prefix_cache: bool = True, device=None):
+                 page_size: int, prefix_cache: bool = True, device=None,
+                 host_store=None):
         if page_size % 8:
             raise ValueError(
                 f"page_size must be a multiple of 8 (the decode kernel's "
@@ -478,10 +1076,106 @@ class PagedKVCacheManager(_LaneBook):
         self.cache_len = cache_len
         self.page_size = page_size
         self.num_pages = num_pages
+        self.host_store = host_store
         self.pool = PagePool(num_pages, page_size, slots,
-                             cache_len // page_size, prefix_cache)
+                             cache_len // page_size, prefix_cache,
+                             host_store=host_store,
+                             spill_fn=_weak_method(self._spill_pages),
+                             revive_fn=_weak_method(self._revive_pages),
+                             check_fn=_weak_method(self.check_payload))
         self.cache: Dict[str, torch.Tensor] = init_decode_cache(model,
                                                                device=device)
+        # the payload's leaves in the JAX cache tree's order (module
+        # docstring): cache_index (None), key[, key_scale], value[, ...]
+        self.payload_leaves = (None,) + tuple(
+            name for name in ("key", "key_scale", "value", "value_scale")
+            if name in self.cache)
+
+    # ------------------------------------------------------- page tiers
+
+    def check_payload(self, payload) -> List[Optional[torch.Tensor]]:
+        """``payload`` as host tensors, after checking that it is one page
+        of this pool: its leaves in :attr:`payload_leaves` order, each
+        ``[L, page_size, heads, head_dim]`` (scales ``[..., 1]``) in the
+        pool's dtype. ValueError otherwise — such a page is never
+        written."""
+        names = self.payload_leaves
+        if len(payload) != len(names):
+            raise ValueError(
+                f"a page payload of {len(payload)} leaves does not match "
+                f"this pool's {len(names)} (cache_index, "
+                f"{', '.join(names[1:])}); a JAX replica with unrolled "
+                "layers writes one leaf set per layer")
+        out = []
+        for name, leaf in zip(names, payload):
+            if name is None:
+                if leaf is not None:
+                    raise ValueError("a page payload's cache_index leaf "
+                                     "must be empty")
+                out.append(None)
+                continue
+            if leaf is None:
+                raise ValueError(f"a page payload lacks its {name} leaf")
+            if not torch.is_tensor(leaf):
+                try:
+                    leaf = torch.from_numpy(np.ascontiguousarray(leaf))
+                except TypeError as e:
+                    raise ValueError(f"page payload leaf {name}: {e}") \
+                        from None
+            pool = self.cache[name]
+            want = (pool.shape[0],) + tuple(pool.shape[2:])
+            if tuple(leaf.shape) != want or leaf.dtype != pool.dtype:
+                raise ValueError(
+                    f"page payload leaf {name} is {tuple(leaf.shape)} "
+                    f"{leaf.dtype}; this pool's pages are {want} "
+                    f"{pool.dtype}")
+            out.append(leaf)
+        return out
+
+    def _spill_pages(self, pages: List[int]) -> List[Tuple[list, int]]:
+        """Read ``pages`` out of the device pool as host payloads, one
+        ``index_select`` and one device-to-host copy per pool leaf for the
+        whole list; returns ``(payload, nbytes)`` per page."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self._device)
+        per_leaf = [None if name is None else
+                    self.cache[name].index_select(1, idx).movedim(1, 0)
+                    .contiguous().to("cpu")
+                    for name in self.payload_leaves]
+        out = []
+        for j in range(len(pages)):
+            payload = [None if a is None else a[j] for a in per_leaf]
+            out.append((payload, payload_nbytes(payload)))
+        return out
+
+    def _revive_pages(self, entries: List[Tuple[int, list]]) -> None:
+        """Write ``(physical page, payload)`` entries into the device pool,
+        one host-to-device copy and one ``index_copy_`` per pool leaf.
+        Every payload is checked first (:meth:`check_payload`): nothing is
+        written unless all fit."""
+        checked = [self.check_payload(payload) for _, payload in entries]
+        idx = torch.tensor([p for p, _ in entries], dtype=torch.long,
+                           device=self._device)
+        for i, name in enumerate(self.payload_leaves):
+            if name is None:
+                continue
+            upd = torch.stack([payload[i] for payload in checked])
+            self.cache[name].index_copy_(
+                1, idx, upd.to(self._device).movedim(0, 1))
+
+    def read_pages(self, pages: List[int]) -> List[list]:
+        """Physical ``pages`` as host payloads (the prefill role's export:
+        the spill tier's batched reads)."""
+        return [payload for payload, _ in self._spill_pages(pages)]
+
+    def revive_pages(self, entries: List[Tuple[int, list]]) -> None:
+        """Write ``(physical page, payload)`` entries into the pool (the
+        decode role's shipped admission: the revive path). The pages must
+        already belong to the receiving lane."""
+        self._revive_pages(entries)
+
+    @property
+    def _device(self) -> torch.device:
+        return self.cache["key"].device
 
     @property
     def tables(self) -> np.ndarray:

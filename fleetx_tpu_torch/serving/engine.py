@@ -69,19 +69,93 @@ unbounded), per-request ``queue_ttl_s`` (time waiting for a lane) and
 Lane state lives on the host and rides each tick as small int tensors; the
 caches are updated in place.
 
+Page tiers (``host_cache_bytes`` / ``FLEETX_SERVING_HOST_CACHE_BYTES``,
+``disk_cache_dir`` and ``disk_cache_bytes`` /
+``FLEETX_SERVING_DISK_CACHE_DIR`` and ``_BYTES``; paged with the prefix
+cache; default off): a warm prefix page
+that LRU eviction would destroy spills to a bounded host store and/or a
+directory of wire-format files that replicas share, and a later prompt
+with the same prefix revives it into fresh pages instead of prefilling it
+(``cache_manager.py``). Revived bytes are the spilled bytes, so greedy
+streams equal those of a pool that never evicted. ``prewarm(prompt)``
+pulls a persisted prefix into the device trie before traffic.
+
+Roles (``role`` / ``FLEETX_SERVING_ROLE``: ``both``, the default,
+``prefill`` or ``decode``): a prefill-role engine (paged only) runs
+admission and prefill, emits the first token and PARKS the request
+(``prefilled_ready()``); ``export_kv(id)`` reads the pages covering the
+prompt and returns them as crc32-trailed wire-format blobs, retiring the
+request ``"prefilled"``. A decode replica admits them with
+``submit(prompt, history=[t0], kv_payloads=blobs)``: the pages are written
+through the revive path (no prefill) and decoding continues from ``t0``,
+its sampling stream advanced past ``t0``'s draw. A blob that fails its crc
+or does not fit the pool raises ValueError at submit; the caller falls
+back to replay (``submit(history=)``).
+
+Crash safety:
+
+- **Transactional ticks.** ``step()`` snapshots the host bookkeeping (the
+  queue, the active, prefilling and parked maps, the results, each
+  request's progress fields and a sampling request's generator state),
+  re-committing after each admission; an exception rolls it back and runs
+  :meth:`recover`, so no token, request or queue place is lost or
+  doubled.
+- **Replay recovery.** :meth:`recover` builds FRESH pool (or slot) tensors
+  — never reusing the old ones, which an abandoned call may still write —
+  and re-admits every active and parked request from host truth: its
+  prompt through its admission's own prefill call(s), then its emitted
+  tokens but the last through decode-shaped forwards (one per position,
+  every replayed lane riding each; the decode kernels), which write the
+  K/V the original decode ticks wrote, bit for bit. Mid-prefill requests
+  requeue at the head. The page tiers survive (content-addressed). More
+  than ``max_recoveries`` (``FLEETX_SERVING_MAX_RECOVERIES``, 8)
+  consecutive recoveries without a productive tick raise
+  :class:`RecoveryExhausted` and ``health()`` reads ``"dead"``.
+- **Poison quarantine.** A decode tick that fails again right after a
+  recovery bisects the active set with non-committing probe forwards (no
+  sampling, no host state moved; a probe's K/V writes land only at each
+  probed lane's next write position, which the next committed tick
+  overwrites before reading it) and retires the request whose presence
+  kills the batch ``error``; a prefill that fails twice retires its
+  request directly.
+- **Watchdog.** With ``tick_timeout_s`` (``FLEETX_SERVING_TICK_TIMEOUT_S``)
+  > 0 each decode forward runs on a daemon worker thread (under
+  ``no_grad`` there) with its operands bound on the calling thread; a
+  forward past the budget banks ``hang_diagnostics`` and raises
+  :class:`TickTimeout` into the rollback. The abandoned call can only
+  write the old tensors it was bound to, and holds them until it returns.
+- **Graceful shutdown.** :meth:`shutdown` (or SIGTERM through
+  :meth:`install_sigterm_handler`) stops admission
+  (:class:`ShuttingDown`), keeps ticking for ``grace_s``
+  (``FLEETX_SERVING_GRACE_S``, 30) and then retires what is left
+  ``"shutdown"`` with its partial tokens.
+- **Admit-with-history.** ``submit(history=)`` admits a request another
+  replica started through the same replay.
+
+Only host-side and injected faults are recoverable in process: a real
+CUDA error (an illegal address, a device-side assert) poisons the
+process's CUDA context, so the engine marks itself dead and re-raises it
+instead of replaying.
+
+The router-facing surface (``model_protocol.ENGINE_SURFACE``):
+``health()``, ``declare_dead()``, ``submit_limit``, ``emitted_tokens()``,
+``take_result()`` and the one-shot ``generate_batch()``.
+
 Not ported (ROADMAP Queue A, "Serving features still missing"), each
-raising ``NotImplementedError`` when asked for: the host and disk page
-tiers, prefill/decode roles and ``export_kv``, crash recovery
-(transactional ticks, replay, poison bisection, the watchdog, graceful
-shutdown, admit-with-history), mesh serving, int8 weights and the obs
-exposition.
+raising ``NotImplementedError`` when asked for: mesh serving, int8
+weights and the obs exposition (``log_every``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import queue
+import threading
 import time
+import traceback
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -92,10 +166,15 @@ from fleetx_tpu_torch.models.gpt.generation import (
     _top_p_cutoff_bisect,
 )
 from fleetx_tpu_torch.models.gpt.model import inference_params
+from fleetx_tpu_torch.obs.events import emit as obs_emit
 from fleetx_tpu_torch.ops.quant import resolve_serving_dtype
+from fleetx_tpu_torch.resilience.faults import faults
 from fleetx_tpu_torch.serving.cache_manager import (
+    DiskPageStore,
+    HostPageStore,
     PagedKVCacheManager,
     SlotKVCacheManager,
+    TieredPageStore,
     scatter_slot,
 )
 from fleetx_tpu_torch.serving.metrics import ServingMetrics
@@ -105,35 +184,55 @@ from fleetx_tpu_torch.serving.spec import build_proposer
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
 
-__all__ = ["QueueFull", "ServingEngine", "ServingResult", "filter_logits",
-           "sample_tokens"]
+__all__ = ["QueueFull", "RecoveryExhausted", "ServingEngine",
+           "ServingResult", "ShuttingDown", "TickTimeout", "filter_logits",
+           "sample_tokens", "skip_draws"]
 
 _NEG = -1e9
 _MISSING = 'ROADMAP Queue A, "Serving features still missing"'
 # the JAX engine's switches this port leaves out: keyword -> (environment
 # variable, what it asks for)
 _LEFT_OUT = {
-    "host_cache_bytes": ("FLEETX_SERVING_HOST_CACHE_BYTES",
-                         "the host page tier"),
-    "disk_cache_dir": ("FLEETX_SERVING_DISK_CACHE_DIR", "the disk page tier"),
-    "disk_cache_bytes": ("FLEETX_SERVING_DISK_CACHE_BYTES",
-                         "the disk page tier"),
-    "role": ("FLEETX_SERVING_ROLE", "prefill/decode roles"),
     "mesh": (None, "mesh serving"),
     "weight_dtype": ("FLEETX_SERVING_WEIGHT_DTYPE", "int8 weights"),
-    "max_recoveries": ("FLEETX_SERVING_MAX_RECOVERIES",
-                       "crash recovery (replay, poison bisection)"),
-    "tick_timeout_s": ("FLEETX_SERVING_TICK_TIMEOUT_S", "the tick watchdog"),
-    "grace_s": ("FLEETX_SERVING_GRACE_S", "graceful shutdown"),
     "log_every": ("FLEETX_SERVING_LOG_EVERY", "the obs exposition"),
 }
 # values of those switches that ask for nothing (the JAX defaults)
-_OFF = {None, "", "0", "both", "bf16", "0.0"}
+_OFF = {None, "", "0", "bf16"}
 
 
 class QueueFull(RuntimeError):
     """Admission refused: the queue is at ``FLEETX_SERVING_MAX_QUEUE``. The
     explicit backpressure signal — callers shed load or retry later."""
+
+
+class ShuttingDown(RuntimeError):
+    """Admission refused: the engine is draining toward shutdown (a router
+    sends the request to another replica)."""
+
+
+class TickTimeout(RuntimeError):
+    """A decode forward outlived ``FLEETX_SERVING_TICK_TIMEOUT_S``; raised
+    into the transactional tick's rollback and recovery, with
+    ``engine.hang_diagnostics`` banked."""
+
+
+class RecoveryExhausted(RuntimeError):
+    """More than ``FLEETX_SERVING_MAX_RECOVERIES`` consecutive recoveries
+    without a productive tick: the fault is not request-shaped, so the
+    engine declares itself dead (the caller restarts the process)."""
+
+
+def _is_device_fault(exc: BaseException) -> bool:
+    """A real CUDA error: it poisons the process's CUDA context, so no
+    in-process replay can recover from it."""
+    cls = getattr(torch, "AcceleratorError", None)
+    if cls is not None and isinstance(exc, cls):
+        return True
+    msg = str(exc)
+    return isinstance(exc, RuntimeError) and any(
+        m in msg for m in ("CUDA error", "device-side assert",
+                           "illegal memory access"))
 
 
 def _env_int(name: str, default: int) -> int:
@@ -187,6 +286,18 @@ def sample_tokens(logits, generators, greedy, temperature, top_k, top_p, *,
     return tok.to(torch.int32)
 
 
+def skip_draws(generator: torch.Generator, n: int, vocab: int) -> None:
+    """Move ``generator`` past ``n`` tokens sampled by :func:`sample_tokens`:
+    each is one ``torch.multinomial`` of one sample over an fp32 vocabulary
+    row, which draws one exponential per entry whatever the row holds, so
+    repeating it over a uniform row consumes the same stream. A request
+    admitted with a history (or shipped KV) resumes its sampling there."""
+    if n > 0:
+        row = torch.ones(vocab, dtype=torch.float32, device=generator.device)
+        for _ in range(n):
+            torch.multinomial(row, 1, generator=generator)
+
+
 @dataclasses.dataclass
 class ServingResult:
     """Final outcome of one request: generated tokens + latency stats."""
@@ -194,10 +305,56 @@ class ServingResult:
     id: int
     prompt: np.ndarray
     tokens: np.ndarray  # generated tokens (EOS included when hit)
-    # eos | max_length | cache_full | timeout | cancelled | error
+    # eos | max_length | cache_full | timeout | cancelled | error |
+    # shutdown | prefilled ("error" covers raising callbacks and
+    # quarantined poison requests)
     finish_reason: str
     ttft_s: float
     latency_s: float
+
+
+class _Watchdog:
+    """One daemon worker thread that runs a watched call; a call past its
+    budget is abandoned — the worker finishes it (its results unread) and
+    exits — and the next call starts a new worker."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.jobs: queue.SimpleQueue = queue.SimpleQueue()
+        self.thread = threading.Thread(target=self._loop, daemon=True,
+                                       name="fleetx-serving-watchdog")
+        self.thread.start()
+
+    def _loop(self) -> None:
+        # autograd mode and the current CUDA device are per thread
+        ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
+               else contextlib.nullcontext())
+        with ctx, torch.no_grad():
+            while True:
+                job = self.jobs.get()
+                if job is None:
+                    return
+                fn, box, done = job
+                try:
+                    box.append((True, fn()))
+                except BaseException as exc:  # handed to the caller
+                    box.append((False, exc))
+                del fn, job  # an abandoned call's operands go here
+                done.set()
+
+    def run(self, fn, timeout: float):
+        """``(True, result)``, re-raising what ``fn`` raised, or ``(False,
+        None)`` when ``fn`` outlived ``timeout`` (this worker then retires
+        after it)."""
+        box, done = [], threading.Event()
+        self.jobs.put((fn, box, done))
+        if not done.wait(timeout):
+            self.jobs.put(None)
+            return False, None
+        ok, value = box[0]
+        if not ok:
+            raise value
+        return True, value
 
 
 class ServingEngine:
@@ -230,7 +387,13 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  spec: Optional[bool] = None,
                  spec_k: Optional[int] = None,
-                 spec_proposer=None, **left_out):
+                 spec_proposer=None, role: Optional[str] = None,
+                 host_cache_bytes: Optional[int] = None,
+                 disk_cache_dir: Optional[str] = None,
+                 disk_cache_bytes: Optional[int] = None,
+                 max_recoveries: Optional[int] = None,
+                 tick_timeout_s: Optional[float] = None,
+                 grace_s: Optional[float] = None, **left_out):
         for name, value in left_out.items():
             if name not in _LEFT_OUT:
                 raise TypeError(f"ServingEngine got an unexpected keyword "
@@ -253,6 +416,18 @@ class ServingEngine:
         self.paged = (paged if paged is not None
                       else _env_int("FLEETX_SERVING_PAGED", 1) == 1)
         self.page_size = page_size or _env_int("FLEETX_SERVING_PAGE_SIZE", 16)
+        # "both" is the colocated engine; a prefill-role engine parks each
+        # request after its first token for export_kv, a decode-role one
+        # is a plain engine a router feeds shipped KV
+        self.role = (role or os.environ.get("FLEETX_SERVING_ROLE", "")
+                     or "both")
+        if self.role not in ("prefill", "decode", "both"):
+            raise ValueError(f"role must be 'prefill', 'decode' or 'both', "
+                             f"got {self.role!r}")
+        if self.role == "prefill" and not self.paged:
+            raise ValueError(
+                "role='prefill' requires the paged cache (paged=True): "
+                "export_kv() ships whole pages through the block table")
         cache_len = (cache_len or _env_int("FLEETX_SERVING_CACHE_LEN", 0)
                      or model.cfg.max_position_embeddings)
         if self.paged:
@@ -292,6 +467,7 @@ class ServingEngine:
             inference_params(self.model, params, self.device), assign=True)
         self.executor = GPTExecutor(self.model)
         self.capabilities = self.executor.capabilities
+        self.model_family = self.capabilities.family
         self.topk_cap = topk_cap or _env_int("FLEETX_SERVING_TOPK_CAP", 64)
         self.prefill_bucket = (prefill_bucket
                                or _env_int("FLEETX_SERVING_PREFILL_BUCKET", 32))
@@ -309,18 +485,56 @@ class ServingEngine:
                             else _env_float("FLEETX_SERVING_QUEUE_TTL_S", 0.0))
         self.deadline_s = (deadline_s if deadline_s is not None
                            else _env_float("FLEETX_SERVING_DEADLINE_S", 0.0))
-        if self.paged:
-            self.cache_manager = PagedKVCacheManager(
-                self.model, self.slots, cache_len, self.num_pages,
-                self.page_size, prefix_cache=self.prefix_cache,
-                device=self.device)
-        else:
-            self.cache_manager = SlotKVCacheManager(
-                self.model, self.slots, cache_len, device=self.device)
+        # page tiers under the paged pool's prefix trie (module docstring)
+        host_bytes = (host_cache_bytes if host_cache_bytes is not None
+                      else _env_int("FLEETX_SERVING_HOST_CACHE_BYTES", 0))
+        disk_dir = (disk_cache_dir if disk_cache_dir is not None
+                    else os.environ.get("FLEETX_SERVING_DISK_CACHE_DIR", ""))
+        disk_bytes = (disk_cache_bytes if disk_cache_bytes is not None
+                      else _env_int("FLEETX_SERVING_DISK_CACHE_BYTES", 0))
+        tiered = self.paged and self.prefix_cache
+        self._dram_store = (HostPageStore(host_bytes)
+                            if host_bytes > 0 and tiered else None)
+        self._disk_store = (DiskPageStore(disk_dir, disk_bytes)
+                            if disk_dir and disk_bytes > 0 and tiered
+                            else None)
+        self._host_store = (
+            TieredPageStore(self._dram_store, self._disk_store)
+            if self._dram_store is not None and self._disk_store is not None
+            else self._dram_store if self._dram_store is not None
+            else self._disk_store)
+        # crash safety (module docstring)
+        self.max_recoveries = (
+            max_recoveries if max_recoveries is not None
+            else _env_int("FLEETX_SERVING_MAX_RECOVERIES", 8))
+        self.tick_timeout_s = (
+            tick_timeout_s if tick_timeout_s is not None
+            else _env_float("FLEETX_SERVING_TICK_TIMEOUT_S", 0.0))
+        self.grace_s = (grace_s if grace_s is not None
+                        else _env_float("FLEETX_SERVING_GRACE_S", 30.0))
+        self._recoveries_consecutive = 0
+        self._tick_strikes = 0              # consecutive failed decode ticks
+        self._prefill_strikes: Dict[int, int] = {}  # request id -> failures
+        self._fault_ctx = None              # ("prefill", id) during prefill
+        self._fault_ticks = 0               # attempted decode device calls
+        self._fault_prefills = 0            # attempted prefills
+        self._fault_ships = 0               # attempted KV exports
+        self._watchdog: Optional[_Watchdog] = None
+        self.probes = 0                     # probes of the last bisection
+        self.abandoned: List[threading.Thread] = []  # timed-out workers
+        self.hang_diagnostics = None
+        self._shutting_down = False
+        self._dead = False
+        self._shutdown_deadline = None
+        self._shutdown_event_pending = False
+        self._prev_sigterm = None
+        self._ticks = 0
+        self.cache_manager = self._new_cache_manager()
         self._tables_dev = None       # device copy of the block tables,
         self._tables_version = -1     # refreshed when the pool's moves
         self.scheduler = FIFOScheduler()
         self.metrics = metrics or ServingMetrics(self.slots)
+        self.metrics.set_role(self.role)
         self.publish_quant_metrics()
         self.base_seed = int(base_seed)
         self._next_id = 0
@@ -328,6 +542,9 @@ class ServingEngine:
         # chunked prefill: slot -> the request mid-prefill there (at most
         # one: the FIFO head)
         self._prefilling: Dict[int, Request] = {}
+        # prefill role: slot -> request parked after its first token, lane
+        # and pages held, until export_kv()
+        self._prefilled: Dict[int, Request] = {}
         self._results: Dict[int, ServingResult] = {}
         self._now = time.perf_counter
         # speculative decoding, off by default; an explicit proposer
@@ -356,6 +573,17 @@ class ServingEngine:
                 self.model.state_dict(), prefill_bucket=self.prefill_bucket,
                 device=self.device)
             self._proposer.bind(self.slots, self.cache_len)
+
+    def _new_cache_manager(self):
+        """Fresh device storage (construction and :meth:`recover`): new
+        pool or slot tensors, the page tiers threaded through."""
+        if self.paged:
+            return PagedKVCacheManager(
+                self.model, self.slots, self.cache_len, self.num_pages,
+                self.page_size, prefix_cache=self.prefix_cache,
+                device=self.device, host_store=self._host_store)
+        return SlotKVCacheManager(self.model, self.slots, self.cache_len,
+                                  device=self.device)
 
     def publish_quant_metrics(self) -> None:
         """Push the KV precision and its byte costs into ``metrics`` (JAX
@@ -388,11 +616,28 @@ class ServingEngine:
         request id); ``on_token`` streams ``(request_id, token,
         finished)`` per decoded token; ``queue_ttl_s``/``deadline_s``
         override the engine's limits (0 disables). Raises
-        :class:`QueueFull` when the bounded queue is full."""
-        if history is not None:
-            raise _not_ported("admit-with-history (submit(history=))")
-        if kv_payloads is not None:
-            raise _not_ported("shipped KV admission (submit(kv_payloads=))")
+        :class:`QueueFull` when the bounded queue is full and
+        :class:`ShuttingDown` once a shutdown was requested.
+
+        ``history``: tokens this request already emitted on another replica
+        (admit-with-history). It admits through the replay seam — prompt
+        and ``history[:-1]`` rebuilt, its sampling stream moved past
+        ``len(history)`` draws of the same ``seed`` — and decodes on from
+        ``history[-1]``; history counts against ``max_length`` and rides
+        the result, but ``on_token`` fires only for new tokens. A history
+        that is already terminal raises ValueError.
+
+        ``kv_payloads``: the page blobs a prefill-role replica's
+        :meth:`export_kv` shipped for this prompt, with ``history=[t0]``.
+        They are decoded and checked here (crc32, leaves, shapes and
+        dtypes against this pool): a bad ship raises ValueError before the
+        request queues. Admission writes them into fresh pages, no
+        prefill."""
+        if self._shutting_down:
+            self.metrics.record_drain_reject()
+            raise ShuttingDown(
+                "engine is draining toward shutdown; submit to another "
+                "replica (in-flight requests finish under the grace window)")
         if self.max_queue and self.scheduler.queue_depth >= self.max_queue:
             # dead entries must not hold live ones out
             self._expire_queued(self._now())
@@ -438,11 +683,55 @@ class ServingEngine:
                 "serving: request %d top_k %d clamped to topk_cap %d "
                 "(FLEETX_SERVING_TOPK_CAP)", self._next_id, tk, self.topk_cap)
             tk = self.topk_cap
+        hist = ([] if history is None
+                else [int(t) for t in np.asarray(history,
+                                                 np.int64).reshape(-1)])
+        if hist:
+            if eos >= 0 and hist[-1] == eos:
+                raise ValueError(
+                    f"history of {len(hist)} tokens already ends in EOS "
+                    f"({eos}): the request is terminal; do not migrate it")
+            if max_new <= len(hist):
+                raise ValueError(
+                    f"history ({len(hist)} tokens) meets or exceeds the "
+                    f"max_length budget ({max_new}): the request is "
+                    "terminal; do not migrate it")
+        pages = None
+        if kv_payloads is not None:
+            if not self.paged:
+                raise ValueError(
+                    "kv_payloads requires the paged cache (paged=True): "
+                    "shipped KV revives into pages")
+            if not hist:
+                raise ValueError(
+                    "kv_payloads without history: the prefill replica "
+                    "sampled the first token — pass it as history=[t0]")
+            if len(hist) != 1:
+                raise ValueError(
+                    f"kv_payloads ship the prompt's pages only, but history "
+                    f"holds {len(hist)} tokens: pass history=[t0] (a longer "
+                    "history admits by replay, without kv_payloads)")
+            need = -(-prompt.size // self.page_size)
+            if len(kv_payloads) != need:
+                raise ValueError(
+                    f"kv_payloads has {len(kv_payloads)} page blob(s); a "
+                    f"{prompt.size}-token prompt at page_size "
+                    f"{self.page_size} ships {need}")
+            # decoded and checked now: a corrupt or foreign ship fails this
+            # submit loudly and never enters the queue
+            pages = [self.cache_manager.check_payload(
+                HostPageStore.payload_from_bytes(b)
+                if isinstance(b, (bytes, bytearray, memoryview)) else b)
+                for b in kv_payloads]
         rid = self._next_id
         self._next_id += 1
         if seed is None:
             seed = int(np.random.SeedSequence(
                 [self.base_seed, rid]).generate_state(1)[0])
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        if strategy == "sampling":
+            # the stream resumes where the history's draws left it
+            skip_draws(generator, len(hist), vocab)
         req = Request(
             id=rid, prompt=prompt, max_new_tokens=max(max_new, 1),
             min_new_tokens=min_new, eos_token_id=eos,
@@ -451,45 +740,87 @@ class ServingEngine:
                               else g.temperature),
             top_k=tk,
             top_p=float(top_p if top_p is not None else g.top_p),
-            generator=torch.Generator(device=self.device).manual_seed(
-                int(seed)),
+            generator=generator,
             on_token=on_token, submit_time=self._now(),
             queue_ttl_s=float(queue_ttl_s if queue_ttl_s is not None
                               else self.queue_ttl_s),
             deadline_s=float(deadline_s if deadline_s is not None
                              else self.deadline_s))
+        # the history IS the token list from the start: a retirement before
+        # admission still returns it
+        req.tokens.extend(hist)
+        req.kv_payloads = pages
         self.scheduler.submit(req)
         self.metrics.record_submit()
         return rid
 
     @torch.no_grad()
     def step(self) -> Dict:
-        """One scheduler tick (module docstring). Returns a summary dict:
-        ``admitted``, ``chunked`` (mid-prefill chunks run), ``decoded``
-        (lanes that decoded), ``retired`` (ids, timeouts included),
-        ``timed_out``, and the queue, lane and prefilling counts after it.
-        """
+        """One TRANSACTIONAL scheduler tick (module docstring). Returns a
+        summary dict: ``admitted``, ``chunked`` (mid-prefill chunks run),
+        ``decoded`` (lanes that decoded), ``retired`` (ids, timeouts
+        included), ``timed_out``, ``recovered`` (the tick failed, rolled
+        back and recovered), and the queue, lane, prefilling and parked
+        counts after it. Raises only :class:`RecoveryExhausted`, a real
+        CUDA error, and a recovery's failure to rebuild its storage; after
+        each of them ``health()`` reads ``"dead"``."""
         t0 = self._now()
-        summary = self._step_inner()
+        self._flush_shutdown_event()
+        if (self._shutting_down and self._shutdown_deadline is not None
+                and t0 >= self._shutdown_deadline and self._in_flight()):
+            # the grace window closed: everything left returns now
+            summary = {"admitted": 0, "decoded": 0, "chunked": 0,
+                       "retired": self._retire_all("shutdown"),
+                       "timed_out": []}
+        else:
+            # phase-granular transaction: the snapshot re-commits after
+            # each admission, so a decode fault rolls back only the decode
+            snap = self._snapshot()
+
+            def commit():
+                snap.clear()
+                snap.update(self._snapshot())
+
+            try:
+                summary = self._step_inner(commit)
+                if (summary["decoded"] or summary["admitted"]
+                        or summary["chunked"]):
+                    # a productive tick re-arms the budget and the strikes
+                    self._recoveries_consecutive = 0
+                    if summary["decoded"]:
+                        self._tick_strikes = 0
+            except RecoveryExhausted:
+                raise
+            except Exception as exc:  # the crash-safety seam
+                if _is_device_fault(exc):
+                    self._dead = True
+                    raise
+                summary = self._handle_tick_fault(snap, exc)
+        self._ticks += 1
         if self.paged:
             pages = (self.cache_manager.pages_in_use,
                      self.cache_manager.usable_pages)
         else:
             pages = (0, 0)
         self.metrics.observe_tick(self._now() - t0, *pages)
-        self.metrics.observe_queue_tokens(
-            self.scheduler.queued_tokens() + sum(
-                r.prompt_len - r.prefill_pos
-                for r in self._prefilling.values()))
+        if self._dram_store is not None:
+            self.metrics.observe_host_tier(self._dram_store)
+        if self._disk_store is not None:
+            self.metrics.observe_disk_tier(self._disk_store)
+        self.metrics.observe_queue_tokens(self._queue_tokens())
+        summary.setdefault("recovered", False)
         summary["queue_depth"] = self.scheduler.queue_depth
         summary["active_slots"] = len(self._active)
         summary["prefilling"] = len(self._prefilling)
+        summary["prefilled"] = len(self._prefilled)
         return summary
 
-    def _step_inner(self) -> Dict:
+    def _step_inner(self, commit=lambda: None) -> Dict:
         """The tick body: the queued-expiry sweep, prefill work
         (admissions, or exactly one chunk of the prefilling request), one
-        batched decode step, retirements, the active-deadline sweep."""
+        batched decode step, retirements, the active-deadline sweep.
+        ``commit`` re-bases the transactional snapshot after each
+        completed prefill phase."""
         timed_out = self._expire_queued(self._now())
         admitted = chunked = 0
         prefill_t0 = self._now()
@@ -498,11 +829,13 @@ class ServingEngine:
             n, expired = self._chunk_tick()
             chunked += n
             timed_out += expired
+            commit()  # chunk progress stays committed
         else:
             while (len(self.scheduler)
                    and self._can_admit(self.scheduler.peek())):
                 self._admit(self.scheduler.pop_next())
                 admitted += 1
+                commit()  # an admission that completed stays admitted
                 if self.prefill_chunk:
                     break  # one prefill-shaped call per tick
         if admitted or chunked:
@@ -528,7 +861,8 @@ class ServingEngine:
             summary = self.step()
             n += 1
             if not (summary["admitted"] or summary["decoded"]
-                    or summary["chunked"] or summary["retired"]):
+                    or summary["chunked"] or summary["retired"]
+                    or summary["recovered"]):
                 raise RuntimeError(
                     f"request {self.scheduler.peek().id} can never be "
                     f"admitted: it needs more than the pool's "
@@ -539,17 +873,13 @@ class ServingEngine:
         return out
 
     def cancel(self, request_id: int) -> bool:
-        """Cancel a queued or in-flight request: its lane and pages (if
-        any) are freed at once and its partial output is recorded with
+        """Cancel a queued, in-flight or parked request: its lane and pages
+        (if any) are freed at once and its partial output is recorded with
         ``finish_reason="cancelled"``. False when the id is unknown or
         already finished."""
         req = self.scheduler.remove(request_id)
         if req is None:
-            for r in (list(self._active.values())
-                      + list(self._prefilling.values())):
-                if r.id == request_id:
-                    req = r
-                    break
+            req = self._live(request_id)
         if req is None:
             return False
         self._finalize(req, "cancelled", self._now())
@@ -563,25 +893,621 @@ class ServingEngine:
         """Remove and return one finished result (None while in flight)."""
         return self._results.pop(request_id, None)
 
-    def recover(self):
-        """Replay recovery (JAX ``recover``) is not ported."""
-        raise _not_ported("crash recovery (recover())")
+    def emitted_tokens(self, request_id: int) -> Optional[list]:
+        """A live (queued, prefilling, active or parked) request's emitted
+        tokens as the host holds them; None for unknown or finished ids —
+        a router re-bases its stream on this after a recovered tick."""
+        req = self._live(request_id)
+        if req is None:
+            req = next((r for r in self.scheduler.snapshot()
+                        if r.id == request_id), None)
+        return None if req is None else list(req.tokens)
 
-    def shutdown(self, grace_s: Optional[float] = None):
-        """Graceful drain toward shutdown (JAX ``shutdown``) is not
-        ported."""
-        raise _not_ported("graceful shutdown (shutdown())")
+    def generate_batch(self, input_ids,
+                       gen_cfg: Optional[GenerationConfig] = None,
+                       seed: Optional[int] = None) -> torch.Tensor:
+        """One-shot ``generate()`` contract over the engine: each row of
+        ``input_ids`` [b, prompt_len] becomes a request; returns the
+        [b, prompt_len + max_length] int32 buffer (pad after each row's
+        end). Sampling rows draw from per-row seeds derived from ``seed``
+        (default ``base_seed``) and the row."""
+        g = gen_cfg or self.gen_cfg
+        ids = np.asarray(input_ids, np.int32)
+        if ids.ndim == 1:
+            ids = ids[None]
+        b, prompt_len = ids.shape
+        limit = self.submit_limit
+        if prompt_len + g.max_length > limit:
+            raise ValueError(
+                f"prompt_len({prompt_len}) + max_length({g.max_length}) "
+                f"exceeds the engine's decode limit ({limit}: "
+                "min(cache_len, max_position_embeddings))")
+        base = self.base_seed if seed is None else int(seed)
+        rids = [self.submit(
+            ids[i], max_length=g.max_length, min_length=g.min_length,
+            eos_token_id=g.eos_token_id, decode_strategy=g.decode_strategy,
+            temperature=g.temperature, top_k=g.top_k, top_p=g.top_p,
+            seed=int(np.random.SeedSequence([base, i]).generate_state(1)[0]))
+            for i in range(b)]
+        results = self.drain()
+        out = np.full((b, prompt_len + g.max_length), g.pad_token_id,
+                      np.int32)
+        out[:, :prompt_len] = ids
+        for i, rid in enumerate(rids):
+            res = results.get(rid)
+            if res is None:
+                logger.error("serving: generate_batch request %d (row %d) "
+                             "produced no result; row left as pad", rid, i)
+                continue
+            if res.finish_reason not in ("eos", "max_length", "cache_full"):
+                logger.warning(
+                    "serving: generate_batch request %d (row %d) retired "
+                    "%r after %d token(s); the rest of the row is pad", rid,
+                    i, res.finish_reason, len(res.tokens))
+            out[i, prompt_len:prompt_len + len(res.tokens)] = res.tokens
+        return torch.from_numpy(out)
 
-    request_shutdown = shutdown
+    def prewarm(self, prompt) -> int:
+        """Pull ``prompt``'s persisted prefix pages out of the page tiers
+        into the device trie before traffic (a fresh replica over a shared
+        disk tier): the longest stored prefix revives through the normal
+        alloc path and the lane frees at once, leaving the pages warm, so
+        the first real request hits them. Returns the prefix tokens now
+        warm (0: no tiers, nothing persisted, or the pool is busy). Never
+        registers pages without K/V."""
+        if not (self.paged and self.prefix_cache):
+            return 0
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0 or prompt.size >= self.cache_len:
+            return 0
+        pool = self.cache_manager.pool
+        chunks = pool._chunks(prompt)
+        path = pool._match_path(chunks)
+        covered = len(path) + len(pool._match_host(chunks, path))
+        if covered == 0:
+            return 0
+        # alloc shares at most (n - 1) // page_size chunks: the probe
+        # prompt spans one token past the covered ones
+        n = min(int(prompt.size), covered * self.page_size + 1)
+        if not self.cache_manager.can_admit(prompt[:n]):
+            return 0
+        got = self.cache_manager.alloc(-1, prompt[:n])
+        if got is None:
+            return 0
+        lane, shared = got
+        self.cache_manager.free(lane)  # the revived pages park warm
+        if shared:
+            obs_emit("prefix_prewarmed", tokens=int(shared))
+        return int(shared)
 
-    def export_kv(self, request_id: int):
-        """The prefill role's KV export (JAX ``export_kv``) is not
-        ported."""
-        raise _not_ported("prefill/decode roles (export_kv())")
+    # -------------------------------------------------------- crash safety
 
-    def prefilled_ready(self):
-        """The prefill role's parked requests are not ported."""
-        raise _not_ported("prefill/decode roles (prefilled_ready())")
+    def _snapshot(self) -> Dict:
+        """The host bookkeeping a tick can change (module docstring). The
+        device side is not captured: :meth:`recover` rebuilds it from this
+        host truth. Metrics stay monotonic."""
+        reqs = (list(self.scheduler.snapshot()) + list(self._active.values())
+                + list(self._prefilling.values())
+                + list(self._prefilled.values()))
+        return {
+            "queue": self.scheduler.snapshot(),
+            "active": dict(self._active),
+            "prefilling": dict(self._prefilling),
+            "prefilled": dict(self._prefilled),
+            "results": dict(self._results),
+            # tokens roll back by truncation to the pre-tick length; a
+            # sampling request's stream rolls back to its pre-tick state
+            "reqs": [(r, r.slot, r.admit_time, r.first_token_time,
+                      len(r.tokens), r.prefill_pos, r.phase,
+                      r.spec_proposed, r.spec_accepted,
+                      None if r.greedy else r.generator.get_state())
+                     for r in reqs],
+        }
+
+    def _restore(self, snap: Dict) -> None:
+        self.scheduler.restore(snap["queue"])
+        self._active = snap["active"]
+        self._prefilling = snap["prefilling"]
+        self._prefilled = snap["prefilled"]
+        self._results = snap["results"]
+        for (r, slot, admit_t, first_t, ntok, ppos, phase, sprop, sacc,
+             gen_state) in snap["reqs"]:
+            r.slot = slot
+            r.admit_time = admit_t
+            r.first_token_time = first_t
+            r.prefill_pos = ppos
+            r.phase = phase
+            r.spec_proposed = sprop
+            r.spec_accepted = sacc
+            del r.tokens[ntok:]
+            if gen_state is not None:
+                r.generator.set_state(gen_state)
+
+    def _handle_tick_fault(self, snap: Dict, exc: Exception) -> Dict:
+        """Rollback, recovery and escalation for one failed tick: nothing
+        the tick produced was committed; the queue and every request are
+        as they were before it."""
+        ctx, self._fault_ctx = self._fault_ctx, None
+        # the failed call's frames hold the old storage's tensors: freed
+        # here, so that recovery allocates the new storage in their place
+        err = exc
+        while err is not None:
+            traceback.clear_frames(err.__traceback__)
+            err = err.__cause__ or err.__context__
+        self._restore(snap)
+        victim = ctx[1] if ctx else None
+        obs_emit("tick_fault", tick=self._ticks, error=type(exc).__name__,
+                 during_prefill=bool(ctx), request=victim)
+        logger.error(
+            "serving: tick %d failed (%s: %s)%s; host state rolled back, "
+            "running replay recovery", self._ticks, type(exc).__name__, exc,
+            f" during prefill of request {victim}" if ctx else "")
+        if ctx:
+            self._prefill_strikes[victim] = (
+                self._prefill_strikes.get(victim, 0) + 1)
+        else:
+            self._tick_strikes += 1
+        retired = list(self.recover())
+        if ctx and self._prefill_strikes.get(victim, 0) >= 2:
+            # a prefill that failed, survived a recovery and failed again:
+            # the culprit is the request being admitted
+            req = self.scheduler.remove(victim)
+            if req is not None:
+                logger.error(
+                    "serving: quarantining request %d — its prefill failed "
+                    "%d times across a recovery; finish_reason='error'",
+                    victim, self._prefill_strikes[victim])
+                self._finalize(req, "error", self._now())
+                self.metrics.record_poison()
+                obs_emit("poison_retired", request=victim, via="prefill")
+                retired.append(victim)
+            self._prefill_strikes.pop(victim, None)
+        elif not ctx and self._tick_strikes >= 2:
+            # the decode tick failed again right after a recovery: some
+            # active request is poison
+            retired += self._bisect_poison()
+            self._tick_strikes = 0
+        return {"admitted": 0, "decoded": 0, "chunked": 0,
+                "retired": retired, "timed_out": [], "recovered": True}
+
+    @torch.no_grad()
+    def recover(self) -> List[int]:
+        """Replay recovery (module docstring): fresh device storage, then
+        every active and parked request re-admitted from host truth. The
+        device warm prefix cache is lost (no correctness cost); the page
+        tiers survive. Public: call it after an external device reset too.
+        Returns the ids retired because their own replay failed."""
+        self._recoveries_consecutive += 1
+        self.metrics.record_recovery()
+        if self._recoveries_consecutive > self.max_recoveries:
+            self._dead = True  # health() reads "dead" before the raise
+            raise RecoveryExhausted(
+                f"{self._recoveries_consecutive - 1} consecutive recoveries "
+                f"without a productive tick (FLEETX_SERVING_MAX_RECOVERIES="
+                f"{self.max_recoveries}); the fault is not request-shaped — "
+                "restart the engine")
+        old = ([req for _, req in sorted(self._active.items())]
+               + [req for _, req in sorted(self._prefilled.items())])
+        parked = {req.id for req in self._prefilled.values()}
+        self._active, self._prefilled = {}, {}
+        # mid-prefill requests: their partial K/V died with the storage and
+        # no token was emitted, so they restart from the queue head
+        for _, req in sorted(self._prefilling.items(), reverse=True):
+            req.slot = None
+            req.prefill_pos = 0
+            req.chunk_cache = None
+            req.phase = "queued"
+            self.scheduler.requeue(req)
+        self._prefilling = {}
+        try:
+            retired, replayed = self._rebuild(old)
+        except BaseException:
+            # not request-shaped (a failed allocation, a real CUDA error):
+            # the engine cannot serve, and says so before the raise
+            self._dead = True
+            raise
+        for req, _ in replayed:
+            if req.id in retired:
+                continue
+            if req.id in parked:
+                req.phase = "prefilled"
+                self._prefilled[req.slot] = req
+            else:
+                req.phase = "active"
+                self._active[req.slot] = req
+        obs_emit("engine_recovery", number=self.metrics.engine_recoveries,
+                 replayed=len(replayed) - len(retired),
+                 quarantined=len(retired))
+        logger.warning(
+            "serving: recovery #%d complete — %d request(s) replayed, %d "
+            "quarantined", self.metrics.engine_recoveries,
+            len(self._active) + len(self._prefilled), len(retired))
+        return retired
+
+    def _rebuild(self, old: List[Request]):
+        """Fresh device storage, then each of ``old`` replayed onto it, a
+        request whose own replay fails quarantined. The old storage is
+        dropped before the new is allocated, so a recovery needs one
+        pool's memory; a call the watchdog abandoned holds its own
+        references and keeps the old tensors until it ends. Returns
+        ``(retired ids, [(request, catch-up start)])``."""
+        self._tables_dev = None
+        self._tables_version = -1
+        self.cache_manager = None
+        self.cache_manager = self._new_cache_manager()
+        if self._proposer is not None:
+            self._proposer.reset()  # rebuilt lazily from host truth
+        retired, replayed = [], []
+        for req in old:
+            req.slot = None
+            try:
+                replayed.append((req, self._replay_prefill(req)))
+            except Exception as exc:  # isolate, do not cascade
+                if _is_device_fault(exc):
+                    raise
+                retired.append(self._quarantine_replay(req))
+        for req in self._catch_up(replayed):
+            retired.append(self._quarantine_replay(req))
+        return retired, replayed
+
+    def _quarantine_replay(self, req: Request) -> int:
+        """Retire a request whose own replay failed (its fault followed it
+        into recovery): ``error`` with its partial tokens."""
+        logger.exception(
+            "serving: request %d failed its own replay during recovery; "
+            "quarantining it (finish_reason='error', %d partial tokens)",
+            req.id, len(req.tokens))
+        self._finalize(req, "error", self._now())
+        self.metrics.record_poison()
+        obs_emit("poison_retired", request=req.id, via="replay")
+        return req.id
+
+    def _replay_prefill(self, req: Request) -> int:
+        """First half of a replay: claim fresh storage for ``prompt +
+        tokens[:-1]`` (the last token's K/V is the next tick's write) and
+        rebuild the prompt's K/V through the admission's own prefill
+        call(s), K/V only. One prefill attempt for the fault seam. Returns
+        the first position the decode-shaped catch-up writes."""
+        history = np.concatenate(
+            [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+        self._prefill_attempt(req)
+        if self.paged:
+            alloc = self.cache_manager.alloc(req.id, history)
+            if alloc is None:
+                raise RuntimeError(
+                    f"replay alloc failed for request {req.id} "
+                    f"({len(history)} history tokens; "
+                    f"{self.cache_manager.pool.free_pages} pages free)")
+            req.slot, shared = alloc
+            if shared < req.prompt_len:
+                self._prefill_prompt(req, shared)
+            self.cache_manager.register_prefix(req.slot, req.prompt)
+            return max(shared, req.prompt_len)
+        slot = self.cache_manager.alloc(req.id, len(history))
+        if slot is None:
+            raise RuntimeError(
+                f"replay alloc failed for request {req.id}: no free slot")
+        req.slot = slot
+        self._prefill_prompt(req, 0)
+        return req.prompt_len
+
+    def _prefill_prompt(self, req: Request, shared: int) -> None:
+        """The prompt's K/V past ``shared`` through the call(s) its
+        admission made — one prefill, or the chunk sequence from
+        ``shared`` — so that they round as they did; no sampling."""
+        chunk = self.prefill_chunk
+        chunked = bool(chunk) and req.prompt_len - shared > chunk
+        spans = ([(p, min(p + chunk, req.prompt_len))
+                  for p in range(shared, req.prompt_len, chunk)] if chunked
+                 else [(shared, req.prompt_len)])
+        if self.paged:
+            for start, end in spans:
+                self._paged_prefill_call(req, req.prompt[start:end], start,
+                                         req.slot, sample=False,
+                                         guarded=False)
+            return
+        small = self.executor.init_cache(1, self.device)
+        for start, end in spans:
+            where = ({"cache_positions": self._tensor([start], torch.int32)}
+                     if chunked else {})
+            self._prefill(req, small, req.prompt[start:end], start,
+                          self.cache_len - start, False, guarded=False,
+                          **where)
+        scatter_slot(self.cache_manager.cache, small, req.slot)
+
+    def _catch_up(self, replayed) -> List[Request]:
+        """Second half of a replay: each request's emitted tokens but the
+        last, written through decode-shaped forwards — one per position,
+        every lane with a token left at that step riding it, the others
+        pinned as on a decode tick — so the K/V are the bytes the original
+        ticks wrote (a row of a decode forward does not depend on the
+        other rows). ``replayed`` holds ``(request, first position)``.
+        When a batched forward fails, each lane is retried alone (a lone
+        lane's failure is its own); returns the requests whose own
+        catch-up failed."""
+        todo = [(req, start) for req, start in replayed
+                if start < int(self.cache_manager.lengths[req.slot])]
+        if not todo:
+            return []
+        try:
+            self._catch_up_forwards(todo)
+            return []
+        except Exception as exc:
+            if _is_device_fault(exc):
+                raise
+            if len(todo) == 1:
+                return [todo[0][0]]
+        failed = []
+        for item in todo:
+            try:
+                self._catch_up_forwards([item])
+            except Exception as exc:
+                if _is_device_fault(exc):
+                    raise
+                failed.append(item[0])
+        return failed
+
+    def _catch_up_forwards(self, todo) -> None:
+        lengths = self.cache_manager.lengths
+        max_pos = self.model.cfg.max_position_embeddings
+        steps = max(int(lengths[req.slot]) - start for req, start in todo)
+        for k in range(steps):
+            ids = np.zeros(self.slots, np.int64)
+            wpos = np.full(self.slots, self.cache_len - 1, np.int64)
+            posid = np.zeros(self.slots, np.int64)
+            for req, start in todo:
+                p = start + k
+                if p < int(lengths[req.slot]):
+                    ids[req.slot] = (req.prompt[p] if p < req.prompt_len
+                                     else req.tokens[p - req.prompt_len])
+                    wpos[req.slot] = p
+                    posid[req.slot] = min(p, max_pos - 1)
+            self.executor.forward(
+                self.cache_manager.cache, self._tensor(ids)[:, None],
+                self._tensor(posid)[:, None],
+                cache_positions=self._tensor(wpos, torch.int32),
+                block_tables=self._device_tables())
+
+    def _probe_fails(self, slots) -> bool:
+        """One NON-COMMITTING decode forward over a subset of the active
+        lanes (no sampling, no host state moved; its K/V writes land only
+        where the next committed tick writes first). True iff it — or the
+        poison injector — raised."""
+        try:
+            self._decode_forward(slots, probe=True)
+            return False
+        except Exception as exc:  # a probe exists to catch these
+            if _is_device_fault(exc):
+                raise
+            return True
+
+    def _bisect_poison(self) -> List[int]:
+        """Binary-search the active set for the request whose presence
+        kills the decode forward and retire it ``error`` with its partial
+        tokens (one poison per escalation). [] when the failure does not
+        reproduce under probing."""
+        if not self._active:
+            return []
+        suspects = sorted(self._active)
+        self.probes = 1
+        if not self._probe_fails(suspects):
+            logger.warning("serving: decode failures did not reproduce "
+                           "under probing (transient?); no quarantine")
+            return []
+        while len(suspects) > 1:
+            half = suspects[:len(suspects) // 2]
+            self.probes += 1
+            suspects = (half if self._probe_fails(half)
+                        else suspects[len(suspects) // 2:])
+        slot = suspects[0]
+        req = self._active[slot]
+        self.probes += 1
+        if not self._probe_fails([slot]):
+            logger.warning("serving: bisection could not pin the failure to "
+                           "one request; no quarantine this round")
+            return []
+        logger.error(
+            "serving: quarantining poison request %d (lane %d) isolated by "
+            "bisection; finish_reason='error', %d partial token(s) kept",
+            req.id, slot, len(req.tokens))
+        self._finalize(req, "error", self._now())
+        self.metrics.record_poison()
+        obs_emit("poison_retired", request=req.id, via="bisection")
+        return [req.id]
+
+    def _run_device(self, fn):
+        """Run one decode forward under the watchdog: a direct call without
+        a timeout; with one, on the daemon worker, raising
+        :class:`TickTimeout` (diagnostics banked) when it outlives the
+        budget. The abandoned call runs on to its end on its worker."""
+        if not self.tick_timeout_s or self.tick_timeout_s <= 0:
+            return fn()
+        if self._watchdog is None:
+            self._watchdog = _Watchdog(self.device)
+            # the idle worker ends with its engine
+            weakref.finalize(self, self._watchdog.jobs.put, None)
+        ok, value = self._watchdog.run(fn, self.tick_timeout_s)
+        if ok:
+            return value
+        self.abandoned.append(self._watchdog.thread)
+        self._watchdog = None
+        self.hang_diagnostics = {
+            "tick": self._ticks,
+            "timeout_s": self.tick_timeout_s,
+            "active_requests": sorted(r.id for r in self._active.values()),
+            "queue_depth": self.scheduler.queue_depth,
+            "recoveries": self.metrics.engine_recoveries,
+        }
+        obs_emit("tick_timeout", tick=self._ticks,
+                 timeout_s=self.tick_timeout_s)
+        logger.error(
+            "serving: a decode forward exceeded FLEETX_SERVING_TICK_TIMEOUT_S"
+            "=%.3fs; diagnostics in engine.hang_diagnostics, abandoning the "
+            "call and recovering", self.tick_timeout_s)
+        raise TickTimeout(
+            f"decode forward exceeded {self.tick_timeout_s}s (hung device "
+            "step; see engine.hang_diagnostics)")
+
+    # ----------------------------------------------------- graceful drain
+
+    def request_shutdown(self, grace_s: Optional[float] = None) -> None:
+        """Stop admission (:class:`ShuttingDown` at submit) and retire what
+        is left ``grace_s`` (default ``FLEETX_SERVING_GRACE_S``) from now;
+        ticking goes on meanwhile. Idempotent, and safe in a signal
+        handler (flag writes only)."""
+        if self._shutting_down:
+            return
+        self._shutting_down = True
+        grace = self.grace_s if grace_s is None else float(grace_s)
+        self._shutdown_deadline = self._now() + max(grace, 0.0)
+        # the event is emitted by the next step() or shutdown(): a signal
+        # context must not take the event log's lock
+        self._shutdown_event_pending = True
+
+    def shutdown(self, grace_s: Optional[float] = None
+                 ) -> Dict[int, ServingResult]:
+        """Graceful drain to completion: :meth:`request_shutdown`, tick
+        until everything finished or the grace window closed (the rest
+        retires ``"shutdown"`` with partial tokens), and return-and-clear
+        ALL results."""
+        self.request_shutdown(grace_s)
+        self._flush_shutdown_event()
+        while self._in_flight():
+            self.step()
+        out, self._results = self._results, {}
+        return out
+
+    def _flush_shutdown_event(self) -> None:
+        if self._shutdown_event_pending:
+            self._shutdown_event_pending = False
+            logger.warning(
+                "serving: shutdown requested — admission stopped, draining "
+                "%d active + %d queued request(s)", len(self._active),
+                self.scheduler.queue_depth)
+            obs_emit("shutdown", active=len(self._active),
+                     queued=self.scheduler.queue_depth)
+
+    def _retire_all(self, reason: str) -> List[int]:
+        """Retire every queued and in-flight request now: queued ones with
+        no tokens, the others with their partial tokens."""
+        now = self._now()
+        retired = []
+        for req in self.scheduler.drain_all():
+            self._finalize(req, reason, now)
+            retired.append(req.id)
+        for req in (list(self._active.values())
+                    + list(self._prefilling.values())
+                    + list(self._prefilled.values())):
+            self._finalize(req, reason, now)
+            retired.append(req.id)
+        return retired
+
+    def install_sigterm_handler(self, grace_s: Optional[float] = None):
+        """Register a SIGTERM handler that calls :meth:`request_shutdown`
+        (flags only; the drain happens in the running tick loop) and then
+        any handler it displaced. Main thread only. Returns the previous
+        handler."""
+        import signal
+
+        prev = signal.getsignal(signal.SIGTERM)
+
+        def on_sigterm(signum, frame):
+            self.request_shutdown(grace_s)
+            if callable(prev) and prev not in (signal.SIG_IGN,
+                                               signal.SIG_DFL):
+                prev(signum, frame)
+
+        self._prev_sigterm = prev
+        signal.signal(signal.SIGTERM, on_sigterm)
+        return prev
+
+    def uninstall_sigterm_handler(self) -> None:
+        """Put back the SIGTERM handler :meth:`install_sigterm_handler`
+        displaced."""
+        import signal
+
+        if self._prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, self._prev_sigterm)
+            self._prev_sigterm = None
+
+    # ----------------------------------------------- the router's surface
+
+    def health(self) -> Dict:
+        """The drain-aware health report: ``state`` ``"ok"`` while serving,
+        ``"draining"`` after a shutdown request, ``"dead"`` after
+        :class:`RecoveryExhausted`, a real CUDA error or
+        :meth:`declare_dead`; with the role, the model family and its
+        capabilities, and the load (queue, queued prompt tokens, lanes)."""
+        state = ("dead" if self._dead
+                 else "draining" if self._shutting_down else "ok")
+        out = {"state": state,
+               "role": self.role,
+               "model": self.model_family,
+               "capabilities": self.capabilities.as_dict(),
+               "queue_depth": self.scheduler.queue_depth,
+               "queue_tokens": self._queue_tokens(),
+               "active": (len(self._active) + len(self._prefilling)
+                          + len(self._prefilled)),
+               "slots": self.slots}
+        if self.paged and self.cache_manager is not None:
+            out["pages_in_use"] = self.cache_manager.pages_in_use
+            out["usable_pages"] = self.cache_manager.usable_pages
+        return out
+
+    def declare_dead(self) -> None:
+        """Mark the engine dead (``health()`` reads ``"dead"``) without
+        running its shutdown: a supervisor decided the process or device
+        behind it is gone."""
+        self._dead = True
+
+    @property
+    def submit_limit(self) -> int:
+        """The smallest refused prompt length (a request needs one token
+        of decode room below it)."""
+        return min(self.cache_len, self.model.cfg.max_position_embeddings)
+
+    # ------------------------------------------- disaggregated prefill
+
+    def prefilled_ready(self) -> list:
+        """Ids parked on this prefill-role engine with their prompt K/V
+        written, awaiting :meth:`export_kv`."""
+        return sorted(r.id for r in self._prefilled.values())
+
+    def export_kv(self, request_id: int) -> list:
+        """Ship one parked request's prompt K/V: the
+        ``ceil(prompt_len / page_size)`` pages covering the prompt, read
+        with the spill tier's batched reads and serialized in the wire
+        format. The request then retires ``"prefilled"`` (its pages stay
+        warm in this engine's trie) and the blobs return in prompt order
+        for ``submit(kv_payloads=, history=[t0])`` on a decode replica.
+        KeyError for an id that is not parked; an export fault leaves the
+        request parked."""
+        req = next((r for r in self._prefilled.values()
+                    if r.id == request_id), None)
+        if req is None:
+            raise KeyError(
+                f"request {request_id} is not parked for export "
+                f"(parked: {self.prefilled_ready()})")
+        attempt = self._fault_ships
+        self._fault_ships += 1
+        faults.on_kv_ship(attempt, request_id)
+        n_pages = -(-req.prompt_len // self.page_size)
+        table = self.cache_manager.tables[req.slot]
+        payloads = self.cache_manager.read_pages(
+            [int(table[i]) for i in range(n_pages)])
+        blobs = [HostPageStore.payload_to_bytes(p) for p in payloads]
+        if faults.on_kv_ship_corrupt(attempt):
+            # one byte flipped mid-blob: the receiver's crc32 refuses it
+            mid = len(blobs) // 2
+            flipped = bytearray(blobs[mid])
+            flipped[len(flipped) // 2] ^= 0xFF
+            blobs[mid] = bytes(flipped)
+        nbytes = sum(len(b) for b in blobs)
+        self.metrics.record_kv_shipped(len(blobs), nbytes)
+        self._finalize(req, "prefilled", self._now())
+        obs_emit("kv_shipped", request=request_id, pages=len(blobs),
+                 bytes=nbytes)
+        return blobs
 
     # ------------------------------------------------------------- internals
 
@@ -604,11 +1530,39 @@ class ServingEngine:
                 out.append(req.id)
         return out
 
+    def _in_flight(self) -> bool:
+        return bool(len(self.scheduler) or self._active or self._prefilling
+                    or self._prefilled)
+
+    def _queue_tokens(self) -> int:
+        """Queued prompt tokens plus the unwritten rest of a chunked
+        prefill (the prefill load)."""
+        return self.scheduler.queued_tokens() + sum(
+            r.prompt_len - r.prefill_pos for r in self._prefilling.values())
+
+    def _live(self, request_id: int) -> Optional[Request]:
+        """The prefilling, active or parked request of this id."""
+        for r in (list(self._active.values())
+                  + list(self._prefilling.values())
+                  + list(self._prefilled.values())):
+            if r.id == request_id:
+                return r
+        return None
+
+    @staticmethod
+    def _admission_tokens(req: Request) -> np.ndarray:
+        """What admission stores: the prompt, and for a request with a
+        history its tokens but the last (the next tick writes that one)."""
+        if req.tokens:
+            return np.concatenate(
+                [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+        return req.prompt
+
     def _can_admit(self, req: Request) -> bool:
         """A free decode lane and, paged, enough free pages for the FIFO
-        head's prompt. A too-big head BLOCKS, preserving arrival order; it
-        unblocks as retiring requests return pages."""
-        return self.cache_manager.can_admit(req.prompt)
+        head's prompt (and history). A too-big head BLOCKS, preserving
+        arrival order; it unblocks as retiring requests return pages."""
+        return self.cache_manager.can_admit(self._admission_tokens(req))
 
     def _device_tables(self) -> Optional[torch.Tensor]:
         """Device copy of the block tables, re-uploaded only when the
@@ -647,7 +1601,22 @@ class ServingEngine:
         """Admit the FIFO head: claim storage, then either the one-call
         prefill of the non-shared suffix (chunking off, or the suffix fits
         one chunk) or enter the ``prefilling`` state and run the first
-        chunk."""
+        chunk. A request with shipped pages takes :meth:`_admit_shipped`;
+        one with a history the replay seam (no callback re-fired)."""
+        if req.kv_payloads is not None:
+            self._admit_shipped(req)
+            return
+        self._fault_ctx = ("prefill", req.id)
+        if req.tokens:
+            # one lane: its catch-up raises rather than being set aside
+            self._catch_up([(req, self._replay_prefill(req))])
+            self._fault_ctx = None
+            self._prefill_strikes.pop(req.id, None)
+            req.admit_time = self._now()
+            self.metrics.record_admit()
+            req.phase = "active"
+            self._active[req.slot] = req
+            return
         shared = self._claim_storage(req)
         if self.prefill_chunk and req.prompt_len - shared > self.prefill_chunk:
             req.prefill_pos = shared
@@ -657,6 +1626,7 @@ class ServingEngine:
             self._prefilling[req.slot] = req
             req.admit_time = self._now()
             self.metrics.record_admit()
+            self._fault_ctx = None
             self._run_chunk(req)  # this tick's one chunk
             return
         if self.paged:
@@ -665,9 +1635,45 @@ class ServingEngine:
             self.cache_manager.register_prefix(req.slot, req.prompt)
         else:
             tok = self._slot_prefill_call(req, req.prompt, req.slot)
+        self._fault_ctx = None
+        self._prefill_strikes.pop(req.id, None)  # survived its prefill
         req.admit_time = self._now()
         self.metrics.record_admit()
         self._finish_first_token(req, tok)
+
+    def _admit_shipped(self, req: Request) -> None:
+        """Admit a request whose prompt K/V a prefill-role replica shipped
+        (``submit(kv_payloads=)``): claim a page chain, write the shipped
+        pages past any trie-shared prefix through the revive path — no
+        prefill forward — register the prompt, and decode on from
+        ``history[-1]``. The payloads are consumed first, so an admission
+        that faults and rolls back re-admits by replay."""
+        payloads, req.kv_payloads = req.kv_payloads, None
+        self._fault_ctx = ("prefill", req.id)
+        alloc = self.cache_manager.alloc(req.id, req.prompt)
+        if alloc is None:  # _can_admit() passed: an invariant breach
+            raise RuntimeError(
+                f"paged alloc failed after admission check for shipped "
+                f"request {req.id} (prompt {req.prompt_len} tokens; "
+                f"{self.cache_manager.pool.free_pages} pages free)")
+        lane, shared = alloc
+        req.slot = lane
+        table = self.cache_manager.tables[lane]
+        entries = [(int(table[i]), payloads[i])
+                   for i in range(shared // self.page_size, len(payloads))]
+        if entries:
+            self.cache_manager.revive_pages(entries)
+        self.cache_manager.register_prefix(lane, req.prompt)
+        self._fault_ctx = None
+        self._prefill_strikes.pop(req.id, None)
+        self.metrics.record_prefix(shared, req.prompt_len)
+        self.metrics.record_kv_revived_remote(len(entries))
+        req.admit_time = self._now()
+        self.metrics.record_admit()
+        req.phase = "active"
+        self._active[lane] = req
+        obs_emit("kv_revived_remote", request=req.id, pages=len(entries),
+                 shared=shared)
 
     def _bucket(self, n: int, room: int) -> int:
         """``n`` tokens right-padded to a multiple of ``prefill_bucket``,
@@ -676,15 +1682,26 @@ class ServingEngine:
         bucket = -(-n // self.prefill_bucket) * self.prefill_bucket
         return min(max(bucket, n), room)
 
+    def _prefill_attempt(self, req: Request) -> None:
+        """The prefill fault seam: one attempt per prefill call of an
+        admission or a chunk, one per replayed request."""
+        attempt = self._fault_prefills
+        self._fault_prefills += 1
+        faults.on_serving_prefill(attempt, req.id)
+
     def _prefill(self, req: Request, cache, tokens, wpos: int, room: int,
-                 sample: bool, **where) -> Optional[int]:
+                 sample: bool, guarded: bool = True,
+                 **where) -> Optional[int]:
         """One batch-1 prefill-shaped forward of ``tokens`` at absolute
         positions ``wpos..`` into ``cache``, the tokens right-padded to a
         bucket (the padded tail is causally invisible to the real tokens,
         and its K/V land beyond the live window, where later writes
         replace them). ``sample``: return the next token, drawn from the
         last real token's logits; else write K/V only (an intermediate
-        chunk: no draw from the request's generator)."""
+        chunk: no draw from the request's generator). ``guarded`` counts
+        a prefill attempt at the fault seam first."""
+        if guarded:
+            self._prefill_attempt(req)
         n = len(tokens)
         bucket = self._bucket(n, room)
         ids = np.zeros(bucket, np.int64)
@@ -698,13 +1715,14 @@ class ServingEngine:
         return self._sample([req], logits[0, n - 1][None])[0]
 
     def _paged_prefill_call(self, req: Request, suffix, shared: int,
-                            lane: int, sample: bool = True) -> Optional[int]:
+                            lane: int, sample: bool = True,
+                            guarded: bool = True) -> Optional[int]:
         """Batch-1 prefill of ``suffix`` straight into ``lane``'s pages at
         logical positions ``shared..``, attending the trie-shared prefix
         pages already in place (a chunk is the same call at its offset)."""
         return self._prefill(
             req, self.cache_manager.cache, suffix, shared,
-            self.cache_len - shared, sample,
+            self.cache_len - shared, sample, guarded,
             cache_positions=self._tensor([shared], torch.int32),
             block_tables=self._tensor(self.cache_manager.tables[lane][None],
                                       torch.int32))
@@ -735,11 +1753,13 @@ class ServingEngine:
         end = min(start + self.prefill_chunk, req.prompt_len)
         final = end == req.prompt_len
         tokens = req.prompt[start:end]
+        self._fault_ctx = ("prefill", req.id)
         if self.paged:
             tok = self._paged_prefill_call(req, tokens, start, req.slot,
                                            sample=final)
         else:
             tok = self._chunk_prefill_call(req, tokens, start, sample=final)
+        self._fault_ctx = None
         req.prefill_pos = end
         self.metrics.record_prefill_chunk(len(tokens))
         if not final:
@@ -750,6 +1770,7 @@ class ServingEngine:
             scatter_slot(self.cache_manager.cache, req.chunk_cache, req.slot)
             req.chunk_cache = None
         del self._prefilling[req.slot]
+        self._prefill_strikes.pop(req.id, None)
         self._finish_first_token(req, tok)
 
     def _chunk_tick(self) -> Tuple[int, List[int]]:
@@ -793,7 +1814,8 @@ class ServingEngine:
 
     def _finish_first_token(self, req: Request, tok: int) -> None:
         """Admission tail: record TTFT, fire the callback, route to the
-        active set or straight to retirement."""
+        active set, to the parked set (a prefill-role engine never
+        decodes) or straight to retirement."""
         now = self._now()
         req.first_token_time = now
         req.tokens.append(tok)
@@ -805,6 +1827,9 @@ class ServingEngine:
             self._finalize(req, "error", now)
         elif done:
             self._finalize(req, "eos" if done_eos else "max_length", now)
+        elif self.role == "prefill":
+            req.phase = "prefilled"
+            self._prefilled[req.slot] = req
         else:
             req.phase = "active"
             self._active[req.slot] = req
@@ -823,35 +1848,81 @@ class ServingEngine:
                     retired.append(req.id)
         return retired
 
-    def _lane_inputs(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """``(active, lengths, last token)`` over every lane."""
-        slots = sorted(self._active)
+    def _lane_inputs(self, slots=None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(active, lengths, last token)`` over every lane, ``slots``
+        (default: every active lane) marked active."""
+        slots = sorted(self._active) if slots is None else list(slots)
         active = np.zeros(self.slots, bool)
         active[slots] = True
         last_tok = np.zeros(self.slots, np.int64)
         last_tok[slots] = [self._active[s].tokens[-1] for s in slots]
         return active, self.cache_manager.lengths, last_tok
 
-    def _tick_decode(self) -> List[int]:
-        """ONE decode token for every active lane. Free lanes (and a
-        prefilling one) ride the batched forward with their write pinned
-        to the last logical position — on the paged path their zeroed or
-        unused table entries route it to the trash page or past the
-        prompt; on the slot path it lands past every live window — and
-        their outputs are ignored."""
-        retired = self._claim_pending_pages(self._now())
-        if not self._active:
-            return retired
-        active, lengths, last_tok = self._lane_inputs()
-        slots = sorted(self._active)
+    def _decode_forward(self, slots, probe: bool = False) -> torch.Tensor:
+        """The decode forward of one tick (or of a probe) over the lanes
+        ``slots``; returns the logits. Host state is not touched."""
+        active, lengths, last_tok = self._lane_inputs(slots)
         max_pos = self.model.cfg.max_position_embeddings
         wpos = np.where(active, lengths, self.cache_len - 1)
         posid = np.where(active, np.minimum(lengths, max_pos - 1), 0)
-        logits, _ = self.executor.forward(
-            self.cache_manager.cache, self._tensor(last_tok)[:, None],
-            self._tensor(posid)[:, None],
-            cache_positions=self._tensor(wpos, torch.int32),
-            block_tables=self._device_tables())
+        return self._guarded_forward(
+            last_tok[:, None], posid[:, None], wpos,
+            [self._active[s].id for s in slots], probe)
+
+    def _guarded_forward(self, ids, posid, wpos, request_ids,
+                         probe: bool = False) -> torch.Tensor:
+        """One forward of a decode tick, a verify or a probe, under the
+        watchdog and behind the fault seams: ``ids`` and ``posid``
+        ``[slots, s]``, the write offsets ``wpos`` ``[slots]``, all host
+        arrays; returns the logits. The operands are bound here, on the
+        calling thread, so a call the watchdog abandons can only write the
+        tensors of the storage it was given; once the call returns or
+        fails here, only a still-running abandoned call holds them. A
+        probe is no tick attempt for the fault seam."""
+        operands = [self.cache_manager.cache, self._tensor(ids),
+                    self._tensor(posid), self._tensor(wpos, torch.int32),
+                    self._device_tables()]
+        attempt = None
+        if not probe:
+            attempt = self._fault_ticks
+            self._fault_ticks += 1
+        forward, sync = self.executor.forward, self._sync_in_watch
+
+        def run():
+            cache, ids, pos, cpos, tables = operands
+            if attempt is not None:
+                faults.on_serving_tick(attempt)
+            faults.on_serving_batch(request_ids)
+            logits, _ = forward(cache, ids, pos, cache_positions=cpos,
+                                block_tables=tables)
+            sync()
+            return logits
+
+        try:
+            return self._run_device(run)
+        finally:
+            operands.clear()
+
+    def _sync_in_watch(self) -> None:
+        """Under the watchdog, wait for the device inside the watched call,
+        so that a hung or failing device step surfaces there."""
+        if self.tick_timeout_s > 0 and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _tick_decode(self) -> List[int]:
+        """ONE decode token for every active lane. Free lanes (and a
+        prefilling or parked one) ride the batched forward with their
+        write pinned to the last logical position — on the paged path
+        their zeroed or unused table entries route it to the trash page or
+        past the prompt; on the slot path it lands past every live window
+        — and their outputs are ignored."""
+        retired = self._claim_pending_pages(self._now())
+        if not self._active:
+            return retired
+        slots = sorted(self._active)
+        logits = self._decode_forward(slots)
+        lengths = self.cache_manager.lengths
         toks = self._sample([self._active[s] for s in slots],
                             logits[slots, -1])
         now = self._now()
@@ -983,11 +2054,8 @@ class ServingEngine:
         ids = np.concatenate([last_tok[:, None], draft], axis=1)
         posid = np.minimum(wpos[:, None] + np.arange(s), max_pos - 1)
         posid = np.where(active[:, None], posid, 0)
-        logits, _ = self.executor.forward(
-            self.cache_manager.cache, self._tensor(ids), self._tensor(posid),
-            cache_positions=self._tensor(wpos, torch.int32),
-            block_tables=self._device_tables())
-        logits = logits.float()
+        logits = self._guarded_forward(
+            ids, posid, wpos, [r.id for r in self._active.values()]).float()
         vocab = logits.shape[-1]
         for slot, req in self._active.items():
             if 0 <= req.eos_token_id < vocab:
@@ -1076,7 +2144,7 @@ class ServingEngine:
         """THE retirement path (finish, cancel, timeout, callback error):
         leave the active or prefilling set, drop a working cache, free the
         lane and pages (if held), record the result."""
-        for table in (self._active, self._prefilling):
+        for table in (self._active, self._prefilling, self._prefilled):
             if table.get(req.slot) is req:
                 del table[req.slot]
         req.chunk_cache = None

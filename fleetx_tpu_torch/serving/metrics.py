@@ -6,9 +6,12 @@ latency, tick time, the prefix-cache counters, the page
 gauges, the KV precision with its byte costs, the chunked-prefill counter
 and prefill-stall samples, the queued prompt tokens, and the speculative
 families (proposed, accepted, acceptance rate, tokens per request per
-tick), with :meth:`snapshot` giving the same key names. The Prometheus
-registry, histograms and exposition are not ported (ROADMAP Queue A,
-"Serving features still missing"); samples are plain lists.
+tick), the crash-safety counters (recoveries, poison retirements, drain
+rejects), the host and disk page tiers (synced from their stores each
+tick), the serving role and the KV-shipping counters, with
+:meth:`snapshot` giving the same key names. The Prometheus registry,
+histograms and exposition are not ported (ROADMAP Queue A, "Serving
+features still missing"); samples are plain lists.
 """
 
 from __future__ import annotations
@@ -51,6 +54,23 @@ class ServingMetrics:
         self.prefill_queue_tokens = 0
         self.spec_proposed_tokens = 0
         self.spec_accepted_tokens = 0
+        self.engine_recoveries = 0
+        self.poison_retired = 0
+        self.drain_rejects = 0
+        self.role = "both"
+        self.kv_pages_shipped = 0
+        self.kv_bytes_shipped = 0
+        self.kv_pages_revived_remote = 0
+        self.host_spilled_pages = 0
+        self.host_revived_pages = 0
+        self.host_evicted_pages = 0
+        self.host_cache_bytes = 0
+        self.host_cache_pages = 0
+        self._host_synced = (0, 0, 0)  # the store's counters at last sync
+        self.disk_cache_bytes = 0
+        self.disk_cache_hits = 0
+        self.disk_cache_misses = 0
+        self._disk_synced = (0, 0)
         self.finish_reasons: Dict[str, int] = {}
         self.ttft_s: List[float] = []
         self.prefill_stall_s: List[float] = []
@@ -86,15 +106,68 @@ class ServingMetrics:
 
     def record_prefix(self, shared_tokens: int, prompt_tokens: int) -> None:
         """One paged admission: ``shared_tokens`` of the prompt came from
-        the prefix cache (their prefill was skipped)."""
+        the prefix cache or a page tier (their prefill was skipped)."""
         self.prefix_queries += 1
         self.prefix_hits += shared_tokens > 0
         self.prefill_tokens_saved += int(shared_tokens)
         self.prompt_tokens += int(prompt_tokens)
 
+    def record_recovery(self) -> None:
+        """The engine ran one replay recovery."""
+        self.engine_recoveries += 1
+
+    def record_poison(self) -> None:
+        """A poison request was quarantined (bisection, a twice-failed
+        prefill or its own failed replay) and retired ``error``."""
+        self.poison_retired += 1
+
+    def record_drain_reject(self) -> None:
+        """A submit was refused because the engine is shutting down."""
+        self.drain_rejects += 1
+
+    def set_role(self, role: str) -> None:
+        """The engine's serving role (prefill | decode | both)."""
+        self.role = role
+
+    def record_kv_shipped(self, pages: int, nbytes: int) -> None:
+        """One ``export_kv``: ``pages`` page payloads of ``nbytes`` wire
+        bytes left for a decode-role replica."""
+        self.kv_pages_shipped += int(pages)
+        self.kv_bytes_shipped += int(nbytes)
+
+    def record_kv_revived_remote(self, pages: int) -> None:
+        """One shipped admission wrote ``pages`` shipped pages into the
+        pool (their prefill skipped)."""
+        self.kv_pages_revived_remote += int(pages)
+
+    def observe_host_tier(self, store) -> None:
+        """Per-tick sync from a host page store: its bytes and entries,
+        and the lifetime spill/revive/evict counts advanced by the store's
+        deltas since the last sync."""
+        self.host_cache_bytes = int(store.nbytes)
+        self.host_cache_pages = len(store)
+        now = (store.spilled_pages, store.revived_pages,
+               store.evicted_pages)
+        last = self._host_synced
+        self.host_spilled_pages += max(now[0] - last[0], 0)
+        self.host_revived_pages += max(now[1] - last[1], 0)
+        self.host_evicted_pages += max(now[2] - last[2], 0)
+        self._host_synced = now
+
+    def observe_disk_tier(self, store) -> None:
+        """Per-tick sync from a disk page store: the directory's bytes
+        (every replica's files count, as of the store's last listing) and
+        this store's hits and misses since the last sync."""
+        self.disk_cache_bytes = int(store.cached_nbytes)
+        now = (store.hits, store.misses)
+        last = self._disk_synced
+        self.disk_cache_hits += max(now[0] - last[0], 0)
+        self.disk_cache_misses += max(now[1] - last[1], 0)
+        self._disk_synced = now
+
     def record_retire(self, latency_s: float, reason: str) -> None:
         """A request finished (``reason``: eos | max_length | cache_full |
-        timeout | cancelled | error)."""
+        timeout | cancelled | error | shutdown | prefilled)."""
         self.finish_reasons[reason] = self.finish_reasons.get(reason, 0) + 1
         self.latency_s.append(latency_s)
 
@@ -206,4 +279,19 @@ class ServingMetrics:
             "kv_dtype": self.kv_dtype,
             "kv_bytes_per_token": self.kv_bytes_per_token,
             "kv_cache_bytes": self.kv_cache_bytes,
+            "host_spilled_pages": self.host_spilled_pages,
+            "host_revived_pages": self.host_revived_pages,
+            "host_evicted_pages": self.host_evicted_pages,
+            "host_cache_bytes": self.host_cache_bytes,
+            "host_cache_pages": self.host_cache_pages,
+            "role": self.role,
+            "kv_pages_shipped": self.kv_pages_shipped,
+            "kv_bytes_shipped": self.kv_bytes_shipped,
+            "kv_pages_revived_remote": self.kv_pages_revived_remote,
+            "disk_cache_bytes": self.disk_cache_bytes,
+            "disk_cache_hits": self.disk_cache_hits,
+            "disk_cache_misses": self.disk_cache_misses,
+            "engine_recoveries": self.engine_recoveries,
+            "poison_retired": self.poison_retired,
+            "drain_rejects": self.drain_rejects,
         }

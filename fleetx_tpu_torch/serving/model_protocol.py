@@ -1,18 +1,24 @@
-"""The model-side serving contract: what a model must provide to be served.
+"""The serving contracts: what a model must provide to be served, and what
+an engine must provide to be routed.
 
-Port of ``ModelCapabilities`` and ``GPTExecutor`` from the JAX package's
-``serving/model_protocol.py``. ``ServingEngine`` consumes only the
-executor for model compute — the cached forward that serves prefill,
-chunks, the decode tick and the speculative verify, per-row sampling and
-the shared sampling filter — and the capability flags say which engine
-features the model may ride.
+Port of ``ModelCapabilities``, ``GPTExecutor``, ``ENGINE_SURFACE`` and
+``engine_conforms`` from the JAX package's ``serving/model_protocol.py``.
+``ServingEngine`` consumes only the executor for model compute — the
+cached forward that serves prefill, chunks, the decode tick and the
+speculative verify, per-row sampling and the shared sampling filter — and
+the capability flags say which engine features the model may ride. The
+engine side is the surface a router drives: :data:`ENGINE_SURFACE`'s
+methods and the attributes :func:`engine_conforms` checks; ``health()``
+reports the capabilities as a dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
-__all__ = ["GPTExecutor", "ModelCapabilities"]
+__all__ = ["ENGINE_SURFACE", "GPTExecutor", "ModelCapabilities",
+           "engine_conforms"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +37,10 @@ class ModelCapabilities:
     max_input: int
     #: what the int32 output channel carries
     emits: str = "tokens"
+
+    def as_dict(self) -> dict:
+        """JSON-ready form for the ``health()`` report."""
+        return dataclasses.asdict(self)
 
 
 class GPTExecutor:
@@ -81,3 +91,34 @@ class GPTExecutor:
 
         return filter_logits(logits, temperature, top_k, top_p,
                              topk_cap=topk_cap)
+
+
+#: The engine-side contract: the methods a router calls. Attributes
+#: (:data:`_ENGINE_ATTRS`): ``role`` ("prefill" | "decode" | "both"),
+#: ``paged``, ``page_size``, ``cache_len``, ``slots``, ``model`` (with
+#: ``.cfg``), ``metrics``, ``capabilities``, ``model_family`` and
+#: ``submit_limit`` (the smallest refused prompt length). ``health()``
+#: returns ``state`` ok | draining | dead, ``role``, ``model``,
+#: ``capabilities``, ``queue_depth``, ``queue_tokens``, ``active`` and
+#: ``slots``.
+ENGINE_SURFACE = (
+    "submit", "step", "take_result", "result", "cancel", "emitted_tokens",
+    "health", "drain", "shutdown", "request_shutdown", "declare_dead",
+)
+
+_ENGINE_ATTRS = ("role", "paged", "page_size", "cache_len", "slots",
+                 "model", "metrics", "capabilities", "model_family",
+                 "submit_limit")
+
+
+def engine_conforms(engine) -> Optional[str]:
+    """None when ``engine`` exposes the whole router-facing contract (its
+    methods, then its attributes), else the name of the first missing
+    member."""
+    for name in ENGINE_SURFACE:
+        if not callable(getattr(engine, name, None)):
+            return name
+    for name in _ENGINE_ATTRS:
+        if not hasattr(engine, name):
+            return name
+    return None

@@ -2,10 +2,12 @@
 
 Port of the JAX package's ``serving/scheduler.py``. ``FIFOScheduler`` is
 deliberately minimal — arrival order in, arrival order out: the engine only
-asks "how deep is the queue" and "who is next". Its queue snapshots (the
-transactional tick's) and ``drain_all`` (graceful shutdown) belong to crash
-recovery, which is not ported (ROADMAP Queue A, "Serving features still
-missing").
+asks "how deep is the queue" and "who is next", takes a queue
+:meth:`~FIFOScheduler.snapshot` before each transactional tick (and
+:meth:`~FIFOScheduler.restore` after a failed one), pulls a quarantined or
+cancelled request out with :meth:`~FIFOScheduler.remove`, and empties the
+queue with :meth:`~FIFOScheduler.drain_all` when a shutdown's grace window
+closes.
 """
 
 from __future__ import annotations
@@ -30,13 +32,17 @@ class Request:
     requests never draw from it. ``on_token`` streams each decoded token as
     ``on_token(request_id, token, finished)`` the tick it is produced.
 
-    Lifecycle (``phase``): ``queued`` → [``prefilling``] → ``active`` →
+    Lifecycle (``phase``): ``queued`` → [``prefilling``] → ``active`` (or,
+    on a prefill-role engine, ``prefilled``: parked for ``export_kv``) →
     ``finished``. ``prefilling`` exists only under chunked prefill
     (``FLEETX_SERVING_PREFILL_CHUNK`` > 0): a long prompt's KV is written
     one chunk per tick, interleaved with the batched decode;
     ``prefill_pos`` counts the prompt tokens (shared prefix included)
     written so far and, on the slot path, ``chunk_cache`` holds the
-    batch-1 working cache the chunks fill before the final scatter."""
+    batch-1 working cache the chunks fill before the final scatter.
+    ``kv_payloads`` holds the decoded page payloads a prefill-role replica
+    shipped (``submit(kv_payloads=)``) until admission writes them into
+    the pool."""
 
     id: int
     prompt: np.ndarray  # [prompt_len] int32, no padding
@@ -66,6 +72,7 @@ class Request:
     # speculative decoding: lifetime proposed / accepted draft tokens
     spec_proposed: int = 0
     spec_accepted: int = 0
+    kv_payloads: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def prompt_len(self) -> int:
@@ -107,6 +114,25 @@ class FIFOScheduler:
                 self._queue.remove(r)
                 return r
         return None
+
+    def snapshot(self) -> tuple:
+        """Immutable view of the queue for the engine's transactional tick:
+        taken before device work, handed back to :meth:`restore` if the
+        tick fails (the requests themselves are restored field by field by
+        the engine)."""
+        return tuple(self._queue)
+
+    def restore(self, snap: tuple) -> None:
+        """Reinstate a queue captured by :meth:`snapshot`."""
+        self._queue = collections.deque(snap)
+
+    def drain_all(self) -> List[Request]:
+        """Remove and return every queued request (a shutdown's grace
+        window closed: whatever never won a lane retires with no
+        tokens)."""
+        out = list(self._queue)
+        self._queue.clear()
+        return out
 
     def pop_expired(self, now: float) -> List[Request]:
         """Remove and return every queued request whose queue TTL or total

@@ -1691,3 +1691,146 @@ def test_b12_kernels_at_hidden_12288():
         want = ref(h, shard, l_loc, a, b, lse)
         _ce_close(got, want, torch.bfloat16, "grads",
                   lambda: ce.kernel_readings(h, shard, l_loc, a, b, lse, wrt))
+
+
+def _tier_waves(seed=5):
+    """Three prompts over one 24-token prefix, then three unrelated ones
+    that push them out of a 10-page pool, then the first three again."""
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, 61, 24)
+    first = [np.concatenate([prefix, rng.randint(0, 61, n)])
+             for n in (3, 6, 9)]
+    return [first, [rng.randint(0, 61, n) for n in (30, 27, 33)], first]
+
+
+@pytest.mark.cuda
+def test_cuda_host_tier_revival_equals_never_evicted(tmp_path):
+    """A tiny fp32 paged engine with a host tier over a disk tier: the
+    first wave's prefix pages spill, the third wave revives them through
+    the batched copies, and every stream equals that of an engine whose
+    pool never evicts; each decode tick launches B8 once per layer."""
+    _need_card()
+    cfg = _tiny_cuda_cfg()
+    waves = _tier_waves()
+    want = [_serve_ticks(_tiny_engine(cfg, cache_len=48), w, 6)[0]
+            for w in waves]
+    engine = _tiny_engine(cfg, cache_len=48, num_pages=10,
+                          host_cache_bytes=2 * 8192,
+                          disk_cache_dir=str(tmp_path),
+                          disk_cache_bytes=1 << 20)
+    before = dict(da.launches)
+    got, ticks = [], 0
+    for w in waves:
+        out, n = _serve_ticks(engine, w, 6)
+        got.append(out)
+        ticks += n
+    assert got == want
+    snap = engine.metrics.snapshot()
+    assert snap["host_spilled_pages"] > 0
+    assert snap["host_revived_pages"] + snap["disk_cache_hits"] > 0
+    assert _launched(before) == {"paged_decode": ticks * cfg.num_layers}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["b8", "b10"])
+def test_cuda_shipped_admission_decodes_through_b8_and_b10(kv):
+    """A prefill-role engine ships each prompt's pages as bytes to a
+    decode-role engine on the card; the streams equal one colocated
+    engine's and the decode engine's ticks launch B8 (B10 at int8) once
+    per layer."""
+    _need_card()
+    cfg = _tiny_cuda_cfg()
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, 61, n) for n in (5, 17, 40)]
+    want, _ = _serve_ticks(_tiny_engine(cfg, kv_dtype=kv), prompts)
+    pre = _tiny_engine(cfg, kv_dtype=kv, role="prefill")
+    dec = _tiny_engine(cfg, kv_dtype=kv, role="decode")
+    rids = [pre.submit(p, max_length=12) for p in prompts]
+    handed = {}
+    while len(handed) < len(prompts):  # parked requests hold their lanes
+        pre.step()
+        for rid in pre.prefilled_ready():
+            blobs = pre.export_kv(rid)
+            handed[rid] = dec.submit(prompts[rids.index(rid)], max_length=12,
+                                     history=pre.take_result(rid).tokens,
+                                     kv_payloads=blobs)
+    before = dict(da.launches)
+    ticks = 0
+    while dec.scheduler.queue_depth or dec.cache_manager.active_count:
+        ticks += dec.step()["decoded"] > 0
+    out = dec.drain()
+    assert [out[handed[r]].tokens.tolist() for r in rids] == want
+    name = "paged_decode_q8" if kv else "paged_decode"
+    assert _launched(before) == {name: ticks * cfg.num_layers}
+    assert dec.metrics.kv_pages_revived_remote == sum(
+        -(-len(p) // 8) for p in prompts)
+
+
+@pytest.mark.cuda
+def test_cuda_tick_fault_recovers_on_fresh_pools():
+    """A decode-tick fault on the card: recovery builds new pool tensors
+    (other ``data_ptr``s while the old ones are held, which it leaves as
+    they were), replays through B8, and the streams equal the fault-free
+    engine's."""
+    _need_card()
+    from fleetx_tpu_torch.resilience.faults import faults
+
+    cfg = _tiny_cuda_cfg()
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, 61, n) for n in (5, 17, 40)]
+    want, _ = _serve_ticks(_tiny_engine(cfg), prompts)
+    engine = _tiny_engine(cfg)
+    old = {k: v for k, v in engine.cache_manager.cache.items()
+           if torch.is_tensor(v)}  # held, as an abandoned call holds them
+    seen = {}
+    build = engine._new_cache_manager
+
+    def rebuild():
+        seen.update({k: v.clone() for k, v in old.items()})
+        return build()
+
+    engine._new_cache_manager = rebuild
+    faults.configure(tick_raise="4")
+    try:
+        got, _ = _serve_ticks(engine, prompts)
+    finally:
+        faults.reset()
+    assert got == want
+    assert engine.metrics.engine_recoveries == 1
+    assert all(engine.cache_manager.cache[k].data_ptr() != v.data_ptr()
+               for k, v in old.items())
+    assert all(torch.equal(old[k], v) for k, v in seen.items())
+
+
+@pytest.mark.cuda
+def test_cuda_recovery_needs_one_pool_of_memory():
+    """With no abandoned call holding it, recovery releases the old pool
+    before it allocates the new one: the card's peak over the faulted tick
+    stays under one more pool (82 MB here, far above the tiny model's
+    activations), and the streams equal the fault-free engine's."""
+    _need_card()
+    from fleetx_tpu_torch.resilience.faults import faults
+
+    cfg = _tiny_cuda_cfg()
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, 61, n) for n in (5, 17, 40)]
+    want, _ = _serve_ticks(_tiny_engine(cfg), prompts)
+    engine = _tiny_engine(cfg, num_pages=20001)
+    pool = engine.cache_manager.cache_nbytes()
+    assert pool > 80e6
+    for p in prompts:
+        engine.submit(p, max_length=12)
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    faults.configure(tick_raise=str(engine._fault_ticks))
+    try:
+        assert engine.step()["recovered"]
+    finally:
+        faults.reset()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < pool / 2
+    out = engine.drain()
+    assert [out[i].tokens.tolist() for i in sorted(out)] == want

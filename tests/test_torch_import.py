@@ -143,3 +143,28 @@ def test_gate_covers_the_serving_slice():
                  "ops.decode_attention", "tools.serving_check"):
         assert f"fleetx_tpu_torch.{name}" in mods, name
     assert (PKG / "ops" / "csrc" / "decode_attention.cu").is_file()
+
+
+def test_gate_covers_the_serving_recovery_slice():
+    """Likewise for the page tiers and their wire format, the roles, crash
+    recovery and the router-facing surface; these modules import with
+    ``ml_dtypes`` blocked too (the wire format's bf16 goes through torch)."""
+    mods = set(_modules())
+    names = ("serving", "serving.cache_manager", "serving.engine",
+             "serving.scheduler", "serving.metrics", "serving.model_protocol",
+             "resilience.faults", "obs.events")
+    for name in names:
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('jax', 'jaxlib', 'flax', 'fleetx_tpu', 'ml_dtypes'):",
+        "    sys.modules[name] = None",
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        f"for mod in {['fleetx_tpu_torch.' + n for n in names]!r}:",
+        "    importlib.import_module(mod)",
+        "from fleetx_tpu_torch.serving import (DiskPageStore, HostPageStore,",
+        "    TieredPageStore, engine_conforms)",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
