@@ -55,7 +55,8 @@ decode steps after phase 10):
                for 8 left-padded prompts of 24..312 tokens and 200 new
                tokens, greedy and with the config's sampling: B7 launches
                steps x 24 times; the first decode step's logits through the
-               kernel and through the plain version agree; then the same at
+               kernel and through the plain version (48 new tokens) agree;
+               then the same at
                ``Model.decode_kv_dtype=int8`` through B9; tokens/s and ms
                per decode step printed;
 11. int8     — phase 4's requests through a ``ServingEngine`` at
@@ -140,7 +141,7 @@ decode steps after phase 10):
                and dp 2 x mp 2 on the same global batch: loss, grad norm
                and every gathered gradient leaf within phase 8's limits of
                mp 1;
-22. resume-1.3b — phase 13's configuration (full width, 4 of its 24
+22. resume-1.3b — phase 13's configuration (full width, 2 of its 24
                layers for time, fused CE, full recompute, dropout 0.1): run
                A trains 3 steps and
                saves at step 2 through the async snapshot
@@ -153,19 +154,20 @@ decode steps after phase 10):
                must break that gate; checkpoint bytes, the save's blocking
                and total seconds, the load's seconds and the peak device
                memory across the save printed;
-23. preempt  — ``tools/train.py`` as a subprocess on the 345M yaml over a
-               seeded corpus: a launch sent SIGTERM once its log shows
-               step 3 exits 0 with a checkpoint at the step it reached, a
-               relaunch with ``Engine.save_load.ckpt_dir`` resumes and ends
-               at step 6, and the two launches' losses, joined, equal an
+23. preempt  — ``tools/train.py`` as a subprocess on the 345M yaml (4 of
+               its 24 layers) over a seeded corpus: a launch sent SIGTERM
+               once its log shows step 3 exits 0 with a checkpoint at the
+               step it reached, a relaunch with
+               ``Engine.save_load.ckpt_dir`` resumes and ends at step 6,
+               and the two launches' losses, joined, equal an
                uninterrupted launch's; seconds from the signal to exit and
                from the relaunch to its first step printed;
-24. sentry   — phase 14's configuration (4 layers): five batches with the
+24. sentry   — phase 14's configuration (2 layers): four batches with the
                third NaN (through B4-B6) skip one step and end with the
                parameters, AdamW state and generator of a run over the
-               other four, bit for bit, the skipped batch consumed; then
-               phase 13's step with the sentry on and off (on, off, off,
-               on): the cost of its per-step host read;
+               other three, bit for bit, the skipped batch consumed; then
+               phase 13's step at 4 layers with the sentry on and off (on,
+               off, off, on): the cost of its per-step host read;
 25. resume-mp — phase 21's configuration (2 layers) at mp 2 on 2 ranks
                sharing the card: fresh processes resume a per-rank
                checkpoint of step 1 and take step 2, equal on both ranks
@@ -187,7 +189,7 @@ decode steps after phase 10):
                .yaml`` at pp 2 (2 layers a stage, 4 of its 24, 2 ranks
                sharing the card over gloo), full width, bf16, dropout
                0.1, full recompute, the logits loss, batch 8 as 4
-               microbatches of 2, for 5 steps and one 1-batch
+               microbatches of 2, for 3 steps and one 1-batch
                evaluation, then 3 steps at
                virtual pp 2: losses finite, falling and equal on both
                ranks, the tied embedding's copies bit-equal after every
@@ -208,7 +210,7 @@ decode steps after phase 10):
                break its limit; kernel, plain, library and bound times;
 30. train-zero — ``tools/train.py`` on ``pretrain_gpt_6.7B_sharding16
                .yaml`` at sharding 2 (stage 2; the yaml's 16 cut to the
-               card's 2 ranks sharing it over gloo), full width, 4 of its
+               card's 2 ranks sharing it over gloo), full width, 2 of its
                32 layers, bf16, dropout 0.1, fused CE, full recompute, the
                yaml's batch (local 8 in 4 microbatches of 2), 3 steps and a
                1-batch evaluation, the ZeRO update shard on; then the same
@@ -221,7 +223,7 @@ decode steps after phase 10):
                parameters within a clip-scale rounding, the AdamW state per
                rank at most 0.55 of the replicated run's, B1-B6 launched as
                the path launches them; at 2 layers, the two updates with
-               the clip's scale forced to 1 bit-equal for 2 steps, and a
+               the clip's scale forced to 1 bit-equal for 1 step, and a
                norm from one rank's slices alone and one slice left stale
                on one rank must each break a gate; step ms, tokens/s,
                MFU, peak memory per rank, reduce-scatter, all-gather and
@@ -263,8 +265,9 @@ decode steps after phase 10):
                that skips decode on chunk ticks, and the other long
                prompt's logits must each break a gate;
 37. spec     — speculative decoding at k 4 on the paged engine, the n-gram
-               proposer on prompts repeating a 32-token pattern and the
-               self-draft proposer, at bf16 and at int8 KV: where a greedy
+               proposer on prompts repeating a 32-token pattern (16 new
+               tokens each) and the self-draft proposer, at bf16 and at
+               int8 KV: where a greedy
                stream parts from the plain engine's, the plain top-2 logit
                gap there lies within LOGIT_TOL, as does every self-draft
                rejection's; B8 (B10) launched once per layer of each plain
@@ -314,7 +317,41 @@ decode steps after phase 10):
                out the recovery budget (``RecoveryExhausted``, health
                dead); ``shutdown`` under load returns every request's
                partial stream; time to recover, replay ms and probes
-               logged.
+               logged;
+41. mesh     — mesh serving at mp 2, GPT-345M at full width and depth, two
+               ranks sharing the card over gloo, each an engine over the
+               whole weights keeping its heads, MLP and vocab shard,
+               against single-card engines of the same weights: phase 4's
+               requests paged at bf16 (B8, 16 new tokens, as every case),
+               int8 KV with int8 weights
+               paged (B10) and slot (B9), slot (B7), chunk 128 on the two
+               900-token prompts, n-gram spec at k 4, a tick fault
+               recovered: each rank's streams equal the single card's but
+               where its top-2 gap lies within LOGIT_TOL, first-token
+               logits within 0.07 (fp32: 1e-3) and bit-equal on both
+               ranks, each
+               rank's KV bytes in [0.45, 0.55] of the single card's, the
+               decode kernel once per layer of each single-token forward
+               on each rank; collective ms per tick and TPOT/TTFT p50
+               against the single card logged; a rank holding the other's
+               q/k/v head slice, and the row-parallel sums skipped (both
+               in the same spawn), must each break the gate;
+42. int8-weights — int8 weights on the single card, paged at bf16 KV (B8)
+               and int8 KV (B10) and slot (B7), against bf16 weights on
+               phase 4's requests made greedy: the int8 leaves equal the
+               host's ``quantize_tree_int8`` bit for bit, the weight bytes
+               equal the shapes', a stream parts only at a bf16 top-2 gap
+               within 0.25 and first-token logits lie within it;
+               ``quant_parity_frac`` and TPOT against bf16 weights logged;
+               a served engine whose scales are loaded with their
+               channels reversed must break the split-and-logits gate and
+               the leaves gate;
+43. obs      — a live engine under ``FLEETX_OBS_PORT=0`` with
+               ``log_every`` 4: ``/metrics`` scraped over HTTP during and
+               after a drain, its counters equal to ``snapshot()``;
+               ``/healthz`` 200, then 503 on ``request_shutdown``; the
+               snapshot line on every fourth tick; counters read a tick
+               late must break the counter gate.
 
 Every drive writes into an output directory of its own, deleted with its
 phase. The script is the reaper of every process it starts, also of those
@@ -327,6 +364,7 @@ train steps after phase 13.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -369,6 +407,7 @@ from fleetx_tpu_torch.ops import decode_attention as da  # noqa: E402
 from fleetx_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from fleetx_tpu_torch.parallel import launch  # noqa: E402
 from fleetx_tpu_torch.ops.quant import (  # noqa: E402
+    QUANT_PREFIX_BUDGET,
     dequantize_kv,
     quant_parity_frac,
     quantize_kv,
@@ -724,16 +763,19 @@ def serving_requests(vocab: int, seed: int = 0) -> list:
 def serving_config() -> tuple:
     """GPT-345M's config (24 layers, hidden 1024, 16 heads of 64, vocab
     50304, bf16 compute) and its generation knobs."""
-    conf = get_config(CONFIG)
+    conf = get_config(CONFIG, nranks=1)  # also on a mesh's rank
     return (GPTConfig.from_model_config(conf.Model),
             GenerationConfig.from_config(conf.Generation))
 
 
-def build_engine(kv_dtype=None, params=None, **kw):
+def build_engine(kv_dtype=None, params=None, dtype=None, **kw):
     """A ServingEngine at GPT-345M width with random weights from seed 0
     (or ``params``), 8 lanes of 1024 positions, 16-position pages, bf16
-    (or ``kv_dtype``) KV; ``kw`` sets further engine switches."""
+    (or ``kv_dtype``) KV, bf16 compute (or ``dtype``); ``kw`` sets further
+    engine switches."""
     cfg, gen_cfg = serving_config()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     if params is None:
         params = init_params(cfg, seed=0)
     kw = dict(dict(slots=8, page_size=16, cache_len=1024), **kw)
@@ -1603,6 +1645,10 @@ def run_generate(module, ids, mask, gen_cfg, label, name, *, generator=None,
             "launches": launches[name]}
 
 
+GEN_PLAIN_NEW = 48  # the plain-version runs' new tokens (200 until cut
+# for phases 41-43): they hold the first step's logits
+
+
 def phase_generate(profile: bool) -> dict:
     """The port's generation path, bf16 KV then int8 KV, each greedy
     through the kernel and through the plain version (first decode step's
@@ -1629,11 +1675,14 @@ def phase_generate(profile: bool) -> dict:
                 module, ids, mask, base, f"{tag} sampling", name,
                 generator=torch.Generator(device=DEVICE).manual_seed(7))
             launches += sampled["launches"]
-        plain = run_generate(module, ids, mask, greedy, f"{tag} greedy plain",
-                             name, attention=da.decode_attention_ref)
+        plain = run_generate(
+            module, ids, mask,
+            dataclasses.replace(greedy, max_length=GEN_PLAIN_NEW),
+            f"{tag} greedy plain", name, attention=da.decode_attention_ref)
         err = (kernel["first"] - plain["first"]).abs().max().item()
         width = ids.shape[1]
-        agree = [quant_parity_frac(a[width:], b[width:]) for a, b in
+        agree = [quant_parity_frac(a[width:width + GEN_PLAIN_NEW],
+                                   b[width:]) for a, b in
                  zip(kernel["tokens"], plain["tokens"])]
         log("generate", kv=tag, first_step_logits_max_abs_err=err,
             tol=LOGIT_TOL, greedy_common_prefix_frac_kernel_vs_plain=float(
@@ -3216,8 +3265,8 @@ def phase_train_mp_e2e(prefix: str) -> None:
 # ----------------------------------------------------------------- phase 22
 # the resume drive: phase 13's 1.3B configuration, 3 steps, saved at step 2
 RESUME_STEPS, RESUME_SAVE_AT = 3, 2
-RESUME_LAYERS = 4  # phase 22's depth: a sixth of the yaml's 24, for the
-# script's time (full width kept)
+RESUME_LAYERS = 2  # phase 22's depth: a twelfth of the yaml's 24, for the
+# script's time (full width kept; 4 until cut for phases 41-43)
 
 
 def trainer_tensors(trainer):
@@ -3439,6 +3488,7 @@ def phase_resume_13b(prefix: str) -> dict:
 
 # ----------------------------------------------------------------- phase 23
 PREEMPT_STEPS, PREEMPT_AT = 6, 3
+PREEMPT_LAYERS = 4  # of the 345M yaml's 24 (24 until cut for phases 41-43)
 # the training CLI as a command (its own interpreter)
 TRAIN_CLI = [sys.executable, "-m", "fleetx_tpu_torch.tools.train"]
 TRAIN_LINE = re.compile(r"\[train\] epoch: \d+, batch: (\d+), loss: "
@@ -3499,8 +3549,9 @@ def run_cli(argv, signal_at=None, timeout=600.0) -> dict:
 
 
 def phase_preempt(prefix: str) -> dict:
-    """``tools/train.py`` as a subprocess on the 345M yaml (full width and
-    depth) over the corpus at ``prefix``: an uninterrupted reference to
+    """``tools/train.py`` as a subprocess on the 345M yaml (full width,
+    PREEMPT_LAYERS of its 24 layers) over the corpus at ``prefix``: an
+    uninterrupted reference to
     step PREEMPT_STEPS; a launch sent SIGTERM once its log shows step
     PREEMPT_AT must exit 0 with a checkpoint at the step it reached; a
     relaunch with ``ckpt_dir`` must resume there and end at step
@@ -3508,15 +3559,19 @@ def phase_preempt(prefix: str) -> dict:
     the reference's as printed (9 decimals, which tell float32 losses of
     this size apart)."""
     base = ["-c", TRAIN_CONFIG, "-o", f"Data.Train.dataset.input_dir={prefix}",
+            "-o", f"Model.num_layers={PREEMPT_LAYERS}",
             "-o", f"Engine.max_steps={PREEMPT_STEPS}",
             "-o", "Engine.logging_freq=1", "-o", "Engine.eval_freq=0",
             "-o", "Engine.save_load.save_steps=0",
             "-o", "Optimizer.lr.warmup_steps=2",
             "-o", "Optimizer.lr.max_lr=5.0e-4"]
-    ref = run_cli(base + ["-o", own_output_dir(prefix)])
     out = tempfile.mkdtemp(prefix="out-", dir=os.path.dirname(prefix))
     out_arg = ["-o", f"Engine.save_load.output_dir={out}"]
-    first = run_cli(base + out_arg, signal_at=PREEMPT_AT)
+    # the reference and the preempted launch run side by side on the card
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        ref = pool.submit(run_cli, base + ["-o", own_output_dir(prefix)])
+        first = run_cli(base + out_arg, signal_at=PREEMPT_AT)
+        ref = ref.result()
     steps = sorted(int(n) for n in os.listdir(os.path.join(out, "checkpoints"))
                    if n.isdigit())
     second = run_cli(base + out_arg + [
@@ -3548,8 +3603,9 @@ def phase_preempt(prefix: str) -> dict:
 
 
 # ----------------------------------------------------------------- phase 24
-SENTRY_LAYERS, SENTRY_BATCHES, SENTRY_NAN_AT = 4, 5, 2
-SENTRY_COST_STEPS = 10
+SENTRY_LAYERS, SENTRY_BATCHES, SENTRY_NAN_AT = 2, 4, 2  # 4 layers and 5
+# batches until cut for phases 41-43
+SENTRY_COST_STEPS, SENTRY_COST_LAYERS = 6, 4  # 10 steps at 24 until cut
 
 
 def sentry_fit(cfg, data) -> dict:
@@ -3571,12 +3627,14 @@ def sentry_fit(cfg, data) -> dict:
 
 
 def sentry_step_ms(prefix: str, sentry: str) -> dict:
-    """SENTRY_COST_STEPS steps of phase 13's configuration with
-    ``FLEETX_SENTRY=sentry``: the median interval between the ends of
-    consecutive steps (CUDA events; the first two left out)."""
+    """SENTRY_COST_STEPS steps of phase 13's configuration cut to
+    SENTRY_COST_LAYERS layers with ``FLEETX_SENTRY=sentry``: the median
+    interval between the ends of consecutive steps (CUDA events; the first
+    two left out)."""
     os.environ["FLEETX_SENTRY"] = sentry
     try:
         cfg = train_13b_config(prefix, f"Engine.max_steps={SENTRY_COST_STEPS}",
+                               f"Model.num_layers={SENTRY_COST_LAYERS}",
                                "Engine.eval_freq=0")
         trainer = Trainer(cfg, build_module(cfg))
     finally:
@@ -3609,8 +3667,8 @@ def phase_sentry(prefix: str) -> dict:
     step, and the parameters, AdamW state and generator equal those of a
     run over the other batches bit for bit; the skipped batch counts as
     consumed. Then the cost of the sentry's host read: phase 13's
-    configuration (full depth) with the sentry on and off, in the order
-    on, off, off, on."""
+    configuration at SENTRY_COST_LAYERS layers with the sentry on and off,
+    in the order on, off, off, on."""
     cfg = train_13b_config(prefix, f"Model.num_layers={SENTRY_LAYERS}",
                            f"Engine.max_steps={SENTRY_BATCHES}",
                            "Engine.eval_freq=0")
@@ -3766,7 +3824,7 @@ def phase_resume_mp(prefix: str) -> None:
 # microbatches of 2 (Engine.accumulate_steps 4); phase 26 and 28 cut it to
 # PP_E2E_LAYERS layers, phase 27 runs it at full width and depth
 PP_DEGREE, PP_MICRO, PP_E2E_LAYERS = 2, 2, 4
-PP_STEPS, PP_V2_STEPS, PP_EVAL_ITERS = 5, 3, 1
+PP_STEPS, PP_V2_STEPS, PP_EVAL_ITERS = 3, 3, 1  # 5 pp steps until cut
 PP_TRAIN_LAYERS = 4  # phase 27's depth: the yaml's 24 cut for time
 
 
@@ -4300,11 +4358,12 @@ def phase_kernels_67b() -> tuple:
 # ----------------------------------------------------------------- phase 30
 TRAIN_67B_CONFIG = os.path.join(
     ROOT, "configs/nlp/gpt/pretrain_gpt_6.7B_sharding16.yaml")
-ZERO_LAYERS = 4  # of the yaml's 32: the replicated run fits beside it, and
-# the script inside its time
+ZERO_LAYERS = 2  # of the yaml's 32: the replicated run fits beside it, and
+# the script inside its time (4 until cut for phases 41-43)
 ZERO_FAULT_LAYERS = 2  # the planted-fault and forced-scale drives' depth
 ZERO_STEPS, ZERO_EVAL_ITERS = 3, 1  # 3 steps (5 until cut for time)
-ZERO_FORCED_STEPS = 2  # the forced-scale pair's steps
+ZERO_FORCED_STEPS = 1  # the forced-scale pair's steps (2 until cut for
+# phases 41-43)
 ZERO_SAMPLE_STRIDE = 97  # the first update compared at every 97th element
 ZERO_UPDATE_NORM_TOL = 1e-6  # relative: the norm's summation order alone
 
@@ -5537,22 +5596,23 @@ def watch_forwards(engine) -> dict:
 
 
 def watch_samples(engine) -> dict:
-    """Wrap ``engine._sample``: per request, the logits row each of its
-    tokens came from (first token: ``rows[rid][0]``) and the gap between
-    the row's two largest logits."""
-    rows, gaps = {}, {}
+    """Wrap ``engine._sample``: per request, the logits row its first token
+    came from (``rows[rid]``), and for each token the gap between the
+    row's two largest logits (``gaps``) and the largest (``tops``)."""
+    rows, gaps, tops = {}, {}, {}
     sample = engine._sample
 
     def kept(reqs, logits):
-        top = torch.topk(logits.float(), 2, dim=-1).values
+        top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
         for i, r in enumerate(reqs):
             if not r.tokens:
                 rows[r.id] = logits[i].float().clone()
             gaps.setdefault(r.id, []).append(float(top[i, 0] - top[i, 1]))
+            tops.setdefault(r.id, []).append(float(top[i, 0]))
         return sample(reqs, logits)
 
     engine._sample = kept
-    return {"rows": rows, "gaps": gaps}
+    return {"rows": rows, "gaps": gaps, "tops": tops}
 
 
 def tpot_ms(results, ids=None) -> list:
@@ -5808,9 +5868,12 @@ def phase_chunked(params, cfg) -> dict:
     return out
 
 
+SPEC_NEW = 16  # phase 37's new tokens a request (64 until cut for 41-43)
+
+
 def spec_requests(vocab: int, seed: int = 6, sampling: bool = False) -> list:
     """Eight prompts that repeat a 32-token pattern of their own 3 to 8
-    times (96..256 tokens), asking 64 new tokens each."""
+    times (96..256 tokens), asking SPEC_NEW new tokens each."""
     rng = np.random.RandomState(seed)
     out = []
     for i in range(8):
@@ -5819,7 +5882,8 @@ def spec_requests(vocab: int, seed: int = 6, sampling: bool = False) -> list:
                    top_p=0.75, seed=300 + i) if sampling
               else dict(decode_strategy="greedy"))
         out.append(dict(prompt=np.tile(pattern, 3 + i % 6),
-                        max_length=MAX_NEW, min_length=0, **kw))
+                        max_length=min(SPEC_NEW, MAX_NEW), min_length=0,
+                        **kw))
     return out
 
 
@@ -6188,7 +6252,7 @@ def phase_tiers(params, cfg) -> dict:
     snap = ref.metrics.snapshot()
     if snap["prefix_hits"] < 2 * len(first) - 4:
         raise AssertionError(f"the reference trie missed: {snap}")
-    page_bytes = ref.metrics.kv_bytes_per_token * ref.page_size
+    page_bytes = snap["kv_bytes_per_token"] * ref.page_size
     del ref
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -6683,11 +6747,605 @@ def phase_recovery(params, cfg) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 41
+MESH_MP = 2            # phase 41's mp extent: two ranks share the card
+MESH_FAULT_TICK = 5    # its recovered tick fault
+
+
+MESH_NEW = 16  # new tokens of phase 41's requests (phase 4's 64)
+
+
+def mesh_cases(vocab: int) -> dict:
+    """Phase 41's traffic by case: (engine switches, requests, the decode
+    kernel its single-token forwards launch), each request taking MESH_NEW
+    new tokens. The first case serves phase 4's requests, the others its
+    first two, but for the chunked case (four of phase 36's, both
+    900-token prompts among them) and the spec case (phase 37's first
+    four)."""
+    base = [dict(r, max_length=min(r["max_length"], MESH_NEW))
+            for r in serving_requests(vocab)]
+    short = base[:2]
+    chunk = [dict(r, max_length=min(r["max_length"], MESH_NEW))
+             for i, r in enumerate(chunked_requests(vocab))
+             if i in (0, 3, 4, 7)]  # both 900-token prompts
+    spec = [dict(r, max_length=min(r["max_length"], MESH_NEW))
+            for r in spec_requests(vocab)[:4]]
+    return {
+        "paged": (dict(), base, "paged_decode"),
+        "int8": (dict(kv_dtype="int8", weight_dtype="int8"), short,
+                 "paged_decode_q8"),
+        "slot": (dict(paged=False), short, "decode"),
+        "slot-int8": (dict(paged=False, kv_dtype="int8",
+                           weight_dtype="int8"), short, "decode_q8"),
+        "chunk": (dict(prefill_chunk=CHUNK), chunk, "paged_decode"),
+        "spec": (dict(spec=True, spec_k=SPEC_K), spec, "paged_decode"),
+        "fault": (dict(), short, "paged_decode"),
+        "fp32": (dict(dtype=torch.float32), short, "paged_decode"),
+    }
+
+
+# the limits of phase 41's logits gates. At bf16: above the sound runs'
+# largest first-token gap (0.0493), below the planted faults' smallest
+# (0.10, the other rank's head slice). At fp32 the engines' logits differ
+# only by the order of fp32 sums. The greedy splits are held at LOGIT_TOL
+# (phase 37's gate).
+MESH_BF16_TOL = 0.07
+MESH_FP32_TOL = 1e-3
+
+
+def mesh_fault_requests(vocab: int) -> list:
+    """The planted faults' traffic: two greedy requests of phase 4's."""
+    return [dict(r, max_length=16) for r in serving_requests(vocab)[:2]]
+
+
+def row_digest(row: torch.Tensor) -> str:
+    return hashlib.sha256(row.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def rows_err(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got - want).max())
+
+
+def collective_clock() -> dict:
+    """Time every collective of this process (the row-parallel
+    all-reduces, the embedding's sum, the logits' all-gather, the clock's
+    broadcast): the device is synchronised before each, so a reading is
+    the collective's own host time. The broadcasts (the clock's) are also
+    summed apart, under ``broadcast_ms``."""
+    import torch.distributed as tdist
+
+    clock = {"ms": 0.0, "calls": 0, "broadcast_ms": 0.0}
+    for name in ("all_reduce", "all_gather_into_tensor", "broadcast"):
+        fn = getattr(tdist, name)
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            ms = (time.perf_counter() - t) * 1e3
+            clock["ms"] += ms
+            clock["calls"] += 1
+            if _name == "broadcast":
+                clock["broadcast_ms"] += ms
+            return out
+
+        setattr(tdist, name, timed)
+    return clock
+
+
+def mesh_serve(engine, requests, cfg, kernel, fault_tick=None) -> dict:
+    """Serve ``requests`` on one engine (its warm-up first), counting its
+    forwards and the decode launches; with ``fault_tick``, the tick fault
+    planted on every rank at that tick. Returns streams, first-token
+    rows (their digests; the rows themselves on mp rank 0), TTFT and TPOT,
+    the cache's bytes and the launch counts."""
+    serve(engine, [dict(prompt=np.arange(40), max_length=4)])  # warm-up
+    seen = watch_forwards(engine)
+    samples = watch_samples(engine)
+    zero_launches()
+    if fault_tick:
+        faults.configure(tick_raise=str(fault_tick))
+    try:
+        results, ticks, seconds = serve(engine, requests)
+    finally:
+        faults.reset()
+    counts = dict(da.launches)
+    launches = counts.pop(kernel)
+    drained(engine, f"mesh {kernel}")
+    if any(counts.values()):
+        raise AssertionError(f"other decode kernels launched: {counts}")
+    launch_gate(f"mesh {kernel}", launches, seen["decode"], cfg.num_layers)
+    ids = sorted(results)
+    rows = samples["rows"]
+    sampled = [rid for rid, r in zip(ids, requests)
+               if r.get("decode_strategy") == "sampling"]
+    return {"tokens": {i: results[i].tokens.tolist() for i in ids},
+            "sampled": sampled,
+            "rows": {i: rows[i].cpu().numpy() for i in ids},
+            "digests": {i: row_digest(rows[i]) for i in ids},
+            "gaps": samples["gaps"], "tops": samples["tops"],
+            "ticks": ticks, "seconds": seconds,
+            "ttft_ms": [results[i].ttft_s * 1e3 for i in ids],
+            "tpot_ms": tpot_ms(results), "launches": launches,
+            "forwards": seen["decode"],
+            "cache_bytes": engine.cache_manager.cache_nbytes(),
+            "recoveries": engine.metrics.engine_recoveries,
+            "snapshot": engine.metrics.snapshot()}
+
+
+def mesh_planted(params, cfg, mesh) -> dict:
+    """Phase 41's planted faults on one rank, each a short run by name:
+    ``"heads"``, this rank holding the other rank's q/k/v head slice;
+    ``"allreduce"``, the row-parallel projections' partial sums never
+    summed."""
+    from fleetx_tpu_torch.models.gpt.convert import shard_params
+    from fleetx_tpu_torch.parallel import tensor_parallel as tp
+
+    out = {}
+    summed = tp.RowParallelDense.forward
+    for fault in ("heads", "allreduce"):
+        engine, _ = build_engine(params=params, mesh=mesh)
+        if fault == "heads":
+            other = shard_params(params, dataclasses.replace(
+                cfg, mp_degree=MESH_MP), 1 - mesh.mp_rank)
+            for n, t in engine.model.state_dict().items():
+                if ".qkv_proj." in n:
+                    t.copy_(other[n].to(t.dtype))
+        else:
+            def unsummed(self, x):
+                return tp._BiasAdd.apply(
+                    torch.nn.functional.linear(x.to(self.dtype),
+                                               self.dense_weight()),
+                    self.bias)
+            tp.RowParallelDense.forward = unsummed
+        try:
+            out[fault] = mesh_serve(engine, mesh_fault_requests(
+                cfg.vocab_size), cfg, "paged_decode")
+        finally:
+            tp.RowParallelDense.forward = summed
+        del engine
+    return out
+
+
+def mesh_rank() -> dict:
+    """Phase 41 on one rank of the mp MESH_MP mesh: every case of
+    :func:`mesh_cases` through an engine built from the whole GPT-345M
+    state dict (``init_params`` seed 0, as the single-card engines), then
+    the planted faults (:func:`mesh_planted`, under ``"planted"``)."""
+    from fleetx_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(mp=MESH_MP)
+    cfg, _ = serving_config()
+    params = init_params(cfg, seed=0)
+    clock = collective_clock()
+    out = {}
+    for name, (kw, requests, kernel) in mesh_cases(cfg.vocab_size).items():
+        engine, _ = build_engine(params=params, mesh=mesh, **kw)
+        clock.update(ms=0.0, calls=0, broadcast_ms=0.0)
+        run = mesh_serve(engine, requests, cfg, kernel,
+                         MESH_FAULT_TICK if name == "fault" else None)
+        run["collective_ms"], run["collective_calls"] = (clock["ms"],
+                                                         clock["calls"])
+        run["clock_ms"] = clock["broadcast_ms"]
+        if mesh.mp_rank:
+            run["rows"] = {}  # the digests carry rank 1's rows
+        out[name] = run
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["planted"] = mesh_planted(params, cfg, mesh)
+    return out
+
+
+def mesh_compare(got: dict, ref: dict) -> dict:
+    """A mesh run against the single card's: each greedy request's first
+    split ``(request, token, single-card top-2 gap there)`` and each
+    sampled one's ``(request, token)`` (a draw parts wherever it falls near
+    a boundary of the categorical), the largest first-token logits gap,
+    and the largest gap between the two runs' top logits over each
+    request's common prefix and its split (the same tokens fed)."""
+    splits, sampled_splits, drift = [], [], 0.0
+    for rid, want in ref["tokens"].items():
+        tokens = got["tokens"][rid]
+        n = common_prefix(tokens, want)
+        tops = got.get("tops", {}).get(rid, [])
+        if len(tops) == len(tokens):  # every token sampled (no verify)
+            drift = max([drift] + [abs(a - b) for a, b in zip(
+                tops[:n + 1], ref["tops"][rid][:n + 1])])
+        if n == len(tokens) == len(want):
+            continue
+        if rid in ref.get("sampled", ()):
+            sampled_splits.append((rid, n))
+            continue
+        gaps = ref["gaps"][rid]
+        splits.append((rid, n, round(gaps[n], 5) if n < len(gaps)
+                       else float("inf")))
+    first = max(rows_err(row, ref["rows"][rid])
+                for rid, row in got["rows"].items()) if got["rows"] else 0.0
+    return {"splits": splits, "sampled_splits": sampled_splits,
+            "first_token_err": first, "top_drift": drift}
+
+
+def mesh_streams_gate(what: str, got: dict, ref: dict,
+                      tol: float = MESH_BF16_TOL) -> dict:
+    """A greedy mesh stream equals the single-card engine's, or parts from
+    it only where the single-card top-2 logit gap lies within
+    ``min(tol, LOGIT_TOL)``; every first-token logits row, and the top
+    logit of every token the two runs share (a sampled stream's split
+    included), within ``tol`` of the single card's."""
+    report = mesh_compare(got, ref)
+    for rid, n, gap in report["splits"]:
+        if not gap <= min(tol, LOGIT_TOL):
+            raise AssertionError(f"{what}: request {rid} parts at token {n}, "
+                                 f"where the single-card top-2 gap is {gap}")
+    for key in ("first_token_err", "top_drift"):
+        err = report[key]
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"{what}: {key} {err} beyond {tol}")
+    return report
+
+
+def phase_mesh(params, cfg) -> dict:
+    """Phase 41: mesh serving at mp MESH_MP, GPT-345M at full width and
+    depth, two ranks that share the card over gloo (``mesh_rank``) against
+    single-card engines of the same weights and switches: phase 4's
+    requests paged at bf16 (B8); int8 KV and int8 weights paged (B10) and
+    slot (B9); slot (B7); chunk CHUNK on the two 900-token prompts;
+    n-gram spec at k SPEC_K; a tick fault recovered. Gates: each rank's
+    streams equal the single card's but where its top-2 gap lies within
+    LOGIT_TOL, first-token rows within MESH_BF16_TOL (MESH_FP32_TOL at
+    fp32) and bit-equal on the two ranks; each rank's KV bytes in [0.45,
+    0.55] of the single card's; the decode kernel launched once per layer
+    of each single-token forward on each rank. The collective ms per tick
+    and TPOT/TTFT p50 against the single card printed. A rank holding the
+    other's head slice, and the row-parallel sums skipped, run after the
+    cases in the same ranks, must each break the stream gate."""
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    refs = {}
+    for name, (kw, requests, kernel) in mesh_cases(cfg.vocab_size).items():
+        if name == "fault":  # the fault-free run of its traffic: phase 4's
+            # first four requests, cut at MESH_NEW tokens
+            base = refs["paged"]
+            refs[name] = dict(base, tokens={
+                i: t[:MESH_NEW] for i, t in base["tokens"].items()
+                if i <= len(requests)}, rows={
+                i: r for i, r in base["rows"].items() if i <= len(requests)})
+            continue
+        if name == "spec":  # a spec stream is the plain engine's (phase 37)
+            kw = {k: v for k, v in kw.items() if not k.startswith("spec")}
+        engine, _ = build_engine(params=params, **kw)
+        refs[name] = mesh_serve(engine, requests, cfg, kernel)
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, MESH_MP, (), timeout=900)
+    spawn_s = time.perf_counter() - t0
+    out, failed = {}, []
+    for name, (kw, _, kernel) in mesh_cases(cfg.vocab_size).items():
+        ref = refs[name]
+        tol = (MESH_FP32_TOL if kw.get("dtype") is torch.float32
+               else MESH_BF16_TOL)
+        r0 = ranks[0][name]
+        report = mesh_compare(r0, ref)
+        log("mesh", case=name, mp=MESH_MP, kernel=kernel,
+            requests=len(r0["tokens"]), splits=report["splits"],
+            sampled_splits=report["sampled_splits"],
+            first_token_logits_max_abs_err=report["first_token_err"],
+            top_logit_drift=report["top_drift"], tol=tol,
+            launches_per_rank=[r[name]["launches"] for r in ranks],
+            forwards_per_rank=[r[name]["forwards"] for r in ranks],
+            kv_bytes_per_rank=[r[name]["cache_bytes"] for r in ranks],
+            kv_bytes_single=ref["cache_bytes"],
+            weight_bytes_per_rank=r0["snapshot"]["weight_bytes"],
+            decode_ticks=r0["ticks"],
+            collective_ms_per_tick=(r0["collective_ms"] / max(r0["ticks"], 1)),
+            collective_calls=r0["collective_calls"],
+            clock_broadcast_ms_per_tick=(r0["clock_ms"]
+                                         / max(r0["ticks"], 1)),
+            ttft_ms_p50=float(np.median(r0["ttft_ms"])),
+            ttft_ms_p50_single=float(np.median(ref["ttft_ms"])),
+            tpot_ms_p50=quantiles(r0["tpot_ms"])[0],
+            tpot_ms_p50_single=quantiles(ref["tpot_ms"])[0],
+            recoveries=r0["recoveries"], mesh=r0["snapshot"]["mesh"],
+            mesh_devices=r0["snapshot"]["mesh_devices"])
+        try:
+            mesh_streams_gate(f"mesh {name}", r0, ref, tol)
+            for rank, run in enumerate(ranks):
+                got = run[name]
+                if got["tokens"] != r0["tokens"] or (
+                        got["digests"] != r0["digests"]):
+                    raise AssertionError(f"mesh {name}: rank {rank} parts "
+                                         "from rank 0")
+                share = got["cache_bytes"] / ref["cache_bytes"]
+                if not 0.45 <= share <= 0.55:
+                    raise AssertionError(f"mesh {name}: rank {rank} holds "
+                                         f"{share} of the single card's KV")
+                if got["recoveries"] != (name == "fault"):
+                    raise AssertionError(f"mesh {name}: {got['recoveries']} "
+                                         "recoveries")
+            if (r0["snapshot"]["mesh"], r0["snapshot"]["mesh_devices"]) != (
+                    f"mp{MESH_MP}", MESH_MP):
+                raise AssertionError(f"mesh gauges: {r0['snapshot']}")
+        except AssertionError as exc:
+            failed.append(str(exc))
+        out.setdefault(kernel, {})[f"launches_mesh_{name}"] = r0["launches"]
+    log("mesh", spawn_seconds=spawn_s)
+    # the planted runs serve phase 4's first two requests (ids 1 and 2,
+    # after the warm-up's 0) for 16 tokens
+    base = refs["paged"]
+    fault_ref = {"tokens": {i: base["tokens"][i][:16] for i in (1, 2)},
+                 "rows": {i: base["rows"][i] for i in (1, 2)},
+                 "gaps": base["gaps"], "tops": base["tops"], "sampled": []}
+    for fault, got in ranks[0]["planted"].items():
+        must_break(mesh_streams_gate, f"mesh planted {fault}", got,
+                   fault_ref, label=fault)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+# ----------------------------------------------------------------- phase 42
+INT8_WEIGHT_LOGIT_TOL = 0.25  # first-token logits, int8 against bf16 weights
+
+
+def int8_weight_requests(vocab: int) -> list:
+    """Phase 4's requests, every one greedy."""
+    return [dict(r, decode_strategy="greedy")
+            for r in serving_requests(vocab)]
+
+
+def int8_leaves_gate(what: str, state: dict, want: dict) -> None:
+    """The engine's int8 values byte-equal, and its scales bit-equal, to
+    ``quantize_tree_int8`` of the same weights computed on the host."""
+    for name, t in want.items():
+        if not (name.endswith("_q8") or name.endswith("_scale")):
+            continue
+        got = state[name].cpu()
+        if got.shape != t.shape or not torch.equal(got, t):
+            raise AssertionError(f"{what}: {name} {tuple(got.shape)} is not "
+                                 f"the host quantization {tuple(t.shape)}")
+
+
+def int8_split_gate(what: str, got: dict, ref: dict) -> list:
+    """Where an int8-weight greedy stream parts from the bf16-weight
+    engine's, the bf16 top-2 logit gap there lies within
+    INT8_WEIGHT_LOGIT_TOL, and every first-token row lies within it.
+    Returns the gaps at the splits."""
+    report = mesh_compare(got, ref)
+    for rid, n, gap in report["splits"]:
+        if not gap <= INT8_WEIGHT_LOGIT_TOL:
+            raise AssertionError(f"{what}: request {rid} parts at token {n} "
+                                 f"where the bf16 top-2 gap is {gap}")
+    err = report["first_token_err"]
+    if not (math.isfinite(err) and err <= INT8_WEIGHT_LOGIT_TOL):
+        raise AssertionError(f"{what}: first-token logits differ by {err}")
+    return [gap for _, _, gap in report["splits"]]
+
+
+def phase_int8_weights(params, cfg) -> dict:
+    """Phase 42: int8 weights on the single card, paged at bf16 KV (B8)
+    and int8 KV (B10) and slot (B7), each against the same engine at bf16
+    weights on phase 4's requests made greedy: the engine's int8 leaves
+    equal the host's ``quantize_tree_int8`` of the same weights (values
+    byte for byte, scales bit for bit), the weight bytes equal the int8
+    values plus fp32 scales plus the float rest from the shapes, a stream
+    parts from the bf16-weight one only where the bf16 top-2 gap lies
+    within INT8_WEIGHT_LOGIT_TOL and every first-token row within it; each
+    stream's ``quant_parity_frac`` and TPOT against bf16 weights logged.
+    A served paged engine whose scales are loaded with their channels
+    reversed (row ``r`` dequantized with channel ``C - 1 - r``'s scale,
+    the word and position tables along their hidden axis) must break the
+    split-and-logits gate against the bf16-weight engine, and the leaves
+    gate."""
+    from fleetx_tpu_torch.ops import quant as q8
+
+    requests = int8_weight_requests(cfg.vocab_size)
+    host = {k: v.cpu() for k, v in params.items()}
+    want = q8.quantize_tree_int8(host, cfg.head_dim)
+    out, bf16_paged = {}, None
+    for label, kw, kernel in (("paged", dict(), "paged_decode"),
+                              ("paged-int8kv", dict(kv_dtype="int8"),
+                               "paged_decode_q8"),
+                              ("slot", dict(paged=False), "decode")):
+        runs = {}
+        for wd in ("bf16", "int8"):
+            engine, _ = build_engine(params=params, weight_dtype=wd, **kw)
+            runs[wd] = mesh_serve(engine, requests, cfg, kernel)
+            runs[wd]["weight_bytes"] = engine.weight_nbytes()
+            if wd == "int8":
+                state = {k: v.detach() for k, v in
+                         engine.model.state_dict().items()}
+            del engine
+        int8_leaves_gate(f"int8 weights {label}", state, want)
+        by_shape = sum(int(np.prod(t.shape)) * (
+            1 if n.endswith("_q8") else 4 if n.endswith("_scale")
+            else t.element_size()) for n, t in state.items())
+        got = runs["int8"]
+        if not (got["weight_bytes"] == by_shape
+                == got["snapshot"]["weight_bytes"]):
+            raise AssertionError(f"int8 weights {label}: "
+                                 f"{got['weight_bytes']} bytes, shapes give "
+                                 f"{by_shape}")
+        ref = runs["bf16"]
+        splits = int8_split_gate(f"int8 weights {label}", got, ref)
+        fracs = [quant_parity_frac(got["tokens"][i], ref["tokens"][i])
+                 for i in sorted(got["tokens"])]
+        errs = [rows_err(got["rows"][i], ref["rows"][i])
+                for i in sorted(got["rows"])]
+        log("int8-weights", case=label, kernel=kernel,
+            weight_bytes=got["weight_bytes"],
+            weight_bytes_bf16=ref["weight_bytes"],
+            quant_parity_frac=[round(f, 3) for f in fracs],
+            quant_parity_frac_mean=float(np.mean(fracs)),
+            quant_budget=1 - QUANT_PREFIX_BUDGET, split_gaps=splits,
+            first_token_logits_max_abs_err=max(errs),
+            tol=INT8_WEIGHT_LOGIT_TOL,
+            tpot_ms_p50=quantiles(got["tpot_ms"])[0],
+            tpot_ms_p50_bf16=quantiles(ref["tpot_ms"])[0],
+            launches=got["launches"], forwards=got["forwards"])
+        out.setdefault(kernel, {})["launches_int8_weights"] = got["launches"]
+        bf16_paged = bf16_paged or ref
+        del runs
+    engine, _ = build_engine(params=params, weight_dtype="int8")
+    with torch.no_grad():
+        for name, t in engine.model.state_dict().items():
+            if name.endswith("_scale"):  # [C, 1] or a table's [1, E]
+                t.copy_(t.flip(0 if t.shape[0] > 1 else 1))
+    state = {k: v.detach() for k, v in engine.model.state_dict().items()}
+    wrong = mesh_serve(engine, requests, cfg, "paged_decode")
+    del engine
+    label = "channel scales reversed"
+    report = mesh_compare(wrong, bf16_paged)
+    log("int8-weights", planted_fault=label,
+        first_token_logits_max_abs_err=report["first_token_err"],
+        splits=report["splits"], tol=INT8_WEIGHT_LOGIT_TOL)
+    must_break(int8_split_gate, "int8 weights, scales reversed", wrong,
+               bf16_paged, label=label)
+    must_break(int8_leaves_gate, "int8 weights, scales reversed", state,
+               want, label=label)
+    return out
+
+
+# ----------------------------------------------------------------- phase 43
+OBS_LOG_EVERY = 4
+
+
+def scrape(url: str) -> tuple:
+    """``(status, body)`` of a GET, the status of an HTTP error too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def engine_counters(text: str, engine: str) -> dict:
+    """The ``fleetx_serving_*_total`` counters of ``engine`` in a
+    Prometheus text, by name (``retired_total`` by reason)."""
+    out = {}
+    for line in text.splitlines():
+        if not line.startswith("fleetx_serving_") or "_total{" not in line:
+            continue
+        head, value = line.rsplit(" ", 1)
+        name, _, labels = head.partition("{")
+        lab = dict(p.split("=", 1) for p in labels.rstrip("}").split(","))
+        if lab.pop("engine") != f'"{engine}"':
+            continue
+        key = name if not lab else f"{name}:{lab['reason'].strip(chr(34))}"
+        out[key] = float(value)
+    return out
+
+
+def counters_gate(what: str, counters: dict, snap: dict) -> None:
+    want = {"fleetx_serving_submitted_total": snap["submitted"],
+            "fleetx_serving_admitted_total": snap["admitted"],
+            "fleetx_serving_tokens_total": snap["tokens_generated"],
+            "fleetx_serving_ticks_total": snap["ticks"],
+            "fleetx_serving_prefix_hits_total": snap["prefix_hits"]}
+    want.update({f"fleetx_serving_retired_total:{r}": n
+                 for r, n in snap["finish_reasons"].items()})
+    bad = {k: (counters.get(k), v) for k, v in want.items()
+           if counters.get(k) != v}
+    if bad:
+        raise AssertionError(f"{what}: /metrics against snapshot(): {bad}")
+
+
+def phase_obs(params, cfg) -> dict:
+    """Phase 43: a live engine under ``FLEETX_OBS_PORT=0`` (the exposition
+    server on an ephemeral port) with ``log_every`` OBS_LOG_EVERY serves
+    phase 4's requests; ``/metrics`` and ``/healthz`` are scraped over
+    HTTP in the middle of the drain and after it: the counters equal
+    ``snapshot()`` each time, ``/healthz`` reads 200 and then 503
+    (``draining``) on ``request_shutdown``, and the snapshot line is
+    written on every OBS_LOG_EVERY-th tick. Counters read one tick late
+    must break the counter gate."""
+    from fleetx_tpu_torch.obs import http as obs_http
+
+    os.environ["FLEETX_OBS_PORT"] = "0"
+    try:
+        engine, _ = build_engine(params=params, log_every=OBS_LOG_EVERY)
+    finally:
+        os.environ.pop("FLEETX_OBS_PORT", None)
+    server = obs_http.get_server()
+    if server is None:
+        raise AssertionError("FLEETX_OBS_PORT=0 started no server")
+    log("obs", url=server.url, log_every=OBS_LOG_EVERY)
+    label = engine.metrics.engine_label
+    lines = []
+    log_snapshot = engine.metrics.log_snapshot
+    engine.metrics.log_snapshot = lambda: (lines.append(engine._ticks),
+                                           log_snapshot())
+    for r in serving_requests(cfg.vocab_size):
+        engine.submit(**r)
+    readings = []
+    t0 = time.perf_counter()
+    while engine.scheduler.queue_depth or engine.cache_manager.active_count:
+        engine.step()
+        if engine._ticks in (8, 40):  # during the drain
+            status, text = scrape(server.url + "/metrics")
+            readings.append((status, engine_counters(text, label),
+                             engine.metrics.snapshot()))
+            if engine._ticks == 8:
+                health = scrape(server.url + "/healthz")
+    seconds = time.perf_counter() - t0
+    engine.drain()
+    status, text = scrape(server.url + "/metrics")
+    readings.append((status, engine_counters(text, label),
+                     engine.metrics.snapshot()))
+    for i, (status, counters, snap) in enumerate(readings):
+        if status != 200:
+            raise AssertionError(f"/metrics answered {status}")
+        counters_gate(f"scrape {i}", counters, snap)
+    stale = dict(readings[0][2], ticks=readings[0][2]["ticks"] + 1)
+    must_break(counters_gate, "scrape read a tick late", readings[0][1],
+               stale, label="counters one tick late")
+    engine.request_shutdown(grace_s=0.0)
+    after = scrape(server.url + "/healthz")
+    engine.shutdown(grace_s=0.0)
+    ticks = engine.metrics.snapshot()["ticks"]
+    body = json.loads(after[1])
+    log("obs", scrapes=len(readings),
+        metrics_bytes=len(text), healthz_during=health[0],
+        healthz_after_shutdown=after[0], state=body.get("state"),
+        ticks=ticks, log_lines=len(lines), seconds=seconds)
+    if health[0] != 200 or after[0] != 503 or body.get("state") != "draining":
+        raise AssertionError(f"/healthz: {health[0]} then {after[0]} {body}")
+    if lines != list(range(OBS_LOG_EVERY, ticks + 1, OBS_LOG_EVERY)):
+        raise AssertionError(f"log_snapshot at ticks {lines} of {ticks}")
+    del engine
+    gc.collect()  # the server stays up: a later phase's trainer reads it
+    return {"ticks": ticks}
+
+
+# torch._dynamo, torch.distributed.fsdp and torch.distributed.tensor are
+# imported lazily by a Trainer's set-up: most of a spawned rank's start
+# where the sources compile anew in every process
 FORKSERVER_PRELOAD = ("numpy", "torch", "torch.distributed",
+                      "torch._dynamo", "torch.distributed.fsdp",
+                      "torch.distributed.tensor",
                       "fleetx_tpu_torch.core.engine",
                       "fleetx_tpu_torch.data", "fleetx_tpu_torch.models",
                       "fleetx_tpu_torch.parallel.env",
                       "fleetx_tpu_torch.tools.train")
+
+
+def share_bytecode(where: str) -> subprocess.Popen:
+    """Let the interpreters this script starts (the fork server, the CLI
+    launches) read compiled bytecode under ``where``, and start the one
+    that writes it: a fresh interpreter importing FORKSERVER_PRELOAD.
+    Where ``PYTHONDONTWRITEBYTECODE`` is set, each fresh interpreter
+    compiles torch's sources anew; the fork server inherits this
+    process's ``-B``, so it reads the cache but writes none."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = where
+    return subprocess.Popen(
+        [sys.executable, "-c", "import " + ", ".join(FORKSERVER_PRELOAD)],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
 
 
 def main() -> int:
@@ -6696,6 +7354,8 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     adopt_orphans()
+    bytecode = tempfile.mkdtemp(prefix="pycache-")
+    writer = share_bytecode(bytecode)
     # the multi-rank drives fork their ranks from one server that has
     # imported torch and the port once (a fresh interpreter per rank
     # spent most of its start on those imports)
@@ -6704,7 +7364,9 @@ def main() -> int:
         records, device = run_phases()
     finally:
         launch.stop_forkserver()
+        writer.wait()
         left = stop_descendants()
+        shutil.rmtree(bytecode, ignore_errors=True)
     log("processes", left_at_end=left)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": device}))
@@ -6754,7 +7416,17 @@ def run_phases() -> tuple:
     tiers = phase_tiers(serving_params, cfg)
     roles = phase_roles(serving_params, cfg)
     recovered = phase_recovery(serving_params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshed = phase_mesh(serving_params, cfg)
+    int8_weights = phase_int8_weights(serving_params, cfg)
+    phase_obs(serving_params, cfg)
     del serving_params
+    kernel.update(meshed["paged_decode"])
+    kernel.update(int8_weights["paged_decode"])
+    for name in ("decode", "decode_q8", "paged_decode_q8"):
+        decode[name].update(meshed.get(name, {}))
+        decode[name].update(int8_weights.get(name, {}))
     kernel["launches_tiers"] = tiers["launches"]
     kernel["launches_roles"] = roles["paged_decode"]
     kernel["launches_recovery"] = recovered["paged_decode"]["launches_recovery"]

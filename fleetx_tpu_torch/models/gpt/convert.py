@@ -42,10 +42,11 @@ def _whole(cfg: GPTConfig) -> GPTConfig:
                                num_microbatches=1, virtual_pp_degree=1)
 
 
-def _split_axes(cfg: GPTConfig) -> Dict[str, int]:
+def _split_axes(cfg: GPTConfig, int8: bool = False) -> Dict[str, int]:
     """What the model's layers split over mp, by name (an unallocated
-    model's :func:`mp_split_axes`)."""
-    return mp_split_axes(GPTForPretraining(_whole(cfg), device="meta"))
+    model's :func:`mp_split_axes`; ``int8``: its int8 serving form)."""
+    return mp_split_axes(GPTForPretraining(_whole(cfg), device="meta",
+                                           int8=int8))
 
 
 def shard_params(full: Dict[str, torch.Tensor], cfg: GPTConfig,
@@ -55,15 +56,21 @@ def shard_params(full: Dict[str, torch.Tensor], cfg: GPTConfig,
     model's layers split (``tensor_parallel.mp_split_axes``) cut into mp
     equal blocks along its axis (heads for qkv and out_proj, the MLP width
     for up and down, the vocab rows of the word embeddings), the others
-    as they are. Shards are contiguous copies."""
+    as they are. An int8 state dict (``ops/quant.quantize_tree_int8`` of
+    the whole model) splits each ``_q8`` as its weight and each
+    ``_scale`` as the layer declares it (``tensor_parallel._weight_split``;
+    JAX ``serving_param_shardings``). Shards are contiguous copies."""
     mp = cfg.mp_degree
     if not 0 <= mp_rank < mp:
         raise ValueError(f"mp_rank {mp_rank} outside mp_degree {mp}")
     if mp == 1:
         return dict(full)
-    axes = _split_axes(cfg)
+    axes = _split_axes(cfg, any(n.endswith("_q8") for n in full))
+    # an axis mp does not divide (a serving model's vocab) stays whole, as
+    # JAX's serving spec drops it (parallel/sharding.py:112, _fit_spec)
     return {name: (t.chunk(mp, dim=axes[name])[mp_rank].contiguous()
-                   if name in axes else t) for name, t in full.items()}
+                   if name in axes and t.shape[axes[name]] % mp == 0
+                   else t) for name, t in full.items()}
 
 
 def gather_params(shards: Sequence[Dict[str, torch.Tensor]],

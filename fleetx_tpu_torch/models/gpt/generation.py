@@ -88,10 +88,11 @@ def init_decode_cache(model, batch: Optional[int] = None, *,
     layouts). Paged when ``model.cfg.decode_num_pages`` is set — ``batch``
     is then unused; page 0 is the trash page that zeroed block-table
     entries point at. Else contiguous for ``batch`` rows of ``cache_len``
-    positions (default: ``cfg.cache_len``). ``device`` defaults to CUDA."""
+    positions (default: ``cfg.cache_len``). ``device`` defaults to CUDA.
+    Under ``mp_degree > 1`` it holds this rank's ``heads / mp`` heads."""
     cfg = model.cfg
     dev = resolve_device(device)
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    nh, hd = cfg.num_attention_heads // cfg.mp_degree, cfg.head_dim
     if cfg.decode_num_pages is not None:
         if cfg.decode_page_size is None:
             raise ValueError("a paged decode cache needs decode_page_size")

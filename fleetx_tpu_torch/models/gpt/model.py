@@ -35,7 +35,10 @@ s/mp, h]``: the embeddings' output, the LayerNorms, dropouts and
 residuals, the final norm; Megatron sequence parallelism), and the
 training forward returns this rank's vocab shard of the logits (or, with
 ``fused_ce``, the per-token losses through the vocab-parallel form B12)
-over the whole sequence. Under ``pp_degree > 1``
+over the whole sequence. The cached forward runs under mp too (mesh
+serving): each rank writes and reads its ``heads/mp`` heads of the
+decode cache (B7–B10 on those heads) and returns its vocab shard of the
+logits, which :func:`serving_logits` all-gathers. Under ``pp_degree > 1``
 (pipeline parallelism, ``parallel/pipeline.py``) a model is one stage's:
 its chunks of the decoder layers (each layer keeps its global index in
 its name and its dropout seeds), the embeddings on the first stage, the
@@ -48,6 +51,11 @@ or flax's threefry ``nn.Dropout`` (``fast_dropout: False``,
 ``ops/dropout.FlaxDropout``). ``fuse_attn_qkv: False`` holds q, k and v
 as three column-parallel projections (JAX ``q_proj``/``k_proj``/
 ``v_proj``; ``convert.convert_qkv_layout`` maps the trees).
+
+A model built with ``int8=True`` (int8 serving weights, the serving
+engine's) holds every dense kernel and embedding table as int8 values
+with fp32 per-channel scales (``ops/quant.py``) and dequantizes each on
+its call, fp32 then the compute dtype.
 
 Numerics follow the flax modules at the compute dtype (bf16 by default,
 params fp32):
@@ -69,6 +77,7 @@ stacked over the layers (``models/gpt/generation.py`` builds it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -94,7 +103,11 @@ from fleetx_tpu_torch.ops.dropout import (
     draw_key,
     draw_seed,
 )
-from fleetx_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+from fleetx_tpu_torch.ops.quant import (
+    dequantize_int8,
+    dequantize_kv,
+    quantize_kv,
+)
 from fleetx_tpu_torch.parallel.context_parallel import ring_self_attention
 from fleetx_tpu_torch.parallel.mesh import get_mesh
 from fleetx_tpu_torch.parallel.pipeline import stage_chunks, stage_layers
@@ -105,12 +118,14 @@ from fleetx_tpu_torch.parallel.tensor_parallel import (
     copy_to_mp,
     current_mp_group,
     gather_from_sequence,
+    gather_vocab,
     vocab_parallel_embedding,
 )
 
 __all__ = ["DTYPES", "GPTConfig", "GPTForPretraining", "GPTModel",
            "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm",
            "inference_params", "masked_loss_mean", "pad_starts",
+           "serving_logits",
            "pretraining_loss", "recompute_policy", "sequence_shard",
            "token_losses", "CHECKPOINT_NAMES"]
 
@@ -126,7 +141,10 @@ class GPTConfig:
     positions shared by all rows, each row addressing a logical window of
     ``decode_cache_len`` positions — else contiguous, one buffer per row.
     ``decode_kv_dtype="int8"`` stores K/V as int8 with one fp32 scale per
-    (position, head) vector, quantized on write."""
+    (position, head) vector, quantized on write. Under ``mp_degree > 1``
+    a decode-configured model (``decode_cache_len``
+    set: the serving engine's copy) keeps the whole word table on every
+    rank when mp does not divide the vocab (:attr:`vocab_split`)."""
     vocab_size: int = 50304
     hidden_size: int = 1024
     num_layers: int = 24
@@ -167,6 +185,8 @@ class GPTConfig:
         for name, size in (("num_attention_heads", self.num_attention_heads),
                            ("ffn_hidden_size", self.ffn_size),
                            ("vocab_size", self.vocab_size)):
+            if name == "vocab_size" and self.decode_cache_len is not None:
+                continue  # serving keeps a table mp does not divide whole
             if size % mp:
                 raise ValueError(f"{name} {size} does not split over "
                                  f"mp_degree {mp}")
@@ -180,6 +200,13 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def vocab_split(self) -> bool:
+        """Whether the word table (and the logits) are split over mp by
+        vocab rows: at mp > 1 when mp divides the vocab (JAX's serving
+        spec drops the axis otherwise, ``_fit_spec``)."""
+        return self.mp_degree > 1 and self.vocab_size % self.mp_degree == 0
 
     @property
     def ffn_size(self) -> int:
@@ -303,6 +330,12 @@ def _param(*shape, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device=device))
 
 
+def _scale_rows(int8: bool, channels: int) -> Optional[int]:
+    """A dense layer's ``scale_rows`` (``tensor_parallel.Dense``): its int8
+    channels over the whole layer, None for float weights."""
+    return channels if int8 else None
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(epsilon=1e-5)``: mean and E[x²]−mean² variance,
     normalisation and affine in fp32, result in the compute dtype."""
@@ -330,25 +363,27 @@ class SelfAttention(nn.Module):
     The projection is one fused qkv (``fuse_attn_qkv``) or q, k and v
     apart (JAX :202-210); the cache holds K and V either way."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, int8: bool = False,
+                 fp32_partials: bool = False):
         super().__init__()
         self.cfg = cfg
         nh, hd, e = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
         mp, sp = cfg.mp_degree, cfg.sp
         if cfg.fuse_attn_qkv:
             # a heads shard of the fused qkv is a contiguous block of rows:
-            # each head's q | k | v rows are adjacent
-            self.qkv_proj = ColumnParallelDense(e, nh * 3 * hd, mp,
-                                                cfg.dtype, device, sp)
+            # each head's q | k | v rows are adjacent; its int8 channels
+            # are the 3·hd of one head, shared by the heads
+            self.qkv_proj = ColumnParallelDense(
+                e, nh * 3 * hd, mp, cfg.dtype, device, sp,
+                _scale_rows(int8, 3 * hd))
         else:
-            self.q_proj = ColumnParallelDense(e, nh * hd, mp, cfg.dtype,
-                                              device, sp)
-            self.k_proj = ColumnParallelDense(e, nh * hd, mp, cfg.dtype,
-                                              device, sp)
-            self.v_proj = ColumnParallelDense(e, nh * hd, mp, cfg.dtype,
-                                              device, sp)
+            self.q_proj, self.k_proj, self.v_proj = (
+                ColumnParallelDense(e, nh * hd, mp, cfg.dtype, device, sp,
+                                    _scale_rows(int8, hd))
+                for _ in range(3))
         self.out_proj = RowParallelDense(nh * hd, e, mp, cfg.dtype, device,
-                                         sp)
+                                         sp, _scale_rows(int8, e),
+                                         fp32_partials)
 
     def qkv(self, x: torch.Tensor):
         """``(q, k, v)`` [b, s, heads/mp, d] of ``x`` [b, s(/mp), E] (the
@@ -422,12 +457,6 @@ class SelfAttention(nn.Module):
             return self._out_proj(self.core(
                 q, k, v, deterministic=deterministic, seed=seed,
                 shard=shard, kv_mask=kv_mask))
-        if cfg.mp_degree > 1:
-            raise NotImplementedError("the cached (decode) forward under "
-                                      "mp_degree > 1 is mesh serving, not "
-                                      "ported yet (ROADMAP Queue A, "
-                                      "\"Serving features still "
-                                      "missing\")")
         paged = cfg.decode_num_pages is not None
         quant = "key_scale" in cache
         if paged:
@@ -572,13 +601,16 @@ def pad_starts(kv_mask: torch.Tensor) -> torch.Tensor:
 class MLP(nn.Module):
     """up_proj → tanh-approximated gelu → down_proj."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, int8: bool = False,
+                 fp32_partials: bool = False):
         super().__init__()
         mp, sp = cfg.mp_degree, cfg.sp
-        self.up_proj = ColumnParallelDense(cfg.hidden_size, cfg.ffn_size, mp,
-                                           cfg.dtype, device, sp)
-        self.down_proj = RowParallelDense(cfg.ffn_size, cfg.hidden_size, mp,
-                                          cfg.dtype, device, sp)
+        self.up_proj = ColumnParallelDense(
+            cfg.hidden_size, cfg.ffn_size, mp, cfg.dtype, device, sp,
+            _scale_rows(int8, cfg.ffn_size))
+        self.down_proj = RowParallelDense(
+            cfg.ffn_size, cfg.hidden_size, mp, cfg.dtype, device, sp,
+            _scale_rows(int8, cfg.hidden_size), fp32_partials)
 
     def gelu(self, x: torch.Tensor) -> torch.Tensor:
         """gelu(up_proj(x)) (the JAX ``ffn_gelu``)."""
@@ -611,14 +643,15 @@ class DecoderLayer(nn.Module):
     ``torch.utils.checkpoint``: the backward keeps each segment's inputs —
     the layer's input and the saved tensors — and reruns the rest."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, int8: bool = False,
+                 fp32_partials: bool = False):
         super().__init__()
         self.cfg = cfg
         self.norm1 = LayerNorm(cfg.hidden_size, cfg.dtype, device)
-        self.attn = SelfAttention(cfg, device)
+        self.attn = SelfAttention(cfg, device, int8, fp32_partials)
         self.attn_dropout = _dropout(cfg)
         self.norm2 = LayerNorm(cfg.hidden_size, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, int8, fp32_partials)
         self.mlp_dropout = _dropout(cfg)
 
     def forward(self, x, cache=None, *, deterministic=True,
@@ -719,24 +752,28 @@ class GPTModel(nn.Module):
     :meth:`run_layers` and ``final_norm``, called by the pipeline's
     schedule."""
 
-    def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0):
+    def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0,
+                 int8: bool = False, fp32_partials: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.int8 = int8
         self.recompute = recompute_policy(cfg)  # the save-set, or None
         pp = cfg.pp_degree
         first, last = pp_rank == 0, pp_rank == pp - 1
         if first or last:
-            # this rank's vocab rows under mp; the last stage's is the
-            # tied head's copy
-            self.word_embeddings = _param(cfg.vocab_size // cfg.mp_degree,
-                                          cfg.hidden_size, device=device)
-            self.mp_split = {"word_embeddings": 0}
+            # this rank's vocab rows under mp (the whole table where mp
+            # does not divide it); the last stage's is the tied head's copy
+            self._table("word_embeddings", cfg.vocab_size // cfg.mp_degree
+                        if cfg.vocab_split else cfg.vocab_size, device)
+            # convert.shard_params keeps a table mp does not divide whole
+            self.mp_split = {"word_embeddings_q8" if int8
+                             else "word_embeddings": 0}
         if first:
-            self.position_embeddings = _param(cfg.max_position_embeddings,
-                                              cfg.hidden_size, device=device)
+            self._table("position_embeddings", cfg.max_position_embeddings,
+                        device)
             self.embed_dropout = _dropout(cfg)
         self.layers = nn.ModuleDict(
-            (str(i), DecoderLayer(cfg, device))
+            (str(i), DecoderLayer(cfg, device, int8, fp32_partials))
             for i in stage_layers(cfg.num_layers, pp, cfg.virtual_pp,
                                   pp_rank))
         if last:
@@ -796,15 +833,48 @@ class GPTModel(nn.Module):
                             deterministic=deterministic, shard=shard)
         return self.final_norm(x)
 
+    def _table(self, name: str, rows: int, device) -> None:
+        """The embedding table ``name`` [rows, E]: an fp32 parameter, or
+        at int8 weights the buffers ``name_q8`` and ``name_scale`` [1, E]
+        (one channel per hidden column, ``ops/quant.py``)."""
+        e = self.cfg.hidden_size
+        if not self.int8:
+            setattr(self, name, _param(rows, e, device=device))
+            return
+        self.register_buffer(name + "_q8", torch.empty(
+            rows, e, dtype=torch.int8, device=device))
+        self.register_buffer(name + "_scale", torch.empty(1, e,
+                                                          device=device))
+
+    def table(self, name: str, dtype: torch.dtype = torch.float32
+              ) -> torch.Tensor:
+        """The embedding table ``name`` in ``dtype``: dequantized at int8
+        weights (a temporary of the call)."""
+        if self.int8:
+            return dequantize_int8(getattr(self, name + "_q8"),
+                                   getattr(self, name + "_scale"), dtype)
+        return getattr(self, name).to(dtype)
+
+    def rows(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """``table[ids]`` in fp32; at int8 weights the rows are gathered
+        first and dequantized alone (the same values)."""
+        if self.int8:
+            return dequantize_int8(getattr(self, name + "_q8")[ids],
+                                   getattr(self, name + "_scale"))
+        return getattr(self, name)[ids]
+
     def _embed(self, input_ids, position_ids, sp: bool = False
                ) -> torch.Tensor:
         """Word plus position embeddings in the compute dtype; with ``sp``
         this rank's ``[b, s/mp, E]`` part of the sequence (the word rows
         reduce-scattered, the positions of that part)."""
         cfg = self.cfg
+        # a table mp does not divide is whole on every rank: no group
+        group = current_mp_group(cfg.mp_degree) if cfg.vocab_split else None
         words = vocab_parallel_embedding(
-            self.word_embeddings, input_ids,
-            current_mp_group(cfg.mp_degree), sequence_parallel=sp)
+            functools.partial(self.rows, "word_embeddings"),
+            cfg.vocab_size // cfg.mp_degree, input_ids, group,
+            sequence_parallel=sp)
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)[None]
@@ -812,7 +882,8 @@ class GPTModel(nn.Module):
             s_loc = words.shape[1]
             position_ids = position_ids[:, get_mesh().mp_rank * s_loc:][
                 :, :s_loc]
-        return (words + self.position_embeddings[position_ids]).to(cfg.dtype)
+        return (words + self.rows("position_embeddings", position_ids)
+                ).to(cfg.dtype)
 
     def embed(self, input_ids, position_ids, *, deterministic=True,
               seed=None, shard: Optional[Shard] = None) -> torch.Tensor:
@@ -894,12 +965,18 @@ class GPTForPretraining(nn.Module):
     ``fused_ce`` and labels the per-token cross-entropy [b, s]. Under mp
     the logits are this rank's vocab shard [b, s, vocab/mp]
     (``tensor_parallel.vocab_parallel_token_losses`` takes their loss) and
-    the fused loss combines the shards' statistics (B12)."""
+    the fused loss combines the shards' statistics (B12). ``int8``: the
+    weights are int8 serving weights (module docstring); ``fp32_partials``:
+    the row-parallel partials are summed in fp32 (the serving engine's
+    copy, ``tensor_parallel.RowParallelDense``)."""
 
-    def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0):
+    def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0,
+                 int8: bool = False, fp32_partials: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.gpt = GPTModel(cfg, device, pp_rank)
+        self.int8 = int8
+        self.fp32_partials = fp32_partials
+        self.gpt = GPTModel(cfg, device, pp_rank, int8, fp32_partials)
 
     def forward(self, input_ids, position_ids, *, cache=None,
                 cache_positions=None, block_tables=None, kv_mask=None,
@@ -922,7 +999,7 @@ class GPTForPretraining(nn.Module):
         this rank's [b, s/mp, E] and is all-gathered first: the head and
         the loss see the whole sequence, and the gather's backward sums
         dx over the group (in place of ``copy_to_mp``)."""
-        emb = self.gpt.word_embeddings.to(self.cfg.dtype)
+        emb = self.gpt.table("word_embeddings", self.cfg.dtype)
         group = current_mp_group(self.cfg.mp_degree)
         sp = self.cfg.sp
         if sp:
@@ -967,6 +1044,17 @@ class _Bf16LMHead(torch.autograd.Function):
         return (g @ w).view_as(x), g.t() @ x.reshape(-1, x.shape[-1])
 
 
+def serving_logits(model: nn.Module, logits: torch.Tensor) -> torch.Tensor:
+    """The whole vocab's logits of a cached forward: under mp with the
+    vocab split, this rank's shard all-gathered over the current mesh's
+    mp group (``tensor_parallel.gather_vocab``), so that every rank samples
+    from the same bits; else ``logits``."""
+    cfg = model.cfg
+    if not cfg.vocab_split:
+        return logits
+    return gather_vocab(logits, current_mp_group(cfg.mp_degree))
+
+
 def inference_params(model: nn.Module, params: Dict[str, torch.Tensor],
                      device) -> Dict[str, torch.Tensor]:
     """``params`` on ``device`` for a forward without gradients: fp32, with
@@ -975,7 +1063,8 @@ def inference_params(model: nn.Module, params: Dict[str, torch.Tensor],
     dense = {f"{name}.{p}" for name, mod in model.named_modules()
              if isinstance(mod, Dense) for p in ("weight", "bias")}
     dtype = model.cfg.dtype
-    return {k: v.to(device, dtype if k in dense else torch.float32)
+    return {k: v.to(device, dtype if k in dense else torch.float32
+                    if v.is_floating_point() else v.dtype)
             for k, v in params.items()}
 
 

@@ -45,13 +45,14 @@ stay the same.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
 import torch.distributed as dist
 
 __all__ = ["Mesh", "MeshConfig", "build_mesh", "mesh_from_config",
-           "get_mesh", "set_mesh", "get_data_world"]
+           "get_mesh", "set_mesh", "use_mesh", "get_data_world"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +205,19 @@ def set_mesh(mesh: Optional[Mesh]) -> None:
     global _MESH, _MESH_KEY
     _MESH = mesh
     _MESH_KEY = None if mesh is None else _key(mesh.config())
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """``mesh`` current for the block, the one before it current again
+    after (a serving engine's device calls run under its own mesh)."""
+    global _MESH, _MESH_KEY
+    before = (_MESH, _MESH_KEY)
+    set_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH, _MESH_KEY = before
 
 
 def build_mesh(dp: int = 1, cp: int = 1, mp: int = 1, pp: int = 1,

@@ -43,9 +43,12 @@ biases, the position table) then see only this rank's positions: their
 gradients are partial and the trainer sums them over the mp group.
 
 Partials are reduced in the dtype they arrive in (bf16 on the card, as
-GSPMD reduces the dot's output). Over gloo (ranks that share a card) the
-sequence collectives stage tensors on the card through pinned host
-buffers, kept between calls. Under mp, every rank computes the same
+GSPMD reduces the dot's output), unless a row-parallel layer is built
+with ``fp32_partials`` (the serving engine's are): its partials are then
+fp32 GEMM outputs, summed in fp32 and rounded once, as one GEMM over the
+whole input rounds once. Over gloo (ranks that share a card) the
+collectives stage tensors on the card through pinned host buffers, kept
+between calls. Under mp, every rank computes the same
 replicated loss and differentiates its own copy: that is why the backward
 of a reduce is the identity and the backward of a copy a sum.
 
@@ -57,13 +60,14 @@ trainer counts the whole model's parameters and the global norm by it.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from fleetx_tpu_torch.ops.quant import dequantize_int8
 from fleetx_tpu_torch.parallel.mesh import get_mesh
 
 __all__ = ["mp_split_axes", "current_mp_group", "copy_to_mp",
@@ -71,7 +75,7 @@ __all__ = ["mp_split_axes", "current_mp_group", "copy_to_mp",
            "reduce_scatter_to_sequence", "Dense",
            "ColumnParallelDense", "RowParallelDense", "local_labels",
            "vocab_parallel_embedding", "vocab_parallel_combine",
-           "vocab_parallel_token_losses"]
+           "vocab_parallel_token_losses", "gather_vocab"]
 
 
 def mp_split_axes(model: nn.Module) -> Dict[str, int]:
@@ -99,7 +103,16 @@ def current_mp_group(mp: int):
 
 def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
                 ) -> torch.Tensor:
-    """``t`` summed (or reduced by ``op``) over ``group``, in place."""
+    """``t`` summed (or reduced by ``op``) over ``group``, in place; over
+    gloo a tensor on the card goes through a pinned host buffer (gloo's own
+    path for CUDA tensors took ~3 ms a call on the H100, even for a decode
+    tick's few KB)."""
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        host = _host("all_reduce", t)
+        host.copy_(t)
+        dist.all_reduce(host, op=op, group=group)
+        t.copy_(host)
+        return t
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -300,18 +313,57 @@ def _param(*shape, device) -> nn.Parameter:
 class Dense(nn.Module):
     """``y = x Wᵀ + b`` at the compute dtype; ``weight`` [out, in] and
     ``bias`` [out] are held in fp32 (or pre-cast to the compute dtype by
-    an inference caller, which yields the same result)."""
+    an inference caller, which yields the same result).
+
+    With ``scale_rows`` (int8 serving weights, ``ops/quant.py``) the
+    weight is held as the buffers ``weight_q8`` (int8 [out, in]) and
+    ``weight_scale`` (fp32 [scale_rows, 1]: row ``r`` takes channel ``r %
+    scale_rows``) and dequantized on each call, fp32 then the compute
+    dtype (JAX ``_dequant_params``): the float weight is a temporary of
+    the call, never a second copy of the model."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None,
+                 scale_rows: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
-        self.weight = _param(out_features, in_features, device=device)
+        if scale_rows is None:
+            self.weight = _param(out_features, in_features, device=device)
+        else:
+            self.register_buffer("weight_q8", torch.empty(
+                out_features, in_features, dtype=torch.int8, device=device))
+            self.register_buffer("weight_scale", torch.empty(
+                scale_rows, 1, device=device))
         self.bias = _param(out_features, device=device)
 
+    @property
+    def int8(self) -> bool:
+        return "weight_q8" in self._buffers
+
+    def dense_weight(self) -> torch.Tensor:
+        """The weight at the compute dtype (dequantized when int8)."""
+        if self.int8:
+            return dequantize_int8(self.weight_q8, self.weight_scale,
+                                   self.dtype)
+        return self.weight.to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+        return F.linear(x.to(self.dtype), self.dense_weight(),
                         self.bias.to(self.dtype))
+
+
+def _weight_split(layer: Dense, axis: int, split_scale: bool
+                  ) -> Dict[str, int]:
+    """The ``mp_split`` entries of a layer's weight: the weight (or its
+    int8 values) along ``axis``, and with ``split_scale`` its int8 scale
+    (one channel per output row) along the rows with it. A scale shared by
+    every head's rows (the fused qkv's 3·hd channels), or a row-parallel
+    layer's, is whole on each rank, as JAX's ``_fit_spec`` drops an axis
+    the scale does not divide (parallel/sharding.py:131)."""
+    if not layer.int8:
+        return {"weight": axis}
+    return {"weight_q8": axis, **({"weight_scale": 0} if split_scale
+                                  else {})}
 
 
 class ColumnParallelDense(Dense):
@@ -320,15 +372,20 @@ class ColumnParallelDense(Dense):
     replicated (:func:`copy_to_mp`), or under ``sequence_parallel`` this
     rank's sequence shard, all-gathered (:func:`gather_from_sequence`);
     its output is this rank's shard of the features over the whole
-    sequence."""
+    sequence. ``scale_rows`` holds the weight in int8 (:class:`Dense`;
+    the channels of the whole layer, shared by the heads where fewer than
+    its rows)."""
 
     def __init__(self, in_features: int, out_features: int, mp: int,
                  dtype: torch.dtype, device=None,
-                 sequence_parallel: bool = False):
-        super().__init__(in_features, out_features // mp, dtype, device)
+                 sequence_parallel: bool = False,
+                 scale_rows: Optional[int] = None):
+        split_scale = scale_rows == out_features  # one channel per row
+        super().__init__(in_features, out_features // mp, dtype, device,
+                         scale_rows // mp if split_scale else scale_rows)
         self.mp = mp
         self.sequence_parallel = sequence_parallel
-        self.mp_split = {"weight": 0, "bias": 0}
+        self.mp_split = {**_weight_split(self, 0, split_scale), "bias": 0}
 
     def take_input(self, x: torch.Tensor) -> torch.Tensor:
         """The input as the product reads it: ``x`` through the mp
@@ -352,26 +409,54 @@ class RowParallelDense(Dense):
     reduce-scattered along the sequence and the bias added to this rank's
     shard. Over mp ranks the bias's gradient is summed over the rows in
     fp32 (:class:`_BiasAdd`): one rounding, with or without the sequence
-    split."""
+    split. ``scale_rows`` holds the weight in int8 (:class:`Dense`; its
+    per-row scale is whole on every rank). With ``fp32_partials`` (the
+    serving engine's layers; no sequence split) the partial products are
+    fp32 and summed in fp32, then cast to the compute dtype: the sum
+    rounds once. Training keeps partials in the compute dtype, as GSPMD
+    reduces them: its sequence split reduce-scatters the same partials,
+    and its gates hold the two layouts to one semantics."""
 
     def __init__(self, in_features: int, out_features: int, mp: int,
                  dtype: torch.dtype, device=None,
-                 sequence_parallel: bool = False):
-        super().__init__(in_features // mp, out_features, dtype, device)
+                 sequence_parallel: bool = False,
+                 scale_rows: Optional[int] = None,
+                 fp32_partials: bool = False):
+        super().__init__(in_features // mp, out_features, dtype, device,
+                         scale_rows)
+        if fp32_partials and sequence_parallel:
+            raise ValueError("fp32_partials sums whole partials; the "
+                             "sequence split reduce-scatters them")
         self.mp = mp
         self.sequence_parallel = sequence_parallel
-        self.mp_split = {"weight": 1}  # the bias is replicated
+        self.fp32_partials = fp32_partials
+        self.mp_split = _weight_split(self, 1, False)  # the bias is whole
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         group = current_mp_group(self.mp)
         if group is None:
             return super().forward(x)
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        x, w = x.to(self.dtype), self.dense_weight()
+        if self.fp32_partials:
+            y = reduce_from_mp(_fp32_product(x, w), group).to(self.dtype)
+            return _BiasAdd.apply(y, self.bias)
+        y = F.linear(x, w)
         if self.sequence_parallel:  # this rank's sequence shard of the sum
             y = reduce_scatter_to_sequence(y, group)
         else:
             y = reduce_from_mp(y, group)
         return _BiasAdd.apply(y, self.bias)
+
+
+def _fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x Wᵀ`` with an fp32 result: a bf16 GEMM on the card writes its
+    fp32 accumulator (``out_dtype``), other operands multiply in fp32."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float().t()
+    return y.view(*x.shape[:-1], w.shape[0])
 
 
 def local_labels(labels: torch.Tensor, v_loc: int, mp_rank: int
@@ -384,19 +469,22 @@ def local_labels(labels: torch.Tensor, v_loc: int, mp_rank: int
     return torch.where((loc >= 0) & (loc < v_loc), loc, -1)
 
 
-def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor,
-                             group, sequence_parallel: bool = False
+def vocab_parallel_embedding(lookup: Callable[[torch.Tensor], torch.Tensor],
+                             v_loc: int, ids: torch.Tensor, group,
+                             sequence_parallel: bool = False
                              ) -> torch.Tensor:
-    """``table[ids]`` for a table split over ``group`` by vocab rows: each
-    rank looks up the ids of its shard (0 for the others) and the rows
-    are summed over the group, which is exact (one non-zero term). Under
-    ``sequence_parallel`` the sum is reduce-scattered: this rank's
-    ``[b, s/mp, E]`` part of the sequence."""
+    """The rows of ``ids`` for a table split over ``group`` by vocab rows,
+    ``v_loc`` a rank, whose rank-local rows ``lookup`` gathers (an int8
+    table dequantizes only those): each rank looks up the ids of its
+    shard (0 for the others) and the rows are summed over the group, which
+    is exact (one non-zero term). Under ``sequence_parallel`` the sum is
+    reduce-scattered: this rank's ``[b, s/mp, E]`` part of the
+    sequence."""
     if group is None:
-        return table[ids]
-    loc = local_labels(ids, table.shape[0], dist.get_rank(group))
+        return lookup(ids)
+    loc = local_labels(ids, v_loc, dist.get_rank(group))
     rows = torch.where((loc >= 0)[..., None],
-                       table[loc.clamp_min(0).long()], 0.0)
+                       lookup(loc.clamp_min(0).long()), 0.0)
     if sequence_parallel:
         return reduce_scatter_to_sequence(rows, group)
     return reduce_from_mp(rows, group)
@@ -434,3 +522,20 @@ def vocab_parallel_token_losses(logits: torch.Tensor, labels: torch.Tensor,
     lab = logits.gather(-1, loc.clamp_min(0).long()[..., None])[..., 0]
     return vocab_parallel_combine(lse, torch.where(loc >= 0, lab, 0.0),
                                   group)
+
+
+def gather_vocab(logits: torch.Tensor, group) -> torch.Tensor:
+    """The whole vocab's logits ``[..., V]`` from every rank's shard
+    ``logits`` ``[..., V/mp]`` (in rank order) over ``group``: the serving
+    calls' gather before sampling, GSPMD's implicit one. A copy of bytes,
+    so every rank holds the same bits. Without a group, ``logits``."""
+    if group is None:
+        return logits
+    mp = dist.get_world_size(group)
+    x = logits.contiguous()
+    flat = torch.empty((mp,) + tuple(x.shape), dtype=x.dtype,
+                       device=x.device)
+    _collective(dist.all_gather_into_tensor, flat.view(-1), x.view(-1),
+                group)
+    return torch.movedim(flat, 0, -2).reshape(*x.shape[:-1],
+                                               mp * x.shape[-1])

@@ -137,13 +137,49 @@ CUDA error (an illegal address, a device-side assert) poisons the
 process's CUDA context, so the engine marks itself dead and re-raises it
 instead of replaying.
 
+Int8 weights (``weight_dtype`` / ``FLEETX_SERVING_WEIGHT_DTYPE``, default
+bf16, i.e. the model's compute dtype): the whole state dict is quantized
+once at construction (``ops/quant.serving_weight_params``: per-channel
+absmax int8, JAX's channels and bits), the device holds the int8 values
+and fp32 scales, and each dense layer and embedding dequantizes its own
+weight per call (fp32, then the compute dtype). A state dict that is
+already quantized passes through; one served at bf16 raises.
+
+Mesh serving (``mesh=``, a ``parallel/mesh.Mesh`` with an mp axis): the
+port runs SPMD, one engine per mp rank of a process group (the ranks
+``parallel/launch.spawn`` starts; gloo where ranks share a card), where
+the JAX engine is one controller over a device mesh. Every rank is handed
+the same whole state dict and the same ``submit``/``step`` calls; it
+quantizes the whole model first (at int8 weights), then keeps its
+column- or row-parallel shard (``convert.shard_params``), and holds its
+``heads / mp`` heads of both cache layouts, int8 scales included, which
+its decode kernels read. The row-parallel projections all-reduce their
+partial sums (fp32 GEMM outputs, rounded once after the sum, so that a
+rank's activations are the single device's up to fp32 summation order),
+and every forward's logits are all-gathered over the mp
+group before sampling, so each rank samples the same token from the same
+bits with the same per-request generator, and the host bookkeeping
+(scheduler, lanes, trie, snapshots, replay) stays identical on every rank;
+every clock read is rank 0's, broadcast (limits, grace windows and
+metrics stamps alike). Byte gauges and
+``cache_nbytes()`` are per rank. What a mesh does not take: pp or cp
+extents and heads that mp does not divide (ValueError), an fsdp extent
+(the parameters would be sharded, ROADMAP Queue A "ZeRO stage 3
+(parameter sharding)"), the page tiers, ``prewarm`` and the prefill or
+decode roles at mp > 1 (Queue A "Page tiers and roles under a mesh"), and
+the tick watchdog at mp > 1 (an abandoned call's collectives would pair
+with the recovery's; Queue C "Gaps by design"). A dp extent replicates
+the tick.
+
+Observability: the metrics live on the ``obs`` registry (``metrics.py``);
+``FLEETX_OBS_PORT`` makes the process scrapeable (``/metrics``,
+``/healthz``, whose probe is this engine's ``health()``, held weakly),
+and ``log_every`` / ``FLEETX_SERVING_LOG_EVERY`` writes
+``metrics.log_snapshot()`` every that many ticks.
+
 The router-facing surface (``model_protocol.ENGINE_SURFACE``):
 ``health()``, ``declare_dead()``, ``submit_limit``, ``emitted_tokens()``,
 ``take_result()`` and the one-shot ``generate_batch()``.
-
-Not ported (ROADMAP Queue A, "Serving features still missing"), each
-raising ``NotImplementedError`` when asked for: mesh serving, int8
-weights and the obs exposition (``log_every``).
 """
 
 from __future__ import annotations
@@ -160,14 +196,20 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fleetx_tpu_torch.models.gpt.generation import (
     GenerationConfig,
     _top_p_cutoff_bisect,
 )
+from fleetx_tpu_torch.models.gpt.convert import shard_params
 from fleetx_tpu_torch.models.gpt.model import inference_params
+from fleetx_tpu_torch.obs import http as obs_http
 from fleetx_tpu_torch.obs.events import emit as obs_emit
-from fleetx_tpu_torch.ops.quant import resolve_serving_dtype
+from fleetx_tpu_torch.ops.quant import (
+    resolve_serving_dtype,
+    serving_weight_params,
+)
 from fleetx_tpu_torch.resilience.faults import faults
 from fleetx_tpu_torch.serving.cache_manager import (
     DiskPageStore,
@@ -189,16 +231,7 @@ __all__ = ["QueueFull", "RecoveryExhausted", "ServingEngine",
            "sample_tokens", "skip_draws"]
 
 _NEG = -1e9
-_MISSING = 'ROADMAP Queue A, "Serving features still missing"'
-# the JAX engine's switches this port leaves out: keyword -> (environment
-# variable, what it asks for)
-_LEFT_OUT = {
-    "mesh": (None, "mesh serving"),
-    "weight_dtype": ("FLEETX_SERVING_WEIGHT_DTYPE", "int8 weights"),
-    "log_every": ("FLEETX_SERVING_LOG_EVERY", "the obs exposition"),
-}
-# values of those switches that ask for nothing (the JAX defaults)
-_OFF = {None, "", "0", "bf16"}
+_MESH_TIERS = 'ROADMAP Queue A, "Page tiers and roles under a mesh"'
 
 
 class QueueFull(RuntimeError):
@@ -247,10 +280,6 @@ def _env_float(name: str, default: float) -> float:
         return float(os.environ.get(name, default))
     except ValueError:
         return default
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_MISSING})")
 
 
 def filter_logits(logits, temperature, top_k, top_p, *, topk_cap: int):
@@ -366,8 +395,11 @@ class ServingEngine:
     builds its own decode-configured copy on ``device`` — CUDA unless the
     caller passes another; without CUDA it raises — with the dense
     weights stored at the compute dtype (the forward casts them there
-    anyway, so results are unchanged). Every keyword left at None takes
-    its ``FLEETX_SERVING_*`` variable, else the JAX engine's default."""
+    anyway, so results are unchanged), or at ``weight_dtype="int8"`` as
+    int8 with per-channel scales. ``params`` is the whole model's state
+    dict also under a ``mesh`` (module docstring), where each rank keeps
+    its shard. Every keyword left at None takes its ``FLEETX_SERVING_*``
+    variable, else the JAX engine's default."""
 
     def __init__(self, model, params: Dict[str, torch.Tensor], *,
                  device=None, slots: Optional[int] = None,
@@ -393,16 +425,11 @@ class ServingEngine:
                  disk_cache_bytes: Optional[int] = None,
                  max_recoveries: Optional[int] = None,
                  tick_timeout_s: Optional[float] = None,
-                 grace_s: Optional[float] = None, **left_out):
-        for name, value in left_out.items():
-            if name not in _LEFT_OUT:
-                raise TypeError(f"ServingEngine got an unexpected keyword "
-                                f"{name!r}")
-            if value is not None and str(value) not in _OFF:
-                raise _not_ported(f"{_LEFT_OUT[name][1]} ({name}=)")
-        for env, what in _LEFT_OUT.values():
-            if env and os.environ.get(env, "") not in _OFF:
-                raise _not_ported(f"{what} ({env})")
+                 grace_s: Optional[float] = None,
+                 weight_dtype: Optional[str] = None,
+                 log_every: Optional[int] = None, mesh=None):
+        mp = self._check_mesh(mesh, model.cfg)
+        self.mesh = mesh
         self.device = resolve_device(device)
         gen_cfg = gen_cfg or GenerationConfig(decode_strategy="greedy")
         if gen_cfg.repetition_penalty != 1.0:
@@ -444,6 +471,13 @@ class ServingEngine:
         self.kv_dtype = resolve_serving_dtype(kv_dtype,
                                               "FLEETX_SERVING_KV_DTYPE")
         decode_kv = "int8" if self.kv_dtype == "int8" else None
+        # weight precision: "int8" holds every dense kernel and embedding
+        # as int8 with per-channel scales, dequantized per call
+        self.weight_dtype = resolve_serving_dtype(
+            weight_dtype, "FLEETX_SERVING_WEIGHT_DTYPE")
+        layout = dict(
+            mp_degree=mp, sequence_parallel=False, pp_degree=1,
+            cp_degree=1, num_microbatches=1, virtual_pp_degree=1)
         if self.paged:
             # default pool = every lane's full capacity + the trash page
             self.num_pages = (num_pages or _env_int("FLEETX_SERVING_PAGES", 0)
@@ -455,17 +489,28 @@ class ServingEngine:
             cfg = dataclasses.replace(
                 model.cfg, decode_cache_len=cache_len,
                 decode_num_pages=self.num_pages,
-                decode_page_size=self.page_size, decode_kv_dtype=decode_kv)
+                decode_page_size=self.page_size, decode_kv_dtype=decode_kv,
+                **layout)
         else:
             self.num_pages = 0
             self.prefix_cache = False
             cfg = dataclasses.replace(
                 model.cfg, decode_cache_len=cache_len, decode_num_pages=None,
-                decode_page_size=None, decode_kv_dtype=decode_kv)
-        self.model = type(model)(cfg, device="meta")
+                decode_page_size=None, decode_kv_dtype=decode_kv, **layout)
+        # the row-parallel sums round once, as one GEMM's does
+        self.model = type(model)(cfg, device="meta",
+                                 int8=self.weight_dtype == "int8",
+                                 fp32_partials=True)
+        # the whole model quantized once (no-op at bf16), then this rank's
+        # shard: a row-parallel kernel's absmax runs over its whole input
+        params = serving_weight_params(params, self.weight_dtype,
+                                       cfg.head_dim)
+        if mp > 1:
+            params = shard_params(params, cfg, mesh.mp_rank)
         self.model.load_state_dict(
             inference_params(self.model, params, self.device), assign=True)
-        self.executor = GPTExecutor(self.model)
+        del params
+        self.executor = GPTExecutor(self.model, mesh=mesh)
         self.capabilities = self.executor.capabilities
         self.model_family = self.capabilities.family
         self.topk_cap = topk_cap or _env_int("FLEETX_SERVING_TOPK_CAP", 64)
@@ -512,6 +557,15 @@ class ServingEngine:
             else _env_float("FLEETX_SERVING_TICK_TIMEOUT_S", 0.0))
         self.grace_s = (grace_s if grace_s is not None
                         else _env_float("FLEETX_SERVING_GRACE_S", 30.0))
+        self.log_every = (log_every if log_every is not None
+                          else _env_int("FLEETX_SERVING_LOG_EVERY", 0))
+        if mp > 1:
+            self._check_mesh_features()
+            # every rank reads rank 0's clock, so that limits and grace
+            # windows decide alike on every rank and the stamps agree
+            self._now = self._mesh_clock
+        else:
+            self._now = time.perf_counter
         self._recoveries_consecutive = 0
         self._tick_strikes = 0              # consecutive failed decode ticks
         self._prefill_strikes: Dict[int, int] = {}  # request id -> failures
@@ -546,7 +600,6 @@ class ServingEngine:
         # and pages held, until export_kv()
         self._prefilled: Dict[int, Request] = {}
         self._results: Dict[int, ServingResult] = {}
-        self._now = time.perf_counter
         # speculative decoding, off by default; an explicit proposer
         # implies it, and contradicting it is a configuration error
         self.spec = (spec if spec is not None
@@ -573,6 +626,86 @@ class ServingEngine:
                 self.model.state_dict(), prefill_bucket=self.prefill_bucket,
                 device=self.device)
             self._proposer.bind(self.slots, self.cache_len)
+        # observability: FLEETX_OBS_PORT makes the process scrapeable, and
+        # /healthz reads health() (held weakly: the probe never keeps a
+        # dead engine alive)
+        obs_http.maybe_start_from_env()
+        self._health_name = f"serving_engine_{self.metrics.engine_label}"
+        ref = weakref.ref(self)
+
+        def _healthy():
+            eng = ref()
+            return True if eng is None else eng.health()
+
+        obs_http.register_health(self._health_name, _healthy)
+        weakref.finalize(self, obs_http.unregister_health, self._health_name)
+
+    @staticmethod
+    def _check_mesh(mesh, cfg) -> int:
+        """The mp extent of a serving ``mesh`` (1 without one), after the
+        JAX engine's checks: pp or cp extents and heads that mp does not
+        divide raise ValueError, a dp extent replicates the tick (with a
+        warning); an fsdp extent raises, the parameters' shard being ZeRO
+        stage 3's."""
+        if mesh is None:
+            return 1
+        if mesh.pp > 1 or mesh.cp > 1:
+            raise ValueError(
+                f"serving mesh {mesh} has pp/cp extents; the decode tick "
+                "runs the full layer stack per rank — use a (dp, mp) mesh")
+        if cfg.num_attention_heads % mesh.mp:
+            raise ValueError(
+                f"num_attention_heads {cfg.num_attention_heads} does not "
+                f"divide over mp={mesh.mp}; the kv cache shards over heads")
+        if mesh.fsdp > 1:
+            raise NotImplementedError(
+                f"serving over an fsdp extent ({mesh}) shards the "
+                "parameters, which is not ported yet (ROADMAP Queue A, "
+                "\"ZeRO stage 3 (parameter sharding)\")")
+        if mesh.dp > 1:
+            logger.warning(
+                "serving: mesh has dp=%d — the decode tick is REPLICATED "
+                "over the dp axis (no throughput gain); prefer %d "
+                "independent engine replicas behind a router", mesh.dp,
+                mesh.dp)
+        return mesh.mp
+
+    def _check_mesh_features(self) -> None:
+        """At mp > 1: the page tiers and the roles raise (their wire
+        format holds whole pages, a rank holds a head slice), and so does
+        the tick watchdog (an abandoned call's collectives would pair with
+        the recovery's on the same group)."""
+        what = ("the host page tier" if self._dram_store is not None
+                else "the disk page tier" if self._disk_store is not None
+                else f"role={self.role!r}" if self.role != "both"
+                else None)
+        if what is not None:
+            self._refuse_under_mesh(what)
+        if self.tick_timeout_s > 0:
+            raise NotImplementedError(
+                f"tick_timeout_s={self.tick_timeout_s} under an mp "
+                f"{self.mesh.mp} mesh: an abandoned call's collectives "
+                "would pair with the recovery's on the same group (ROADMAP "
+                "Queue C, \"Gaps by design\": the watchdog under a mesh)")
+
+    def _refuse_under_mesh(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.mp > 1:
+            raise NotImplementedError(
+                f"{what} under an mp {self.mesh.mp} mesh is not ported yet "
+                f"({_MESH_TIERS})")
+
+    def _mesh_clock(self) -> float:
+        """``time.perf_counter()`` of the mp group's first rank, broadcast
+        over the group at every read (every rank reads the clock at the same
+        points): limits, grace windows and metrics stamps read one clock on
+        every rank."""
+        group = self.mesh.mp_group
+        dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+        t = torch.tensor([time.perf_counter()], dtype=torch.float64,
+                         device=dev)
+        dist.broadcast(t, src=self.mesh.rank - self.mesh.mp_rank,
+                       group=group)
+        return float(t[0])
 
     def _new_cache_manager(self):
         """Fresh device storage (construction and :meth:`recover`): new
@@ -586,17 +719,35 @@ class ServingEngine:
                                   device=self.device)
 
     def publish_quant_metrics(self) -> None:
-        """Push the KV precision and its byte costs into ``metrics`` (JAX
-        ``_publish_quant_metrics``): the K+V bytes one cached token costs
-        over all layers (one fp32 scale per head vector at int8) and the
-        cache's bytes. Call again after swapping ``engine.metrics``."""
+        """Push the precision and mesh config and the byte gauges into
+        ``metrics`` (JAX ``_publish_quant_metrics``): the K+V bytes one
+        cached token costs over all layers (one fp32 scale per head vector
+        at int8), the weights' bytes and the cache's, all per rank under a
+        mesh. Call again after swapping ``engine.metrics``."""
         cfg = self.model.cfg
         quant = self.kv_dtype == "int8"
         item = 1 if quant else torch.empty(0, dtype=cfg.dtype).element_size()
-        per_token = cfg.num_layers * cfg.num_attention_heads * 2 * (
+        heads = cfg.num_attention_heads // cfg.mp_degree  # on this rank
+        per_token = cfg.num_layers * heads * 2 * (
             cfg.head_dim * item + (4 if quant else 0))
-        self.metrics.set_quant_config(self.kv_dtype, per_token,
-                                      self.cache_manager.cache_nbytes())
+        if self.mesh is None:
+            self.metrics.set_mesh(1, "-")
+        else:
+            m = self.mesh
+            desc = "x".join(f"{k}{v}" for k, v in (
+                ("pp", m.pp), ("dp", m.dp), ("fsdp", m.fsdp), ("cp", m.cp),
+                ("mp", m.mp)) if v > 1) or "1"
+            self.metrics.set_mesh(m.world, desc)
+        self.metrics.set_quant_config(
+            self.kv_dtype, self.weight_dtype, per_token, self.weight_nbytes(),
+            kv_cache_bytes=self.cache_manager.cache_nbytes())
+
+    def weight_nbytes(self) -> int:
+        """Bytes of the served weights on this rank: every tensor of the
+        model's state dict (int8 values and fp32 scales at int8 weights;
+        this rank's shards under a mesh)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.model.state_dict().values())
 
     # ------------------------------------------------------------ lifecycle
 
@@ -698,6 +849,7 @@ class ServingEngine:
                     "terminal; do not migrate it")
         pages = None
         if kv_payloads is not None:
+            self._refuse_under_mesh("shipped KV (kv_payloads=)")
             if not self.paged:
                 raise ValueError(
                     "kv_payloads requires the paged cache (paged=True): "
@@ -797,17 +949,18 @@ class ServingEngine:
                     raise
                 summary = self._handle_tick_fault(snap, exc)
         self._ticks += 1
+        self.metrics.observe_tick(self.scheduler.queue_depth,
+                                  len(self._active), self._now() - t0)
         if self.paged:
-            pages = (self.cache_manager.pages_in_use,
-                     self.cache_manager.usable_pages)
-        else:
-            pages = (0, 0)
-        self.metrics.observe_tick(self._now() - t0, *pages)
+            self.metrics.observe_pages(self.cache_manager.pages_in_use,
+                                       self.cache_manager.usable_pages)
         if self._dram_store is not None:
             self.metrics.observe_host_tier(self._dram_store)
         if self._disk_store is not None:
             self.metrics.observe_disk_tier(self._disk_store)
         self.metrics.observe_queue_tokens(self._queue_tokens())
+        if self.log_every and self._ticks % self.log_every == 0:
+            self.metrics.log_snapshot()
         summary.setdefault("recovered", False)
         summary["queue_depth"] = self.scheduler.queue_depth
         summary["active_slots"] = len(self._active)
@@ -955,6 +1108,7 @@ class ServingEngine:
         the first real request hits them. Returns the prefix tokens now
         warm (0: no tiers, nothing persisted, or the pool is busy). Never
         registers pages without K/V."""
+        self._refuse_under_mesh("prewarm")
         if not (self.paged and self.prefix_cache):
             return 0
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -1594,8 +1748,15 @@ class ServingEngine:
                 f"{req.id} (prompt {req.prompt_len} tokens; "
                 f"{self.cache_manager.pool.free_pages} pages free)")
         req.slot, shared = alloc
-        self.metrics.record_prefix(shared, req.prompt_len)
+        self._record_prefix(req.slot, shared, req.prompt_len)
         return shared
+
+    def _record_prefix(self, lane: int, shared: int, prompt_len: int) -> None:
+        """One paged admission's prefix counters and its fresh pages (the
+        lane's pages past the shared ones)."""
+        fresh = int(self.cache_manager.pool.alloc_counts[lane]
+                    - shared // self.page_size)
+        self.metrics.record_prefix(shared, prompt_len, fresh)
 
     def _admit(self, req: Request) -> None:
         """Admit the FIFO head: claim storage, then either the one-call
@@ -1613,7 +1774,7 @@ class ServingEngine:
             self._fault_ctx = None
             self._prefill_strikes.pop(req.id, None)
             req.admit_time = self._now()
-            self.metrics.record_admit()
+            self.metrics.record_admit(req.admit_time - req.submit_time)
             req.phase = "active"
             self._active[req.slot] = req
             return
@@ -1625,7 +1786,7 @@ class ServingEngine:
                 req.chunk_cache = self.executor.init_cache(1, self.device)
             self._prefilling[req.slot] = req
             req.admit_time = self._now()
-            self.metrics.record_admit()
+            self.metrics.record_admit(req.admit_time - req.submit_time)
             self._fault_ctx = None
             self._run_chunk(req)  # this tick's one chunk
             return
@@ -1638,7 +1799,7 @@ class ServingEngine:
         self._fault_ctx = None
         self._prefill_strikes.pop(req.id, None)  # survived its prefill
         req.admit_time = self._now()
-        self.metrics.record_admit()
+        self.metrics.record_admit(req.admit_time - req.submit_time)
         self._finish_first_token(req, tok)
 
     def _admit_shipped(self, req: Request) -> None:
@@ -1666,10 +1827,10 @@ class ServingEngine:
         self.cache_manager.register_prefix(lane, req.prompt)
         self._fault_ctx = None
         self._prefill_strikes.pop(req.id, None)
-        self.metrics.record_prefix(shared, req.prompt_len)
+        self._record_prefix(lane, shared, req.prompt_len)
         self.metrics.record_kv_revived_remote(len(entries))
         req.admit_time = self._now()
-        self.metrics.record_admit()
+        self.metrics.record_admit(req.admit_time - req.submit_time)
         req.phase = "active"
         self._active[lane] = req
         obs_emit("kv_revived_remote", request=req.id, pages=len(entries),
@@ -1979,7 +2140,8 @@ class ServingEngine:
                                    np.asarray(req.tokens, np.int32)]),
                    caps[slot])
             for slot, req in self._active.items()}
-        proposals = self._proposer.propose(requests, k)
+        with self.executor.mesh_context():  # a draft model's calls too
+            proposals = self._proposer.propose(requests, k)
         draft = np.zeros((self.slots, k), np.int64)
         dlen = np.zeros(self.slots, np.int64)
         for slot, (_, cap) in requests.items():

@@ -46,10 +46,14 @@ class ModelCapabilities:
 class GPTExecutor:
     """The GPT decode path behind the protocol: the model's cached forward
     (``generation.decode_step``), its decode cache, and the engine's shared
-    sampler and sampling filter."""
+    sampler and sampling filter. With a ``mesh`` (mp serving) every
+    forward runs under it and returns the whole vocab's logits, this
+    rank's shard all-gathered over the mp group
+    (``model.serving_logits``)."""
 
-    def __init__(self, model, family: str = "gpt"):
+    def __init__(self, model, family: str = "gpt", mesh=None):
         self.model = model
+        self.mesh = mesh
         self.capabilities = ModelCapabilities(
             family=family,
             has_kv_cache=True,
@@ -60,7 +64,7 @@ class GPTExecutor:
 
     def init_cache(self, batch: int, device=None):
         """A zeroed contiguous decode cache of ``batch`` rows (the slot
-        path's batch-1 prefill cache)."""
+        path's batch-1 prefill cache; this rank's heads under mp)."""
         from fleetx_tpu_torch.models.gpt.generation import init_decode_cache
 
         return init_decode_cache(self.model, batch, device=device)
@@ -72,10 +76,22 @@ class GPTExecutor:
         contiguous cache's ``index``), ``block_tables`` the paged
         indirection (None on the slot path)."""
         from fleetx_tpu_torch.models.gpt.generation import decode_step
+        from fleetx_tpu_torch.models.gpt.model import serving_logits
 
-        return decode_step(self.model, cache, ids, positions,
-                           cache_positions=cache_positions,
-                           block_tables=block_tables)
+        with self.mesh_context():
+            logits, cache = decode_step(self.model, cache, ids, positions,
+                                        cache_positions=cache_positions,
+                                        block_tables=block_tables)
+            return serving_logits(self.model, logits), cache
+
+    def mesh_context(self):
+        """The mesh current for a device call (a no-op without one)."""
+        import contextlib
+
+        from fleetx_tpu_torch.parallel.mesh import use_mesh
+
+        return (use_mesh(self.mesh) if self.mesh is not None
+                else contextlib.nullcontext())
 
     def sample(self, logits, generators, greedy, temperature, top_k, top_p,
                *, topk_cap: int):

@@ -35,7 +35,7 @@ from fleetx_tpu_torch.models.gpt.generation import (
     decode_step,
     init_decode_cache,
 )
-from fleetx_tpu_torch.models.gpt.model import inference_params
+from fleetx_tpu_torch.models.gpt.model import inference_params, serving_logits
 from fleetx_tpu_torch.utils.device import resolve_device
 
 __all__ = ["DraftModelProposer", "NgramProposer", "Proposer",
@@ -183,7 +183,10 @@ class DraftModelProposer:
             self._base_model.cfg, decode_cache_len=cache_len,
             decode_num_pages=None, decode_page_size=None,
             decode_kv_dtype=None)
-        self.model = type(self._base_model)(cfg, device="meta")
+        base = self._base_model
+        self.model = type(base)(
+            cfg, device="meta", int8=getattr(base, "int8", False),
+            fp32_partials=getattr(base, "fp32_partials", False))
         self.model.load_state_dict(
             inference_params(self.model, self.params, self.device),
             assign=True)
@@ -212,6 +215,7 @@ class DraftModelProposer:
             self.model, self.cache, cur[:, None],
             self._tensor(posid)[:, None],
             cache_positions=self._tensor(wpos).to(torch.int32))
+        logits = serving_logits(self.model, logits)  # whole vocab under mp
         self.single_token_forwards += 1
         return torch.argmax(logits[:, -1, :].float(), dim=-1)
 

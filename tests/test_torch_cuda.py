@@ -10,6 +10,8 @@ Every test carries the ``cuda`` marker and skips when no card is present.
 ``paged_case`` also feeds the JAX parity tests of the plain version.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1834,3 +1836,67 @@ def test_cuda_recovery_needs_one_pool_of_memory():
     assert torch.cuda.max_memory_allocated() - base < pool / 2
     out = engine.drain()
     assert [out[i].tokens.tolist() for i in sorted(out)] == want
+
+
+@pytest.mark.cuda
+def test_cuda_mp2_paged_engine_rank_b8_is_the_single_card_head_slice():
+    """An mp 2 paged engine on 2 ranks sharing the card (gloo): each
+    rank's first B8 output (layer 0, its heads) equals the single-card
+    engine's slice of those heads, both ranks' streams equal the single
+    card's, and each rank launches B8 once per layer of each tick."""
+    from test_torch_mesh_ranks import mesh_cuda_program, serve_on_card
+    from test_torch_mp_ranks import spawn_on_card
+
+    from fleetx_tpu_torch.models.gpt.convert import init_params
+
+    _need_card()
+    cfg = dataclasses.replace(_tiny_cuda_cfg(), num_attention_heads=4)
+    params = init_params(cfg, seed=0)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, 61, n).tolist() for n in (5, 17, 30)]
+    want = serve_on_card(params, cfg, prompts, 12)
+    kw = {f: getattr(cfg, f) for f in ("vocab_size", "hidden_size",
+                                       "num_layers", "num_attention_heads",
+                                       "ffn_hidden_size",
+                                       "max_position_embeddings", "dtype")}
+    ranks = spawn_on_card(mesh_cuda_program, 2,
+                          {k: v.cpu().numpy() for k, v in params.items()},
+                          kw, prompts)
+    for r, got in enumerate(ranks):
+        assert got["tokens"] == want["tokens"]
+        np.testing.assert_allclose(got["first"],
+                                   want["first"][:, :, 2 * r:2 * r + 2],
+                                   rtol=0, atol=1e-5)
+        assert got["launches"] == got["ticks"] * cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_cuda_int8_dense_matches_its_plain_dequant():
+    """An int8-weight ``Dense`` on the card in bf16: bit-equal to
+    ``F.linear`` of the plain dequant (fp32 values times scales, then
+    bf16), and within one bf16 rounding of the fp32 product of the same
+    bf16 operands on the host."""
+    from fleetx_tpu_torch.ops.quant import quantize_int8
+    from fleetx_tpu_torch.parallel.tensor_parallel import Dense
+
+    _need_card()
+    rng = np.random.RandomState(9)
+    w = torch.from_numpy(rng.randn(384, 256).astype(np.float32) * 0.02)
+    (q,), s = quantize_int8([w], (3 * 32, 1))  # a fused qkv's 3·hd channels
+    dense = Dense(256, 384, torch.bfloat16, device="cuda", scale_rows=96)
+    dense.weight_q8.copy_(q)
+    dense.weight_scale.copy_(s)
+    dense.bias.data.zero_()
+    x = torch.from_numpy(rng.randn(8, 256).astype(np.float32)).cuda()
+    with torch.no_grad():
+        got = dense(x)
+    plain = (q.float().view(-1, 96, 256) * s).view(384, 256)
+    want = torch.nn.functional.linear(x.bfloat16(),
+                                      plain.cuda().bfloat16(),
+                                      torch.zeros(384, device="cuda",
+                                                  dtype=torch.bfloat16))
+    assert torch.equal(got, want)
+    # the fp32 product of the same bf16 operands: the card rounds it once
+    host = x.cpu().bfloat16().float() @ plain.bfloat16().float().t()
+    np.testing.assert_allclose(got.float().cpu().numpy(), host.numpy(),
+                               rtol=8e-3, atol=1e-5)

@@ -7,8 +7,9 @@ be byte-identical to its paged engine and to the JAX slot engine on the
 same weights, at fp32 and at int8 KV. The admission limits — the bounded
 queue, the queue TTL, the deadline and ``cancel`` — retire requests as the
 JAX engine does, and leave the lanes and pages consistent
-(``check_invariants``) after each; the switches the port still leaves out
-raise.
+(``check_invariants``) after each. The switches once left out (int8
+weights, the obs exposition's ``log_every``, a mesh) work beside the
+ported ones; what a mesh still refuses names its ROADMAP item.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from fleetx_tpu_torch.models.gpt.model import GPTForPretraining
+from fleetx_tpu_torch.parallel.mesh import Mesh
 from fleetx_tpu_torch.serving import (
     QueueFull,
     ServingEngine,
@@ -31,7 +33,8 @@ from torch_serving_cases import (
     weights,
 )
 
-MISSING = "Serving features still missing"
+MESH_TIERS = "Page tiers and roles under a mesh"
+ZERO3 = "ZeRO stage 3 \\(parameter sharding\\)"
 
 
 @pytest.fixture(scope="module")
@@ -208,21 +211,38 @@ def test_limits_off_are_inert(w):
                                     deadline_s=1e9), prompts())) == want
 
 
-@pytest.mark.parametrize("switch", [
-    dict(host_cache_bytes=1 << 20, weight_dtype="int8"),
-    dict(disk_cache_dir="x", log_every=10),
-    dict(role="prefill", mesh=object()), dict(weight_dtype="int8"),
-    dict(mesh=object()), dict(tick_timeout_s=1.0, log_every=5),
-    dict(max_recoveries=2, weight_dtype="int8"),
-    dict(grace_s=5.0, mesh=object()), dict(log_every=10)])
-def test_left_out_switches_name_their_roadmap_item(w, switch):
-    """The switches still left out (mesh serving, int8 weights, the obs
-    exposition) raise, alone or beside a ported one."""
-    with pytest.raises(NotImplementedError, match=MISSING):
-        port_engine(w, **switch)
+@pytest.mark.parametrize("switch,refused", [
+    (dict(host_cache_bytes=1 << 20, weight_dtype="int8"), None),
+    (dict(disk_cache_dir="x", log_every=10), None),
+    (dict(role="prefill", mesh=Mesh(mp=2)), MESH_TIERS),
+    (dict(weight_dtype="int8"), None),
+    (dict(mesh=Mesh(fsdp=2, mp=2)), ZERO3),
+    (dict(tick_timeout_s=1.0, log_every=5), None),
+    (dict(max_recoveries=2, weight_dtype="int8"), None),
+    (dict(grace_s=5.0, mesh=Mesh()), None),
+    (dict(log_every=10), None)])
+def test_left_out_switches_name_their_roadmap_item(w, switch, refused):
+    """The switches once left out (int8 weights, ``log_every``, a mesh)
+    work, alone or beside a ported one, and the engine serves; what a mesh
+    still refuses (a role or the page tiers at mp > 1, an fsdp extent)
+    raises naming its ROADMAP item."""
+    if refused:
+        with pytest.raises(NotImplementedError, match=refused):
+            port_engine(w, **switch)
+        return
+    engine = port_engine(w, **switch)
+    assert engine.weight_dtype == switch.get("weight_dtype", "bf16")
+    assert engine.log_every == switch.get("log_every", 0)
+    assert engine.mesh is switch.get("mesh")
+    res = serve(engine, prompts()[:2], max_length=3)
+    assert [len(r.tokens) for r in res] == [3, 3]
+    snap = engine.metrics.snapshot()
+    assert snap["weight_dtype"] == engine.weight_dtype
+    assert (snap["mesh_devices"], snap["mesh"]) == (
+        (1, "1") if "mesh" in switch else (1, "-"))
 
 
-# a variable still left out, set beside (or as) the variable of the id
+# a variable once left out, set beside (or as) the variable of the id
 _LEFT_OUT_ENV = {
     "FLEETX_SERVING_HOST_CACHE_BYTES": ("FLEETX_SERVING_LOG_EVERY", "10"),
     "FLEETX_SERVING_ROLE": ("FLEETX_SERVING_WEIGHT_DTYPE", "int8"),
@@ -234,25 +254,30 @@ _LEFT_OUT_ENV = {
                                  "FLEETX_SERVING_ROLE",
                                  "FLEETX_SERVING_WEIGHT_DTYPE"])
 def test_left_out_variables_name_their_roadmap_item(w, env, monkeypatch):
+    """The variables once left out (``FLEETX_SERVING_LOG_EVERY``,
+    ``FLEETX_SERVING_WEIGHT_DTYPE``) are read, beside a ported one."""
     monkeypatch.setenv(env, "int8" if "DTYPE" in env else "prefill"
                        if "ROLE" in env else "4096")
     monkeypatch.setenv(*_LEFT_OUT_ENV[env])
-    with pytest.raises(NotImplementedError, match=MISSING):
-        port_engine(w)
+    engine = port_engine(w)
+    assert engine.log_every == (10 if "HOST" in env else 0)
+    assert engine.weight_dtype == ("bf16" if "HOST" in env else "int8")
+    assert engine.role == ("prefill" if "ROLE" in env else "both")
+    assert engine.metrics.snapshot()["weight_dtype"] == engine.weight_dtype
 
 
 def test_left_out_methods_name_their_roadmap_item(w):
-    """The methods once left out are ported; the periodic log line, the
-    one still left out, is reached only through ``log_every``, which
-    raises; an unknown keyword is a TypeError."""
+    """Every method once left out is ported, the periodic log line
+    included (``metrics.log_snapshot``, written every ``log_every``
+    ticks); an unknown keyword is a TypeError."""
     engine = port_engine(w)
     for name in ("recover", "shutdown", "prefilled_ready", "export_kv",
                  "prewarm", "health", "declare_dead", "generate_batch"):
         assert callable(getattr(engine, name))
     assert engine.prefilled_ready() == [] and engine.recover() == []
-    assert not hasattr(engine.metrics, "log_snapshot")
-    with pytest.raises(NotImplementedError, match=MISSING):
-        port_engine(w, log_every=10)
+    assert callable(engine.metrics.log_snapshot)
+    engine.metrics.log_snapshot()
+    assert port_engine(w, log_every=10).log_every == 10
     with pytest.raises(TypeError, match="unexpected keyword"):
         port_engine(w, bogus=1)
 

@@ -21,6 +21,7 @@ from fleetx_tpu_torch.models.gpt.generation import GenerationConfig
 from fleetx_tpu_torch.models.gpt.model import GPTConfig, GPTForPretraining
 from fleetx_tpu_torch.serving import ServingEngine
 from test_torch_gpt import TINY, tiny_jax_model, tiny_params
+from test_torch_mesh_ranks import MESH_CFG, mesh_cfg
 
 NO_EOS = 10**6
 ENGINE = dict(slots=3, cache_len=48, page_size=8, prefill_bucket=4)
@@ -96,3 +97,34 @@ def prompts(seed=7, lengths=(19, 4, 23, 9)):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, TINY["vocab_size"], n).astype(np.int32)
             for n in lengths]
+
+
+def mesh_jax_model(use_flash=False):
+    """The JAX model of ``tests/test_mesh_serving.py``'s config."""
+    from fleetx_tpu.models.gpt.model import GPTConfig as JaxGPTConfig
+    from fleetx_tpu.models.gpt.model import GPTForPretraining as JaxGPT
+    import jax.numpy as jnp
+
+    return JaxGPT(JaxGPTConfig(**MESH_CFG, dtype=jnp.float32,
+                               use_flash_attention=use_flash))
+
+
+def mesh_weights(seed=6, std=0.3):
+    """``(flax tree, port cfg, port state dict)`` of the mesh config, the
+    tree drawn as ``tiny_params`` draws it."""
+    import jax
+    import jax.numpy as jnp
+    from flax import linen as nn
+
+    shapes = jax.eval_shape(lambda: nn.meta.unbox(mesh_jax_model().init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, s):
+        noise = rng.normal(0.0, std, s.shape).astype(np.float32)
+        name = jax.tree_util.keystr(path)
+        return 1.0 + 0.1 * noise if name.endswith("['scale']") else noise
+
+    tree = jax.tree_util.tree_map_with_path(draw, shapes)
+    cfg = mesh_cfg()
+    return tree, cfg, params_from_jax(tree, cfg)
