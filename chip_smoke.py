@@ -352,6 +352,28 @@ decode steps after phase 10):
                ``/healthz`` 200, then 503 on ``request_shutdown``; the
                snapshot line on every fourth tick; counters read a tick
                late must break the counter gate.
+44. fleet    — two replica processes on the card, each serving a GPT-345M
+               engine of the same CPU-drawn weights (24 layers, bf16, pages
+               of 16) through ``tools/serve``'s worker; here a
+               ``ServingRouter`` over two ``ReplicaClient``s behind an
+               ``ApiServer`` on port 0: phase 4's requests (32 new tokens)
+               over HTTP to both routes, half SSE, two sampled with fixed
+               seeds: streams byte-equal to an in-process engine's; again
+               with the replica decoding request 0 SIGKILLed after its
+               eighth token: byte-equal, a migration and a dead replica
+               recorded; a replacement replica joins and a seeded
+               32-request Poisson trace runs through ``run_trace`` (goodput,
+               TTFT and TPOT p50/p99 logged); the SIGTERM drain fan-out
+               ends both surviving processes with exit 0, each having
+               launched B8 once per layer of each decode forward; HTTP TTFT
+               and TPOT against the in-process engine, RPCs per tick and
+               the time from the kill to the first migrated token logged; a
+               router that migrates without the history and a replica that
+               replays one token late must each break the stream gate;
+45. serve-cli — ``python -m fleetx_tpu_torch.tools.serve --demo
+               --replicas 2 --port 0`` on the card: one streamed chat
+               completion equals the demo engine's greedy stream in
+               process; SIGTERM ends it with exit 0 and no process left.
 
 Every drive writes into an output directory of its own, deleted with its
 phase. The script is the reaper of every process it starts, also of those
@@ -7322,6 +7344,517 @@ def phase_obs(params, cfg) -> dict:
     return {"ticks": ticks}
 
 
+# ----------------------------------------------------------------- phase 44
+
+FLEET_NEW = 32       # phase 44's new tokens a request (phase 4's 64)
+FLEET_KILL_AT = 8    # request 0's streamed tokens when a replica is killed
+FLEET_GRACE_S = 30.0
+# the prefix trie off in phase 44's engines: a shared page's K/V bytes are
+# those of the prompt that first computed it (its prefill call's shape),
+# and which replica, and which request first, gets phase 4's shared
+# prefix depends on the dispatch; with the trie on, a greedy stream can
+# part from the reference's at a near-tie (probe P1, PR 18)
+FLEET_ENGINE = dict(prefix_cache=False)
+FLEET_TRACE = dict(seed=44, n_requests=32, arrival_rate=16.0)
+# how a phase-44 replica process starts: a fresh interpreter (never a fork
+# of this process, which holds a CUDA context) running fleet_replica
+FLEET_REPLICA_ARGV = [sys.executable, "-c",
+                      "import sys, chip_smoke; "
+                      "sys.exit(chip_smoke.fleet_replica(sys.argv[1:]))"]
+
+
+def fleet_params(cfg) -> dict:
+    """Seed-0 weights drawn on the CPU (one torch.Generator) and moved to
+    the card: every replica process and the in-process reference hold the
+    same bits."""
+    return {k: v.to("cuda")
+            for k, v in init_params(cfg, seed=0, device="cpu").items()}
+
+
+def fleet_engine(device_index: int = 0, device=None):
+    """Phase 44's engine (phase 4's: GPT-345M, 8 lanes of 1024 positions,
+    pages of 16, bf16; FLEET_ENGINE's prefix trie off) over
+    :func:`fleet_params`, on ``cuda:{index % count}`` (``tools/serve``'s
+    placement)."""
+    from fleetx_tpu_torch.tools.serve import _replica_device
+
+    dev = _replica_device(device_index, device)
+    cfg, _ = serving_config()
+    params = {k: v.to(dev) for k, v in fleet_params(cfg).items()}
+    engine, _ = build_engine(params=params, device=dev, **FLEET_ENGINE)
+    return engine
+
+
+def fleet_replica(argv) -> int:
+    """A phase-44 replica process (``argv``: index, port file, counts
+    file): ``tools/serve``'s worker over :func:`fleet_engine`; at its
+    drain it writes the decode kernels' launches and its decode forwards
+    to the counts file."""
+    import argparse
+
+    from fleetx_tpu_torch.tools import serve as fleet_serve
+
+    index, port_file, counts_file = int(argv[0]), argv[1], argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    watched = {}
+
+    def build(device_index, device=None):
+        engine = fleet_engine(device_index, device)
+        watched.update(seen=watch_forwards(engine))
+        zero_launches()  # the replica's path starts here
+        return engine
+
+    def on_drained(engine):
+        torch.cuda.synchronize()
+        with open(counts_file + ".tmp", "w") as f:
+            json.dump({"launches": dict(da.launches),
+                       "decode_forwards": watched["seen"]["decode"],
+                       "prefill_forwards": watched["seen"]["prefill"],
+                       "layers": engine.model.cfg.num_layers,
+                       "pages_in_use": engine.cache_manager.pages_in_use},
+                      f)
+        os.replace(counts_file + ".tmp", counts_file)
+
+    args = argparse.Namespace(device_index=index, port_file=port_file,
+                              grace_s=FLEET_GRACE_S, rpc_port=0, device=None)
+    return fleet_serve.run_replica_worker(args, build=build,
+                                          on_drained=on_drained)
+
+
+def start_fleet_replica(index: int, where: str) -> tuple:
+    """Start replica ``index`` (its port and counts files under
+    ``where``); returns ``(process, port file, counts file)``."""
+    port_file = os.path.join(where, f"replica_{index}.port")
+    counts = os.path.join(where, f"replica_{index}.counts.json")
+    proc = subprocess.Popen(FLEET_REPLICA_ARGV
+                            + [str(index), port_file, counts], cwd=ROOT)
+    return proc, port_file, counts
+
+
+def fleet_http_kw(request: dict) -> tuple:
+    """A phase-4 request as the OpenAI body fields the front door maps
+    onto engine kwargs, and those engine kwargs (the reference submits
+    them): temperature 0 is greedy (the yaml's default strategy samples),
+    a sampled request keeps its top-k, top-p and seed."""
+    if request["decode_strategy"] == "greedy":
+        body = {"temperature": 0}
+        kw = {"decode_strategy": "greedy"}
+    else:
+        body = {"temperature": 1.0, "top_k": request["top_k"],
+                "top_p": request["top_p"], "seed": request["seed"]}
+        kw = {"decode_strategy": "sampling", "temperature": 1.0,
+              "top_k": request["top_k"], "top_p": request["top_p"],
+              "seed": request["seed"]}
+    return dict(body, max_tokens=FLEET_NEW), dict(kw, max_length=FLEET_NEW)
+
+
+def fleet_http(url: str, i: int, request: dict, on_chunk=None) -> dict:
+    """Request ``i`` over HTTP: even ones to ``/v1/chat/completions``, odd
+    ones to ``/v1/completions``; 0, 1, 4 and 5 stream (SSE), the others
+    aggregate. Returns the tokens, the router's id, the finish reason and
+    the client-side token times; ``on_chunk(i, result so far)`` runs after
+    each streamed token."""
+    import urllib.request
+
+    body, _ = fleet_http_kw(request)
+    text = " ".join(str(int(t)) for t in request["prompt"])
+    chat = i % 2 == 0
+    stream = i % 4 < 2
+    if chat:
+        body["messages"] = [{"role": "user", "content": text}]
+    else:
+        body["prompt"] = text
+    body["stream"] = stream
+    path = "/v1/chat/completions" if chat else "/v1/completions"
+    req = urllib.request.Request(url + path, json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    out = {"tokens": [], "times": [], "sent": t0, "stream": stream}
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        if not stream:
+            payload = json.loads(resp.read())
+            out.update(tokens=payload["tokens"],
+                       rid=int(payload["id"].split("-")[1]),
+                       finish=payload["choices"][0]["finish_reason"],
+                       times=[time.perf_counter()])
+            return out
+        for line in resp:
+            line = line.decode().strip()
+            if not line.startswith("data: ") or line[6:] == "[DONE]":
+                continue
+            chunk = json.loads(line[6:])
+            out["rid"] = int(chunk["id"].split("-")[1])
+            if "token" in chunk:
+                out["tokens"].append(chunk["token"])
+                out["times"].append(time.perf_counter())
+                if on_chunk is not None:
+                    on_chunk(i, out)
+            out["finish"] = chunk["choices"][0]["finish_reason"] or out.get(
+                "finish")
+    return out
+
+
+def fleet_pass(url: str, requests: list, on_chunk=None) -> list:
+    """The requests at once over HTTP, one client thread each; results in
+    request order."""
+    with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
+        futures = [pool.submit(fleet_http, url, i, r, on_chunk)
+                   for i, r in enumerate(requests)]
+        return [f.result() for f in futures]
+
+
+def token_streams_gate(what: str, got: list, want: list) -> None:
+    """Each request's streamed tokens byte-equal to the reference's, none
+    lost, repeated or reordered."""
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if list(a) != list(b)]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"{what}: the streams of requests {bad} differ "
+                             f"({len(got)} against {len(want)})")
+
+
+def http_latency(results: list) -> dict:
+    """TTFT and TPOT p50 at the HTTP client, over the streamed requests."""
+    ttft = [(r["times"][0] - r["sent"]) * 1e3 for r in results
+            if r["stream"] and r["times"]]
+    tpot = [(r["times"][-1] - r["times"][0]) / (len(r["times"]) - 1) * 1e3
+            for r in results if r["stream"] and len(r["times"]) > 1]
+    return {"ttft_ms_p50": quantiles(ttft)[0],
+            "tpot_ms_p50": quantiles(tpot)[0]}
+
+
+def count_rpcs():
+    """Count and time the replica RPCs this process makes (the clients
+    call ``wire.rpc_call``): ``{method: [calls, seconds]}`` and the
+    undo."""
+    from fleetx_tpu_torch.serving.api import wire
+
+    counts = {}
+    call = wire.rpc_call
+
+    def counted(url, payload=None, **kw):
+        t0 = time.perf_counter()
+        try:
+            return call(url, payload, **kw)
+        finally:
+            entry = counts.setdefault(kw.get("method", "rpc"), [0, 0.0])
+            entry[0] += 1
+            entry[1] += time.perf_counter() - t0
+
+    wire.rpc_call = counted
+    return counts, lambda: setattr(wire, "rpc_call", call)
+
+
+def planted_fleet_run(params, requests, kws, plant) -> list:
+    """Phase 44's kill through two in-process replica servers on the card
+    (the same router, RPC and engine code): ``plant(router, servers)``
+    breaks one piece first; returns each request's streamed tokens."""
+    from fleetx_tpu_torch.serving import ServingRouter
+    from fleetx_tpu_torch.serving.api.replica_client import ReplicaClient
+    from fleetx_tpu_torch.serving.api.replica_server import ReplicaServer
+
+    servers = [ReplicaServer(build_engine(params=params,
+                                          **FLEET_ENGINE)[0]).start()
+               for _ in range(2)]
+    try:
+        router = ServingRouter([ReplicaClient(s.url, timeout_s=60)
+                                for s in servers], probe_every=1)
+        plant(router, servers)
+        streams = {}
+        rids = [router.submit(r["prompt"], on_token=lambda rid, t, f:
+                              streams.setdefault(rid, []).append(int(t)),
+                              **kw) for r, kw in zip(requests, kws)]
+        while (len(streams.get(rids[0], [])) < FLEET_KILL_AT
+               and router.result(rids[0]) is None):
+            router.step()
+        servers[router._requests[rids[0]].replica].stop()
+        router.drain(max_ticks=2000)
+        return [streams.get(rid, []) for rid in rids]
+    finally:
+        for s in servers:
+            with contextlib.suppress(Exception):
+                s.stop()
+
+
+def history_dropped(router, servers) -> None:
+    """Planted: the router forgets a migrated request's history, so the
+    survivor starts it again (``submit`` without ``history``)."""
+    requeue = router._requeue_head
+
+    def forgetful(reqs):
+        for req in reqs:
+            req.tokens = []
+        requeue(reqs)
+
+    router._requeue_head = forgetful
+
+
+def replay_one_late(router, servers) -> None:
+    """Planted: each replica replays a migrated history one token short,
+    so it emits that history's last token again."""
+    for server in servers:
+        submit = server.engine.submit
+
+        def late(prompt, *, history=None, _submit=submit, **kw):
+            return _submit(prompt, history=(list(history)[:-1]
+                                            if history else history), **kw)
+
+        server.engine.submit = late
+
+
+def phase_fleet(cfg) -> dict:
+    """Phase 44: two replica processes on the card serve GPT-345M through
+    ``tools/serve``'s worker; the front door (a ``ServingRouter`` over two
+    ``ReplicaClient``s and an ``ApiServer`` on port 0) runs here. Phase
+    4's requests (32 new tokens) over HTTP, half SSE, to both routes: the
+    streams equal an in-process engine's of the same bits; again with one
+    replica SIGKILLed mid-stream (no token lost or repeated, a migration
+    and a dead replica recorded); a replacement replica joins, a seeded
+    32-request Poisson trace runs through ``run_trace`` (goodput logged);
+    the SIGTERM drain fan-out ends both surviving processes with exit 0,
+    and each launched B8 once per layer of each decode forward. Planted:
+    a router that migrates without the history and a replica that
+    replays one token late must each break the stream gate."""
+    from fleetx_tpu_torch.obs import get_event_log
+    from fleetx_tpu_torch.serving import (
+        ServingRouter,
+        TenantSpec,
+        WorkloadSpec,
+        generate_trace,
+        run_trace,
+        score_goodput,
+        trace_hash,
+    )
+    from fleetx_tpu_torch.serving.api.replica_client import ReplicaClient
+    from fleetx_tpu_torch.serving.api.server import ApiServer
+    from fleetx_tpu_torch.tools.serve import stop_replicas, wait_for_port
+
+    where = tempfile.mkdtemp(prefix="fleet-")
+    procs = {}
+    t_start = time.perf_counter()
+    for i in range(2):  # both start now, while the reference runs here
+        procs[i] = start_fleet_replica(i, where)
+    requests = serving_requests(cfg.vocab_size)
+    kws = [fleet_http_kw(r)[1] for r in requests]
+    params = fleet_params(cfg)
+    reference, _ = build_engine(params=params, **FLEET_ENGINE)
+    serve(reference, [dict(prompt=np.arange(40), max_length=4)])  # warm-up
+    results, ticks, seconds = serve(reference, [
+        dict(kw, prompt=r["prompt"]) for r, kw in zip(requests, kws)])
+    want = [results[rid].tokens.tolist() for rid in sorted(results)]
+    in_process = [results[rid] for rid in sorted(results)]
+    log("fleet", reference_ttft_ms_p50=quantiles(
+        [r.ttft_s * 1e3 for r in in_process])[0],
+        reference_tpot_ms_p50=quantiles(tpot_ms(results))[0],
+        reference_seconds=seconds, decode_ticks=ticks)
+    del reference
+    deadline = time.monotonic() + 300
+    urls = [wait_for_port(procs[i][0], procs[i][1], i, deadline)
+            for i in range(2)]
+    start_s = time.perf_counter() - t_start
+    clients = [ReplicaClient(u, timeout_s=60, connect_wait_s=30)
+               for u in urls]
+    router = ServingRouter(clients, probe_every=1)
+    api = ApiServer(router, model_id="gpt-345m").start()
+    token_times = {}
+    make_cb = router._make_cb
+
+    def timed_cb(req):
+        cb = make_cb(req)
+
+        def inner(erid, tok, finished):
+            token_times.setdefault(req.rid, []).append(time.perf_counter())
+            cb(erid, tok, finished)
+        return inner
+
+    router._make_cb = timed_cb
+    rpcs, undo_rpcs = count_rpcs()
+    try:
+        fleet_pass(api.url, requests[:2])  # each replica's first requests
+        # pass 1: clean
+        rpcs.clear()
+        ticks0 = router._ticks
+        t0 = time.perf_counter()
+        clean = fleet_pass(api.url, requests)
+        ticks = max(router._ticks - ticks0, 1)
+        pass_s = time.perf_counter() - t0
+        rpc_per_tick = sum(n for n, _ in rpcs.values()) / ticks
+        token_streams_gate("fleet", [r["tokens"] for r in clean], want)
+        finishes = [r["finish"] for r in clean]
+        if set(finishes) - {"length", "stop"}:
+            raise AssertionError(f"fleet: finished {finishes}")
+        latency = http_latency(clean)
+        log("fleet", replicas=2, start_s=start_s, requests=len(clean),
+            router_ticks=ticks, tick_ms=pass_s / ticks * 1e3,
+            rpc_calls_per_tick=rpc_per_tick,
+            rpc_ms_per_tick={m: t / ticks * 1e3 for m, (_, t) in
+                             rpcs.items()},
+            rpc_ms_per_call={m: t / n * 1e3 for m, (n, t) in rpcs.items()},
+            http_ttft_ms_p50=latency["ttft_ms_p50"],
+            http_tpot_ms_p50=latency["tpot_ms_p50"])
+        # pass 2: a replica process SIGKILLed mid-stream
+        get_event_log().clear()
+        token_times.clear()
+        killed = {}
+
+        def kill_at(i, out):
+            # SIGKILL the process decoding request 0 (an SSE chat stream)
+            if i == 0 and len(out["tokens"]) == FLEET_KILL_AT:
+                with api._lock:
+                    index = router._requests[out["rid"]].replica
+                procs[index][0].kill()
+                killed.update(index=index, at=time.perf_counter())
+
+        failover = fleet_pass(api.url, requests, on_chunk=kill_at)
+        if not killed:
+            raise AssertionError("fleet: request 0 finished before the kill")
+        token_streams_gate("fleet after the kill",
+                           [r["tokens"] for r in failover], want)
+        snap = router.metrics.snapshot()
+        migrated = sorted({e.attrs["request"] for e in
+                           get_event_log().find("request_migrated")})
+        after = [t for rid in migrated for t in token_times.get(rid, [])
+                 if t > killed["at"]]
+        if snap["migrated"] < 1 or snap["replica_deaths"] < 1:
+            raise AssertionError(f"fleet: migrated {snap['migrated']}, "
+                                 f"deaths {snap['replica_deaths']}")
+        procs[killed["index"]][0].wait()
+        log("fleet", killed_replica=killed["index"],
+            killed_at_token=FLEET_KILL_AT, migrated=snap["migrated"],
+            replica_deaths=snap["replica_deaths"],
+            migrated_requests=len(migrated),
+            kill_to_first_migrated_token_ms=(min(after) - killed["at"]) * 1e3
+            if after else None, states=router.replica_states,
+            streams_equal=len(failover))
+        # a replacement replica joins, then a seeded Poisson trace
+        t0 = time.perf_counter()
+        procs[2] = start_fleet_replica(2, where)
+        url = wait_for_port(procs[2][0], procs[2][1], 2,
+                            time.monotonic() + 300)
+        with api._lock:
+            router.add_replica(ReplicaClient(url, timeout_s=60,
+                                             connect_wait_s=30))
+        join_s = time.perf_counter() - t0
+        spec = WorkloadSpec(vocab=cfg.vocab_size, tenants=(TenantSpec(
+            "chat", prompt_len=(32, 512), gen_len=(16, FLEET_NEW),
+            ttft_deadline_s=1.0, tpot_deadline_ms=100.0),), **FLEET_TRACE)
+        trace = generate_trace(spec)
+        with api._lock:  # no driver tick interleaves the trace's
+            outcomes = run_trace(router, trace)
+        score = score_goodput(outcomes)
+        log("fleet", trace=trace_hash(trace), join_s=join_s,
+            goodput=score["goodput"], finish_reasons=score["finish_reasons"],
+            ttft_ms_p50=score["ttft_ms_p50"], ttft_ms_p99=score["ttft_ms_p99"],
+            tpot_ms_p50=score["tpot_ms_p50"], tpot_ms_p99=score["tpot_ms_p99"])
+        if score["completed_frac"] != 1.0:
+            raise AssertionError(f"fleet: the trace lost requests: {score}")
+        # the SIGTERM drain fan-out
+        with api._lock:
+            router.shutdown(FLEET_GRACE_S)
+    finally:
+        undo_rpcs()
+        api.stop()
+    survivors = [i for i in procs if i != killed.get("index")]
+    codes = stop_replicas([procs[i][0] for i in survivors], FLEET_GRACE_S)
+    if codes != [0] * len(survivors):
+        raise AssertionError(f"fleet: replicas {survivors} exited {codes}")
+    launches = 0
+    for i in survivors:
+        with open(procs[i][2]) as f:
+            counts = json.load(f)
+        name_counts = dict(counts["launches"])
+        b8 = name_counts.pop("paged_decode")
+        if any(name_counts.values()):
+            raise AssertionError(f"replica {i}: other decode kernels "
+                                 f"launched {name_counts}")
+        launch_gate(f"fleet replica {i}", b8, counts["decode_forwards"],
+                    counts["layers"])
+        if counts["pages_in_use"]:
+            raise AssertionError(f"replica {i}: {counts['pages_in_use']} "
+                                 "pages held after its drain")
+        launches += b8
+        log("fleet", replica=i, exit_code=0, kernel="paged_decode",
+            kernel_launches=b8, decode_forwards=counts["decode_forwards"],
+            prefill_forwards=counts["prefill_forwards"])
+    shutil.rmtree(where, ignore_errors=True)
+    # planted: each must break the stream gate
+    for label, plant in (("a router migrating without the history",
+                          history_dropped),
+                         ("a replica replaying one token late",
+                          replay_one_late)):
+        got = planted_fleet_run(params, requests, kws, plant)
+        must_break(token_streams_gate, f"planted: {label}", got, want,
+                   label=label)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_decode": launches}
+
+
+# ----------------------------------------------------------------- phase 45
+
+SERVE_CLI_ARGV = [sys.executable, "-m", "fleetx_tpu_torch.tools.serve",
+                  "--demo", "--replicas", "2", "--port", "0", "--grace-s",
+                  "10"]
+
+def phase_serve_cli() -> None:
+    """Phase 45: ``python -m fleetx_tpu_torch.tools.serve --demo
+    --replicas 2 --port 0`` on the card: one streamed chat completion
+    equals the demo engine's greedy stream in process, and SIGTERM ends
+    the launcher with exit 0 and no process of it left."""
+    import urllib.request
+
+    from fleetx_tpu_torch.tools.serve import _build_demo_engine
+
+    where = tempfile.mkdtemp(prefix="serve-cli-")
+    port_file = os.path.join(where, "api.port")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(SERVE_CLI_ARGV + ["--api-port-file", port_file],
+                            cwd=ROOT)
+    demo = _build_demo_engine(0)
+    rid = demo.submit([1, 2, 3], max_length=20)
+    want = demo.drain()[rid].tokens.tolist()
+    del demo
+    deadline = time.monotonic() + 300
+    while not os.path.exists(port_file):
+        if proc.poll() is not None:
+            raise AssertionError(f"serve exited {proc.returncode} before "
+                                 "serving")
+        if time.monotonic() > deadline:
+            raise AssertionError("serve never published its API port")
+        time.sleep(0.1)
+    up_s = time.perf_counter() - t0
+    with open(port_file) as f:
+        url = f"http://127.0.0.1:{int(f.read())}"
+    below = {pid: cmd for pid, cmd in descendants().items()
+             if "fleetx_tpu_torch.tools.serve" in cmd}
+    body = {"stream": True, "max_tokens": 20,
+            "messages": [{"role": "user", "content": "1 2 3"}]}
+    req = urllib.request.Request(url + "/v1/chat/completions",
+                                 json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    got = []
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: {"):
+                chunk = json.loads(line[6:])
+                if "token" in chunk:
+                    got.append(chunk["token"])
+    token_streams_gate("serve-cli", [got], [want])
+    proc.send_signal(signal.SIGTERM)
+    code = proc.wait(timeout=120)
+    time.sleep(0.5)
+    reap()
+    left = {pid: cmd for pid, cmd in descendants().items() if pid in below}
+    log("serve-cli", processes=len(below), up_s=up_s, tokens=len(got),
+        exit_code=code, left=left)
+    if code != 0 or left or len(below) != 3:
+        raise AssertionError(f"serve-cli: exit {code}, {len(below)} "
+                             f"processes, left {left}")
+    shutil.rmtree(where, ignore_errors=True)
+
+
 # torch._dynamo, torch.distributed.fsdp and torch.distributed.tensor are
 # imported lazily by a Trainer's set-up: most of a spawned rank's start
 # where the sources compile anew in every process
@@ -7422,6 +7955,10 @@ def run_phases() -> tuple:
     int8_weights = phase_int8_weights(serving_params, cfg)
     phase_obs(serving_params, cfg)
     del serving_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel["launches_fleet"] = phase_fleet(cfg)["paged_decode"]
+    phase_serve_cli()
     kernel.update(meshed["paged_decode"])
     kernel.update(int8_weights["paged_decode"])
     for name in ("decode", "decode_q8", "paged_decode_q8"):

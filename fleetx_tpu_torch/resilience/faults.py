@@ -47,12 +47,27 @@ index and a one-shot selector faults exactly once):
 - ``FLEETX_FAULT_KV_SHIP_CORRUPT``: the matching exports flip one byte of a
   serialized page, which the receiver's crc32 check refuses.
 
+Replica-level injection points (the router calls both hooks):
+
+- ``FLEETX_FAULT_REPLICA_KILL``: ``"replica:tick"`` entries (comma
+  separated): the router's attempt to tick the matching replica at the
+  matching ROUTER tick raises :class:`ReplicaKilled` (each entry fires
+  once); the router marks the replica dead and migrates its requests;
+- ``FLEETX_FAULT_PROBE_FLAP``: ``"replica:times"`` entries: the matching
+  replica's next ``times`` health probes lie (``state: "dead"``) before
+  telling the truth again.
+
+Cross-process RPC injection points (the replica client; indices count
+*attempted* RPC calls process-wide in the calling process):
+
+- ``FLEETX_FAULT_RPC_DROP``: the matching RPC attempts raise
+  :class:`RPCFault` (a ``ConnectionError``) instead of touching the
+  network;
+- ``FLEETX_FAULT_RPC_DELAY`` / ``FLEETX_FAULT_RPC_DELAY_S``: sleep that
+  long before the matching RPC attempts.
+
 Selectors share one grammar: a comma-separated list of entries, each an
 int (``"3"``) or ``"N+"`` for every index >= N (``"0+"`` = always).
-
-The router and RPC injection points (``replica_kill``, ``probe_flap``,
-``rpc_drop``/``rpc_delay``: ``on_router_tick``, ``on_router_probe``,
-``on_rpc``) wait for the fleet layer (ROADMAP Queue A, "Fleet layer").
 Each injection is logged and emitted as a ``fault_injected`` event.
 """
 
@@ -70,7 +85,7 @@ from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["CkptFault", "DataFault", "FaultInjector", "FaultPlan",
            "HostLossFault", "KVShipFault", "PoisonFault", "PrefillFault",
-           "TickFault", "faults"]
+           "RPCFault", "ReplicaKilled", "TickFault", "faults"]
 
 
 class DataFault(RuntimeError):
@@ -105,6 +120,18 @@ class KVShipFault(RuntimeError):
     replaying the request elsewhere."""
 
 
+class ReplicaKilled(RuntimeError):
+    """Injected replica death (FLEETX_FAULT_REPLICA_KILL), and what the
+    replica client raises when a replica process stops answering: the
+    router rotates the replica out and migrates its in-flight requests."""
+
+
+class RPCFault(ConnectionError):
+    """Injected RPC transport failure (FLEETX_FAULT_RPC_DROP): the call
+    never reached the replica process. A ``ConnectionError``, so the
+    replica client maps injected and real drops through one path."""
+
+
 class _Selector:
     """Index selector: ``"3"``, ``"1,4"``, ``"2+"`` (every index >= 2)."""
 
@@ -128,11 +155,32 @@ class _Selector:
         return bool(self.exact) or self.from_ is not None
 
 
+def _parse_pairs(spec: str, what: str):
+    """``"a:b"`` entries (comma separated ``replica:value`` int pairs) as
+    an ordered ``[(a, b), ...]``; a malformed entry raises, naming the
+    variable."""
+    out = []
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            a, b = part.split(":")
+            out.append((int(a), int(b)))
+        except ValueError:
+            raise ValueError(
+                f"{what}={spec!r}: entries must be 'replica:N' int pairs "
+                "like '1:3' or '0:2,1:3'")
+    return out
+
+
 # the plan's selector fields: a plan with none of them set is no plan
 _SELECTORS = ("nan_batch", "data_raise_batch", "data_slow_batch",
               "ckpt_save_step", "host_loss_step", "tick_raise",
               "prefill_raise", "tick_hang", "poison_request", "kv_ship_raise",
-              "kv_ship_corrupt")
+              "kv_ship_corrupt", "rpc_drop", "rpc_delay")
+# the "replica:N" pair fields, which count as set the same way
+_PAIRS = ("replica_kill", "probe_flap")
 
 
 @dataclasses.dataclass
@@ -152,6 +200,11 @@ class FaultPlan:
     poison_request: Optional[str] = None
     kv_ship_raise: Optional[str] = None
     kv_ship_corrupt: Optional[str] = None
+    replica_kill: Optional[str] = None
+    probe_flap: Optional[str] = None
+    rpc_drop: Optional[str] = None
+    rpc_delay: Optional[str] = None
+    rpc_delay_s: float = 0.05
 
     @classmethod
     def from_env(cls, env=os.environ) -> Optional["FaultPlan"]:
@@ -180,8 +233,13 @@ class FaultPlan:
             poison_request=env.get("FLEETX_FAULT_POISON_REQUEST") or None,
             kv_ship_raise=env.get("FLEETX_FAULT_KV_SHIP_RAISE") or None,
             kv_ship_corrupt=env.get("FLEETX_FAULT_KV_SHIP_CORRUPT") or None,
+            replica_kill=env.get("FLEETX_FAULT_REPLICA_KILL") or None,
+            probe_flap=env.get("FLEETX_FAULT_PROBE_FLAP") or None,
+            rpc_drop=env.get("FLEETX_FAULT_RPC_DROP") or None,
+            rpc_delay=env.get("FLEETX_FAULT_RPC_DELAY") or None,
+            rpc_delay_s=_float("FLEETX_FAULT_RPC_DELAY_S", 0.05),
         )
-        if not any(getattr(plan, f) for f in _SELECTORS):
+        if not any(getattr(plan, f) for f in _SELECTORS + _PAIRS):
             return None
         return plan
 
@@ -192,7 +250,8 @@ class FaultInjector:
     _ZERO = {"nan": 0, "data_raise": 0, "data_slow": 0, "ckpt": 0,
              "host_loss": 0, "tick_raise": 0, "prefill_raise": 0,
              "tick_hang": 0, "poison": 0, "kv_ship_raise": 0,
-             "kv_ship_corrupt": 0}
+             "kv_ship_corrupt": 0, "replica_kill": 0, "probe_flap": 0,
+             "rpc_drop": 0, "rpc_delay": 0}
 
     def __init__(self):
         self._plan: Optional[FaultPlan] = None
@@ -200,8 +259,12 @@ class FaultInjector:
         self._ckpt_sel = self._host_loss_sel = None
         self._tick_sel = self._prefill_sel = self._hang_sel = None
         self._poison_sel = self._ship_raise_sel = self._ship_corrupt_sel = None
+        self._rpc_drop_sel = self._rpc_delay_sel = None
+        self._kill_pending = set()   # {(replica, router tick)} unfired
+        self._flap_remaining = {}    # replica -> lying probes left
         self._host_loss_fired = set()  # step indices already killed once
         self._batch_counter = 0
+        self._rpc_counter = 0
         self.injected = dict(self._ZERO)
 
     def configure(self, plan: Optional[FaultPlan] = None, **kw) -> None:
@@ -209,7 +272,7 @@ class FaultInjector:
         counters."""
         if plan is None and kw:
             plan = FaultPlan(**{k: str(v) if v is not None
-                                and k in _SELECTORS else v
+                                and k in _SELECTORS + _PAIRS else v
                                 for k, v in kw.items()})
 
         def sel(field):
@@ -235,8 +298,17 @@ class FaultInjector:
         self._poison_sel = sel("poison_request")
         self._ship_raise_sel = sel("kv_ship_raise")
         self._ship_corrupt_sel = sel("kv_ship_corrupt")
+        self._rpc_drop_sel = sel("rpc_drop")
+        self._rpc_delay_sel = sel("rpc_delay")
+        kill = plan.replica_kill if plan else None
+        flap = plan.probe_flap if plan else None
+        self._kill_pending = set(
+            _parse_pairs(kill, "FLEETX_FAULT_REPLICA_KILL") if kill else ())
+        self._flap_remaining = dict(
+            _parse_pairs(flap, "FLEETX_FAULT_PROBE_FLAP") if flap else ())
         self._host_loss_fired = set()
         self._batch_counter = 0
+        self._rpc_counter = 0
         self.injected = dict(self._ZERO)
 
     def configure_from_env(self, env=os.environ) -> None:
@@ -376,6 +448,51 @@ class FaultInjector:
             self._injected("kv_ship_corrupt", attempt=attempt)
             return True
         return False
+
+
+    def on_rpc(self, method: str) -> None:
+        """The replica client's seam, before every HTTP call it makes:
+        sleep ``rpc_delay_s`` when the delay selector matches, then raise
+        :class:`RPCFault` when the drop selector matches (a connection
+        that stalls before dying). ``method`` only labels the event."""
+        if self._rpc_drop_sel is None and self._rpc_delay_sel is None:
+            return
+        i = self._rpc_counter
+        self._rpc_counter += 1
+        if self._rpc_delay_sel and i in self._rpc_delay_sel:
+            self._injected("rpc_delay", attempt=i, method=method)
+            time.sleep(self._plan.rpc_delay_s)
+        if self._rpc_drop_sel and i in self._rpc_drop_sel:
+            self._injected("rpc_drop", attempt=i, method=method)
+            raise RPCFault(f"injected RPC drop at attempt {i} (method "
+                           f"{method!r}, FLEETX_FAULT_RPC_DROP)")
+
+    def on_router_tick(self, replica: int, tick: int) -> None:
+        """Raise :class:`ReplicaKilled` when the router is about to tick
+        ``replica`` at router tick ``tick`` and an unfired
+        ``FLEETX_FAULT_REPLICA_KILL`` entry matches (each fires once)."""
+        if not self._kill_pending:
+            return
+        key = (int(replica), int(tick))
+        if key in self._kill_pending:
+            self._kill_pending.discard(key)
+            self._injected("replica_kill", replica=key[0], tick=key[1])
+            raise ReplicaKilled(
+                f"injected replica death: replica {key[0]} at router tick "
+                f"{key[1]} (FLEETX_FAULT_REPLICA_KILL)")
+
+    def on_router_probe(self, replica: int) -> Optional[dict]:
+        """A lying ``state: "dead"`` health report for ``replica`` while
+        its ``FLEETX_FAULT_PROBE_FLAP`` budget lasts (None: probe
+        honestly)."""
+        remaining = self._flap_remaining.get(int(replica), 0)
+        if remaining <= 0:
+            return None
+        self._flap_remaining[int(replica)] = remaining - 1
+        self._injected("probe_flap", replica=int(replica),
+                       remaining=remaining - 1)
+        return {"state": "dead", "queue_depth": 0, "active": 0,
+                "injected": True}
 
 
 faults = FaultInjector()

@@ -1,7 +1,13 @@
 """Continuous-batching serving for GPT (the port's serving path): the paged
 and slot caches with the host and disk page tiers, chunked prefill,
 speculative decoding, prefill/decode roles with KV shipping, crash
-recovery and admission limits."""
+recovery and admission limits; and the fleet layer over it: the
+multi-replica ``router`` (per-tenant QoS lanes, health-based failover,
+zero-token-loss migration), the ``autoscaler``, the seeded ``workload``
+traces with the SLO goodput scorer, and ``api`` (the replica RPC and the
+OpenAI-compatible front door)."""
+
+from fleetx_tpu_torch.serving.autoscaler import FleetAutoscaler
 
 from fleetx_tpu_torch.serving.cache_manager import (
     DiskPageStore,
@@ -28,11 +34,29 @@ from fleetx_tpu_torch.serving.model_protocol import (
     ModelCapabilities,
     engine_conforms,
 )
+from fleetx_tpu_torch.serving.router import (
+    ReplicaState,
+    RouterMetrics,
+    ServingRouter,
+    TenantPolicy,
+)
 from fleetx_tpu_torch.serving.scheduler import FIFOScheduler, Request
 from fleetx_tpu_torch.serving.spec import (
     DraftModelProposer,
     NgramProposer,
     Proposer,
+)
+from fleetx_tpu_torch.serving.workload import (
+    DISTRIBUTIONS,
+    RequestOutcome,
+    TenantSpec,
+    TraceDistribution,
+    TraceRequest,
+    WorkloadSpec,
+    generate_trace,
+    run_trace,
+    score_goodput,
+    trace_hash,
 )
 
 __all__ = ["QueueFull", "RecoveryExhausted", "ServingEngine",
@@ -41,4 +65,9 @@ __all__ = ["QueueFull", "RecoveryExhausted", "ServingEngine",
            "PagePool", "PagedKVCacheManager", "SlotKVCacheManager",
            "HostPageStore", "DiskPageStore", "TieredPageStore",
            "FIFOScheduler", "Request", "DraftModelProposer", "NgramProposer",
-           "Proposer", "ServingMetrics", "filter_logits", "sample_tokens"]
+           "Proposer", "ServingMetrics", "filter_logits", "sample_tokens",
+           "FleetAutoscaler", "ReplicaState", "RouterMetrics",
+           "ServingRouter", "TenantPolicy", "DISTRIBUTIONS",
+           "RequestOutcome", "TenantSpec", "TraceDistribution",
+           "TraceRequest", "WorkloadSpec", "generate_trace", "run_trace",
+           "score_goodput", "trace_hash"]

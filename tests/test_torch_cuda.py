@@ -1900,3 +1900,52 @@ def test_cuda_int8_dense_matches_its_plain_dequant():
     host = x.cpu().bfloat16().float() @ plain.bfloat16().float().t()
     np.testing.assert_allclose(got.float().cpu().numpy(), host.numpy(),
                                rtol=8e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_router_failover_gives_the_single_engine_streams():
+    """A ``ServingRouter`` over two tiny paged engines on the card, with
+    one replica declared dead at router tick 3 (mid-stream): every
+    request finishes once, each stream (greedy and seeded sampling, the
+    callback transcript too) equals one engine's of the same lanes, and
+    each decode forward launched B8 once per layer."""
+    from fleetx_tpu_torch.resilience.faults import faults
+    from fleetx_tpu_torch.serving import ServingRouter
+
+    _need_card()
+    cfg = _tiny_cuda_cfg()
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 61, n).tolist() for n in (5, 17, 30, 9)]
+    kws = [{}, dict(decode_strategy="sampling", top_k=8, seed=3), {},
+           dict(decode_strategy="sampling", top_p=0.9, seed=4)]
+    one = _tiny_engine(cfg)
+    rids = [one.submit(p, max_length=12, **kw) for p, kw in zip(prompts, kws)]
+    ref = one.drain()
+    want = [ref[r].tokens.tolist() for r in rids]
+    engines = [_tiny_engine(cfg) for _ in range(2)]
+    forwards = [0]
+    for engine in engines:
+        forward = engine.executor.forward
+
+        def counted(cache, ids, *args, _forward=forward, **kw):
+            forwards[0] += ids.shape[1] == 1
+            return _forward(cache, ids, *args, **kw)
+
+        engine.executor.forward = counted
+    streams = {}
+    before = dict(da.launches)
+    faults.configure(replica_kill="1:3")
+    try:
+        router = ServingRouter(engines, probe_every=1)
+        rids = [router.submit(p, max_length=12, on_token=lambda r, t, f:
+                              streams.setdefault(r, []).append(t), **kw)
+                for p, kw in zip(prompts, kws)]
+        res = router.drain(max_ticks=400)
+    finally:
+        faults.reset()
+    torch.cuda.synchronize()
+    assert router.replica_states[1] == "dead"
+    assert router.metrics.snapshot()["migrated"] >= 1
+    assert [res[r].tokens.tolist() for r in rids] == want
+    assert [streams[r] for r in rids] == want
+    assert _launched(before) == {"paged_decode": forwards[0] * cfg.num_layers}

@@ -168,3 +168,36 @@ def test_gate_covers_the_serving_recovery_slice():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_gate_covers_the_fleet_slice():
+    """Likewise for the fleet layer: the router, the autoscaler, the
+    workload traces, the replica RPC and the front door, the launcher and
+    the chaos scenarios; they import with JAX blocked and export the
+    names the JAX package's ``serving`` exports for them."""
+    mods = set(_modules())
+    names = ("serving.router", "serving.workload", "serving.autoscaler",
+             "serving.api", "serving.api.wire", "serving.api.server",
+             "serving.api.replica_server", "serving.api.replica_client",
+             "tools.serve", "tools.chaos_check", "resilience.faults")
+    for name in names:
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('jax', 'jaxlib', 'flax', 'fleetx_tpu'):",
+        "    sys.modules[name] = None",
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        f"for mod in {['fleetx_tpu_torch.' + n for n in names]!r}:",
+        "    importlib.import_module(mod)",
+        "from fleetx_tpu_torch.serving import (FleetAutoscaler, ReplicaState,",
+        "    RouterMetrics, ServingRouter, TenantPolicy, DISTRIBUTIONS,",
+        "    RequestOutcome, TenantSpec, TraceDistribution, TraceRequest,",
+        "    WorkloadSpec, generate_trace, run_trace, score_goodput,",
+        "    trace_hash)",
+        "from fleetx_tpu_torch.serving.api import (ApiServer, ReplicaClient,",
+        "    ReplicaServer)",
+        "from fleetx_tpu_torch.resilience.faults import ReplicaKilled, RPCFault",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
