@@ -373,7 +373,43 @@ decode steps after phase 10):
 45. serve-cli — ``python -m fleetx_tpu_torch.tools.serve --demo
                --replicas 2 --port 0`` on the card: one streamed chat
                completion equals the demo engine's greedy stream in
-               process; SIGTERM ends it with exit 0 and no process left.
+               process; SIGTERM ends it with exit 0 and no process left;
+46. ernie    — B1 in the encoders' mode (non-causal, per-row ``kv_lens``,
+               bf16, 12 heads of 64) against its plain version at
+               ERNIE-base's shapes (b 8, s 512, key lengths 512, 300, 129,
+               65, 64, 17, 1 and 0: the filler row comes out as zeros) and
+               ViT-B/16's (s 256, key lengths 197), with kernel, plain,
+               SDPA (the same masked function) and bound times; the kernel
+               given one key fewer a row, or ``causal`` flipped, must break
+               the limit; then an ``ErnieScoringEngine`` over ERNIE-base
+               (12 layers, hidden 768, vocab 40000, weights from
+               ``init_params``) serves 21 seeded fill-in-blank and scoring
+               requests of 16-512 tokens (length buckets 64, 256 and 512,
+               filler rows) through B1 and through its plain version:
+               MLM and SOP logits within LOGIT_TOL, ids equal wherever the
+               plain top-2 gap exceeds it (the equal fraction logged), B1
+               once per layer of each batched forward; TTFT p50 and
+               requests/s logged;
+47. vit      — ``EmbeddingEngine``s over ViT-B/16 at 224 (1000 classes, and
+               its embedding mode) serve 12 seeded images through B1 and
+               its plain version: embeddings within VIT_EMB_TOL (relative
+               L2), class logits within LOGIT_TOL and ids under the top-2
+               rule, B1 once per layer of each forward; one image's
+               embedding at buckets 1, 2, 4 and 8 (largest difference and
+               bit-equality logged); TTFT p50 and vectors/s logged;
+48. hetero   — two GPT-345M ``ServingEngine``s (B8), two ViT-B/16
+               embedding engines and an ERNIE-base engine (B1) behind one
+               ``ServingRouter`` and an ``ApiServer`` in this process:
+               ``/v1/models`` lists the three families, ``/v1/completions``
+               reaches ``gpt`` and ``ernie``, ``/v1/embeddings`` on two
+               images returns the engines' wire vectors exactly; a mixed
+               pass gives the lone replicas' GPT streams byte for byte and
+               embeddings within VIT_EMB_TOL (TTFT p50 by family logged);
+               ``serving_hetero``'s fault plan (a ViT replica killed with
+               its batch dispatched, a GPT replica killed mid-stream): one
+               terminal result each, the same gates, no dispatch across
+               families; B8 once per layer of each decode forward and B1
+               once per layer of each encoder forward.
 
 Every drive writes into an output directory of its own, deleted with its
 phase. The script is the reaper of every process it starts, also of those
@@ -621,11 +657,15 @@ def stop_descendants(grace: float = 10.0) -> dict:
 
 # ----------------------------------------------------------------- phase 1-2
 
+CARD = {}  # the card's nvidia-smi name and power limit (phase 1)
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    CARD["line"] = card
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     log("device", torch_name=repr(name), count=torch.cuda.device_count(),
@@ -7855,6 +7895,640 @@ def phase_serve_cli() -> None:
     shutil.rmtree(where, ignore_errors=True)
 
 
+# --------------------------------------------------------------- phase 46-48
+
+ERNIE_CONFIG = os.path.join(ROOT, "configs/nlp/ernie/pretrain_ernie_base.yaml")
+VIT_CONFIG = os.path.join(ROOT, "configs/vis/vit/vit_base_patch16_224.yaml")
+# B1's encoder mode, non-causal with per-row key lengths: (batch, sequence,
+# kv_lens) at ERNIE-base's 512-position bucket (rows past, on and below a
+# 64-key tile border, one key, a filler row) and at ViT-B/16's 197 tokens
+# padded to the tile; 12 heads of 64, bf16
+ENCODER_FLASH = {"ernie": (8, 512, [512, 300, 129, 65, 64, 17, 1, 0]),
+                 "vit": (8, 256, [197] * 8)}
+ENCODER_HEADS = 12
+# phase 47: ViT embeddings, kernel path against the plain path and across
+# batch makeup: |a - b|_2 / |b|_2 per vector (bf16 features after 12
+# layers, where a one-ulp change of an attention output carries on)
+VIT_EMB_TOL = 2e-2
+VIT_IMAGES = 12      # phase 47's images (ticks of 8 and 4 at 8 slots)
+# the timed windows of phases 46 and 47: enough requests for seconds of
+# host clock at the cells' own traffic (ERNIE: ernie_requests' length mix
+# drawn again; ViT: VIT_POOL seeded images in turn), all submitted at once
+ERNIE_WINDOW = 2048
+VIT_WINDOW = 1024
+VIT_POOL = 64
+HETERO_NEW = 16      # phase 48's new GPT tokens a request (phase 4's 64)
+# phase 48's router quantum: DRR prices a request by its prompt length, and
+# an image's wire prompt is H·W·C = 150528 ints; at the default 256 a lane
+# earns one quantum a tick and an image would wait ~588 ticks to dispatch
+# (ROADMAP Queue C, "DRR prices an image by its wire length")
+HETERO_DRR_QUANTUM = 224 * 224 * 3
+
+
+def encoder_model(path: str) -> dict:
+    """The ``Model`` section of a config file through the port's
+    ``get_config``, with the compute dtype its ``Engine`` section gives."""
+    from fleetx_tpu_torch.models.language_module import resolve_compute_dtype
+
+    conf = get_config(path, nranks=1)
+    return dict(conf.Model, dtype=resolve_compute_dtype(conf.Engine))
+
+
+def ernie_config():
+    """ERNIE-base (hidden 768, 12 layers, 12 heads of 64, vocab 40000, 512
+    positions, bf16) from its config file."""
+    from fleetx_tpu_torch.models.ernie.model import ErnieConfig
+
+    return ErnieConfig.from_model_config(encoder_model(ERNIE_CONFIG))
+
+
+def vit_config(num_classes=None):
+    """ViT-B/16 at 224 (the config file's ``ViT_base_patch16_224``, 1000
+    classes, bf16); ``num_classes`` 0 is its embedding mode."""
+    from fleetx_tpu_torch.models.vision.vit import ViTConfig
+
+    model = encoder_model(VIT_CONFIG)
+    if num_classes is not None:
+        model["num_classes"] = num_classes
+    return ViTConfig.from_model_config(model)
+
+
+def encoder_bound(b: int, s: int, h: int, d: int, lens, nbytes_el: int):
+    """(bytes, flops) of one B1 call in the encoders' mode: q read once and
+    out and the fp32 lse written once, all s rows; k and v read once over
+    each row's kv_lens[b] live keys only; two products (q·kᵀ and p·v) of
+    2·d flops over the s × kv_lens[b] live (query, key) pairs of each row,
+    the pairs this run's key lengths leave."""
+    live = sum(int(n) for n in lens)
+    rows = b * s * h * d * nbytes_el
+    return (2 * rows + 2 * live * h * d * nbytes_el + b * h * s * 4,
+            2 * 2 * h * d * s * live)
+
+
+def library_masked_ms(sets, kv) -> float:
+    """SDPA on the same masked function as a yardstick (never used by the
+    port): each set's q, k, v pre-transposed to [b, h, s, d], the key
+    lengths as a boolean key mask, dropout 0, non-causal."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s = sets[0][0].shape[1]
+    mask = (torch.arange(s, device=kv.device)[None] < kv[:, None].long())[
+        :, None, None, :]
+    args = [tuple(x.transpose(1, 2).contiguous() for x in st[:3])
+            for st in sets]
+    it = iter(range(1 << 30))
+
+    def call():
+        sdpa(*args[next(it) % len(args)], attn_mask=mask)
+
+    return cuda_ms(call, iters=30, warmup=3)
+
+
+def encoder_flash_cases() -> dict:
+    """Phase 46's kernel gate: B1 non-causal with ragged ``kv_lens`` at the
+    ERNIE and ViT shapes of ENCODER_FLASH (q, k, v strided views of one
+    fused buffer, as the qkv projection hands them over) against its plain
+    version within FLASH_TOL; a row of length 0 comes out as zeros with
+    lse -1e30; the kernel given one key fewer a row, or ``causal``
+    flipped, must break the limit. Kernel, plain, SDPA and bound times;
+    returns the records by case."""
+    records = {}
+    bf16 = torch.bfloat16
+    d = 64
+    atol, rtol = fa.FLASH_TOL[bf16]
+    for label, (b, s, lens) in ENCODER_FLASH.items():
+        sets = flash_inputs(bf16, b=b, s=s, h=ENCODER_HEADS, d=d)
+        kv = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        kw = dict(causal=False, kv_lens=kv)
+        before = dict(fa.launches)
+        q, k, v, _ = sets[0]
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+        err, ratio = _max_err(out, want), _tol_ratio(out, want, atol, rtol)
+        lse_err = (lse - want_lse).abs().max().item()
+        empty = [i for i, n in enumerate(lens) if n == 0]
+        empty_ok = all(not out[i].any() and bool(
+            (lse.view(b, ENCODER_HEADS, s)[i] <= -1e29).all())
+            for i in empty)
+        planted = {
+            "kv_lens - 1": _tol_ratio(fa.flash_fwd(
+                q, k, v, causal=False, kv_lens=(kv - 1).clamp_min(0))[0],
+                want, atol, rtol),
+            "causal flipped": _tol_ratio(fa.flash_fwd(
+                q, k, v, causal=True, kv_lens=kv)[0], want, atol, rtol)}
+        it = iter(range(1 << 30))
+
+        def pick():
+            return sets[next(it) % len(sets)][:3]
+
+        kernel_ms = cuda_ms(lambda: fa.flash_fwd(*pick(), **kw), iters=30,
+                            warmup=3)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_ref(*pick(), **kw),
+                           iters=3, warmup=1)
+        library_ms = library_masked_ms(sets, kv)
+        nbytes, flops = encoder_bound(b, s, ENCODER_HEADS, d, lens, 2)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[bf16] * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log("encoder-flash", case=label, batch=b, seq=s, heads=ENCODER_HEADS,
+            head_dim=d, kv_lens=lens, max_abs_err=err, tol_ratio=ratio,
+            lse_max_abs_err=lse_err, empty_rows_zero=empty_ok,
+            planted_tol_ratio=planted, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by,
+            tflops=flops / kernel_ms * 1e-9)
+        if not (ratio <= 1.0 and lse_err <= 1e-3 and empty_ok
+                and torch.isfinite(out.float()).all()):
+            raise AssertionError(
+                f"B1 {label}: max abs err {err}, {ratio} x the limit, lse "
+                f"err {lse_err}, empty rows zero {empty_ok}")
+        for fault, wrong in planted.items():
+            if not wrong > 1.0:
+                raise AssertionError(f"B1 {label}: the planted fault "
+                                     f"{fault!r} is held within the limit "
+                                     f"({wrong})")
+        records[label] = {
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+            "library_ms": library_ms}
+        fa.launches.update(before)  # checks and timing are not the path
+        del sets, out, want
+    torch.cuda.empty_cache()
+    return records
+
+
+@contextlib.contextmanager
+def plain_b1():
+    """B1's plain version in place of the kernel wrapper (the encoder
+    engines' plain path on the card)."""
+    saved = fa.flash_fwd
+    fa.flash_fwd = fa.flash_attention_fwd_ref
+    try:
+        yield
+    finally:
+        fa.flash_fwd = saved
+
+
+def watch_encoder(engine) -> dict:
+    """Wrap an encoder engine's batched forward: keep each forward's
+    request count, input shape and outputs (fp32 copies)."""
+    seen = {"batches": [], "shapes": []}
+    run, forward = engine._run_batch, engine.model.forward
+
+    def kept_forward(*args, **kw):
+        out = forward(*args, **kw)
+        seen["shapes"].append(tuple(args[0].shape))
+        outs = out if isinstance(out, tuple) else (out,)
+        seen["outputs"] = tuple(o.float().clone() for o in outs)
+        return out
+
+    def kept_run(requests):
+        got = run(requests)
+        seen["batches"].append((len(requests), seen.pop("outputs")))
+        return got
+
+    engine.model.forward = kept_forward
+    engine._run_batch = kept_run
+    return seen
+
+
+def unwatch_encoder(engine) -> None:
+    """Undo watch_encoder."""
+    del engine.model.forward, engine._run_batch
+
+
+def encoder_drive(engine, prompts) -> tuple:
+    """Submit ``prompts``, tick to the end: (results in order, forwards,
+    seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [engine.submit(p) for p in prompts]
+    forwards = 0
+    while len(engine.scheduler):
+        forwards += engine.step()["forwards"]
+    res = engine.drain()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if any(res[r].finish_reason != "complete" for r in rids):
+        raise AssertionError(f"{type(engine).__name__}: finished "
+                             f"{[res[r].finish_reason for r in rids]}")
+    return [res[r] for r in rids], forwards, seconds
+
+
+def ernie_requests(vocab: int, seed: int = 46) -> list:
+    """21 prompts of 16..512 tokens, by submission order 8 short (16-64),
+    8 middling (65-256) and 5 long (257-512): three ticks of 8 slots in
+    length buckets 64, 256 and 512, the last with three filler rows. Half
+    fill-in-blank (1-8 mask tokens, id 3), half scoring (no mask). Seeds
+    past ``seed`` draw the same mix again (ernie_window)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, (lo, hi) in enumerate([(16, 64)] * 8 + [(65, 256)] * 8
+                                 + [(257, 512)] * 5):
+        p = rng.randint(4, vocab, rng.randint(lo, hi + 1)).astype(np.int32)
+        if i % 2 == 0:
+            p[rng.choice(p.size, rng.randint(1, 9), replace=False)] = 3
+        out.append(p)
+    return out
+
+
+def ernie_window(vocab: int) -> list:
+    """ERNIE_WINDOW prompts: ernie_requests drawn again at seeds 1000..."""
+    out = []
+    for k in range(-(-ERNIE_WINDOW // 21)):
+        out += ernie_requests(vocab, seed=1000 + k)
+    return out[:ERNIE_WINDOW]
+
+
+def timed_window(engine, prompts, what: str) -> dict:
+    """The rate of ``engine`` over ``prompts`` submitted at once, timed on
+    the host clock from the first submit to the last result (the engine
+    warmed up before): requests, forwards, seconds, requests/s."""
+    results, forwards, seconds = encoder_drive(engine, prompts)
+    return {f"{what}_window": len(results), f"{what}_window_forwards":
+            forwards, f"{what}_window_s": seconds,
+            f"{what}_per_s": len(results) / seconds}
+
+
+def per_request_rows(seen, prompts, mask_id=None) -> list:
+    """Each request's output rows from the watched forwards, in order (the
+    real rows of each batch; filler rows dropped): ERNIE (``mask_id``):
+    the MLM rows of its masks, or its SOP row; ViT: its output row."""
+    rows = []
+    for n, outs in seen["batches"]:
+        for i in range(n):
+            if mask_id is None:
+                rows.append(outs[0][i])
+                continue
+            masks = int((prompts[len(rows)] == mask_id).sum())
+            rows.append(outs[0][i, :masks] if masks else outs[1][i])
+    if len(rows) != len(prompts):
+        raise AssertionError(f"{len(rows)} output rows for {len(prompts)} "
+                             "requests")
+    return rows
+
+
+def near_tie_gate(what: str, got_ids, want_ids, want_rows) -> float:
+    """Ids equal to the plain path's wherever the plain top-2 logit gap
+    exceeds LOGIT_TOL; returns the fraction of equal ids."""
+    equal = total = 0
+    for r, (a, b, row) in enumerate(zip(got_ids, want_ids, want_rows)):
+        row = row.reshape(len(b), -1)
+        top = torch.topk(row, 2, dim=-1).values
+        for t, (x, y) in enumerate(zip(a, b)):
+            total += 1
+            equal += x == y
+            gap = float(top[t, 0] - top[t, 1])
+            if x != y and gap > LOGIT_TOL:
+                raise AssertionError(f"{what}: request {r} id {t} is {x}, "
+                                     f"plain {y}, top-2 gap {gap}")
+    return equal / max(total, 1)
+
+
+def rows_gap(got, want) -> float:
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def phase_ernie(kernel_records: dict) -> dict:
+    """Phase 46: B1's gate at the encoder shapes (encoder_flash_cases),
+    then an ``ErnieScoringEngine`` on ERNIE-base weights from
+    ``init_params`` (seed 0) serves ernie_requests through the kernel and,
+    on the same card, through B1's plain version: MLM and SOP logits of
+    every real row within LOGIT_TOL, ids equal wherever the plain top-2
+    gap exceeds it; B1 launched once per layer of each batched forward.
+    Returns B1's launches and the drive's numbers."""
+    from fleetx_tpu_torch.models.ernie.convert import init_params as ernie_init
+    from fleetx_tpu_torch.models.ernie.model import ErnieForPretraining
+    from fleetx_tpu_torch.serving import ErnieScoringEngine
+
+    kernel_records.update(encoder_flash_cases())
+    cfg = ernie_config()
+    engine = ErnieScoringEngine(ErnieForPretraining(cfg, device="meta"),
+                                ernie_init(cfg, seed=0), slots=8)
+    prompts = ernie_requests(cfg.vocab_size)
+    encoder_drive(engine, prompts)  # warm-up: every bucket's first call
+    seen = watch_encoder(engine)
+    fa.launches["flash_fwd"] = 0  # the path starts here
+    results, forwards, seconds = encoder_drive(engine, prompts)
+    launches = fa.launches["flash_fwd"]
+    launch_gate("ernie B1", launches, forwards, cfg.num_layers)
+    got_rows = per_request_rows(seen, prompts, engine.mask_token_id)
+    shapes = list(seen["shapes"])
+    seen["batches"].clear()
+    with plain_b1():
+        plain, _, _ = encoder_drive(engine, prompts)
+    want_rows = per_request_rows(seen, prompts, engine.mask_token_id)
+    err = rows_gap(got_rows, want_rows)
+    frac = near_tie_gate("ernie", [r.tokens.tolist() for r in results],
+                         [r.tokens.tolist() for r in plain], want_rows)
+    ttft = quantiles([r.ttft_s * 1e3 for r in results])[0]
+    if not (math.isfinite(err) and err <= LOGIT_TOL):
+        raise AssertionError(f"ernie: logits differ by {err}")
+    unwatch_encoder(engine)  # the window times the engine alone
+    rate = timed_window(engine, ernie_window(cfg.vocab_size), "requests")
+    log("ernie", layers=cfg.num_layers, hidden=cfg.hidden_size,
+        heads=cfg.num_attention_heads, vocab=cfg.vocab_size,
+        requests=len(prompts), batch_shapes=shapes, forwards=forwards,
+        kernel="flash_fwd", kernel_launches=launches,
+        logits_max_abs_err=err, tol=LOGIT_TOL, ids_equal_frac=frac,
+        burst_ttft_ms_p50=ttft, burst_s=seconds, **rate,
+        card=repr(CARD.get("line")))
+    del engine, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def vit_images(n: int, seed: int = 47) -> list:
+    rng = np.random.RandomState(seed)
+    return [rng.rand(224, 224, 3).astype(np.float32) for _ in range(n)]
+
+
+def vector_gaps(got, want) -> list:
+    """|a - b|_2 / |b|_2 of each pair of vectors."""
+    return [(torch.linalg.vector_norm(a - b)
+             / torch.linalg.vector_norm(b)).item() for a, b in zip(got, want)]
+
+
+def vit_params(seed: int = 0) -> dict:
+    """ViT-B/16 classification weights drawn on the card (seed 0)."""
+    from fleetx_tpu_torch.models.vision.convert import init_params as vit_init
+
+    return vit_init(vit_config(), seed=seed)
+
+
+def vit_engine(params: dict, classify: bool, **kw):
+    """An ``EmbeddingEngine`` over ViT-B/16 (``params`` without the head in
+    embedding mode), 8 slots."""
+    from fleetx_tpu_torch.models.vision.vit import ViT
+    from fleetx_tpu_torch.serving import EmbeddingEngine
+
+    cfg = vit_config(None if classify else 0)
+    if not classify:
+        params = {k: v for k, v in params.items() if not k.startswith("head.")}
+    return EmbeddingEngine(ViT(cfg, device="meta"), params,
+                           **dict(dict(slots=8), **kw))
+
+
+def phase_vit() -> dict:
+    """Phase 47: ``EmbeddingEngine``s over ViT-B/16 (weights from
+    ``init_params``, seed 0) in embedding mode and in classification mode
+    (1000 classes) serve VIT_IMAGES seeded 224×224×3 images through B1
+    and through its plain version: each embedding within VIT_EMB_TOL, the
+    class logits within LOGIT_TOL and the class ids equal wherever the
+    plain top-2 gap exceeds it; B1 once per layer of each forward. Then
+    one image's embedding at buckets 1, 2, 4 and 8 (the largest gap to
+    bucket 1, and whether it is bit-equal, logged). Returns B1's launches
+    and the drive's numbers."""
+    from fleetx_tpu_torch.serving import encode_floats
+
+    params = vit_params()
+    images = vit_images(VIT_IMAGES)
+    prompts = [encode_floats(x) for x in images]
+    pool = [encode_floats(x) for x in vit_images(VIT_POOL, seed=470)]
+    window = [pool[i % VIT_POOL] for i in range(VIT_WINDOW)]
+    out = {"launches": 0}
+    for classify in (False, True):
+        engine = vit_engine(params, classify)
+        cfg = engine.model.cfg
+        encoder_drive(engine, prompts)  # warm-up: every bucket's first call
+        seen = watch_encoder(engine)
+        fa.launches["flash_fwd"] = 0  # the path starts here
+        results, forwards, seconds = encoder_drive(engine, prompts)
+        launches = fa.launches["flash_fwd"]
+        launch_gate("vit B1", launches, forwards, cfg.num_layers)
+        out["launches"] += launches
+        got = per_request_rows(seen, prompts)
+        seen["batches"].clear()
+        with plain_b1():
+            plain, _, _ = encoder_drive(engine, prompts)
+        want = per_request_rows(seen, prompts)
+        mode = "classify" if classify else "embed"
+        unwatch_encoder(engine)  # the window times the engine alone
+        fields = dict(mode=mode, images=len(prompts), forwards=forwards,
+                      kernel="flash_fwd", kernel_launches=launches,
+                      burst_ttft_ms_p50=quantiles(
+                          [r.ttft_s * 1e3 for r in results])[0],
+                      burst_s=seconds,
+                      **timed_window(engine, window, "vectors"),
+                      card=repr(CARD.get("line")))
+        if classify:
+            err = rows_gap(got, want)
+            frac = near_tie_gate("vit classes",
+                                 [r.tokens.tolist() for r in results],
+                                 [r.tokens.tolist() for r in plain], want)
+            log("vit", **fields, logits_max_abs_err=err, tol=LOGIT_TOL,
+                ids_equal_frac=frac)
+            if not (math.isfinite(err) and err <= LOGIT_TOL):
+                raise AssertionError(f"vit classes: logits differ by {err}")
+        else:
+            gaps = vector_gaps(got, want)
+            log("vit", **fields, width=len(results[0].tokens),
+                embedding_rel_gap_max=max(gaps), tol=VIT_EMB_TOL)
+            if not max(gaps) <= VIT_EMB_TOL:
+                raise AssertionError(f"vit embeddings: relative gap "
+                                     f"{max(gaps)} > {VIT_EMB_TOL}")
+            # batch makeup: image 0 in row 0 of buckets 1, 2, 4, 8
+            x = torch.from_numpy(np.stack(images[:8])).to(DEVICE)
+            with torch.no_grad():
+                rows = {n: engine.model(x[:n])[0].float() for n in (1, 2, 4,
+                                                                     8)}
+            log("vit", batch_makeup_max_abs_diff={
+                n: (r - rows[1]).abs().max().item() for n, r in rows.items()},
+                bit_equal={n: bool(torch.equal(r, rows[1]))
+                           for n, r in rows.items()},
+                rel_gap={n: vector_gaps([r], [rows[1]])[0]
+                         for n, r in rows.items()})
+        del engine, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_forwards(engines) -> int:
+    """The batched forwards the encoder engines have run (each engine's
+    ``fleetx_serving_batched_forwards_total``)."""
+    return sum(int(e.metrics._c_batched_forwards.value) for e in engines)
+
+
+def relative_gap(vec, want) -> float:
+    """|a - b|_2 / |b|_2 of two embedding vectors (numpy)."""
+    return float(np.linalg.norm(vec - want) / np.linalg.norm(want))
+
+
+def hetero_answers(what: str, rids, res, want: dict) -> dict:
+    """Beside chaos_check's gates: ERNIE answers of the lone engine's
+    lengths (how many equal it, logged), TTFT p50 by family."""
+    ernie = [res[r] for f, _, r in rids if f == "ernie"]
+    lens = [len(r.tokens) for r in ernie]
+    if lens != [len(t) for t in want["ernie"]]:
+        raise AssertionError(f"{what}: ERNIE answers of {lens} tokens, "
+                             f"want {[len(t) for t in want['ernie']]}")
+    equal = sum(a.tokens.tolist() == b for a, b in zip(ernie, want["ernie"]))
+    ttft = {}
+    for fam, _, rid in rids:
+        ttft.setdefault(fam, []).append(res[rid].ttft_s * 1e3)
+    return {"ttft_ms_p50": {f: quantiles(t)[0] for f, t in ttft.items()},
+            "ernie_equal_lone": f"{equal}/{len(lens)}"}
+
+
+def phase_hetero(cfg) -> dict:
+    """Phase 48: one process serves two GPT-345M ``ServingEngine``s (phase
+    44's weights and engine, B8), two ViT-B/16 ``EmbeddingEngine``s and
+    an ERNIE-base ``ErnieScoringEngine`` (B1) behind a ``ServingRouter``
+    and an ``ApiServer``: over HTTP ``/v1/models`` lists the three
+    families, ``/v1/completions`` reaches ``gpt`` and ``ernie`` (the ERNIE
+    ids equal a lone engine's), ``/v1/embeddings`` on two images returns
+    the engines' wire vectors exactly; a mixed in-process pass
+    (``chaos_check.hetero_pass``) gives the lone replicas' GPT streams
+    byte for byte and their embeddings within VIT_EMB_TOL (TTFT p50 by
+    family logged); then ``chaos_check.hetero_fault_plan`` over the same
+    engines (``serving_hetero``: ViT replica 2 killed at router tick 1
+    with its batch dispatched, GPT replica 1 at tick 3 mid-stream): one
+    terminal result each, the same gates, no dispatch across families.
+    B8 once per layer of each decode forward, B1 once per layer of each
+    encoder forward. The router runs at HETERO_DRR_QUANTUM."""
+    import urllib.request
+
+    from fleetx_tpu_torch.models.ernie.convert import init_params as ernie_init
+    from fleetx_tpu_torch.models.ernie.model import ErnieForPretraining
+    from fleetx_tpu_torch.serving import (
+        ErnieScoringEngine,
+        ServingRouter,
+        decode_floats,
+        encode_floats,
+    )
+    from fleetx_tpu_torch.serving.api.server import ApiServer
+    from fleetx_tpu_torch.tools.chaos_check import (
+        HETERO_KILL,
+        hetero_fault_plan,
+        hetero_pass,
+    )
+
+    params = fleet_params(cfg)
+    gpts = [build_engine(params=params, **FLEET_ENGINE)[0] for _ in range(2)]
+    del params
+    weights = vit_params()
+    vits = [vit_engine(weights, False, slots=4) for _ in range(2)]
+    del weights
+    ecfg = ernie_config()
+    ernie = ErnieScoringEngine(ErnieForPretraining(ecfg, device="meta"),
+                               ernie_init(ecfg, seed=0), slots=4)
+    fleet = ([("gpt", g) for g in gpts] + [("vit", v) for v in vits]
+             + [("ernie", ernie)])  # replicas 0-1 GPT, 2-3 ViT, 4 ERNIE
+    engines = [e for _, e in fleet]
+    gpt_reqs = [dict(prompt=r["prompt"], max_length=HETERO_NEW,
+                     decode_strategy=r["decode_strategy"], top_k=r["top_k"],
+                     top_p=r["top_p"], seed=r["seed"])
+                for r in serving_requests(cfg.vocab_size)]
+    ernie_reqs = ernie_requests(ecfg.vocab_size)[::5]
+    images = vit_images(8, seed=48)
+    requests = {"gpt": gpt_reqs,
+                "vit": [dict(prompt=encode_floats(x)) for x in images],
+                "ernie": [dict(prompt=p) for p in ernie_reqs]}
+    # the lone replicas' answers (each engine warmed up by them)
+    res, _, _ = serve(gpts[0], gpt_reqs)
+    want = {"gpt": [res[r].tokens.tolist() for r in sorted(res)]}
+    lone, _, _ = encoder_drive(vits[0], [encode_floats(x) for x in images])
+    want["vit"] = [decode_floats(r.tokens) for r in lone]
+    lone, _, _ = encoder_drive(ernie, ernie_reqs)
+    want["ernie"] = [r.tokens.tolist() for r in lone]
+    blank = ernie_reqs[0]
+    lone, _, _ = encoder_drive(ernie, [blank])
+    want_blank = lone[0].tokens.tolist()
+    watched = [watch_forwards(g) for g in gpts]
+    wire_tokens = {}
+    for e in vits:  # the wire tokens each ViT result carried, by prompt
+        take = e.take_result
+
+        def taken(rid, _take=take):
+            r = _take(rid)
+            if r is not None:
+                wire_tokens[r.prompt.tobytes()] = r.tokens.copy()
+            return r
+
+        e.take_result = taken
+    zero_launches()
+    fa.launches["flash_fwd"] = 0  # the path starts here
+    forwards0 = encoder_forwards(vits + [ernie])
+    router = ServingRouter(engines, probe_every=1,
+                           drr_quantum=HETERO_DRR_QUANTUM)
+    api = ApiServer(router, model_id="fleet-hetero").start()
+    try:
+        with urllib.request.urlopen(api.url + "/v1/models", timeout=60) as r:
+            listing = json.loads(r.read())
+        families = sorted(m["id"] for m in listing["data"][1:])
+        if families != ["ernie", "gpt", "vit"]:
+            raise AssertionError(f"hetero: /v1/models lists {families}")
+
+        def post(path, body):
+            req = urllib.request.Request(
+                api.url + path, json.dumps(body).encode(),
+                {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return json.loads(resp.read())
+
+        comp = post("/v1/completions", {"model": "gpt", "prompt": [
+            int(t) for t in gpt_reqs[0]["prompt"]], "max_tokens": 8,
+            "temperature": 0})
+        got = [int(t) for t in comp["choices"][0]["text"].split()]
+        if got != want["gpt"][0][:8]:
+            raise AssertionError(f"hetero: GPT completion {got}")
+        comp = post("/v1/completions", {"model": "ernie", "prompt": [
+            int(t) for t in blank]})
+        got = [int(t) for t in comp["choices"][0]["text"].split()]
+        if got != want_blank:
+            raise AssertionError(f"hetero: ERNIE completion {got}, lone "
+                                 f"engine {want_blank}")
+        t0 = time.perf_counter()
+        emb = post("/v1/embeddings", {"input": [
+            [float(v) for v in x.reshape(-1)] for x in images[:2]]})
+        http_s = time.perf_counter() - t0
+        for x, d in zip(images[:2], emb["data"]):
+            sent = wire_tokens[encode_floats(x).tobytes()]
+            if not np.array_equal(np.asarray(d["embedding"], np.float32),
+                                  decode_floats(sent)):
+                raise AssertionError("hetero: /v1/embeddings vector differs "
+                                     "from the engine's wire tokens")
+        # a clean mixed pass in process (under the lock the front door's
+        # ticking thread waits)
+        with api._lock:
+            rids, res, gap, bit_equal = hetero_pass(
+                router, requests, want, relative_gap, VIT_EMB_TOL,
+                max_ticks=2000)
+    finally:
+        api.stop()
+    log("hetero", card=repr(CARD.get("line")), families=families,
+        drr_quantum=HETERO_DRR_QUANTUM, embeddings_http_s=http_s,
+        embeddings_width=len(emb["data"][0]["embedding"]),
+        embedding_rel_gap_max=gap,
+        embeddings_bit_equal=f"{bit_equal}/{len(images)}",
+        **hetero_answers("hetero clean", rids, res, want))
+    # serving_hetero's fault plan over the same engines
+    router, rids, res, gap, bit_equal, given = hetero_fault_plan(
+        fleet, requests, want, relative_gap, VIT_EMB_TOL, max_ticks=2000,
+        drr_quantum=HETERO_DRR_QUANTUM)
+    answers = hetero_answers("hetero killed", rids, res, want)
+    snap = router.metrics.snapshot()
+    torch.cuda.synchronize()
+    b8 = da.launches["paged_decode"]
+    launch_gate("hetero B8", b8, sum(w["decode"] for w in watched),
+                cfg.num_layers)
+    b1 = fa.launches["flash_fwd"]
+    launch_gate("hetero B1", b1, encoder_forwards(vits + [ernie]) - forwards0,
+                ecfg.num_layers)
+    log("hetero", fault_plan=HETERO_KILL, requests=len(rids),
+        migrated=snap["migrated"], replica_deaths=snap["replica_deaths"],
+        states=router.replica_states, submits=given,
+        paged_decode_launches=b8, flash_fwd_launches=b1,
+        embedding_rel_gap_max=gap,
+        embeddings_bit_equal=f"{bit_equal}/{len(images)}", **answers)
+    del engines, fleet, gpts, vits, ernie, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_decode": b8, "flash_fwd": b1}
+
+
 # torch._dynamo, torch.distributed.fsdp and torch.distributed.tensor are
 # imported lazily by a Trainer's set-up: most of a spawned rank's start
 # where the sources compile anew in every process
@@ -7959,6 +8633,14 @@ def run_phases() -> tuple:
     torch.cuda.empty_cache()
     kernel["launches_fleet"] = phase_fleet(cfg)["paged_decode"]
     phase_serve_cli()
+    encoder = {}
+    flash["flash_fwd"]["launches_ernie"] = phase_ernie(encoder)["launches"]
+    flash["flash_fwd"]["launches_vit"] = phase_vit()["launches"]
+    hetero = phase_hetero(cfg)
+    kernel["launches_hetero"] = hetero["paged_decode"]
+    flash["flash_fwd"]["launches_hetero"] = hetero["flash_fwd"]
+    for label, rec in encoder.items():  # B1 at the encoder shapes
+        flash["flash_fwd"][label] = rec
     kernel.update(meshed["paged_decode"])
     kernel.update(int8_weights["paged_decode"])
     for name in ("decode", "decode_q8", "paged_decode_q8"):

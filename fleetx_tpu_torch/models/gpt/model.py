@@ -1058,12 +1058,12 @@ def serving_logits(model: nn.Module, logits: torch.Tensor) -> torch.Tensor:
 def inference_params(model: nn.Module, params: Dict[str, torch.Tensor],
                      device) -> Dict[str, torch.Tensor]:
     """``params`` on ``device`` for a forward without gradients: fp32, with
-    every :class:`Dense` weight and bias pre-cast to the compute dtype
-    (the forward casts them there anyway, so results are unchanged)."""
-    dense = {f"{name}.{p}" for name, mod in model.named_modules()
+    every :class:`Dense` weight and bias pre-cast to that layer's compute
+    dtype (the forward casts them there anyway, so results are
+    unchanged)."""
+    dense = {f"{name}.{p}": mod.dtype for name, mod in model.named_modules()
              if isinstance(mod, Dense) for p in ("weight", "bias")}
-    dtype = model.cfg.dtype
-    return {k: v.to(device, dtype if k in dense else torch.float32
+    return {k: v.to(device, dense.get(k, torch.float32)
                     if v.is_floating_point() else v.dtype)
             for k, v in params.items()}
 

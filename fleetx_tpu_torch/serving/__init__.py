@@ -5,9 +5,14 @@ recovery and admission limits; and the fleet layer over it: the
 multi-replica ``router`` (per-tenant QoS lanes, health-based failover,
 zero-token-loss migration), the ``autoscaler``, the seeded ``workload``
 traces with the SLO goodput scorer, and ``api`` (the replica RPC and the
-OpenAI-compatible front door)."""
+OpenAI-compatible front door); and the KV-free engines of the encoder
+families beside it: ``ErnieScoringEngine`` (ERNIE fill-in-blank and
+scoring) and ``EmbeddingEngine`` (ViT embeddings and classes) over the
+dynamic-batching ``BatchingEngine``, with the embedding wire's
+``encode_floats``/``decode_floats``."""
 
 from fleetx_tpu_torch.serving.autoscaler import FleetAutoscaler
+from fleetx_tpu_torch.serving.batch_engine import BatchingEngine
 
 from fleetx_tpu_torch.serving.cache_manager import (
     DiskPageStore,
@@ -16,6 +21,11 @@ from fleetx_tpu_torch.serving.cache_manager import (
     PagePool,
     SlotKVCacheManager,
     TieredPageStore,
+)
+from fleetx_tpu_torch.serving.embedding_engine import (
+    EmbeddingEngine,
+    decode_floats,
+    encode_floats,
 )
 from fleetx_tpu_torch.serving.engine import (
     QueueFull,
@@ -27,6 +37,7 @@ from fleetx_tpu_torch.serving.engine import (
     filter_logits,
     sample_tokens,
 )
+from fleetx_tpu_torch.serving.ernie_engine import ErnieScoringEngine
 from fleetx_tpu_torch.serving.metrics import ServingMetrics
 from fleetx_tpu_torch.serving.model_protocol import (
     ENGINE_SURFACE,
@@ -60,7 +71,9 @@ from fleetx_tpu_torch.serving.workload import (
 )
 
 __all__ = ["QueueFull", "RecoveryExhausted", "ServingEngine",
-           "ServingResult", "ShuttingDown", "TickTimeout", "GPTExecutor",
+           "ServingResult", "ShuttingDown", "TickTimeout", "BatchingEngine",
+           "EmbeddingEngine", "ErnieScoringEngine", "decode_floats",
+           "encode_floats", "GPTExecutor",
            "ModelCapabilities", "ENGINE_SURFACE", "engine_conforms",
            "PagePool", "PagedKVCacheManager", "SlotKVCacheManager",
            "HostPageStore", "DiskPageStore", "TieredPageStore",

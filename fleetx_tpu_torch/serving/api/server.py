@@ -10,10 +10,10 @@ OpenAI client or curl can talk to:
   closed by ``data: [DONE]``), ``stream: false`` aggregates.
 - ``POST /v1/completions``: the text-completion shape, same streaming
   contract (``text_completion`` chunks).
-- ``POST /v1/embeddings``: refused as the JAX server refuses it on a
-  fleet with no embedding family (404 ``model_not_found``): the port has
-  no embedding engine yet (ROADMAP Queue A, "Other families and the rest
-  of the toolkit").
+- ``POST /v1/embeddings``: float vectors in (one flattened image, or an
+  array of them), float vectors out, through the fleet's float-out family
+  (an ``EmbeddingEngine`` group; named by ``model`` when there are
+  several); 404 ``model_not_found`` when the fleet serves none.
 - ``GET /v1/models``: the served model listing: the configured
   ``model_id``, and with a router target one entry per model family of
   its replica groups (replica indices and capability flags as extension
@@ -470,19 +470,91 @@ class ApiServer(HttpDaemon):
             self.metrics.active.inc(-1)
 
     def handle_embeddings(self, handler: _ApiHandler, body: Dict) -> None:
-        """One ``/v1/embeddings`` request. The port serves no embedding
-        family (a KV-free float-in, float-out engine): the answer is the
-        JAX server's on a fleet without one, 404 ``model_not_found``
-        whether or not the request names a model."""
+        """One ``/v1/embeddings`` request: float vectors in, float vectors
+        out, through a KV-free embedding family's int32 wire
+        (``serving/embedding_engine.py``). 404 when the fleet serves no
+        such family or the named model is not one; 400 when it serves
+        several and the request names none. Each input row is one request;
+        a row that ends other than ``complete`` answers 503 (timeout,
+        shutdown) or 500."""
+        from fleetx_tpu_torch.serving.embedding_engine import (
+            decode_floats,
+            encode_floats,
+        )
+
+        served = self._served_models()
+        float_out = sorted(
+            fam for fam, info in served.items()
+            if info["capabilities"]
+            and info["capabilities"].get("emits") == "floats")
         model = body.get("model")
-        where = ("; the port has no embedding engine yet (ROADMAP Queue A, "
-                 '"Other families and the rest of the toolkit")')
         if model is None:
-            raise ApiError(404, "no unambiguous embedding model served "
-                           "(float-out families: []); name one" + where,
+            if len(float_out) != 1:
+                raise ApiError(
+                    404 if not float_out else 400,
+                    f"no unambiguous embedding model served (float-out "
+                    f"families: {float_out}); name one", "model_not_found")
+            model = float_out[0]
+        elif model not in float_out:
+            raise ApiError(404, f"model {model!r} is not a served "
+                                f"embedding family (have {float_out})",
                            "model_not_found")
-        raise ApiError(404, f"model {model!r} is not a served embedding "
-                       "family (have [])" + where, "model_not_found")
+
+        def numbers(row) -> bool:
+            return isinstance(row, list) and bool(row) and all(
+                isinstance(v, (int, float)) and not isinstance(v, bool)
+                for v in row)
+
+        inp = body.get("input")
+        if numbers(inp):
+            rows = [inp]
+        elif isinstance(inp, list) and inp and all(numbers(r) for r in inp):
+            rows = inp
+        else:
+            raise ApiError(
+                400, "input must be a non-empty array of numbers (one "
+                "flattened image/vector) or an array of such arrays")
+        tenant = self._tenant_of(handler, body)
+        self.metrics.requests.labels(route="embeddings",
+                                     tenant=tenant).inc()
+        with self._inflight_lock:
+            self._inflight += len(rows)
+        self.metrics.active.inc()
+        t0 = time.monotonic()
+        try:
+            pending = []
+            for row in rows:
+                q: "queue.Queue" = queue.Queue()
+
+                def sink(_rid, tok, finished, _q=q):
+                    _q.put((int(tok), bool(finished)))
+
+                ids = [int(t) for t in encode_floats(row)]
+                pending.append(
+                    (q, self._submit(ids, dict(model=model), sink)))
+            data = []
+            for index, (q, rid) in enumerate(pending):
+                result = self._await_result(q, rid, t0, lambda _t: None,
+                                            tenant)
+                if result.finish_reason != "complete":
+                    raise ApiError(
+                        503 if result.finish_reason in ("shutdown",
+                                                        "timeout")
+                        else 500,
+                        f"embedding request ended {result.finish_reason!r}",
+                        "server_error")
+                data.append({
+                    "object": "embedding", "index": index,
+                    "embedding": [float(v) for v in
+                                  decode_floats(result.tokens)]})
+            n_in = sum(len(r) for r in rows)
+            handler._send_json(200, {
+                "object": "list", "data": data, "model": model,
+                "usage": {"prompt_tokens": n_in, "total_tokens": n_in}})
+        finally:
+            with self._inflight_lock:
+                self._inflight -= len(rows)
+            self.metrics.active.inc(-1)
 
     def _await_result(self, q: "queue.Queue", rid: int, t0: float,
                       on_token: Callable[[int], None],

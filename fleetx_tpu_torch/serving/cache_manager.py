@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from fleetx_tpu_torch.models.gpt.generation import init_decode_cache
+from fleetx_tpu_torch.obs.events import emit as obs_emit
 from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["DiskPageStore", "HostPageStore", "PagePool",
@@ -1145,6 +1146,7 @@ class PagedKVCacheManager(_LaneBook):
         for j in range(len(pages)):
             payload = [None if a is None else a[j] for a in per_leaf]
             out.append((payload, payload_nbytes(payload)))
+        obs_emit("page_spill", pages=len(pages))
         return out
 
     def _revive_pages(self, entries: List[Tuple[int, list]]) -> None:
@@ -1161,6 +1163,7 @@ class PagedKVCacheManager(_LaneBook):
             upd = torch.stack([payload[i] for payload in checked])
             self.cache[name].index_copy_(
                 1, idx, upd.to(self._device).movedim(0, 1))
+        obs_emit("page_revive", pages=len(entries))
 
     def read_pages(self, pages: List[int]) -> List[list]:
         """Physical ``pages`` as host payloads (the prefill role's export:

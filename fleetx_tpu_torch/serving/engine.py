@@ -626,6 +626,8 @@ class ServingEngine:
                 self.model.state_dict(), prefill_bucket=self.prefill_bucket,
                 device=self.device)
             self._proposer.bind(self.slots, self.cache_len)
+            obs_emit("spec_enabled", k=self.spec_k,
+                     proposer=self._proposer.name)
         # observability: FLEETX_OBS_PORT makes the process scrapeable, and
         # /healthz reads health() (held weakly: the probe never keeps a
         # dead engine alive)
@@ -786,6 +788,7 @@ class ServingEngine:
         prefill."""
         if self._shutting_down:
             self.metrics.record_drain_reject()
+            obs_emit("drain_reject", engine=self.metrics.engine_label)
             raise ShuttingDown(
                 "engine is draining toward shutdown; submit to another "
                 "replica (in-flight requests finish under the grace window)")
@@ -794,6 +797,8 @@ class ServingEngine:
             self._expire_queued(self._now())
         if self.max_queue and self.scheduler.queue_depth >= self.max_queue:
             self.metrics.record_reject()
+            obs_emit("queue_reject", engine=self.metrics.engine_label,
+                     queue_depth=self.scheduler.queue_depth)
             raise QueueFull(
                 f"admission queue is full ({self.scheduler.queue_depth}/"
                 f"{self.max_queue} waiting, {self.cache_manager.active_count}"
@@ -1036,6 +1041,7 @@ class ServingEngine:
         if req is None:
             return False
         self._finalize(req, "cancelled", self._now())
+        obs_emit("request_cancelled", request=request_id)
         return True
 
     def result(self, request_id: int) -> Optional[ServingResult]:
@@ -1131,7 +1137,8 @@ class ServingEngine:
         lane, shared = got
         self.cache_manager.free(lane)  # the revived pages park warm
         if shared:
-            obs_emit("prefix_prewarmed", tokens=int(shared))
+            obs_emit("prefix_prewarmed", engine=self.metrics.engine_label,
+                     tokens=int(shared))
         return int(shared)
 
     # -------------------------------------------------------- crash safety
@@ -1269,9 +1276,10 @@ class ServingEngine:
             else:
                 req.phase = "active"
                 self._active[req.slot] = req
+        # replayed: the requests back on the decode lanes (parked ones
+        # not counted), as JAX counts them
         obs_emit("engine_recovery", number=self.metrics.engine_recoveries,
-                 replayed=len(replayed) - len(retired),
-                 quarantined=len(retired))
+                 replayed=len(self._active), quarantined=len(retired))
         logger.warning(
             "serving: recovery #%d complete — %d request(s) replayed, %d "
             "quarantined", self.metrics.engine_recoveries,
@@ -1538,7 +1546,8 @@ class ServingEngine:
                 "serving: shutdown requested — admission stopped, draining "
                 "%d active + %d queued request(s)", len(self._active),
                 self.scheduler.queue_depth)
-            obs_emit("shutdown", active=len(self._active),
+            obs_emit("shutdown", engine=self.metrics.engine_label,
+                     active=len(self._active),
                      queued=self.scheduler.queue_depth)
 
     def _retire_all(self, reason: str) -> List[int]:
@@ -1671,6 +1680,7 @@ class ServingEngine:
         out = []
         for req in self.scheduler.pop_expired(now):
             self._finalize(req, "timeout", now)
+            obs_emit("request_timeout", request=req.id, where="queue")
             out.append(req.id)
         return out
 
@@ -1681,6 +1691,7 @@ class ServingEngine:
         for req in list(self._active.values()):
             if req.deadline_s and now - req.submit_time > req.deadline_s:
                 self._finalize(req, "timeout", now)
+                obs_emit("request_timeout", request=req.id, where="active")
                 out.append(req.id)
         return out
 
@@ -1946,6 +1957,7 @@ class ServingEngine:
         if ((req.queue_ttl_s and waited > req.queue_ttl_s)
                 or (req.deadline_s and waited > req.deadline_s)):
             self._finalize(req, "timeout", now)
+            obs_emit("request_timeout", request=req.id, where="prefilling")
             return 0, [req.id]
         self._run_chunk(req)
         return 1, []
@@ -1985,12 +1997,14 @@ class ServingEngine:
         done_eos = req.eos_token_id >= 0 and tok == req.eos_token_id
         done = done_eos or req.max_new_tokens <= 1
         if not self._emit_token(req, tok, done):
-            self._finalize(req, "error", now)
+            self._retire_error(req, now)
         elif done:
             self._finalize(req, "eos" if done_eos else "max_length", now)
         elif self.role == "prefill":
             req.phase = "prefilled"
             self._prefilled[req.slot] = req
+            obs_emit("prefill_parked", request=req.id,
+                     prompt_len=req.prompt_len)
         else:
             req.phase = "active"
             self._active[req.slot] = req
@@ -2006,6 +2020,8 @@ class ServingEngine:
                 req = self._active[slot]
                 if not self.cache_manager.ensure_page(slot):
                     self._finalize(req, "cache_full", now)
+                    obs_emit("cache_full", request=req.id,
+                             tokens=len(req.tokens))
                     retired.append(req.id)
         return retired
 
@@ -2096,7 +2112,7 @@ class ServingEngine:
             done_max = len(req.tokens) >= req.max_new_tokens
             finished = done_eos or done_max or lengths[slot] >= self.cache_len
             if not self._emit_token(req, t, finished):
-                self._finalize(req, "error", now)
+                self._retire_error(req, now)
                 retired.append(req.id)
             elif finished:
                 self._finalize(req, "eos" if done_eos else "max_length"
@@ -2186,7 +2202,7 @@ class ServingEngine:
                 # a raising callback retires THIS request with the tokens
                 # streamed so far
                 if not self._emit_token(req, t, finished and i == n - 1):
-                    self._finalize(req, "error", now)
+                    self._retire_error(req, now)
                     retired.append(req.id)
                     failed = True
                     break
@@ -2301,6 +2317,11 @@ class ServingEngine:
                 "serving: request %d on_token callback raised; retiring it "
                 "with finish_reason='error' (other lanes unaffected)", req.id)
             return False
+
+    def _retire_error(self, req: Request, now: float) -> None:
+        """Retire one request whose callback raised."""
+        self._finalize(req, "error", now)
+        obs_emit("callback_error", request=req.id)
 
     def _finalize(self, req: Request, reason: str, now: float) -> None:
         """THE retirement path (finish, cancel, timeout, callback error):

@@ -9,7 +9,10 @@ speculative verify, per-row sampling and the shared sampling filter — and
 the capability flags say which engine features the model may ride. The
 engine side is the surface a router drives: :data:`ENGINE_SURFACE`'s
 methods and the attributes :func:`engine_conforms` checks; ``health()``
-reports the capabilities as a dict.
+reports the capabilities as a dict. Three engine kinds implement it: the
+autoregressive ``ServingEngine`` (GPT), and the KV-free
+``ErnieScoringEngine`` and ``EmbeddingEngine`` (``batch_engine``), whose
+capabilities say ``has_kv_cache=False`` and ``cache_layout="none"``.
 """
 
 from __future__ import annotations
@@ -25,17 +28,22 @@ __all__ = ["ENGINE_SURFACE", "GPTExecutor", "ModelCapabilities",
 class ModelCapabilities:
     """What engine features a served model family can legally ride."""
 
-    #: model family name ("gpt" | ...)
+    #: model family name, the router's grouping key ("gpt" | "ernie" |
+    #: "vit" ...)
     family: str
-    #: the model decodes autoregressively against a KV cache
+    #: the model decodes autoregressively against a KV cache; False: the
+    #: engine holds no cache and each request is one forward
     has_kv_cache: bool
     #: draft-and-verify speculative decoding is legal
     supports_spec: bool
-    #: the cache layouts the engine may build
+    #: the cache layouts the engine may build ("slot+paged" | "none")
     cache_layout: str
-    #: hard per-request input bound in tokens
+    #: hard per-request input bound (tokens for text, flat elements for
+    #: an image)
     max_input: int
-    #: what the int32 output channel carries
+    #: what the int32 output channel carries: "tokens" (token or class
+    #: ids) or "floats" (a float32 vector bit-cast, the embedding wire);
+    #: ``/v1/embeddings`` serves the "floats" families
     emits: str = "tokens"
 
     def as_dict(self) -> dict:
@@ -127,14 +135,16 @@ _ENGINE_ATTRS = ("role", "paged", "page_size", "cache_len", "slots",
                  "submit_limit")
 
 
-def engine_conforms(engine) -> Optional[str]:
+def engine_conforms(engine, *, require_attrs: bool = True
+                    ) -> Optional[str]:
     """None when ``engine`` exposes the whole router-facing contract (its
-    methods, then its attributes), else the name of the first missing
-    member."""
+    methods, then, with ``require_attrs``, its attributes), else the name
+    of the first missing member."""
     for name in ENGINE_SURFACE:
         if not callable(getattr(engine, name, None)):
             return name
-    for name in _ENGINE_ATTRS:
-        if not hasattr(engine, name):
-            return name
+    if require_attrs:
+        for name in _ENGINE_ATTRS:
+            if not hasattr(engine, name):
+                return name
     return None

@@ -24,11 +24,15 @@ one PASS/FAIL line per scenario, non-zero exit on any failure:
 - ``serving_qos``: a flooding tenant saturates two replicas, a priority
   tenant preempts its way in and a replica is killed mid-churn: every
   stream byte-identical to an uncontended engine, shed confined to the
-  flood lane.
+  flood lane;
+- ``serving_hetero``: two GPT and two ViT embedding replicas in one
+  router, a ViT replica killed with its batch dispatched and a GPT replica
+  killed mid-stream: one terminal result per request, GPT streams
+  byte-identical to a clean replica, embeddings within
+  ``HETERO_EMB_TOL`` of a lone engine's, no dispatch across families.
 
 Still to port (ROADMAP Queue A): ``sentry``, ``sentry_zero``, ``ckpt``,
-the engine-level ``serving*`` scenarios, ``serving_hetero`` and
-``train_elastic``.
+the engine-level ``serving*`` scenarios and ``train_elastic``.
 
 Usage::
 
@@ -439,12 +443,197 @@ def scenario_serving_qos(tmp, device):
             "streams byte-identical, shed confined to the flood lane")
 
 
+# embedding vectors of the hetero fleet against a lone engine: a request
+# that migrates rides another batch, whose GEMMs may round it apart
+# (ROADMAP Queue C, "ViT batch makeup"); fp32, relative and absolute
+HETERO_EMB_TOL = 1e-5
+# serving_hetero's kills: ViT replica 2 at router tick 1, its batch
+# dispatched and not yet run, so the whole batch migrates; GPT replica 1 at
+# tick 3, mid-stream with tokens already emitted
+HETERO_KILL = "2:1,1:3"
+
+
+def hetero_pass(router, requests, want, emb_gap, emb_tol, max_ticks=500):
+    """Submit every family's requests to ``router``, interleaved
+    (``requests``: family -> list of ``submit`` keyword dicts), and drain.
+    Holds one terminal result per request, each ``gpt`` stream byte-equal
+    to ``want["gpt"]``, each ``vit`` answer complete with
+    ``emb_gap(vector, want["vit"][i]) <= emb_tol``, every other family's
+    answer complete. Returns ``(rids, results, worst gap, bit-equal
+    vectors)``, ``rids`` as ``(family, index, router id)``."""
+    import numpy as np
+
+    from fleetx_tpu_torch.serving import decode_floats
+
+    rids = []
+    for i in range(max(len(r) for r in requests.values())):
+        for fam, reqs in requests.items():
+            if i < len(reqs):
+                rids.append((fam, i, router.submit(**reqs[i], model=fam)))
+    res = router.drain(max_ticks=max_ticks)
+    assert len(res) == len(rids) and all(r in res for _, _, r in rids), (
+        f"{len(rids)} submitted, {len(res)} terminal results: requests "
+        "were lost or duplicated")
+    worst, bit_equal = 0.0, 0
+    for fam, i, rid in rids:
+        if fam == "gpt":
+            assert np.array_equal(np.asarray(res[rid].tokens),
+                                  want["gpt"][i]), (
+                f"GPT request {rid} diverged from the clean single replica")
+            continue
+        assert res[rid].finish_reason == "complete", (fam, res[rid])
+        if fam != "vit":
+            continue
+        vec = decode_floats(res[rid].tokens)
+        assert vec.size == want["vit"][i].size, vec.size
+        bit_equal += int(np.array_equal(vec, want["vit"][i]))
+        gap = emb_gap(vec, want["vit"][i])
+        worst = max(worst, gap)
+        assert gap <= emb_tol, (
+            f"embedding request {rid} is {gap} from the lone engine's "
+            f"(limit {emb_tol})")
+    return rids, res, worst, bit_equal
+
+
+def hetero_fault_plan(fleet, requests, want, emb_gap, emb_tol,
+                      max_ticks=500, **router_kw):
+    """``serving_hetero`` over any engines: ``fleet`` is ``(family,
+    engine)`` by replica index, 0-1 ``gpt`` and 2-3 ``vit`` (more may
+    follow). Under HETERO_KILL a ``ServingRouter`` over them serves
+    ``requests`` through hetero_pass; then every prompt an engine was
+    given is one of its own family's, both kills left ``fault_injected``
+    and ``replica_dead`` events, a request migrated, and one replica of
+    each killed group lives on. Returns ``(router, rids, results, worst
+    gap, bit-equal vectors, prompts given by family)``."""
+    import numpy as np
+
+    from fleetx_tpu_torch.obs import get_event_log
+    from fleetx_tpu_torch.resilience.faults import faults
+    from fleetx_tpu_torch.serving import ServingRouter
+
+    assert [f for f, _ in fleet[:4]] == ["gpt", "gpt", "vit", "vit"], fleet
+
+    def wire(prompt):
+        return np.asarray(prompt, np.int32).reshape(-1).tobytes()
+
+    own = {fam: {wire(r["prompt"]) for r in reqs}
+           for fam, reqs in requests.items()}
+    given = {fam: [] for fam in own}
+
+    def tapped(eng, fam):
+        submit = eng.submit
+
+        def tap(prompt, **kw):
+            given[fam].append(wire(prompt))
+            return submit(prompt, **kw)
+
+        return tap
+
+    kept = [eng.__dict__.get("submit") for _, eng in fleet]
+    for fam, eng in fleet:
+        eng.submit = tapped(eng, fam)
+    get_event_log().clear()
+    faults.configure(replica_kill=HETERO_KILL)
+    try:
+        router = ServingRouter([e for _, e in fleet], probe_every=1,
+                               **router_kw)
+        rids, res, worst, bit_equal = hetero_pass(
+            router, requests, want, emb_gap, emb_tol, max_ticks=max_ticks)
+    finally:
+        faults.reset()
+        for (_, eng), submit in zip(fleet, kept):
+            if submit is None:
+                del eng.submit
+            else:
+                eng.submit = submit
+    for fam, seen in given.items():
+        assert seen and all(p in own[fam] for p in seen), (
+            f"{fam} engines were given another family's prompt")
+    ev = get_event_log()
+    for replica in (1, 2):
+        assert ev.find("fault_injected", fault="replica_kill",
+                       replica=replica), \
+            f"kill injection on replica {replica} left no event"
+        assert ev.find("replica_dead", replica=replica), \
+            f"replica {replica} death left no replica_dead event"
+    assert ev.find("request_migrated"), "failover left no request_migrated"
+    m = router.metrics.snapshot()
+    assert m["replica_deaths"] == 2 and m["migrated"] >= 2, m
+    groups = router.models()
+    assert groups["gpt"]["live"] == 1 and groups["vit"]["live"] == 1, groups
+    return router, rids, res, worst, bit_equal, {
+        fam: len(seen) for fam, seen in given.items()}
+
+
+def scenario_serving_hetero(tmp, device):
+    """A heterogeneous fleet under fire: a GPT replica killed mid-stream
+    AND an embedding (ViT) replica killed with its batch dispatched in the
+    SAME router: every request of both families reaches exactly one
+    terminal result, migrated GPT streams are byte-identical to a clean
+    replica, the embeddings equal a lone engine's within HETERO_EMB_TOL,
+    and no dispatch crosses families (hetero_fault_plan)."""
+    import numpy as np
+    import torch
+
+    from fleetx_tpu_torch.models.vision.convert import init_params
+    from fleetx_tpu_torch.models.vision.vit import ViT, ViTConfig
+    from fleetx_tpu_torch.serving import (
+        EmbeddingEngine,
+        decode_floats,
+        encode_floats,
+    )
+    from fleetx_tpu_torch.tools.serve import DEMO_STD
+
+    make, prompts = _serving_fixture(device)
+    clean, _, _ = _run_workload(make(True), prompts)
+
+    vcfg = ViTConfig(image_size=8, patch_size=4, in_channels=3,
+                     num_classes=0, hidden_size=32, num_layers=2,
+                     num_attention_heads=2, dtype=torch.float32)
+    vit_params = {k: (v if k.endswith((".scale", "bias")) or k == "cls_token"
+                      else v * (DEMO_STD / 0.02))
+                  for k, v in init_params(vcfg, seed=1, device="cpu").items()}
+    rng = np.random.RandomState(7)
+    images = [encode_floats(rng.rand(8, 8, 3).astype(np.float32))
+              for _ in range(4)]
+
+    def make_emb():
+        return EmbeddingEngine(ViT(vcfg, device="meta"), vit_params,
+                               device=make(True).device, slots=2)
+
+    # the lone engine's vectors: the reference the fleet reproduces
+    ref_emb = make_emb()
+    ref_rids = [ref_emb.submit(img) for img in images]
+    ref_res = ref_emb.drain()
+    ref_vecs = [decode_floats(ref_res[r].tokens) for r in ref_rids]
+
+    def gap(vec, ref):  # x the elementwise tolerance
+        return float(np.max(np.abs(vec - ref) / (
+            HETERO_EMB_TOL + HETERO_EMB_TOL * np.abs(ref))))
+
+    fleet = [("gpt", make(True)), ("gpt", make(True)),
+             ("vit", make_emb()), ("vit", make_emb())]
+    router, rids, _, worst, bit_equal, given = hetero_fault_plan(
+        fleet, {"gpt": [dict(prompt=p, max_length=8) for p in prompts],
+                "vit": [dict(prompt=img) for img in images]},
+        {"gpt": clean, "vit": ref_vecs}, gap, 1.0)
+    m = router.metrics.snapshot()
+    return (f"killed GPT replica 1 mid-stream + ViT replica 2 mid-batch; "
+            f"{len(rids)}/{len(rids)} exactly-one-result, {m['migrated']} "
+            f"migrated, GPT byte-identical, embeddings {bit_equal}/"
+            f"{len(images)} bit-equal to a lone engine, worst "
+            f"{worst:.3g} x tol {HETERO_EMB_TOL}; zero cross-model "
+            f"dispatches ({given['gpt']} gpt / {given['vit']} vit "
+            "submits)")
+
+
 SCENARIOS = {
     "router_kill": scenario_router_kill,
     "router_saturation": scenario_router_saturation,
     "serving_disagg": scenario_serving_disagg,
     "serving_http": scenario_serving_http,
     "serving_qos": scenario_serving_qos,
+    "serving_hetero": scenario_serving_hetero,
 }
 
 

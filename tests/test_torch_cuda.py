@@ -1949,3 +1949,125 @@ def test_cuda_router_failover_gives_the_single_engine_streams():
     assert [res[r].tokens.tolist() for r in rids] == want
     assert [streams[r] for r in rids] == want
     assert _launched(before) == {"paged_decode": forwards[0] * cfg.num_layers}
+
+
+# (s, kv_lens) of the encoders' B1 mode: non-causal, per-row key lengths.
+# ERNIE's 512-position bucket with rows past, on and below a 64-key tile
+# border, one key and a filler row (0); ViT-B/16's 197 tokens padded to
+# the tile (256)
+ENCODER_CASES = {"ernie": (512, [512, 300, 129, 65, 64, 17, 1, 0]),
+                 "vit": (256, [197, 197])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(ENCODER_CASES))
+def test_flash_forward_non_causal_ragged_kv_lens(case, dtype, head_dim):
+    """B1 non-causal with ragged ``kv_lens`` (q, k, v strided views of one
+    fused buffer) against its plain version within FLASH_TOL, launched
+    twice with the same bits; the filler row of length 0 comes out as
+    zeros with lse -1e30, no NaN anywhere; one key fewer breaks the
+    limit."""
+    from fleetx_tpu_torch.ops import flash_attention as fa
+
+    _need_card()
+    s, lens = ENCODER_CASES[case]
+    q, k, v, _, kv = flash_case(head_dim, b=len(lens), s=s, h=2,
+                                kv_lens=lens, dtype=dtype, seed=s)
+    kw = dict(causal=False, kv_lens=kv)
+    before = dict(fa.launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    again, _ = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] - before["flash_fwd"] == 2
+    assert torch.equal(out, again)
+    want, want_lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    atol, rtol = fa.FLASH_TOL[dtype]
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    if 0 in lens:
+        row = lens.index(0)
+        assert not out[row].any()
+        assert (lse.view(len(lens), -1, s)[row] <= -1e29).all()
+    off = fa.flash_fwd(q, k, v, causal=False, kv_lens=(kv - 1).clamp_min(0))[0]
+    err = ((off.float() - want.float()).abs()
+           / (atol + rtol * want.float().abs())).max().item()
+    assert err > 1.0, err
+
+
+def _encoder_engines(kind, device):
+    """A tiny ERNIE or ViT engine (fp32, head dim 16) on ``device``, its
+    weights drawn on the CPU at std 0.3 (argmax far from ties)."""
+    from fleetx_tpu_torch.models.ernie import convert as ec
+    from fleetx_tpu_torch.models.ernie.model import (
+        ErnieConfig,
+        ErnieForPretraining,
+    )
+    from fleetx_tpu_torch.models.vision import convert as vc
+    from fleetx_tpu_torch.models.vision.vit import ViT, ViTConfig
+    from fleetx_tpu_torch.serving import EmbeddingEngine, ErnieScoringEngine
+
+    if kind == "ernie":
+        cfg = ErnieConfig(vocab_size=97, hidden_size=64, num_layers=2,
+                          num_attention_heads=4, max_position_embeddings=128,
+                          dtype=torch.float32)
+        params, model, cls = (ec.init_params(cfg, seed=1, device="cpu"),
+                              ErnieForPretraining(cfg, device="meta"),
+                              ErnieScoringEngine)
+    else:
+        cfg = ViTConfig(image_size=32, patch_size=8, hidden_size=64,
+                        num_layers=2, num_attention_heads=4, num_classes=0,
+                        dtype=torch.float32)
+        params, model, cls = (vc.init_params(cfg, seed=1, device="cpu"),
+                              ViT(cfg, device="meta"), EmbeddingEngine)
+    params = {n: t if n.endswith(("scale", "bias")) else t * 15.0
+              for n, t in params.items()}
+    return cls(model, params, device=device, slots=4), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ernie", "vit"])
+def test_cuda_encoder_engines_run_b1_per_layer(kind):
+    """An ``ErnieScoringEngine`` (fill-in-blank and scoring, prompts of 3 to
+    100 tokens: buckets of 4, 64 and 128 with filler rows) and an
+    ``EmbeddingEngine`` on the card: each batched forward launches B1 once
+    per layer, the ERNIE ids equal the CPU engine's and the ViT vectors
+    agree with it within 1e-4."""
+    from fleetx_tpu_torch.ops import flash_attention as fa
+    from fleetx_tpu_torch.serving import decode_floats, encode_floats
+
+    _need_card()
+    eng, cfg = _encoder_engines(kind, "cuda")
+    cpu, _ = _encoder_engines(kind, "cpu")
+    rng = np.random.RandomState(2)
+    if kind == "ernie":
+        prompts = []
+        for n, masks in ((3, 1), (50, 2), (100, 0), (17, 3), (64, 0)):
+            p = rng.randint(4, 97, n).astype(np.int32)
+            p[rng.choice(n, masks, replace=False)] = 3
+            prompts.append(p)
+    else:
+        prompts = [encode_floats(rng.rand(32, 32, 3).astype(np.float32))
+                   for _ in range(5)]
+    before = fa.launches["flash_fwd"]
+    ticks = 0
+    rids = [eng.submit(p) for p in prompts]
+    while len(eng.scheduler):
+        ticks += eng.step()["forwards"]
+    res = eng.drain()
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] - before == ticks * cfg.num_layers
+    crids = [cpu.submit(p) for p in prompts]
+    cres = cpu.drain()
+    for r, c in zip(rids, crids):
+        assert res[r].finish_reason == "complete"
+        if kind == "ernie":
+            assert res[r].tokens.tolist() == cres[c].tokens.tolist()
+        else:
+            np.testing.assert_allclose(decode_floats(res[r].tokens),
+                                       decode_floats(cres[c].tokens),
+                                       rtol=1e-4, atol=1e-4)

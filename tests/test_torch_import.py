@@ -201,3 +201,37 @@ def test_gate_covers_the_fleet_slice():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_gate_covers_the_hetero_slice():
+    """Likewise for the heterogeneous fleet: the ERNIE and ViT models and
+    their weight bridges, the KV-free engines and the front door; they
+    import with JAX blocked and the serving package exports the names the
+    JAX package's exports for them."""
+    mods = set(_modules())
+    names = ("models.ernie", "models.ernie.model", "models.ernie.convert",
+             "models.vision", "models.vision.vit", "models.vision.convert",
+             "serving.batch_engine", "serving.ernie_engine",
+             "serving.embedding_engine", "serving.model_protocol",
+             "serving.api.server", "tools.chaos_check")
+    for name in names:
+        assert f"fleetx_tpu_torch.{name}" in mods, name
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('jax', 'jaxlib', 'flax', 'fleetx_tpu'):",
+        "    sys.modules[name] = None",
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        f"for mod in {['fleetx_tpu_torch.' + n for n in names]!r}:",
+        "    importlib.import_module(mod)",
+        "from fleetx_tpu_torch.serving import (BatchingEngine,",
+        "    EmbeddingEngine, ErnieScoringEngine, decode_floats,",
+        "    encode_floats)",
+        "from fleetx_tpu_torch.models.ernie import (ErnieConfig,",
+        "    ErnieForPretraining, ErnieForSequenceClassification, ErnieModel,",
+        "    ernie_pretraining_loss)",
+        "from fleetx_tpu_torch.models.vision import (VIT_PRESETS, ViT,",
+        "    ViTConfig, build_vision_model)",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

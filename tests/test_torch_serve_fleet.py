@@ -5,7 +5,7 @@
   SIGKILLed mid-SSE leaves the stream byte-equal to the demo engine's in
   process (no token lost or repeated), and SIGTERM drains the fleet to
   exit 0 with no process left.
-- The five ported chaos scenarios pass with ``--device cpu``.
+- The six ported chaos scenarios pass with ``--device cpu``.
 - Without ``--device cpu`` the launcher, and a replica worker, exit
   non-zero with the device resolver's error where CUDA is absent.
 """

@@ -6,7 +6,8 @@ package's router over JAX engines, on the same bridged weights
 same engine switches. :class:`Pkg` gathers one package's names so a
 scenario is written once; ``outcome`` reduces a run to what must be equal
 across the packages: token lists, finish reasons, callback streams,
-replica states, the router's counters and its event counts.
+replica states, the router's counters, its event counts and the whole
+event log, engines' events included (``event_log``).
 """
 
 import contextlib
@@ -100,20 +101,28 @@ def outcome(pkg, router, res, rids, streams=None):
                     else [streams.get(r, []) for r in rids]),
         "states": list(router.replica_states),
         "counters": {k: snap[k] for k in COUNTERS},
-        "events": {k: len([e for e in ev.find(k) if _router_made(e)])
-                   for k in EVENTS},
+        "events": {k: len(ev.find(k)) for k in EVENTS},
+        "log": event_log(pkg),
     }
 
 
-def _router_made(event) -> bool:
-    """Events of the fleet layer, not of an engine: the port's engine
-    emits fewer events than JAX's (no ``queue_reject`` or
-    ``request_timeout`` of its own), and two kinds are shared."""
-    if event.kind == "queue_reject":
-        return "router" in event.attrs
-    if event.kind == "request_timeout":
-        return str(event.attrs.get("where", "")).startswith("router")
-    return True
+def event_log(pkg):
+    """The whole event log, oldest first, as ``(kind, attrs)`` pairs that
+    compare across the packages: each engine or router label is replaced
+    by its order of first appearance (the labels count engines and routers
+    process-wide), and an ``error`` attribute keeps only the exception's
+    type name."""
+    labels = {"engine": {}, "router": {}}
+    out = []
+    for e in pkg.events().find():
+        attrs = dict(e.attrs)
+        for key, seen in labels.items():
+            if key in attrs:
+                attrs[key] = seen.setdefault(attrs[key], len(seen))
+        if isinstance(attrs.get("error"), str):
+            attrs["error"] = attrs["error"].split(":")[0]
+        out.append((e.kind, attrs))
+    return out
 
 
 def both(scenario):
