@@ -51,10 +51,10 @@ decode steps after phase 10):
                its plain version at GPT-345M decode shapes (bf16 and fp32),
                with kernel, plain, library and bound times;
 10. generate — ``GPTGenerationModule.generate_ids`` through ``build_module``
-               on ``generation_gpt_345M_single_card.yaml`` (24 layers, bf16)
-               for 8 left-padded prompts of 24..312 tokens and 200 new
-               tokens, greedy and with the config's sampling: B7 launches
-               steps x 24 times; the first decode step's logits through the
+               on ``generation_gpt_345M_single_card.yaml`` (12 of its 24
+               layers since PR 20, bf16) for 8 left-padded prompts of
+               24..312 tokens and 200 new tokens, greedy and with the
+               config's sampling: B7 launches steps x 12 times; the first decode step's logits through the
                kernel and through the plain version (48 new tokens) agree;
                then the same at
                ``Model.decode_kv_dtype=int8`` through B9; tokens/s and ms
@@ -104,7 +104,7 @@ decode steps after phase 10):
 17. train-cp — ``tools/train.py`` on ``pretrain_gpt_1.3B_longcontext_cp8
                .yaml`` at cp 2 (the yaml's 8 cut to the card's 2 ranks),
                seq 16384 (its 32768 cut), one sequence per step (no
-               accumulation), full width, 2 of its 24 layers (to keep the
+               accumulation), full width, 1 of its 24 layers (to keep the
                script inside its time), bf16, dropout 0.1, full
                recompute, on 2 ranks sharing the card over gloo, for 6 steps
                and one evaluation: losses finite, falling and equal on both
@@ -141,7 +141,7 @@ decode steps after phase 10):
                and dp 2 x mp 2 on the same global batch: loss, grad norm
                and every gathered gradient leaf within phase 8's limits of
                mp 1;
-22. resume-1.3b — phase 13's configuration (full width, 2 of its 24
+22. resume-1.3b — phase 13's configuration (full width, 1 of its 24
                layers for time, fused CE, full recompute, dropout 0.1): run
                A trains 3 steps and
                saves at step 2 through the async snapshot
@@ -154,7 +154,7 @@ decode steps after phase 10):
                must break that gate; checkpoint bytes, the save's blocking
                and total seconds, the load's seconds and the peak device
                memory across the save printed;
-23. preempt  — ``tools/train.py`` as a subprocess on the 345M yaml (4 of
+23. preempt  — ``tools/train.py`` as a subprocess on the 345M yaml (2 of
                its 24 layers) over a seeded corpus: a launch sent SIGTERM
                once its log shows step 3 exits 0 with a checkpoint at the
                step it reached, a relaunch with
@@ -168,7 +168,7 @@ decode steps after phase 10):
                other three, bit for bit, the skipped batch consumed; then
                phase 13's step at 4 layers with the sentry on and off (on,
                off, off, on): the cost of its per-step host read;
-25. resume-mp — phase 21's configuration (2 layers) at mp 2 on 2 ranks
+25. resume-mp — phase 21's configuration (1 layer) at mp 2 on 2 ranks
                sharing the card: fresh processes resume a per-rank
                checkpoint of step 1 and take step 2, equal on both ranks
                to the uninterrupted run bit for bit (sha256 of every
@@ -197,7 +197,8 @@ decode steps after phase 10):
                no plain version and no fused CE; step ms, tokens/s, MFU,
                point-to-point ms and MB, collective ms, each rank's busy
                share and peak memory printed;
-28. resume-pp — phase 26's configuration at pp 2: fresh processes resume
+28. resume-pp — phase 26's configuration at pp 2, 2 layers (one a stage):
+               fresh processes resume
                a per-stage checkpoint of step 1 and take step 2, equal on
                both ranks to the uninterrupted run bit for bit; a load of
                it at pp 1 raises ``ElasticMeshMismatch`` and quarantines
@@ -210,7 +211,7 @@ decode steps after phase 10):
                break its limit; kernel, plain, library and bound times;
 30. train-zero — ``tools/train.py`` on ``pretrain_gpt_6.7B_sharding16
                .yaml`` at sharding 2 (stage 2; the yaml's 16 cut to the
-               card's 2 ranks sharing it over gloo), full width, 2 of its
+               card's 2 ranks sharing it over gloo), full width, 1 of its
                32 layers, bf16, dropout 0.1, fused CE, full recompute, the
                yaml's batch (local 8 in 4 microbatches of 2), 3 steps and a
                1-batch evaluation, the ZeRO update shard on; then the same
@@ -222,13 +223,13 @@ decode steps after phase 10):
                above 0) with its grad norms within 1e-6 and its sampled
                parameters within a clip-scale rounding, the AdamW state per
                rank at most 0.55 of the replicated run's, B1-B6 launched as
-               the path launches them; at 2 layers, the two updates with
+               the path launches them; at 1 layer, the two updates with
                the clip's scale forced to 1 bit-equal for 1 step, and a
                norm from one rank's slices alone and one slice left stale
                on one rank must each break a gate; step ms, tokens/s,
                MFU, peak memory per rank, reduce-scatter, all-gather and
                all-reduce ms and GB per step printed;
-31. elastic  — ``tools/train.py`` on the 1.3B yaml at 2 layers, full
+31. elastic  — ``tools/train.py`` on the 1.3B yaml at 1 layer, full
                width, sharding 2 on 2 ranks, with the host-loss fault
                before step 3: the emergency checkpoint from the sharded
                moments, the mesh shrunk to one rank (the other exits 0),
@@ -264,7 +265,8 @@ decode steps after phase 10):
                streams' TPOT p50/p99 logged; the unchunked run, an engine
                that skips decode on chunk ticks, and the other long
                prompt's logits must each break a gate;
-37. spec     — speculative decoding at k 4 on the paged engine, the n-gram
+37. spec     — speculative decoding at k 4 on the paged engine (GPT-345M
+               at 12 of its 24 layers since PR 20), the n-gram
                proposer on prompts repeating a 32-token pattern (16 new
                tokens each) and the self-draft proposer, at bf16 and at
                int8 KV: where a greedy
@@ -318,8 +320,9 @@ decode steps after phase 10):
                dead); ``shutdown`` under load returns every request's
                partial stream; time to recover, replay ms and probes
                logged;
-41. mesh     — mesh serving at mp 2, GPT-345M at full width and depth, two
-               ranks sharing the card over gloo, each an engine over the
+41. mesh     — mesh serving at mp 2, GPT-345M at full width, 6 of its 24
+               layers (cut for time in PR 20), two ranks sharing the card
+               over gloo, each an engine over the
                whole weights keeping its heads, MLP and vocab shard,
                against single-card engines of the same weights: phase 4's
                requests paged at bf16 (B8, 16 new tokens, as every case),
@@ -409,7 +412,30 @@ decode steps after phase 10):
                its batch dispatched, a GPT replica killed mid-stream): one
                terminal result each, the same gates, no dispatch across
                families; B8 once per layer of each decode forward and B1
-               once per layer of each encoder forward.
+               once per layer of each encoder forward; the routers run at
+               the default DRR quantum, and a lone image is answered in
+               the router's first tick;
+49. moe      — ``Trainer.fit`` through ``build_module`` on
+               ``pretrain_moe_small.yaml`` at full width and depth (12
+               layers, hidden 1024, 8 experts, gshard top 2, capacity 1.2,
+               bf16, dropout 0.1), one rank, batch 8 of 1024 tokens, 6
+               steps: every loss finite and falling, B1, B2 and B3 once per
+               layer per step; ``lm_loss``, ``balance_loss``, each layer's
+               dropped share, step ms, tokens/s, the MoE MFU, peak memory
+               and the dense and expert parameter bytes logged;
+50. moe-ep   — expert parallelism at dp 2, two ranks sharing the card over
+               gloo, 4 experts each: (a) the yaml at full width, 2 layers,
+               fp32, capacity factor 0.5 (tokens dropped), one step on one
+               global batch at dp 1 and dp 2: every layer's expert ids and
+               keep flags bit-equal, loss, grad norm and every parameter
+               after the step within MOE_E2E_TOL; routing per rank with a
+               per-rank capacity, the expert gradients summed over the
+               data group and the clip's norm over one rank's experts must
+               each break that gate; (b) bf16 at full depth, 4 steps of
+               ``Trainer.fit`` on phase 49's global batches: losses within
+               MOE_BF16_LOSS_TOL of phase 49's, each rank's expert bytes
+               half the model's; all-to-all ms and MB and the all-reduce ms
+               per step logged.
 
 Every drive writes into an output directory of its own, deleted with its
 phase. The script is the reaper of every process it starts, also of those
@@ -830,14 +856,17 @@ def serving_config() -> tuple:
             GenerationConfig.from_config(conf.Generation))
 
 
-def build_engine(kv_dtype=None, params=None, dtype=None, **kw):
+def build_engine(kv_dtype=None, params=None, dtype=None, layers=None,
+                 **kw):
     """A ServingEngine at GPT-345M width with random weights from seed 0
     (or ``params``), 8 lanes of 1024 positions, 16-position pages, bf16
-    (or ``kv_dtype``) KV, bf16 compute (or ``dtype``); ``kw`` sets further
-    engine switches."""
+    (or ``kv_dtype``) KV, bf16 compute (or ``dtype``), the config's 24
+    layers (or ``layers``); ``kw`` sets further engine switches."""
     cfg, gen_cfg = serving_config()
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if params is None:
         params = init_params(cfg, seed=0)
     kw = dict(dict(slots=8, page_size=16, cache_len=1024), **kw)
@@ -1709,6 +1738,8 @@ def run_generate(module, ids, mask, gen_cfg, label, name, *, generator=None,
 
 GEN_PLAIN_NEW = 48  # the plain-version runs' new tokens (200 until cut
 # for phases 41-43): they hold the first step's logits
+GEN_LAYERS = 12  # phase 10's depth: the generation yaml's 24 cut for time
+# (PR 20)
 
 
 def phase_generate(profile: bool) -> dict:
@@ -1720,6 +1751,7 @@ def phase_generate(profile: bool) -> dict:
     greedy_tokens = {}
     for kv, name in ((None, "decode"), ("int8", "decode_q8")):
         module = generation_module(
+            f"Model.num_layers={GEN_LAYERS}",
             *([] if kv is None else [f"Model.decode_kv_dtype={kv}"]))
         cfg = module.gpt_config
         ids, mask = generation_prompts(cfg.vocab_size)
@@ -2269,7 +2301,8 @@ def phase_train_13b_e2e(prefix: str, layers: int = 4) -> None:
 CP_CONFIG = os.path.join(
     ROOT, "configs/nlp/gpt/pretrain_gpt_1.3B_longcontext_cp8.yaml")
 CP_STEPS, CP_EVAL_ITERS = 6, 1
-CP_TRAIN_LAYERS = 2  # phase 17's depth: the yaml's 24 cut for time
+CP_TRAIN_LAYERS = 1  # phase 17's depth: the yaml's 24 cut for time (2
+# until cut for phases 49-50)
 BLOCK_KERNEL = {"block_fwd_lse": "flash_fwd", "block_dq": "flash_bwd_dq",
                 "block_dkv": "flash_bwd_dkv"}
 
@@ -3327,8 +3360,8 @@ def phase_train_mp_e2e(prefix: str) -> None:
 # ----------------------------------------------------------------- phase 22
 # the resume drive: phase 13's 1.3B configuration, 3 steps, saved at step 2
 RESUME_STEPS, RESUME_SAVE_AT = 3, 2
-RESUME_LAYERS = 2  # phase 22's depth: a twelfth of the yaml's 24, for the
-# script's time (full width kept; 4 until cut for phases 41-43)
+RESUME_LAYERS = 1  # phase 22's depth: 1 of the yaml's 24, for the script's
+# time (full width kept; 4 until cut for phases 41-43, 2 for phases 49-50)
 
 
 def trainer_tensors(trainer):
@@ -3550,7 +3583,8 @@ def phase_resume_13b(prefix: str) -> dict:
 
 # ----------------------------------------------------------------- phase 23
 PREEMPT_STEPS, PREEMPT_AT = 6, 3
-PREEMPT_LAYERS = 4  # of the 345M yaml's 24 (24 until cut for phases 41-43)
+PREEMPT_LAYERS = 2  # of the 345M yaml's 24 (24 until cut for phases 41-43,
+# 4 until cut for phases 49-50)
 # the training CLI as a command (its own interpreter)
 TRAIN_CLI = [sys.executable, "-m", "fleetx_tpu_torch.tools.train"]
 TRAIN_LINE = re.compile(r"\[train\] epoch: \d+, batch: (\d+), loss: "
@@ -3778,7 +3812,7 @@ def phase_sentry(prefix: str) -> dict:
 
 
 # ----------------------------------------------------------------- phase 25
-RESUME_MP_LAYERS = 2
+RESUME_MP_LAYERS = 1  # phase 25's depth (2 until cut for phases 49-50)
 
 
 def tensor_digests(trainer) -> dict:
@@ -3886,6 +3920,8 @@ def phase_resume_mp(prefix: str) -> None:
 # microbatches of 2 (Engine.accumulate_steps 4); phase 26 and 28 cut it to
 # PP_E2E_LAYERS layers, phase 27 runs it at full width and depth
 PP_DEGREE, PP_MICRO, PP_E2E_LAYERS = 2, 2, 4
+RESUME_PP_LAYERS = 2  # phase 28's depth: one layer a stage (4 until cut for
+# phases 49-50)
 PP_STEPS, PP_V2_STEPS, PP_EVAL_ITERS = 3, 3, 1  # 5 pp steps until cut
 PP_TRAIN_LAYERS = 4  # phase 27's depth: the yaml's 24 cut for time
 
@@ -4314,7 +4350,7 @@ def phase_train_pp(prefix: str) -> dict:
 # ----------------------------------------------------------------- phase 28
 
 def phase_resume_pp(prefix: str) -> None:
-    """Phase 26's configuration (the 1.3B cut to PP_E2E_LAYERS layers,
+    """Phase 26's configuration (the 1.3B cut to RESUME_PP_LAYERS layers,
     logits loss, attention dropout 0.1) at pp 2 on 2 ranks sharing the
     card over gloo: an uninterrupted run of 2 steps that saves per-stage
     files at step 1 and 2; fresh processes resume from a copy of step 1
@@ -4331,7 +4367,8 @@ def phase_resume_pp(prefix: str) -> None:
                             "Engine.logging_freq=1",
                             "Engine.save_load.save_steps=1",
                             "Optimizer.lr.warmup_steps=1",
-                            "Optimizer.lr.max_lr=3.0e-4")[1:]
+                            "Optimizer.lr.max_lr=3.0e-4",
+                            f"Model.num_layers={RESUME_PP_LAYERS}")[1:]
     pp = [f"Distributed.pp_degree={PP_DEGREE}"]
     t0 = time.perf_counter()
     a = spawn(mp_resume_rank, PP_DEGREE,
@@ -4343,11 +4380,11 @@ def phase_resume_pp(prefix: str) -> None:
     b = spawn(mp_resume_rank, PP_DEGREE,
               (base + pp + [f"Engine.save_load.output_dir={part}"], True),
               timeout=600)
-    lps, n = PP_E2E_LAYERS // PP_DEGREE, 8 // PP_MICRO
+    lps, n = RESUME_PP_LAYERS // PP_DEGREE, 8 // PP_MICRO
     for rank, (x, y) in enumerate(zip(a, b)):
         unequal = [k for k in x["digests"] if x["digests"][k] !=
                    y["digests"].get(k)]
-        log("resume-pp", rank=rank, layers=PP_E2E_LAYERS, pp=PP_DEGREE,
+        log("resume-pp", rank=rank, layers=RESUME_PP_LAYERS, pp=PP_DEGREE,
             files=files, losses=x["losses"], resumed_losses=y["losses"],
             grad_norms=x["grad_norms"], resumed_grad_norms=y["grad_norms"],
             tensors=len(x["digests"]), unequal_tensors=len(unequal),
@@ -4420,9 +4457,10 @@ def phase_kernels_67b() -> tuple:
 # ----------------------------------------------------------------- phase 30
 TRAIN_67B_CONFIG = os.path.join(
     ROOT, "configs/nlp/gpt/pretrain_gpt_6.7B_sharding16.yaml")
-ZERO_LAYERS = 2  # of the yaml's 32: the replicated run fits beside it, and
-# the script inside its time (4 until cut for phases 41-43)
-ZERO_FAULT_LAYERS = 2  # the planted-fault and forced-scale drives' depth
+ZERO_LAYERS = 1  # of the yaml's 32: the replicated run fits beside it, and
+# the script inside its time (4 until cut for phases 41-43, 2 until cut
+# for phases 49-50)
+ZERO_FAULT_LAYERS = 1  # the planted-fault and forced-scale drives' depth
 ZERO_STEPS, ZERO_EVAL_ITERS = 3, 1  # 3 steps (5 until cut for time)
 ZERO_FORCED_STEPS = 1  # the forced-scale pair's steps (2 until cut for
 # phases 41-43)
@@ -4818,7 +4856,8 @@ def phase_train_zero(prefix: str) -> dict:
 
 
 # ----------------------------------------------------------------- phase 31
-ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_LOSS_AT = 2, 6, 3
+# phase 31's depth 1 (2 until cut for phases 49-50)
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_LOSS_AT = 1, 6, 3
 ELASTIC_BATCH = 16  # the global batch: the yaml's local 8 on each of 2
 
 
@@ -5931,6 +5970,7 @@ def phase_chunked(params, cfg) -> dict:
 
 
 SPEC_NEW = 16  # phase 37's new tokens a request (64 until cut for 41-43)
+SPEC_LAYERS = 12  # phase 37's depth: GPT-345M's 24 cut for time (PR 20)
 
 
 def spec_requests(vocab: int, seed: int = 6, sampling: bool = False) -> list:
@@ -5962,7 +6002,7 @@ def spec_run(params, requests, kv=None, spec=None, fault=None) -> dict:
         if spec == "self":
             os.environ["FLEETX_SERVING_SPEC_DRAFT"] = "self"
         engine, cfg = build_engine(kv, params=params, spec=spec is not None,
-                                   spec_k=SPEC_K)
+                                   spec_k=SPEC_K, layers=SPEC_LAYERS)
     finally:
         os.environ.pop("FLEETX_SERVING_SPEC_DRAFT", None)
         if old is not None:
@@ -6054,7 +6094,9 @@ def phase_spec(params, cfg) -> dict:
     TPOT against the plain engine. Planted: an engine that accepts every
     draft through the divergence gate, the n-gram rejections through the
     self-draft gate, a launch count one draft step short, and the sampling
-    run with another seed, must each break."""
+    run with another seed, must each break. The engines hold the first
+    SPEC_LAYERS layers of ``params``."""
+    params = first_layers(params, SPEC_LAYERS)
     requests = spec_requests(cfg.vocab_size)
     out = {}
     for kv in (None, "int8"):
@@ -6811,6 +6853,7 @@ def phase_recovery(params, cfg) -> dict:
 
 # ----------------------------------------------------------------- phase 41
 MESH_MP = 2            # phase 41's mp extent: two ranks share the card
+MESH_LAYERS = 6        # phase 41's depth: GPT-345M's 24 cut for time (PR 20)
 MESH_FAULT_TICK = 5    # its recovered tick fault
 
 
@@ -6946,7 +6989,8 @@ def mesh_planted(params, cfg, mesh) -> dict:
     out = {}
     summed = tp.RowParallelDense.forward
     for fault in ("heads", "allreduce"):
-        engine, _ = build_engine(params=params, mesh=mesh)
+        engine, _ = build_engine(params=params, mesh=mesh,
+                                 layers=MESH_LAYERS)
         if fault == "heads":
             other = shard_params(params, dataclasses.replace(
                 cfg, mp_degree=MESH_MP), 1 - mesh.mp_rank)
@@ -6969,6 +7013,20 @@ def mesh_planted(params, cfg, mesh) -> dict:
     return out
 
 
+def mesh_config() -> GPTConfig:
+    """GPT-345M's serving config cut to MESH_LAYERS layers. Its seed-0
+    ``init_params`` are the first MESH_LAYERS layers of the whole
+    model's: the draws run in state-dict order, the layers in turn."""
+    return dataclasses.replace(serving_config()[0], num_layers=MESH_LAYERS)
+
+
+def first_layers(params: dict, layers: int) -> dict:
+    """``params`` without the decoder layers from ``layers`` on."""
+    return {n: t for n, t in params.items()
+            if not (n.startswith("gpt.layers.")
+                    and int(n.split(".")[2]) >= layers)}
+
+
 def mesh_rank() -> dict:
     """Phase 41 on one rank of the mp MESH_MP mesh: every case of
     :func:`mesh_cases` through an engine built from the whole GPT-345M
@@ -6977,12 +7035,13 @@ def mesh_rank() -> dict:
     from fleetx_tpu_torch.parallel.mesh import build_mesh
 
     mesh = build_mesh(mp=MESH_MP)
-    cfg, _ = serving_config()
+    cfg = mesh_config()
     params = init_params(cfg, seed=0)
     clock = collective_clock()
     out = {}
     for name, (kw, requests, kernel) in mesh_cases(cfg.vocab_size).items():
-        engine, _ = build_engine(params=params, mesh=mesh, **kw)
+        engine, _ = build_engine(params=params, mesh=mesh,
+                                 layers=MESH_LAYERS, **kw)
         clock.update(ms=0.0, calls=0, broadcast_ms=0.0)
         run = mesh_serve(engine, requests, cfg, kernel,
                          MESH_FAULT_TICK if name == "fault" else None)
@@ -7049,7 +7108,8 @@ def mesh_streams_gate(what: str, got: dict, ref: dict,
 
 def phase_mesh(params, cfg) -> dict:
     """Phase 41: mesh serving at mp MESH_MP, GPT-345M at full width and
-    depth, two ranks that share the card over gloo (``mesh_rank``) against
+    MESH_LAYERS of its 24 layers (the first MESH_LAYERS of ``params``),
+    two ranks that share the card over gloo (``mesh_rank``) against
     single-card engines of the same weights and switches: phase 4's
     requests paged at bf16 (B8); int8 KV and int8 weights paged (B10) and
     slot (B9); slot (B7); chunk CHUNK on the two 900-token prompts;
@@ -7064,6 +7124,8 @@ def phase_mesh(params, cfg) -> dict:
     cases in the same ranks, must each break the stream gate."""
     from fleetx_tpu_torch.parallel.launch import spawn
 
+    cfg = dataclasses.replace(cfg, num_layers=MESH_LAYERS)
+    params = first_layers(params, MESH_LAYERS)
     refs = {}
     for name, (kw, requests, kernel) in mesh_cases(cfg.vocab_size).items():
         if name == "fault":  # the fault-free run of its traffic: phase 4's
@@ -7076,7 +7138,7 @@ def phase_mesh(params, cfg) -> dict:
             continue
         if name == "spec":  # a spec stream is the plain engine's (phase 37)
             kw = {k: v for k, v in kw.items() if not k.startswith("spec")}
-        engine, _ = build_engine(params=params, **kw)
+        engine, _ = build_engine(params=params, layers=MESH_LAYERS, **kw)
         refs[name] = mesh_serve(engine, requests, cfg, kernel)
         del engine
     gc.collect()
@@ -7918,11 +7980,6 @@ ERNIE_WINDOW = 2048
 VIT_WINDOW = 1024
 VIT_POOL = 64
 HETERO_NEW = 16      # phase 48's new GPT tokens a request (phase 4's 64)
-# phase 48's router quantum: DRR prices a request by its prompt length, and
-# an image's wire prompt is H·W·C = 150528 ints; at the default 256 a lane
-# earns one quantum a tick and an image would wait ~588 ticks to dispatch
-# (ROADMAP Queue C, "DRR prices an image by its wire length")
-HETERO_DRR_QUANTUM = 224 * 224 * 3
 
 
 def encoder_model(path: str) -> dict:
@@ -8387,7 +8444,9 @@ def phase_hetero(cfg) -> dict:
     with its batch dispatched, GPT replica 1 at tick 3 mid-stream): one
     terminal result each, the same gates, no dispatch across families.
     B8 once per layer of each decode forward, B1 once per layer of each
-    encoder forward. The router runs at HETERO_DRR_QUANTUM."""
+    encoder forward. The routers run at the default DRR quantum, which
+    prices an image at the ViT's 197 rows of work: a lone image sent to a
+    router over one ViT engine is answered in its first tick."""
     import urllib.request
 
     from fleetx_tpu_torch.models.ernie.convert import init_params as ernie_init
@@ -8451,8 +8510,17 @@ def phase_hetero(cfg) -> dict:
     zero_launches()
     fa.launches["flash_fwd"] = 0  # the path starts here
     forwards0 = encoder_forwards(vits + [ernie])
-    router = ServingRouter(engines, probe_every=1,
-                           drr_quantum=HETERO_DRR_QUANTUM)
+    lone = ServingRouter([vits[0]])
+    rid = lone.submit(encode_floats(images[0]))
+    first_ticks = 0
+    while lone.result(rid) is None and first_ticks < 600:
+        lone.step()
+        first_ticks += 1
+    if first_ticks != 1:
+        raise AssertionError(f"hetero: an image at the default DRR quantum "
+                             f"took {first_ticks} router ticks to answer")
+    del lone
+    router = ServingRouter(engines, probe_every=1)
     api = ApiServer(router, model_id="fleet-hetero").start()
     try:
         with urllib.request.urlopen(api.url + "/v1/models", timeout=60) as r:
@@ -8499,15 +8567,15 @@ def phase_hetero(cfg) -> dict:
     finally:
         api.stop()
     log("hetero", card=repr(CARD.get("line")), families=families,
-        drr_quantum=HETERO_DRR_QUANTUM, embeddings_http_s=http_s,
+        drr_quantum=router.drr_quantum, image_first_ticks=first_ticks,
+        embeddings_http_s=http_s,
         embeddings_width=len(emb["data"][0]["embedding"]),
         embedding_rel_gap_max=gap,
         embeddings_bit_equal=f"{bit_equal}/{len(images)}",
         **hetero_answers("hetero clean", rids, res, want))
     # serving_hetero's fault plan over the same engines
     router, rids, res, gap, bit_equal, given = hetero_fault_plan(
-        fleet, requests, want, relative_gap, VIT_EMB_TOL, max_ticks=2000,
-        drr_quantum=HETERO_DRR_QUANTUM)
+        fleet, requests, want, relative_gap, VIT_EMB_TOL, max_ticks=2000)
     answers = hetero_answers("hetero killed", rids, res, want)
     snap = router.metrics.snapshot()
     torch.cuda.synchronize()
@@ -8527,6 +8595,428 @@ def phase_hetero(cfg) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"paged_decode": b8, "flash_fwd": b1}
+
+
+# ------------------------------------------------------------ phases 49-50
+MOE_CONFIG = os.path.join(ROOT, "configs/nlp/moe/pretrain_moe_small.yaml")
+MOE_STEPS = 6        # phase 49's steps at the yaml's full depth
+MOE_BATCH = 8        # the global batch of phases 49-50 (the yaml's local 8)
+MOE_EP_STEPS = 4     # phase 50(b)'s steps: phase 49's first global batches
+MOE_E2E_LAYERS = 2   # phase 50(a)'s depth of the yaml's 12, fp32
+MOE_E2E_CF = 0.5     # phase 50(a)'s capacity factor: tokens are dropped
+# phase 50(a), fp32, dp 2 against dp 1 on one global batch: the loss (abs)
+# and grad norm (relative) as TRAIN_E2E_TOL, and each parameter leaf after
+# the step (relative L2: AdamW's first step moves every element by about
+# lr, so a gradient summed wrongly moves a leaf by ~1e-3 of its norm)
+MOE_E2E_TOL = {"loss": 1e-4, "grad_norm": 3e-4, "param_leaf": 1e-4}
+MOE_BF16_LOSS_TOL = 2e-2  # phase 50(b): each bf16 loss against phase 49's
+MOE_PLANTS = ("per-rank routing", "expert grads summed",
+              "norm of the local experts")
+
+
+def moe_overrides(prefix: str, *extra, dp: int = 1,
+                  steps: int = MOE_STEPS) -> list:
+    """Overrides of ``pretrain_moe_small.yaml`` at its full width (its
+    depth unless ``extra`` cuts it) over the corpus at ``prefix``, at dp
+    ``dp`` (the global batch MOE_BATCH split over the ranks), a short
+    warmup and a max_lr at which the loss moves within the drive."""
+    rows = MOE_BATCH // dp
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
+            f"Distributed.dp_degree={dp}", f"Global.local_batch_size={rows}",
+            f"Global.micro_batch_size={rows}", f"Engine.max_steps={steps}",
+            "Engine.logging_freq=1", "Engine.eval_freq=0",
+            "Optimizer.lr.warmup_steps=1", "Optimizer.lr.max_lr=5.0e-4",
+            "Optimizer.lr.min_lr=5.0e-5", "Optimizer.lr.decay_steps=1000",
+            *extra]
+
+
+def moe_config(prefix: str, *extra, dp: int = 1, steps: int = MOE_STEPS):
+    """The config of :func:`moe_overrides`."""
+    return get_config(MOE_CONFIG, overrides=moe_overrides(
+        prefix, *extra, dp=dp, steps=steps), nranks=dp)
+
+
+def watch_moe_routing(calls: list):
+    """Record each MoE layer's routing as it runs (expert ids, keep flags
+    and the entries dropped at capacity, on the host) into ``calls``;
+    returns the function that stops it."""
+    from fleetx_tpu_torch.parallel import moe
+
+    real = moe.route
+
+    def route(probs, cfg, key):
+        out = real(probs, cfg, key)
+        idx, _, weights, keep = out[:4]
+        calls.append({"ids": idx.cpu(), "keep": keep.cpu(),
+                      "dropped": int(((weights > 0) & ~keep).sum()),
+                      "entries": keep.numel()})
+        return out
+
+    moe.route = route
+    return lambda: setattr(moe, "route", real)
+
+
+def moe_bytes(trainer) -> dict:
+    """The parameter bytes this rank holds, dense and expert."""
+    from fleetx_tpu_torch.parallel.moe import is_expert_param
+
+    out = {"dense": 0, "expert": 0}
+    for n, p in trainer.module.nets.named_parameters():
+        out["expert" if is_expert_param(n) else "dense"] += (
+            p.numel() * p.element_size())
+    return out
+
+
+def phase_moe(prefix: str) -> dict:
+    """Phase 49: ``Trainer.fit`` through ``build_module`` on
+    ``pretrain_moe_small.yaml`` at full width and depth (12 layers, hidden
+    1024, 8 experts, gshard top 2, capacity 1.2), one rank, bf16, dropout
+    0.1, MOE_STEPS steps: every loss finite and the loss falling, B1, B2
+    and B3 once per layer per step; ``lm_loss``, ``balance_loss``, each
+    layer's dropped share, step ms, tokens/s, the MoE MFU, peak memory and
+    the parameter bytes (dense, expert) logged. Returns the launches and
+    the losses phase 50(b) is held to."""
+    cfg = moe_config(prefix)
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    gcfg = module.gpt_config
+    ends = []
+    inner = trainer.train_step
+
+    def timed(batch):
+        out = inner(batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    trainer.train_step = timed
+    routing = []
+    stop = watch_moe_routing(routing)
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.NAMES:
+        fa.launches[name] = 0
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(build_dataloader(cfg, "Train"))
+        torch.cuda.synchronize()
+    finally:
+        stop()
+    seconds = time.perf_counter() - t0
+    launches = {n: fa.launches[n] for n in fa.NAMES}
+    steps = trainer.step
+    losses = [float(h["loss"]) for h in trainer.history]
+    seq = cfg.Data.Train.dataset.max_seq_len
+    tokens = MOE_BATCH * seq
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    steady = float(np.median(step_ms[1:])) * 1e-3
+    flops = trainer._flops_per_token(seq, tokens)
+    layers = gcfg.num_layers
+    dropped = [sum(c["dropped"] for c in routing[i::layers])
+               / sum(c["entries"] for c in routing[i::layers])
+               for i in range(layers)]
+    nbytes = moe_bytes(trainer)
+    log("moe", card=repr(CARD.get("line")), steps=steps, layers=layers,
+        hidden=gcfg.hidden_size, experts=gcfg.num_experts, gate=gcfg.gate,
+        top_k=gcfg.top_k, capacity_factor=gcfg.capacity_factor,
+        params_b=trainer.n_params / 1e9, dense_bytes=nbytes["dense"],
+        expert_bytes=nbytes["expert"],
+        dtype=str(gcfg.dtype).split(".")[-1], batch=MOE_BATCH, seq=seq,
+        step_ms=[round(x, 2) for x in step_ms],
+        step_ms_median=steady * 1e3, tokens_per_s=tokens / steady,
+        flops_per_token=flops,
+        mfu=tokens / steady * flops / peak_flops(trainer.device),
+        fit_seconds=seconds,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches)
+    log("moe", losses=[round(x, 5) for x in losses],
+        lm_loss=[round(float(h["lm_loss"]), 5) for h in trainer.history],
+        balance_loss=[round(float(h["balance_loss"]), 5)
+                      for h in trainer.history],
+        grad_norms=[round(float(h["grad_norm"]), 4)
+                    for h in trainer.history],
+        dropped_share_by_layer=[round(x, 4) for x in dropped])
+    if steps != MOE_STEPS or len(routing) != steps * layers:
+        raise AssertionError(f"moe: {steps} steps, {len(routing)} routed "
+                             "forwards")
+    if launches != {n: steps * layers for n in fa.NAMES}:
+        raise AssertionError(f"moe: flash launches {launches} over {steps} "
+                             f"steps x {layers} layers")
+    if not all(math.isfinite(x) for x in losses) or not (
+            np.mean(losses[-2:]) < losses[0]):
+        raise AssertionError(f"moe: losses {losses}")
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses}
+
+
+def moe_plant(label: str):
+    """Swap in phase 50(a)'s planted fault ``label`` (None: none); returns
+    the function that puts the code back. The faults: routing each rank's
+    tokens alone with a capacity of its own (the reference's per-rank
+    semantics, not JAX's global routing); the expert gradients summed over
+    the data group like the dense ones (the trainer told no parameter is
+    an expert block); the clip's norm over this rank's experts only."""
+    from fleetx_tpu_torch.core import engine
+    from fleetx_tpu_torch.parallel import moe
+    from fleetx_tpu_torch.parallel.mesh import get_mesh
+
+    if label is None:
+        return lambda: None
+    if label == "per-rank routing":
+        real = moe.route
+
+        def route(probs, cfg, key):
+            world = get_mesh().data_world
+            n = probs.shape[0] // world
+            k, cap = moe.moe_capacity(cfg, n)
+            key = key if cfg.gate == "gshard" else None
+            parts = [moe.compute_routing_indices(
+                probs[r * n:(r + 1) * n], k, cap, cfg.gate, key,
+                offset=r * n, probs=probs[r * n:(r + 1) * n])
+                for r in range(world)]
+            idx, pos, weights, keep, aux = (list(x) for x in zip(*parts))
+            pos = [p + r * cap for r, p in enumerate(pos)]
+            return (torch.cat(idx), torch.cat(pos), torch.cat(weights),
+                    torch.cat(keep), torch.stack(aux).mean(), cap * world)
+
+        moe.route = route
+        return lambda: setattr(moe, "route", real)
+    if label == "expert grads summed":
+        real = engine.is_expert_param
+        engine.is_expert_param = lambda name: False
+        return lambda: setattr(engine, "is_expert_param", real)
+    real = engine.global_norm
+    engine.global_norm = lambda *a, **kw: real(*a, **{**kw, "ep_group": None})
+    return lambda: setattr(engine, "global_norm", real)
+
+
+def moe_e2e_step(cfg, batch, plant=None) -> dict:
+    """One train step of a fresh trainer of ``cfg`` (the seeded init) on
+    its data rank's rows of ``batch`` with ``plant`` swapped in: the loss,
+    grad norm, each layer's routing, the parameters after the step, the
+    entries dropped at capacity, the expert blocks and the mesh."""
+    undo = moe_plant(plant)
+    routing = []
+    stop = watch_moe_routing(routing)
+    try:
+        trainer = Trainer(cfg, build_module(cfg))
+        trainer.init_state()
+        mesh = trainer.mesh
+        b = MOE_BATCH // mesh.data_world
+        rows = {k: v[mesh.data_rank * b:(mesh.data_rank + 1) * b]
+                for k, v in batch.items()}
+        out = trainer.train_step(trainer._to_device(rows))
+        torch.cuda.synchronize()
+    finally:
+        stop()
+        undo()
+    from fleetx_tpu_torch.parallel.moe import is_expert_param
+
+    params = {n: p.detach() for n, p in
+              trainer.module.nets.named_parameters()}
+    return {"loss": float(out["loss"]), "grad_norm": float(out["grad_norm"]),
+            "routing": routing, "params": params,
+            "dropped": sum(c["dropped"] for c in routing),
+            "experts_held": next(p.shape[0] for n, p in params.items()
+                                 if is_expert_param(n)), "mesh": mesh}
+
+
+def moe_e2e_gaps(run: dict, ref: dict) -> dict:
+    """Gaps of a dp 2 rank's step ``run`` from the dp 1 reference ``ref``
+    (loss, grad norm, routing per layer, parameters whole): the metrics
+    of MOE_E2E_TOL, the worst leaf, and whether every layer's expert ids
+    and keep flags are bit-equal."""
+    from fleetx_tpu_torch.parallel.moe import expert_block
+
+    routing, mesh = run["routing"], run["mesh"]
+    same = len(routing) == len(ref["routing"]) and all(
+        torch.equal(a["ids"], b["ids"]) and torch.equal(a["keep"], b["keep"])
+        for a, b in zip(routing, ref["routing"]))
+    leaf = {}
+    for n, p in run["params"].items():
+        want = ref["params"][n].to(p.device)
+        if want.shape != p.shape:  # an expert leaf: this rank's block
+            want = want[expert_block(want.shape[0], mesh.data_world,
+                                     mesh.data_rank)]
+        leaf[n] = (torch.linalg.vector_norm((p - want).float())
+                   / torch.linalg.vector_norm(want.float())).item()
+    worst = max(leaf, key=leaf.get)
+    return {"routing_bit_equal": same,
+            "loss": abs(run["loss"] - ref["loss"]),
+            "grad_norm": (abs(run["grad_norm"] - ref["grad_norm"])
+                          / ref["grad_norm"]),
+            "param_leaf": leaf[worst], "worst_leaf": worst,
+            "loss_this": run["loss"], "grad_norm_this": run["grad_norm"],
+            "dropped": run["dropped"], "experts_held": run["experts_held"]}
+
+
+def moe_e2e_rank(overrides, batch, ref_path) -> dict:
+    """One rank of phase 50(a): the sound dp 2 step, then each planted
+    fault's, each against the dp 1 reference at ``ref_path``."""
+    ref = torch.load(ref_path, map_location="cpu")
+    cfg = get_config(MOE_CONFIG, overrides=list(overrides), nranks=2)
+    out = {}
+    for plant in (None,) + MOE_PLANTS:
+        run = moe_e2e_step(cfg, batch, plant)
+        out[plant or "sound"] = moe_e2e_gaps(run, ref)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_e2e_breaks(gaps: dict) -> list:
+    """The gates of phase 50(a) that ``gaps`` break."""
+    broken = [m for m, tol in MOE_E2E_TOL.items() if not gaps[m] <= tol]
+    if not gaps["routing_bit_equal"]:
+        broken.append("routing")
+    return broken
+
+
+def phase_moe_ep(prefix: str, losses49: list) -> dict:
+    """Phase 50: expert parallelism, two ranks sharing the card over gloo,
+    dp 2, 4 of the 8 experts each.
+
+    (a) ``pretrain_moe_small.yaml`` at full width, MOE_E2E_LAYERS layers,
+    fp32, capacity factor MOE_E2E_CF (tokens are dropped): one step on one
+    global batch at dp 1 here and at dp 2 on the ranks: every layer's
+    expert ids and keep flags bit-equal, the loss, grad norm and every
+    parameter after the step within MOE_E2E_TOL; each of MOE_PLANTS must
+    break that gate.
+
+    (b) bf16 at full depth, MOE_EP_STEPS steps of ``Trainer.fit`` on phase
+    49's global batches: each loss within MOE_BF16_LOSS_TOL of phase 49's,
+    each rank's expert bytes in [0.45, 0.55] of the whole model's expert
+    bytes; the all-to-all ms and MB and the data-group all-reduce ms per
+    step logged."""
+    from fleetx_tpu_torch.parallel.launch import spawn
+
+    # no warmup: the step's update moves every parameter (at lr 0 the
+    # parameter gate would hold whatever the gradients were); AdamW's
+    # epsilon 1e-6: the key bias's gradient is 0 in exact arithmetic, and
+    # at 1e-8 its summation noise became ±lr steps
+    extra = (f"Model.num_layers={MOE_E2E_LAYERS}",
+             f"Model.capacity_factor={MOE_E2E_CF}",
+             "Engine.mix_precision.use_pure_fp16=False",
+             "Optimizer.lr.warmup_steps=0", "Optimizer.epsilon=1e-6")
+    cfg1 = moe_config(prefix, *extra)
+    batch = next(iter(build_dataloader(cfg1, "Train")))
+    ref = moe_e2e_step(cfg1, batch)
+    dropped = ref["dropped"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "dp1.pt")
+        torch.save({"loss": ref["loss"], "grad_norm": ref["grad_norm"],
+                    "routing": ref["routing"],
+                    "params": {n: p.cpu() for n, p in ref["params"].items()}},
+                   ref_path)
+        del ref["params"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        over = moe_overrides(prefix, *extra, dp=2)
+        ranks = spawn(moe_e2e_rank, 2, (over, batch, ref_path), timeout=900)
+    sound = [r["sound"] for r in ranks]
+    for r, g in enumerate(sound):
+        log("moe-ep", part="a", rank=r, layers=MOE_E2E_LAYERS,
+            capacity_factor=MOE_E2E_CF, dropped_dp1=dropped,
+            loss_dp1=ref["loss"], grad_norm_dp1=ref["grad_norm"],
+            tol=MOE_E2E_TOL, **g)
+    if dropped <= 0 or any(g["dropped"] != dropped for g in sound):
+        raise AssertionError(f"moe-ep: dropped {dropped} at dp 1, "
+                             f"{[g['dropped'] for g in sound]} at dp 2")
+    broken = [moe_e2e_breaks(g) for g in sound]
+    half = build_module(cfg1).gpt_config.num_experts // 2
+    if any(broken) or any(g["experts_held"] != half for g in sound):
+        raise AssertionError(f"moe-ep: dp 2 against dp 1 breaks {broken}: "
+                             f"{sound}")
+    for plant in MOE_PLANTS:
+        gaps = [r[plant] for r in ranks]
+        caught = sorted({m for g in gaps for m in moe_e2e_breaks(g)})
+        log("moe-ep", planted_fault=plant, breaks=caught,
+            **{k: max(g[k] for g in gaps) for k in MOE_E2E_TOL})
+        if not caught:
+            raise AssertionError(f"moe-ep: the planted fault {plant!r} "
+                                 "passed the gate")
+    # (b): full depth, bf16, phase 49's global batches
+    runs = spawn(moe_ep_fit_rank, 2, (prefix,), timeout=900)
+    for r, run in enumerate(runs):
+        log("moe-ep", part="b", rank=r, **run)
+    gaps = [abs(a - b) for a, b in zip(runs[0]["losses"], losses49)]
+    share = [run["expert_bytes"] / run["expert_bytes_whole"] for run in runs]
+    log("moe-ep", part="b", loss_gaps=gaps, tol=MOE_BF16_LOSS_TOL,
+        expert_share=share)
+    if (len(gaps) != MOE_EP_STEPS or not all(g <= MOE_BF16_LOSS_TOL
+                                             for g in gaps)
+            or runs[0]["losses"] != runs[1]["losses"]):
+        raise AssertionError(f"moe-ep: dp 2 losses {runs[0]['losses']} / "
+                             f"{runs[1]['losses']} against phase 49's "
+                             f"{losses49[:MOE_EP_STEPS]}")
+    if not all(0.45 <= s <= 0.55 for s in share):
+        raise AssertionError(f"moe-ep: expert byte shares {share}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: runs[0]["launches"][n] for n in fa.NAMES}
+
+
+def moe_ep_fit_rank(prefix: str) -> dict:
+    """One rank of phase 50(b): ``Trainer.fit`` at dp 2 on phase 49's
+    config and corpus for MOE_EP_STEPS steps; the all-to-alls (their ms,
+    each synchronised on both sides, and MB) and the data-group gradient
+    all-reduce (ms) timed per step."""
+    from fleetx_tpu_torch.core import engine
+    from fleetx_tpu_torch.parallel import moe
+
+    cfg = moe_config(prefix, dp=2, steps=MOE_EP_STEPS)
+    trainer = Trainer(cfg, build_module(cfg))
+    trainer.init_state()
+    spent = {"a2a_s": 0.0, "a2a_bytes": 0, "a2a_calls": 0,
+             "all_reduce_s": 0.0}
+    exchange, reduce_sum = moe._exchange, engine.all_reduce_sum
+
+    def timed_exchange(x, send, recv, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exchange(x, send, recv, group)
+        torch.cuda.synchronize()
+        spent["a2a_s"] += time.perf_counter() - t0
+        spent["a2a_bytes"] += (x.numel() + out.numel()) * x.element_size()
+        spent["a2a_calls"] += 1
+        return out
+
+    def timed_reduce(tensors, group=None, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_sum(tensors, group=group, **kw)
+        torch.cuda.synchronize()
+        spent["all_reduce_s"] += time.perf_counter() - t0
+
+    moe._exchange, engine.all_reduce_sum = timed_exchange, timed_reduce
+    for name in fa.NAMES:
+        fa.launches[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(build_dataloader(cfg, "Train"))
+        torch.cuda.synchronize()
+    finally:
+        moe._exchange, engine.all_reduce_sum = exchange, reduce_sum
+    wall = time.perf_counter() - t0
+    steps = trainer.step
+    nbytes = moe_bytes(trainer)
+    whole = nbytes["expert"] * trainer.ep_world
+    return {"steps": steps, "backend": torch.distributed.get_backend(),
+            "losses": [float(h["loss"]) for h in trainer.history],
+            "grad_norms": [float(h["grad_norm"]) for h in trainer.history],
+            "step_s": wall / steps,
+            "a2a_ms_per_step": spent["a2a_s"] * 1e3 / steps,
+            "a2a_mb_per_step": spent["a2a_bytes"] / 1e6 / steps,
+            "a2a_calls_per_step": spent["a2a_calls"] / steps,
+            "all_reduce_ms_per_step": spent["all_reduce_s"] * 1e3 / steps,
+            "expert_bytes": nbytes["expert"], "expert_bytes_whole": whole,
+            "dense_bytes": nbytes["dense"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {n: fa.launches[n] for n in fa.NAMES}}
 
 
 # torch._dynamo, torch.distributed.fsdp and torch.distributed.tensor are
@@ -8756,6 +9246,17 @@ def run_phases() -> tuple:
         vp_records[name]["175b"] = dict(
             ce_175b[VP_KERNEL[name]], launches=SP_STEPS * per_step[name],
             launches_per_step=per_step[name])
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        write_corpus(prefix, tokens=200_000, seed=9)
+        moe = phase_moe(prefix)
+        drop_output_dirs(prefix)
+        moe_ep = phase_moe_ep(prefix, moe["losses"])
+    for name in fa.NAMES:
+        flash[name]["launches_moe"] = moe["launches"][name]
+        flash[name]["launches_moe_ep_per_rank"] = moe_ep[name]
     records = [dict(name="paged_decode", route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",

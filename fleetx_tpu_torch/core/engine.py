@@ -94,6 +94,20 @@ sequence: their gradients are summed over the mp group after the
 backward (:meth:`Trainer._sum_sequence_parallel_grads`), before
 anything else reads them.
 
+Under expert parallelism (an MoE model at dp > 1, ``parallel/moe.py``)
+each data rank holds its block of every stacked expert leaf, and the
+exchange's backward has already brought every rank's contributions to
+its own experts: the expert gradients stay out of the data group's sum,
+and the global norm (the clip's, the sentry's) sums their squares over
+the data group beside the dense gradients counted once; a per-block clip
+counts an expert leaf whole. The weight-update shard is off (the dense
+rest is all-reduced, AdamW runs on whole tensors). A checkpoint holds
+every expert leaf and its AdamW moments whole, in JAX's ``[E, ...]``
+layout (gathered over the data group to the writer), and a load takes
+its rank's block, so an MoE run saved at one dp loads at another. The
+step also returns the module's ``metrics`` (an MoE module's ``lm_loss``
+and ``balance_loss``), summed over the data group like the loss.
+
 Under pipeline parallelism (``pp_degree > 1``) there is no accumulation
 outside the pipeline (JAX :186-190): ``train_step`` runs the module's
 schedule (``GPTModule.pipeline_loss``) over ``Engine.accumulate_steps``
@@ -106,8 +120,9 @@ judges the same loss.
 
 MFU is the model-FLOPs count of ``bench.py`` (6 per parameter per token
 plus the causal attention products; the whole model's parameters under
-mp) over the step time and the bf16 dense peak of every card the ranks
-run on.
+mp; an MoE model's expert leaves at the rows their GEMMs run, every
+expert's capacity, ``moe_flops_per_token``) over the step time and the
+bf16 dense peak of every card the ranks run on.
 """
 
 from __future__ import annotations
@@ -142,6 +157,11 @@ from fleetx_tpu_torch.optims.optimizer import (
 )
 from fleetx_tpu_torch.parallel.env import ranks_per_card
 from fleetx_tpu_torch.parallel.mesh import get_data_world, mesh_from_config
+from fleetx_tpu_torch.parallel.moe import (
+    expert_block,
+    is_expert_param,
+    moe_capacity,
+)
 from fleetx_tpu_torch.parallel.sharding import (
     BUCKET_BYTES,
     ZeroShards,
@@ -157,8 +177,8 @@ from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["BUCKET_BYTES", "CheckpointUnrestorable", "SentryAbort",
-           "Trainer", "model_flops_per_token", "peak_flops",
-           "all_reduce_sum"]
+           "Trainer", "model_flops_per_token", "moe_flops_per_token",
+           "peak_flops", "all_reduce_sum"]
 
 
 class CheckpointUnrestorable(RuntimeError):
@@ -187,6 +207,22 @@ def model_flops_per_token(n_params: int, num_layers: int, seq: int,
     (forward 4·s·h per layer per token, halved for causality, ×3 for
     forward and backward)."""
     return 6.0 * n_params + num_layers * 6.0 * seq * hidden
+
+
+def moe_flops_per_token(dense_params: int, expert_params: int, cfg,
+                        tokens: int, seq: int) -> float:
+    """Model FLOPs per trained token of an MoE GPT whose global
+    micro-batch routes ``tokens`` tokens: 6 per dense parameter (the
+    gate included), each layer's expert leaves (``expert_params`` over
+    all layers and experts) at the rows their GEMMs run, the E·C rows of
+    every expert's capacity C (as XLA's cost analysis counts JAX's
+    batched einsums), and the causal attention products as
+    :func:`model_flops_per_token`."""
+    _, capacity = moe_capacity(cfg, tokens)
+    per_row = expert_params / cfg.num_experts  # one expert, all layers
+    rows = cfg.num_experts * capacity
+    return (6.0 * dense_params + 6.0 * per_row * rows / tokens
+            + cfg.num_layers * 6.0 * seq * cfg.hidden_size)
 
 
 def peak_flops(device: torch.device) -> Optional[float]:
@@ -238,11 +274,14 @@ class Trainer:
         self._grad_clip = self.clip  # kept when a caller wraps self.clip
         self.generator = torch.Generator().manual_seed(self.seed)
         self.mesh = mesh_from_config(cfg)
+        # the data ranks an MoE model's experts split over (1: whole)
+        self.ep_world = getattr(module, "ep_world", 1)
         # the ZeRO weight-update shard (JAX :204-214): on whenever there is
-        # a data-parallel axis, unless FLEETX_ZERO_UPDATE=0
+        # a data-parallel axis, unless FLEETX_ZERO_UPDATE=0 or the experts
+        # are split over it
         self._zero_update = (
             os.environ.get("FLEETX_ZERO_UPDATE", "1") == "1"
-            and self.mesh.zero_world > 1)
+            and self.mesh.zero_world > 1 and self.ep_world == 1)
         self.zero: Optional[ZeroShards] = None  # made by init_state
         if self.mesh.pp > 1:
             # the pipeline streams the microbatches itself (JAX :186-190)
@@ -252,6 +291,7 @@ class Trainer:
         self.step = 0
         self.n_params = 0
         self.mp_split: Dict[str, int] = {}  # parameters split over mp
+        self.experts: set = set()  # parameters split over the data ranks
         self.history: List[Dict[str, float]] = []  # one entry per step
         self.start_epoch = 0
         self._cur_epoch = 0  # the epoch the fit loop is inside
@@ -368,9 +408,14 @@ class Trainer:
         nets = self.module.nets
         nets.load_state_dict(params, assign=True)
         self.mp_split = mp_split_axes(nets)
+        self.experts = ({n for n, _ in nets.named_parameters()
+                         if is_expert_param(n)} if self.ep_world > 1
+                        else set())
         # the whole model's count: a shard split over mp counts mp times,
-        # the stages are summed and the tied copy counts once
+        # an expert block ep_world times, the stages are summed and the
+        # tied copy counts once
         n_params = sum(p.numel() * (self.mesh.mp if n in self.mp_split
+                                    else self.ep_world if n in self.experts
                                     else 1)
                        for n, p in nets.named_parameters()
                        if n not in self._tie_copies())
@@ -420,12 +465,14 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """One optimizer step on a device batch: the mean loss and mean
         gradients over ``accumulate_steps`` micro-batches (summed over the
-        data group's ranks, each holding its share of the global mean), the
-        clip, then AdamW at ``lr(step)``. With the sentry on, a step it
-        refuses is skipped: the gradients are dropped and the dropout
-        generator is put back, so nothing moves. Returns ``{"loss",
-        "grad_norm", "lr", "skipped"}`` (loss and grad_norm as device
-        scalars, the same on every rank)."""
+        data group's ranks, each holding its share of the global mean;
+        expert blocks not), the clip, then AdamW at ``lr(step)``. With the
+        sentry on, a step it refuses is skipped: the gradients are dropped
+        and the dropout generator is put back, so nothing moves. Returns
+        ``{"loss", "grad_norm", "lr", "skipped"}`` (loss and grad_norm as
+        device scalars, the same on every rank) and the mean of the
+        module's ``metrics`` over the micro-batches (an MoE module's
+        ``lm_loss`` and ``balance_loss``), summed over the data group."""
         nets = self.module.nets
         accum = self.accumulate_steps
         rows = next(iter(batch.values())).shape[0]
@@ -436,6 +483,7 @@ class Trainer:
         drawn_from = (self.generator.get_state() if self._sentry_enabled
                       else None)
         mesh = self.mesh
+        metrics: Dict[str, torch.Tensor] = {}
         if mesh.pp > 1:  # the schedule runs the backwards too
             loss_sum = self.module.pipeline_loss(batch, self.generator,
                                                  train=True)
@@ -447,6 +495,9 @@ class Trainer:
                 loss = self.module.loss_fn(part, self.generator, train=True)
                 (loss / accum).backward()
                 loss_sum += loss.detach()
+                for k, v in (getattr(self.module, "metrics", None)
+                             or {}).items():
+                    metrics[k] = metrics.get(k, 0.0) + v / accum
         self._sum_sequence_parallel_grads()
         zero = self.zero
         if zero is None:
@@ -454,8 +505,11 @@ class Trainer:
                      if p.grad is not None]
             names, grads = [n for n, _ in named], [p.grad for _, p in named]
             if mesh.data_world > 1:
-                all_reduce_sum(grads + [loss_sum.view(1)],
-                               group=mesh.data_group)
+                # an expert block's gradient is whole on its rank already
+                summed = [p.grad for n, p in named if n not in self.experts]
+                extra = [loss_sum.view(1)] + [v.view(1)
+                                              for v in metrics.values()]
+                all_reduce_sum(summed + extra, group=mesh.data_group)
         else:
             # this rank's slices of the sums (a parameter the step did not
             # reach has a zero gradient); the whole gradients go
@@ -481,7 +535,9 @@ class Trainer:
             stage_group=mesh.pp_group,
             zero_parts=(None if zero is None
                         else [zero.plans[i].parts for i in counted]),
-            zero_group=None if zero is None else mesh.zero_group)
+            zero_group=None if zero is None else mesh.zero_group,
+            ep=[names[i] in self.experts for i in counted],
+            ep_group=mesh.data_group if self.experts else None)
         if self._grad_clip is not None and self._grad_clip.per_block:
             self._grad_clip.blocks = self._blocks(names, grads)
         grad_norm = norm if self.clip is None else self.clip(grads, norm)
@@ -491,7 +547,7 @@ class Trainer:
             self.optimizer.zero_grad(set_to_none=True)
             self.generator.set_state(drawn_from)
             return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
-                    "skipped": True}
+                    "skipped": True, **metrics}
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         if zero is not None:
@@ -504,7 +560,7 @@ class Trainer:
             zero.all_gather()
         self.step += 1
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
-                "skipped": False}
+                "skipped": False, **metrics}
 
     def _blocks(self, names: List[str], grads: List[torch.Tensor]
                 ) -> Blocks:
@@ -512,7 +568,8 @@ class Trainer:
         shards or update slices of the parameters ``names``) belongs to,
         for a per-block clip. A slice's squares are summed over the zero
         group (a slice that k ranks hold weighs k / world, as in
-        ``global_norm``), an mp shard's over the mp group; then the
+        ``global_norm``), an mp shard's over the mp group, an expert
+        block's over the data group; then the
         decoder layers' copies of one parameter are summed, since the JAX
         model stacks them into one leaf (``nn.scan``, or the pipeline's
         stages, summed over the pp group) unless it unrolls them
@@ -531,6 +588,8 @@ class Trainer:
                              device=self.device)
         split = torch.tensor([n in self.mp_split for n in names],
                              device=self.device)
+        ep = torch.tensor([n in self.experts for n in names],
+                          device=self.device)
         parts = ([1] * len(names) if zero is None
                  else [plan.parts for plan in zero.plans])
         world = mesh.zero_world
@@ -539,7 +598,8 @@ class Trainer:
         sizes = [0.0] * len(uniq)
         for i, (n, g, k) in enumerate(zip(names, grads, parts)):
             sizes[uniq.index(keys[i])] += g.numel() * k * (
-                mesh.mp if n in self.mp_split else 1)
+                mesh.mp if n in self.mp_split
+                else self.ep_world if n in self.experts else 1)
         pp_sum = mesh.pp > 1 and stacked and bool(layer_keys)
         lo, hi = (layer_keys[0], layer_keys[-1] + 1) if layer_keys else (0, 0)
         if pp_sum:  # every stage holds some of each layer parameter
@@ -554,6 +614,10 @@ class Trainer:
                 shards = sq * split
                 dist.all_reduce(shards, group=mesh.mp_group)
                 sq = torch.where(split, shards, sq)
+            if self.experts:
+                blocks = sq * ep
+                dist.all_reduce(blocks, group=mesh.data_group)
+                sq = torch.where(ep, blocks, sq)
             by_key = torch.zeros(len(uniq), device=sq.device).index_add_(
                 0, index, sq)
             if pp_sum:
@@ -616,10 +680,24 @@ class Trainer:
         if self.primary:
             self.module.training_step_end(log)
 
-    def _flops_per_token(self, seq: int) -> Optional[float]:
+    def _flops_per_token(self, seq: int, tokens: Optional[int] = None
+                         ) -> Optional[float]:
+        """The model FLOPs per token of a step whose global batch holds
+        ``tokens`` tokens (the config's global batch when None) of length
+        ``seq``."""
         gcfg = getattr(self.module, "gpt_config", None)
         if gcfg is None:
             return None
+        if gcfg.expert_mode:
+            if tokens is None:
+                tokens = int(self.cfg.Global.global_batch_size) * seq
+            experts = sum(p.numel() * self.ep_world for n, p in
+                          self.module.nets.named_parameters()
+                          if is_expert_param(n))
+            # each micro-batch routes its own global tokens
+            return moe_flops_per_token(self.n_params - experts, experts,
+                                       gcfg, tokens // self.accumulate_steps,
+                                       seq)
         return model_flops_per_token(self.n_params, gcfg.num_layers, seq,
                                      gcfg.hidden_size)
 
@@ -691,7 +769,8 @@ class Trainer:
                 if tokens_per_batch is None:  # the global batch's
                     tokens_per_batch = get_data_world(self.mesh) * int(
                         np.prod(np.shape(batch["tokens"])))
-                    flops = self._flops_per_token(np.shape(batch["tokens"])[1])
+                    flops = self._flops_per_token(
+                        np.shape(batch["tokens"])[1], tokens_per_batch)
                     self._tokens_per_batch = tokens_per_batch
                     self._flops_per_tok = flops
                 with span("train.step", step=self.step):
@@ -941,10 +1020,20 @@ class Trainer:
                 by_name = {n: s for n, s in whole.items() if s}
         layout = ({"virtual_pp": self._virtual_pp()} if self.mesh.pp > 1
                   else {})
+        params = {n: p.detach() for n, p in
+                  self.module.nets.named_parameters()}
+        if self.experts:  # every rank enters the gathers
+            experts = sorted(self.experts)
+            params.update(zip(experts, self._whole_experts(
+                [params[n] for n in experts])))
+            for k in moment_keys(self.optimizer):
+                held = [n for n in experts if k in by_name.get(n, {})]
+                for n, t in zip(held, self._whole_experts(
+                        [by_name[n][k] for n in held])):
+                    by_name[n] = {**by_name[n], k: t}
         return {**layout,
             "step": self.step,
-            "params": {n: p.detach() for n, p in
-                       self.module.nets.named_parameters()},
+            "params": params,
             "optimizer": {
                 "state": by_name,
                 "param_groups": [{**g, "params": [names[i] for i in
@@ -952,6 +1041,30 @@ class Trainer:
                                  for g in opt["param_groups"]]},
             "generator": self.generator.get_state(),
         }
+
+    def _whole_experts(self, blocks: List[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """Every data rank's blocks of the expert tensors ``blocks``
+        joined along the expert axis (JAX's whole ``[E, ...]`` leaves); a
+        collective over the data group (on the host over gloo)."""
+        group = self.mesh.data_group
+        host = dist.get_backend(group) == "gloo"
+        out = []
+        for t in blocks:
+            src = t.detach().to("cpu" if host else t.device).contiguous()
+            parts = [torch.empty_like(src) for _ in range(self.ep_world)]
+            dist.all_gather(parts, src, group=group)
+            out.append(torch.cat(parts).to(t.device))
+        return out
+
+    def _my_experts(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a checkpoint's whole tensor ``whole`` of
+        parameter ``name`` (``whole`` itself unless it is an expert
+        leaf split over the data ranks)."""
+        if name not in self.experts:
+            return whole
+        e = whole.shape[0]
+        return whole[expert_block(e, self.ep_world, self.mesh.data_rank)]
 
     def _check_generator_agrees(self) -> None:
         """Every rank draws the same dropout seeds; a checkpoint keeps one
@@ -1206,7 +1319,12 @@ class Trainer:
             raise ValueError(f"checkpoint dir {step} holds step counter "
                              f"{state.get('step')}")
         params = state["params"]
-        want = dict(self.module.nets.named_parameters())
+        # the shapes a checkpoint holds: an expert leaf whole
+        want = {n: torch.empty((p.shape[0] * self.ep_world,)
+                               + tuple(p.shape[1:]), dtype=p.dtype,
+                               device="meta")
+                if n in self.experts else p
+                for n, p in self.module.nets.named_parameters()}
         if params.keys() != want.keys():
             raise ValueError(f"checkpoint step {step}: parameters "
                              f"{sorted(params.keys() ^ want.keys())} differ "
@@ -1240,10 +1358,12 @@ class Trainer:
         step and the resume meta (JAX :1380-1406)."""
         with torch.no_grad():
             for n, p in self.module.nets.named_parameters():
-                p.copy_(state["params"][n])
+                p.copy_(self._my_experts(n, state["params"][n]))
         index = {n: i for i, n in enumerate(self._param_names())}
         opt = state["optimizer"]
-        by_name = opt["state"]
+        by_name = {n: {k: (self._my_experts(n, v) if torch.is_tensor(v)
+                           and v.dim() else v) for k, v in s.items()}
+                   for n, s in opt["state"].items()}
         if self.zero is not None:  # reshard-on-load: this rank's slices
             self.zero.refresh_staged()
             pos = {n: i for i, n in enumerate(self.zero.names)}

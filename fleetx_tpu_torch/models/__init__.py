@@ -7,15 +7,17 @@ __all__ = ["build_module"]
 
 def build_module(cfg):
     """The module named by ``cfg.Model.module`` (reference
-    models/__init__.py). The port registers ``GPTModule`` and
-    ``GPTGenerationModule``."""
+    models/__init__.py). The port registers ``GPTModule``,
+    ``GPTGenerationModule`` and ``MoEModule``."""
     from fleetx_tpu_torch.models.language_module import GPTModule
     from fleetx_tpu_torch.models.language_module_generation import (
         GPTGenerationModule,
     )
+    from fleetx_tpu_torch.models.moe_module import MoEModule
 
     modules = {"GPTModule": GPTModule,
-               "GPTGenerationModule": GPTGenerationModule}
+               "GPTGenerationModule": GPTGenerationModule,
+               "MoEModule": MoEModule}
     name = (cfg.get("Model") or {}).get("module") or "GPTModule"
     if name not in modules:
         raise ValueError(f"unknown module {name!r}; the port has "

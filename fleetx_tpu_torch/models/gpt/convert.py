@@ -12,7 +12,10 @@ they hand back one stage's part of that (:func:`stage_params`: the port's
 form of JAX ``init_pipeline_params_via_sequential``), so a pipeline's
 weights equal the unpipelined model's bit for bit; :func:`gather_stages`
 joins the stages' state dicts, and :func:`params_from_checkpoint` reads
-a checkpoint of any (pp, mp) layout back into the whole model's.
+a checkpoint of any (pp, mp) layout back into the whole model's. Under
+expert parallelism (an MoE model's experts split over ``ep_world`` data
+ranks) both hand back data rank ``ep_rank``'s block of each stacked
+expert leaf (:func:`expert_params`); :func:`gather_experts` joins them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from fleetx_tpu_torch.models.gpt.model import GPTConfig, GPTForPretraining
+from fleetx_tpu_torch.parallel.moe import expert_block, is_expert_param
 from fleetx_tpu_torch.parallel.pipeline import (
     maybe_pipeline_params_to_sequential,
 )
@@ -33,7 +37,8 @@ from fleetx_tpu_torch.utils.device import resolve_device
 
 __all__ = ["init_params", "params_from_jax", "params_from_checkpoint",
            "shard_params", "gather_params", "stage_params", "gather_stages",
-           "local_params", "convert_qkv_layout", "qkv_state_layout"]
+           "local_params", "expert_params", "gather_experts",
+           "convert_qkv_layout", "qkv_state_layout"]
 
 
 def _whole(cfg: GPTConfig) -> GPTConfig:
@@ -112,16 +117,43 @@ def gather_stages(stages: Sequence[Dict[str, torch.Tensor]]
     return out
 
 
+def expert_params(full: Dict[str, torch.Tensor], cfg: GPTConfig,
+                  ep_rank: int = 0, ep_world: int = 1
+                  ) -> Dict[str, torch.Tensor]:
+    """Data rank ``ep_rank``'s part of the state dict ``full`` (or of its
+    gradients) when an MoE model's experts split over ``ep_world`` data
+    ranks: its block of each stacked expert leaf ([E, ...] → [E/D, ...],
+    contiguous copies), every other entry as it is."""
+    if ep_world == 1:
+        return dict(full)
+    block = expert_block(cfg.num_experts, ep_world, ep_rank)
+    return {n: (t[block].contiguous() if is_expert_param(n) else t)
+            for n, t in full.items()}
+
+
+def gather_experts(parts: Sequence[Dict[str, torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+    """The whole state dict (or gradients) from every data rank's
+    :func:`expert_params` (in data rank order): the expert leaves joined
+    along the expert axis, the rest from rank 0."""
+    return {n: (torch.cat([p[n] for p in parts]) if is_expert_param(n)
+                else t) for n, t in parts[0].items()}
+
+
 def local_params(full: Dict[str, torch.Tensor], cfg: GPTConfig,
-                 mp_rank: int = 0, pp_rank: int = 0
-                 ) -> Dict[str, torch.Tensor]:
+                 mp_rank: int = 0, pp_rank: int = 0, ep_rank: int = 0,
+                 ep_world: int = 1) -> Dict[str, torch.Tensor]:
     """Rank (``pp_rank``, ``mp_rank``)'s part of the whole model's state
-    dict ``full``: its stage's entries, cut to its mp shards."""
-    return stage_params(shard_params(full, cfg, mp_rank), cfg, pp_rank)
+    dict ``full``: its stage's entries, cut to its mp shards; under
+    expert parallelism its data rank ``ep_rank``'s experts of
+    ``ep_world``."""
+    return expert_params(stage_params(shard_params(full, cfg, mp_rank), cfg,
+                                      pp_rank), cfg, ep_rank, ep_world)
 
 
 def params_from_jax(tree, cfg: GPTConfig, mp_rank: int = 0,
-                    pp_rank: int = 0) -> Dict[str, torch.Tensor]:
+                    pp_rank: int = 0, ep_rank: int = 0,
+                    ep_world: int = 1) -> Dict[str, torch.Tensor]:
     """State dict from the flax GPT param tree (``{"params": {"gpt": ...}}``
     or the inner dict), given as numpy arrays with the decoder layers
     scan-stacked on a leading ``[L]`` axis, or in a pipeline layout (JAX
@@ -136,48 +168,79 @@ def params_from_jax(tree, cfg: GPTConfig, mp_rank: int = 0,
     - ``out_proj.kernel`` [L, nh, hd, E] → ``attn.out_proj.weight``
       [E, nh·hd];
     - ``up_proj``/``down_proj.kernel`` [L, in, out] → ``weight`` [out, in];
-    - norms' ``scale``/``bias`` [L, E] and the embeddings as they are.
+    - norms' ``scale``/``bias`` [L, E] and the embeddings as they are;
+    - under ``expert_mode``, ``moe_mlp/gate/kernel`` [L, E_h, n_exp] →
+      ``moe_mlp.gate.weight`` [n_exp, E_h], and the stacked experts
+      ``w_up``, ``b_up``, ``w_down``, ``b_down`` as they are.
 
-    Returned tensors are fp32 on the CPU; under mp and pp, rank
-    (``pp_rank``, ``mp_rank``)'s part of them (:func:`local_params`)."""
+    The decoder layers may also be unrolled (``gpt/layer_{i}``, JAX's
+    ``scan_layers: False`` or ``no_recompute_layers``), each leaf without
+    the [L] axis. Returned
+    tensors are fp32 on the CPU; under mp, pp and expert parallelism,
+    rank (``pp_rank``, ``mp_rank``, ``ep_rank``)'s part of them
+    (:func:`local_params`). JAX gradient trees map alike."""
     gpt = maybe_pipeline_params_to_sequential(tree)
     gpt = gpt.get("params", gpt)["gpt"]
-    stack = gpt["layers"]["layer"]
 
     def t(a) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+    def walk(node, leaf):
+        if isinstance(node, dict):
+            return {k: walk(v, leaf) for k, v in node.items()}
+        return leaf(node)
+
+    scanned = (walk(gpt["layers"]["layer"], np.asarray)
+               if "layers" in gpt else None)
+
+    def layer_tree(i: int):
+        """Layer i's subtree, its leaves without the scan axis."""
+        if scanned is None:
+            return gpt[f"layer_{i}"]
+        return walk(scanned, lambda a: a[i])
 
     out = {"gpt.word_embeddings": t(gpt["word_embeddings"]),
            "gpt.position_embeddings": t(gpt["position_embeddings"])}
     for i in range(cfg.num_layers):
         pre = f"gpt.layers.{i}."
-        attn, mlp = stack["attn"], stack["mlp"]
+        stack = layer_tree(i)
+        attn = stack["attn"]
         for name in ("qkv_proj", "q_proj", "k_proj", "v_proj"):
             if name in attn:
-                kern = np.asarray(attn[name]["kernel"][i])
+                kern = np.asarray(attn[name]["kernel"])
                 out[pre + f"attn.{name}.weight"] = t(
                     kern.reshape(kern.shape[0], -1).T)
                 out[pre + f"attn.{name}.bias"] = t(
-                    np.asarray(attn[name]["bias"][i]).reshape(-1))
-        proj = np.asarray(attn["out_proj"]["kernel"][i])
+                    np.asarray(attn[name]["bias"]).reshape(-1))
+        proj = np.asarray(attn["out_proj"]["kernel"])
         out.update({
-            pre + "norm1.scale": t(stack["norm1"]["scale"][i]),
-            pre + "norm1.bias": t(stack["norm1"]["bias"][i]),
+            pre + "norm1.scale": t(stack["norm1"]["scale"]),
+            pre + "norm1.bias": t(stack["norm1"]["bias"]),
             pre + "attn.out_proj.weight": t(
                 proj.reshape(-1, proj.shape[-1]).T),
-            pre + "attn.out_proj.bias": t(attn["out_proj"]["bias"][i]),
-            pre + "norm2.scale": t(stack["norm2"]["scale"][i]),
-            pre + "norm2.bias": t(stack["norm2"]["bias"][i]),
+            pre + "attn.out_proj.bias": t(attn["out_proj"]["bias"]),
+            pre + "norm2.scale": t(stack["norm2"]["scale"]),
+            pre + "norm2.bias": t(stack["norm2"]["bias"]),
+        })
+        if "moe_mlp" in stack:
+            moe = stack["moe_mlp"]
+            out[pre + "moe_mlp.gate.weight"] = t(
+                np.asarray(moe["gate"]["kernel"]).T)
+            out.update({pre + f"moe_mlp.{n}": t(moe[n])
+                        for n in ("w_up", "b_up", "w_down", "b_down")})
+            continue
+        mlp = stack["mlp"]
+        out.update({
             pre + "mlp.up_proj.weight": t(
-                np.asarray(mlp["up_proj"]["kernel"][i]).T),
-            pre + "mlp.up_proj.bias": t(mlp["up_proj"]["bias"][i]),
+                np.asarray(mlp["up_proj"]["kernel"]).T),
+            pre + "mlp.up_proj.bias": t(mlp["up_proj"]["bias"]),
             pre + "mlp.down_proj.weight": t(
-                np.asarray(mlp["down_proj"]["kernel"][i]).T),
-            pre + "mlp.down_proj.bias": t(mlp["down_proj"]["bias"][i]),
+                np.asarray(mlp["down_proj"]["kernel"]).T),
+            pre + "mlp.down_proj.bias": t(mlp["down_proj"]["bias"]),
         })
     out["gpt.final_norm.scale"] = t(gpt["final_norm"]["scale"])
     out["gpt.final_norm.bias"] = t(gpt["final_norm"]["bias"])
-    return local_params(out, cfg, mp_rank, pp_rank)
+    return local_params(out, cfg, mp_rank, pp_rank, ep_rank, ep_world)
 
 
 def convert_qkv_layout(gpt_params: dict, to_fused: bool) -> dict:
@@ -276,15 +339,17 @@ def params_from_checkpoint(step_dir: str, cfg: GPTConfig
 
 def init_params(cfg: GPTConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
-                mp_rank: int = 0,
-                pp_rank: int = 0) -> Dict[str, torch.Tensor]:
+                mp_rank: int = 0, pp_rank: int = 0, ep_rank: int = 0,
+                ep_world: int = 1) -> Dict[str, torch.Tensor]:
     """Random fp32 weights drawn from one ``torch.Generator`` seeded with
     ``seed``, with the flax initialisers' distributions: normal(0, 0.02)
-    for every kernel, normal(0, ``initializer_range``) for the embeddings,
-    zeros for biases and ones for norm scales. (The draws differ from
-    JAX's; only the distributions match.) ``device`` defaults to CUDA.
-    Under mp and pp, the whole model is drawn and rank (``pp_rank``,
-    ``mp_rank``)'s part returned (:func:`local_params`)."""
+    for every kernel (the MoE gate and all four expert leaves, the
+    expert biases included, as JAX's ``MoEMLP`` draws them),
+    normal(0, ``initializer_range``) for the embeddings, zeros for biases
+    and ones for norm scales. (The draws differ from JAX's; only the
+    distributions match.) ``device`` defaults to CUDA. Under mp, pp and
+    expert parallelism, the whole model is drawn and rank (``pp_rank``,
+    ``mp_rank``, ``ep_rank``)'s part returned (:func:`local_params`)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     shapes = GPTForPretraining(_whole(cfg), device="meta").state_dict()
@@ -299,4 +364,4 @@ def init_params(cfg: GPTConfig, seed: int = 0,
                    else 0.02)
             out[name] = torch.empty(meta.shape, device=dev).normal_(
                 0.0, std, generator=gen)
-    return local_params(out, cfg, mp_rank, pp_rank)
+    return local_params(out, cfg, mp_rank, pp_rank, ep_rank, ep_world)

@@ -25,7 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
-from fleetx_tpu_torch.models.gpt.model import pad_starts
+from fleetx_tpu_torch.models.gpt.model import pad_starts, refuse_moe_serving
 from fleetx_tpu_torch.utils.device import resolve_device
 
 __all__ = ["GenerationConfig", "decode_step", "generate", "init_decode_cache",
@@ -272,6 +272,7 @@ def generate(model, input_ids: torch.Tensor, gen_cfg: GenerationConfig, *,
         raise NotImplementedError(
             "beam search is not ported yet (ROADMAP Queue A, \"Beam "
             "search\")")
+    refuse_moe_serving(model.cfg)
     b, prompt_len = input_ids.shape
     total_len = prompt_len + gen_cfg.max_length
     max_pos = model.cfg.max_position_embeddings

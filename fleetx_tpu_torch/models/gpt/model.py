@@ -44,7 +44,12 @@ its chunks of the decoder layers (each layer keeps its global index in
 its name and its dropout seeds), the embeddings on the first stage, the
 final LayerNorm and the tied LM head on the last, which holds its own
 copy of the word embedding; the trainer sums the two copies' gradients.
-Expert parallelism is not here.
+Under ``expert_mode`` (``num_experts > 1``) each decoder layer's MLP is
+an :class:`~fleetx_tpu_torch.parallel.moe.MoEMLP` (GShard/Switch routing
+over stacked experts), whose experts split over the data ranks
+(``ep_world``: expert parallelism); the training forward collects each
+layer's balance loss (:attr:`GPTModel.balance_losses`). The cached
+forward of an MoE model raises ``NotImplementedError`` ("MoE serving").
 
 The hidden dropouts are the counter hash (``fast_dropout``, the default)
 or flax's threefry ``nn.Dropout`` (``fast_dropout: False``,
@@ -110,6 +115,7 @@ from fleetx_tpu_torch.ops.quant import (
 )
 from fleetx_tpu_torch.parallel.context_parallel import ring_self_attention
 from fleetx_tpu_torch.parallel.mesh import get_mesh
+from fleetx_tpu_torch.parallel.moe import MoEMLP
 from fleetx_tpu_torch.parallel.pipeline import stage_chunks, stage_layers
 from fleetx_tpu_torch.parallel.tensor_parallel import (
     ColumnParallelDense,
@@ -126,7 +132,8 @@ __all__ = ["DTYPES", "GPTConfig", "GPTForPretraining", "GPTModel",
            "DecoderLayer", "SelfAttention", "MLP", "Dense", "LayerNorm",
            "inference_params", "masked_loss_mean", "pad_starts",
            "serving_logits",
-           "pretraining_loss", "recompute_policy", "sequence_shard",
+           "pretraining_loss", "recompute_policy", "refuse_moe_serving",
+           "sequence_shard",
            "token_losses", "CHECKPOINT_NAMES"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -173,6 +180,16 @@ class GPTConfig:
     pp_degree: int = 1  # > 1: the decoder layers split over pp stages
     num_microbatches: int = 1  # under pp: microbatches per step
     virtual_pp_degree: int = 1  # under pp: layer chunks per stage
+    # MoE (parallel/moe.py), the JAX fields and defaults (model.py:78-96)
+    num_experts: int = 1
+    expert_mode: bool = False  # set by from_model_config at num_experts > 1
+    gate: str = "gshard"  # naive | gshard | switch
+    top_k: int = 2
+    capacity_factor: float = 1.2
+    # auto | einsum | scatter: validated, one index path computes them all,
+    # so two configs that differ only here compute the same model
+    moe_dispatch: str = dataclasses.field(default="auto", compare=False)
+    balance_loss_weight: float = 0.01
 
     def __post_init__(self):
         stage_chunks(self.num_layers, self.pp_degree, self.virtual_pp)
@@ -227,21 +244,13 @@ class GPTConfig:
     def from_model_config(cls, model_cfg) -> "GPTConfig":
         """Build from a YAML ``Model`` section: a dtype string mapped to its
         torch dtype, list values of ``no_recompute_layers`` and
-        ``recompute_extra_saves`` (or a ``"a,b"`` string) made tuples, as
-        the JAX ``from_model_config`` does. Keys that are no field of the
-        JAX ``GPTConfig`` either (``module``, ``name``, ...) and the JAX
+        ``recompute_extra_saves`` (or a ``"a,b"`` string) made tuples, and
+        ``expert_mode`` set when ``num_experts`` is above 1, as the JAX
+        ``from_model_config`` does. Keys that are no field of the JAX
+        ``GPTConfig`` either (``module``, ``name``, ...) and the JAX
         switches that only lay the model out over devices (``scan_layers``,
-        the MoE and pipeline tuning knobs) are ignored; a JAX switch that
-        changes what the model computes and that the port does not
-        implement raises ``NotImplementedError`` at any value but the one
-        the port computes (:data:`UNPORTED`)."""
+        the pipeline tuning knobs) are ignored."""
         model_cfg = dict(model_cfg)
-        for key, (computes, item) in UNPORTED.items():
-            value = model_cfg.get(key)
-            if value is not None and not computes(value):
-                raise NotImplementedError(
-                    f"Model.{key}={value!r} is not ported yet (ROADMAP "
-                    f"Queue A, \"{item}\")")
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in model_cfg.items()
               if k in known and v is not None}
@@ -253,19 +262,9 @@ class GPTConfig:
         for key in ("no_recompute_layers", "recompute_extra_saves"):
             if key in kw:
                 kw[key] = tuple(kw[key])
+        if (model_cfg.get("num_experts") or 1) > 1:
+            kw["expert_mode"] = True
         return cls(**kw)
-
-
-# JAX GPTConfig switches that change what the model computes and that the
-# port does not implement: the test a value must pass (the port computes
-# those values), and the title of the ROADMAP Queue A item that ports the
-# rest
-UNPORTED = {
-    "num_experts": (lambda v: v <= 1,
-                    "Other families and the rest of the toolkit"),
-    "expert_mode": (lambda v: v is False,
-                    "Other families and the rest of the toolkit"),
-}
 
 
 # every tensor a save-set can name (JAX ``_CHECKPOINT_NAMES``, :733-735),
@@ -288,7 +287,9 @@ def recompute_policy(cfg: GPTConfig) -> Optional[frozenset]:
       from core_attn_out the rest of the layer;
 
     plus ``recompute_extra_saves`` (any of :data:`CHECKPOINT_NAMES`, on
-    any granularity). The layer's forward is cut into segments at the
+    any granularity). Under ``expert_mode`` ``ffn_gelu`` and ``mlp_out``
+    name no tensor (JAX's ``MoEMLP`` tags neither) and are dropped from
+    the set: the MoE block is kept or rerun whole. The layer's forward is cut into segments at the
     kept tensors and each segment runs under ``torch.utils.checkpoint``
     (``DecoderLayer``): a segment's inputs are what is kept. B1's lse is
     not kept with ``core_attn_out`` (the flash forward's residuals are
@@ -309,7 +310,11 @@ def recompute_policy(cfg: GPTConfig) -> Optional[frozenset]:
             "core_attn": ("core_attn_out",)}
     if granularity not in base:
         raise ValueError(f"unknown recompute_granularity {granularity!r}")
-    return frozenset(base[granularity] + extra)
+    saves = frozenset(base[granularity] + extra)
+    return saves - _MLP_NAMES if cfg.expert_mode else saves
+
+
+_MLP_NAMES = frozenset({"ffn_gelu", "mlp_out"})  # the dense MLP's tensors
 
 
 def sequence_shard(shard: Optional[Shard], b: int, s_loc: int, mp: int,
@@ -590,6 +595,16 @@ class SelfAttention(nn.Module):
             cache[name][page, slot] = t.reshape(b * s, nh, -1)
 
 
+def refuse_moe_serving(cfg: GPTConfig) -> None:
+    """Raise ``NotImplementedError`` naming "MoE serving" for an
+    ``expert_mode`` model: no decode path (the cached forward,
+    ``generate()``, the serving engine) runs one."""
+    if cfg.expert_mode:
+        raise NotImplementedError(
+            "decoding an MoE model is not ported yet (ROADMAP Queue A, "
+            "\"MoE serving\")")
+
+
 def pad_starts(kv_mask: torch.Tensor) -> torch.Tensor:
     """Per-row first live cache position, int32 [b], from the ``[b, 1, 1,
     cache_len]`` key-validity mask (JAX ``_pad_starts``, :620-638): the
@@ -638,36 +653,47 @@ class DecoderLayer(nn.Module):
     (``qkv_out``), attention (``core_attn_out``), out_proj
     (``attn_out``), the residual then norm2, up_proj and gelu
     (``ffn_gelu``), down_proj (``mlp_out``), and the MLP dropout; the
-    last residual add follows them. Under recompute the stages run in
-    segments that end at the saved names, each under
-    ``torch.utils.checkpoint``: the backward keeps each segment's inputs —
-    the layer's input and the saved tensors — and reruns the rest."""
+    last residual add follows them. Under ``expert_mode`` the fourth
+    stage runs norm2 and the whole :class:`MoEMLP` and the fifth passes
+    its output on. Under recompute the stages run in segments that end
+    at the saved names, each under ``torch.utils.checkpoint``: the
+    backward keeps each segment's inputs — the layer's input and the
+    saved tensors — and reruns the rest; a rerun MoE block routes with
+    the forward's key and records no second balance loss."""
 
     def __init__(self, cfg: GPTConfig, device=None, int8: bool = False,
-                 fp32_partials: bool = False):
+                 fp32_partials: bool = False, ep_world: int = 1):
         super().__init__()
         self.cfg = cfg
         self.norm1 = LayerNorm(cfg.hidden_size, cfg.dtype, device)
         self.attn = SelfAttention(cfg, device, int8, fp32_partials)
         self.attn_dropout = _dropout(cfg)
         self.norm2 = LayerNorm(cfg.hidden_size, cfg.dtype, device)
-        self.mlp = MLP(cfg, device, int8, fp32_partials)
+        if cfg.expert_mode:
+            self.moe_mlp = MoEMLP(cfg, device, ep_world)
+        else:
+            self.mlp = MLP(cfg, device, int8, fp32_partials)
         self.mlp_dropout = _dropout(cfg)
 
     def forward(self, x, cache=None, *, deterministic=True,
-                seeds=(None, None, None), shard: Optional[Shard] = None,
-                saves: Optional[frozenset] = None, **decode):
+                seeds=(None, None, None, None),
+                shard: Optional[Shard] = None,
+                saves: Optional[frozenset] = None,
+                aux: Optional[dict] = None, **decode):
         """``seeds``: the dropout seeds (keys at ``fast_dropout: False``)
-        of the attention, attn_dropout and mlp_dropout (see
-        :meth:`GPTModel.dropout_seeds`); ``shard``: where x lies in the
-        global activation; ``saves``: the training forward's save-set
-        (:func:`recompute_policy`; None runs it without recompute);
-        ``decode``: the cached-forward keywords of
+        of the attention, attn_dropout and mlp_dropout, and the MoE
+        routing key (see :meth:`GPTModel.dropout_seeds`); ``shard``: where
+        x lies in the global activation; ``saves``: the training forward's
+        save-set (:func:`recompute_policy`; None runs it without
+        recompute); ``aux``: where an MoE layer records its balance loss
+        (keyed by the layer); ``decode``: the cached-forward keywords of
         :meth:`SelfAttention.forward`."""
         if cache is not None:
+            refuse_moe_serving(self.cfg)
             x = x + self.attn(self.norm1(x), cache, **decode)
             return x + self.mlp(self.norm2(x))
-        ctx = dict(deterministic=deterministic, seeds=seeds, shard=shard)
+        ctx = dict(deterministic=deterministic, seeds=seeds, shard=shard,
+                   aux=aux)
         if saves is None:
             x1, h = self._stages(0, len(_STAGES), x, (), ctx)
             return x1 + h[0]
@@ -703,7 +729,7 @@ class DecoderLayer(nn.Module):
     def _stages(self, a: int, b: int, x, h: tuple, ctx: dict):
         """Run stages ``[a, b)`` of the training forward on the residual
         stream ``x`` and the branch tensors ``h``; returns ``(x, h)``."""
-        attn_seed, attn_drop_seed, mlp_drop_seed = ctx["seeds"]
+        attn_seed, attn_drop_seed, mlp_drop_seed, route_key = ctx["seeds"]
         det, shard = ctx["deterministic"], ctx["shard"]
         for i in range(a, b):
             if i == 0:
@@ -717,14 +743,31 @@ class DecoderLayer(nn.Module):
                 x = x + self.attn_dropout(h[0], det, seed=attn_drop_seed,
                                           shard=self._hidden_shard(shard,
                                                                    h[0]))
-                h = (self.mlp.gelu(self.norm2(x)),)
+                if self.cfg.expert_mode:
+                    h = (self._moe(self.norm2(x), route_key, shard,
+                                   ctx["aux"]),)
+                else:
+                    h = (self.mlp.gelu(self.norm2(x)),)
             elif i == 4:
-                h = (self.mlp.down_proj(h[0]),)
+                if not self.cfg.expert_mode:
+                    h = (self.mlp.down_proj(h[0]),)
             else:
                 h = (self.mlp_dropout(h[0], det, seed=mlp_drop_seed,
                                       shard=self._hidden_shard(shard,
                                                                h[0])),)
         return x, h
+
+    def _moe(self, y: torch.Tensor, key, shard: Optional[Shard],
+             aux: Optional[dict]) -> torch.Tensor:
+        """The MoE block on ``y`` [b, s, h]; its balance loss recorded in
+        ``aux`` on the first run only (a recompute's rerun keeps the
+        forward's)."""
+        b, s = y.shape[:2]
+        offset = 0 if shard is None else shard.b0 * s
+        out, loss = self.moe_mlp(y, key=key, offset=offset)
+        if aux is not None:
+            aux.setdefault(self, loss)
+        return out
 
     def _hidden_shard(self, shard: Optional[Shard], t: torch.Tensor
                       ) -> Optional[Shard]:
@@ -753,11 +796,15 @@ class GPTModel(nn.Module):
     schedule."""
 
     def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0,
-                 int8: bool = False, fp32_partials: bool = False):
+                 int8: bool = False, fp32_partials: bool = False,
+                 ep_world: int = 1):
         super().__init__()
         self.cfg = cfg
         self.int8 = int8
         self.recompute = recompute_policy(cfg)  # the save-set, or None
+        # the last training forward's balance loss of each MoE layer, in
+        # layer order
+        self.balance_losses: list = []
         pp = cfg.pp_degree
         first, last = pp_rank == 0, pp_rank == pp - 1
         if first or last:
@@ -773,7 +820,8 @@ class GPTModel(nn.Module):
                         device)
             self.embed_dropout = _dropout(cfg)
         self.layers = nn.ModuleDict(
-            (str(i), DecoderLayer(cfg, device, int8, fp32_partials))
+            (str(i), DecoderLayer(cfg, device, int8, fp32_partials,
+                                  ep_world))
             for i in stage_layers(cfg.num_layers, pp, cfg.virtual_pp,
                                   pp_rank))
         if last:
@@ -829,8 +877,11 @@ class GPTModel(nn.Module):
                                                      generator)
         x = self.embed(input_ids, position_ids, deterministic=deterministic,
                        seed=embed_seed, shard=shard)
+        aux = {} if self.cfg.expert_mode else None
         x = self.run_layers(x, range(self.cfg.num_layers), layer_seeds,
-                            deterministic=deterministic, shard=shard)
+                            deterministic=deterministic, shard=shard,
+                            aux=aux)
+        self.balance_losses = list(aux.values()) if aux else []
         return self.final_norm(x)
 
     def _table(self, name: str, rows: int, device) -> None:
@@ -904,12 +955,14 @@ class GPTModel(nn.Module):
         return self.embed_dropout(x, deterministic, seed=seed, shard=shard)
 
     def run_layers(self, x, layer_ids, layer_seeds, *, deterministic=True,
-                   shard: Optional[Shard] = None) -> torch.Tensor:
+                   shard: Optional[Shard] = None,
+                   aux: Optional[dict] = None) -> torch.Tensor:
         """``x`` through the decoder layers ``layer_ids`` (global ids, in
         order) of the training forward, layer i with ``layer_seeds[i]``,
         each recomputed in the backward under :func:`recompute_policy`
         unless listed in ``no_recompute_layers``. Under sequence
-        parallelism ``x`` is this rank's sequence shard."""
+        parallelism ``x`` is this rank's sequence shard. MoE layers record
+        their balance losses in ``aux``."""
         skip = set(self.cfg.no_recompute_layers or ())
         for i in layer_ids:
             # the layer draws nothing (its seeds come in), so a segment
@@ -918,15 +971,18 @@ class GPTModel(nn.Module):
             # sequence parallelism its collectives rerun on every rank alike
             x = self.layers[str(i)](
                 x, deterministic=deterministic, seeds=layer_seeds[i],
-                shard=shard, saves=None if i in skip else self.recompute)
+                shard=shard, saves=None if i in skip else self.recompute,
+                aux=aux)
         return x
 
     def dropout_seeds(self, deterministic: bool,
                       generator: Optional[torch.Generator]):
-        """``(embed seed, [(attention, attn_dropout, mlp_dropout) seeds per
-        layer])`` for one training forward, drawn from ``generator`` in the
-        order the sites run (None where a site draws nothing: deterministic,
-        or a rate of 0, or a hidden rate of 1 or more). Drawn before any
+        """``(embed seed, [(attention, attn_dropout, mlp_dropout seeds, MoE
+        routing key) per layer])`` for one training forward, drawn from
+        ``generator`` in the order the sites run (None where a site draws
+        nothing: deterministic, or a rate of 0, or a hidden rate of 1 or
+        more; the routing key, a raw threefry key, only for an MoE gate
+        that draws: gshard at top k 2 or more, and switch). Drawn before any
         layer runs, so that a layer recomputed in the backward reuses its
         forward's seeds and the generator's stream is the same with
         recompute on or off.
@@ -952,11 +1008,19 @@ class GPTModel(nn.Module):
                 return draw_key(generator)  # flax's threefry key
             return draw_seed(generator)
 
+        routes = cfg.expert_mode and (cfg.gate == "switch" or (
+            cfg.gate == "gshard" and cfg.top_k >= 2))
+
+        def layer():
+            attn = draw(cfg.attention_probs_dropout_prob, False)
+            attn_drop = draw(hidden, True)
+            key = (draw_key(generator) if routes and not deterministic
+                   else None)
+            return attn, attn_drop, draw(hidden, True), key
+
         hidden = cfg.hidden_dropout_prob
         embed = draw(hidden, True)
-        layers = [(draw(cfg.attention_probs_dropout_prob, False),
-                   draw(hidden, True), draw(hidden, True))
-                  for _ in range(cfg.num_layers)]
+        layers = [layer() for _ in range(cfg.num_layers)]
         return embed, layers
 
 
@@ -971,12 +1035,14 @@ class GPTForPretraining(nn.Module):
     copy, ``tensor_parallel.RowParallelDense``)."""
 
     def __init__(self, cfg: GPTConfig, device=None, pp_rank: int = 0,
-                 int8: bool = False, fp32_partials: bool = False):
+                 int8: bool = False, fp32_partials: bool = False,
+                 ep_world: int = 1):
         super().__init__()
         self.cfg = cfg
         self.int8 = int8
         self.fp32_partials = fp32_partials
-        self.gpt = GPTModel(cfg, device, pp_rank, int8, fp32_partials)
+        self.gpt = GPTModel(cfg, device, pp_rank, int8, fp32_partials,
+                            ep_world)
 
     def forward(self, input_ids, position_ids, *, cache=None,
                 cache_positions=None, block_tables=None, kv_mask=None,

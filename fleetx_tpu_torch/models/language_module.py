@@ -20,8 +20,11 @@ layers, and the head sees the gathered whole). Under
 pipeline parallelism (``pp_degree``) every stage reads the batch, which
 streams through the stages as ``Engine.accumulate_steps`` microbatches
 (:meth:`GPTModule.pipeline_loss`, JAX :197-203); the loss is JAX's
-whole-batch masked mean, on the last stage. Pretrained warm starts are
-not ported.
+whole-batch masked mean, on the last stage. Under ``expert_mode``
+(an MoE model, ``models/moe_module.py``) the experts split over the data
+ranks (expert parallelism); MoE under mp, pp, cp or a sharding degree
+raises ``NotImplementedError`` naming "Experts under mp, pp, cp or
+ZeRO". Pretrained warm starts are not ported.
 """
 
 from __future__ import annotations
@@ -109,6 +112,7 @@ class GPTModule(LanguageModule):
     tied_parameters = ("gpt.word_embeddings",)
     pipelined = True  # Distributed.pp_degree splits the model in stages
     pp_rank = 0  # this rank's pipeline stage
+    ep_world = 1  # the data ranks an MoE model's experts split over
     _pipeline: Optional[Pipeline] = None
 
     def get_model(self):
@@ -118,6 +122,13 @@ class GPTModule(LanguageModule):
         cp = dist_cfg.get("cp_degree") or 1
         mp = dist_cfg.get("mp_degree") or 1
         pp = (dist_cfg.get("pp_degree") or 1) if self.pipelined else 1
+        fsdp = (dist_cfg.get("sharding") or {}).get("sharding_degree") or 1
+        if gcfg.expert_mode and max(mp, pp, cp, fsdp) > 1:
+            raise NotImplementedError(
+                f"MoE at mp_degree {mp}, pp_degree {pp}, cp_degree {cp}, "
+                f"sharding_degree {fsdp} is not ported yet (ROADMAP Queue "
+                "A, \"Experts under mp, pp, cp or ZeRO\"); the experts "
+                "split over dp")
         extra = {"dtype": resolve_compute_dtype(eng), "cp_degree": cp,
                  "mp_degree": mp, "pp_degree": pp}
         if pp > 1:
@@ -127,6 +138,11 @@ class GPTModule(LanguageModule):
                                             or 1, 1)
             self.pp_rank = mesh_from_config(self.cfg).pp_rank
         gcfg = GPTConfig(**{**gcfg.__dict__, **extra})
+        if gcfg.expert_mode:
+            # the experts split over the data ranks (JAX's "expert" axis
+            # over ("dp", "fsdp"), parallel/sharding.py:71-74); MoEMLP
+            # raises when they do not divide the experts
+            self.ep_world = mesh_from_config(self.cfg).data_world
         if gcfg.fused_ce and (cp > 1 or pp > 1):
             # as the JAX module (:208-230): the fused kernel would gather
             # the sequence-split hidden states under cp, and pp runs the
@@ -145,14 +161,18 @@ class GPTModule(LanguageModule):
             gcfg = GPTConfig(**{**gcfg.__dict__, "fused_ce": False})
         self.gpt_config = gcfg
         return GPTForPretraining(self.gpt_config, device="meta",
-                                 pp_rank=self.pp_rank)
+                                 pp_rank=self.pp_rank,
+                                 ep_world=self.ep_world)
 
     def init_params(self, seed: int, device) -> Dict[str, torch.Tensor]:
         """This rank's weights: under mp and pp, its stage's part and its
-        shards of the whole model's seeded draw."""
+        shards of the whole model's seeded draw; under expert parallelism
+        its data rank's experts."""
         mesh = mesh_from_config(self.cfg)
         return init_params(self.gpt_config, seed=seed, device=device,
-                           mp_rank=mesh.mp_rank, pp_rank=mesh.pp_rank)
+                           mp_rank=mesh.mp_rank, pp_rank=mesh.pp_rank,
+                           ep_rank=mesh.data_rank if self.ep_world > 1
+                           else 0, ep_world=self.ep_world)
 
     def cp_prepare(self, batch):
         """``(tokens, position_ids, labels, loss_mask)`` of this rank (JAX
@@ -186,13 +206,8 @@ class GPTModule(LanguageModule):
         vocab shard and their loss is combined over the mp group."""
         mesh = mesh_from_config(self.cfg)
         tokens, position_ids, labels, loss_mask = self.cp_prepare(batch)
-        shard = None
-        if mesh.data_world > 1:  # mp ranks share rows and positions
-            b, s = tokens.shape
-            shard = Shard(b0=mesh.data_rank * b,
-                          batch=get_data_world(mesh) * b,
-                          s0=mesh.cp_rank * s, seq=mesh.cp * s)
-        kw = dict(deterministic=not train, generator=generator, shard=shard)
+        kw = dict(deterministic=not train, generator=generator,
+                  shard=self._shard(mesh, tokens))
         why = self.fused_ce_blocked
         if self.gpt_config.fused_ce:
             if labels.numel() % 8 == 0:
@@ -207,6 +222,17 @@ class GPTModule(LanguageModule):
         token_loss = vocab_parallel_token_losses(logits, labels,
                                                  mesh.mp_group)
         return self._masked_mean(token_loss, loss_mask, mesh)
+
+    @staticmethod
+    def _shard(mesh, tokens: torch.Tensor) -> Optional[Shard]:
+        """Where this rank's ``[b, s]`` tokens lie in the global batch and
+        sequence, for the dropout hashes and the MoE draws (None: they
+        are the whole of it)."""
+        if mesh.data_world == 1:
+            return None
+        b, s = tokens.shape  # mp ranks share rows and positions
+        return Shard(b0=mesh.data_rank * b, batch=get_data_world(mesh) * b,
+                     s0=mesh.cp_rank * s, seq=mesh.cp * s)
 
     @property
     def pipeline(self) -> Pipeline:

@@ -24,7 +24,10 @@ from fleetx_tpu_torch.models.gpt.convert import (
     params_from_jax,
 )
 from fleetx_tpu_torch.models.gpt.generation import GenerationConfig, generate
-from fleetx_tpu_torch.models.gpt.model import inference_params
+from fleetx_tpu_torch.models.gpt.model import (
+    inference_params,
+    refuse_moe_serving,
+)
 from fleetx_tpu_torch.models.language_module import GPTModule
 from fleetx_tpu_torch.utils.device import resolve_device
 
@@ -40,6 +43,7 @@ class GPTGenerationModule(GPTModule):
 
     def __init__(self, cfg):
         super().__init__(cfg)
+        refuse_moe_serving(self.gpt_config)
         self.generation_cfg = GenerationConfig.from_config(
             cfg.get("Generation"))
         self.device: Optional[torch.device] = None

@@ -50,7 +50,8 @@ def global_norm(grads: List[torch.Tensor],
                 sharded: Optional[Sequence[bool]] = None,
                 group=None, stage_group=None,
                 zero_parts: Optional[Sequence[int]] = None,
-                zero_group=None) -> torch.Tensor:
+                zero_group=None, ep: Optional[Sequence[bool]] = None,
+                ep_group=None) -> torch.Tensor:
     """The L2 norm (fp32, on the grads' device) of ``grads`` as one
     vector. With an mp ``group``, ``sharded[i]`` says whether ``grads[i]``
     is this rank's shard of a parameter split over the group: the shards'
@@ -59,12 +60,26 @@ def global_norm(grads: List[torch.Tensor],
     weight-update shard, ``parallel/sharding.py``), ``zero_parts[i]`` is
     the number of slices parameter i is cut into over it (1: whole on
     every rank): the slices' squares are summed over the group, each
-    slice counted once. With a pp ``stage_group`` (each rank one stage's
+    slice counted once. With an ``ep_group`` (expert parallelism: the data
+    ranks), ``ep[i]`` says whether ``grads[i]`` is this rank's block of a
+    stacked expert leaf: the blocks' squares are summed over the group
+    (the MoE clip, ``ClipGradForMOEByGlobalNorm``, over the experts of
+    every rank). With a pp ``stage_group`` (each rank one stage's
     gradients) the stages' squares are summed over it. Every rank gets
     the whole model's norm."""
-    if group is None and stage_group is None and zero_group is None:
+    if (group is None and stage_group is None and zero_group is None
+            and ep_group is None):
         return torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    experts = torch.zeros((), device=grads[0].device)
+    if ep_group is not None:
+        for g, e in zip(grads, ep):
+            if e:
+                experts = experts + torch.linalg.vector_norm(g.float()) ** 2
+        dist.all_reduce(experts, group=ep_group)
+        grads = [g for g, e in zip(grads, ep) if not e]
+        if sharded is not None:
+            sharded = [s for s, e in zip(sharded, ep) if not e]
     sharded = sharded if sharded is not None else [False] * len(grads)
     zero = torch.zeros((), device=grads[0].device)
     if zero_group is None:
@@ -90,7 +105,7 @@ def global_norm(grads: List[torch.Tensor],
                    for i, want in enumerate((True, False))]
     if group is not None:
         dist.all_reduce(squares[0], group=group)
-    total = squares[0] + squares[1]
+    total = squares[0] + squares[1] + experts
     if stage_group is not None:
         dist.all_reduce(total, group=stage_group)
     return torch.sqrt(total)

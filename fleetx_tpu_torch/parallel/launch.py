@@ -76,12 +76,24 @@ def _rank_main(fn, args, rank, nprocs, port, device, threads, results,
     if threads:
         torch.set_num_threads(threads)
     try:
-        init_dist_env(device)
+        try:
+            init_dist_env(device)
+        except Exception as exc:  # noqa: BLE001 - classified, then re-raised
+            if "EADDRINUSE" not in str(exc):
+                raise
+            # another process took the port after free_port chose it: the
+            # parent starts the ranks again on another (nothing ran yet)
+            results.put((rank, None, traceback.format_exc()))
+            return
         results.put((rank, True, fn(*args)))
     except BaseException:  # noqa: BLE001 - reported to the parent
         results.put((rank, False, traceback.format_exc()))
     finally:
         destroy_dist_env()
+
+
+class _PortTaken(RuntimeError):
+    """The rendezvous port was taken before rank 0 could listen on it."""
 
 
 def spawn(fn: Callable, nprocs: int, args: Sequence = (), *,
@@ -92,7 +104,18 @@ def spawn(fn: Callable, nprocs: int, args: Sequence = (), *,
     module-level function of an importable module, and its result
     picklable; ``device`` is where the ranks compute (as for
     ``init_dist_env``: CUDA unless named); ``threads`` > 0 caps each
-    rank's intra-op threads."""
+    rank's intra-op threads. When another process takes the rendezvous
+    port before the group forms, the ranks start again on another, at
+    most twice."""
+    for attempt in range(3):
+        try:
+            return _spawn_once(fn, nprocs, args, device, timeout, threads)
+        except _PortTaken:
+            if attempt == 2:
+                raise
+
+
+def _spawn_once(fn, nprocs, args, device, timeout, threads) -> List[Any]:
     ctx = multiprocessing.get_context(_START["method"])
     results = ctx.Queue()
     port = free_port()
@@ -119,6 +142,8 @@ def spawn(fn: Callable, nprocs: int, args: Sequence = (), *,
                     raise TimeoutError(f"{nprocs} ranks of {fn.__name__} "
                                        f"did not finish in {timeout} s")
                 continue
+            if ok is None:
+                raise _PortTaken(value)
             if not ok:
                 raise RuntimeError(f"rank {rank} of {fn.__name__} "
                                    f"failed:\n{value}")

@@ -30,11 +30,13 @@ fsdp_rank``. ``Distributed.sharding`` at stages 1 and 2 shards the
 optimizer state over fsdp (with the weight-update shard on, over dp
 too); the parameters stay whole on every rank. Stage 3 (the parameters
 sharded too), ``sharding_offload`` (the moments in host memory, which the
-JAX package itself refuses off a TPU, core/engine.py:428-435), expert
-parallelism and pp together with cp raise ``NotImplementedError`` naming
-the ROADMAP Queue A item that ports them ("ZeRO stage 3 (parameter
-sharding)", "ZeRO sharding offload", "Other families and the rest of the
-toolkit", "Pipeline parallelism").
+JAX package itself refuses off a TPU, core/engine.py:428-435) and pp
+together with cp raise ``NotImplementedError`` naming the ROADMAP Queue
+A item that ports them ("ZeRO stage 3 (parameter sharding)", "ZeRO
+sharding offload", "Pipeline parallelism"). ``Distributed.ep_degree`` is
+not read, as in JAX: an MoE model's experts split over the data ranks
+(``parallel/moe.py``), as JAX shards its "expert" axis over ``("dp",
+"fsdp")``.
 
 One mesh is current per process (:func:`get_mesh`); the data loader, the
 module, the model's parallel layers and the trainer read it.
@@ -273,27 +275,14 @@ def build_mesh(dp: int = 1, cp: int = 1, mp: int = 1, pp: int = 1,
                 embed_group=embed_group, fsdp=fsdp, zero_group=zero_group)
 
 
-# the degrees the port refuses above 1, and the title of the ROADMAP
-# Queue A item that ports each
-_UNPORTED_DEGREES = {
-    "ep_degree": "Other families and the rest of the toolkit",
-}
-
-
 def mesh_from_config(cfg) -> Mesh:
     """The current mesh for ``cfg``'s ``Distributed`` section: built (and
     made current) on the first call, the same object while the degrees and
-    the world stay the same. ``ep_degree`` above 1, ``sharding_stage`` 3
-    at a ``sharding_degree`` above 1, ``sharding_offload`` and
+    the world stay the same. ``sharding_stage`` 3 at a
+    ``sharding_degree`` above 1, ``sharding_offload`` and
     ``pp_degree`` together with ``cp_degree`` above 1 raise
     ``NotImplementedError`` naming the ROADMAP item that ports them."""
     d = cfg.get("Distributed") or {}
-    for key, item in _UNPORTED_DEGREES.items():
-        value = d.get(key) or 1
-        if value > 1:
-            raise NotImplementedError(f"Distributed.{key}={value} is not "
-                                      f"ported yet (ROADMAP Queue A, "
-                                      f"\"{item}\")")
     mc = MeshConfig.from_dist_config(d)
     if mc.sharding_stage == 3 and mc.fsdp > 1:
         raise NotImplementedError(

@@ -33,7 +33,8 @@ chaos scenarios drive it unchanged:
 Outputs ride the int32 token channel: token ids (fill-in-blank), one class
 or SOP id, or a float32 vector bit-cast to int32 (embeddings,
 ``embedding_engine.encode_floats``). Subclasses set ``capabilities`` and
-implement :meth:`_validate` and :meth:`_run_batch`; the model is a module
+implement :meth:`_validate` and :meth:`_run_batch`, and may price a
+request for the router (:meth:`request_rows`); the model is a module
 of the port whose weights ``params`` (a state dict) are loaded onto
 ``device`` (CUDA unless the caller names another).
 """
@@ -136,6 +137,11 @@ class BatchingEngine:
         """One batched forward: the wire-encoded outputs of each request,
         in order. It runs under the fault seam: raising requeues."""
         raise NotImplementedError
+
+    def request_rows(self, prompt: np.ndarray) -> int:
+        """The rows of work the forward runs for ``prompt`` (the router's
+        DRR cost): its token count here."""
+        return int(np.asarray(prompt).size)
 
     # ------------------------------------------------------------ submit
 

@@ -59,6 +59,11 @@ class EmbeddingEngine(BatchingEngine):
             emits="tokens" if self.classify else "floats")
         super().__init__(model, params, **kw)
 
+    def request_rows(self, prompt: np.ndarray) -> int:
+        """An image's rows of work: the ViT's tokens, its patches and the
+        class token (197 at ViT-B/16's 224), not its wire length."""
+        return int(self.model.cfg.num_patches) + 1
+
     def _validate(self, prompt: np.ndarray) -> None:
         if prompt.size != self.image_elems:
             raise ValueError(

@@ -203,7 +203,10 @@ from fleetx_tpu_torch.models.gpt.generation import (
     _top_p_cutoff_bisect,
 )
 from fleetx_tpu_torch.models.gpt.convert import shard_params
-from fleetx_tpu_torch.models.gpt.model import inference_params
+from fleetx_tpu_torch.models.gpt.model import (
+    inference_params,
+    refuse_moe_serving,
+)
 from fleetx_tpu_torch.obs import http as obs_http
 from fleetx_tpu_torch.obs.events import emit as obs_emit
 from fleetx_tpu_torch.ops.quant import (
@@ -428,6 +431,7 @@ class ServingEngine:
                  grace_s: Optional[float] = None,
                  weight_dtype: Optional[str] = None,
                  log_every: Optional[int] = None, mesh=None):
+        refuse_moe_serving(model.cfg)
         mp = self._check_mesh(mesh, model.cfg)
         self.mesh = mesh
         self.device = resolve_device(device)

@@ -695,9 +695,24 @@ class ServingRouter:
         """DRR/budget cost of one request in TOKENS: prompt plus the
         decode budget it asked for (the same units prefill replicas are
         priced in — a flooding tenant pays for the work it books, not
-        the requests it counts)."""
-        return float(req.prompt.size) + float(
+        the requests it counts). The prompt counts the rows of work its
+        family's engine runs for it where the engine says
+        (``request_rows``: a KV-free engine, whose ViT prices an image at
+        its 197 tokens, not its 150,528 wire ints), else its length. JAX
+        prices every prompt by its length (router.py:735)."""
+        return float(self._prompt_rows(req)) + float(
             req.kw.get("max_length", 0) or 0)
+
+    def _prompt_rows(self, req: _RouterRequest) -> int:
+        """The rows of work of ``req``'s prompt: ``request_rows`` of the
+        first engine of its family that has it, else the prompt's
+        length."""
+        for rep in self._replicas:
+            if rep.model == req.model:
+                rows = getattr(rep.engine, "request_rows", None)
+                if rows is not None:
+                    return int(rows(req.prompt))
+        return int(req.prompt.size)
 
     def _refill_buckets(self, lane: _TenantLane, now: float) -> None:
         """Continuous token-bucket refill on the router clock. Burst

@@ -149,6 +149,26 @@ def test_mesh_lays_cp_ranks_adjacent_and_shifts_within_the_ring():
     assert [g[3][0] for g in got] == [1.0, 0.0, 3.0, 2.0]
 
 
+def test_spawn_starts_again_when_its_port_was_taken(monkeypatch):
+    """A rendezvous port another process took after ``free_port`` chose it
+    (EADDRINUSE) starts the ranks again on another port: the group forms
+    and the program runs once."""
+    import socket
+
+    from fleetx_tpu_torch.parallel import launch
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as taken:
+        taken.bind(("127.0.0.1", 0))
+        taken.listen()
+        ports = [taken.getsockname()[1]]
+        real = launch.free_port
+        monkeypatch.setattr(launch, "free_port",
+                            lambda: ports.pop() if ports else real())
+        got = run_ranks(_mesh_program, 4)
+    assert not ports  # the taken port was handed out first
+    assert [g[3][0] for g in got] == [1.0, 0.0, 3.0, 2.0]
+
+
 @pytest.mark.parametrize("cp", [2, 4])
 def test_ring_with_dropout_equals_single_process_attention(cp):
     """At dropout 0.2 the ring (dp 2 x cp 2, or cp 4) realizes the mask of

@@ -152,17 +152,25 @@ def test_dp2_cp2_and_cp2_match_cp1_and_split_batches_by_dp(tmp_path):
 @pytest.mark.parametrize("key", ["Distributed.ep_degree",
                                  "Distributed.sharding.sharding_degree"])
 def test_unported_degrees_raise_naming_a6(tmp_path, key):
-    # ep rides on the data ranks: the two ranks are dp 2; sharding stages
-    # 1 and 2 are ported, stage 3 (the parameters sharded) is not
-    extra = (("Distributed.dp_degree=2",) if key.endswith("ep_degree")
-             else ("Distributed.sharding.sharding_stage=3",))
+    # sharding stages 1 and 2 are ported, stage 3 (the parameters sharded)
+    # is not. ep_degree loads as JAX reads it: neither package reads it
+    # (an MoE model's experts split over the data ranks), so the mesh and
+    # the trainer build as without it
+    if key.endswith("ep_degree"):
+        over = overrides(tmp_path, "torch", f"{key}=2")
+        cfg = get_config(TINY, overrides=over, nranks=1)
+        jcfg = jax_get_config(TINY, overrides=over, nranks=1)
+        assert cfg.Distributed.ep_degree == jcfg.Distributed.ep_degree == 2
+        mesh = mesh_from_config(cfg)
+        assert (mesh.world, mesh.data_world) == (1, 1)
+        trainer = Trainer(cfg, build_module(cfg), device="cpu")
+        assert trainer.mesh is mesh and trainer.ep_world == 1
+        return
+    extra = ("Distributed.sharding.sharding_stage=3",)
     cfg = get_config(TINY, overrides=overrides(tmp_path, "torch",
                                                f"{key}=2", *extra), nranks=2)
-    item = {"Distributed.ep_degree": "Other families and the rest of the "
-                                     "toolkit",
-            "Distributed.sharding.sharding_degree":
-                "ZeRO stage 3 (parameter sharding)"}[key]
-    match = re.escape(f'ROADMAP Queue A, "{item}"')
+    match = re.escape('ROADMAP Queue A, "ZeRO stage 3 (parameter '
+                      'sharding)"')
     with pytest.raises(NotImplementedError, match=match):
         mesh_from_config(cfg)
     with pytest.raises(NotImplementedError, match=match):

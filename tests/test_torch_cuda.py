@@ -826,6 +826,56 @@ def test_cuda_trainer_step_launches_each_flash_kernel_per_layer(tmp_path):
     assert "gpt.layers.0.attn.qkv_proj.weight" in moved
 
 
+@pytest.mark.cuda
+def test_cuda_moe_trainer_step_launches_each_flash_kernel_per_layer(
+        tmp_path):
+    """A tiny bf16 MoE GPT (``MoEModule``, 4 experts, gshard top 2,
+    dropout 0.1) trains two steps on the card through the real entry
+    points: every layer launches B1, B2 and B3 once per step, the losses
+    and balance losses are finite, and the experts move."""
+    from fleetx_tpu_torch.core.engine import Trainer
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models import build_module
+    from fleetx_tpu_torch.ops import flash_attention as fa
+    from fleetx_tpu_torch.utils.config import get_config
+
+    _need_card()
+    rng = np.random.RandomState(0)
+    docs = [rng.randint(0, 120, size=rng.randint(50, 200)).astype(np.int32)
+            for _ in range(50)]
+    prefix = str(tmp_path / "tiny")
+    np.save(prefix + "_ids.npy", np.concatenate(docs))
+    np.savez(prefix + "_idx.npz", lens=np.array([len(d) for d in docs],
+                                                np.int32))
+    root = __file__.rsplit("/tests/", 1)[0]
+    cfg = get_config(f"{root}/configs/tiny/pretrain_gpt_tiny_cpu.yaml",
+                     overrides=[f"Data.Train.dataset.input_dir={prefix}",
+                                "Model.use_flash_attention=True",
+                                "Model.module=MoEModule",
+                                "Model.num_experts=4", "Model.gate=gshard",
+                                "Engine.mix_precision.use_pure_fp16=True",
+                                "Engine.max_steps=2",
+                                "Optimizer.lr.warmup_steps=0"], nranks=1)
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    before = {n: p.detach().clone()
+              for n, p in module.nets.named_parameters()}
+    for name in fa.NAMES:
+        fa.launches[name] = 0
+    trainer.fit(build_dataloader(cfg, "Train"))
+    layers = module.gpt_config.num_layers
+    assert module.gpt_config.expert_mode
+    assert fa.launches == {n: 2 * layers for n in fa.NAMES}
+    assert all(np.isfinite(float(h["loss"])) and
+               np.isfinite(float(h["balance_loss"]))
+               for h in trainer.history)
+    moved = [n for n, p in module.nets.named_parameters()
+             if not torch.equal(p, before[n])]
+    assert {"gpt.layers.0.moe_mlp.w_up", "gpt.layers.0.moe_mlp.gate.weight",
+            "gpt.layers.0.attn.qkv_proj.weight"} <= set(moved)
+
+
 def _ce_close(got, want, dtype, kind, readings=None):
     """``ce_gaps`` within CE_TOL; bf16 grads by ``grads_gaps``, aware of
     dl's rounding flips through ``readings`` of the kernel's own dl."""

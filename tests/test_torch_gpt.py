@@ -255,20 +255,25 @@ FAMILIES = "Other families and the rest of the toolkit"
 
 
 # the ids name the items as ROADMAP numbered them when these cases were
-# written
+# written; the MoE switches they refused are ported (parallel/moe.py)
 @pytest.mark.parametrize("key,value,item", [
     pytest.param("num_experts", 8, FAMILIES, id="num_experts-8-A8"),
     pytest.param("expert_mode", True, FAMILIES, id="expert_mode-True-A8")])
 def test_config_raises_on_switches_the_port_does_not_compute(key, value,
                                                              item):
-    """A JAX switch that changes what the model computes raises at any
-    value but the port's, naming its ROADMAP item by title; the port's own
-    value (the JAX default) loads."""
+    """The MoE switches load as the JAX loader reads them: every MoE field
+    equal to JAX's (``num_experts`` above 1 sets ``expert_mode``), at the
+    switch's value and at the JAX default; no switch of a ``Model``
+    section raises any more."""
     base = dict(TINY)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f'ROADMAP Queue A, "{item}"')):
-        GPTConfig.from_model_config({**base, key: value})
     default = getattr(JaxGPTConfig(), key)
+    for v in (value, default):
+        got = GPTConfig.from_model_config({**base, key: v})
+        want = JaxGPTConfig.from_model_config({**base, key: v})
+        for f in ("num_experts", "expert_mode", "gate", "top_k",
+                  "capacity_factor", "moe_dispatch", "balance_loss_weight"):
+            assert getattr(got, f) == getattr(want, f), (v, f)
+    assert GPTConfig.from_model_config({**base, key: value}).expert_mode
     assert GPTConfig.from_model_config({**base, key: default}) == \
         GPTConfig.from_model_config(base)
 
