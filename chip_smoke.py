@@ -320,8 +320,8 @@ decode steps after phase 10):
                dead); ``shutdown`` under load returns every request's
                partial stream; time to recover, replay ms and probes
                logged;
-41. mesh     — mesh serving at mp 2, GPT-345M at full width, 6 of its 24
-               layers (cut for time in PR 20), two ranks sharing the card
+41. mesh     — mesh serving at mp 2, GPT-345M at full width, 3 of its 24
+               layers (cut for time), two ranks sharing the card
                over gloo, each an engine over the
                whole weights keeping its heads, MLP and vocab shard,
                against single-card engines of the same weights: phase 4's
@@ -435,7 +435,44 @@ decode steps after phase 10):
                ``Trainer.fit`` on phase 49's global batches: losses within
                MOE_BF16_LOSS_TOL of phase 49's, each rank's expert bytes
                half the model's; all-to-all ms and MB and the all-reduce ms
-               per step logged.
+               per step logged;
+51. encoder-bwd — B2 (dQ) and B3 (dK/dV) in the encoders' training mode
+               (non-causal, per-row ``kv_lens``, bf16, head dim 64, batch
+               64) against their plain versions within FLASH_TOL, each
+               launched twice with equal bits: at ERNIE-345M's shape (16
+               heads, s 512, dropout 0.1, the key lengths of 64
+               ``ErnieDataset`` samples) and ViT-B/16's (12 heads, 197
+               tokens padded to 256, dropout 0); ``kv_lens`` one short,
+               ``causal`` flipped and (ERNIE) another dropout seed must
+               each break the limit; kernel, plain, SDPA-backward (the same
+               key mask) and bound times;
+52. train-ernie — ``Trainer.fit`` through ``build_module`` on
+               ``pretrain_ernie_base_345M_single_card.yaml`` at full width
+               and depth (24 layers, hidden 1024, 16 heads, vocab 40000,
+               batch 64 of 512 tokens, 80 masked slots, bf16, dropout 0.1,
+               the right padding as key lengths) over ``ErnieDataset`` on a
+               synthetic corpus, 12 steps: every loss finite and falling,
+               B1, B2 and B3 once per layer per step; ``lm_loss`` and
+               ``sop_loss``, step ms, tokens/s, MFU, peak memory and the
+               loader's wait logged; then at 2 layers and fp32 one step
+               through the kernels against their plain versions: loss
+               within 1e-5, grad norm and every gradient leaf within 1e-4
+               (ENCODER_E2E_TOL), and seven planted kernel faults (B1/B3
+               given one key fewer, B2 run causal, phase 8's four) must
+               each break it;
+53. train-vit — ``Trainer.fit`` on ``vit_base_patch16_224.yaml`` at full
+               width and depth (12 layers, hidden 768, 1000 classes,
+               global batch 256 in 4 micro-batches of 64, bf16, drop path
+               0.1, mixup 0.8, label smoothing 0.1) over 512
+               ``SyntheticClsDataset`` images seen once an epoch, 6 steps
+               and one evaluation of 2 Eval batches: every loss finite and
+               falling, B2 and B3 once per layer per micro-batch, B1 too
+               and once per layer per evaluation batch; eval loss and
+               accuracy, step ms, images/s, MFU, peak memory and the
+               loader's wait logged; then at 2 layers, fp32, one
+               micro-batch of 64 images, the kernel path against the plain
+               path as in phase 52 (three planted faults: no attention
+               dropout here).
 
 Every drive writes into an output directory of its own, deleted with its
 phase. The script is the reaper of every process it starts, also of those
@@ -6853,7 +6890,7 @@ def phase_recovery(params, cfg) -> dict:
 
 # ----------------------------------------------------------------- phase 41
 MESH_MP = 2            # phase 41's mp extent: two ranks share the card
-MESH_LAYERS = 6        # phase 41's depth: GPT-345M's 24 cut for time (PR 20)
+MESH_LAYERS = 3        # phase 41's depth: GPT-345M's 24 cut for time
 MESH_FAULT_TICK = 5    # its recovered tick fault
 
 
@@ -9019,6 +9056,469 @@ def moe_ep_fit_rank(prefix: str) -> dict:
             "launches": {n: fa.launches[n] for n in fa.NAMES}}
 
 
+# --------------------------------------------------------------- phase 51-53
+
+ERNIE_345M_CONFIG = os.path.join(
+    ROOT, "configs/nlp/ernie/pretrain_ernie_base_345M_single_card.yaml")
+ERNIE_TRAIN_STEPS = 12  # phase 52's steps at the yaml's full depth
+VIT_TRAIN_STEPS = 6    # phase 53's steps (4 micro-batches each)
+VIT_TRAIN_SAMPLES = 512  # phase 53's training set: 2 steps an epoch
+ENCODER_EVAL_ITERS = 2  # phase 53's evaluation: 2 Eval batches of 256
+ENCODER_E2E_LAYERS = 2  # the kernel-vs-plain steps' depth, fp32
+VIT_E2E_BATCH = 64      # phase 53(b)'s one micro-batch
+# phases 52(b) and 53(b), one fp32 train step through B1-B3 against their
+# plain versions (same weights, batch and draws): loss (absolute), grad
+# norm and the worst gradient leaf (relative L2)
+ENCODER_E2E_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad_leaf": 1e-4}
+# phase 51's B2/B3 cases: (heads, sequence, dropout) at the two drives'
+# shapes, head dim 64, batch 64, bf16; ERNIE's key lengths come from
+# ErnieDataset samples, ViT's are its 197 tokens padded to the tile
+ENCODER_BWD = {"ernie": (16, 512, 0.1), "vit": (12, 256, 0.0)}
+ENCODER_BWD_BATCH = 64
+
+
+def write_ernie_corpus(prefix: str, tokens: int = 200_000,
+                       seed: int = 10) -> None:
+    """:func:`write_corpus`'s documents with every id moved past ERNIE's
+    special ids (pad 0, CLS 1, SEP 2, MASK 3), as ``ErnieDataset`` reads
+    them."""
+    write_corpus(prefix, tokens=tokens, seed=seed)
+    ids = np.load(prefix + "_ids.npy")
+    np.save(prefix + "_ids.npy", ids + np.int32(4))
+
+
+def ernie_overrides(prefix: str, *extra) -> list:
+    """Overrides of the ERNIE-345M single-card config (its width, depth,
+    batch 64 and sequence 512) over the corpus at ``prefix`` (4,096
+    samples drawn from its documents): a one-step warmup and a learning
+    rate at which the loss moves within the drive."""
+    return [own_output_dir(prefix), f"Data.Train.dataset.input_dir={prefix}",
+            "Data.Train.dataset.num_samples=4096",
+            f"Engine.max_steps={ERNIE_TRAIN_STEPS}", "Engine.logging_freq=1",
+            "Optimizer.lr.warmup=1", "Optimizer.lr.max_lr=5.0e-4",
+            "Optimizer.lr.total_steps=1000", *extra]
+
+
+def vit_overrides(prefix: str, *extra) -> list:
+    """Overrides of ``vit_base_patch16_224.yaml`` (its width, depth, global
+    batch 256 in 4 micro-batches of 64) for a short drive: VIT_TRAIN_SAMPLES
+    synthetic images seen once an epoch (random labels: what six steps can
+    learn is to fit the images they saw before), a learning rate schedule
+    without warmup, one evaluation at the last step over ENCODER_EVAL_ITERS
+    Eval batches (the same images: the synthetic set draws by index)."""
+    return [own_output_dir(prefix), f"Engine.max_steps={VIT_TRAIN_STEPS}",
+            f"Data.Train.dataset.num_samples={VIT_TRAIN_SAMPLES}",
+            f"Engine.num_train_epochs={VIT_TRAIN_STEPS}",
+            "Engine.logging_freq=1", f"Engine.eval_freq={VIT_TRAIN_STEPS}",
+            f"Engine.eval_iters={ENCODER_EVAL_ITERS}",
+            "Optimizer.lr.warmup_epochs=0", "Optimizer.lr.learning_rate=1.0e-3",
+            *extra]
+
+
+def ernie_lengths(prefix: str, n: int) -> list:
+    """The key lengths (non-pad tokens) of ``n`` samples of the 345M
+    config's ``ErnieDataset`` over the corpus at ``prefix``."""
+    from fleetx_tpu_torch.data import build_dataset
+
+    cfg = get_config(ERNIE_345M_CONFIG, overrides=ernie_overrides(prefix),
+                     nranks=1)
+    ds = build_dataset(cfg.Data.Train.dataset, seed=cfg.Global.seed)
+    return [int((ds[i]["input_ids"] != 0).sum()) for i in range(n)]
+
+
+def encoder_bwd_bound(name: str, b: int, s: int, h: int, d: int, lens,
+                      nbytes_el: int) -> tuple:
+    """(bytes, flops) of one B2 or B3 call in the encoders' mode: q and
+    dO read over all s rows, k and v over each row's live keys only, lse
+    and delta rows read, dQ (or dK and dV, every key row) written once; 3
+    (dQ) or 4 (dK/dV) products of 2·d flops over the s × kv_lens[b] live
+    (query, key) pairs of each row."""
+    live = sum(int(n) for n in lens)
+    rows = b * s * h * d * nbytes_el
+    keys = live * h * d * nbytes_el
+    stats = 2 * b * h * s * 4
+    pairs = 2 * h * d * s * live
+    if name == "flash_bwd_dq":
+        return 3 * rows + 2 * keys + stats, 3 * pairs
+    return 4 * rows + 2 * keys + stats, 4 * pairs
+
+
+def library_masked_bwd_ms(sets, kv) -> float:
+    """SDPA's backward (dQ, dK and dV in one call) on the same masked
+    function as a yardstick (never used by the port): each set's q, k, v
+    and dO in [b, h, s, d], the key lengths as a boolean key mask, dropout
+    0, non-causal."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s = sets[0][0].shape[1]
+    mask = (torch.arange(s, device=kv.device)[None] < kv[:, None].long())[
+        :, None, None, :]
+    runs = []
+    for q, k, v, do in sets:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        runs.append((sdpa(qt, kt, vt, attn_mask=mask), (qt, kt, vt),
+                     do.transpose(1, 2).contiguous()))
+    it = iter(range(1 << 30))
+
+    def call():
+        out, inputs, dot = runs[next(it) % len(runs)]
+        torch.autograd.grad(out, inputs, dot, retain_graph=True)
+
+    return cuda_ms(call, iters=20, warmup=2)
+
+
+def phase_encoder_bwd(prefix: str) -> dict:
+    """Phase 51: B2 (dQ) and B3 (dK/dV) in the encoders' training mode,
+    non-causal with per-row ``kv_lens``, bf16, head dim 64, batch 64, at
+    ERNIE-345M's shape (16 heads, s 512, dropout 0.1, the key lengths of
+    64 ``ErnieDataset`` samples) and ViT-B/16's (12 heads, its 197 tokens
+    padded to 256, dropout 0), each against its plain version within
+    FLASH_TOL and launched twice with equal bits; ``kv_lens`` one short,
+    another dropout seed (ERNIE) and ``causal`` flipped must each break
+    the limit. Kernel, plain, SDPA-backward and bound times. Returns the
+    records by kernel name and case."""
+    bf16, d, b = torch.bfloat16, 64, ENCODER_BWD_BATCH
+    atol, rtol = fa.FLASH_TOL[bf16]
+    records = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    lens_by_case = {"ernie": ernie_lengths(prefix, b), "vit": [197] * b}
+    for label, (h, s, rate) in ENCODER_BWD.items():
+        lens = lens_by_case[label]
+        sets = flash_inputs(bf16, b=b, s=s, h=h, d=d)
+        kv = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        kw = dict(causal=False, kv_lens=kv, dropout_rate=rate,
+                  seed=-24681357)
+        before = dict(fa.launches)
+        state = []
+        for q, k, v, do in sets:
+            out, lse = fa.flash_fwd(q, k, v, **kw)
+            state.append((out, lse, flash_delta(do, out)))
+        q, k, v, do = sets[0]
+        _, lse, delta = state[0]
+        args = (q, k, v, do, lse, delta)
+        got = {"flash_bwd_dq": (fa.flash_bwd_dq(*args, **kw),),
+               "flash_bwd_dkv": fa.flash_bwd_dkv(*args, **kw)}
+        again = {"flash_bwd_dq": (fa.flash_bwd_dq(*args, **kw),),
+                 "flash_bwd_dkv": fa.flash_bwd_dkv(*args, **kw)}
+        torch.cuda.synchronize()
+        want = {"flash_bwd_dq": (fa.flash_bwd_dq_ref(*args, **kw),),
+                "flash_bwd_dkv": fa.flash_bwd_dkv_ref(*args, **kw)}
+        faults = {"kv_lens - 1": dict(kw, kv_lens=(kv - 1).clamp_min(0)),
+                  "causal flipped": dict(kw, causal=True)}
+        if rate:
+            faults["seed + 1"] = dict(kw, seed=kw["seed"] + 1)
+        fns = {"flash_bwd_dq": lambda *a, **k: (fa.flash_bwd_dq(*a, **k),),
+               "flash_bwd_dkv": fa.flash_bwd_dkv}
+        plains = {"flash_bwd_dq": fa.flash_bwd_dq_ref,
+                  "flash_bwd_dkv": fa.flash_bwd_dkv_ref}
+
+        def ratio(outs, wants):
+            return max(_tol_ratio(o, w, atol, rtol)
+                       for o, w in zip(outs, wants))
+
+        it = iter(range(1 << 30))
+
+        def pick():
+            i = next(it) % len(sets)
+            return sets[i] + state[i][1:]
+
+        library_ms = library_masked_bwd_ms(sets, kv)
+        for name in records:
+            worst = ratio(got[name], want[name])
+            err = max(_max_err(o, w) for o, w in zip(got[name], want[name]))
+            same = all(torch.equal(x, y)
+                       for x, y in zip(got[name], again[name]))
+            planted = {f: ratio(fns[name](*args, **fkw), want[name])
+                       for f, fkw in faults.items()}
+            kernel_ms = cuda_ms(lambda: fns[name](*pick(), **kw), iters=20,
+                                warmup=3)
+            plain_ms = cuda_ms(lambda: plains[name](*pick(), **kw), iters=2,
+                               warmup=1)
+            nbytes, flops = encoder_bwd_bound(name, b, s, h, d, lens, 2)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_FLOPS[bf16] * 1e3
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            log("encoder-bwd", name=name, case=label, batch=b, seq=s,
+                heads=h, head_dim=d, dropout=rate,
+                kv_lens_min=min(lens), kv_lens_max=max(lens),
+                kv_lens_mean=float(np.mean(lens)), max_abs_err=err,
+                tol_ratio=worst, twice_equal=same, planted_tol_ratio=planted,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by=bound_by, bound_share=max(bytes_ms, ops_ms)
+                / kernel_ms, tflops=flops / kernel_ms * 1e-9)
+            if not (worst <= 1.0 and same and all(
+                    torch.isfinite(o.float()).all() for o in got[name])):
+                raise AssertionError(f"{name} {label}: {worst} x the limit, "
+                                     f"twice equal {same}")
+            for fault, wrong in planted.items():
+                if not wrong > 1.0:
+                    raise AssertionError(f"{name} {label}: the planted "
+                                         f"fault {fault!r} is held within "
+                                         f"the limit ({wrong})")
+            records[name][label] = {
+                "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+                "library_ms": library_ms}
+        fa.launches.update(before)  # checks and timing are not the path
+        del sets, state, got, again, want
+        torch.cuda.empty_cache()
+    return records
+
+
+def timed_fit(trainer, loader, valid=None) -> dict:
+    """``trainer.fit(loader, valid)`` with an event at the end of each
+    step's work on the stream and the host seconds each step waited on
+    the loader; the flash launch counts of the run (zeroed first)."""
+    ends, waits = [], []
+    inner = trainer.train_step
+
+    def timed(batch):
+        out = inner(batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    class Timed:  # the loader, each fetch timed
+        batch_sampler = loader.batch_sampler
+        dataset = loader.dataset
+
+        def __iter__(self):
+            it = iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield batch
+
+    trainer.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.NAMES:
+        fa.launches[name] = 0
+    t0 = time.perf_counter()
+    trainer.fit(Timed(), valid)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+            "waits_s": waits, "launches": {n: fa.launches[n]
+                                           for n in fa.NAMES},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def encoder_faults(attention_dropout: bool) -> dict:
+    """Kernel-path faults phases 52(b) and 53(b) must catch, each a wrapper
+    swapped in at run time: B1 and B3 given one key fewer a row, B2 run
+    causal; under attention dropout also phase 8's (a kernel given seed +
+    1, dV without the keep mask)."""
+    fwd, dq, dkv = fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv
+
+    def shorter(fn):
+        return lambda *a, **kw: fn(*a, **{
+            **kw, "kv_lens": (kw["kv_lens"] - 1).clamp_min(0)})
+
+    faults = {"B1 kv_lens - 1": {(fa, "flash_fwd"): shorter(fwd)},
+              "B2 causal": {(fa, "flash_bwd_dq"): lambda *a, **kw: dq(
+                  *a, **{**kw, "causal": True})},
+              "B3 kv_lens - 1": {(fa, "flash_bwd_dkv"): shorter(dkv)}}
+    if attention_dropout:
+        faults.update(planted_faults())
+    return faults
+
+
+def encoder_e2e(label: str, cfg, batch, layers: int,
+                attention_dropout: bool) -> None:
+    """Phases 52(b) and 53(b): one fp32 train step of ``cfg`` on ``batch``
+    through B1-B3 and through their plain versions (fresh trainers, the
+    same seeded weights and draws): within ENCODER_E2E_TOL; each planted
+    kernel fault of :func:`encoder_faults` must exceed it in at least one
+    metric."""
+    ref = _e2e_step(cfg, batch, PLAIN_FLASH)
+    run = _e2e_step(cfg, batch)
+    gaps = _e2e_gaps(run, ref)
+    log(label, layers=layers, dtype="float32", loss_kernel=run[0],
+        loss_plain=ref[0], grad_norm_kernel=run[1], grad_norm_plain=ref[1],
+        tol=ENCODER_E2E_TOL, **gaps)
+    over = [m for m, tol in ENCODER_E2E_TOL.items() if not gaps[m] <= tol]
+    if over or not (math.isfinite(run[0]) and math.isfinite(run[1])):
+        raise AssertionError(f"{label}: kernels vs plain versions {gaps}")
+    for name, fns in encoder_faults(attention_dropout).items():
+        gaps = _e2e_gaps(_e2e_step(cfg, batch, fns), ref)
+        caught = [m for m, tol in ENCODER_E2E_TOL.items() if gaps[m] > tol]
+        log(label, planted_fault=repr(name), caught=caught, **gaps)
+        if not caught:
+            raise AssertionError(f"{label} misses the planted fault "
+                                 f"{name!r}: {gaps}")
+    del ref, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def encoder_train_log(label: str, trainer, cfg, run: dict, samples: int,
+                      unit: str, per_sample: int) -> dict:
+    """Log a drive's step times, rates, MFU and memory; returns the
+    median step seconds and MFU."""
+    # the first steps grow the allocator's pools: the later half of the
+    # intervals is the steady pace; of it, the intervals whose batch was
+    # ready (interval i runs from the end of step i to the end of step
+    # i + 1, whose fetch is wait i + 1) are the device's pace
+    intervals = run["step_ms"]
+    half = len(intervals) // 2
+    steady = float(np.median(intervals[half:])) * 1e-3
+    fed = [ms for ms, wait in zip(intervals[half:], run["waits_s"][half + 1:])
+           if wait < 1e-3]
+    flops = trainer.module.model_flops_per_sample(trainer.n_params)
+    peak = peak_flops(trainer.device)
+    mfu = samples * flops / steady / peak
+    log(label, card=repr(CARD.get("line")), steps=trainer.step,
+        params_m=trainer.n_params / 1e6, batch=samples,
+        step_ms=[round(x, 2) for x in run["step_ms"]],
+        step_ms_median=steady * 1e3,
+        **{f"{unit}_per_s": samples / steady},
+        tokens_per_s=samples * per_sample / steady,
+        flops_per_sample=flops, mfu=mfu,
+        step_ms_fed_median=float(np.median(fed)) if fed else None,
+        mfu_fed=(samples * flops / (np.median(fed) * 1e-3) / peak
+                 if fed else None),
+        fit_seconds=run["seconds"],
+        loader_wait_s=[round(x, 4) for x in run["waits_s"]],
+        loader_wait_s_median=float(np.median(run["waits_s"][1:])),
+        peak_mem_gb=run["peak_gb"], launches=run["launches"])
+    return {"step_s": steady, "mfu": mfu}
+
+
+def phase_train_ernie(prefix: str) -> dict:
+    """Phase 52: (a) ``Trainer.fit`` through ``build_module`` on
+    ``pretrain_ernie_base_345M_single_card.yaml`` at full width and depth
+    (24 layers, hidden 1024, 16 heads, vocab 40000, batch 64 of 512
+    tokens, 80 masked slots, bf16, hidden and attention dropout 0.1, the
+    right padding as key lengths) over ``ErnieDataset`` on a synthetic
+    corpus, ERNIE_TRAIN_STEPS steps: every loss finite and falling, B1, B2
+    and B3 once per layer per step; ``lm_loss``/``sop_loss``, step ms,
+    tokens/s, MFU, peak memory and the loader's wait logged. (b) the
+    config at ENCODER_E2E_LAYERS layers and fp32: one step through the
+    kernels against the plain versions (:func:`encoder_e2e`). Returns the
+    launches."""
+    cfg = get_config(ERNIE_345M_CONFIG, overrides=ernie_overrides(prefix),
+                     nranks=1)
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    ecfg = module.ernie_config
+    run = timed_fit(trainer, build_dataloader(cfg, "Train"))
+    steps, layers = trainer.step, ecfg.num_layers
+    seq = cfg.Data.Train.dataset.max_seq_len
+    losses = [float(h["loss"]) for h in trainer.history]
+    log("train-ernie", layers=layers, hidden=ecfg.hidden_size,
+        heads=ecfg.num_attention_heads, vocab=ecfg.vocab_size, seq=seq,
+        dtype=str(ecfg.dtype).split(".")[-1],
+        dropout=(ecfg.hidden_dropout_prob,
+                 ecfg.attention_probs_dropout_prob),
+        right_padded_inputs=ecfg.right_padded_inputs)
+    rates = encoder_train_log("train-ernie", trainer, cfg, run,
+                              cfg.Global.global_batch_size, "sequences", seq)
+    log("train-ernie", losses=[round(x, 5) for x in losses],
+        lm_loss=[round(float(h["lm_loss"]), 5) for h in trainer.history],
+        sop_loss=[round(float(h["sop_loss"]), 5) for h in trainer.history],
+        grad_norms=[round(float(h["grad_norm"]), 4)
+                    for h in trainer.history])
+    if steps != ERNIE_TRAIN_STEPS:
+        raise AssertionError(f"train-ernie: {steps} steps")
+    if run["launches"] != {n: steps * layers for n in fa.NAMES}:
+        raise AssertionError(f"train-ernie: flash launches {run['launches']}"
+                             f" over {steps} steps x {layers} layers")
+    if not all(math.isfinite(x) for x in losses) or not (
+            np.mean(losses[-2:]) < losses[0]):
+        raise AssertionError(f"train-ernie: losses {losses}")
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e = get_config(ERNIE_345M_CONFIG, overrides=ernie_overrides(
+        prefix, f"Model.num_layers={ENCODER_E2E_LAYERS}",
+        "Engine.mix_precision.use_pure_fp16=False"), nranks=1)
+    encoder_e2e("train-ernie-e2e", e2e,
+                next(iter(build_dataloader(e2e, "Train"))),
+                ENCODER_E2E_LAYERS,
+                e2e.Model.attention_probs_dropout_prob > 0)
+    return {"launches": run["launches"], **rates}
+
+
+def phase_train_vit(prefix: str) -> dict:
+    """Phase 53: (a) ``Trainer.fit`` through ``build_module`` on
+    ``vit_base_patch16_224.yaml`` at full width and depth (12 layers,
+    hidden 768, 12 heads, 1000 classes, global batch 256 in 4 micro-batches
+    of 64, bf16, drop path 0.1, mixup 0.8, label smoothing 0.1) on
+    ``SyntheticClsDataset``, VIT_TRAIN_STEPS steps and one evaluation of
+    ENCODER_EVAL_ITERS Eval batches: every loss finite and falling, B2 and
+    B3 once per layer per micro-batch, B1 too and once per layer per
+    evaluation batch; eval loss and accuracy (and the initial weights'
+    on the same batches), step ms, images/s, MFU, peak memory and the
+    loader's wait logged. (b) at ENCODER_E2E_LAYERS layers,
+    fp32 and one micro-batch of VIT_E2E_BATCH images: one step through the
+    kernels against the plain versions (:func:`encoder_e2e`). Returns the
+    launches."""
+    cfg = get_config(VIT_CONFIG, overrides=vit_overrides(prefix), nranks=1)
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    vcfg = module.vit_config
+    micro = trainer.accumulate_steps
+    # the initial weights on the evaluation's batches (not the path: the
+    # fit's launches are counted from zero)
+    eval_before = trainer.evaluate(build_dataloader(cfg, "Eval"))
+    evals, evaluate = [], trainer.evaluate
+
+    def recorded(data, epoch=0):
+        evals.append(evaluate(data, epoch=epoch))
+        return evals[-1]
+
+    trainer.evaluate = recorded
+    run = timed_fit(trainer, build_dataloader(cfg, "Train"),
+                    build_dataloader(cfg, "Eval"))
+    steps, layers = trainer.step, vcfg.num_layers
+    losses = [float(h["loss"]) for h in trainer.history]
+    log("train-vit", layers=layers, hidden=vcfg.hidden_size,
+        heads=vcfg.num_attention_heads, classes=vcfg.num_classes,
+        tokens=vcfg.num_patches + 1, micro_batches=micro,
+        dtype=str(vcfg.dtype).split(".")[-1],
+        drop_path=vcfg.drop_path_rate, mixup=module.mixup_alpha,
+        label_smoothing=module.label_smoothing)
+    rates = encoder_train_log("train-vit", trainer, cfg, run,
+                              cfg.Global.global_batch_size, "images",
+                              vcfg.num_patches + 1)
+    eval_after = evals[-1] if len(evals) == 1 else math.nan
+    log("train-vit", losses=[round(x, 5) for x in losses],
+        acc=[round(float(h["acc"]), 5) for h in trainer.history],
+        grad_norms=[round(float(h["grad_norm"]), 4)
+                    for h in trainer.history],
+        eval_loss_before=eval_before, eval_loss=eval_after,
+        eval=trainer.eval_metrics)
+    want = {n: steps * micro * layers for n in fa.NAMES}
+    want["flash_fwd"] += ENCODER_EVAL_ITERS * layers
+    if steps != VIT_TRAIN_STEPS or run["launches"] != want:
+        raise AssertionError(f"train-vit: {steps} steps, flash launches "
+                             f"{run['launches']} (want {want})")
+    if not all(math.isfinite(x) for x in losses) or not (
+            np.mean(losses[-2:]) < losses[0]):
+        raise AssertionError(f"train-vit: losses {losses}, eval loss "
+                             f"{eval_before} -> {eval_after}")
+    if not math.isfinite(trainer.eval_metrics.get("acc", math.nan)):
+        raise AssertionError(f"train-vit: eval {trainer.eval_metrics}")
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e = get_config(VIT_CONFIG, overrides=vit_overrides(
+        prefix, f"Model.num_layers={ENCODER_E2E_LAYERS}",
+        "Engine.mix_precision.use_pure_fp16=False",
+        f"Global.local_batch_size={VIT_E2E_BATCH}",
+        f"Global.micro_batch_size={VIT_E2E_BATCH}"), nranks=1)
+    encoder_e2e("train-vit-e2e", e2e,
+                next(iter(build_dataloader(e2e, "Train"))),
+                ENCODER_E2E_LAYERS, bool(e2e.Model.get("attn_drop_rate")))
+    return {"launches": run["launches"], **rates}
+
+
 # torch._dynamo, torch.distributed.fsdp and torch.distributed.tensor are
 # imported lazily by a Trainer's set-up: most of a spawned rank's start
 # where the sources compile anew in every process
@@ -9257,6 +9757,19 @@ def run_phases() -> tuple:
     for name in fa.NAMES:
         flash[name]["launches_moe"] = moe["launches"][name]
         flash[name]["launches_moe_ep_per_rank"] = moe_ep[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "corpus")
+        write_ernie_corpus(prefix, tokens=600_000)
+        for name, cases in phase_encoder_bwd(prefix).items():
+            flash[name]["encoders"] = cases
+        ernie = phase_train_ernie(prefix)
+        drop_output_dirs(prefix)
+        vit = phase_train_vit(prefix)
+    for name in fa.NAMES:
+        flash[name]["launches_ernie_345m"] = ernie["launches"][name]
+        flash[name]["launches_vit_b16"] = vit["launches"][name]
     records = [dict(name="paged_decode", route="cuda",
                     source="fleetx_tpu_torch/ops/csrc/decode_attention.cu",
                     replaces="fleetx_tpu/ops/pallas/decode_attention.py:465",

@@ -118,11 +118,16 @@ norm counts it once, and the copies stay equal bit for bit. The last
 stage's loss is broadcast over the pp group, so every rank logs and
 judges the same loss.
 
-MFU is the model-FLOPs count of ``bench.py`` (6 per parameter per token
+The throughput gauge counts the elements of the batch's ``tokens``, else
+its ``input_ids``, else its first array (JAX :832-840): an image batch
+counts pixels, and the vision module logs images/s. MFU is the
+model-FLOPs count over the step time and the bf16 dense peak of every
+card the ranks run on: for GPT ``bench.py``'s (6 per parameter per token
 plus the causal attention products; the whole model's parameters under
 mp; an MoE model's expert leaves at the rows their GEMMs run, every
-expert's capacity, ``moe_flops_per_token``) over the step time and the
-bf16 dense peak of every card the ranks run on.
+expert's capacity, ``moe_flops_per_token``), for a module that supplies
+its own FLOPs a sample (``model_flops_per_sample``: the encoders) that
+count spread over the sample's counted elements.
 """
 
 from __future__ import annotations
@@ -235,6 +240,15 @@ def peak_flops(device: torch.device) -> Optional[float]:
 _LAYER = re.compile(r"^gpt\.layers\.\d+\.")  # a decoder layer's prefix
 
 
+def _counted(batch):
+    """The array of a batch whose elements the throughput gauge counts:
+    ``tokens``, else ``input_ids``, else the first (JAX :832-840)."""
+    for key in ("tokens", "input_ids"):
+        if batch.get(key) is not None:
+            return batch[key]
+    return next(iter(batch.values()))
+
+
 def _is_moment(v, like: torch.Tensor) -> bool:
     """Whether optimizer state ``v`` is a per-element moment of a
     parameter shaped like ``like`` (AdamW's ``exp_avg``/``exp_avg_sq``,
@@ -293,6 +307,7 @@ class Trainer:
         self.mp_split: Dict[str, int] = {}  # parameters split over mp
         self.experts: set = set()  # parameters split over the data ranks
         self.history: List[Dict[str, float]] = []  # one entry per step
+        self.eval_metrics: Dict[str, float] = {}  # the last evaluate's
         self.start_epoch = 0
         self._cur_epoch = 0  # the epoch the fit loop is inside
         self.consumed_samples = 0
@@ -521,7 +536,10 @@ class Trainer:
             for p in params:
                 p.grad = None
             if mesh.data_world > 1:
-                dist.all_reduce(loss_sum, group=mesh.data_group)
+                sums = torch.stack([loss_sum, *metrics.values()])
+                dist.all_reduce(sums, group=mesh.data_group)
+                loss_sum = sums[0]
+                metrics = dict(zip(metrics, sums[1:]))
         if mesh.pp > 1:
             self._sum_tied_grads(names, grads)
             self._from_last_stage(loss_sum)
@@ -701,6 +719,16 @@ class Trainer:
         return model_flops_per_token(self.n_params, gcfg.num_layers, seq,
                                      gcfg.hidden_size)
 
+    def _flops_per_element(self, shape, tokens: int) -> Optional[float]:
+        """The model FLOPs per counted element of a step whose global batch
+        counts ``tokens`` elements, its counted array of local ``shape``:
+        the module's FLOPs a sample over the elements of one sample, or
+        the GPT count per token."""
+        per_sample = self.module.model_flops_per_sample(self.n_params)
+        if per_sample is not None:
+            return per_sample / float(np.prod(shape[1:]))
+        return self._flops_per_token(shape[1], tokens)
+
     def fit(self, train_data: Iterable,
             valid_data: Optional[Iterable] = None):
         """Train until ``Engine.max_steps`` or the end of
@@ -732,6 +760,9 @@ class Trainer:
             sampler = getattr(train_data, "batch_sampler", None)
             if sampler is not None and hasattr(sampler, "set_epoch"):
                 sampler.set_epoch(epoch)
+            dataset = getattr(train_data, "dataset", None)
+            if dataset is not None and hasattr(dataset, "set_epoch"):
+                dataset.set_epoch(epoch)  # per-epoch re-masking (ERNIE)
             t_last = time.time()
             window = []
             batches = iter(faults.wrap_train_data(train_data))
@@ -767,10 +798,10 @@ class Trainer:
                 # fetched but not applied
                 faults.on_train_step(self.step)
                 if tokens_per_batch is None:  # the global batch's
+                    shape = np.shape(_counted(batch))
                     tokens_per_batch = get_data_world(self.mesh) * int(
-                        np.prod(np.shape(batch["tokens"])))
-                    flops = self._flops_per_token(
-                        np.shape(batch["tokens"])[1], tokens_per_batch)
+                        np.prod(shape))
+                    flops = self._flops_per_element(shape, tokens_per_batch)
                     self._tokens_per_batch = tokens_per_batch
                     self._flops_per_tok = flops
                 with span("train.step", step=self.step):
@@ -856,11 +887,13 @@ class Trainer:
                  ) -> Optional[float]:
         """The mean loss over the first ``Engine.eval_iters`` batches of
         ``valid_data`` (forward only, no dropout, no gradients; under pp
-        the pipeline's forwards), logged through ``validation_step_end``;
-        None when there is no batch."""
+        the pipeline's forwards), logged through ``validation_step_end``
+        with the mean of the module's ``metrics`` (a vision module's
+        ``acc``), which :attr:`eval_metrics` keeps; None when there is no
+        batch."""
         if self.optimizer is None:
             self.init_state()
-        losses = []
+        losses, metrics = [], {}
         t0 = time.time()
         loss_fn = (self.module.pipeline_loss if self.mesh.pp > 1
                    else self.module.loss_fn)
@@ -870,19 +903,29 @@ class Trainer:
                     break
                 losses.append(loss_fn(self._to_device(batch), None,
                                       train=False))
+                for k, v in (getattr(self.module, "metrics", None)
+                             or {}).items():
+                    metrics.setdefault(k, []).append(v)
         if not losses:
             return None
+        n = len(losses)
         if self.mesh.data_world > 1 or self.mesh.pp > 1:
             losses = torch.stack(losses)
         if self.mesh.data_world > 1:  # each rank's is its share of the mean
             dist.all_reduce(losses, group=self.mesh.data_group)
+            for k, v in metrics.items():
+                metrics[k] = torch.stack(v)
+                dist.all_reduce(metrics[k], group=self.mesh.data_group)
         if self.mesh.pp > 1:
             self._from_last_stage(losses)
         mean = float(np.mean([float(x) for x in losses]))
+        self.eval_metrics = {k: float(np.mean([float(x) for x in v]))
+                             for k, v in metrics.items()}
         if self.primary:
             self.module.validation_step_end({
                 "epoch": epoch, "batch": self.step, "loss": mean,
-                "batch_cost": (time.time() - t0) / len(losses)})
+                "batch_cost": (time.time() - t0) / n,
+                **self.eval_metrics})
         return mean
 
     # ------------------------------------------------------ across the ranks

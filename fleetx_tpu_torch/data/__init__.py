@@ -1,6 +1,7 @@
 """Dataset and loader construction from config:
 ``build_dataset(section, mode)`` and ``build_dataloader(cfg, mode)`` (the
-JAX package's data/__init__.py, GPT only)."""
+JAX package's data/__init__.py: ``GPTDataset``, ``ErnieDataset``,
+``GeneralClsDataset`` and ``SyntheticClsDataset``)."""
 
 from __future__ import annotations
 
@@ -9,9 +10,16 @@ __all__ = ["build_dataset", "build_dataloader"]
 
 def build_dataset(ds_cfg, mode: str = "Train", **extra):
     """The dataset named by a ``Data.<mode>.dataset`` config node."""
+    from fleetx_tpu_torch.data.ernie_dataset import ErnieDataset
     from fleetx_tpu_torch.data.gpt_dataset import GPTDataset
+    from fleetx_tpu_torch.data.vision_dataset import (
+        GeneralClsDataset,
+        SyntheticClsDataset,
+    )
 
-    registry = {"GPTDataset": GPTDataset}
+    registry = {"GPTDataset": GPTDataset, "ErnieDataset": ErnieDataset,
+                "GeneralClsDataset": GeneralClsDataset,
+                "SyntheticClsDataset": SyntheticClsDataset}
     kwargs = dict(ds_cfg)
     name = kwargs.pop("name")
     if name not in registry:
@@ -26,7 +34,10 @@ def build_dataloader(cfg, mode: str = "Train", consumed_samples: int = 0):
     data rank's slice of every global batch (dp × fsdp slices), so the
     ranks of one cp group (which split one batch's sequences) read the
     same rows."""
-    from fleetx_tpu_torch.data.dataloader import DataLoader, gpt_collate_fn
+    from fleetx_tpu_torch.data.dataloader import (
+        DataLoader,
+        default_collate_fn,
+    )
     from fleetx_tpu_torch.data.sampler import GPTBatchSampler
     from fleetx_tpu_torch.parallel.mesh import (
         get_data_world,
@@ -48,5 +59,5 @@ def build_dataloader(cfg, mode: str = "Train", consumed_samples: int = 0):
         **sampler_cfg,
     )
     loader_cfg = dict(section.get("loader") or {})
-    return DataLoader(dataset, sampler, collate_fn=gpt_collate_fn,
+    return DataLoader(dataset, sampler, collate_fn=default_collate_fn,
                       num_workers=loader_cfg.get("num_workers", 0))

@@ -1,9 +1,9 @@
-"""Threaded data loader and the GPT collate function.
+"""Threaded data loader and the collate functions.
 
-Copy of the JAX package's data/dataloader.py (GPT samples only): batches
-are dicts of numpy arrays (the trainer moves them to the device);
-``num_workers`` threads prefetch ``__getitem__`` + collate and order is
-preserved.
+Copy of the JAX package's data/dataloader.py: batches are dicts of numpy
+arrays (the trainer moves them to the device), stacked sample by sample
+whatever their dtype (int64 labels, float32 images); ``num_workers``
+threads prefetch ``__getitem__`` + collate and order is preserved.
 """
 
 from __future__ import annotations
@@ -14,12 +14,21 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 
-__all__ = ["DataLoader", "gpt_collate_fn"]
+__all__ = ["DataLoader", "default_collate_fn", "gpt_collate_fn"]
 
 
-def gpt_collate_fn(samples):
-    """Stack a list of dict samples into a dict of [batch, ...] arrays."""
-    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+def default_collate_fn(samples):
+    """Stack a list of samples into [batch, ...] arrays: a dict of them for
+    dict samples, a tuple for tuple or list samples, else one array."""
+    if isinstance(samples[0], dict):
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    if isinstance(samples[0], (tuple, list)):
+        return tuple(np.stack([s[i] for s in samples])
+                     for i in range(len(samples[0])))
+    return np.stack(samples)
+
+
+gpt_collate_fn = default_collate_fn  # GPT samples are already dicts
 
 
 class DataLoader:
@@ -31,7 +40,7 @@ class DataLoader:
                  prefetch: int = 2):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
-        self.collate_fn = collate_fn or gpt_collate_fn
+        self.collate_fn = collate_fn or default_collate_fn
         self.num_workers = num_workers
         self.prefetch = max(prefetch, 1)
 

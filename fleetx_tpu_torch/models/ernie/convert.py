@@ -75,7 +75,9 @@ def params_from_jax(tree, cfg: ErnieConfig) -> Dict[str, torch.Tensor]:
     dict; leaves numpy-convertible or boxed): ``ernie/...`` with the
     encoder scan-stacked (``layers/layer/...``, a leading ``[L]`` axis) or
     unrolled (``layers_{i}/layer/...``), and whichever heads the tree
-    holds (``lm_head`` and ``sop_head``, or ``classifier``)."""
+    holds (``lm_head`` and ``sop_head``, or ``classifier``). A JAX
+    gradient tree has the same structure and bridges the same way, so
+    gradients compare leaf for leaf."""
     root = tree.get("params", tree)
     ernie = root["ernie"]
     out = {f"ernie.{n}": _t(ernie[n]) for n in (
@@ -116,8 +118,8 @@ def init_params(cfg: ErnieConfig, seed: int = 0,
     distributions: normal(0, 0.02) for every kernel, normal(0,
     ``initializer_range``) for the embeddings, zeros for biases and ones
     for norm scales (the draws differ from JAX's). For
-    :class:`ErnieForPretraining`, or with ``num_classes`` for
-    :class:`ErnieForSequenceClassification`."""
+    :class:`ErnieForPretraining` (``ErnieModule.init_params``), or with
+    ``num_classes`` for :class:`ErnieForSequenceClassification`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     model = (ErnieForPretraining(cfg, device="meta") if num_classes is None

@@ -102,11 +102,10 @@ from fleetx_tpu_torch.ops.decode_attention import (
 )
 from fleetx_tpu_torch.ops.ce_loss import fused_linear_ce
 from fleetx_tpu_torch.ops.dropout import (
-    FlaxDropout,
-    HashDropout,
     Shard,
     draw_key,
-    draw_seed,
+    draw_site,
+    dropout_layer,
 )
 from fleetx_tpu_torch.ops.quant import (
     dequantize_int8,
@@ -639,9 +638,7 @@ def _dropout(cfg: GPTConfig) -> nn.Module:
     """A hidden dropout: the counter hash, or flax's threefry
     ``nn.Dropout`` at ``fast_dropout: False`` (JAX ``_dropout``,
     model.py:656-661)."""
-    if cfg.fast_dropout:
-        return HashDropout(cfg.hidden_dropout_prob)
-    return FlaxDropout(cfg.hidden_dropout_prob)
+    return dropout_layer(cfg.hidden_dropout_prob, cfg.fast_dropout)
 
 
 class DecoderLayer(nn.Module):
@@ -1002,11 +999,9 @@ class GPTModel(nn.Module):
         cfg = self.cfg
 
         def draw(rate: float, hidden: bool):
-            if deterministic or rate <= 0.0 or (hidden and rate >= 1.0):
-                return None
-            if hidden and not cfg.fast_dropout:
-                return draw_key(generator)  # flax's threefry key
-            return draw_seed(generator)
+            return draw_site(generator, rate, hidden=hidden,
+                             fast=cfg.fast_dropout,
+                             deterministic=deterministic)
 
         routes = cfg.expert_mode and (cfg.gate == "switch" or (
             cfg.gate == "gshard" and cfg.top_k >= 2))

@@ -40,7 +40,7 @@ from fleetx_tpu_torch.models.gpt.model import (
     GPTForPretraining,
     masked_loss_mean,
 )
-from fleetx_tpu_torch.models.module import BasicModule
+from fleetx_tpu_torch.models.module import BasicModule, data_shard
 from fleetx_tpu_torch.ops.ce_loss import fit_vocab_block
 from fleetx_tpu_torch.ops.dropout import Shard
 from fleetx_tpu_torch.parallel.context_parallel import zigzag_slice
@@ -207,7 +207,7 @@ class GPTModule(LanguageModule):
         mesh = mesh_from_config(self.cfg)
         tokens, position_ids, labels, loss_mask = self.cp_prepare(batch)
         kw = dict(deterministic=not train, generator=generator,
-                  shard=self._shard(mesh, tokens))
+                  shard=data_shard(mesh, *tokens.shape))
         why = self.fused_ce_blocked
         if self.gpt_config.fused_ce:
             if labels.numel() % 8 == 0:
@@ -222,17 +222,6 @@ class GPTModule(LanguageModule):
         token_loss = vocab_parallel_token_losses(logits, labels,
                                                  mesh.mp_group)
         return self._masked_mean(token_loss, loss_mask, mesh)
-
-    @staticmethod
-    def _shard(mesh, tokens: torch.Tensor) -> Optional[Shard]:
-        """Where this rank's ``[b, s]`` tokens lie in the global batch and
-        sequence, for the dropout hashes and the MoE draws (None: they
-        are the whole of it)."""
-        if mesh.data_world == 1:
-            return None
-        b, s = tokens.shape  # mp ranks share rows and positions
-        return Shard(b0=mesh.data_rank * b, batch=get_data_world(mesh) * b,
-                     s0=mesh.cp_rank * s, seq=mesh.cp * s)
 
     @property
     def pipeline(self) -> Pipeline:

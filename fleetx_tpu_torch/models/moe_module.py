@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from fleetx_tpu_torch.models.language_module import GPTModule
+from fleetx_tpu_torch.models.module import data_shard
 from fleetx_tpu_torch.parallel.mesh import mesh_from_config
 from fleetx_tpu_torch.parallel.tensor_parallel import (
     vocab_parallel_token_losses,
@@ -47,7 +48,7 @@ class MoEModule(GPTModule):
         tokens, position_ids, labels, loss_mask = self.cp_prepare(batch)
         logits = self.nets(tokens, position_ids, deterministic=not train,
                            generator=generator,
-                           shard=self._shard(mesh, tokens))
+                           shard=data_shard(mesh, *tokens.shape))
         lm = self._masked_mean(vocab_parallel_token_losses(
             logits, labels, mesh.mp_group), loss_mask, mesh)
         losses = self.nets.gpt.balance_losses

@@ -34,7 +34,10 @@ def params_from_jax(tree, cfg: ViTConfig) -> Dict[str, torch.Tensor]:
     - ``qkv_proj.kernel`` [E, nh, 3·hd] → ``weight`` [nh·3·hd, E] (a zero
       bias without ``qkv_bias``), ``out_proj.kernel`` [nh, hd, E] →
       ``weight`` [E, nh·hd], the other kernels [in, out] → [out, in];
-    - ``cls_token``, ``pos_embed`` and the norms as they are."""
+    - ``cls_token``, ``pos_embed`` and the norms as they are.
+
+    A JAX gradient tree has the same structure and bridges the same way,
+    so gradients compare leaf for leaf."""
     root = tree.get("params", tree)
     out = dense_entries("patch_embed", root["patch_embed"])
     out["cls_token"] = torch.from_numpy(leaf(root["cls_token"]))
@@ -59,7 +62,7 @@ def init_params(cfg: ViTConfig, seed: int = 0,
     ``torch.Generator`` seeded with ``seed``, with the flax initialisers'
     distributions: normal(0, 0.02) for every kernel and ``pos_embed``,
     zeros for biases and ``cls_token``, ones for norm scales (the draws
-    differ from JAX's)."""
+    differ from JAX's); ``GeneralClsModule.init_params``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     out = {}

@@ -40,7 +40,7 @@ from torch import nn
 from fleetx_tpu_torch.ops.flash_attention import dropout_keep_scale
 
 __all__ = ["FlaxDropout", "HashDropout", "Shard", "draw_key", "draw_seed",
-           "threefry_keep", "threefry2x32"]
+           "draw_site", "dropout_layer", "threefry_keep", "threefry2x32"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +67,20 @@ def draw_key(generator: Optional[torch.Generator]) -> Tuple[int, int]:
     w = torch.randint(0, 1 << 32, (2,), generator=generator,
                       dtype=torch.int64)
     return int(w[0]), int(w[1])
+
+
+def draw_site(generator: Optional[torch.Generator], rate: float, *,
+              hidden: bool, fast: bool = True, deterministic: bool = False):
+    """The draw of one dropout site for one training forward: None where
+    the site draws nothing (``deterministic``, a rate of 0, or a hidden
+    rate of 1 or more); a raw threefry key for a hidden site at ``fast``
+    False (:class:`FlaxDropout`); else an int32 seed (:class:`HashDropout`
+    and the attention dropout of the flash kernels)."""
+    if deterministic or rate <= 0.0 or (hidden and rate >= 1.0):
+        return None
+    if hidden and not fast:
+        return draw_key(generator)
+    return draw_seed(generator)
 
 
 _M32 = 0xFFFFFFFF
@@ -189,3 +203,10 @@ class HashDropout(nn.Module):
             idx = idx.view(x.shape)
         scale = dropout_keep_scale(seed, 0, idx, 0, self.rate)
         return x * scale.to(x.dtype)
+
+
+def dropout_layer(rate: float, fast: bool = True) -> nn.Module:
+    """A hidden dropout: the counter hash, or flax's threefry
+    ``nn.Dropout`` at ``fast`` False (JAX ``dropout_layer``,
+    ops/dropout.py:31-38)."""
+    return HashDropout(rate) if fast else FlaxDropout(rate)

@@ -6,6 +6,18 @@
         -o Model.fused_ce=True -o Data.Train.dataset.input_dir=<prefix> \
         -o Data.Eval.dataset.input_dir=<prefix> -o Engine.max_steps=100
 
+ERNIE masked-LM + SOP pretraining (``ErnieModule`` over ``ErnieDataset``
+token-id files ``<prefix>_ids.npy`` and ``<prefix>_idx.npz``) and ViT
+image classification (``GeneralClsModule``, here on
+``SyntheticClsDataset``) run the same way:
+
+    python -m fleetx_tpu_torch.tools.train \
+        -c configs/nlp/ernie/pretrain_ernie_base_345M_single_card.yaml \
+        -o Data.Train.dataset.input_dir=<prefix> -o Engine.max_steps=4
+    python -m fleetx_tpu_torch.tools.train \
+        -c configs/vis/vit/vit_base_patch16_224.yaml \
+        -o Engine.max_steps=4 -o Engine.eval_freq=2
+
 Runs on the GPU and raises without one. The run checkpoints into
 ``<Engine.save_load.output_dir>/checkpoints`` every
 ``Engine.save_load.save_steps`` steps and when it is sent SIGTERM (then

@@ -2121,3 +2121,106 @@ def test_cuda_encoder_engines_run_b1_per_layer(kind):
             np.testing.assert_allclose(decode_floats(res[r].tokens),
                                        decode_floats(cres[c].tokens),
                                        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(ENCODER_CASES))
+def test_flash_backward_non_causal_ragged_kv_lens(case, dtype, rate):
+    """B2 and B3 in the encoders' training mode (non-causal, ragged
+    ``kv_lens`` with rows of length 0, mid-tile and full, head dim 64,
+    dropout 0 and 0.1) against their plain versions within FLASH_TOL, each
+    launched twice with the same bits; the length-0 row's dQ and every
+    key past a row's length (its dK, dV) come out zero; another dropout
+    seed breaks the limit."""
+    from fleetx_tpu_torch.ops import flash_attention as fa
+
+    _need_card()
+    s, lens = ENCODER_CASES[case]
+    q, k, v, do, kv = flash_case(64, b=len(lens), s=s, h=2, kv_lens=lens,
+                                 dtype=dtype, seed=s + 1)
+    kw = dict(causal=False, kv_lens=kv, dropout_rate=rate, seed=-98765)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        -1, s).contiguous()
+    before = dict(fa.launches)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in fa.NAMES} == {
+        "flash_fwd": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert all(torch.equal(a, b) for a, b in ((dq, dq2), (dk, dk2),
+                                              (dv, dv2)))
+    want_dq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    atol, rtol = fa.FLASH_TOL[dtype]
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    for row, n in enumerate(lens):
+        assert not dk[row, n:].any() and not dv[row, n:].any()
+        if n == 0:
+            assert not dq[row].any()
+    if rate:
+        fdq = fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                              **dict(kw, seed=kw["seed"] + 1))
+        err = ((fdq.float() - want_dq.float()).abs()
+               / (atol + rtol * want_dq.float().abs())).max().item()
+        assert err > 1.0, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ernie", "vit"])
+def test_cuda_encoder_trainer_steps_launch_b1_b3_per_layer(tmp_path,
+                                                           family):
+    """A tiny bf16 ERNIE (``ErnieModule`` on ``ErnieDataset``, key lengths
+    from the right padding, dropout 0.1) and a tiny bf16 ViT
+    (``GeneralClsModule`` on ``SyntheticClsDataset``, 2 micro-batches a
+    step, drop path, mixup, dropout 0.1) train two steps on the card
+    through the real entry points: every layer launches B1, B2 and B3 once
+    per micro-batch, the losses are finite and the weights move."""
+    from fleetx_tpu_torch.core.engine import Trainer
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models import build_module
+    from fleetx_tpu_torch.ops import flash_attention as fa
+    from fleetx_tpu_torch.utils.config import get_config
+    from torch_encoder_configs import ernie_yaml, vit_yaml, write_ernie_corpus
+
+    _need_card()
+    if family == "ernie":
+        write_ernie_corpus(str(tmp_path / "er"))
+        path = ernie_yaml(tmp_path / "c.yaml", str(tmp_path / "er"),
+                          str(tmp_path / "out"))
+        over = ["Model.hidden_dropout_prob=0.1",
+                "Model.attention_probs_dropout_prob=0.1"]
+        micro = 1
+    else:
+        path = vit_yaml(tmp_path / "c.yaml", str(tmp_path / "out"))
+        over = ["Model.drop_rate=0.1", "Model.attn_drop_rate=0.1",
+                "Model.drop_path_rate=0.1", "Model.mixup_alpha=0.8",
+                "Global.micro_batch_size=4"]
+        micro = 2
+    cfg = get_config(path, overrides=over + [
+        "Engine.mix_precision.use_pure_fp16=True", "Engine.max_steps=2"],
+        nranks=1)
+    module = build_module(cfg)
+    trainer = Trainer(cfg, module)
+    trainer.init_state()
+    before = {n: p.detach().clone()
+              for n, p in module.nets.named_parameters()}
+    for name in fa.NAMES:
+        fa.launches[name] = 0
+    trainer.fit(build_dataloader(cfg, "Train"))
+    torch.cuda.synchronize()
+    layers = cfg.Model.num_layers
+    assert trainer.step == 2
+    assert fa.launches == {n: 2 * micro * layers for n in fa.NAMES}
+    assert all(np.isfinite(float(h["loss"])) for h in trainer.history)
+    moved = {n for n, p in module.nets.named_parameters()
+             if not torch.equal(p, before[n])}
+    assert len(moved) > len(before) // 2

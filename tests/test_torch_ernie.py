@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from fleetx_tpu.models.ernie.model import ErnieConfig as JaxErnieConfig
@@ -187,7 +188,32 @@ def test_config_from_a_model_section():
     assert cfg.dtype == torch.bfloat16
 
 
-def test_training_forward_is_refused(pair):
-    _, _, port = pair
-    with pytest.raises(NotImplementedError, match="ERNIE training"):
-        port(torch.ones(1, 4, dtype=torch.long), deterministic=False)
+def test_training_forward_runs_and_matches_jax():
+    """The training forward (``deterministic=False``): at dropout 0 it is
+    JAX's train-mode forward (the right-padded rows as key lengths, the real
+    rows compared); at dropout 0.1 it runs, finite, and its hash masks
+    move the logits off the deterministic forward's."""
+    model, tree, port = ernie_pair(seed=5, right_padded_inputs=True,
+                                   hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0, **CFG)
+    ids, types, positions = _batch(3)
+    lens = np.asarray(LENS)
+    positions = np.minimum(positions, np.maximum(lens - 1, 0)[:, None])
+    mlm, sop = model.apply(tree, jnp.asarray(ids), jnp.asarray(types),
+                           masked_positions=jnp.asarray(positions),
+                           deterministic=False,
+                           rngs={"dropout": jax.random.PRNGKey(0)})
+    args = (torch.from_numpy(ids).long(), torch.from_numpy(types).long())
+    gen = torch.Generator().manual_seed(0)
+    pmlm, psop = port(*args, masked_positions=torch.from_numpy(positions),
+                      deterministic=False, generator=gen)
+    _close(_real(pmlm), _real(np.asarray(mlm)))
+    _close(_real(psop), _real(np.asarray(sop)))
+    cfg = dataclasses.replace(port.cfg, hidden_dropout_prob=0.1,
+                              attention_probs_dropout_prob=0.1)
+    dropped = type(port)(cfg, device="meta")
+    dropped.load_state_dict(port.state_dict(), assign=True)
+    tmlm, _ = dropped(*args, masked_positions=torch.from_numpy(positions),
+                      deterministic=False, generator=gen)
+    assert torch.isfinite(tmlm).all()
+    assert (_real(tmlm) - _real(pmlm)).abs().max() > 1e-3

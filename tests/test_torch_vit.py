@@ -5,9 +5,10 @@ Seeded channels-last images go through both packages in backbone mode
 ``representation_size`` and ``qkv_bias``: JAX's ViT on its dense attention
 path (the setting of its own tests on the CPU), the port's through the
 flash forward's plain version (the tokens padded to the 64-row tile, the
-pads masked by ``kv_lens``) and through its dense path. Tolerance: 2e-5
-absolute and relative (``torch_encoder_cases.TOL``). A head dim outside
-the flash kernel's is refused at construction, by its ROADMAP title.
+pads masked by ``kv_lens``) and through its dense path; the training
+forward too. Tolerance: 2e-5 absolute and relative
+(``torch_encoder_cases.TOL``). A head dim outside the flash kernel's is
+refused at construction, by its ROADMAP title.
 """
 
 import dataclasses
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from fleetx_tpu.models.vision.vit import VIT_PRESETS as JAX_PRESETS
@@ -93,12 +95,28 @@ def test_drop_path_is_the_identity_when_deterministic():
     torch.testing.assert_close(y[kept], x[kept] * 2.0)
 
 
-def test_unknown_preset_and_training_are_refused():
+def test_unknown_preset_is_refused():
     with pytest.raises(ValueError, match="unknown vision model"):
         build_vision_model("ViT_nope")
-    _, _, port = vit_pair()
-    with pytest.raises(NotImplementedError, match="ViT training"):
-        port(torch.zeros(1, 8, 8, 3), deterministic=False)
+
+
+def test_training_forward_runs_and_matches_jax():
+    """The training forward (``deterministic=False``): at dropout and drop
+    path 0 it is JAX's train-mode forward; with drop path 0.5 it runs, finite, and
+    moves the logits off the deterministic forward's."""
+    model, tree, port = vit_pair(num_classes=10, num_layers=2)
+    imgs = np.stack(images(4))
+    want = model.apply(tree, jnp.asarray(imgs), deterministic=False,
+                       rngs={"dropout": jax.random.PRNGKey(0)})
+    gen = torch.Generator().manual_seed(0)
+    got = port(torch.from_numpy(imgs), deterministic=False, generator=gen)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    cfg = dataclasses.replace(port.cfg, drop_path_rate=0.5)
+    dropped = ViT(cfg, device="meta")
+    dropped.load_state_dict(port.state_dict(), assign=True)
+    out = dropped(torch.from_numpy(imgs), deterministic=False, generator=gen)
+    assert torch.isfinite(out).all()
+    assert (out - got).abs().max() > 1e-3
 
 
 @pytest.mark.parametrize("path", VIT_CONFIGS, ids=os.path.basename)

@@ -59,8 +59,7 @@ def draw_tree(model, *init_args, seed=0, std=0.3):
 
 
 def _known(cls, kw):
-    """The entries of ``kw`` that the port's config ``cls`` has (the JAX
-    configs' dropouts are not among them)."""
+    """The entries of ``kw`` that the port's config ``cls`` has."""
     return {k: v for k, v in kw.items()
             if k in {f.name for f in dataclasses.fields(cls)}}
 
